@@ -6,22 +6,29 @@ NVIDIA GPU: the quickest proof that the port still builds and serves.
 
 Phases, each fatal on failure:
   1. device: name, capability, `nvidia-smi` name and power limit;
-  2. build: compile the CUDA kernels from `copula_var_tpu_torch/csrc`;
-  3. main path, counted: `from_csv` -> `load_artifacts(device="cuda")` ->
-     `calc_var(0.05)` for the flagship MSM and GARCH artifacts (2 assets,
-     T = 500 days, 100-point grid, Student-t copula), held against
-     `data/flagship_var.npz` at atol 1e-9 with the recorded coverage
-     statistics recomputed; then a serving batch, `calc_var_grid` with
-     32 portfolios x 4 levels (128 rows). Every kernel launch counter is
-     zeroed before and read after; each kernel must have launched;
-  4. parity: each kernel against its plain PyTorch twin on the card, at
-     the flagship shapes (q = 5 and q = 1, stage and random bounds,
-     unequal weights), and the serving batch against the plain solve;
-  5. timings: CUDA events after warm-up, median and min of REPS reps,
+  2. build: compile the CUDA kernels from `copula_var_tpu_torch/csrc`, one
+     `nvcc` per source, all started together;
+  3. main path, two assets, counted: `from_csv` -> `load_artifacts(device=
+     "cuda")` -> `calc_var(0.05)` for the flagship MSM and GARCH artifacts
+     (2 assets, T = 500 days, 100-point grid, Student-t copula), held
+     against `data/flagship_var.npz` at atol 1e-9 with the recorded
+     coverage statistics recomputed; then a serving batch, `calc_var_grid`
+     with 32 portfolios x 4 levels (128 rows);
+  4. main path, three assets, counted: the same for the dim-3 artifacts
+     (`data/dim3_artifacts_{msm,garch}.npz`, weights (0.5, 0.3, 0.2)) held
+     against `data/dim3_var.npz`. Before each main path every kernel
+     launch counter is zeroed and after it read; each kernel of that path
+     must have launched and the other path's kernels must not;
+  5. parity: each kernel against its plain PyTorch twin on the card, at
+     the main paths' shapes (q = 5 and q = 1, stage and random bounds,
+     unequal weights; K4 also with a Gaussian copula), and the serving
+     batches (128 rows at dim 2, 8 portfolios x 4 levels at dim 3) against
+     the plain solves;
+  6. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns;
-  6. device profile: torch.profiler over REPS calls of a sweep, a
-     bisection, `calc_var` and the serving batch: host ms per call, the
-     device's busy ms, and each kernel's device ms per launch.
+  7. device profile: torch.profiler over calls of a sweep, a bisection,
+     `calc_var` and the serving batch: host ms per call, the device's busy
+     ms, and each kernel's launches and device ms per launch.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
@@ -37,16 +44,26 @@ import sys
 import time
 
 REPS = 10
-ROWS_P = 32  # serving batch: portfolios x LEVELS
+REPS_DIM3_PLAIN = 3  # a full-width dim-3 plain sweep takes ~0.1 s per row
+ROWS_P = 32  # dim-2 serving batch: portfolios x LEVELS
+ROWS_P3 = 8  # dim-3 serving batch: portfolios x LEVELS
 LEVELS = (0.01, 0.025, 0.05, 0.1)
 ATOL_VAR = 1e-9  # tests/test_flagship.py holds the f64 record to this
-# kernel sweep vs plain sweep: the two sum ~n^2 float64 terms in
-# different orders (kernel: masked U = V .* (wfc W1) per warp; plain:
-# W0 (V .* M) W1^T then . FC), so they agree to a few ulps of the scale
+# kernel sweep vs plain sweep: the two sum the same float64 terms in
+# different orders (dim 2: masked U = V .* (wfc W1) per warp vs
+# W0 (V .* M) W1^T then . FC; dim 3: masked U = V .* (W1^T G W2) per slab
+# vs three tensordots then . FC, with CUDA's exp/log1p), so they agree to
+# a few ulps of the scale
 RTOL_SWEEP = 1e-12
 # kernel bisection vs plain bisection: identical masks and bookkeeping;
 # a root could move only if a slab's rounding flipped res < obj
 ATOL_ROOT = 1e-9
+# the device spans of each wrapper's launch: (counted kernel, others...)
+KERNEL_SPANS = {
+    "masked_sweep": ("masked_sweep_kernel",),
+    "bisect_levels": ("bisect_levels_kernel",),
+    "masked_contract3": ("contract3_slab_kernel", "contract3_sum_kernel"),
+}
 
 
 def cuda_ms(torch, fns, reps=REPS, warmup=2):
@@ -96,10 +113,12 @@ def device_profile(torch, fn, reps=REPS):
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
     kernels = {}
-    for k in ("masked_sweep", "bisect_levels"):
-        us = [b - a for a, b, name in spans if f"{k}_kernel" in name]
-        kernels[k] = {"launches": len(us) / reps,
-                      "device_ms": sum(us) / len(us) / 1e3 if us else None}
+    for k, names in KERNEL_SPANS.items():
+        n = sum(1 for _, _, name in spans if names[0] in name)
+        us = sum(b - a for a, b, name in spans
+                 if any(m in name for m in names))
+        kernels[k] = {"launches": n / reps,
+                      "device_ms": us / n / 1e3 if n else None}
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3 / reps,
             "kernels": kernels}
 
@@ -122,7 +141,9 @@ def main() -> int:
     from copula_var_tpu_torch.data import from_csv
     from copula_var_tpu_torch.ops import _build
     from copula_var_tpu_torch.ops import cuda_quadrature as cq
+    from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
     from copula_var_tpu_torch.ops import cuda_solver as cs
+    from copula_var_tpu_torch.ops.quadrature import CopulaSpec
     from copula_var_tpu_torch.ops.solvers import bracket_state_batched
     from copula_var_tpu_torch.utils.artifacts import load_artifacts
 
@@ -141,49 +162,67 @@ def main() -> int:
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
 
     # -- build ------------------------------------------------------------
-    _build.build(force=True)
+    libs = _build.build(force=True)
     _build.load()
-    print(f"build: {_build.build_seconds:.2f} s "
-          f"({_build.library_path().relative_to(root)})")
+    print(f"build: {_build.build_seconds:.2f} s, {len(libs)} nvcc in "
+          f"parallel ({', '.join(str(p.relative_to(root)) for p in libs)})")
     for line in _build.build_log.splitlines():
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print(f"  {line.strip()}")
 
-    # -- main path, counted ------------------------------------------------
+    counters = (cq.masked_sweep, cs.bisect_levels, cq3.masked_contract3)
+
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+
+    def read_counts():
+        return {c.__name__: c.launches for c in counters}
+
+    def serve(csv, artifact, rec, weights=None):
+        """from_csv -> load_artifacts(cuda) -> calc_var(alpha), held
+        against the record; returns (backtest, VaR, prep s, solve s)."""
+        alpha = float(rec["obj_var"])
+        t0 = time.perf_counter()
+        data = from_csv(os.path.join(root, "data", csv),
+                        n_insample=int(rec["n_insample"]), weights=weights)
+        bt = load_artifacts(os.path.join(root, "data", artifact), data,
+                            device="cuda")
+        bt.sweep_operands()
+        t1 = time.perf_counter()
+        var = bt.calc_var(alpha)
+        solve = time.perf_counter() - t1
+        return bt, var, t1 - t0, solve
+
+    def coverage(est, bt, var, rec):
+        alpha = float(rec["obj_var"])
+        ptf = bt.data.portfolio_out_sample()
+        rate = stats.exception_rate(ptf, var)
+        kup = stats.kupiec_pof(ptf, var, alpha).p_value
+        if abs(rate - float(rec[f"{est}_exception_rate"])) > 1e-12 or \
+                abs(kup - float(rec[f"{est}_kupiec_p"])) > 1e-9:
+            raise AssertionError(f"{est}: coverage statistics moved")
+        return rate, kup
+
+    # -- main path, two assets, counted -------------------------------------
     rec = np.load(os.path.join(root, "data", "flagship_var.npz"))
     alpha = float(rec["obj_var"])
     rng = np.random.default_rng(0)
     w_batch = rng.dirichlet([2.0, 2.0], size=ROWS_P)
     levels = np.array(LEVELS)
-    cq.masked_sweep.launches = 0
-    cs.bisect_levels.launches = 0
+    zero_counts()
     t_main = time.perf_counter()
     bts, prep_s, solve_s = {}, {}, {}
     for est in ("msm", "garch"):
-        t0 = time.perf_counter()
-        data = from_csv(os.path.join(root, "data", "flagship.csv"),
-                        n_insample=int(rec["n_insample"]))
-        bt = load_artifacts(
-            os.path.join(root, "data", f"flagship_artifacts_{est}.npz"),
-            data, device="cuda",
-        )
-        bt.sweep_operands()
-        t1 = time.perf_counter()
-        var = bt.calc_var(alpha)
-        solve_s[est] = time.perf_counter() - t1
-        prep_s[est] = t1 - t0
+        bt, var, prep_s[est], solve_s[est] = serve(
+            "flagship.csv", f"flagship_artifacts_{est}.npz", rec)
         want = rec[f"{est}_var"]
         if var.shape != want.shape or not np.all(np.isfinite(var)):
             raise AssertionError(f"{est}: bad VaR series {var.shape}")
         err = float(np.max(np.abs(var - want)))
         if err > ATOL_VAR:
             raise AssertionError(f"{est}: VaR off the record by {err:.3e}")
-        ptf = data.portfolio_out_sample()
-        rate = stats.exception_rate(ptf, var)
-        kup = stats.kupiec_pof(ptf, var, alpha).p_value
-        if abs(rate - float(rec[f"{est}_exception_rate"])) > 1e-12 or \
-                abs(kup - float(rec[f"{est}_kupiec_p"])) > 1e-9:
-            raise AssertionError(f"{est}: coverage statistics moved")
+        rate, kup = coverage(est, bt, var, rec)
         print(f"main path {est}: max |VaR - record| = {err:.3e} "
               f"(bound {ATOL_VAR:g}), exception rate {rate:.4f}, Kupiec p "
               f"{kup:.4f}; load+prep {prep_s[est]:.3f} s, calc_var "
@@ -192,15 +231,61 @@ def main() -> int:
     t0 = time.perf_counter()
     grid = bts["msm"].calc_var_grid(w_batch, levels)
     grid_s = time.perf_counter() - t0
-    if grid.shape != (ROWS_P, len(LEVELS), 500) or not np.all(np.isfinite(grid)):
+    if grid.shape != (ROWS_P, len(LEVELS), bts["msm"].data.out_sample_n) or \
+            not np.all(np.isfinite(grid)):
         raise AssertionError(f"calc_var_grid: bad output {grid.shape}")
-    launches = {"masked_sweep": cq.masked_sweep.launches,
-                "bisect_levels": cs.bisect_levels.launches}
+    launches = read_counts()
     print(f"main path: {time.perf_counter() - t_main:.3f} s, serving batch "
           f"{ROWS_P}x{len(LEVELS)} {grid_s:.3f} s, launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("masked_sweep", "bisect_levels"):
+        if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    if launches["masked_contract3"] != 0:
+        raise AssertionError("the dim-3 kernel launched on the dim-2 path")
+
+    # -- main path, three assets, counted -----------------------------------
+    rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
+    w3 = np.asarray(rec3["weights"], np.float64)
+    zero_counts()
+    t_main3 = time.perf_counter()
+    bts3, prep3_s, solve3_s, vars3 = {}, {}, {}, {}
+    for est in ("msm", "garch"):
+        bt, var, prep3_s[est], solve3_s[est] = serve(
+            "dim3.csv", f"dim3_artifacts_{est}.npz", rec3, weights=w3)
+        want = rec3[f"{est}_var"]
+        if var.shape != want.shape or not np.all(np.isfinite(var)):
+            raise AssertionError(f"dim3 {est}: bad VaR series {var.shape}")
+        diff = np.abs(var - want)
+        err = float(np.max(diff))
+        rate, kup = coverage(est, bt, var, rec3)
+        print(f"main path dim3 {est}: max |VaR - record| = {err:.3e} "
+              f"(bound {ATOL_VAR:g}), days above 1e-9: "
+              f"{int(np.sum(diff > 1e-9))}, exception rate {rate:.4f}, "
+              f"Kupiec p {kup:.4f}; load+prep {prep3_s[est]:.3f} s, "
+              f"calc_var {solve3_s[est]:.3f} s (host clock)")
+        bts3[est], vars3[est] = bt, var
+    launches3 = read_counts()
+    print(f"main path dim3: {time.perf_counter() - t_main3:.3f} s, "
+          f"launches {launches3}")
+    if launches3["masked_contract3"] <= 0:
+        raise AssertionError("masked_contract3 never launched on the dim-3 "
+                             "main path")
+    if launches3["masked_sweep"] or launches3["bisect_levels"]:
+        raise AssertionError("a dim-2 kernel launched on the dim-3 path")
+    cfg = (-3.0, -3.5, -2.0, -7.5, 0.0)
+    for est, bt in bts3.items():
+        diff = np.abs(vars3[est] - rec3[f"{est}_var"])
+        if np.max(diff) <= ATOL_VAR:
+            continue
+        # which bracket decision flipped: the plain solve on the same card
+        r_plain, _ = cs.full_solve_levels_reference(
+            bt.sweep_operands(), bt._tensor([alpha]), bt.weights, cfg)
+        plain = r_plain[0].cpu().numpy() + bt.data.ptf_mean
+        for d in np.flatnonzero(diff > ATOL_VAR):
+            print(f"dim3 {est} day {d}: kernel {vars3[est][d]!r}, plain "
+                  f"{plain[d]!r}, record {rec3[f'{est}_var'][d]!r}")
+        raise AssertionError(f"dim3 {est}: VaR off the record by "
+                             f"{np.max(diff):.3e}")
 
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
@@ -208,7 +293,6 @@ def main() -> int:
 
     wrows = tens([[0.5, 0.5], [0.3, 0.7], [0.75, 0.25], [0.9, 0.1]])
     obj = tens(LEVELS)
-    cfg = (-3.0, -3.5, -2.0, -7.5, 0.0)
     err_sweep, err_root = 0.0, 0.0
     states = {}
     for est, bt in bts.items():
@@ -257,6 +341,62 @@ def main() -> int:
     print(f"parity serving batch {ROWS_P * len(LEVELS)} rows: max abs {e_grid:.3e}"
           f" (bound {ATOL_ROOT:g})")
 
+    # K4 at full width: MSM (q = 5) and GARCH (q = 1), the fitted Student
+    # copula and a Gaussian one on the MSM artifact's fitted correlation
+    T3 = bts3["msm"].sweep_operands().days
+    w3rows = tens(np.concatenate([w3[None], rng.dirichlet([2.0] * 3, 3)]))
+    stage1 = np.stack([np.full(T3, -100.0), np.full(T3, -3.0)], -1)
+    lo = rng.uniform(-6.0, -0.5, (3, T3))
+    bounds3 = tens(np.concatenate([
+        stage1[None], np.stack([lo, lo + rng.uniform(0.0, 3.0, (3, T3))], -1)
+    ]))
+    gauss = CopulaSpec("gaussian", (bts3["msm"].copula_spec.params[1],))
+    err3 = 0.0
+    for est, bt in bts3.items():
+        inputs = bt.integration_inputs
+        cols = bt.adapter.day_columns(inputs, gauss)
+        for copula, ops3 in (
+                ("student", bt.sweep_operands()),
+                ("gaussian", bt.adapter.contract3_operands(cols, inputs,
+                                                           gauss))):
+            k = cq3.masked_contract3(ops3, bounds3, w3rows, -5.0)
+            p = cq3.masked_contract3_reference(ops3, bounds3, w3rows, -5.0)
+            scale = float(p.abs().max())
+            e = float((k - p).abs().max())
+            if not (e <= RTOL_SWEEP * scale and bool(torch.isfinite(k).all())):
+                raise AssertionError(
+                    f"masked_contract3 {est} {copula}: |kernel - plain| "
+                    f"{e:.3e} > {RTOL_SWEEP:g} x {scale:.3e}")
+            err3 = max(err3, e)
+            print(f"parity dim3 {est} {copula} (q={ops3.w1.shape[0]}): "
+                  f"masked_contract3 max abs {e:.3e} rel {e / scale:.3e} "
+                  f"(bound rel {RTOL_SWEEP:g})")
+    rng3 = np.random.default_rng(3)
+    w_batch3 = rng3.dirichlet([2.0, 2.0, 2.0], size=ROWS_P3)
+    t0 = time.perf_counter()
+    grid3 = bts3["msm"].calc_var_grid(w_batch3, levels)
+    grid3_s = time.perf_counter() - t0
+    if grid3.shape != (ROWS_P3, len(LEVELS), T3) or \
+            not np.all(np.isfinite(grid3)):
+        raise AssertionError(f"dim3 calc_var_grid: bad output {grid3.shape}")
+    ops3_m = bts3["msm"].sweep_operands()
+    w_rows3 = np.repeat(w_batch3, len(LEVELS), axis=0)
+    a_rows3 = np.tile(levels, ROWS_P3)
+    t0 = time.perf_counter()
+    r_plain3, nd_plain3 = cs.full_solve_portfolios_reference(
+        ops3_m, tens(a_rows3), tens(w_rows3), cfg)
+    grid3_plain_s = time.perf_counter() - t0
+    ptf_means3 = np.asarray(bts3["msm"].data.in_sample_mean) @ w_rows3.T
+    plain3 = np.where(nd_plain3.cpu().numpy(), np.nan,
+                      r_plain3.cpu().numpy()) + ptf_means3[:, None]
+    e_grid3 = float(np.max(np.abs(grid3.reshape(len(w_rows3), -1) - plain3)))
+    if not e_grid3 <= ATOL_ROOT:
+        raise AssertionError(f"dim3 serving batch: kernel vs plain "
+                             f"{e_grid3:.3e}")
+    print(f"parity dim3 serving batch {len(w_rows3)} rows: max abs "
+          f"{e_grid3:.3e} (bound {ATOL_ROOT:g}); kernel {grid3_s:.3f} s, "
+          f"plain {grid3_plain_s:.3f} s (host clock)")
+
     # -- timings on the card --------------------------------------------------
     T = ops_m.V.shape[0]
     timing = {}
@@ -290,6 +430,26 @@ def main() -> int:
         "kernel": lambda: cs.full_solve_portfolios(ops_m, ar, wr, cfg),
         "plain": lambda: cs.full_solve_portfolios_reference(ops_m, ar, wr,
                                                             cfg)})
+    # dim 3: K4 per sweep, the whole calc_var, and the column prep
+    for est, bt in bts3.items():  # t_ppf etc. on 3 n T values: plain PyTorch
+        timing[f"dim3_prep_{est}"] = cuda_ms(torch, {
+            "plain": lambda bt=bt: bt.adapter.day_columns(
+                bt.integration_inputs, bt.copula_spec)}, reps=2, warmup=0)
+    st3 = tens(stage1)
+    for L in (1, ROWS_P3 * len(LEVELS)):
+        b = st3.expand(L, T3, 2).contiguous()
+        w = tens(w_rows3[:L]) if L > 1 else tens(w3[None])
+        timing[f"contract3_L{L}"] = cuda_ms(torch, {
+            "kernel": lambda b=b, w=w: cq3.masked_contract3(ops3_m, b, w,
+                                                            -5.0),
+            "plain": lambda b=b, w=w: cq3.masked_contract3_reference(
+                ops3_m, b, w, -5.0)}, reps=REPS_DIM3_PLAIN, warmup=1)
+    w3_main = bts3["msm"].weights
+    timing["dim3_full_L1"] = cuda_ms(torch, {
+        "kernel": lambda: cs.full_solve_levels(ops3_m, obj[2:3], w3_main,
+                                               cfg),
+        "plain": lambda: cs.full_solve_levels_reference(
+            ops3_m, obj[2:3], w3_main, cfg)}, reps=REPS_DIM3_PLAIN, warmup=1)
     for name, res in timing.items():
         print(f"time {name}: " + ", ".join(
             f"{k} median {v[0]:.3f} ms min {v[1]:.3f} ms"
@@ -306,6 +466,13 @@ def main() -> int:
             torch, lambda: bts["garch"].calc_var(alpha)),
         "grid_32x4": device_profile(
             torch, lambda: bts["msm"].calc_var_grid(w_batch, levels)),
+        "dim3_calc_var_msm": device_profile(
+            torch, lambda: bts3["msm"].calc_var(alpha), reps=3),
+        "dim3_calc_var_garch": device_profile(
+            torch, lambda: bts3["garch"].calc_var(alpha), reps=3),
+        "dim3_grid_8x4": device_profile(
+            torch, lambda: bts3["msm"].calc_var_grid(w_batch3, levels),
+            reps=2),
     }
     for name, p in profiles.items():
         print(f"profile {name}: host {p['wall_ms']:.3f} ms/call, device busy "
@@ -313,13 +480,22 @@ def main() -> int:
                   f"{k} {v['launches']:g} launches x "
                   + ("not measured" if v["device_ms"] is None
                      else f"{v['device_ms']:.4f} ms")
-                  for k, v in p["kernels"].items()))
-    print("report " + json.dumps({
+                  for k, v in p["kernels"].items() if v["launches"]))
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    report = {
         "card": smi, "reps": REPS, "build_s": _build.build_seconds,
         "day_tensor_bytes": int(ops_m.V.numel() * 8),
         "host_prep_s": prep_s, "host_calc_var_s": solve_s,
-        "host_grid_s": grid_s, "timing_ms": timing, "profile": profiles,
-    }))
+        "host_grid_s": grid_s, "dim3_host_prep_s": prep3_s,
+        "dim3_host_calc_var_s": solve3_s, "dim3_host_grid_s": grid3_s,
+        "dim3_host_grid_plain_s": grid3_plain_s,
+        "launches_dim2": launches, "launches_dim3": launches3,
+        "timing_ms": timing, "profile": profiles,
+    }
+    with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),
+              "w") as f:
+        json.dump(report, f, indent=1)
+    print("report " + json.dumps(report))
 
     kernels = [
         {"name": "masked_sweep", "route": "cuda",
@@ -334,6 +510,12 @@ def main() -> int:
          "launches": launches["bisect_levels"], "max_abs_err": err_root,
          "ms": timing["bisect_L1"]["kernel"][0],
          "plain_ms": timing["bisect_L1"]["plain"][0]},
+        {"name": "masked_contract3", "route": "cuda",
+         "source": "copula_var_tpu_torch/csrc/contract3.cu",
+         "replaces": "copula_var_tpu/ops/pallas_quadrature3.py:92",
+         "launches": launches3["masked_contract3"], "max_abs_err": err3,
+         "ms": timing["contract3_L1"]["kernel"][0],
+         "plain_ms": timing["contract3_L1"]["plain"][0]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

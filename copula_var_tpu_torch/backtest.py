@@ -3,8 +3,10 @@
 
 A `VaRBacktest` here is built from fitted state (`utils.artifacts.
 load_artifacts`), not by fitting: it holds the integration inputs on the
-caller's device, builds the bounds-invariant day tensors once, and
-answers VaR queries with the three-stage solve (`ops/cuda_solver.py`):
+caller's device, builds the bounds-invariant sweep operands once (two
+assets: the (T, n, n) day tensors; three assets: the per-day transform
+columns and `Contract3Operands`), and answers VaR queries with the
+three-stage solve (`ops/cuda_solver.py`):
 
   calc_var             one confidence level           -> (T,)
   calc_var_levels      L levels, one portfolio        -> (L, T)
@@ -12,12 +14,13 @@ answers VaR queries with the three-stage solve (`ops/cuda_solver.py`):
   calc_var_grid        P portfolios x L levels        -> (P, L, T)
 
 On a CUDA device every sweep and the bisection run the hand-written
-kernels; on the CPU they run the plain twins, the f64 oracle that matches
-the JAX `xla` engine. Results come back as numpy float64, with the
-portfolio mean added, as the JAX package returns them.
+kernels (`masked_sweep` and `bisect_levels` at dim 2, `masked_contract3`
+at dim 3); on the CPU they run the plain twins, the f64 oracle that
+matches the JAX `xla` engine. Results come back as numpy float64, with
+the portfolio mean added, as the JAX package returns them.
 
 Weights pairing, kept from the reference: `weights[0]` pairs the inner
-(column) grid axis and `weights[1]` the outer (row) axis; only unequal
+grid axis and `weights[1:]` the outer axes in order; only unequal
 weights show it.
 """
 
@@ -31,15 +34,19 @@ import torch
 
 from copula_var_tpu_torch.data.returns import ReturnsData
 from copula_var_tpu_torch.device import resolve_device
-from copula_var_tpu_torch.ops.cuda_quadrature import masked_sweep, sweep_operands
+from copula_var_tpu_torch.ops.cuda_quadrature import sweep_operands
+from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
 from copula_var_tpu_torch.ops.cuda_solver import (
     full_solve_levels,
     full_solve_portfolios,
+    sweep_for,
 )
 from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
+    garch_day_columns,
     garch_day_tensors,
     garch_integrals_cached,
+    msm_day_columns,
     msm_day_tensors,
     msm_integrals_cached,
 )
@@ -85,6 +92,15 @@ class MsmAdapter:
         return sweep_operands(tensors, inputs.x, inputs.dx, inputs.densities,
                               inputs.forecast_combos)
 
+    def day_columns(self, inputs: MsmIntegrationInputs, spec):
+        return msm_day_columns(inputs.forecasts_by_states, inputs.x,
+                               inputs.unique_vols, spec)
+
+    def contract3_operands(self, cols, inputs: MsmIntegrationInputs, spec):
+        return contract3_operands(cols, inputs.x, inputs.dx, spec,
+                                  densities=inputs.densities,
+                                  forecast_combos=inputs.forecast_combos)
+
 
 class GarchAdapter:
     """GARCH family: one forecast vol per asset and day (q = 1)."""
@@ -104,6 +120,14 @@ class GarchAdapter:
 
     def sweep_operands(self, tensors, inputs: GarchIntegrationInputs):
         return sweep_operands(tensors, inputs.x, inputs.dx)
+
+    def day_columns(self, inputs: GarchIntegrationInputs, spec):
+        return garch_day_columns(inputs.forecast_vols, inputs.x, spec)
+
+    def contract3_operands(self, cols, inputs: GarchIntegrationInputs, spec):
+        tcols, p_cols = cols
+        return contract3_operands(tcols, inputs.x, inputs.dx, spec,
+                                  p_cols=p_cols)
 
 
 _ADAPTERS = {"msm": MsmAdapter, "garch": GarchAdapter}
@@ -136,10 +160,15 @@ class VaRBacktest:
                  model_fits, integration_inputs, marginals=None,
                  densities=None, num_points=100, box=(-5.0, 5.0),
                  device="cpu", reference_quirks=False, refine_root=False):
-        if data.dim != 2:
+        if data.dim not in (2, 3):
             raise ValueError(
-                f"the port serves dim == 2 only (got dim={data.dim}); dim >= 3 "
-                "and kernel K4 are queued in ROADMAP.md (queue 1, item 10)"
+                f"the port serves dim 2 and 3 (got dim={data.dim}); dim >= 4 "
+                "is queued in ROADMAP.md (queue 1, item 10)"
+            )
+        if data.dim == 3 and copula == "plackett":
+            raise ValueError(
+                "the Plackett copula is bivariate; dim 3 takes Gaussian or "
+                "Student (ROADMAP.md queue 1, item 10)"
             )
         if refine_root:
             raise ValueError(
@@ -171,13 +200,19 @@ class VaRBacktest:
     # -- bounds-invariant state ------------------------------------------
 
     def sweep_operands(self):
-        """Day tensors and the kernels' hoisted operands, built once."""
+        """The kernels' bounds-invariant operands, built once: day tensors
+        and their hoisted contraction at dim 2, transform columns and
+        `Contract3Operands` at dim 3."""
         if self._ops is None:
             t0 = time.perf_counter()
-            tensors = self.adapter.day_tensors(self.integration_inputs,
-                                               self.copula_spec)
-            self._ops = self.adapter.sweep_operands(tensors,
-                                                    self.integration_inputs)
+            inputs, spec = self.integration_inputs, self.copula_spec
+            if self.data.dim == 3:
+                cols = self.adapter.day_columns(inputs, spec)
+                self._ops = self.adapter.contract3_operands(cols, inputs,
+                                                            spec)
+            else:
+                tensors = self.adapter.day_tensors(inputs, spec)
+                self._ops = self.adapter.sweep_operands(tensors, inputs)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.prep_seconds = time.perf_counter() - t0
@@ -191,8 +226,9 @@ class VaRBacktest:
         """(T,) integrals over per-day [lower, upper] slabs (T, 2): one
         sweep, through the kernel on a CUDA device."""
         b = self._tensor(bounds).reshape(1, -1, 2).contiguous()
-        out = masked_sweep(self.sweep_operands(), b,
-                           self.weights.reshape(1, 2), self.box[0])
+        ops = self.sweep_operands()
+        out = sweep_for(ops)(ops, b, self.weights.reshape(1, -1),
+                             self.box[0])
         return out[0].cpu().numpy()
 
     @staticmethod
@@ -243,8 +279,8 @@ class VaRBacktest:
                             first_guess=-3.0, second_guess=(-3.5, -2.0),
                             tolerance=1e-6, min_var_value=-7.5,
                             max_var_value=0.0):
-        """VaR for L portfolios (weights_batch (L, 2)), each at its own
-        level (obj_var scalar or (L,)), against the shared day tensors ->
+        """VaR for L portfolios (weights_batch (L, dim)), each at its own
+        level (obj_var scalar or (L,)), against the shared sweep operands ->
         (L, T), each row with its own portfolio mean."""
         weights_batch = np.atleast_2d(np.asarray(weights_batch, float))
         if weights_batch.shape[1] != self.data.dim:

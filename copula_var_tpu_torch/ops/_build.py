@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `copula_var_tpu_torch/csrc/` are compiled at first use
-by `nvcc` into a shared library with a plain C interface and loaded with
-`ctypes` (no PyTorch headers, so a build takes seconds). The library
-lands in `build/torch_kernels/<hash>/` at the repository root, keyed by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time.
+Each source under `copula_var_tpu_torch/csrc/` is compiled at first use
+by its own `nvcc` process (all started together) into a shared library
+with a plain C interface, and loaded with `ctypes` (no PyTorch headers,
+so a build takes seconds). A library lands in
+`build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
+its source and the flags, so an edited source rebuilds and an unchanged
+one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,31 +17,41 @@ import os
 import shutil
 import subprocess
 import time
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("quadrature.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_SIGNATURES = {
-    "cvt_max_grid_points": [],
-    "cvt_error_string": [_I],
-    # v, wfc, w1, x, bounds, weights, box_min, out, T, n, q, L, stream
-    "cvt_masked_sweep": [_P] * 6 + [_D, _P] + [_I] * 4 + [_P],
-    # v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj,
-    # weights, box_min, n_iters, roots, T, n, q, L, stream
-    "cvt_bisect_levels": [_P] * 11 + [_D, _I, _P] + [_I] * 4 + [_P],
+# source -> {C function: argtypes}
+SOURCES = {
+    "quadrature.cu": {
+        "cvt_max_grid_points": [],
+        "cvt_error_string": [_I],
+        # v, wfc, w1, x, bounds, weights, box_min, out, T, n, q, L, stream
+        "cvt_masked_sweep": [_P] * 6 + [_D, _P] + [_I] * 4 + [_P],
+        # v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj,
+        # weights, box_min, n_iters, roots, T, n, q, L, stream
+        "cvt_bisect_levels": [_P] * 11 + [_D, _I, _P] + [_I] * 4 + [_P],
+    },
+    "contract3.cu": {
+        "cvt_contract3_max_grid_points": [_I],
+        # x, z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
+        # logdet, bounds, weights, box_min, partial, out, T, n, q, L, stream
+        "cvt_masked_contract3": [_P] * 9 + [_I] + [_D] * 3 + [_P] * 2
+        + [_D] + [_P] * 2 + [_I] * 4 + [_P],
+    },
 }
 
 _lib = None
-build_seconds = None  # wall time of the build this process ran, if any
-build_log = ""  # nvcc's report (-Xptxas -v: registers, shared memory)
+build_seconds = None  # wall time of the builds this process ran, if any
+build_log = ""  # nvcc's reports (-Xptxas -v: registers, shared memory)
 
 
 def _nvcc() -> str:
@@ -59,54 +70,68 @@ def _nvcc() -> str:
     )
 
 
-def _digest() -> str:
+def _digest(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    h.update(source.encode())
+    h.update((CSRC / source).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_ROOT / _digest() / "libcvt_kernels.so"
+def library_path(source: str) -> Path:
+    return BUILD_ROOT / _digest(source) / f"lib{Path(source).stem}.so"
 
 
-def build(force: bool = False) -> Path:
-    """Compile the kernels unless a library for these exact sources
-    exists (or `force`); returns its path."""
+def build(force: bool = False) -> list:
+    """Compile every source whose library does not exist yet (or all,
+    with `force`), one `nvcc` each, in parallel; returns the libraries'
+    paths in `SOURCES` order."""
     global build_seconds, build_log
-    out = library_path()
-    if out.is_file() and not force:
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    outs = [library_path(s) for s in SOURCES]
+    todo = [(s, o) for s, o in zip(SOURCES, outs) if force or not o.is_file()]
+    if not todo:
+        return outs
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for source, out in todo:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        procs.append((cmd, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, out, tmp, proc in procs:
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        (out.parent / "build.log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a half file
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
-        )
-    (out.parent / "build.log").write_text(build_log)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a half file
-    return out
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built if needed, with its C signatures set."""
+def load() -> types.SimpleNamespace:
+    """The kernels' C functions, from libraries built if needed, with
+    their signatures set."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.cvt_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        fns = {}
+        for path, sigs in zip(build(), SOURCES.values()):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        fns["cvt_error_string"].restype = ctypes.c_char_p
+        _lib = types.SimpleNamespace(**fns)
     return _lib
 
 

@@ -43,6 +43,10 @@ class SweepOperands(NamedTuple):
     wfc: torch.Tensor
     w1: torch.Tensor
 
+    @property
+    def days(self) -> int:
+        return self.V.shape[0]
+
 
 def sweep_operands(V, x, dx, densities=None, forecast_combos=None):
     """SweepOperands for the MSM family (densities and forecast_combos

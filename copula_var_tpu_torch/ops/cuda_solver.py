@@ -3,11 +3,11 @@
 engine's device programs in `copula_var_tpu/backtest.py`).
 
 `bisect_levels` runs the incremental-CDF bisection for L rows (confidence
-levels or portfolios). Tensors on a CUDA device launch the hand-written
-kernel `bisect_levels_kernel` (csrc/quadrature.cu), which replaces the
-Pallas kernel `_solve_kernel` (K1); tensors on the CPU run the plain twin
-`bisect_levels_reference`, the `xla` engine's while-loop with its
-per-level all-zeros break (`backtest.py:445-480`).
+levels or portfolios) of a two-asset backtest. Tensors on a CUDA device
+launch the hand-written kernel `bisect_levels_kernel` (csrc/quadrature.cu),
+which replaces the Pallas kernel `_solve_kernel` (K1); tensors on the CPU
+run the plain twin `bisect_levels_reference`, the `xla` engine's
+while-loop with its per-level all-zeros break (`backtest.py:445-480`).
 
 The while-loop halves every (row, day) bracket until the widest is within
 tolerance, so all rows run one data-dependent global count. The kernel
@@ -15,14 +15,25 @@ gets that count from the host: one `.item()` of the widest bracket after
 the bracketing stages, halved until it is within tolerance. The all-zeros
 break is the one difference (see the kernel source).
 
+`bisect_contract3` is the three-asset bisection. The JAX package has no
+fused dim-3 bisection: its while-loop calls the sweep every halving. On a
+CUDA device the port runs the host-counted number of halvings, each one
+`masked_contract3` launch plus the bookkeeping as device ops; the
+all-zeros freeze and the while-loop's own exit are `torch.where` gates on
+the device, so no halving reads the host and the roots equal the
+while-loop's.
+
 `full_solve_levels` / `full_solve_portfolios` port
 `_device_full_solve_levels_jit` / `_device_full_solve_portfolios_jit`:
-stage-1 sweep over [-100, first_guess], stage-2 bracket, bisection. Their
-`*_reference` forms run the same flow through the plain twins on any
-device, so the two can be compared on the card.
+stage-1 sweep over [-100, first_guess], stage-2 bracket, bisection, for
+two-asset (`SweepOperands`) or three-asset (`Contract3Operands`)
+operands. Their `*_reference` forms run the same flow through the plain
+twins on any device, so the two can be compared on the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,6 +44,11 @@ from copula_var_tpu_torch.ops.cuda_quadrature import (
     check_day_operands,
     masked_sweep,
     masked_sweep_reference,
+)
+from copula_var_tpu_torch.ops.cuda_quadrature3 import (
+    Contract3Operands,
+    masked_contract3,
+    masked_contract3_reference,
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched
 
@@ -47,36 +63,53 @@ def halvings(width: float, tolerance: float) -> int:
     return k
 
 
-def bisect_levels_reference(ops: SweepOperands, lower, upper, prev_res,
-                            prev_up, ustack, obj, weights, tolerance,
-                            box_min=-5.0):
-    """Plain twin on any device: the `xla` engine's whole-array
-    bisection over the (L, T) state. Rows whose results are all exactly
-    zero freeze (the reference's early break). Returns (L, T) roots."""
-    obj2 = obj[:, None]
-    lo, up, pr, pu, us = lower, upper, prev_res, prev_up, ustack
-    brk = torch.zeros(lo.shape[0], dtype=torch.bool, device=lo.device)
-    while bool(((up - lo > tolerance) & ~brk[:, None]).any()):
-        mid = (lo + up) / 2.0
-        b_lo = torch.where(us, lo, mid)
-        b_up = torch.where(us, mid, up)
-        slab = masked_sweep_reference(
-            ops, torch.stack((b_lo, b_up), dim=-1), weights, box_min
-        )
-        add = b_lo == pu
-        result = torch.where(add, pr + slab, pr - slab)
-        zero = torch.all(result == 0.0, dim=1)
-        us_n = result < obj2
-        lo_n = torch.where(~us_n, lo, mid)
-        up_n = torch.where(us_n, up, mid)
-        frozen = (zero | brk)[:, None]
-        lo = torch.where(frozen, lo, lo_n)
-        up = torch.where(frozen, up, up_n)
-        pr = torch.where(frozen, pr, result)
-        pu = torch.where(frozen, pu, mid)
-        us = torch.where(frozen, us, us_n)
-        brk = brk | zero
-    return (lo + up) / 2.0
+def _running(state, tolerance):
+    """The while-loop's condition, as a device tensor: some bracket of a
+    row that has not frozen is wider than `tolerance`."""
+    lo, up, _, _, _, brk = state
+    return ((up - lo > tolerance) & ~brk[:, None]).any()
+
+
+def _halving(ops, state, obj, weights, tolerance, sweep, box_min):
+    """One iteration of the `xla` engine's whole-array bisection over the
+    (L, T) state (lo, up, prev_res, prev_up, ustack, frozen rows), one
+    `sweep` per call. A row whose results are all exactly zero freezes
+    (the reference's early break). Gated on the device by the loop's own
+    condition: once it fails, the call changes nothing."""
+    lo, up, pr, pu, us, brk = state
+    running = _running(state, tolerance)
+    mid = (lo + up) / 2.0
+    b_lo = torch.where(us, lo, mid)
+    b_up = torch.where(us, mid, up)
+    slab = sweep(ops, torch.stack((b_lo, b_up), dim=-1), weights, box_min)
+    result = torch.where(b_lo == pu, pr + slab, pr - slab)
+    zero = torch.all(result == 0.0, dim=1) & running
+    us_n = result < obj[:, None]
+    frozen = (zero | brk)[:, None] | ~running
+    return (torch.where(frozen | ~us_n, lo, mid),
+            torch.where(frozen | us_n, up, mid),
+            torch.where(frozen, pr, result),
+            torch.where(frozen, pu, mid),
+            torch.where(frozen, us, us_n),
+            brk | zero)
+
+
+def _state(lower, upper, prev_res, prev_up, ustack):
+    brk = torch.zeros(lower.shape[0], dtype=torch.bool, device=lower.device)
+    return (lower, upper, prev_res, prev_up, ustack, brk)
+
+
+def bisect_levels_reference(ops, lower, upper, prev_res, prev_up, ustack,
+                            obj, weights, tolerance, box_min=-5.0,
+                            sweep=masked_sweep_reference):
+    """Plain twin on any device: the `xla` engine's while-loop bisection
+    over the (L, T) state, one `sweep` per halving (the dim-2 or dim-3
+    plain sweep), with its per-row all-zeros break. Returns (L, T)
+    roots."""
+    state = _state(lower, upper, prev_res, prev_up, ustack)
+    while bool(_running(state, tolerance)):
+        state = _halving(ops, state, obj, weights, tolerance, sweep, box_min)
+    return (state[0] + state[1]) / 2.0
 
 
 def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
@@ -120,24 +153,74 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
 bisect_levels.launches = 0  # kernel launches (CUDA path only)
 
 
-def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, sweep,
-                bisect):
+def bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack, obj,
+                       weights, tolerance, n_iters, sweep, box_min=-5.0):
+    """`n_iters` gated halvings (`_halving`) of the (L, T) state with no
+    host read. With `n_iters` at least the while-loop's count the roots
+    equal `bisect_levels_reference`'s: halvings past the loop's exit
+    change nothing."""
+    state = _state(lower, upper, prev_res, prev_up, ustack)
+    for _ in range(n_iters):
+        state = _halving(ops, state, obj, weights, tolerance, sweep, box_min)
+    return (state[0] + state[1]) / 2.0
+
+
+def bisect_contract3(ops: Contract3Operands, lower, upper, prev_res, prev_up,
+                     ustack, obj, weights, tolerance, box_min=-5.0):
+    """(L, T) three-asset bisection roots; state as `bisect_levels`,
+    weights (L, 3). CPU tensors run the plain while-loop; CUDA tensors run
+    `bisect_fixed_count` with `masked_contract3` for the host-counted
+    number of halvings; any other device raises."""
+    dev = ops.z.device
+    if dev.type == "cpu":
+        return bisect_levels_reference(
+            ops, lower, upper, prev_res, prev_up, ustack, obj, weights,
+            tolerance, box_min, sweep=masked_contract3_reference)
+    if dev.type != "cuda":
+        raise ValueError(f"bisect_contract3: unsupported device {dev}")
+    n_iters = halvings(float((upper - lower).max()), tolerance)
+    return bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack,
+                              obj, weights, tolerance, n_iters,
+                              masked_contract3, box_min)
+
+
+def _routes(ops, plain):
+    """(sweep, bisect) for the operands' asset count: the dispatching
+    wrappers, or their plain twins."""
+    if isinstance(ops, Contract3Operands):
+        if plain:
+            return masked_contract3_reference, functools.partial(
+                bisect_levels_reference, sweep=masked_contract3_reference)
+        return masked_contract3, bisect_contract3
+    if plain:
+        return masked_sweep_reference, bisect_levels_reference
+    return masked_sweep, bisect_levels
+
+
+def sweep_for(ops):
+    """The dispatching sweep wrapper for the operands' asset count."""
+    return _routes(ops, plain=False)[0]
+
+
+def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain):
     """Stage-1 sweep + stage-2 bracket + bisection for L rows. weights is
-    (2,) for one portfolio shared by every row (one stage-1 sweep serves
-    them all) or (L, 2) for one portfolio per row. `sweep`/`bisect` are
-    the dispatching wrappers or their plain twins. Returns
+    (dim,) for one portfolio shared by every row (one stage-1 sweep
+    serves them all) or (L, dim) for one portfolio per row. `plain`
+    picks the plain twins over the dispatching wrappers. Returns
     (roots (L, T), nan_days (L, T))."""
-    T, L = ops.V.shape[0], obj.shape[0]
-    dev = ops.V.device
+    sweep, bisect = _routes(ops, plain)
+    T, L = ops.days, obj.shape[0]
+    dev = ops.x.device
     stage1 = torch.stack(
         [torch.full((T,), -100.0, dtype=torch.float64, device=dev),
          torch.full((T,), float(cfg[0]), dtype=torch.float64, device=dev)],
         dim=-1,
     )
+    dim = weights.shape[-1]
     if weights.dim() == 1:
-        weights = weights.reshape(1, 2)
+        weights = weights.reshape(1, dim)
         F1 = sweep(ops, stage1[None], weights, box_min).expand(L, T)
-        weights = weights.expand(L, 2).contiguous()
+        weights = weights.expand(L, dim).contiguous()
     else:
         F1 = sweep(ops, stage1.expand(L, T, 2).contiguous(), weights, box_min)
     lower, upper, prev_res, prev_up, ustack, nan_days = bracket_state_batched(
@@ -152,31 +235,31 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, sweep,
 
 def full_solve_levels(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
                       box_min=-5.0):
-    """All L confidence levels `obj` (L,) of one portfolio `weights` (2,)
+    """All L confidence levels `obj` (L,) of one portfolio `weights` (dim,)
     -> (roots (L, T), nan_days (L, T)), through the kernels on a CUDA
     device and the plain twins on the CPU. cfg = (first_guess, sg0, sg1,
     min_var, max_var)."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       masked_sweep, bisect_levels)
+                       False)
 
 
 def full_solve_levels_reference(ops, obj, weights, cfg, tolerance=1e-6,
                                 quirks=False, box_min=-5.0):
     """`full_solve_levels` through the plain twins, on any device."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       masked_sweep_reference, bisect_levels_reference)
+                       True)
 
 
 def full_solve_portfolios(ops, obj, weights, cfg, tolerance=1e-6,
                           quirks=False, box_min=-5.0):
-    """L portfolio rows, row l with its own weights[l] (L, 2) and level
+    """L portfolio rows, row l with its own weights[l] (L, dim) and level
     obj[l] -> (roots (L, T), nan_days (L, T))."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       masked_sweep, bisect_levels)
+                       False)
 
 
 def full_solve_portfolios_reference(ops, obj, weights, cfg, tolerance=1e-6,
                                     quirks=False, box_min=-5.0):
     """`full_solve_portfolios` through the plain twins, on any device."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       masked_sweep_reference, bisect_levels_reference)
+                       True)

@@ -1,22 +1,34 @@
-"""Masked dense tensor-product quadrature, dim-2 cached path
-(counterpart of `copula_var_tpu/ops/quadrature.py`).
+"""Masked dense tensor-product quadrature (counterpart of
+`copula_var_tpu/ops/quadrature.py`).
 
-Per out-of-sample day the copula density on the full n x n grid is
-bounds-invariant, so it is built once (`msm_day_tensors`,
-`garch_day_tensors`) and every VaR sweep is a half-space mask plus the
-state-weight sandwich W0 (V .* M) W1^T (`msm_integrals_cached`,
-`garch_integrals_cached`). Those two sweeps are the plain PyTorch twin of
-the CUDA sweep kernel (`ops/cuda_quadrature.py`).
+Two bounds-invariant caches feed the VaR sweeps:
+
+  * dim 2, day tensors: the copula density on the full n x n grid is
+    built once per day (`msm_day_tensors`, `garch_day_tensors`) and every
+    sweep is a half-space mask plus the state-weight sandwich
+    W0 (V .* M) W1^T (`msm_integrals_cached`, `garch_integrals_cached`),
+    the plain twin of the CUDA sweep kernel (`ops/cuda_quadrature.py`);
+  * any dim, transform columns: the (T, n^dim) densities would not fit
+    (4 GB at n = 100, dim = 3, T = 500), so only the per-day per-coordinate
+    copula pre-transforms are cached (`msm_day_columns`,
+    `garch_day_columns`) and every sweep rebuilds the density in day
+    chunks, masks and contracts it (`msm_integrals_tcached`,
+    `garch_integrals_tcached`), the plain twin of the dim-3 CUDA kernel
+    (`ops/cuda_quadrature3.py`).
 
 The JAX module's parity quirks are kept:
   * grid dim d weights with `densities[(d - 1) mod dim]` (rotated rows);
-  * the inner cut is strict-lower / inclusive-upper, the lower bound
-    clamped to the box and the upper bound not;
+  * the half-space cut is resolved on the innermost grid axis, paired with
+    `weights[0]`; the outer axes pair `weights[1:]` in order. The inner cut
+    is strict-lower / inclusive-upper, the lower bound clamped to the box
+    and the upper bound not;
   * the GARCH family applies nan_to_num to copula * pdf-product before
     the mask; the MSM family applies no NaN handling.
 
 Days are a leading batch dimension written out in every function (the
-JAX module vmaps a one-day function instead). Dim >= 3 is later work.
+JAX module vmaps, or `lax.map`s, a one-day function instead). The f32
+desaturation of the JAX module (`desaturate_f32`) is not ported: the f64
+`xla` engine leaves u unclamped, and so does the port.
 """
 
 from __future__ import annotations
@@ -40,36 +52,44 @@ class CopulaSpec(NamedTuple):
     params: tuple
 
 
-def _require_dim2(dim: int) -> None:
-    if dim != 2:
-        raise ValueError(
-            f"the port's quadrature covers dim == 2 only (got dim={dim}); "
-            "dim >= 3 is queued in ROADMAP.md (queue 1, off the main path)"
-        )
+def _expand(v, d, dim):
+    """(..., n) -> (..., 1, .., n, .., 1) with n at grid axis d of dim."""
+    return v.reshape(v.shape[:-1] + (1,) * d + (v.shape[-1],)
+                     + (1,) * (dim - 1 - d))
 
 
 def halfspace_mask(x, lower, upper, weights, box_min=BOX_MIN):
-    """(..., n, n) bool mask of the portfolio cut {lower < w.x <= upper}
-    resolved on the inner (last) grid axis, for bounds of any leading
-    shape (...). weights (2,): weights[0] pairs the inner axis, weights[1]
-    the outer one. Inner cut: x_j > max(dyn_lower, box_min) and
-    x_j <= dyn_upper, with dyn = (bound - x_i * weights[1]) / weights[0]."""
-    _require_dim2(weights.shape[0])
-    prev = x * weights[1]  # (n,) outer coordinate times its weight
-    dyn_upper = (upper[..., None] - prev) / weights[0]
+    """(..., n, ..., n) bool mask (dim grid axes) of the portfolio cut
+    {lower < w.x <= upper} resolved on the inner (last) grid axis, for
+    bounds of any leading shape (...). weights (dim,): weights[0] pairs
+    the inner axis, weights[1:] the outer axes in order. Inner cut:
+    x_in > max(dyn_lower, box_min) and x_in <= dyn_upper, with
+    dyn = (bound - prev) / weights[0] and prev = sum_d x_d * weights[1 + d]
+    summed in grid-axis order, as the JAX module forms it."""
+    dim = weights.shape[0]
+    prev = _expand(x, 0, dim - 1) * weights[1]
+    for d in range(1, dim - 1):
+        prev = prev + _expand(x, d, dim - 1) * weights[1 + d]
+    lead = (...,) + (None,) * (dim - 1)
+    dyn_upper = (upper[lead] - prev) / weights[0]
     dyn_lower = torch.maximum(
-        (lower[..., None] - prev) / weights[0], dyn_upper.new_tensor(box_min)
+        (lower[lead] - prev) / weights[0], dyn_upper.new_tensor(box_min)
     )
     return (x > dyn_lower[..., None]) & (x <= dyn_upper[..., None])
 
 
-def _all_pairs_quad(z0, z1, sigma_inv):
-    """z^T Sigma^-1 z over the grid from per-axis coordinates z0, z1
-    (..., n) -> (..., n, n), in the JAX module's summation order."""
-    a, b = z0[..., :, None], z1[..., None, :]
-    out = sigma_inv[0, 0] * a**2
-    out = out + (2.0 * sigma_inv[0, 1]) * (a * b)
-    return out + sigma_inv[1, 1] * b**2
+def _all_pairs_quad(z_cols, sigma_inv):
+    """z^T Sigma^-1 z over the grid from per-axis coordinates z_cols[d]
+    (..., n) -> (..., n, ..., n), in the JAX module's summation order."""
+    dim = len(z_cols)
+    out = None
+    for d in range(dim):
+        term = sigma_inv[d, d] * _expand(z_cols[d] ** 2, d, dim)
+        out = term if out is None else out + term
+        for e in range(d + 1, dim):
+            out = out + (2.0 * sigma_inv[d, e]) * (
+                _expand(z_cols[d], d, dim) * _expand(z_cols[e], e, dim))
+    return out
 
 
 def _chol_inv_logdet(corr):
@@ -79,6 +99,13 @@ def _chol_inv_logdet(corr):
     sigma_inv = inv_L.T @ inv_L
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
     return sigma_inv, logdet
+
+
+def student_log_norm(nu: float, logdet, dim: int):
+    """The log multivariate-t normalizer incl. -0.5 logdet, formed in the
+    order `copula_density_cols` forms it."""
+    return (math.lgamma((nu + dim) / 2.0) - math.lgamma(nu / 2.0)
+            - (dim / 2.0) * math.log(nu * math.pi) - 0.5 * logdet)
 
 
 def transform_u_columns(u_cols, spec: CopulaSpec):
@@ -107,11 +134,15 @@ def transform_u_columns(u_cols, spec: CopulaSpec):
 
 
 def copula_density_cols(cols, spec: CopulaSpec):
-    """Copula density over the (n, n) grid from transformed columns
-    (output of `transform_u_columns`, each leaf (..., 2, n)) ->
-    (..., n, n)."""
-    _require_dim2(cols[0].shape[-2])
+    """Copula density over the (n,) * dim grid from transformed columns
+    (output of `transform_u_columns`, each leaf (..., dim, n)) ->
+    (..., n, ..., n). Gaussian and Student take any dim; Plackett is
+    dim 2 only."""
+    dim = cols[0].shape[-2]
+    axis = [[leaf[..., d, :] for leaf in cols] for d in range(dim)]
     if spec.kind == "plackett":
+        if dim != 2:
+            raise ValueError("Plackett copula requires dim == 2")
         (theta,) = spec.params
         u = cols[0]
         a, b = u[..., 0, :, None], u[..., 1, None, :]
@@ -121,74 +152,112 @@ def copula_density_cols(cols, spec: CopulaSpec):
         return num / den
     if spec.kind == "gaussian":
         (corr,) = spec.params
-        z = cols[0]
-        z0, z1 = z[..., 0, :], z[..., 1, :]
+        z_cols = [c[0] for c in axis]
         sigma_inv, logdet = _chol_inv_logdet(corr)
-        quad = _all_pairs_quad(z0, z1, sigma_inv)
-        sum_z2 = (z0**2)[..., :, None] + (z1**2)[..., None, :]
+        quad = _all_pairs_quad(z_cols, sigma_inv)
+        sum_z2 = _expand(z_cols[0] ** 2, 0, dim)
+        for d in range(1, dim):
+            sum_z2 = sum_z2 + _expand(z_cols[d] ** 2, d, dim)
         return torch.exp(-0.5 * (logdet + quad - sum_z2))
     if spec.kind == "student":
         nu, corr = spec.params
         nu = float(nu)
-        z, fin, log_uni = cols
         sigma_inv, logdet = _chol_inv_logdet(corr)
-        quad = _all_pairs_quad(z[..., 0, :], z[..., 1, :], sigma_inv)
-        dim = 2
-        log_mvt = (
-            math.lgamma((nu + dim) / 2.0)
-            - math.lgamma(nu / 2.0)
-            - (dim / 2.0) * math.log(nu * math.pi)
-            - 0.5 * logdet
-            - ((nu + dim) / 2.0) * torch.log1p(quad / nu)
-        )
-        log_uni_sum = log_uni[..., 0, :, None] + log_uni[..., 1, None, :]
-        finite = fin[..., 0, :, None] & fin[..., 1, None, :]
+        quad = _all_pairs_quad([c[0] for c in axis], sigma_inv)
+        log_mvt = (student_log_norm(nu, logdet, dim)
+                   - ((nu + dim) / 2.0) * torch.log1p(quad / nu))
+        log_uni_sum = _expand(axis[0][2], 0, dim)
+        finite = _expand(axis[0][1], 0, dim)
+        for d in range(1, dim):
+            log_uni_sum = log_uni_sum + _expand(axis[d][2], d, dim)
+            finite = finite & _expand(axis[d][1], d, dim)
         ratio = torch.exp(log_mvt - log_uni_sum)
         return torch.where(finite, ratio, torch.full_like(ratio, math.nan))
     raise ValueError(f"unknown copula kind: {spec.kind}")
 
 
 def grid_copula_density(u_cols, spec: CopulaSpec):
-    """(..., n, n) copula density from (..., 2, n) marginal-CDF columns."""
+    """(..., n, ..., n) copula density from (..., dim, n) marginal-CDF
+    columns."""
     return copula_density_cols(transform_u_columns(u_cols, spec), spec)
 
 
 def state_weight_matrices(densities, dx):
-    """[W0, W1], each (q, n): grid dim d weights with
+    """[W0, ..., W_{dim-1}], each (q, n): grid dim d weights with
     `densities[(d - 1) mod dim] * dx` (the reference's rotated rows)."""
     dim = densities.shape[0]
     return [densities[(d - 1) % dim] * dx[None, :] for d in range(dim)]
 
 
+def _contract_states(V, w_cols):
+    """Contract the grid axes of V (..., n, ..., n) against per-axis
+    state-weight matrices w_cols[d] (q_d, n) -> (..., q_0, ..., q_{dim-1}).
+    dim 2 is the sandwich W0 V W1^T; above it, grid axis 0 first, then
+    1, ..., as the JAX module's tensordot loop."""
+    dim = len(w_cols)
+    if dim == 2:
+        return w_cols[0] @ V @ w_cols[1].T
+    out = V
+    for d, w in enumerate(w_cols):
+        ax = out.dim() - dim + d
+        out = torch.movedim(torch.tensordot(out, w, dims=([ax], [1])), -1, ax)
+    return out
+
+
+def _pdf_product(p_cols):
+    """prod_d p_cols[..., d, :] over the grid -> (..., n, ..., n)."""
+    dim = p_cols.shape[-2]
+    out = _expand(p_cols[..., 0, :], 0, dim)
+    for d in range(1, dim):
+        out = out * _expand(p_cols[..., d, :], d, dim)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Bounds-invariant day tensors
+# dim-2 bounds-invariant day tensors
 # ---------------------------------------------------------------------------
+
+
+def msm_u_columns(forecasts_by_states, x, unique_vols):
+    """(T, dim, n) per-day marginal CDF columns: the state mixture
+    sum_s f[t, d, s] Phi(x / vol[d, s])."""
+    cdf = norm_cdf(x[None, None, :] / unique_vols[:, :, None])  # (dim, q, n)
+    return torch.sum(forecasts_by_states[:, :, :, None] * cdf, dim=2)
+
+
+def _garch_u_p_columns(forecast_vols, x):
+    fv = forecast_vols[:, :, None]
+    return norm_cdf(x / fv), norm_pdf(x / fv) / fv  # (T, dim, n) each
+
+
+def _require_dim2(dim: int) -> None:
+    if dim != 2:
+        raise ValueError(
+            f"day tensors are the dim == 2 cache (got dim={dim}); dim 3 "
+            "serves from transform columns (msm_day_columns, "
+            "garch_day_columns)"
+        )
 
 
 def msm_day_tensors(forecasts_by_states, x, unique_vols, spec: CopulaSpec):
     """(T, n, n) copula-density grids, one per day. forecasts_by_states
-    (T, 2, q); x (n,); unique_vols (2, q). Each day's marginal is the
-    state mixture sum_s f[t, d, s] Phi(x / vol[d, s])."""
+    (T, 2, q); x (n,); unique_vols (2, q)."""
     _require_dim2(unique_vols.shape[0])
-    cdf = norm_cdf(x[None, None, :] / unique_vols[:, :, None])  # (2, q, n)
-    u_cols = torch.sum(forecasts_by_states[:, :, :, None] * cdf, dim=2)
-    return grid_copula_density(u_cols, spec)
+    return grid_copula_density(
+        msm_u_columns(forecasts_by_states, x, unique_vols), spec)
 
 
 def garch_day_tensors(forecast_vols, x, spec: CopulaSpec):
     """(T, n, n) nan_to_num(copula * pdf-product) grids per day.
     forecast_vols (T, 2)."""
     _require_dim2(forecast_vols.shape[1])
-    fv = forecast_vols[:, :, None]
-    u_cols = norm_cdf(x / fv)  # (T, 2, n)
-    p_cols = norm_pdf(x / fv) / fv
+    u_cols, p_cols = _garch_u_p_columns(forecast_vols, x)
     C = grid_copula_density(u_cols, spec)
-    pdf_prod = p_cols[:, 0, :, None] * p_cols[:, 1, None, :]
-    return torch.nan_to_num(C * pdf_prod)
+    return torch.nan_to_num(C * _pdf_product(p_cols))
 
 
 # ---------------------------------------------------------------------------
-# Cached sweeps: the plain twin of the sweep kernel
+# dim-2 cached sweeps: the plain twin of the sweep kernel
 # ---------------------------------------------------------------------------
 
 
@@ -211,3 +280,96 @@ def garch_integrals_cached(bounds, V, x, dx, weights, box_min=BOX_MIN):
     M = halfspace_mask(x, bounds[:, 0], bounds[:, 1], weights, box_min)
     vm = torch.where(M, V, torch.zeros((), dtype=V.dtype, device=V.device))
     return (dx @ vm) @ dx
+
+
+# ---------------------------------------------------------------------------
+# Transform-cached sweeps (any dim): the plain twin of the dim-3 kernel
+# ---------------------------------------------------------------------------
+
+# One day's density grid may transiently materialize n^dim float64
+# elements; beyond this even a one-day chunk is an out-of-memory hazard,
+# so the sweep refuses it (the JAX module's budget and message).
+MAX_GRID_ELEMENTS_PER_DAY = 1 << 26
+
+
+def _day_batch(n: int, dim: int, T: int) -> int:
+    """Chunk size bounding transient density-grid memory to ~2^21 f64
+    elements (16 MB) per chunk; raises if even one day exceeds the
+    per-day transient budget."""
+    if n**dim > MAX_GRID_ELEMENTS_PER_DAY:
+        raise ValueError(
+            f"quadrature grid of num_points={n}^dim={dim} = {n**dim:.2e} "
+            f"points per day exceeds the "
+            f"{MAX_GRID_ELEMENTS_PER_DAY:.2e}-element transient budget "
+            f"(~{MAX_GRID_ELEMENTS_PER_DAY * 8 >> 20} MB f64). Reduce "
+            f"num_points (e.g. <= {int(MAX_GRID_ELEMENTS_PER_DAY ** (1 / dim))} "
+            f"at dim={dim}) or the portfolio dimension."
+        )
+    return max(1, min(T, (1 << 21) // max(1, n**dim)))
+
+
+def _device_day_batch(n: int, dim: int, T: int, device) -> int:
+    """`_day_batch` on the CPU (a host budget). On a GPU the chunk holds
+    up to MAX_GRID_ELEMENTS_PER_DAY cells (512 MB per f64 transient, a few
+    GB per sweep at n = 100, dim = 3), so a full-width plain solve takes
+    a handful of chunks per sweep and fits in the card's memory."""
+    batch = _day_batch(n, dim, T)
+    if torch.device(device).type == "cpu":
+        return batch
+    return max(batch, min(T, MAX_GRID_ELEMENTS_PER_DAY // n**dim))
+
+
+def msm_day_columns(forecasts_by_states, x, unique_vols, spec: CopulaSpec):
+    """Per-day copula pre-transform columns, each leaf (T, dim, n)."""
+    return transform_u_columns(
+        msm_u_columns(forecasts_by_states, x, unique_vols), spec)
+
+
+def garch_day_columns(forecast_vols, x, spec: CopulaSpec):
+    """(transform columns, pdf columns (T, dim, n)) for the GARCH family."""
+    u_cols, p_cols = _garch_u_p_columns(forecast_vols, x)
+    return transform_u_columns(u_cols, spec), p_cols
+
+
+def _chunks(T, n, dim, device, day_batch):
+    step = day_batch or _device_day_batch(n, dim, T, device)
+    return [slice(s, min(T, s + step)) for s in range(0, T, step)]
+
+
+def msm_integrals_tcached(bounds, cols, forecast_combos, x, dx, densities,
+                          weights, spec: CopulaSpec, box_min=BOX_MIN,
+                          day_batch=None):
+    """(T,) MSM-family integrals from cached transform columns (any dim).
+    bounds (T, 2); cols leaves (T, dim, n); forecast_combos (T, q^dim) in
+    ij order; densities (dim, q, n); weights (dim,). Days run in chunks
+    of `day_batch` (default `_device_day_batch`)."""
+    dim, n = densities.shape[0], x.shape[0]
+    w_cols = state_weight_matrices(densities, dx)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    out = []
+    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
+        C = copula_density_cols(tuple(c[s] for c in cols), spec)
+        M = halfspace_mask(x, bounds[s, 0], bounds[s, 1], weights, box_min)
+        V = torch.where(M, C, zero)
+        per_combo = _contract_states(V, w_cols).reshape(V.shape[0], -1)
+        out.append(torch.sum(per_combo * forecast_combos[s], dim=-1))
+    return torch.cat(out)
+
+
+def garch_integrals_tcached(bounds, cols, p_cols, x, dx, weights,
+                            spec: CopulaSpec, box_min=BOX_MIN,
+                            day_batch=None):
+    """(T,) GARCH-family integrals from cached transform columns and pdf
+    columns p_cols (T, dim, n) (any dim): nan_to_num(C * pdf-product),
+    masked, contracted with dx on every axis."""
+    dim, n = p_cols.shape[1], x.shape[0]
+    w_cols = [dx[None, :]] * dim
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    out = []
+    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
+        C = copula_density_cols(tuple(c[s] for c in cols), spec)
+        V = torch.nan_to_num(C * _pdf_product(p_cols[s]))
+        M = halfspace_mask(x, bounds[s, 0], bounds[s, 1], weights, box_min)
+        V = torch.where(M, V, zero)
+        out.append(_contract_states(V, w_cols).reshape(V.shape[0]))
+    return torch.cat(out)

@@ -183,9 +183,9 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
     with pytest.raises(ValueError, match="ROADMAP"):
         VaRBacktest(tdata, bt.adapter, bt.copula, bt.copula_fit,
                     bt.model_fits, bt.integration_inputs, refine_root=True)
-    three = from_returns(np.zeros((N_IN + 4, 3)), n_insample=N_IN)
+    four = from_returns(np.zeros((N_IN + 4, 4)), n_insample=N_IN)
     with pytest.raises(ValueError, match="ROADMAP"):
-        VaRBacktest(three, bt.adapter, bt.copula, bt.copula_fit,
+        VaRBacktest(four, bt.adapter, bt.copula, bt.copula_fit,
                     bt.model_fits, bt.integration_inputs)
     for adapter in (MsmAdapter(), GarchAdapter()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

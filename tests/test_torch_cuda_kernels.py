@@ -16,7 +16,12 @@ import torch
 
 from copula_var_tpu_torch.data import from_csv
 from copula_var_tpu_torch.ops import cuda_quadrature as cq
+from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
 from copula_var_tpu_torch.ops import cuda_solver as cs
+from copula_var_tpu_torch.ops.quadrature import (
+    CopulaSpec,
+    transform_u_columns,
+)
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched
 from copula_var_tpu_torch.utils.artifacts import load_artifacts
 
@@ -140,3 +145,132 @@ def test_kernels_reject_what_they_do_not_take(dev):
         cq.masked_sweep(ops, strided, weights)
     with pytest.raises(ValueError, match="float64"):
         cq.masked_sweep(ops, bounds.float(), weights)
+
+
+# -- the dim-3 kernel (K4) ----------------------------------------------------
+
+CORR3 = np.array([[1.0, 0.45, 0.25], [0.45, 1.0, 0.35], [0.25, 0.35, 1.0]])
+
+
+def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None):
+    """Random dim-3 operands on the card; `edit(cols, p)` may poke cells
+    of the transform or pdf columns before the operands are built."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float64), device=dev)
+
+    corr = t(CORR3)
+    spec = (CopulaSpec("student", (6.5, corr)) if kind == "student"
+            else CopulaSpec("gaussian", (corr,)))
+    cols = list(transform_u_columns(t(rng.uniform(0.002, 0.998, (T, 3, n))),
+                                    spec))
+    x = t(np.linspace(-5.0, 5.0, n))
+    dx = t(np.full(n, 10.0 / n))
+    p = t(rng.uniform(0.0, 0.5, (T, 3, n))) if family == "garch" else None
+    if edit is not None:
+        edit(cols, p)
+    if family == "garch":
+        return cq3.contract3_operands(tuple(cols), x, dx, spec, p_cols=p)
+    dens = t(rng.uniform(0.0, 0.5, (3, q, n)))
+    fc = t(rng.dirichlet(np.ones(q**3), size=T))
+    return cq3.contract3_operands(tuple(cols), x, dx, spec, densities=dens,
+                                  forecast_combos=fc)
+
+
+def _rows3(dev, T, L, seed=1):
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-6.0, -0.5, (L, T))
+    b = np.stack([lo, lo + rng.uniform(0.0, 4.0, (L, T))], -1)
+    w = rng.dirichlet([2.0, 2.0, 2.0], size=L)  # unequal weights per row
+    return (torch.tensor(b, device=dev), torch.tensor(w, device=dev))
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+@pytest.mark.parametrize("kind", ["student", "gaussian"])
+def test_masked_contract3_matches_plain(dev, family, kind):
+    ops = _ops3(dev, family, kind)
+    bounds, weights = _rows3(dev, ops.days, 5)
+    before = cq3.masked_contract3.launches
+    got = cq3.masked_contract3(ops, bounds, weights)
+    assert cq3.masked_contract3.launches == before + 1
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= RTOL_SWEEP * scale
+
+
+def test_masked_contract3_nan_cell_poisons_only_its_slabs(dev):
+    def edit(cols, p):
+        cols[1][:, 1, 7] = False  # a non-finite column: NaN cells
+
+    ops = _ops3(dev, "msm", "student", edit=edit)
+    bounds, weights = _rows3(dev, ops.days, 8)
+    got = cq3.masked_contract3(ops, bounds, weights)
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    assert bool(torch.isnan(want).any()) and not bool(torch.isnan(want).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= \
+        RTOL_SWEEP * float(want[fin].abs().max())
+
+
+def test_masked_contract3_garch_nan_to_num(dev):
+    """GARCH cells: NaN -> 0, +inf -> DBL_MAX, -inf -> -DBL_MAX, as
+    torch.nan_to_num, before the mask."""
+    def edit(cols, p):
+        cols[1][:, 2, 3] = False  # NaN density cells
+        # one cell per day whose pdf product overflows: +inf on day 0,
+        # -inf on day 1 (every other cell of the slab stays finite)
+        p[:2, :, :] = p[:2, :, :].clamp(min=0.01)
+        p[:2, 1, 20] = p[:2, 2, 10] = 1e110
+        p[0, 0, 30], p[1, 0, 30] = 1e110, -1e110
+
+    ops = _ops3(dev, "garch", "student", edit=edit)
+    L = 6
+    b = torch.tensor([[-100.0, 100.0]], dtype=torch.float64,
+                     device=dev).expand(L, ops.days, 2).contiguous()
+    _, weights = _rows3(dev, ops.days, L)
+    got = cq3.masked_contract3(ops, b, weights)
+    want = cq3.masked_contract3_reference(ops, b, weights)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[:, 0] > 1e300).all()) and bool((got[:, 1] < -1e300).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL_SWEEP)
+
+
+def test_masked_contract3_is_deterministic(dev):
+    ops = _ops3(dev, "msm", "student", T=12)
+    bounds, weights = _rows3(dev, ops.days, 4)
+    first = cq3.masked_contract3(ops, bounds, weights)
+    assert torch.equal(first, cq3.masked_contract3(ops, bounds, weights))
+
+
+def test_masked_contract3_rejects_what_it_does_not_take(dev):
+    ops = _ops3(dev, "garch", "gaussian", T=2, n=200)  # slab over 227 KB
+    bounds, weights = _rows3(dev, 2, 1)
+    with pytest.raises(ValueError, match="shared"):
+        cq3.masked_contract3(ops, bounds, weights)
+    ops = _ops3(dev, "garch", "gaussian", T=2)
+    with pytest.raises(ValueError, match="float64"):
+        cq3.masked_contract3(ops, bounds.float(), weights)
+    plackett = ops._replace(spec=CopulaSpec("plackett", (4.0,)))
+    with pytest.raises(ValueError, match="Gaussian or Student"):
+        cq3.masked_contract3(plackett, bounds, weights)
+
+
+@pytest.mark.parametrize("est", ["msm", "garch"])
+def test_dim3_through_kernels(dev, est):
+    rec = np.load(os.path.join(DATA, "dim3_var.npz"))
+    data = from_csv(os.path.join(DATA, "dim3.csv"), n_insample=1135,
+                    weights=rec["weights"])
+    bt = load_artifacts(os.path.join(DATA, f"dim3_artifacts_{est}.npz"),
+                        data, device="cuda")
+    before = (cq.masked_sweep.launches, cs.bisect_levels.launches,
+              cq3.masked_contract3.launches)
+    var = bt.calc_var(float(rec["obj_var"]))
+    after = (cq.masked_sweep.launches, cs.bisect_levels.launches,
+             cq3.masked_contract3.launches)
+    assert after[:2] == before[:2] and after[2] > before[2]
+    np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
+                               atol=ATOL_ROOT)
