@@ -16,19 +16,27 @@ Phases, each fatal on failure:
      with 32 portfolios x 4 levels (128 rows);
   4. main path, three assets, counted: the same for the dim-3 artifacts
      (`data/dim3_artifacts_{msm,garch}.npz`, weights (0.5, 0.3, 0.2)) held
-     against `data/dim3_var.npz`. Before each main path every kernel
-     launch counter is zeroed and after it read; each kernel of that path
-     must have launched and the other path's kernels must not;
+     against `data/dim3_var.npz`; the prep builds each backtest's table U
+     (4.0 GB) once, and the path's peak device memory is read. Before each
+     main path every kernel launch counter is zeroed and after it read;
+     each kernel of that path must have launched and the other path's
+     kernels must not;
   5. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
-     unequal weights; K4 also with a Gaussian copula), and the serving
-     batches (128 rows at dim 2, 8 portfolios x 4 levels at dim 3) against
-     the plain solves;
+     unequal weights; K4 also with a Gaussian copula; the table U on 16
+     days), a repeated launch of each that must give the same bits, and
+     the serving batches (128 rows at dim 2, 8 portfolios x 4 levels at
+     dim 3) against the plain solves;
   6. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns;
   7. device profile: torch.profiler over calls of a sweep, a bisection,
      `calc_var` and the serving batch: host ms per call, the device's busy
      ms, and each kernel's launches and device ms per launch.
+
+Each kernel's bound in the record is the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its float64
+operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet; FP64 outside the
+tensor cores), counted from this run's shapes by `bounds()`.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
@@ -38,6 +46,7 @@ line, when torch sees no CUDA device or the port's sources are missing.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -58,12 +67,73 @@ RTOL_SWEEP = 1e-12
 # kernel bisection vs plain bisection: identical masks and bookkeeping;
 # a root could move only if a slab's rounding flipped res < obj
 ATOL_ROOT = 1e-9
+# the table U against its plain twin: the same cells, only CUDA's exp /
+# log1p and the order of the q x q state sum differ
+RTOL_TABLE = 1e-12
+TABLE_DAYS = 16  # days of U held against the plain twin
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F64_FLOP_PER_S = 34e12  # H100 SXM data sheet, FP64 outside the tensor cores
 # the device spans of each wrapper's launch: (counted kernel, others...)
 KERNEL_SPANS = {
     "masked_sweep": ("masked_sweep_kernel",),
     "bisect_levels": ("bisect_levels_kernel",),
-    "masked_contract3": ("contract3_slab_kernel", "contract3_sum_kernel"),
+    "contract3_weights": ("contract3_weights_kernel",),
+    "masked_contract3": ("contract3_sweep_kernel", "contract3_sum_kernel"),
 }
+
+
+def bound(nbytes, flops):
+    """(bound ms, "bytes" or "operations"): the least time for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F64_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lookups(n):
+    """f64 operations of one row lookup of the interval rule: prev, two
+    dynamic bounds (sub, div each), the clamp, two binary searches of
+    ceil(log2(n + 1)) compares and one subtraction."""
+    return 7 + 2 * math.ceil(math.log2(n + 1))
+
+
+def day_bytes(T, n, q):
+    """The dim-2 kernels' day operands: V, wfc, W1 and x."""
+    return 8 * (T * n * n + T * n * q + q * n + n)
+
+
+def sweep_bound(T, n, q, L):
+    """masked_sweep (K2): the day operands and (L, T, 2) bounds in, (L, T)
+    out; U = V .* (wfc W1) formed and every cell compared and added once
+    per row."""
+    return bound(day_bytes(T, n, q) + 8 * (2 * L * T + 2 * L + L * T),
+                 T * n * n * (2 * q + 1) + L * T * n * n)
+
+
+def bisect_bound(T, n, q, L, n_iters):
+    """bisect_levels (K1): the day operands and the (L, T) state in, the
+    roots out; U formed and scanned once, then n lookups per row, day and
+    halving."""
+    return bound(day_bytes(T, n, q) + L * T * (8 * 5 + 1) + 8 * 3 * L,
+                 T * n * n * (2 * q + 2) + n_iters * L * T * n * lookups(n))
+
+
+def contract3_bound(T, n, L):
+    """masked_contract3 (K4 sweep): the T n^3 cells of U (not the layout's
+    pad cells, which are never summed) and (L, T, 2) bounds in, (L, T)
+    out; every row scanned once, n lookups per (row, day, i0), n partials
+    summed per (row, day)."""
+    return bound(8 * (T * n ** 3 + n + 2 * L * T + 3 * L + L * T),
+                 T * n ** 3 + L * T * n * n * lookups(n) + L * T * n)
+
+
+def weights_bound(T, n, q, student, garch):
+    """contract3_weights (K4 build): the columns and G in, the T n^3 cells
+    of U out (not its pad cells); per cell the quadratic form (15), the
+    density (8, exp and log1p one each), the pdf product (3, GARCH) and the
+    state sum (2q + 1); the (q, n) fold per slab."""
+    cols = 3 * T * n * (8 * (1 + student + garch) + 1)
+    return bound(cols + 8 * (2 * q * n + T * n * q * q + 9 + T * n ** 3),
+                 T * n ** 3 * (24 + 2 * q + 3 * garch) + T * n * n * 2 * q * q)
 
 
 def cuda_ms(torch, fns, reps=REPS, warmup=2):
@@ -170,7 +240,8 @@ def main() -> int:
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print(f"  {line.strip()}")
 
-    counters = (cq.masked_sweep, cs.bisect_levels, cq3.masked_contract3)
+    counters = (cq.masked_sweep, cs.bisect_levels, cq3.contract3_weights,
+                cq3.masked_contract3)
 
     def zero_counts():
         for c in counters:
@@ -240,12 +311,15 @@ def main() -> int:
     for name in ("masked_sweep", "bisect_levels"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    if launches["masked_contract3"] != 0:
-        raise AssertionError("the dim-3 kernel launched on the dim-2 path")
+    if launches["masked_contract3"] or launches["contract3_weights"]:
+        raise AssertionError("a dim-3 kernel launched on the dim-2 path")
 
     # -- main path, three assets, counted -----------------------------------
     rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
     w3 = np.asarray(rec3["weights"], np.float64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base3 = torch.cuda.memory_allocated()
     zero_counts()
     t_main3 = time.perf_counter()
     bts3, prep3_s, solve3_s, vars3 = {}, {}, {}, {}
@@ -265,8 +339,16 @@ def main() -> int:
               f"calc_var {solve3_s[est]:.3f} s (host clock)")
         bts3[est], vars3[est] = bt, var
     launches3 = read_counts()
+    torch.cuda.synchronize()
+    peak3 = torch.cuda.max_memory_allocated()
     print(f"main path dim3: {time.perf_counter() - t_main3:.3f} s, "
-          f"launches {launches3}")
+          f"launches {launches3}; device memory peak {peak3} bytes "
+          f"({base3} before the path), tables U "
+          f"{[int(b.sweep_operands().U.numel() * 8) for b in bts3.values()]}"
+          " bytes")
+    if launches3["contract3_weights"] != len(bts3):
+        raise AssertionError("contract3_weights did not build one table "
+                             "per dim-3 backtest")
     if launches3["masked_contract3"] <= 0:
         raise AssertionError("masked_contract3 never launched on the dim-3 "
                              "main path")
@@ -310,6 +392,9 @@ def main() -> int:
             raise AssertionError(f"masked_sweep {est}: |kernel - plain| {e:.3e}"
                                  f" > {RTOL_SWEEP:g} x {scale:.3e}")
         err_sweep = max(err_sweep, e)
+        if not torch.equal(k, cq.masked_sweep(ops, bounds, wrows, -5.0)):
+            raise AssertionError(f"masked_sweep {est}: a repeated launch "
+                                 "changed the sweep")
         F1 = cq.masked_sweep(ops, bounds[:1].expand(4, T, 2).contiguous(),
                              wrows, -5.0)
         st = bracket_state_batched(
@@ -323,6 +408,9 @@ def main() -> int:
         if not e_r <= ATOL_ROOT:
             raise AssertionError(f"bisect_levels {est}: |kernel - plain| "
                                  f"{e_r:.3e} > {ATOL_ROOT:g}")
+        if not torch.equal(rk, cs.bisect_levels(ops, *st, obj, wrows, 1e-6)):
+            raise AssertionError(f"bisect_levels {est}: a repeated launch "
+                                 "changed the roots")
         err_root = max(err_root, e_r)
         print(f"parity {est} (q={ops.w1.shape[0]}): masked_sweep max abs "
               f"{e:.3e} rel {e / scale:.3e} (bound rel {RTOL_SWEEP:g}); "
@@ -351,7 +439,8 @@ def main() -> int:
         stage1[None], np.stack([lo, lo + rng.uniform(0.0, 3.0, (3, T3))], -1)
     ]))
     gauss = CopulaSpec("gaussian", (bts3["msm"].copula_spec.params[1],))
-    err3 = 0.0
+    err3, err_u = 0.0, 0.0
+    days = slice(0, TABLE_DAYS)
     for est, bt in bts3.items():
         inputs = bt.integration_inputs
         cols = bt.adapter.day_columns(inputs, gauss)
@@ -359,6 +448,21 @@ def main() -> int:
                 ("student", bt.sweep_operands()),
                 ("gaussian", bt.adapter.contract3_operands(cols, inputs,
                                                            gauss))):
+            n3 = ops3.x.shape[0]
+            u_k = cq3.table_cells(ops3.U[days], n3)
+            u_p = cq3.contract3_weights_reference(ops3, days)
+            close = torch.isclose(u_k, u_p, rtol=RTOL_TABLE, atol=1e-300,
+                                  equal_nan=True)
+            fin = torch.isfinite(u_p)
+            e_u = float((u_k[fin] - u_p[fin]).abs().max())
+            if not bool(close.all()):
+                raise AssertionError(
+                    f"contract3_weights {est} {copula}: "
+                    f"{int((~close).sum())} cells off the plain twin")
+            if not bool((cq3.table_pads(ops3.U, n3) == 0).all()):
+                raise AssertionError("contract3_weights: pad cells not 0")
+            err_u = max(err_u, e_u)
+            del u_k, u_p, close, fin
             k = cq3.masked_contract3(ops3, bounds3, w3rows, -5.0)
             p = cq3.masked_contract3_reference(ops3, bounds3, w3rows, -5.0)
             scale = float(p.abs().max())
@@ -368,9 +472,20 @@ def main() -> int:
                     f"masked_contract3 {est} {copula}: |kernel - plain| "
                     f"{e:.3e} > {RTOL_SWEEP:g} x {scale:.3e}")
             err3 = max(err3, e)
+            if not torch.equal(k, cq3.masked_contract3(ops3, bounds3, w3rows,
+                                                       -5.0)):
+                raise AssertionError(f"masked_contract3 {est} {copula}: a "
+                                     "repeated launch changed the sweep")
             print(f"parity dim3 {est} {copula} (q={ops3.w1.shape[0]}): "
-                  f"masked_contract3 max abs {e:.3e} rel {e / scale:.3e} "
-                  f"(bound rel {RTOL_SWEEP:g})")
+                  f"contract3_weights on {TABLE_DAYS} days max abs {e_u:.3e}"
+                  f" (bound rel {RTOL_TABLE:g} per cell); masked_contract3 "
+                  f"max abs {e:.3e} rel {e / scale:.3e} (bound rel "
+                  f"{RTOL_SWEEP:g}); repeats bit-equal")
+            del ops3
+    u_first = bts3["msm"].sweep_operands().U
+    if not torch.equal(u_first, cq3.contract3_weights(
+            bts3["msm"].sweep_operands())):
+        raise AssertionError("contract3_weights: a rebuild changed U")
     rng3 = np.random.default_rng(3)
     w_batch3 = rng3.dirichlet([2.0, 2.0, 2.0], size=ROWS_P3)
     t0 = time.perf_counter()
@@ -420,12 +535,31 @@ def main() -> int:
                                            1e-6),
         "plain": lambda: cs.bisect_levels_reference(ops_b, *s1, obj[:1],
                                                     wrows[:1], 1e-6)})
+    L128 = ROWS_P * len(LEVELS)
+    wr, ar = tens(w_rows), tens(a_rows)
+    F1_128 = cq.masked_sweep(ops_m, st1.expand(L128, T, 2).contiguous(), wr,
+                             -5.0)
+    st128 = [s.contiguous() for s in bracket_state_batched(
+        F1_128, ar, lambda b: cq.masked_sweep(ops_m, b.contiguous(), wr,
+                                              -5.0), cfg, False)[:5]]
+    r128 = cs.bisect_levels(ops_m, *st128, ar, wr, 1e-6)
+    e128 = float((r128 - cs.bisect_levels_reference(
+        ops_m, *st128, ar, wr, 1e-6)).abs().max())
+    if not e128 <= ATOL_ROOT:
+        raise AssertionError(f"bisect_levels L={L128}: |kernel - plain| "
+                             f"{e128:.3e}")
+    err_root = max(err_root, e128)
+    print(f"parity bisect_levels L={L128}: max abs {e128:.3e} (bound "
+          f"{ATOL_ROOT:g})")
+    timing[f"bisect_L{L128}"] = cuda_ms(torch, {
+        "kernel": lambda: cs.bisect_levels(ops_m, *st128, ar, wr, 1e-6),
+        "plain": lambda: cs.bisect_levels_reference(ops_m, *st128, ar, wr,
+                                                    1e-6)}, reps=3, warmup=1)
     w_main = bts["msm"].weights
     timing["full_L1"] = cuda_ms(torch, {
         "kernel": lambda: cs.full_solve_levels(ops_m, obj[2:3], w_main, cfg),
         "plain": lambda: cs.full_solve_levels_reference(ops_m, obj[2:3],
                                                         w_main, cfg)})
-    wr, ar = tens(w_rows), tens(a_rows)
     timing[f"full_rows{ROWS_P * len(LEVELS)}"] = cuda_ms(torch, {
         "kernel": lambda: cs.full_solve_portfolios(ops_m, ar, wr, cfg),
         "plain": lambda: cs.full_solve_portfolios_reference(ops_m, ar, wr,
@@ -435,6 +569,10 @@ def main() -> int:
         timing[f"dim3_prep_{est}"] = cuda_ms(torch, {
             "plain": lambda bt=bt: bt.adapter.day_columns(
                 bt.integration_inputs, bt.copula_spec)}, reps=2, warmup=0)
+    timing["contract3_weights"] = cuda_ms(torch, {
+        "kernel": lambda: cq3.contract3_weights(ops3_m),
+        "plain": lambda: cq3.contract3_weights_reference(ops3_m)},
+        reps=REPS_DIM3_PLAIN, warmup=1)
     st3 = tens(stage1)
     for L in (1, ROWS_P3 * len(LEVELS)):
         b = st3.expand(L, T3, 2).contiguous()
@@ -461,11 +599,17 @@ def main() -> int:
             ops_m, st1[None].contiguous(), wrows[:1].contiguous(), -5.0)),
         "bisect_L1": device_profile(torch, lambda: cs.bisect_levels(
             ops_b, *s1, obj[:1], wrows[:1], 1e-6)),
+        f"bisect_L{L128}": device_profile(torch, lambda: cs.bisect_levels(
+            ops_m, *st128, ar, wr, 1e-6)),
         "calc_var_msm": device_profile(torch, lambda: bts["msm"].calc_var(alpha)),
         "calc_var_garch": device_profile(
             torch, lambda: bts["garch"].calc_var(alpha)),
         "grid_32x4": device_profile(
             torch, lambda: bts["msm"].calc_var_grid(w_batch, levels)),
+        "contract3_L1": device_profile(torch, lambda: cq3.masked_contract3(
+            ops3_m, st3[None].contiguous(), tens(w3[None]), -5.0)),
+        "contract3_weights": device_profile(
+            torch, lambda: cq3.contract3_weights(ops3_m), reps=2),
         "dim3_calc_var_msm": device_profile(
             torch, lambda: bts3["msm"].calc_var(alpha), reps=3),
         "dim3_calc_var_garch": device_profile(
@@ -481,7 +625,6 @@ def main() -> int:
                   + ("not measured" if v["device_ms"] is None
                      else f"{v['device_ms']:.4f} ms")
                   for k, v in p["kernels"].items() if v["launches"]))
-    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     report = {
         "card": smi, "reps": REPS, "build_s": _build.build_seconds,
         "day_tensor_bytes": int(ops_m.V.numel() * 8),
@@ -489,33 +632,74 @@ def main() -> int:
         "host_grid_s": grid_s, "dim3_host_prep_s": prep3_s,
         "dim3_host_calc_var_s": solve3_s, "dim3_host_grid_s": grid3_s,
         "dim3_host_grid_plain_s": grid3_plain_s,
+        "dim3_peak_device_bytes": peak3, "dim3_bytes_before_path": base3,
+        "dim3_table_bytes": int(ops3_m.U.numel() * 8),
         "launches_dim2": launches, "launches_dim3": launches3,
         "timing_ms": timing, "profile": profiles,
     }
+
+    # bounds from this run's shapes (see the module docstring)
+    n, q = ops_m.x.shape[0], ops_m.w1.shape[0]
+    T3, n3, q3 = ops3_m.days, ops3_m.x.shape[0], ops3_m.w1.shape[0]
+    iters = {L_: cs.halvings(float((st_[1] - st_[0]).max()), 1e-6)
+             for L_, st_ in ((1, s1), (L128, st128))}
+    L3 = ROWS_P3 * len(LEVELS)
+    bounds_ms = {
+        "sweep_L1": sweep_bound(T, n, q, 1),
+        f"sweep_L{L128}": sweep_bound(T, n, q, L128),
+        "bisect_L1": bisect_bound(T, n, q, 1, iters[1]),
+        f"bisect_L{L128}": bisect_bound(T, n, q, L128, iters[L128]),
+        "contract3_weights": weights_bound(
+            T3, n3, q3, ops3_m.spec.kind == "student",
+            ops3_m.p_cols is not None),
+        "contract3_L1": contract3_bound(T3, n3, 1),
+        f"contract3_L{L3}": contract3_bound(T3, n3, L3),
+    }
+    # the profile holding each shape's kernel at that L (the serving
+    # batches' sweeps run at L = 128 and 32)
+    prof_key = {"sweep_L1": ("sweep_L1", "masked_sweep"),
+                f"sweep_L{L128}": ("grid_32x4", "masked_sweep"),
+                "bisect_L1": ("bisect_L1", "bisect_levels"),
+                f"bisect_L{L128}": (f"bisect_L{L128}", "bisect_levels"),
+                "contract3_weights": ("contract3_weights",
+                                      "contract3_weights"),
+                "contract3_L1": ("contract3_L1", "masked_contract3"),
+                f"contract3_L{L3}": ("dim3_grid_8x4", "masked_contract3")}
+    for key, (b_ms, by) in bounds_ms.items():
+        prof, kern = prof_key[key]
+        dev_ms = profiles[prof]["kernels"][kern]["device_ms"]
+        print(f"bound {key}: {b_ms:.4f} ms by {by}; kernel call "
+              f"{timing[key]['kernel'][0]:.3f} ms, device {dev_ms:.4f} ms, "
+              f"{b_ms / dev_ms:.1%} of the bound")
+    report["bounds_ms"] = bounds_ms
+    report["halvings"] = iters
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),
               "w") as f:
         json.dump(report, f, indent=1)
     print("report " + json.dumps(report))
 
+    def entry(name, source, replaces, launches_, err, key):
+        b = bounds_ms[key]
+        return {"name": name, "route": "cuda",
+                "source": f"copula_var_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": timing[key]["kernel"][0],
+                "plain_ms": timing[key]["plain"][0], "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None}
+
+    k4 = "copula_var_tpu/ops/pallas_quadrature3.py:92"
     kernels = [
-        {"name": "masked_sweep", "route": "cuda",
-         "source": "copula_var_tpu_torch/csrc/quadrature.cu",
-         "replaces": "copula_var_tpu/ops/pallas_quadrature.py:101",
-         "launches": launches["masked_sweep"], "max_abs_err": err_sweep,
-         "ms": timing["sweep_L1"]["kernel"][0],
-         "plain_ms": timing["sweep_L1"]["plain"][0]},
-        {"name": "bisect_levels", "route": "cuda",
-         "source": "copula_var_tpu_torch/csrc/quadrature.cu",
-         "replaces": "copula_var_tpu/ops/pallas_solver.py:93",
-         "launches": launches["bisect_levels"], "max_abs_err": err_root,
-         "ms": timing["bisect_L1"]["kernel"][0],
-         "plain_ms": timing["bisect_L1"]["plain"][0]},
-        {"name": "masked_contract3", "route": "cuda",
-         "source": "copula_var_tpu_torch/csrc/contract3.cu",
-         "replaces": "copula_var_tpu/ops/pallas_quadrature3.py:92",
-         "launches": launches3["masked_contract3"], "max_abs_err": err3,
-         "ms": timing["contract3_L1"]["kernel"][0],
-         "plain_ms": timing["contract3_L1"]["plain"][0]},
+        entry("masked_sweep", "quadrature.cu",
+              "copula_var_tpu/ops/pallas_quadrature.py:101",
+              launches["masked_sweep"], err_sweep, "sweep_L1"),
+        entry("bisect_levels", "quadrature.cu",
+              "copula_var_tpu/ops/pallas_solver.py:93",
+              launches["bisect_levels"], err_root, "bisect_L1"),
+        entry("contract3_weights", "contract3.cu", k4,
+              launches3["contract3_weights"], err_u, "contract3_weights"),
+        entry("masked_contract3", "contract3.cu", k4,
+              launches3["masked_contract3"], err3, "contract3_L1"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

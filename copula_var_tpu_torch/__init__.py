@@ -8,7 +8,8 @@ operands (dim 2: day tensors; dim 3: transform columns), and solve the
 three-stage VaR (stage-1 sweep, stage-2 bracket, bisection) for one
 level, many levels, many portfolios or their product grid.
 
-  device.py      device resolution (a CUDA request without a GPU raises)
+  device.py      device resolution: the card by default; a CUDA request
+                 without a GPU raises
   data/          returns ingestion without pandas
   ops/           special functions, cached and transform-cached
                  quadrature, bracketing, and the hand-written CUDA kernels
@@ -17,8 +18,9 @@ level, many levels, many portfolios or their product grid.
   backtest.py    solve-ready VaRBacktest
   utils/         artifact loader
 
-The caller picks the device; tensors on the CPU run the plain PyTorch
-versions, tensors on a CUDA device run the kernels.
+The entry points run on the card unless the caller asks for "cpu";
+tensors on the CPU run the plain PyTorch versions, tensors on a CUDA
+device run the kernels.
 """
 
 from copula_var_tpu_torch.device import resolve_device

@@ -5,7 +5,8 @@ A `VaRBacktest` here is built from fitted state (`utils.artifacts.
 load_artifacts`), not by fitting: it holds the integration inputs on the
 caller's device, builds the bounds-invariant sweep operands once (two
 assets: the (T, n, n) day tensors; three assets: the per-day transform
-columns and `Contract3Operands`), and answers VaR queries with the
+columns and `Contract3Operands`, with the table U on a CUDA device), and
+answers VaR queries with the
 three-stage solve (`ops/cuda_solver.py`):
 
   calc_var             one confidence level           -> (T,)
@@ -152,14 +153,15 @@ class VaRBacktest:
 
     data: ReturnsData; adapter: MsmAdapter or GarchAdapter; copula: kind;
     copula_fit / model_fits: fitted records; integration_inputs: the
-    adapter's inputs (tensors are moved to `device`); marginals /
-    densities: the in-sample IFM inputs, kept for the record.
+    adapter's inputs (tensors are moved to `device`, the card unless the
+    caller asks for "cpu"); marginals / densities: the in-sample IFM
+    inputs, kept for the record.
     """
 
     def __init__(self, data: ReturnsData, adapter, copula: str, copula_fit,
                  model_fits, integration_inputs, marginals=None,
                  densities=None, num_points=100, box=(-5.0, 5.0),
-                 device="cpu", reference_quirks=False, refine_root=False):
+                 device="cuda", reference_quirks=False, refine_root=False):
         if data.dim not in (2, 3):
             raise ValueError(
                 f"the port serves dim 2 and 3 (got dim={data.dim}); dim >= 4 "
@@ -202,7 +204,8 @@ class VaRBacktest:
     def sweep_operands(self):
         """The kernels' bounds-invariant operands, built once: day tensors
         and their hoisted contraction at dim 2, transform columns and
-        `Contract3Operands` at dim 3."""
+        `Contract3Operands` (with the table U on a CUDA device) at
+        dim 3."""
         if self._ops is None:
             t0 = time.perf_counter()
             inputs, spec = self.integration_inputs, self.copula_spec

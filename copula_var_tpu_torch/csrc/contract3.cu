@@ -1,40 +1,61 @@
-// Hand-written Hopper (sm_90a) kernel of the three-asset (dim-3) VaR
-// serving path, float64.
+// Hand-written Hopper (sm_90a) kernels of the three-asset (dim-3) VaR
+// serving path, float64. Together they replace
+// copula_var_tpu/ops/pallas_quadrature3.py::_kernel3 (K4), the dim-3
+// masked quadrature: (L, T) slab integrals for L bound rows.
 //
-//   masked_contract3  replaces copula_var_tpu/ops/pallas_quadrature3.py
-//                     ::_kernel3 (K4): the dim-3 masked quadrature, (L, T)
-//                     slab integrals for L bound rows. Every sweep of the
-//                     dim-3 solve (stage 1, stage 2, each bisection
-//                     halving) is one launch.
+//   contract3_weights  builds, once per backtest, the bounds-invariant
+//                      table U (T, n, n, n) in device memory (rows padded
+//                      to an odd pitch, see below);
+//   masked_contract3   every sweep of the dim-3 solve (stage 1, stage 2,
+//                      each bisection halving): streams U through shared
+//                      memory (contract3_sweep_kernel), then sums the
+//                      per-slab partials in a fixed order
+//                      (contract3_sum_kernel).
 //
-// What it computes, per row l and day t:
+// What they compute, per row l and day t:
 //
-//   out[l, t] = sum_{i0} sum_{b,c} G[t, i0, b, c]
-//               * sum_{i1,i2} W1[b, i1] W2[c, i2] V_t[i0, i1, i2] M_lt[...]
+//   out[l, t] = sum_{i0,i1,i2} U[t, i0, i1, i2] M_lt[i0, i1, i2],
+//   U[t, i0, i1, i2] = V_t[i0, i1, i2] * sum_{b,c} W1[b, i1] G[t, i0, b, c]
+//                                                  W2[c, i2]
 //
 // with V the copula density rebuilt from per-asset transform columns
 // (Student: exp(log_mvt - (lu0 + lu1 + lu2)), NaN where any column is not
 // finite; Gaussian: exp(-1/2 (logdet + quad - sum z^2))), times the
 // marginal pdf product and nan_to_num for the GARCH family, and M the
-// half-space cut resolved on the innermost axis x2.
+// half-space cut resolved on the innermost axis x2. U depends neither on
+// the bounds nor on the portfolio weights.
 //
-// What bounds it on the H100: the (T, n^3) density is never stored (4 GB
-// at T = 500, n = 100), so every launch rebuilds n^3 cells per day, each
-// with one log1p and one exp in float64 for the Student copula: 5e8
-// transcendental pairs per sweep at the flagship width. The kernel is
-// bound by float64 arithmetic, not by memory: its inputs are the
-// (T, 3, n) columns and G, ~2.5 MB per launch.
-//
-// Design (simple first): one block per (day t, outer index i0) slab.
-//   1. A[b, i2] = sum_c G[t, i0, b, c] W2[c, i2]          (q x n, shared)
-//   2. U[i1, i2] = V[i0, i1, i2] * sum_b W1[b, i1] A[b, i2]  (n x n, shared)
-//      i.e. the state contraction folded into one bounds-invariant weight
-//      per cell, built once per launch;
-//   3. for each row: masked sum of U (the dim-2 sweep kernel's pattern),
-//      written to partial[l, t, i0];
-//   4. a second kernel sums partial over i0 in a fixed order.
+// What bounds them on the H100, and the design:
+//   * contract3_weights writes T*n^3 f64 (4.0 GB at T = 500, n = 100):
+//     ~1.2 ms of HBM writes, against ~5e8 cells of f64 arithmetic with
+//     one log1p and one exp each. One block per (t, i0) slab, the cell
+//     arithmetic of the former fused kernel (same __dmul_rn / __dadd_rn
+//     order), written to global memory instead of shared memory. Rows
+//     (i1) have an odd pitch p = n | 1 (one zero pad cell when n is even)
+//     and each (t, i0) slab a stride of n*p rounded up to even, so every
+//     slab starts on 16 bytes and is a legal bulk-copy source, and the
+//     sweep's one-thread-per-row scan hits 16 distinct bank pairs.
+//   * contract3_sweep_kernel reads U once per sweep: 4.0 GB, 1.2 ms at
+//     3.35 TB/s, so it is bound by HBM. Persistent blocks, one per SM,
+//     walk the T*n slabs; the next slab arrives by a 1-D TMA bulk copy
+//     (cp.async.bulk + mbarrier) while the current one is summed (two
+//     buffers where they fit in 227 KB, n <= 119; one above). Each (i0,
+//     i1) row of the slab is turned in place into its inclusive prefix sum
+//     over i2 by one thread, in index order and in one pass (a warp-shuffle
+//     scan spent most of the sweep's time on f64 shuffles), so its masked
+//     sum is the interval rule of interval.cuh: two binary searches on x
+//     and one subtraction; a flagged row's cells are read back from the
+//     table. The row lookups of a slab are tasks (l, k): bound row l and
+//     the k-th span of kSpan = 64 consecutive i1, two per lane. Warps take
+//     tasks round-robin, with no block barrier per row; each task writes
+//     its warp's sum to partial[l, t, i0, k]. The span is fixed: a
+//     partial's bits depend on (l, t, i0, k) alone, not on L, so a row
+//     gets the same result alone or in a batch (at L = 1 two warps share a
+//     slab's lookups, at L = 32 each of 16 warps takes four tasks). The
+//     barriers are two per slab (prefix done, slab done).
+//   * the sum kernel adds the partials of each (l, t) in index order.
 // No floating-point atomics anywhere: repeated launches give identical
-// bits. No tensor cores, no TMA: right first, fast later.
+// bits. No tensor cores: the work is a masked sum, not a product.
 //
 // Semantics kept from the f64 `xla` engine (copula_var_tpu/backtest.py,
 // `msm_tcached` / `garch_tcached` sweeps):
@@ -54,20 +75,38 @@
 // cudaErrorInvalidValue for shapes the kernels do not take).
 
 #include <cfloat>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "interval.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWeightsThreads = 256;
+constexpr int kSweepThreads = 512;
+constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kSpan = 64;  // consecutive i1 of one lookup task, 2 per lane
 constexpr int kSumThreads = 128;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in per block
+constexpr size_t kBarrierBytes = 16;        // two mbarriers
 
-__host__ __device__ size_t slab_shared_bytes(int n, int q) {
-  return (static_cast<size_t>(n) * n + 3 * static_cast<size_t>(n) +
-          static_cast<size_t>(q) * n + kWarps) *
-         sizeof(double);
+__host__ __device__ size_t weights_shared_bytes(int n, int q) {
+  return static_cast<size_t>(q) * n * sizeof(double);
+}
+
+// the pitch of a row of U: odd, so threads scanning consecutive rows hit
+// distinct bank pairs
+__host__ __device__ int row_pitch(int n) { return n | 1; }
+
+// one or two slab buffers (stride doubles each), x (n,), a flag per row
+__host__ __device__ size_t sweep_shared_bytes(int n, int stride, int bufs) {
+  return kBarrierBytes +
+         (static_cast<size_t>(bufs) * stride + n) * sizeof(double) + n;
+}
+
+__host__ __device__ int sweep_buffers(int n, int stride) {
+  return sweep_shared_bytes(n, stride, 2) <= kMaxSharedBytes ? 2 : 1;
 }
 
 __device__ __forceinline__ double nan_to_num(double v) {
@@ -77,35 +116,24 @@ __device__ __forceinline__ double nan_to_num(double v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-contract3_slab_kernel(const double* __restrict__ x,           // (n,)
-                      const double* __restrict__ z,           // (T, 3, n)
-                      const unsigned char* __restrict__ fin,  // (T, 3, n)
-                      const double* __restrict__ lu,          // (T, 3, n)
-                      const double* __restrict__ p,  // (T, 3, n); null: MSM
-                      const double* __restrict__ w1,          // (q, n)
-                      const double* __restrict__ w2,          // (q, n)
-                      const double* __restrict__ g,           // (T, n, q, q)
-                      const double* __restrict__ sigma_inv,   // (3, 3)
-                      int student, double nu, double log_norm, double logdet,
-                      const double* __restrict__ bounds,      // (L, T, 2)
-                      const double* __restrict__ weights,     // (L, 3)
-                      double box_min,
-                      double* __restrict__ partial,           // (L, T, n)
-                      int T, int n, int q, int L) {
-  extern __shared__ double smem[];
+__global__ void __launch_bounds__(kWeightsThreads)
+contract3_weights_kernel(const double* __restrict__ z,           // (T, 3, n)
+                         const unsigned char* __restrict__ fin,  // (T, 3, n)
+                         const double* __restrict__ lu,          // (T, 3, n)
+                         const double* __restrict__ p,  // (T, 3, n); null: MSM
+                         const double* __restrict__ w1,          // (q, n)
+                         const double* __restrict__ w2,          // (q, n)
+                         const double* __restrict__ g,       // (T, n, q, q)
+                         const double* __restrict__ sigma_inv,   // (3, 3)
+                         int student, double nu, double log_norm,
+                         double logdet,
+                         double* __restrict__ u,  // (T, n, stride)
+                         int T, int n, int q, int pitch, int stride) {
+  extern __shared__ double a[];  // (q, n)
   const int t = blockIdx.x / n;
   const int i0 = blockIdx.x - t * n;
-  double* u = smem;                               // (n, n)
-  double* xs = u + static_cast<size_t>(n) * n;    // (n,)
-  double* dlo = xs + n;                           // (n,)
-  double* dup = dlo + n;                          // (n,)
-  double* a = dup + n;                            // (q, n)
-  double* red = a + static_cast<size_t>(q) * n;   // (kWarps,)
-
   const size_t day = static_cast<size_t>(t) * 3 * n;
   const double* gt = g + (static_cast<size_t>(t) * n + i0) * q * q;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   for (int idx = threadIdx.x; idx < q * n; idx += blockDim.x) {
     const int b = idx / n;
     const int j = idx - b * n;
@@ -115,7 +143,6 @@ contract3_slab_kernel(const double* __restrict__ x,           // (n,)
   }
   __syncthreads();
 
-  // the slab's density, folded with its state weights, built once
   const double s00 = sigma_inv[0], s01x2 = 2.0 * sigma_inv[1],
                s02x2 = 2.0 * sigma_inv[2], s11 = sigma_inv[4],
                s12x2 = 2.0 * sigma_inv[5], s22 = sigma_inv[8];
@@ -132,10 +159,14 @@ contract3_slab_kernel(const double* __restrict__ x,           // (n,)
   const double p0 = p != nullptr ? p[day + i0] : 0.0;
   const double zz0 = __dmul_rn(z0, z0);
   const double q00 = __dmul_rn(s00, zz0);
-  const int nn = n * n;
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-    const int i1 = idx / n;
-    const int i2 = idx - i1 * n;
+  double* slab = u + static_cast<size_t>(blockIdx.x) * stride;
+  for (int idx = threadIdx.x; idx < stride; idx += blockDim.x) {
+    const int i1 = idx / pitch;
+    const int i2 = idx - i1 * pitch;
+    if (i1 >= n || i2 >= n) {  // pad cells: defined, never summed
+      slab[idx] = 0.0;
+      continue;
+    }
     const double za = z1[i1];
     const double zb = z2[i2];
     // z^T Sigma^-1 z in the plain twin's order
@@ -163,101 +194,235 @@ contract3_slab_kernel(const double* __restrict__ x,           // (n,)
     }
     double h = 0.0;
     for (int b = 0; b < q; ++b) h += w1[b * n + i1] * a[b * n + i2];
-    u[idx] = v * h;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const double x0 = xs[i0];
-  for (int l = 0; l < L; ++l) {
-    const size_t o = static_cast<size_t>(l) * T + t;
-    const double b_lo = bounds[2 * o];
-    const double b_up = bounds[2 * o + 1];
-    const double w_in = weights[3 * l];
-    const double p0w = __dmul_rn(x0, weights[3 * l + 1]);
-    const double w_o2 = weights[3 * l + 2];
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const double prev = __dadd_rn(p0w, __dmul_rn(xs[i], w_o2));
-      dup[i] = __ddiv_rn(__dsub_rn(b_up, prev), w_in);
-      const double lo = __ddiv_rn(__dsub_rn(b_lo, prev), w_in);
-      // NaN-propagating max, as torch.maximum
-      dlo[i] = (lo > box_min || lo != lo) ? lo : box_min;
-    }
-    __syncthreads();
-    double acc = 0.0;
-    for (int i = warp; i < n; i += kWarps) {
-      const double lo = dlo[i];
-      const double up = dup[i];
-      const double* row = u + static_cast<size_t>(i) * n;
-      for (int j = lane; j < n; j += 32) {
-        const double xj = xs[j];
-        if (xj > lo && xj <= up) acc += row[j];
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) red[warp] = acc;
-    // orders this row's reads of dlo/dup before the next row's writes;
-    // red is rewritten only after the next row's barrier
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      double total = 0.0;
-      for (int w = 0; w < kWarps; ++w) total += red[w];
-      partial[o * n + i0] = total;
-    }
+    slab[idx] = v * h;
   }
 }
 
-// out[r] = sum_{i0} partial[r, i0], in index order
+// -- TMA 1-D bulk copies, completed on an mbarrier ---------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One thread: expect `bytes` on `bar`, then copy them global -> shared.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+contract3_sweep_kernel(const double* __restrict__ u,        // (T, n, stride)
+                       const double* __restrict__ x,        // (n,)
+                       const double* __restrict__ bounds,   // (L, T, 2)
+                       const double* __restrict__ weights,  // (L, 3)
+                       double box_min,
+                       double* __restrict__ partial,  // (L, T, n, spans)
+                       int T, int n, int L, int pitch, int stride,
+                       int bufs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // (2,)
+  double* buf = reinterpret_cast<double*>(smem + kBarrierBytes);
+  double* xs = buf + static_cast<size_t>(bufs) * stride;         // (n,)
+  unsigned char* flag = reinterpret_cast<unsigned char*>(xs + n);  // (n,)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int slabs = T * n;
+  const uint32_t bytes = static_cast<uint32_t>(stride) * sizeof(double);
+
+  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < bufs; ++k) {
+      const int s = blockIdx.x + k * gridDim.x;
+      if (s < slabs)
+        bulk_load(buf + static_cast<size_t>(k) * stride,
+                  u + static_cast<size_t>(s) * stride, bytes, &bar[k]);
+    }
+  }
+  __syncthreads();
+
+  for (int k = 0, s = blockIdx.x; s < slabs; ++k, s += gridDim.x) {
+    const int b = k % bufs;
+    double* slab = buf + static_cast<size_t>(b) * stride;
+    mbar_wait(&bar[b], (k / bufs) & 1);
+    const int t = s / n;
+    const int i0 = s - t * n;
+    const double* cells = u + static_cast<size_t>(s) * stride;  // in HBM
+    for (int i1 = threadIdx.x; i1 < n; i1 += blockDim.x)
+      flag[i1] = interval::scan_row_once(
+          slab + static_cast<size_t>(i1) * pitch, n);
+    __syncthreads();
+    const double x0 = xs[i0];
+    const int spans = (n + kSpan - 1) / kSpan;  // tasks per bound row
+    for (int task = warp; task < L * spans; task += kSweepWarps) {
+      const int l = task / spans;
+      const int k = task - l * spans;
+      const size_t o = static_cast<size_t>(l) * T + t;
+      const double b_lo = bounds[2 * o];
+      const double b_up = bounds[2 * o + 1];
+      const double w_in = weights[3 * l];
+      const double p0w = __dmul_rn(x0, weights[3 * l + 1]);
+      const double w_o2 = weights[3 * l + 2];
+      double acc = 0.0;
+#pragma unroll
+      for (int c = 0; c < kSpan / 32; ++c) {
+        const int i1 = k * kSpan + c * 32 + lane;
+        if (i1 < n) {
+          const double prev = __dadd_rn(p0w, __dmul_rn(xs[i1], w_o2));
+          const double dup = __ddiv_rn(__dsub_rn(b_up, prev), w_in);
+          const double d = __ddiv_rn(__dsub_rn(b_lo, prev), w_in);
+          // NaN-propagating max, as torch.maximum
+          const double dlo = (d > box_min || d != d) ? d : box_min;
+          const size_t r = static_cast<size_t>(i1) * pitch;
+          acc += interval::row_sum(slab + r, cells + r, flag[i1] != 0, xs, n,
+                                   dlo, dup);
+        }
+      }
+      acc = interval::warp_sum(acc);
+      if (lane == 0) partial[(o * n + i0) * spans + k] = acc;
+    }
+    // the prefix writes (generic proxy) before the next bulk copy (async
+    // proxy) into this buffer; every warp done with the slab and its flags
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int next = s + bufs * gridDim.x;
+    if (threadIdx.x == 0 && next < slabs)
+      bulk_load(slab, u + static_cast<size_t>(next) * stride, bytes, &bar[b]);
+  }
+}
+
+// out[r] = sum_k partial[r, k] over the row's m partials, in index order
 __global__ void contract3_sum_kernel(const double* __restrict__ partial,
-                                     double* __restrict__ out, int n,
+                                     double* __restrict__ out, int m,
                                      int rows) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
-  const double* pr = partial + static_cast<size_t>(r) * n;
+  const double* pr = partial + static_cast<size_t>(r) * m;
   double s = 0.0;
-  for (int i = 0; i < n; ++i) s += pr[i];
+  for (int i = 0; i < m; ++i) s += pr[i];
   out[r] = s;
+}
+
+bool valid_layout(int n, int pitch, int stride) {
+  const long long np = static_cast<long long>(n) * pitch;
+  return pitch == row_pitch(n) && stride == np + np % 2;
 }
 
 }  // namespace
 
+// The largest n the dim-3 sweep takes: one padded n*n slab (two where
+// they fit), the grid and the row flags in one block's shared memory,
+// rows no longer than the prefix scan's, and the build kernel's (q, n).
 extern "C" int cvt_contract3_max_grid_points(int q) {
   int n = 1;
-  while (slab_shared_bytes(n + 1, q) <= kMaxSharedBytes) ++n;
-  return n;
+  for (;;) {
+    const int m = n + 1;
+    const int stride = m * row_pitch(m) + (m * row_pitch(m)) % 2;
+    if (m > interval::kMaxRow ||
+        sweep_shared_bytes(m, stride, 1) > kMaxSharedBytes ||
+        weights_shared_bytes(m, q) > kMaxSharedBytes)
+      return n;
+    n = m;
+  }
 }
 
-extern "C" int cvt_masked_contract3(
-    const double* x, const double* z, const unsigned char* fin,
-    const double* lu, const double* p, const double* w1, const double* w2,
-    const double* g, const double* sigma_inv, int student, double nu,
-    double log_norm, double logdet, const double* bounds,
-    const double* weights, double box_min, double* partial, double* out,
-    int T, int n, int q, int L, void* stream) {
-  if (n <= 0 || q <= 0 || T < 0 || L < 0) {
+extern "C" int cvt_contract3_weights(
+    const double* z, const unsigned char* fin, const double* lu,
+    const double* p, const double* w1, const double* w2, const double* g,
+    const double* sigma_inv, int student, double nu, double log_norm,
+    double logdet, double* u, int T, int n, int q, int pitch, int stride,
+    void* stream) {
+  if (n <= 0 || q <= 0 || T < 0 || !valid_layout(n, pitch, stride) ||
+      static_cast<long long>(T) * n > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = slab_shared_bytes(n, q);
+  const size_t bytes = weights_shared_bytes(n, q);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(T) * n > 0x7fffffffLL ||
-      static_cast<long long>(L) * T > 0x7fffffffLL) {
+  cudaError_t e = cudaFuncSetAttribute(
+      contract3_weights_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (T == 0) return 0;
+  contract3_weights_kernel<<<T * n, kWeightsThreads, bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet, u,
+      T, n, q, pitch, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// partial: (L, T, n, ceil(n / kSpan)) scratch, summed in order into out
+extern "C" int cvt_masked_contract3(const double* u, const double* x,
+                                    const double* bounds,
+                                    const double* weights, double box_min,
+                                    double* partial, double* out, int T,
+                                    int n, int L, int pitch, int stride,
+                                    void* stream) {
+  if (n <= 0 || n > interval::kMaxRow || T < 0 || L < 0 ||
+      !valid_layout(n, pitch, stride) ||
+      static_cast<long long>(T) * n > 0x7fffffffLL ||
+      static_cast<long long>(L) * T > 0x7fffffffLL ||
+      static_cast<long long>(L) * ((n + kSpan - 1) / kSpan) > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int bufs = sweep_buffers(n, stride);
+  const size_t bytes = sweep_shared_bytes(n, stride, bufs);
+  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      contract3_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      contract3_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0 || L == 0) return 0;
+  int device = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, contract3_sweep_kernel, kSweepThreads, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long slabs = static_cast<long long>(T) * n;
+  const int grid = static_cast<int>(
+      slabs < static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1)
+          ? slabs
+          : static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  contract3_slab_kernel<<<T * n, kThreads, bytes, s>>>(
-      x, z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet,
-      bounds, weights, box_min, partial, T, n, q, L);
+  contract3_sweep_kernel<<<grid, kSweepThreads, bytes, s>>>(
+      u, x, bounds, weights, box_min, partial, T, n, L, pitch, stride, bufs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = L * T;
+  const int m = n * ((n + kSpan - 1) / kSpan);  // partials per row
   contract3_sum_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads,
-                         0, s>>>(partial, out, n, rows);
+                         0, s>>>(partial, out, m, rows);
   return static_cast<int>(cudaGetLastError());
 }

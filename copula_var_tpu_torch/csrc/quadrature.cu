@@ -10,27 +10,35 @@
 //                  ::_solve_kernel (K1): the fixed-count bisection for L
 //                  rows (confidence levels or portfolios) of one day.
 //
-// Both rest on one device function pair: `load_day` builds the resident
-// per-day operand U[i, j] = V[i, j] * sum_k wfc[i, k] * W1[k, j] in
-// dynamic shared memory (the W1 product the TPU kernel computes in its
-// body), and `slab` evaluates one masked sum of U for a bound pair.
+// Both build the resident per-day operand U[i, j] = V[i, j] * sum_k
+// wfc[i, k] * W1[k, j] in dynamic shared memory with `load_day` (the W1
+// product the TPU kernel computes in its body), one block per day.
 //
-// What bounds them on the H100: one day is n*n*8 bytes (80 KB at
-// n = 100) read from HBM once per launch; a sweep then does n*n masked
-// adds and a bisection n_iters*L*n*n, all out of shared memory. At the
-// flagship T = 500 a launch streams 40 MB, ~12 us at 3.35 TB/s, so the
+// masked_sweep: each bound row is one masked pass over U (`slab`), n*n
+// compares and adds out of shared memory between two block barriers. One
+// day is n*n*8 bytes (80 KB at n = 100) read from HBM once per launch; at
+// the flagship T = 500 a launch streams 40 MB, ~12 us at 3.35 TB/s, so the
 // sweep is latency- and occupancy-bound (500 blocks of 128 threads, two
-// 82 KB blocks per SM), and the bisection is bound by the shared-memory
-// passes (~22 iterations x L levels per day). The design answers with
-// one block per day, U resident across every iteration and level, and a
-// fixed-order warp-shuffle + shared-memory reduction (deterministic). No
-// wgmma, TMA or prefix tables yet: right first, fast later.
+// 82 KB blocks per SM). Its redesign is later work.
+//
+// bisect_levels: each row of U (odd pitch n | 1 in shared memory, so one
+// thread per row scans without bank conflicts) is turned in place into its
+// inclusive prefix sum over j (interval.cuh), so a row's masked sum is two
+// binary searches on x and one subtraction. Warps then take bound rows l (l =
+// warp, warp + warps, ...) and run all n_iters halvings of their row on
+// their own: lanes stride over i, a fixed-order shuffle reduction gives
+// every lane the slab's same bits, and no block barrier sits inside the
+// halving loop. Per halving a row costs n row lookups (~2 log2 n shared
+// loads and two f64 divisions each) instead of an n*n pass; the kernel is
+// bound by those lookups' latency and the divisions, not by HBM (42 MB
+// per launch at the flagship).
 //
 // Semantics kept from the f64 `xla` engine (copula_var_tpu/backtest.py):
 //   * mask x_j > max((b_lo - x_i w_out) / w_in, box_min) and
 //     x_j <= (b_up - x_i w_out) / w_in; the two dynamic bounds are formed
 //     with __dmul_rn / __dsub_rn / __ddiv_rn so no FMA contraction moves a
-//     bound by an ulp: the mask equals the CPU's bit for bit;
+//     bound by an ulp: the mask equals the CPU's bit for bit (the interval
+//     rule reads the same mask off the ordered grid);
 //   * only masked-in cells contribute, so a NaN cell poisons exactly the
 //     slabs that include it (the fused Pallas path NaNs the whole day);
 //   * incremental bookkeeping res = prev +/- slab with the exact test
@@ -47,15 +55,24 @@
 
 #include <cuda_runtime.h>
 
+#include "interval.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // masked_sweep
 constexpr int kWarps = kThreads / 32;
+constexpr int kBisectThreads = 512;  // bisect_levels: 16 warps take rows
+constexpr int kBisectWarps = kBisectThreads / 32;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in per block
 
 __host__ __device__ size_t day_shared_bytes(int n) {
   return (static_cast<size_t>(n) * n + 3 * static_cast<size_t>(n) + kWarps) *
          sizeof(double);
+}
+
+// bisect_levels: U (n, n | 1) prefix rows, x (n,), one flag byte per row
+__host__ __device__ size_t bisect_shared_bytes(int n) {
+  return (static_cast<size_t>(n) * (n | 1) + n) * sizeof(double) + n;
 }
 
 struct DayShared {
@@ -76,21 +93,22 @@ __device__ DayShared carve(double* smem, int n) {
   return s;
 }
 
-// U[i, j] = V[i, j] * sum_k wfc[i, k] * W1[k, j] for this block's day.
+// U[i, j] = V[i, j] * sum_k wfc[i, k] * W1[k, j] (rows `pitch` apart)
+// and the grid, for this block's day, into shared memory.
 __device__ void load_day(const double* __restrict__ v,
                          const double* __restrict__ wfc,
                          const double* __restrict__ w1,
-                         const double* __restrict__ x, const DayShared& s,
-                         int n, int q) {
+                         const double* __restrict__ x, double* u, double* xs,
+                         int n, int q, int pitch) {
   const int nn = n * n;
   for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
     const int i = idx / n;
     const int j = idx - i * n;
     double g = 0.0;
     for (int k = 0; k < q; ++k) g += wfc[i * q + k] * w1[k * n + j];
-    s.u[idx] = v[idx] * g;
+    u[i * pitch + j] = v[idx] * g;
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) s.x[j] = x[j];
+  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   __syncthreads();
 }
 
@@ -141,7 +159,7 @@ masked_sweep_kernel(const double* __restrict__ v,
   const int t = blockIdx.x;
   const DayShared s = carve(smem, n);
   load_day(v + static_cast<size_t>(t) * n * n,
-           wfc + static_cast<size_t>(t) * n * q, w1, x, s, n, q);
+           wfc + static_cast<size_t>(t) * n * q, w1, x, s.u, s.x, n, q, n);
   for (int l = 0; l < L; ++l) {
     const size_t o = static_cast<size_t>(l) * T + t;
     const double r = slab(s, n, bounds[2 * o], bounds[2 * o + 1],
@@ -150,7 +168,7 @@ masked_sweep_kernel(const double* __restrict__ v,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBisectThreads)
 bisect_levels_kernel(const double* __restrict__ v,
                      const double* __restrict__ wfc,
                      const double* __restrict__ w1,
@@ -167,13 +185,21 @@ bisect_levels_kernel(const double* __restrict__ v,
                      int T, int n, int q, int L) {
   extern __shared__ double smem[];
   const int t = blockIdx.x;
-  const DayShared s = carve(smem, n);
+  const int pitch = n | 1;
+  double* u = smem;                                 // (n, pitch)
+  double* xs = u + static_cast<size_t>(n) * pitch;  // (n,)
+  unsigned char* flag = reinterpret_cast<unsigned char*>(xs + n);  // (n,)
   load_day(v + static_cast<size_t>(t) * n * n,
-           wfc + static_cast<size_t>(t) * n * q, w1, x, s, n, q);
-  for (int l = 0; l < L; ++l) {
+           wfc + static_cast<size_t>(t) * n * q, w1, x, u, xs, n, q, pitch);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    flag[i] = interval::scan_row(u + static_cast<size_t>(i) * pitch, n);
+  __syncthreads();
+  for (int l = warp; l < L; l += kBisectWarps) {
     const size_t o = static_cast<size_t>(l) * T + t;
-    // every thread carries the same scalar state; the slab total it
-    // receives is identical, so the copies never diverge
+    // every lane carries the same scalar state; the slab total it
+    // receives has the same bits, so the copies never diverge
     double lo = lower[o], up = upper[o], pr = prev_res[o], pu = prev_up[o];
     bool us = ustack[o] != 0;
     const double target = obj[l];
@@ -182,7 +208,22 @@ bisect_levels_kernel(const double* __restrict__ v,
       const double mid = (lo + up) / 2.0;
       const double b_lo = us ? lo : mid;
       const double b_up = us ? mid : up;
-      const double sl = slab(s, n, b_lo, b_up, w_in, w_out, box_min);
+      double acc = 0.0;
+      // i = lane, lane + 32, ...: unrolled, so the lookups overlap
+#pragma unroll
+      for (int c = 0; c < interval::kMaxChunks; ++c) {
+        const int i = c * 32 + lane;
+        if (c * 32 < n && i < n) {
+          const double p = __dmul_rn(xs[i], w_out);
+          const double dup = __ddiv_rn(__dsub_rn(b_up, p), w_in);
+          const double d = __ddiv_rn(__dsub_rn(b_lo, p), w_in);
+          // NaN-propagating max, as jnp.maximum / torch.maximum
+          const double dlo = (d > box_min || d != d) ? d : box_min;
+          const double* row = u + static_cast<size_t>(i) * pitch;
+          acc += interval::row_sum(row, row, flag[i] != 0, xs, n, dlo, dup);
+        }
+      }
+      const double sl = interval::warp_sum(acc);
       const double res = (b_lo == pu) ? pr + sl : pr - sl;
       const bool below = res < target;
       if (below) lo = mid; else up = mid;
@@ -190,19 +231,17 @@ bisect_levels_kernel(const double* __restrict__ v,
       pu = mid;
       us = below;
     }
-    if (threadIdx.x == 0) roots[o] = (lo + up) / 2.0;
+    if (lane == 0) roots[o] = (lo + up) / 2.0;
   }
 }
 
 template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int T, int n, int q, int L,
-                    size_t* bytes) {
+cudaError_t prepare(Kernel kernel, size_t bytes, int T, int n, int q, int L) {
   if (n <= 0 || q <= 0 || T < 0 || L < 0) return cudaErrorInvalidValue;
-  *bytes = day_shared_bytes(n);
-  if (*bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
@@ -211,9 +250,14 @@ extern "C" const char* cvt_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
+// The largest grid both day kernels take (a day's n*n f64 resident in
+// one block's shared memory), and no more than the prefix scan's rows.
 extern "C" int cvt_max_grid_points() {
   int n = 1;
-  while (day_shared_bytes(n + 1) <= kMaxSharedBytes) ++n;
+  while (n + 1 <= interval::kMaxRow &&
+         day_shared_bytes(n + 1) <= kMaxSharedBytes &&
+         bisect_shared_bytes(n + 1) <= kMaxSharedBytes)
+    ++n;
   return n;
 }
 
@@ -222,8 +266,8 @@ extern "C" int cvt_masked_sweep(const double* v, const double* wfc,
                                 const double* bounds, const double* weights,
                                 double box_min, double* out, int T, int n,
                                 int q, int L, void* stream) {
-  size_t bytes = 0;
-  cudaError_t e = prepare(masked_sweep_kernel, T, n, q, L, &bytes);
+  const size_t bytes = day_shared_bytes(n);
+  cudaError_t e = prepare(masked_sweep_kernel, bytes, T, n, q, L);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0 || L == 0) return 0;
   masked_sweep_kernel<<<T, kThreads, bytes,
@@ -241,12 +285,14 @@ extern "C" int cvt_bisect_levels(const double* v, const double* wfc,
                                  const double* obj, const double* weights,
                                  double box_min, int n_iters, double* roots,
                                  int T, int n, int q, int L, void* stream) {
-  size_t bytes = 0;
-  cudaError_t e = prepare(bisect_levels_kernel, T, n, q, L, &bytes);
+  if (n > interval::kMaxRow || n_iters < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = bisect_shared_bytes(n);
+  cudaError_t e = prepare(bisect_levels_kernel, bytes, T, n, q, L);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0 || L == 0) return 0;
-  bisect_levels_kernel<<<T, kThreads, bytes,
+  bisect_levels_kernel<<<T, kBisectThreads, bytes,
                          static_cast<cudaStream_t>(stream)>>>(
       v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj, weights,
       box_min, n_iters, roots, T, n, q, L);

@@ -1,14 +1,15 @@
-"""Device resolution: the caller names the device, nothing is guessed."""
+"""Device resolution: the card by default; the caller asks for the CPU."""
 
 from __future__ import annotations
 
 import torch
 
 
-def resolve_device(device="cpu") -> torch.device:
-    """`torch.device` for a user's request. Only "cpu" and "cuda[:k]" are
-    served; asking for CUDA on a machine without a GPU is an error, never
-    a quiet fall back to the CPU."""
+def resolve_device(device="cuda") -> torch.device:
+    """`torch.device` for a user's request, the card unless the caller
+    asks for "cpu". Only "cpu" and "cuda[:k]" are served; asking for CUDA
+    (the default) on a machine without a GPU is an error, never a quiet
+    fall back to the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -5,8 +5,9 @@ by its own `nvcc` process (all started together) into a shared library
 with a plain C interface, and loaded with `ctypes` (no PyTorch headers,
 so a build takes seconds). A library lands in
 `build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
-its source and the flags, so an edited source rebuilds and an unchanged
-one is reused. Nothing here runs at import time.
+its source, every header under `csrc/` and the flags, so an edited source
+or header rebuilds and an unchanged one is reused. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -42,10 +43,13 @@ SOURCES = {
     },
     "contract3.cu": {
         "cvt_contract3_max_grid_points": [_I],
-        # x, z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
-        # logdet, bounds, weights, box_min, partial, out, T, n, q, L, stream
-        "cvt_masked_contract3": [_P] * 9 + [_I] + [_D] * 3 + [_P] * 2
-        + [_D] + [_P] * 2 + [_I] * 4 + [_P],
+        # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
+        # logdet, U, T, n, q, pitch, stride, stream
+        "cvt_contract3_weights": [_P] * 8 + [_I] + [_D] * 3 + [_P]
+        + [_I] * 5 + [_P],
+        # U, x, bounds, weights, box_min, partial, out, T, n, L, pitch,
+        # stride, stream
+        "cvt_masked_contract3": [_P] * 4 + [_D] + [_P] * 2 + [_I] * 5 + [_P],
     },
 }
 
@@ -71,9 +75,11 @@ def _nvcc() -> str:
 
 
 def _digest(source: str) -> str:
+    """Hash of the flags, the source and every header it may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(source.encode())
-    h.update((CSRC / source).read_bytes())
+    for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

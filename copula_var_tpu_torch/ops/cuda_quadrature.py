@@ -10,6 +10,10 @@ i.e. the cached sweeps of `ops/quadrature.py`. There is no other route.
 
 The GARCH family is the q = 1 case of the same sum (W0 = W1 = dx rows,
 unit combination weight); it is not padded to q = 2.
+
+The bisection kernel reads each row's mask off the grid by binary search
+(csrc/interval.cuh), so operands on a CUDA device need a strictly
+ascending grid; `sweep_operands` checks it once.
 """
 
 from __future__ import annotations
@@ -48,9 +52,18 @@ class SweepOperands(NamedTuple):
         return self.V.shape[0]
 
 
+def require_ascending(x):
+    """Raise unless the grid x is strictly ascending (one host read)."""
+    if not bool((x[1:] > x[:-1]).all()):
+        raise ValueError("the kernels' interval rule needs a strictly "
+                         "ascending grid x")
+
+
 def sweep_operands(V, x, dx, densities=None, forecast_combos=None):
     """SweepOperands for the MSM family (densities and forecast_combos
     given) or the GARCH family (both None)."""
+    if V.device.type == "cuda":
+        require_ascending(x)
     T = V.shape[0]
     if densities is None:
         w0 = w1 = dx[None, :]

@@ -1,13 +1,25 @@
-"""The dim-3 sweep kernel's wrapper (counterpart of
+"""The dim-3 sweep kernels' wrappers (counterpart of
 `copula_var_tpu/ops/pallas_quadrature3.py`).
 
-`masked_contract3` evaluates L rows of (T,) slab integrals of a
-three-asset backtest from its bounds-invariant `Contract3Operands`.
-Tensors on a CUDA device launch the hand-written kernel
-`contract3_slab_kernel` (csrc/contract3.cu), which replaces the Pallas
-kernel `_kernel3` (K4); tensors on the CPU run the plain twin
-`masked_contract3_reference`, i.e. the transform-cached sweeps of
-`ops/quadrature.py`, row by row. There is no other route.
+`contract3_weights` builds, once per backtest, the bounds-invariant table
+U[t, i0, i1, i2] = V_t[i0, i1, i2] * sum_{b,c} W1[b, i1] G[t, i0, b, c]
+W2[c, i2] (the density folded with its state weights); `masked_contract3`
+evaluates L rows of (T,) slab integrals of a three-asset backtest as
+masked sums of U. Tensors on a CUDA device launch the hand-written kernels
+of csrc/contract3.cu (`contract3_weights_kernel`; `contract3_sweep_kernel`
+and `contract3_sum_kernel`), which together replace the Pallas kernel
+`_kernel3` (K4); tensors on the CPU run the plain twins
+`contract3_weights_reference` and `masked_contract3_reference`, i.e. the
+transform-cached sweeps of `ops/quadrature.py`, row by row. There is no
+other route.
+
+U holds T*n^3 float64 (4.0 GB at T = 500, n = 100, 4.04 GB with its
+pads) on the card; building it raises when the card's free memory cannot
+hold it (ROADMAP.md queue 1, item 10, keeps the per-sweep rebuild as the
+design for such grids). Its rows have an odd pitch (`row_pitch`) and its
+(t, i0) slabs an even stride (`slab_stride`), so every slab starts on 16
+bytes, as the sweep's bulk copies need, and one thread per row scans the
+slab without bank conflicts; `table_cells` views the cells.
 
 The operands are the float64 counterparts of `build_msm_dim3_cache` /
 `build_garch_dim3_cache`, without the TPU layout: no packed f32
@@ -24,10 +36,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from copula_var_tpu_torch.ops import _build
-from copula_var_tpu_torch.ops.cuda_quadrature import _check_operand
+from copula_var_tpu_torch.ops.cuda_quadrature import (
+    _check_operand,
+    require_ascending,
+)
 from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
     _chol_inv_logdet,
+    _chunks,
+    _pdf_product,
+    copula_density_cols,
     garch_integrals_tcached,
     msm_integrals_tcached,
     state_weight_matrices,
@@ -42,11 +60,13 @@ class Contract3Operands(NamedTuple):
     (T, 3, n)); p_cols (T, 3, n) for the GARCH family, else None; x, dx
     (n,); densities (3, q, n) and forecast_combos (T, q^3) for the MSM
     family, else None.
-    Kernel's inputs: z, lu (T, 3, n) float64 and fin (T, 3, n) bool (for
-    the Gaussian copula fin is all true and lu unused); w1, w2 (q, n) the
-    weight rows of grid dims 1 and 2; G (T, n, q, q); sigma_inv (3, 3);
-    the Student normalizer log_norm (incl. -logdet / 2), logdet and nu
-    as floats."""
+    Build kernel's inputs: z, lu (T, 3, n) float64 and fin (T, 3, n) bool
+    (for the Gaussian copula fin is all true and lu unused); w1, w2 (q, n)
+    the weight rows of grid dims 1 and 2; G (T, n, q, q); sigma_inv
+    (3, 3); the Student normalizer log_norm (incl. -logdet / 2), logdet
+    and nu as floats.
+    Sweep kernel's input: U (T, n, slab_stride(n)), the table built from
+    those on a CUDA device; None on the CPU."""
 
     spec: CopulaSpec
     cols: tuple
@@ -65,6 +85,7 @@ class Contract3Operands(NamedTuple):
     log_norm: float
     logdet: float
     nu: float
+    U: Optional[torch.Tensor] = None
 
     @property
     def days(self) -> int:
@@ -79,10 +100,60 @@ def _require_kernel_copula(kind: str) -> None:
         )
 
 
+def row_pitch(n: int) -> int:
+    """Float64 entries per (t, i0, i1) row of U: n rounded up to odd."""
+    return n | 1
+
+
+def slab_stride(n: int) -> int:
+    """Float64 entries per (t, i0) slab of U: n rows of `row_pitch(n)`,
+    rounded up to even, so each slab is a multiple of 16 bytes."""
+    m = n * row_pitch(n)
+    return m + m % 2
+
+
+def table_bytes(T: int, n: int) -> int:
+    """Bytes of the padded U table, (T, n, slab_stride(n)) float64."""
+    return T * n * slab_stride(n) * 8
+
+
+def require_table_fits(T: int, n: int, free_bytes: int) -> None:
+    """Raise unless the U table fits in `free_bytes` of device memory."""
+    need = table_bytes(T, n)
+    if need > free_bytes:
+        raise RuntimeError(
+            f"the dim-3 table U of T={T} days at num_points={n} needs "
+            f"{need} bytes ({need / 2**30:.2f} GiB) of device memory, but "
+            f"only {free_bytes} bytes are free; grids that do not fit need "
+            "the per-sweep rebuild design (ROADMAP.md queue 1, item 10)"
+        )
+
+
+def free_device_bytes(dev: torch.device) -> int:
+    """Bytes a new tensor on `dev` can take: the driver's free memory
+    plus the blocks PyTorch's caching allocator holds unused."""
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return torch.cuda.mem_get_info(dev)[0] + cached
+
+
+def table_cells(U: torch.Tensor, n: int) -> torch.Tensor:
+    """(T, n, n, n) view of the padded table (T, n, slab_stride(n))."""
+    p = row_pitch(n)
+    return U[..., : n * p].reshape(U.shape[0], n, n, p)[..., :n]
+
+
+def table_pads(U: torch.Tensor, n: int) -> torch.Tensor:
+    """The table's pad cells, flattened (all zero as built)."""
+    p = row_pitch(n)
+    rows = U[..., : n * p].reshape(U.shape[0], n, n, p)[..., n:]
+    return torch.cat([rows.reshape(-1), U[..., n * p:].reshape(-1)])
+
+
 def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
                        forecast_combos=None, p_cols=None):
     """Contract3Operands for the MSM family (densities and
-    forecast_combos given) or the GARCH family (p_cols given)."""
+    forecast_combos given) or the GARCH family (p_cols given). On a CUDA
+    device the table U is built here, once."""
     _require_kernel_copula(spec.kind)
     if spec.kind == "student":
         nu, corr = spec.params
@@ -108,13 +179,67 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
         q = w0.shape[0]
         G = torch.einsum("ai,tabc->tibc", w0,
                          forecast_combos.reshape(T, q, q, q))
-    return Contract3Operands(
+    ops = Contract3Operands(
         spec, tuple(cols), None if p_cols is None else p_cols.contiguous(),
         x, dx, densities, forecast_combos,
         z.contiguous(), fin.contiguous(), lu.contiguous(), w1.contiguous(),
         w2.contiguous(), G.contiguous(), sigma_inv.contiguous(), log_norm,
         float(logdet), nu,
     )
+    if z.device.type == "cuda":
+        require_ascending(x)
+        ops = ops._replace(U=contract3_weights(ops))
+    return ops
+
+
+def contract3_weights_reference(ops: Contract3Operands, days=slice(None)):
+    """Plain PyTorch twin of the table, on any device: U for the days
+    `days` selects, (D, n, n, n), unpadded, built in day chunks from the
+    transform columns as the transform-cached sweeps build their
+    density."""
+    cols = tuple(c[days] for c in ops.cols)
+    p = None if ops.p_cols is None else ops.p_cols[days]
+    G = ops.G[days]
+    D, n = G.shape[0], ops.x.shape[0]
+    out = torch.empty((D, n, n, n), dtype=torch.float64, device=ops.x.device)
+    for s in _chunks(D, n, 3, ops.x.device, None):
+        V = copula_density_cols(tuple(c[s] for c in cols), ops.spec)
+        if p is not None:
+            V = torch.nan_to_num(V * _pdf_product(p[s]))
+        out[s] = V * torch.einsum("bj,tibc,ck->tijk", ops.w1, G[s], ops.w2)
+    return out
+
+
+def contract3_weights(ops: Contract3Operands):
+    """The padded table U (T, n, slab_stride(n)) on the operands' CUDA
+    device: the build kernel (one block per (day, i0) slab), launched
+    after checking that the card's free memory holds the table. Other
+    devices raise: the CPU route sums `contract3_weights_reference`'s
+    cells through the plain sweep and needs no table."""
+    dev = ops.z.device
+    if dev.type != "cuda":
+        raise ValueError(f"contract3_weights: unsupported device {dev} "
+                         "(the table is built on a CUDA device only)")
+    T, n, q = check_contract3_operands(ops)
+    require_table_fits(T, n, free_device_bytes(dev))
+    U = torch.empty((T, n, slab_stride(n)), dtype=torch.float64, device=dev)
+    p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.cvt_contract3_weights(
+            ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
+            ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
+            ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
+            ops.nu, ops.log_norm, ops.logdet, U.data_ptr(), T, n, q,
+            row_pitch(n), slab_stride(n), stream,
+        )
+    _build.check(status, "contract3_weights")
+    contract3_weights.launches += 1
+    return U
+
+
+contract3_weights.launches = 0  # kernel launches (CUDA path only)
 
 
 def masked_contract3_reference(ops: Contract3Operands, bounds, weights,
@@ -136,7 +261,7 @@ def masked_contract3_reference(ops: Contract3Operands, bounds, weights,
 
 
 def check_contract3_operands(ops: Contract3Operands):
-    """Validate the operands for a kernel launch; returns (T, n, q)."""
+    """Validate the build kernel's operands; returns (T, n, q)."""
     _require_kernel_copula(ops.spec.kind)
     T, _, n = ops.z.shape
     q = ops.w1.shape[0]
@@ -155,7 +280,7 @@ def check_contract3_operands(ops: Contract3Operands):
     if n > n_max:
         raise ValueError(
             f"num_points={n} needs an {n}x{n} float64 slab in one block's "
-            f"shared memory; the dim-3 kernel takes n <= {n_max} at q={q} "
+            f"shared memory; the dim-3 kernels take n <= {n_max} at q={q} "
             "(tiling is later work)"
         )
     return T, n, q
@@ -164,32 +289,36 @@ def check_contract3_operands(ops: Contract3Operands):
 def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
     """(L, T) slab integrals for bounds (L, T, 2) and per-row portfolio
     weights (L, 3) ([inner, outer0, outer1]). CPU tensors run the plain
-    twin; CUDA tensors launch the kernel (one block per (day, outer
-    index) slab, every row against the shared-memory-resident slab, then
-    a fixed-order sum over the outer index); any other device raises."""
+    twin; CUDA tensors launch the sweep kernel on the table U (persistent
+    blocks stream its slabs through shared memory; each bound row is a
+    prefix-interval sum per grid row), then a fixed-order sum over the
+    outer index; any other device raises."""
     dev = ops.z.device
     if dev.type == "cpu":
         return masked_contract3_reference(ops, bounds, weights, box_min)
     if dev.type != "cuda":
         raise ValueError(f"masked_contract3: unsupported device {dev}")
-    T, n, q = check_contract3_operands(ops)
+    if ops.U is None:
+        raise ValueError("masked_contract3: the operands carry no table U "
+                         "(build them with contract3_operands)")
+    T, n = ops.days, ops.x.shape[0]
+    _check_operand("U", ops.U, (T, n, slab_stride(n)), dev)
+    _check_operand("x", ops.x, (n,), dev)
     L = bounds.shape[0]
     _check_operand("bounds", bounds, (L, T, 2), dev)
     _check_operand("weights", weights, (L, 3), dev)
-    partial = torch.empty((L, T, n), dtype=torch.float64, device=dev)
-    out = torch.empty((L, T), dtype=torch.float64, device=dev)
-    p = None if ops.p_cols is None else ops.p_cols.data_ptr()
     lib = _build.load()
+    # the kernel's partials per (row, day): one per i0 and span of 64 i1,
+    # summed in order
+    partial = torch.empty((L, T, n * -(-n // 64)), dtype=torch.float64,
+                          device=dev)
+    out = torch.empty((L, T), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.cvt_masked_contract3(
-            ops.x.data_ptr(), ops.z.data_ptr(), ops.fin.data_ptr(),
-            ops.lu.data_ptr(), p, ops.w1.data_ptr(), ops.w2.data_ptr(),
-            ops.G.data_ptr(), ops.sigma_inv.data_ptr(),
-            int(ops.spec.kind == "student"), ops.nu, ops.log_norm,
-            ops.logdet, bounds.data_ptr(), weights.data_ptr(),
-            float(box_min), partial.data_ptr(), out.data_ptr(), T, n, q, L,
-            stream,
+            ops.U.data_ptr(), ops.x.data_ptr(), bounds.data_ptr(),
+            weights.data_ptr(), float(box_min), partial.data_ptr(),
+            out.data_ptr(), T, n, L, row_pitch(n), slab_stride(n), stream,
         )
     _build.check(status, "masked_contract3")
     masked_contract3.launches += 1

@@ -4,9 +4,10 @@ engine's device programs in `copula_var_tpu/backtest.py`).
 
 `bisect_levels` runs the incremental-CDF bisection for L rows (confidence
 levels or portfolios) of a two-asset backtest. Tensors on a CUDA device
-launch the hand-written kernel `bisect_levels_kernel` (csrc/quadrature.cu),
-which replaces the Pallas kernel `_solve_kernel` (K1); tensors on the CPU
-run the plain twin `bisect_levels_reference`, the `xla` engine's
+launch the hand-written kernel `bisect_levels_kernel` (csrc/quadrature.cu;
+one warp per bound row, every halving a prefix-interval sum per grid
+row), which replaces the Pallas kernel `_solve_kernel` (K1); tensors on
+the CPU run the plain twin `bisect_levels_reference`, the `xla` engine's
 while-loop with its per-level all-zeros break (`backtest.py:445-480`).
 
 The while-loop halves every (row, day) bracket until the widest is within

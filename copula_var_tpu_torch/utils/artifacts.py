@@ -25,11 +25,11 @@ def _restore(v):
     return arr.item() if arr.ndim == 0 else arr
 
 
-def load_artifacts(path: str, data, device="cpu", adapter=None,
+def load_artifacts(path: str, data, device="cuda", adapter=None,
                    reference_quirks=False):
-    """Rebuild a solve-ready `VaRBacktest` on `device` ("cpu" or "cuda";
-    CUDA without a GPU raises) from saved artifacts and the same
-    ReturnsData."""
+    """Rebuild a solve-ready `VaRBacktest` on `device` ("cuda", the
+    default, or "cpu"; CUDA without a GPU raises) from saved artifacts and
+    the same ReturnsData."""
     z = np.load(path, allow_pickle=False)
     meta = json.loads(str(z["meta"]))
     if meta["version"] != _FORMAT_VERSION:

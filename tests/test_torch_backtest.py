@@ -90,7 +90,7 @@ def test_truncated_artifact_levels_and_grid_match_jax(tmp_path, est):
     `xla` engine) against the port's, on the flagship artifact cut to 12
     days."""
     path, jdata, tdata = _truncated(tmp_path, est, 12)
-    jb, tb = jax_load(path, jdata), load_artifacts(path, tdata)
+    jb, tb = jax_load(path, jdata), load_artifacts(path, tdata, device="cpu")
     levels = [0.01, 0.025, 0.05]
     np.testing.assert_allclose(tb.calc_var_levels(levels),
                                jb.calc_var_levels(levels), rtol=0,
@@ -112,7 +112,7 @@ def test_flagship_var_series_reproduces(est):
     engine) at the record's own bar, and its coverage statistics."""
     rec = np.load(os.path.join(DATA, "flagship_var.npz"))
     data = from_csv(CSV, n_insample=N_IN)
-    bt = load_artifacts(_artifact(est), data)
+    bt = load_artifacts(_artifact(est), data, device="cpu")
     var = bt.calc_var(float(rec["obj_var"]))
     np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
                                atol=ATOL_ROOT)
@@ -131,11 +131,13 @@ def test_portfolio_rows_equal_single_portfolio_solves(tmp_path):
     converges, so a row may take extra halvings (as in JAX)."""
     path, _, tdata = _truncated(tmp_path, "msm", 8)
     wb = np.array([[0.3, 0.7], [0.8, 0.2]])
-    rows = load_artifacts(path, tdata).calc_var_portfolios(wb, [0.05, 0.01])
+    rows = load_artifacts(path, tdata, device="cpu").calc_var_portfolios(
+        wb, [0.05, 0.01])
     for w, a, row in zip(wb, [0.05, 0.01], rows):
         single = from_returns(tdata.returns, tdata.tickers, N_IN, weights=w)
         np.testing.assert_allclose(
-            load_artifacts(path, single).calc_var(a), row, rtol=0,
+            load_artifacts(path, single, device="cpu").calc_var(a), row,
+            rtol=0,
             atol=1e-6)
 
 
@@ -151,7 +153,7 @@ from copula_var_tpu_torch.data import from_csv, from_returns
 from copula_var_tpu_torch.utils.artifacts import load_artifacts
 full = from_csv({CSV!r}, n_insample={N_IN})
 data = from_returns(full.returns[:{N_IN + 6}], full.tickers, {N_IN})
-var = load_artifacts({path!r}, data).calc_var(0.05)
+var = load_artifacts({path!r}, data, device="cpu").calc_var(0.05)
 assert var.shape == (6,) and np.all(np.isfinite(var)), var
 leaked = [m for m, mod in sys.modules.items() if mod is not None
           and m.split(".")[0] in ("jax", "jaxlib", "copula_var_tpu")]
@@ -175,9 +177,23 @@ def test_cuda_request_without_gpu_raises(monkeypatch, tmp_path):
         resolve_device("meta")
 
 
+def test_default_device_is_the_card(monkeypatch, tmp_path):
+    """With no device named, the port asks for the card: without a GPU
+    `load_artifacts` raises rather than quietly serving on the CPU, and
+    with device="cpu" it serves."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path, _, tdata = _truncated(tmp_path, "garch", 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_artifacts(path, tdata)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    var = load_artifacts(path, tdata, device="cpu").calc_var(0.05)
+    assert var.shape == (3,) and np.all(np.isfinite(var))
+
+
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
     path, _, tdata = _truncated(tmp_path, "msm", 4)
-    bt = load_artifacts(path, tdata)
+    bt = load_artifacts(path, tdata, device="cpu")
     from copula_var_tpu_torch.backtest import VaRBacktest
 
     with pytest.raises(ValueError, match="ROADMAP"):
@@ -195,7 +211,7 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
 def test_cpu_main_path_launches_no_kernel(tmp_path):
     path, _, tdata = _truncated(tmp_path, "msm", 4)
     before = (cq.masked_sweep.launches, cs.bisect_levels.launches)
-    load_artifacts(path, tdata).calc_var(0.05)
+    load_artifacts(path, tdata, device="cpu").calc_var(0.05)
     assert (cq.masked_sweep.launches, cs.bisect_levels.launches) == before
     meta = json.loads(str(np.load(path)["meta"]))
     assert meta["adapter"] == "msm"

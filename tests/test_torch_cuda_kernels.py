@@ -1,6 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
-Every test here needs an NVIDIA GPU and skips without one. This file
+Every test here needs an NVIDIA GPU and skips without one. The two
+redesigned kernels (K1 `bisect_levels`, K4 `contract3_weights` +
+`masked_contract3`) are held at odd n, at their largest n and one past
+it, q = 1 and 5, L = 1, 3 and 33 (more rows than warps), with NaN and inf
+cells, and launched twice for bit-identical results. This file
 imports neither JAX nor the JAX package, so it runs where JAX is not
 installed (the repository's conftest imports JAX, hence `--noconftest`):
 
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 from copula_var_tpu_torch.data import from_csv
+from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops import cuda_quadrature as cq
 from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
 from copula_var_tpu_torch.ops import cuda_solver as cs
@@ -44,8 +49,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _ops(dev, family, T=37, n=48, q=5, seed=0):
-    """Random day operands on the card; n not a multiple of 32."""
+def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None):
+    """Random day operands on the card; n not a multiple of 32; `edit(V)`
+    may poke cells of the day tensors first."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -54,6 +60,8 @@ def _ops(dev, family, T=37, n=48, q=5, seed=0):
     x = np.sort(rng.uniform(-5.0, 5.0, n))
     dx = np.diff(x, prepend=x[0] - 0.2)
     V = rng.gamma(2.0, 0.05, (T, n, n))
+    if edit is not None:
+        edit(V)
     if family == "garch":
         return cq.sweep_operands(t(V), t(x), t(dx))
     dens = rng.uniform(0.0, 0.5, (2, q, n))
@@ -117,6 +125,74 @@ def test_bisect_levels_matches_plain(dev, family):
     assert cs.bisect_levels.launches == before + 1
     want = cs.bisect_levels_reference(ops, *state, obj, weights, 1e-6)
     assert float((got - want).abs().max()) <= ATOL_ROOT
+
+
+# the brackets' floor at the grid's edge: below it (CFG's -7.5) a first
+# halving can give every day exactly 0, where the plain twin freezes the
+# row (the all-zeros break the kernel omits)
+CFG_IN_GRID = CFG[:3] + (-5.0, CFG[4])
+
+
+def _bracketed(ops, dev, L, seed=2):
+    """obj (L,), weights (L, 2) and the bracket state after the stage
+    sweeps, for L rows of the day operands."""
+    T = ops.V.shape[0]
+    rng = np.random.default_rng(seed)
+    obj = torch.tensor(rng.choice([0.01, 0.025, 0.05, 0.1, 0.2], L),
+                       device=dev)
+    w = rng.uniform(0.1, 0.9, (L, 1))
+    weights = torch.tensor(np.concatenate([w, 1.0 - w], axis=1), device=dev)
+    stage1 = torch.tensor([-100.0, CFG[0]], dtype=torch.float64,
+                          device=dev).expand(L, T, 2).contiguous()
+    F1 = cq.masked_sweep(ops, stage1, weights)
+    state = [s.contiguous() for s in bracket_state_batched(
+        F1, obj, lambda b: cq.masked_sweep(ops, b.contiguous(), weights),
+        CFG_IN_GRID, False)[:5]]
+    return obj, weights, state
+
+
+@pytest.mark.parametrize("q", [1, 5])
+@pytest.mark.parametrize("L", [1, 3, 33])
+def test_bisect_levels_rows_and_widths(dev, q, L):
+    """Odd n, the GARCH (q = 1) and MSM (q = 5) widths, and more rows than
+    the block's warps; a second launch gives the same bits."""
+    ops = _ops(dev, "garch" if q == 1 else "msm", T=9, n=37, q=q)
+    obj, weights, state = _bracketed(ops, dev, L)
+    got = cs.bisect_levels(ops, *state, obj, weights, 1e-6)
+    want = cs.bisect_levels_reference(ops, *state, obj, weights, 1e-6)
+    assert float((got - want).abs().max()) <= ATOL_ROOT
+    assert torch.equal(got, cs.bisect_levels(ops, *state, obj, weights,
+                                             1e-6))
+
+
+def test_bisect_levels_nan_and_inf_cells(dev):
+    """Rows holding NaN or inf cells are flagged and summed cell by cell:
+    the bookkeeping sees the plain twin's slabs, NaN and inf included."""
+    def edit(V):
+        V[:3, 4, 9] = np.nan
+        V[3:6, 11, 20] = np.inf
+        V[6:, 2, 30] = -np.inf
+
+    ops = _ops(dev, "msm", T=9, n=37, edit=edit)
+    obj, weights, state = _bracketed(ops, dev, 4)
+    got = cs.bisect_levels(ops, *state, obj, weights, 1e-6)
+    want = cs.bisect_levels_reference(ops, *state, obj, weights, 1e-6)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= ATOL_ROOT
+
+
+def test_bisect_levels_at_its_largest_grid(dev):
+    n_max = _build.load().cvt_max_grid_points()
+    assert n_max >= 168
+    ops = _ops(dev, "garch", T=3, n=n_max)
+    obj, weights, state = _bracketed(ops, dev, 3)
+    got = cs.bisect_levels(ops, *state, obj, weights, 1e-6)
+    want = cs.bisect_levels_reference(ops, *state, obj, weights, 1e-6)
+    assert float((got - want).abs().max()) <= ATOL_ROOT
+    big = _ops(dev, "garch", T=3, n=n_max + 1)
+    with pytest.raises(ValueError, match="shared"):
+        cs.bisect_levels(big, *state, obj, weights, 1e-6)
 
 
 @pytest.mark.parametrize("est", ["msm", "garch"])
@@ -247,16 +323,124 @@ def test_masked_contract3_is_deterministic(dev):
 
 
 def test_masked_contract3_rejects_what_it_does_not_take(dev):
-    ops = _ops3(dev, "garch", "gaussian", T=2, n=200)  # slab over 227 KB
+    with pytest.raises(ValueError, match="shared"):  # slab over 227 KB
+        _ops3(dev, "garch", "gaussian", T=2, n=200)
     bounds, weights = _rows3(dev, 2, 1)
-    with pytest.raises(ValueError, match="shared"):
-        cq3.masked_contract3(ops, bounds, weights)
     ops = _ops3(dev, "garch", "gaussian", T=2)
     with pytest.raises(ValueError, match="float64"):
         cq3.masked_contract3(ops, bounds.float(), weights)
     plackett = ops._replace(spec=CopulaSpec("plackett", (4.0,)))
     with pytest.raises(ValueError, match="Gaussian or Student"):
-        cq3.masked_contract3(plackett, bounds, weights)
+        cq3.contract3_weights(plackett)
+    with pytest.raises(ValueError, match="table U"):
+        cq3.masked_contract3(ops._replace(U=None), bounds, weights)
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+@pytest.mark.parametrize("kind", ["student", "gaussian"])
+def test_contract3_weights_matches_plain(dev, family, kind):
+    """The table U, built once with the operands, against its plain
+    twin, its pads zero (odd n: one pad cell per slab; even n: one per
+    row)."""
+    before = cq3.contract3_weights.launches
+    for n in (41, 40):
+        ops = _ops3(dev, family, kind, n=n)
+        assert cq3.contract3_weights.launches == before + 1
+        before += 1
+        assert ops.U.shape == (ops.days, n, cq3.slab_stride(n))
+        got = cq3.table_cells(ops.U, n)
+        want = cq3.contract3_weights_reference(ops)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert bool(torch.isclose(got, want, rtol=RTOL_SWEEP, atol=1e-300,
+                                  equal_nan=True).all())
+        assert bool((cq3.table_pads(ops.U, n) == 0).all())
+        assert torch.equal(ops.U, cq3.contract3_weights(ops))
+        before += 1
+
+
+@pytest.mark.parametrize("q", [1, 5])
+@pytest.mark.parametrize("L", [1, 3, 33])
+def test_masked_contract3_rows_and_widths(dev, q, L):
+    """Odd n (one sweep buffer past n = 120 is exercised at the limit
+    below), q = 1 and 5, more rows than warps; repeats are bit-equal."""
+    ops = _ops3(dev, "garch" if q == 1 else "msm", "student", T=5, n=41,
+                q=q)
+    bounds, weights = _rows3(dev, ops.days, L)
+    got = cq3.masked_contract3(ops, bounds, weights)
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= RTOL_SWEEP * scale
+    assert torch.equal(got, cq3.masked_contract3(ops, bounds, weights))
+
+
+def test_masked_contract3_inf_cells_are_flagged(dev):
+    """A column whose log pdf is -1000 overflows the Student density to
+    inf: its rows are flagged and summed cell by cell, so the slabs that
+    hold those cells are inf and the others finite, as in the plain
+    twin."""
+    def edit(cols, p):
+        cols[2][:, 1, 7] = -1000.0
+
+    ops = _ops3(dev, "msm", "student", edit=edit)
+    bounds, weights = _rows3(dev, ops.days, 8)
+    got = cq3.masked_contract3(ops, bounds, weights)
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    assert bool(torch.isinf(want).any()) and bool(torch.isfinite(want).any())
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+    fin = torch.isfinite(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= \
+        RTOL_SWEEP * float(want[fin].abs().max())
+
+
+def test_masked_contract3_saturated_cell_does_not_absorb_its_row(dev):
+    """GARCH: a density that overflows at i2 = 3 on every row saturates
+    one cell per row to DBL_MAX * dx^3 (finite). Rows holding it are
+    flagged, so the bounds below, whose intervals all start after that
+    cell, give the true moderate sums, row by row (a prefix difference
+    would give S - S of the huge cell)."""
+    def edit(cols, p):
+        cols[2][:, 2, 3] = -1000.0
+
+    ops = _ops3(dev, "garch", "student", edit=edit)
+    assert bool((cq3.table_cells(ops.U, 40)[..., 3] > 1e300).all())
+    L, T = 3, ops.days
+    lo = np.random.default_rng(4).uniform(1.5, 2.5, (L, T))
+    bounds = torch.tensor(np.stack([lo, lo + np.random.default_rng(5).uniform(
+        0.5, 3.0, (L, T))], -1), device=dev)
+    weights = torch.tensor([[0.5, 0.3, 0.2], [0.4, 0.4, 0.2],
+                            [0.6, 0.1, 0.3]], dtype=torch.float64,
+                           device=dev)
+    got = cq3.masked_contract3(ops, bounds, weights)
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    assert bool((want > 0).all()) and bool((want < 1e10).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL_SWEEP, atol=0)
+
+
+def test_masked_contract3_rows_are_batch_invariant(dev):
+    """A bound row gets the same bits alone as inside a 33-row batch: the
+    kernel's partials depend on the row, day and grid index, not on L."""
+    ops = _ops3(dev, "msm", "student", T=5, n=41, q=5)
+    bounds, weights = _rows3(dev, ops.days, 33)
+    batch = cq3.masked_contract3(ops, bounds, weights)
+    for l in (0, 15, 32):
+        alone = cq3.masked_contract3(ops, bounds[l:l + 1].contiguous(),
+                                     weights[l:l + 1].contiguous())
+        assert torch.equal(alone[0], batch[l])
+
+
+def test_masked_contract3_at_its_largest_grid(dev):
+    n_max = _build.load().cvt_contract3_max_grid_points(5)
+    assert n_max >= 166  # every n the former fused kernel took at q = 5
+    ops = _ops3(dev, "msm", "gaussian", T=2, n=n_max, q=5)
+    bounds, weights = _rows3(dev, 2, 3)
+    got = cq3.masked_contract3(ops, bounds, weights)
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= RTOL_SWEEP * scale
+    with pytest.raises(ValueError, match="shared"):
+        _ops3(dev, "msm", "gaussian", T=2, n=n_max + 1, q=5)
 
 
 @pytest.mark.parametrize("est", ["msm", "garch"])
@@ -267,10 +451,11 @@ def test_dim3_through_kernels(dev, est):
     bt = load_artifacts(os.path.join(DATA, f"dim3_artifacts_{est}.npz"),
                         data, device="cuda")
     before = (cq.masked_sweep.launches, cs.bisect_levels.launches,
-              cq3.masked_contract3.launches)
+              cq3.contract3_weights.launches, cq3.masked_contract3.launches)
     var = bt.calc_var(float(rec["obj_var"]))
     after = (cq.masked_sweep.launches, cs.bisect_levels.launches,
-             cq3.masked_contract3.launches)
-    assert after[:2] == before[:2] and after[2] > before[2]
+             cq3.contract3_weights.launches, cq3.masked_contract3.launches)
+    assert after[:2] == before[:2]
+    assert after[2] == before[2] + 1 and after[3] > before[3]
     np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
                                atol=ATOL_ROOT)

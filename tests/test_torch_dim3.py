@@ -317,7 +317,7 @@ def test_dim3_artifact_serves_like_jax(tmp_path):
     batch and one sweep equal the JAX `xla` engine, and calc_var equals
     the committed record."""
     path, jdata, tdata = _truncated(tmp_path, "msm", 8)
-    jb, tb = jax_load(path, jdata), load_artifacts(path, tdata)
+    jb, tb = jax_load(path, jdata), load_artifacts(path, tdata, device="cpu")
     assert tb.data.dim == 3 and tb.integration_inputs.x.shape == (100,)
     var = tb.calc_var(0.05)
     np.testing.assert_allclose(var, jb.calc_var(0.05), rtol=0,
@@ -347,7 +347,7 @@ from copula_var_tpu_torch.utils.artifacts import load_artifacts
 full = from_csv({CSV!r}, n_insample={N_IN}, weights=(0.5, 0.3, 0.2))
 data = from_returns(full.returns[:{N_IN + 2}], full.tickers, {N_IN},
                     weights=(0.5, 0.3, 0.2))
-var = load_artifacts({path!r}, data).calc_var(0.05)
+var = load_artifacts({path!r}, data, device="cpu").calc_var(0.05)
 assert var.shape == (2,) and np.all(np.isfinite(var)), var
 leaked = [m for m, mod in sys.modules.items() if mod is not None
           and m.split(".")[0] in ("jax", "jaxlib", "copula_var_tpu")]
@@ -363,7 +363,7 @@ print("ok")
 def test_dim3_rejections(case, tmp_path):
     """dim 4, Plackett at dim 3 and the `meta` device raise."""
     path, _, tdata = _truncated(tmp_path, "garch", 2)
-    bt = load_artifacts(path, tdata)
+    bt = load_artifacts(path, tdata, device="cpu")
     args = (bt.adapter, bt.copula, bt.copula_fit, bt.model_fits,
             bt.integration_inputs)
     four = from_returns(np.zeros((N_IN + 2, 4)), n_insample=N_IN)
@@ -405,7 +405,7 @@ def test_cpu_tensors_take_the_plain_twin(case, tmp_path):
     np.testing.assert_array_equal(
         got.numpy(), cq3.masked_contract3_reference(ops, b, w).numpy())
     path, _, tdata = _truncated(tmp_path, "garch", 2)
-    load_artifacts(path, tdata).calc_var(0.05)
+    load_artifacts(path, tdata, device="cpu").calc_var(0.05)
     assert cq3.masked_contract3.launches == before
 
 
