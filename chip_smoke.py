@@ -12,8 +12,9 @@ Phases, each fatal on failure:
      "cuda")` -> `calc_var(0.05)` for the flagship MSM and GARCH artifacts
      (2 assets, T = 500 days, 100-point grid, Student-t copula), held
      against `data/flagship_var.npz` at atol 1e-9 with the recorded
-     coverage statistics recomputed; then a serving batch, `calc_var_grid`
-     with 32 portfolios x 4 levels (128 rows);
+     coverage statistics recomputed; the prep builds each backtest's prefix
+     table P (40.4 MB) once; then a serving batch, `calc_var_grid` with 32
+     portfolios x 4 levels (128 rows);
   4. main path, three assets, counted: the same for the dim-3 artifacts
      (`data/dim3_artifacts_{msm,garch}.npz`, weights (0.5, 0.3, 0.2)) held
      against `data/dim3_var.npz`; the prep builds each backtest's table U
@@ -23,15 +24,16 @@ Phases, each fatal on failure:
      kernels must not;
   5. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
-     unequal weights; K4 also with a Gaussian copula; the table U on 16
-     days), a repeated launch of each that must give the same bits, and
-     the serving batches (128 rows at dim 2, 8 portfolios x 4 levels at
-     dim 3) against the plain solves;
+     unequal weights; K4 also with a Gaussian copula; the dim-2 table P
+     whole, the dim-3 table U on 16 days), a repeated launch of each that
+     must give the same bits, a dim-2 sweep row alone against its bits
+     inside a 128-row batch, and the serving batches (128 rows at dim 2,
+     8 portfolios x 4 levels at dim 3) against the plain solves;
   6. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns;
-  7. device profile: torch.profiler over calls of a sweep, a bisection,
-     `calc_var` and the serving batch: host ms per call, the device's busy
-     ms, and each kernel's launches and device ms per launch.
+  7. device profile: torch.profiler over calls of each kernel, `calc_var`
+     and the serving batches: host ms per call, the device's busy ms, and
+     each kernel's launches and device ms per launch.
 
 Each kernel's bound in the record is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float64
@@ -67,15 +69,18 @@ RTOL_SWEEP = 1e-12
 # kernel bisection vs plain bisection: identical masks and bookkeeping;
 # a root could move only if a slab's rounding flipped res < obj
 ATOL_ROOT = 1e-9
-# the table U against its plain twin: the same cells, only CUDA's exp /
-# log1p and the order of the q x q state sum differ
+# the tables against their plain twins: dim 3, the same cells of U, only
+# CUDA's exp / log1p and the order of the q x q state sum differ; dim 2,
+# the prefix sums of P are sequential in the kernel and a parallel scan in
+# torch.cumsum, and the q-term state sum is ordered differently
 RTOL_TABLE = 1e-12
 TABLE_DAYS = 16  # days of U held against the plain twin
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F64_FLOP_PER_S = 34e12  # H100 SXM data sheet, FP64 outside the tensor cores
 # the device spans of each wrapper's launch: (counted kernel, others...)
 KERNEL_SPANS = {
-    "masked_sweep": ("masked_sweep_kernel",),
+    "sweep_table": ("sweep_table_kernel",),
+    "masked_sweep": ("prefix_sweep_kernel",),
     "bisect_levels": ("bisect_levels_kernel",),
     "contract3_weights": ("contract3_weights_kernel",),
     "masked_contract3": ("contract3_sweep_kernel", "contract3_sum_kernel"),
@@ -101,12 +106,22 @@ def day_bytes(T, n, q):
     return 8 * (T * n * n + T * n * q + q * n + n)
 
 
+def table_bound(T, n, q):
+    """sweep_table (K2 build): the day operands in, the T n^2 cells of P
+    (not its pad cells) and the T n row flags out; per cell the state sum
+    (2q), the product with V and the prefix add."""
+    return bound(day_bytes(T, n, q) + 8 * T * n * n + T * n,
+                 T * n * n * (2 * q + 2))
+
+
 def sweep_bound(T, n, q, L):
-    """masked_sweep (K2): the day operands and (L, T, 2) bounds in, (L, T)
-    out; U = V .* (wfc W1) formed and every cell compared and added once
-    per row."""
-    return bound(day_bytes(T, n, q) + 8 * (2 * L * T + 2 * L + L * T),
-                 T * n * n * (2 * q + 1) + L * T * n * n)
+    """masked_sweep (K2): of the prefix table only the cells the interval
+    rule reads (two per row lookup, at most the table's T n^2), the T n
+    row flags, x, the (L, T, 2) bounds and (L, 2) weights in, (L, T) out;
+    n row lookups per bound row and day."""
+    cells = min(T * n * n, 2 * L * T * n)
+    return bound(8 * (cells + n + 2 * L * T + 2 * L + L * T) + T * n,
+                 L * T * n * lookups(n))
 
 
 def bisect_bound(T, n, q, L, n_iters):
@@ -240,8 +255,8 @@ def main() -> int:
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print(f"  {line.strip()}")
 
-    counters = (cq.masked_sweep, cs.bisect_levels, cq3.contract3_weights,
-                cq3.masked_contract3)
+    counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
+                cq3.contract3_weights, cq3.masked_contract3)
 
     def zero_counts():
         for c in counters:
@@ -311,6 +326,9 @@ def main() -> int:
     for name in ("masked_sweep", "bisect_levels"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    if launches["sweep_table"] != len(bts):
+        raise AssertionError("sweep_table did not build one table per dim-2 "
+                             "backtest")
     if launches["masked_contract3"] or launches["contract3_weights"]:
         raise AssertionError("a dim-3 kernel launched on the dim-2 path")
 
@@ -352,7 +370,8 @@ def main() -> int:
     if launches3["masked_contract3"] <= 0:
         raise AssertionError("masked_contract3 never launched on the dim-3 "
                              "main path")
-    if launches3["masked_sweep"] or launches3["bisect_levels"]:
+    if launches3["masked_sweep"] or launches3["bisect_levels"] or \
+            launches3["sweep_table"]:
         raise AssertionError("a dim-2 kernel launched on the dim-3 path")
     cfg = (-3.0, -3.5, -2.0, -7.5, 0.0)
     for est, bt in bts3.items():
@@ -375,11 +394,24 @@ def main() -> int:
 
     wrows = tens([[0.5, 0.5], [0.3, 0.7], [0.75, 0.25], [0.9, 0.1]])
     obj = tens(LEVELS)
-    err_sweep, err_root = 0.0, 0.0
+    err_sweep, err_root, err_p = 0.0, 0.0, 0.0
     states = {}
     for est, bt in bts.items():
         ops = bt.sweep_operands()
         T = ops.V.shape[0]
+        p_p, f_p = cq.sweep_table_reference(ops)
+        close = torch.isclose(ops.P, p_p, rtol=RTOL_TABLE, atol=1e-300,
+                              equal_nan=True)
+        if not (bool(close.all()) and torch.equal(ops.flags, f_p)):
+            raise AssertionError(
+                f"sweep_table {est}: {int((~close).sum())} cells, "
+                f"{int((ops.flags != f_p).sum())} flags off the plain twin")
+        fin = torch.isfinite(p_p)
+        e_p = float((ops.P[fin] - p_p[fin]).abs().max())
+        err_p = max(err_p, e_p)
+        if not torch.equal(ops.P, cq.sweep_table(ops)[0]):
+            raise AssertionError(f"sweep_table {est}: a rebuild changed P")
+        del p_p, f_p, close, fin
         stage1 = np.stack([np.full(T, -100.0), np.full(T, -3.0)], -1)
         lo = rng.uniform(-8.0, -1.0, (3, T))
         rand = np.stack([lo, lo + rng.uniform(0.0, 3.0, (3, T))], -1)
@@ -412,12 +444,37 @@ def main() -> int:
             raise AssertionError(f"bisect_levels {est}: a repeated launch "
                                  "changed the roots")
         err_root = max(err_root, e_r)
-        print(f"parity {est} (q={ops.w1.shape[0]}): masked_sweep max abs "
+        print(f"parity {est} (q={ops.w1.shape[0]}): sweep_table max abs "
+              f"{e_p:.3e} (bound rel {RTOL_TABLE:g} per cell), "
+              f"{int(ops.flags.sum())} rows flagged; masked_sweep max abs "
               f"{e:.3e} rel {e / scale:.3e} (bound rel {RTOL_SWEEP:g}); "
               f"bisect_levels max abs {e_r:.3e} (bound {ATOL_ROOT:g})")
     ops_m = bts["msm"].sweep_operands()
     w_rows = np.repeat(w_batch, len(LEVELS), axis=0)
     a_rows = np.tile(levels, ROWS_P)
+    # a 128-row sweep of random bounds: against the plain twin, and each
+    # row's bits alone equal to its bits inside the batch
+    T = ops_m.days
+    lo = rng.uniform(-8.0, -1.0, (len(w_rows), T))
+    b128 = tens(np.stack([lo, lo + rng.uniform(0.0, 3.0, lo.shape)], -1))
+    wr128 = tens(w_rows)
+    k = cq.masked_sweep(ops_m, b128, wr128, -5.0)
+    p = cq.masked_sweep_reference(ops_m, b128, wr128, -5.0)
+    scale = float(p.abs().max())
+    e = float((k - p).abs().max())
+    if not e <= RTOL_SWEEP * scale:
+        raise AssertionError(f"masked_sweep L={len(w_rows)}: |kernel - "
+                             f"plain| {e:.3e} > {RTOL_SWEEP:g} x {scale:.3e}")
+    err_sweep = max(err_sweep, e)
+    for l_ in (0, 1, 63, len(w_rows) - 1):
+        alone = cq.masked_sweep(ops_m, b128[l_:l_ + 1].contiguous(),
+                                wr128[l_:l_ + 1].contiguous(), -5.0)
+        if not torch.equal(alone[0], k[l_]):
+            raise AssertionError(f"masked_sweep: row {l_} alone differs "
+                                 "from its bits in the batch")
+    print(f"parity masked_sweep L={len(w_rows)}: max abs {e:.3e} rel "
+          f"{e / scale:.3e} (bound rel {RTOL_SWEEP:g}); rows alone bit-equal "
+          "to the batch")
     r_plain, nd_plain = cs.full_solve_portfolios_reference(
         ops_m, tens(a_rows), tens(w_rows), cfg)
     ptf_means = np.asarray(bts["msm"].data.in_sample_mean) @ w_rows.T
@@ -513,12 +570,14 @@ def main() -> int:
           f"plain {grid3_plain_s:.3f} s (host clock)")
 
     # -- timings on the card --------------------------------------------------
-    T = ops_m.V.shape[0]
     timing = {}
     for est, bt in bts.items():  # day-tensor prep is plain PyTorch
         timing[f"prep_{est}"] = cuda_ms(torch, {
             "plain": lambda bt=bt: bt.adapter.day_tensors(
                 bt.integration_inputs, bt.copula_spec)})
+    timing["sweep_table"] = cuda_ms(torch, {
+        "kernel": lambda: cq.sweep_table(ops_m),
+        "plain": lambda: cq.sweep_table_reference(ops_m)})
     st1 = torch.stack([torch.full((T,), -100.0, device=dev),
                        torch.full((T,), -3.0, device=dev)], -1).double()
     for L in (1, ROWS_P * len(LEVELS)):
@@ -595,6 +654,7 @@ def main() -> int:
 
     # -- device time inside those calls (torch.profiler) ----------------------
     profiles = {
+        "sweep_table": device_profile(torch, lambda: cq.sweep_table(ops_m)),
         "sweep_L1": device_profile(torch, lambda: cq.masked_sweep(
             ops_m, st1[None].contiguous(), wrows[:1].contiguous(), -5.0)),
         "bisect_L1": device_profile(torch, lambda: cs.bisect_levels(
@@ -628,6 +688,7 @@ def main() -> int:
     report = {
         "card": smi, "reps": REPS, "build_s": _build.build_seconds,
         "day_tensor_bytes": int(ops_m.V.numel() * 8),
+        "sweep_table_bytes": int(ops_m.P.numel() * 8 + ops_m.flags.numel()),
         "host_prep_s": prep_s, "host_calc_var_s": solve_s,
         "host_grid_s": grid_s, "dim3_host_prep_s": prep3_s,
         "dim3_host_calc_var_s": solve3_s, "dim3_host_grid_s": grid3_s,
@@ -645,6 +706,7 @@ def main() -> int:
              for L_, st_ in ((1, s1), (L128, st128))}
     L3 = ROWS_P3 * len(LEVELS)
     bounds_ms = {
+        "sweep_table": table_bound(T, n, q),
         "sweep_L1": sweep_bound(T, n, q, 1),
         f"sweep_L{L128}": sweep_bound(T, n, q, L128),
         "bisect_L1": bisect_bound(T, n, q, 1, iters[1]),
@@ -657,7 +719,8 @@ def main() -> int:
     }
     # the profile holding each shape's kernel at that L (the serving
     # batches' sweeps run at L = 128 and 32)
-    prof_key = {"sweep_L1": ("sweep_L1", "masked_sweep"),
+    prof_key = {"sweep_table": ("sweep_table", "sweep_table"),
+                "sweep_L1": ("sweep_L1", "masked_sweep"),
                 f"sweep_L{L128}": ("grid_32x4", "masked_sweep"),
                 "bisect_L1": ("bisect_L1", "bisect_levels"),
                 f"bisect_L{L128}": (f"bisect_L{L128}", "bisect_levels"),
@@ -689,7 +752,10 @@ def main() -> int:
                 "bound_by": b[1], "library_ms": None}
 
     k4 = "copula_var_tpu/ops/pallas_quadrature3.py:92"
+    k23 = "copula_var_tpu/ops/pallas_quadrature.py"
     kernels = [
+        entry("sweep_table", "quadrature.cu", f"{k23}:101; {k23}:32",
+              launches["sweep_table"], err_p, "sweep_table"),
         entry("masked_sweep", "quadrature.cu",
               "copula_var_tpu/ops/pallas_quadrature.py:101",
               launches["masked_sweep"], err_sweep, "sweep_L1"),

@@ -95,10 +95,6 @@ __host__ __device__ size_t weights_shared_bytes(int n, int q) {
   return static_cast<size_t>(q) * n * sizeof(double);
 }
 
-// the pitch of a row of U: odd, so threads scanning consecutive rows hit
-// distinct bank pairs
-__host__ __device__ int row_pitch(int n) { return n | 1; }
-
 // one or two slab buffers (stride doubles each), x (n,), a flag per row
 __host__ __device__ size_t sweep_shared_bytes(int n, int stride, int bufs) {
   return kBarrierBytes +
@@ -335,7 +331,7 @@ __global__ void contract3_sum_kernel(const double* __restrict__ partial,
 
 bool valid_layout(int n, int pitch, int stride) {
   const long long np = static_cast<long long>(n) * pitch;
-  return pitch == row_pitch(n) && stride == np + np % 2;
+  return pitch == interval::row_pitch(n) && stride == np + np % 2;
 }
 
 }  // namespace
@@ -347,7 +343,8 @@ extern "C" int cvt_contract3_max_grid_points(int q) {
   int n = 1;
   for (;;) {
     const int m = n + 1;
-    const int stride = m * row_pitch(m) + (m * row_pitch(m)) % 2;
+    const int rows = m * interval::row_pitch(m);
+    const int stride = rows + rows % 2;
     if (m > interval::kMaxRow ||
         sweep_shared_bytes(m, stride, 1) > kMaxSharedBytes ||
         weights_shared_bytes(m, q) > kMaxSharedBytes)

@@ -1,5 +1,5 @@
-// The interval rule shared by the dim-2 bisection (quadrature.cu) and the
-// dim-3 sweep (contract3.cu): the masked sum of one grid row as two
+// The interval rule shared by the dim-2 sweep and bisection (quadrature.cu)
+// and the dim-3 sweep (contract3.cu): the masked sum of one grid row as two
 // binary searches on the grid and one subtraction of inclusive prefix
 // sums, instead of a pass over every cell of the row.
 //
@@ -27,9 +27,9 @@
 // masked sum only by the rounding of the prefix difference (at most ~n
 // ulps of the row's largest running sum).
 //
-// Rows are scanned one thread each (rows of odd pitch in shared memory
-// put 16 consecutive rows on distinct bank pairs); lookups are
-// per-thread, and `warp_sum` is warp-synchronous. None uses a block
+// Rows are scanned one thread each (rows of odd pitch `row_pitch` in
+// shared memory put 16 consecutive rows on distinct bank pairs); lookups
+// are per-thread, and `warp_sum` is warp-synchronous. None uses a block
 // barrier.
 
 #pragma once
@@ -44,6 +44,9 @@ constexpr int kMaxChunks = 6;
 constexpr int kMaxRow = 32 * kMaxChunks;
 constexpr int kTopStep = 128;  // the largest power of two <= kMaxRow
 constexpr double kMaxCell = 1.0;  // the largest magnitude of a scanned cell
+
+// The pitch of a row of n cells: n rounded up to odd.
+__host__ __device__ __forceinline__ int row_pitch(int n) { return n | 1; }
 
 // (#{j : x_j <= dlo}, #{j : x_j <= dup}) for x strictly ascending (n
 // entries, shared memory): both counts by binary lifting, interleaved, in

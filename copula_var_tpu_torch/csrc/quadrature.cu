@@ -1,46 +1,64 @@
-// Hand-written Hopper (sm_90a) kernels of the VaR serving path, float64.
+// Hand-written Hopper (sm_90a) kernels of the two-asset (dim-2) VaR serving
+// path, float64.
 //
+//   sweep_table    builds, once per backtest, the bounds-invariant prefix
+//                  table P (T, n, pitch) and one flag byte per (t, i) row
+//                  (sweep_table_kernel).
 //   masked_sweep   replaces copula_var_tpu/ops/pallas_quadrature.py
 //                  ::_sweep_block_kernel (K2, B days per program) and
 //                  ::_day_kernel (K3, one day per program): one masked
 //                  state-sandwich sweep, (L, T) slab integrals for L bound
-//                  rows. It also serves the stage-1 and stage-2 sweeps that
+//                  rows, read off P (prefix_sweep_kernel). It also serves the
+//                  stage-1 and stage-2 sweeps that
 //                  pallas_solver.py::_full_solve computes as XLA einsums.
 //   bisect_levels  replaces copula_var_tpu/ops/pallas_solver.py
 //                  ::_solve_kernel (K1): the fixed-count bisection for L
 //                  rows (confidence levels or portfolios) of one day.
 //
-// Both build the resident per-day operand U[i, j] = V[i, j] * sum_k
-// wfc[i, k] * W1[k, j] in dynamic shared memory with `load_day` (the W1
-// product the TPU kernel computes in its body), one block per day.
+// Both sweep and bisection sum U[i, j] = V[i, j] * sum_k wfc[i, k] * W1[k, j]
+// (the W1 product the TPU kernel computes in its body) over a mask that is,
+// in each row i, one interval of the ascending grid x, so a row's masked
+// sum is the interval rule of interval.cuh: two binary searches on x and
+// one subtraction of the row's inclusive prefix sums.
 //
-// masked_sweep: each bound row is one masked pass over U (`slab`), n*n
-// compares and adds out of shared memory between two block barriers. One
-// day is n*n*8 bytes (80 KB at n = 100) read from HBM once per launch; at
-// the flagship T = 500 a launch streams 40 MB, ~12 us at 3.35 TB/s, so the
-// sweep is latency- and occupancy-bound (500 blocks of 128 threads, two
-// 82 KB blocks per SM). Its redesign is later work.
+// sweep_table: one block per (day, 32 rows) forms those rows of U
+// (`form_rows`) in shared memory at the odd pitch n | 1, one thread per row
+// turns its row into its inclusive prefix sum (interval::scan_row, two
+// passes: a flagged row keeps its cells for the cell-by-cell sum) and the
+// block writes the rows, pad cell zeroed, and the flags to device memory.
+// P is T*n*(n|1) f64: 40.4 MB at T = 500, n = 100, inside the H100's 50 MB
+// L2. Bound by its ~80 MB of HBM traffic (V in, P out), not by the scan.
 //
-// bisect_levels: each row of U (odd pitch n | 1 in shared memory, so one
-// thread per row scans without bank conflicts) is turned in place into its
-// inclusive prefix sum over j (interval.cuh), so a row's masked sum is two
-// binary searches on x and one subtraction. Warps then take bound rows l (l =
+// masked_sweep: one warp per task (bound row l, day t), four warps per
+// block, tasks day-major (t * L + l) so a block's warps read one day's rows.
+// Lanes stride over the rows i (interval::kMaxChunks groups of 32, unrolled
+// so the lookups overlap); each forms the row's two dynamic bounds, reads
+// two cells of P (or, for a flagged row, its cells over [lo, hi)) and the
+// warp sums the rows in a fixed order. So a result's bits depend on (l, t)
+// alone, not on L or the other rows of its batch, and no atomics or block
+// barriers sit in the sweep. The work is n row lookups per task (two IEEE
+// divisions, two 8-step searches in shared memory, two L2 reads): at
+// L = 128 and the flagship size 6.4 M lookups, bound by the divisions and
+// the lookups' latency; at L = 1, 500 tasks of one warp each, by the launch.
+//
+// bisect_levels: U of one day (odd pitch n | 1 in shared memory, so one
+// thread per row scans without bank conflicts) is formed per launch and
+// turned in place into its prefix rows. Warps then take bound rows l (l =
 // warp, warp + warps, ...) and run all n_iters halvings of their row on
 // their own: lanes stride over i, a fixed-order shuffle reduction gives
 // every lane the slab's same bits, and no block barrier sits inside the
-// halving loop. Per halving a row costs n row lookups (~2 log2 n shared
-// loads and two f64 divisions each) instead of an n*n pass; the kernel is
-// bound by those lookups' latency and the divisions, not by HBM (42 MB
-// per launch at the flagship).
+// halving loop. Bound by the lookups' latency and the divisions, not by HBM
+// (42 MB per launch at the flagship). It does not read P yet.
 //
 // Semantics kept from the f64 `xla` engine (copula_var_tpu/backtest.py):
 //   * mask x_j > max((b_lo - x_i w_out) / w_in, box_min) and
 //     x_j <= (b_up - x_i w_out) / w_in; the two dynamic bounds are formed
 //     with __dmul_rn / __dsub_rn / __ddiv_rn so no FMA contraction moves a
-//     bound by an ulp: the mask equals the CPU's bit for bit (the interval
-//     rule reads the same mask off the ordered grid);
+//     bound by an ulp: the interval rule reads the CPU's mask off the
+//     ordered grid bit for bit;
 //   * only masked-in cells contribute, so a NaN cell poisons exactly the
-//     slabs that include it (the fused Pallas path NaNs the whole day);
+//     slabs that include it (the fused Pallas path NaNs the whole day): its
+//     row is flagged and summed cell by cell;
 //   * incremental bookkeeping res = prev +/- slab with the exact test
 //     b_lo == prev_up;
 //   * the iteration count is the host's count of halvings of the widest
@@ -53,20 +71,24 @@
 // caller's stream; each returns cudaGetLastError() (or
 // cudaErrorInvalidValue for shapes the kernels do not take).
 
+#include <climits>
 #include <cuda_runtime.h>
 
 #include "interval.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // masked_sweep
-constexpr int kWarps = kThreads / 32;
+constexpr int kTableRows = 32;  // sweep_table: rows of U per block
+constexpr int kTableThreads = 128;
+constexpr int kSweepThreads = 128;  // masked_sweep: one (l, t) task per warp
+constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kBisectThreads = 512;  // bisect_levels: 16 warps take rows
 constexpr int kBisectWarps = kBisectThreads / 32;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in per block
 
-__host__ __device__ size_t day_shared_bytes(int n) {
-  return (static_cast<size_t>(n) * n + 3 * static_cast<size_t>(n) + kWarps) *
+// sweep_table: kTableRows rows of U at `pitch`
+__host__ __device__ size_t table_shared_bytes(int n) {
+  return static_cast<size_t>(kTableRows) * interval::row_pitch(n) *
          sizeof(double);
 }
 
@@ -75,97 +97,93 @@ __host__ __device__ size_t bisect_shared_bytes(int n) {
   return (static_cast<size_t>(n) * (n | 1) + n) * sizeof(double) + n;
 }
 
-struct DayShared {
-  double* u;    // (n, n) resident masked-sum operand
-  double* x;    // (n,) grid
-  double* dlo;  // (n,) per-row dynamic lower bound
-  double* dup;  // (n,) per-row dynamic upper bound
-  double* red;  // (kWarps,) per-warp partial sums
-};
-
-__device__ DayShared carve(double* smem, int n) {
-  DayShared s;
-  s.u = smem;
-  s.x = s.u + static_cast<size_t>(n) * n;
-  s.dlo = s.x + n;
-  s.dup = s.dlo + n;
-  s.red = s.dup + n;
-  return s;
-}
-
-// U[i, j] = V[i, j] * sum_k wfc[i, k] * W1[k, j] (rows `pitch` apart)
-// and the grid, for this block's day, into shared memory.
-__device__ void load_day(const double* __restrict__ v,
-                         const double* __restrict__ wfc,
-                         const double* __restrict__ w1,
-                         const double* __restrict__ x, double* u, double* xs,
-                         int n, int q, int pitch) {
-  const int nn = n * n;
-  for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
+// U[r, j] = V[r, j] * sum_k wfc[r, k] * W1[k, j] for `rows` rows (v and wfc
+// point at the first), written `pitch` apart into u.
+__device__ void form_rows(const double* __restrict__ v,
+                          const double* __restrict__ wfc,
+                          const double* __restrict__ w1, double* u, int rows,
+                          int n, int q, int pitch) {
+  const int cells = rows * n;
+  for (int idx = threadIdx.x; idx < cells; idx += blockDim.x) {
     const int i = idx / n;
     const int j = idx - i * n;
     double g = 0.0;
     for (int k = 0; k < q; ++k) g += wfc[i * q + k] * w1[k * n + j];
     u[i * pitch + j] = v[idx] * g;
   }
+}
+
+// U and the grid of this block's day into shared memory.
+__device__ void load_day(const double* __restrict__ v,
+                         const double* __restrict__ wfc,
+                         const double* __restrict__ w1,
+                         const double* __restrict__ x, double* u, double* xs,
+                         int n, int q, int pitch) {
+  form_rows(v, wfc, w1, u, n, n, q, pitch);
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   __syncthreads();
 }
 
-// Masked sum of U over the half-space slab [b_lo, b_up]; every thread
-// returns the same total. Callers may call it back to back: the next
-// call's first barrier orders its writes after this call's reads.
-__device__ double slab(const DayShared& s, int n, double b_lo, double b_up,
-                       double w_in, double w_out, double box_min) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const double p = __dmul_rn(s.x[i], w_out);
-    s.dup[i] = __ddiv_rn(__dsub_rn(b_up, p), w_in);
-    const double lo = __ddiv_rn(__dsub_rn(b_lo, p), w_in);
-    // NaN-propagating max, as jnp.maximum / torch.maximum
-    s.dlo[i] = (lo > box_min || lo != lo) ? lo : box_min;
-  }
+__global__ void __launch_bounds__(kTableThreads)
+sweep_table_kernel(const double* __restrict__ v,    // (T, n, n)
+                   const double* __restrict__ wfc,  // (T, n, q)
+                   const double* __restrict__ w1,   // (q, n)
+                   double* __restrict__ p,          // (T, n, pitch)
+                   unsigned char* __restrict__ flag,  // (T, n)
+                   int n, int q, int pitch) {
+  extern __shared__ double u[];  // (kTableRows, pitch)
+  const int r0 = blockIdx.y * kTableRows;
+  const int rows = min(kTableRows, n - r0);
+  const size_t first = static_cast<size_t>(blockIdx.x) * n + r0;  // (t, r0)
+  form_rows(v + first * n, wfc + first * q, w1, u, rows, n, q, pitch);
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  double acc = 0.0;
-  for (int i = warp; i < n; i += kWarps) {
-    const double lo = s.dlo[i];
-    const double up = s.dup[i];
-    const double* row = s.u + static_cast<size_t>(i) * n;
-    for (int j = lane; j < n; j += 32) {
-      const double xj = s.x[j];
-      if (xj > lo && xj <= up) acc += row[j];
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) s.red[warp] = acc;
+  if (threadIdx.x < rows)
+    flag[first + threadIdx.x] =
+        interval::scan_row(u + static_cast<size_t>(threadIdx.x) * pitch, n);
   __syncthreads();
-  double total = 0.0;
-  for (int w = 0; w < kWarps; ++w) total += s.red[w];
-  return total;
+  double* out = p + first * pitch;
+  const int cells = rows * pitch;
+  for (int idx = threadIdx.x; idx < cells; idx += blockDim.x)
+    out[idx] = idx % pitch < n ? u[idx] : 0.0;  // pad cells: defined, unread
 }
 
-__global__ void __launch_bounds__(kThreads)
-masked_sweep_kernel(const double* __restrict__ v,
-                    const double* __restrict__ wfc,
-                    const double* __restrict__ w1,
-                    const double* __restrict__ x,
+__global__ void __launch_bounds__(kSweepThreads)
+prefix_sweep_kernel(const double* __restrict__ p,  // (T, n, pitch)
+                    const unsigned char* __restrict__ flag,  // (T, n)
+                    const double* __restrict__ x,        // (n,)
                     const double* __restrict__ bounds,   // (L, T, 2)
                     const double* __restrict__ weights,  // (L, 2)
                     double box_min, double* __restrict__ out,  // (L, T)
-                    int T, int n, int q, int L) {
-  extern __shared__ double smem[];
-  const int t = blockIdx.x;
-  const DayShared s = carve(smem, n);
-  load_day(v + static_cast<size_t>(t) * n * n,
-           wfc + static_cast<size_t>(t) * n * q, w1, x, s.u, s.x, n, q, n);
-  for (int l = 0; l < L; ++l) {
-    const size_t o = static_cast<size_t>(l) * T + t;
-    const double r = slab(s, n, bounds[2 * o], bounds[2 * o + 1],
-                          weights[2 * l], weights[2 * l + 1], box_min);
-    if (threadIdx.x == 0) out[o] = r;
+                    int T, int n, int L, int pitch) {
+  __shared__ double xs[interval::kMaxRow];
+  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
+  __syncthreads();
+  const int task = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
+  if (task >= L * T) return;  // whole warps: warp_sum's lanes all present
+  const int lane = threadIdx.x & 31;
+  const int t = task / L;
+  const int l = task - t * L;
+  const size_t o = static_cast<size_t>(l) * T + t;
+  const double b_lo = bounds[2 * o], b_up = bounds[2 * o + 1];
+  const double w_in = weights[2 * l], w_out = weights[2 * l + 1];
+  const double* day = p + static_cast<size_t>(t) * n * pitch;
+  const unsigned char* fl = flag + static_cast<size_t>(t) * n;
+  double acc = 0.0;
+#pragma unroll
+  for (int c = 0; c < interval::kMaxChunks; ++c) {
+    const int i = c * 32 + lane;
+    if (c * 32 < n && i < n) {
+      const double pv = __dmul_rn(xs[i], w_out);
+      const double dup = __ddiv_rn(__dsub_rn(b_up, pv), w_in);
+      const double d = __ddiv_rn(__dsub_rn(b_lo, pv), w_in);
+      // NaN-propagating max, as jnp.maximum / torch.maximum
+      const double dlo = (d > box_min || d != d) ? d : box_min;
+      const double* row = day + static_cast<size_t>(i) * pitch;
+      acc += interval::row_sum(row, row, fl[i] != 0, xs, n, dlo, dup);
+    }
   }
+  acc = interval::warp_sum(acc);
+  if (lane == 0) out[o] = acc;
 }
 
 __global__ void __launch_bounds__(kBisectThreads)
@@ -250,29 +268,50 @@ extern "C" const char* cvt_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// The largest grid both day kernels take (a day's n*n f64 resident in
-// one block's shared memory), and no more than the prefix scan's rows.
+// The largest grid of the dim-2 kernels: the bisection's day (n*(n|1) f64
+// prefix rows, x and the row flags) resident in one block's shared memory,
+// and no more than the interval rule's rows.
 extern "C" int cvt_max_grid_points() {
   int n = 1;
   while (n + 1 <= interval::kMaxRow &&
-         day_shared_bytes(n + 1) <= kMaxSharedBytes &&
          bisect_shared_bytes(n + 1) <= kMaxSharedBytes)
     ++n;
   return n;
 }
 
-extern "C" int cvt_masked_sweep(const double* v, const double* wfc,
-                                const double* w1, const double* x,
-                                const double* bounds, const double* weights,
-                                double box_min, double* out, int T, int n,
-                                int q, int L, void* stream) {
-  const size_t bytes = day_shared_bytes(n);
-  cudaError_t e = prepare(masked_sweep_kernel, bytes, T, n, q, L);
+extern "C" int cvt_sweep_table(const double* v, const double* wfc,
+                               const double* w1, double* p,
+                               unsigned char* flag, int T, int n, int q,
+                               int pitch, void* stream) {
+  if (n > interval::kMaxRow || pitch != interval::row_pitch(n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = table_shared_bytes(n);
+  cudaError_t e = prepare(sweep_table_kernel, bytes, T, n, q, 1);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (T == 0) return 0;
+  const dim3 grid(T, (n + kTableRows - 1) / kTableRows);
+  sweep_table_kernel<<<grid, kTableThreads, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(v, wfc, w1, p,
+                                                            flag, n, q, pitch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cvt_masked_sweep(const double* p, const unsigned char* flag,
+                                const double* x, const double* bounds,
+                                const double* weights, double box_min,
+                                double* out, int T, int n, int L, int pitch,
+                                void* stream) {
+  if (n <= 0 || n > interval::kMaxRow || T < 0 || L < 0 ||
+      pitch != interval::row_pitch(n) ||
+      static_cast<long long>(L) * T > INT_MAX - kSweepWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (T == 0 || L == 0) return 0;
-  masked_sweep_kernel<<<T, kThreads, bytes,
+  const int grid = (L * T + kSweepWarps - 1) / kSweepWarps;
+  prefix_sweep_kernel<<<grid, kSweepThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      v, wfc, w1, x, bounds, weights, box_min, out, T, n, q, L);
+      p, flag, x, bounds, weights, box_min, out, T, n, L, pitch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,8 +35,10 @@ SOURCES = {
     "quadrature.cu": {
         "cvt_max_grid_points": [],
         "cvt_error_string": [_I],
-        # v, wfc, w1, x, bounds, weights, box_min, out, T, n, q, L, stream
-        "cvt_masked_sweep": [_P] * 6 + [_D, _P] + [_I] * 4 + [_P],
+        # v, wfc, w1, P, flags, T, n, q, pitch, stream
+        "cvt_sweep_table": [_P] * 5 + [_I] * 4 + [_P],
+        # P, flags, x, bounds, weights, box_min, out, T, n, L, pitch, stream
+        "cvt_masked_sweep": [_P] * 5 + [_D, _P] + [_I] * 4 + [_P],
         # v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj,
         # weights, box_min, n_iters, roots, T, n, q, L, stream
         "cvt_bisect_levels": [_P] * 11 + [_D, _I, _P] + [_I] * 4 + [_P],

@@ -1,19 +1,27 @@
-"""The sweep kernel's wrapper (counterpart of
+"""The sweep kernels' wrappers (counterpart of
 `copula_var_tpu/ops/pallas_quadrature.py`).
 
 `masked_sweep` evaluates L rows of (T,) slab integrals against one set of
 bounds-invariant day operands. Tensors on a CUDA device launch the
-hand-written kernel `masked_sweep_kernel` (csrc/quadrature.cu), which
+hand-written kernel `prefix_sweep_kernel` (csrc/quadrature.cu), which
 replaces the Pallas kernels `_sweep_block_kernel` (K2) and `_day_kernel`
 (K3); tensors on the CPU run the plain twin `masked_sweep_reference`,
 i.e. the cached sweeps of `ops/quadrature.py`. There is no other route.
 
+The kernel reads each row's masked sum off the prefix table P: U = V .*
+(wfc W1), each row turned into its inclusive prefix sum, (T, n,
+row_pitch(n)) float64 (40.4 MB at T = 500, n = 100), and one flag per
+(day, row) for rows summed cell by cell (csrc/interval.cuh). On a CUDA
+device `sweep_operands` builds P once per backtest with the kernel
+`sweep_table_kernel` (`sweep_table`; plain twin `sweep_table_reference`);
+on the CPU it builds none.
+
 The GARCH family is the q = 1 case of the same sum (W0 = W1 = dx rows,
 unit combination weight); it is not padded to q = 2.
 
-The bisection kernel reads each row's mask off the grid by binary search
-(csrc/interval.cuh), so operands on a CUDA device need a strictly
-ascending grid; `sweep_operands` checks it once.
+The interval rule reads each row's mask off the grid by binary search,
+so operands on a CUDA device need a strictly ascending grid;
+`sweep_operands` checks it once.
 """
 
 from __future__ import annotations
@@ -29,15 +37,19 @@ from copula_var_tpu_torch.ops.quadrature import (
     state_weight_matrices,
 )
 
+MAX_CELL = 1.0  # interval.cuh kMaxCell: a row with a larger cell is flagged
+
 
 class SweepOperands(NamedTuple):
     """Bounds-invariant operands of every sweep of one backtest.
 
     V (T, n, n) day tensors; x, dx (n,) grid and steps. MSM family:
     densities (2, q, n) and forecast_combos (T, q*q); GARCH family: both
-    None. The kernel reads the hoisted contraction wfc (T, n, q) =
+    None. The kernels read the hoisted contraction wfc (T, n, q) =
     W0^T FC_t and w1 (q, n), built once here (as `_solve_impl` hoists
-    wfc out of the TPU kernel)."""
+    wfc out of the TPU kernel). The sweep kernel reads P (T, n,
+    row_pitch(n)) and flags (T, n) bool, the prefix table built from
+    those on a CUDA device; both None on the CPU."""
 
     V: torch.Tensor
     x: torch.Tensor
@@ -46,10 +58,19 @@ class SweepOperands(NamedTuple):
     forecast_combos: Optional[torch.Tensor]
     wfc: torch.Tensor
     w1: torch.Tensor
+    P: Optional[torch.Tensor] = None
+    flags: Optional[torch.Tensor] = None
 
     @property
     def days(self) -> int:
         return self.V.shape[0]
+
+
+def row_pitch(n: int) -> int:
+    """Float64 entries per row of a table: n rounded up to odd (one zero
+    pad cell when n is even), so one thread per row scans shared memory
+    without bank conflicts."""
+    return n | 1
 
 
 def require_ascending(x):
@@ -61,9 +82,8 @@ def require_ascending(x):
 
 def sweep_operands(V, x, dx, densities=None, forecast_combos=None):
     """SweepOperands for the MSM family (densities and forecast_combos
-    given) or the GARCH family (both None)."""
-    if V.device.type == "cuda":
-        require_ascending(x)
+    given) or the GARCH family (both None). On a CUDA device the prefix
+    table is built here, once."""
     T = V.shape[0]
     if densities is None:
         w0 = w1 = dx[None, :]
@@ -73,8 +93,53 @@ def sweep_operands(V, x, dx, densities=None, forecast_combos=None):
         q = w0.shape[0]
         fc = forecast_combos.reshape(T, q, q)
     wfc = torch.einsum("si,tsk->tik", w0, fc).contiguous()
-    return SweepOperands(V, x, dx, densities, forecast_combos, wfc,
-                         w1.contiguous())
+    ops = SweepOperands(V, x, dx, densities, forecast_combos, wfc,
+                        w1.contiguous())
+    if V.device.type == "cuda":
+        require_ascending(x)
+        P, flags = sweep_table(ops)
+        ops = ops._replace(P=P, flags=flags)
+    return ops
+
+
+def sweep_table_reference(ops: SweepOperands):
+    """Plain twin of the prefix table, on any device: (P (T, n,
+    row_pitch(n)), flags (T, n) bool). A row of U = V .* (wfc W1) holding
+    a cell outside [-MAX_CELL, MAX_CELL] (NaN included) is flagged and
+    kept as its cells; every other row is its inclusive prefix sum. Pad
+    cells are 0."""
+    U = ops.V * (ops.wfc @ ops.w1)
+    T, n = U.shape[:2]
+    flags = ~(U.abs() <= MAX_CELL).all(dim=-1)
+    P = U.new_zeros((T, n, row_pitch(n)))
+    P[..., :n] = torch.where(flags[..., None], U, torch.cumsum(U, dim=-1))
+    return P, flags
+
+
+def sweep_table(ops: SweepOperands):
+    """The prefix table (P, flags) on the operands' CUDA device: the build
+    kernel (one block per day and 32 rows). Other devices raise: the CPU
+    route sums the cells through the plain sweep and needs no table."""
+    dev = ops.V.device
+    if dev.type != "cuda":
+        raise ValueError(f"sweep_table: unsupported device {dev} (the "
+                         "table is built on a CUDA device only)")
+    T, n, q = check_day_operands(ops)
+    P = torch.empty((T, n, row_pitch(n)), dtype=torch.float64, device=dev)
+    flags = torch.empty((T, n), dtype=torch.bool, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.cvt_sweep_table(
+            ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
+            P.data_ptr(), flags.data_ptr(), T, n, q, row_pitch(n), stream,
+        )
+    _build.check(status, "sweep_table")
+    sweep_table.launches += 1
+    return P, flags
+
+
+sweep_table.launches = 0  # kernel launches (CUDA path only)
 
 
 def masked_sweep_reference(ops: SweepOperands, bounds, weights,
@@ -120,8 +185,9 @@ def check_day_operands(ops: SweepOperands):
     n_max = _build.load().cvt_max_grid_points()
     if n > n_max:
         raise ValueError(
-            f"num_points={n} needs {n}x{n} float64 in one block's shared "
-            f"memory; the kernels take n <= {n_max} (tiling is later work)"
+            f"num_points={n}: the dim-2 kernels take n <= {n_max}, the "
+            f"bisection holding a day's {n}x{n} float64 in one block's "
+            "shared memory (tiling is later work)"
         )
     return T, n, q
 
@@ -129,14 +195,21 @@ def check_day_operands(ops: SweepOperands):
 def masked_sweep(ops: SweepOperands, bounds, weights, box_min=-5.0):
     """(L, T) slab integrals for bounds (L, T, 2) and per-row portfolio
     weights (L, 2) ([inner, outer]). CPU tensors run the plain twin; CUDA
-    tensors launch the kernel (one block per day, every row against the
-    shared-memory-resident day); any other device raises."""
+    tensors launch the kernel on the prefix table (one warp per bound row
+    and day, a prefix-interval sum per grid row); any other device
+    raises."""
     dev = ops.V.device
     if dev.type == "cpu":
         return masked_sweep_reference(ops, bounds, weights, box_min)
     if dev.type != "cuda":
         raise ValueError(f"masked_sweep: unsupported device {dev}")
-    T, n, q = check_day_operands(ops)
+    if ops.P is None or ops.flags is None:
+        raise ValueError("masked_sweep: the operands carry no prefix table "
+                         "P (build them with sweep_operands)")
+    T, n = ops.V.shape[:2]
+    _check_operand("P", ops.P, (T, n, row_pitch(n)), dev)
+    _check_operand("flags", ops.flags, (T, n), dev, torch.bool)
+    _check_operand("x", ops.x, (n,), dev)
     L = bounds.shape[0]
     _check_operand("bounds", bounds, (L, T, 2), dev)
     _check_operand("weights", weights, (L, 2), dev)
@@ -145,9 +218,9 @@ def masked_sweep(ops: SweepOperands, bounds, weights, box_min=-5.0):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.cvt_masked_sweep(
-            ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
-            ops.x.data_ptr(), bounds.data_ptr(), weights.data_ptr(),
-            float(box_min), out.data_ptr(), T, n, q, L, stream,
+            ops.P.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
+            bounds.data_ptr(), weights.data_ptr(), float(box_min),
+            out.data_ptr(), T, n, L, row_pitch(n), stream,
         )
     _build.check(status, "masked_sweep")
     masked_sweep.launches += 1

@@ -39,6 +39,7 @@ from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops.cuda_quadrature import (
     _check_operand,
     require_ascending,
+    row_pitch,
 )
 from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
@@ -98,11 +99,6 @@ def _require_kernel_copula(kind: str) -> None:
             f"the dim-3 path takes the Gaussian or Student copula, not "
             f"{kind!r} (Plackett is bivariate; ROADMAP.md queue 1, item 10)"
         )
-
-
-def row_pitch(n: int) -> int:
-    """Float64 entries per (t, i0, i1) row of U: n rounded up to odd."""
-    return n | 1
 
 
 def slab_stride(n: int) -> int:

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
-Every test here needs an NVIDIA GPU and skips without one. The two
-redesigned kernels (K1 `bisect_levels`, K4 `contract3_weights` +
-`masked_contract3`) are held at odd n, at their largest n and one past
-it, q = 1 and 5, L = 1, 3 and 33 (more rows than warps), with NaN and inf
-cells, and launched twice for bit-identical results. This file
+Every test here needs an NVIDIA GPU and skips without one. The
+redesigned kernels (K1 `bisect_levels`, K2 `sweep_table` +
+`masked_sweep`, K4 `contract3_weights` + `masked_contract3`) are held at
+odd n, at their largest n and one past it, q = 1 and 5, L = 1, 3 and 33
+(more rows than warps), with NaN, inf and saturated cells, and launched
+twice for bit-identical results. This file
 imports neither JAX nor the JAX package, so it runs where JAX is not
 installed (the repository's conftest imports JAX, hence `--noconftest`):
 
@@ -49,13 +50,20 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None):
+def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True):
     """Random day operands on the card; n not a multiple of 32; `edit(V)`
-    may poke cells of the day tensors first."""
+    may poke cells of the day tensors first. With `table` False they are
+    built on the CPU and moved, so they carry no prefix table."""
     rng = np.random.default_rng(seed)
 
     def t(a):
-        return torch.tensor(np.asarray(a, np.float64), device=dev)
+        return torch.tensor(np.asarray(a, np.float64),
+                            device=dev if table else "cpu")
+
+    if not table:
+        ops = _ops("cpu", family, T, n, q, seed, edit)
+        return cq.SweepOperands(*[
+            v.to(dev) if torch.is_tensor(v) else v for v in ops])
 
     x = np.sort(rng.uniform(-5.0, 5.0, n))
     dx = np.diff(x, prepend=x[0] - 0.2)
@@ -190,7 +198,7 @@ def test_bisect_levels_at_its_largest_grid(dev):
     got = cs.bisect_levels(ops, *state, obj, weights, 1e-6)
     want = cs.bisect_levels_reference(ops, *state, obj, weights, 1e-6)
     assert float((got - want).abs().max()) <= ATOL_ROOT
-    big = _ops(dev, "garch", T=3, n=n_max + 1)
+    big = _ops(dev, "garch", T=3, n=n_max + 1, table=False)
     with pytest.raises(ValueError, match="shared"):
         cs.bisect_levels(big, *state, obj, weights, 1e-6)
 
@@ -210,17 +218,147 @@ def test_flagship_through_kernels(dev, est):
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
-    ops = _ops(dev, "garch", T=2, n=200)  # U would not fit shared memory
+    with pytest.raises(ValueError, match="shared"):  # past K1's day
+        _ops(dev, "garch", T=2, n=200)
     bounds, weights = _rows(dev, 2, 1)
-    with pytest.raises(ValueError, match="shared"):
-        cq.masked_sweep(ops, bounds, weights)
     ops = _ops(dev, "garch", T=2)
+    with pytest.raises(ValueError, match="prefix table"):
+        cq.masked_sweep(ops._replace(P=None), bounds, weights)
     strided = torch.zeros((1, 2, 4), dtype=torch.float64, device=dev)[..., ::2]
     strided.copy_(bounds)
     with pytest.raises(ValueError, match="contiguous"):
         cq.masked_sweep(ops, strided, weights)
     with pytest.raises(ValueError, match="float64"):
         cq.masked_sweep(ops, bounds.float(), weights)
+
+
+# -- the dim-2 sweep (K2/K3): prefix table and interval rule -------------------
+
+RTOL_TABLE = 1e-12  # sequential prefix sums vs torch.cumsum's parallel scan
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_sweep_table_matches_plain(dev, family):
+    """P and the flags, built once with the operands, against the plain
+    twin (odd n: rows unpadded; even n: one zero pad cell per row); a
+    rebuild gives the same bits."""
+    for n in (37, 48):
+        before = cq.sweep_table.launches
+        ops = _ops(dev, family, T=9, n=n)
+        assert cq.sweep_table.launches == before + 1
+        assert ops.P.shape == (9, n, cq.row_pitch(n))
+        want, flags = cq.sweep_table_reference(ops)
+        assert torch.equal(ops.flags, flags) and not bool(flags.any())
+        assert bool(torch.isclose(ops.P, want, rtol=RTOL_TABLE,
+                                  atol=1e-300).all())
+        assert bool((ops.P[..., n:] == 0).all())
+        assert torch.equal(ops.P, cq.sweep_table(ops)[0])
+
+
+def _sweep_close(got, want):
+    """Same NaN and inf cells, the finite ones within RTOL_SWEEP x scale."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    assert bool(torch.isfinite(got[fin]).all())
+    assert float((got[fin] - want[fin]).abs().max()) <= \
+        RTOL_SWEEP * float(want[fin].abs().max())
+
+
+@pytest.mark.parametrize("q", [1, 5])
+@pytest.mark.parametrize("L", [1, 3, 33])
+def test_masked_sweep_rows_and_widths(dev, q, L):
+    """Odd n, the GARCH (q = 1) and MSM (q = 5) widths, more rows than a
+    block's warps; a second launch gives the same bits."""
+    ops = _ops(dev, "garch" if q == 1 else "msm", T=9, n=37, q=q)
+    bounds, weights = _rows(dev, 9, L)
+    got = cq.masked_sweep(ops, bounds, weights)
+    _sweep_close(got, cq.masked_sweep_reference(ops, bounds, weights))
+    assert torch.equal(got, cq.masked_sweep(ops, bounds, weights))
+
+
+def test_masked_sweep_at_its_largest_grid(dev):
+    n_max = _build.load().cvt_max_grid_points()
+    ops = _ops(dev, "msm", T=3, n=n_max)
+    bounds, weights = _rows(dev, 3, 4)
+    _sweep_close(cq.masked_sweep(ops, bounds, weights),
+                 cq.masked_sweep_reference(ops, bounds, weights))
+    with pytest.raises(ValueError, match="shared"):
+        _ops(dev, "msm", T=3, n=n_max + 1)
+
+
+def test_masked_sweep_nan_inf_and_saturated_cells(dev):
+    """Rows holding NaN, +inf or -inf cells are flagged and summed cell by
+    cell: each poisons exactly the slabs that hold it, as in the plain
+    twin."""
+    def edit(V):
+        V[:3, 4, 9] = np.nan
+        V[3:6, 11, 20] = np.inf
+        V[6:, 2, 30] = -np.inf
+
+    ops = _ops(dev, "msm", T=9, n=37, edit=edit)
+    assert int(ops.flags.sum()) == 9
+    assert torch.equal(ops.P[:3, 4, :37].isnan(), ops.V[:3, 4].isnan())
+    bounds, weights = _rows(dev, 9, 12)
+    got = cq.masked_sweep(ops, bounds, weights)
+    want = cq.masked_sweep_reference(ops, bounds, weights)
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
+    assert bool(torch.isfinite(want).any())
+    _sweep_close(got, want)
+
+
+def test_masked_sweep_saturated_cell_does_not_absorb_its_row(dev):
+    """GARCH: one cell per row saturated to DBL_MAX (as nan_to_num leaves
+    an overflowed density) at j = 3. Every row is flagged, so bounds whose
+    intervals all start after that cell give the true moderate sums (a
+    prefix difference would give S - S of the huge cell)."""
+    def edit(V):
+        V[:, :, 3] = np.finfo(np.float64).max
+
+    ops = _ops(dev, "garch", T=5, n=41, edit=edit)
+    assert bool(ops.flags.all())
+    L, T = 3, 5
+    lo = np.random.default_rng(4).uniform(1.5, 2.5, (L, T))
+    bounds = torch.tensor(np.stack([lo, lo + np.random.default_rng(5).uniform(
+        0.5, 3.0, (L, T))], -1), device=dev)
+    weights = torch.tensor([[0.5, 0.5], [0.6, 0.4], [0.7, 0.3]],
+                           dtype=torch.float64, device=dev)
+    got = cq.masked_sweep(ops, bounds, weights)
+    want = cq.masked_sweep_reference(ops, bounds, weights)
+    assert bool((want > 0).all()) and bool((want < 1e10).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL_SWEEP, atol=0)
+
+
+def test_masked_sweep_rows_are_batch_invariant(dev):
+    """A bound row gets the same bits alone as inside a 33-row batch: each
+    (row, day) is one warp's fixed-order sum."""
+    ops = _ops(dev, "msm", T=9, n=37)
+    bounds, weights = _rows(dev, 9, 33)
+    batch = cq.masked_sweep(ops, bounds, weights)
+    for l in (0, 15, 32):
+        alone = cq.masked_sweep(ops, bounds[l:l + 1].contiguous(),
+                                weights[l:l + 1].contiguous())
+        assert torch.equal(alone[0], batch[l])
+
+
+def test_compute_integral_through_the_kernel(dev):
+    """K3: `VaRBacktest.compute_integral`, one sweep of the flagship MSM
+    backtest at L = 1, launches the kernel and matches the plain twin."""
+    data = from_csv(os.path.join(DATA, "flagship.csv"), n_insample=1135)
+    bt = load_artifacts(os.path.join(DATA, "flagship_artifacts_msm.npz"),
+                        data, device="cuda")
+    ops = bt.sweep_operands()
+    lo = np.random.default_rng(6).uniform(-8.0, -1.0, ops.days)
+    b = np.stack([lo, lo + 2.0], -1)
+    before = cq.masked_sweep.launches
+    got = bt.compute_integral(b)
+    assert cq.masked_sweep.launches == before + 1
+    want = cq.masked_sweep_reference(
+        ops, torch.tensor(b, device=dev)[None], bt.weights[None])[0]
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=0,
+                               atol=RTOL_SWEEP * float(want.abs().max()))
 
 
 # -- the dim-3 kernel (K4) ----------------------------------------------------
