@@ -15,23 +15,34 @@ Phases, each fatal on failure:
      coverage statistics recomputed; the prep builds each backtest's prefix
      table P (40.4 MB) once; then a serving batch, `calc_var_grid` with 32
      portfolios x 4 levels (128 rows);
-  4. main path, three assets, counted: the same for the dim-3 artifacts
+  4. main path from the CSV, fitted on the card, counted: `from_csv` ->
+     `create_var_backtest(device="cuda")` for MSM (k = 4, basin_iter =
+     100, seed 0) and GARCH (p, q <= 3) with a Student-t copula at the
+     flagship size -> `calc_var(0.05)`. The fits are held to the
+     artifacts' `meta` (GARCH (p, q) equal, omega, alpha, beta within 1e-6
+     relative, nll 1e-9 relative; MSM m_0 and sigma 1e-6 relative, b and
+     gamma 1e-6 absolute, LL 1e-8 relative; rho 1e-6, nu 1e-2); the
+     in-sample marginals, densities and integration inputs, built on the
+     card from the artifact's own fits, to its arrays at rtol 1e-9, and
+     those of the refit at atol 1e-6; the VaR to `data/flagship_var.npz`
+     at atol 1e-9; each step's wall time is printed beside the card;
+  5. main path, three assets, counted: the same for the dim-3 artifacts
      (`data/dim3_artifacts_{msm,garch}.npz`, weights (0.5, 0.3, 0.2)) held
      against `data/dim3_var.npz`; the prep builds each backtest's table U
      (4.0 GB) once, and the path's peak device memory is read. Before each
      main path every kernel launch counter is zeroed and after it read;
      each kernel of that path must have launched and the other path's
      kernels must not;
-  5. parity: each kernel against its plain PyTorch twin on the card, at
+  6. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
      unequal weights; K4 also with a Gaussian copula; the dim-2 table P
      whole, the dim-3 table U on 16 days), a repeated launch of each that
      must give the same bits, a dim-2 sweep row alone against its bits
      inside a 128-row batch, and the serving batches (128 rows at dim 2,
      8 portfolios x 4 levels at dim 3) against the plain solves;
-  6. timings: CUDA events after warm-up, median and min of the reps,
+  7. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns;
-  7. device profile: torch.profiler over calls of each kernel, `calc_var`
+  8. device profile: torch.profiler over calls of each kernel, `calc_var`
      and the serving batches: host ms per call, the device's busy ms, and
      each kernel's launches and device ms per launch.
 
@@ -60,6 +71,17 @@ ROWS_P = 32  # dim-2 serving batch: portfolios x LEVELS
 ROWS_P3 = 8  # dim-3 serving batch: portfolios x LEVELS
 LEVELS = (0.01, 0.025, 0.05, 0.1)
 ATOL_VAR = 1e-9  # tests/test_flagship.py holds the f64 record to this
+BASIN_ITER = 100  # examples/flagship.py's MSM basin hop
+# fitted state against the artifacts' meta: a VaR day moves only beyond
+# these (relative on the model parameters; absolute on MSM's b and gamma,
+# which sit on their lower bounds, and on the copula's rho and nu)
+FIT_RTOL_PARAMS, FIT_RTOL_GARCH_NLL, FIT_RTOL_MSM_LL = 1e-6, 1e-9, 1e-8
+FIT_ATOL_BOUND, FIT_ATOL_RHO, FIT_ATOL_NU = 1e-6, 1e-6, 1e-2
+# integration inputs, marginals and densities: built on the card from the
+# artifact's own fits, against the artifact's arrays; and from the refit,
+# where MSM's m_0 is pinned only to its optimizer's stall resolution
+# (~1e-8), so its probabilities move by ~1e-8 while no VaR day does
+RTOL_FIT_ARRAYS, ATOL_REFIT_ARRAYS = 1e-9, 1e-6
 # kernel sweep vs plain sweep: the two sum the same float64 terms in
 # different orders (dim 2: masked U = V .* (wfc W1) per warp vs
 # W0 (V .* M) W1^T then . FC; dim 3: masked U = V .* (W1^T G W2) per slab
@@ -223,6 +245,9 @@ def main() -> int:
     import numpy as np
 
     from copula_var_tpu_torch import stats
+    from copula_var_tpu_torch.backtest import create_var_backtest
+    from copula_var_tpu_torch.copulas import fit as copula_fit_mod
+    from copula_var_tpu_torch.models import fit as model_fit_mod
     from copula_var_tpu_torch.data import from_csv
     from copula_var_tpu_torch.ops import _build
     from copula_var_tpu_torch.ops import cuda_quadrature as cq
@@ -230,7 +255,7 @@ def main() -> int:
     from copula_var_tpu_torch.ops import cuda_solver as cs
     from copula_var_tpu_torch.ops.quadrature import CopulaSpec
     from copula_var_tpu_torch.ops.solvers import bracket_state_batched
-    from copula_var_tpu_torch.utils.artifacts import load_artifacts
+    from copula_var_tpu_torch.utils.artifacts import _restore, load_artifacts
 
     if "jax" in sys.modules or "copula_var_tpu" in sys.modules:
         raise RuntimeError("the port imported jax or the JAX package")
@@ -331,6 +356,138 @@ def main() -> int:
                              "backtest")
     if launches["masked_contract3"] or launches["contract3_weights"]:
         raise AssertionError("a dim-3 kernel launched on the dim-2 path")
+
+    # -- main path from the CSV, fitted on the card, counted -----------------
+    def fit_gaps(est, bt, meta):
+        """{quantity: (gap, bound)} of the fitted state against meta."""
+        gaps = {}
+
+        def rel(a, b):
+            a, b = np.atleast_1d(np.asarray(a, float)), np.asarray(b, float)
+            return float(np.max(np.abs(a - b) / np.abs(b)))
+
+        for i, (f, m) in enumerate(zip(bt.model_fits, meta["model_fits"])):
+            if est == "garch":
+                if (f.p, f.q) != (m["p"], m["q"]):
+                    raise AssertionError(f"garch asset {i}: (p, q) = "
+                                         f"{(f.p, f.q)}, artifact "
+                                         f"{(m['p'], m['q'])}")
+                for k in ("omega", "alpha", "beta"):
+                    gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
+                                         FIT_RTOL_PARAMS)
+                gaps[f"nll[{i}]"] = (rel(f.nll, m["nll"]), FIT_RTOL_GARCH_NLL)
+            else:
+                for k in ("m_0", "sigma"):
+                    gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
+                                         FIT_RTOL_PARAMS)
+                for k in ("b", "gamma"):
+                    gaps[f"{k}[{i}]"] = (abs(getattr(f, k) - m[k]),
+                                         FIT_ATOL_BOUND)
+                gaps[f"LL[{i}]"] = (rel(f.log_likelihood, m["log_likelihood"]),
+                                    FIT_RTOL_MSM_LL)
+        c, cm = bt.copula_fit, meta["copula_fit"]
+        gaps["rho"] = (float(np.max(np.abs(c.packed_params[1:] - np.asarray(
+            cm["packed_params"][1:])))), FIT_ATOL_RHO)
+        gaps["nu"] = (abs(c.nu - cm["nu"]), FIT_ATOL_NU)
+        return gaps
+
+    def fitted(est):
+        """from_csv -> create_var_backtest(cuda) -> calc_var(alpha), held
+        against the artifact and the record; returns (backtest, report)."""
+        art = np.load(os.path.join(root, "data",
+                                   f"flagship_artifacts_{est}.npz"))
+        meta = json.loads(str(art["meta"]))
+        kw = ({"k": int(rec["k"]), "basin_iter": BASIN_ITER, "seed": 0}
+              if est == "msm" else {})
+        t0 = time.perf_counter()
+        data = from_csv(os.path.join(root, "data", "flagship.csv"),
+                        n_insample=int(rec["n_insample"]))
+        bt = create_var_backtest(data, est, "student",
+                                 num_points=int(rec["num_points"]),
+                                 device="cuda", **kw)
+        t1 = time.perf_counter()
+        bt.sweep_operands()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        var = bt.calc_var(alpha)
+        t3 = time.perf_counter()
+        gaps = fit_gaps(est, bt, meta)
+        bad = {k: v for k, v in gaps.items() if not v[0] <= v[1]}
+        if bad:
+            raise AssertionError(f"fit path {est}: fitted state off the "
+                                 f"artifact: {bad}")
+        # the same arrays built on the card from the artifact's own fits
+        fits_a = [getattr(model_fit_mod, meta["fit_type"])(**{
+            k: _restore(v) for k, v in f.items()})
+            for f in meta["model_fits"]]
+        cfit_a = getattr(copula_fit_mod, meta["copula_fit_type"])(**{
+            k: _restore(v) for k, v in meta["copula_fit"].items()})
+        bt_a = create_var_backtest(data, est, "student",
+                                   num_points=int(rec["num_points"]),
+                                   device="cuda", model_fits_override=fits_a,
+                                   copula_fit_override=cfit_a)
+        arr_err, arr_abs = {}, {}
+        for k, want in ((k, art[k]) for k in art.files if k != "meta"):
+            for b, errs, rel_ in ((bt_a, arr_err, True),
+                                  (bt, arr_abs, False)):
+                a = (b.integration_inputs._asdict()[k[3:]].cpu().numpy()
+                     if k.startswith("ii_") else getattr(b, k))
+                if a.shape != want.shape:
+                    raise AssertionError(f"fit path {est}: {k} {a.shape}, "
+                                         f"artifact {want.shape}")
+                d = np.abs(a - want)
+                errs[k] = float(np.max(d / np.maximum(np.abs(want), 1e-300)
+                                       if rel_ else d))
+        del bt_a
+        want = rec[f"{est}_var"]
+        if var.shape != want.shape or not np.all(np.isfinite(var)):
+            raise AssertionError(f"fit path {est}: bad VaR series "
+                                 f"{var.shape}")
+        diff = np.abs(var - want)
+        times = dict(bt.prep_stages, sweep_operands=t2 - t1,
+                     first_calc_var=t3 - t2, csv_to_first_var=t3 - t0)
+        print(f"fit path {est}: max |VaR - record| = {diff.max():.3e} "
+              f"(bound {ATOL_VAR:g}), days above 1e-9: "
+              f"{int(np.sum(diff > 1e-9))}; fit vs artifact "
+              + ", ".join(f"{k} {g:.2e} (bound {b:g})"
+                          for k, (g, b) in gaps.items()))
+        print(f"fit path {est}: arrays vs artifact, built from its fits, "
+              "max rel " + ", ".join(f"{k} {e:.2e}"
+                                     for k, e in arr_err.items())
+              + f" (bound {RTOL_FIT_ARRAYS:g}); from the refit, max abs "
+              + ", ".join(f"{k} {e:.2e}" for k, e in arr_abs.items())
+              + f" (bound {ATOL_REFIT_ARRAYS:g})")
+        print(f"fit path {est} wall s (host clock, {smi}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        if diff.max() > ATOL_VAR:
+            raise AssertionError(f"fit path {est}: VaR off the record by "
+                                 f"{diff.max():.3e}")
+        bad = {k: e for k, e in arr_err.items() if not e <= RTOL_FIT_ARRAYS}
+        bad.update({k: e for k, e in arr_abs.items()
+                    if not e <= ATOL_REFIT_ARRAYS})
+        if bad:
+            raise AssertionError(f"fit path {est}: arrays off the artifact "
+                                 f"{bad}")
+        return bt, {"wall_s": times, "fit_gaps": gaps,
+                    "array_rel_err_artifact_fits": arr_err,
+                    "array_abs_err_refit": arr_abs,
+                    "var_max_err": float(diff.max())}
+
+    zero_counts()
+    fit_bts, fit_report = {}, {}
+    for est in ("garch", "msm"):
+        fit_bts[est], fit_report[est] = fitted(est)
+    launches_fit = read_counts()
+    print(f"fit path: launches {launches_fit}")
+    for name in ("masked_sweep", "bisect_levels"):
+        if launches_fit[name] <= 0:
+            raise AssertionError(f"{name} never launched on the fit path")
+    if launches_fit["sweep_table"] != len(fit_bts):
+        raise AssertionError("sweep_table did not build one table per "
+                             "fitted backtest")
+    if launches_fit["masked_contract3"] or launches_fit["contract3_weights"]:
+        raise AssertionError("a dim-3 kernel launched on the fit path")
+    del fit_bts
 
     # -- main path, three assets, counted -----------------------------------
     rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
@@ -696,6 +853,7 @@ def main() -> int:
         "dim3_peak_device_bytes": peak3, "dim3_bytes_before_path": base3,
         "dim3_table_bytes": int(ops3_m.U.numel() * 8),
         "launches_dim2": launches, "launches_dim3": launches3,
+        "launches_fit_path": launches_fit, "fit_path": fit_report,
         "timing_ms": timing, "profile": profiles,
     }
 

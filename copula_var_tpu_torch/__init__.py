@@ -2,21 +2,25 @@
 
 The JAX package beside it stays the reference; every module here mirrors
 its counterpart's name and layout so each piece is easy to hold against
-it. This slice covers the serving path for two- and three-asset
-portfolios: load fitted artifacts, build the bounds-invariant sweep
-operands (dim 2: day tensors; dim 3: transform columns), and solve the
-three-stage VaR (stage-1 sweep, stage-2 bracket, bisection) for one
-level, many levels, many portfolios or their product grid.
+it. The port goes from returns to a VaR series: fit MSM or GARCH per
+asset and a Gaussian, Student-t or Plackett copula by IFM
+(`backtest.create_var_backtest`), or load saved fitted artifacts; build
+the bounds-invariant sweep operands (dim 2: day tensors; dim 3:
+transform columns); and solve the three-stage VaR (stage-1 sweep,
+stage-2 bracket, bisection) for one level, many levels, many portfolios
+or their product grid.
 
   device.py      device resolution: the card by default; a CUDA request
                  without a GPU raises
   data/          returns ingestion without pandas
-  ops/           special functions, cached and transform-cached
-                 quadrature, bracketing, and the hand-written CUDA kernels
+  ops/           special functions, grids, cached and transform-cached
+                 quadrature, bracketing, golden-section and batched
+                 L-BFGS solvers, and the hand-written CUDA kernels
                  (csrc/) with their wrappers
-  models/, copulas/   fitted-result records (fitting is later work)
-  backtest.py    solve-ready VaRBacktest
-  utils/         artifact loader
+  models/        GARCH and MSM filters and their fits
+  copulas/       Gaussian, Student-t and Plackett IFM likelihoods and fits
+  backtest.py    create_var_backtest, the adapters, VaRBacktest
+  utils/         artifact save and load
 
 The entry points run on the card unless the caller asks for "cpu";
 tensors on the CPU run the plain PyTorch versions, tensors on a CUDA

@@ -1,13 +1,18 @@
-"""Solve-ready VaR backtest (counterpart of the serving half of
-`copula_var_tpu/backtest.py`).
+"""VaR backtest: the fit-to-VaR orchestrator and the solve-ready
+`VaRBacktest` (counterpart of `copula_var_tpu/backtest.py`).
 
-A `VaRBacktest` here is built from fitted state (`utils.artifacts.
-load_artifacts`), not by fitting: it holds the integration inputs on the
-caller's device, builds the bounds-invariant sweep operands once (two
-assets: the (T, n, n) day tensors; three assets: the per-day transform
-columns and `Contract3Operands`, with the table U on a CUDA device), and
-answers VaR queries with the
-three-stage solve (`ops/cuda_solver.py`):
+`create_var_backtest` goes from returns to a solve-ready backtest on the
+caller's device, as the JAX factory does: model fit per asset
+(`MsmAdapter.fit`, `GarchAdapter.fit`), in-sample marginals and
+densities, the IFM copula fit, the per-day integration inputs of every
+out-of-sample window, then `VaRBacktest`. `utils.artifacts.
+load_artifacts` builds the same object from saved fitted state instead.
+
+A `VaRBacktest` holds the integration inputs on its device, builds the
+bounds-invariant sweep operands once (two assets: the (T, n, n) day
+tensors; three assets: the per-day transform columns and
+`Contract3Operands`, with the table U on a CUDA device), and answers VaR
+queries with the three-stage solve (`ops/cuda_solver.py`):
 
   calc_var             one confidence level           -> (T,)
   calc_var_levels      L levels, one portfolio        -> (L, T)
@@ -17,8 +22,9 @@ three-stage solve (`ops/cuda_solver.py`):
 On a CUDA device every sweep and the bisection run the hand-written
 kernels (`masked_sweep` and `bisect_levels` at dim 2, `masked_contract3`
 at dim 3); on the CPU they run the plain twins, the f64 oracle that
-matches the JAX `xla` engine. Results come back as numpy float64, with
-the portfolio mean added, as the JAX package returns them.
+matches the JAX `xla` engine. Fitting is plain PyTorch on the same
+device. Results come back as numpy float64, with the portfolio mean
+added, as the JAX package returns them.
 
 Weights pairing, kept from the reference: `weights[0]` pairs the inner
 grid axis and `weights[1:]` the outer axes in order; only unequal
@@ -28,13 +34,17 @@ weights show it.
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from copula_var_tpu_torch.copulas import fit as copula_fit
 from copula_var_tpu_torch.data.returns import ReturnsData
-from copula_var_tpu_torch.device import resolve_device
+from copula_var_tpu_torch.device import resolve_device, synchronize
+from copula_var_tpu_torch.models import fit as model_fit
+from copula_var_tpu_torch.models import garch as garch_mod
+from copula_var_tpu_torch.models import msm as msm_mod
 from copula_var_tpu_torch.ops.cuda_quadrature import sweep_operands
 from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
 from copula_var_tpu_torch.ops.cuda_solver import (
@@ -42,6 +52,7 @@ from copula_var_tpu_torch.ops.cuda_solver import (
     full_solve_portfolios,
     sweep_for,
 )
+from copula_var_tpu_torch.ops.grids import garch_grid, msm_grid
 from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
     garch_day_columns,
@@ -51,8 +62,16 @@ from copula_var_tpu_torch.ops.quadrature import (
     msm_day_tensors,
     msm_integrals_cached,
 )
+from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
 
-_FIT_LATER = "fitting is not ported yet (ROADMAP.md queue 1, items 6-8)"
+VOL_STATE_ROUND_TOL = 1e-6  # `msm_estimation.py:204-248`
+
+
+def _rows(a, dev):
+    """(N, A) or (T, N, A) numpy -> a float64 tensor with the asset axis
+    first, on `dev`."""
+    return torch.as_tensor(np.moveaxis(np.asarray(a, dtype=np.float64), -1,
+                                       0).copy(), device=dev)
 
 
 class MsmIntegrationInputs(NamedTuple):
@@ -71,12 +90,104 @@ class GarchIntegrationInputs(NamedTuple):
 
 
 class MsmAdapter:
-    """MSM family: mixture marginals over q vol states."""
+    """MSM family (`msm_estimation.py`): mixture marginals over q vol
+    states. `k` is carried explicitly; the constructor takes the JAX
+    adapter's arguments."""
 
     name = "msm"
 
-    def fit(self, in_sample):
-        raise NotImplementedError(f"MsmAdapter.fit: {_FIT_LATER}")
+    def __init__(self, k: int = 4, basin_iter: int = 100, seed: int = 0,
+                 step_size: float = 0.2, b_values=None,
+                 gamma_weight: float = 0.0, b_weight: float = 0.0,
+                 bounds=None, reference_quirks: bool = False,
+                 polish_max_iter: int = 200):
+        self.k = k
+        self.basin_iter = basin_iter
+        self.seed = seed
+        self.step_size = step_size
+        self.b_values = b_values
+        self.gamma_weight = gamma_weight
+        self.b_weight = b_weight
+        self.bounds = bounds
+        self.reference_quirks = reference_quirks
+        self.polish_max_iter = polish_max_iter
+
+    def fit(self, in_sample, device="cuda", timings=None):
+        """Every asset's basin hop, polish and final LL in lockstep on
+        `device` (asset i seeded `seed + i`)."""
+        return model_fit.fit_msm_batch(
+            in_sample, self.k, basin_iter=self.basin_iter,
+            step_size=self.step_size, b_values=self.b_values,
+            gamma_weight=self.gamma_weight, b_weight=self.b_weight,
+            seed=self.seed, bounds=self.bounds,
+            reference_quirks=self.reference_quirks,
+            polish_max_iter=self.polish_max_iter, device=device,
+            timings=timings,
+        )
+
+    @staticmethod
+    def _params(fits, dev):
+        """(m_0, sigma, b, gamma), each (A, 1) on `dev`."""
+        p = torch.tensor([[f.m_0, f.sigma, f.b, f.gamma] for f in fits],
+                         dtype=torch.float64, device=dev)
+        return p[:, 0:1], p[:, 1:2], p[:, 2:3], p[:, 3:4]
+
+    def marginals_densities(self, in_sample, fits, device="cuda"):
+        """Stacked (N-1, dim) marginals and densities
+        (`msm_estimation.py:55-120`; the length drop is the reference's
+        alignment shift), every asset in one batched filter."""
+        dev = resolve_device(device)
+        m0, sigma, b, gm = (v[:, 0] for v in self._params(fits, dev))
+        r = _rows(in_sample, dev)
+        marg, _, _ = msm_mod.marginals(self.k, m0, sigma, b, gm, r)
+        dens = msm_mod.densities(self.k, m0, sigma, b, gm, r)
+        return marg.T.cpu().numpy(), dens.T.cpu().numpy()
+
+    def integration_inputs(self, windows, fits, num_points: int,
+                           box=(-5.0, 5.0), device="cuda"):
+        """Per-day forecast state distributions of all T windows
+        (`msm_estimation.py:139-202`), every asset and window in one
+        batched filter, collapsed to unique (1e-6-rounded) vol levels
+        (`:204-248`), densities on the MSM grid (`:282-330`) and the joint
+        combo probabilities in ij order (`:368-418`). Assets with fewer
+        unique levels are padded with zero-probability states."""
+        dev = resolve_device(device)
+        T, N, dim = windows.shape
+        m0, sigma, b, gm = self._params(fits, dev)
+        fc = msm_mod.forecast_windows(self.k, m0, sigma, b, gm,
+                                      _rows(windows, dev))
+        forecasts_array = fc.cpu().numpy()  # (dim, T, 2^k)
+        vol_state_array = msm_mod.vol_states(
+            self.k, m0[:, 0], sigma[:, 0]).cpu().numpy()  # (dim, 2^k)
+
+        fbs_per_dim, uniq_per_dim = [], []
+        for i in range(dim):
+            rounded = (np.round(vol_state_array[i] / VOL_STATE_ROUND_TOL)
+                       * VOL_STATE_ROUND_TOL)
+            uniq, inv = np.unique(rounded, return_inverse=True)
+            summed = np.zeros((T, len(uniq)))
+            np.add.at(summed.T, inv, forecasts_array[i].T)
+            fbs_per_dim.append(summed)
+            uniq_per_dim.append(uniq)
+        q = max(len(u) for u in uniq_per_dim)
+        for i in range(dim):
+            pad = q - len(uniq_per_dim[i])
+            if pad:
+                uniq_per_dim[i] = np.concatenate(
+                    [uniq_per_dim[i], np.full(pad, uniq_per_dim[i][-1])])
+                fbs_per_dim[i] = np.pad(fbs_per_dim[i], ((0, 0), (0, pad)))
+        unique_vols = np.stack(uniq_per_dim, axis=0)  # (dim, q)
+        fbs = np.stack(fbs_per_dim, axis=1)  # (T, dim, q)
+
+        x, dx = msm_grid(num_points, box[0], box[1])
+        densities = norm_pdf(torch.as_tensor(x)[None, None, :],
+                             std=torch.as_tensor(unique_vols)[:, :, None]
+                             ).numpy()  # (dim, q, n)
+        combos = fbs[:, 0, :]
+        for d in range(1, dim):
+            combos = (combos[:, :, None] * fbs[:, d, None, :]).reshape(T, -1)
+        return MsmIntegrationInputs(x, dx, densities, unique_vols, fbs,
+                                    combos)
 
     def day_tensors(self, inputs: MsmIntegrationInputs, spec):
         return msm_day_tensors(inputs.forecasts_by_states, inputs.x,
@@ -104,12 +215,72 @@ class MsmAdapter:
 
 
 class GarchAdapter:
-    """GARCH family: one forecast vol per asset and day (q = 1)."""
+    """GARCH family (`garch_estimation.py`): one forecast vol per asset
+    and day (q = 1). The constructor takes the JAX adapter's
+    arguments."""
 
     name = "garch"
 
-    def fit(self, in_sample):
-        raise NotImplementedError(f"GarchAdapter.fit: {_FIT_LATER}")
+    def __init__(self, p_max: int = 3, q_max: int = 3,
+                 newton_max_iter: int = 200, newton_tol: float = 1e-10,
+                 eps: float = 1e-5, reference_quirks: bool = False):
+        self.p_max = p_max
+        self.q_max = q_max
+        self.newton_max_iter = newton_max_iter
+        self.newton_tol = newton_tol
+        self.eps = eps
+        self.reference_quirks = reference_quirks
+
+    def fit(self, in_sample, device="cuda", timings=None):
+        """Every asset's BIC sweep in one batched Newton solve on
+        `device` (one stage: `timings` gets nothing of its own)."""
+        return model_fit.fit_garch_batch(
+            in_sample, p_max=self.p_max, q_max=self.q_max,
+            max_iter=self.newton_max_iter, tol=self.newton_tol,
+            eps=self.eps, reference_quirks=self.reference_quirks,
+            device=device,
+        )
+
+    @staticmethod
+    def _padded_params(fits, dev):
+        """(omega (A,), alpha (A, p_max), beta (A, q_max), p (A,), q (A,))
+        on `dev`: coefficient rows end-zero-padded to the panel's largest
+        lag counts (the same recursion) and the true lag counts for the
+        forecast's pairing quirk."""
+        pm = max(len(np.atleast_1d(f.alpha)) for f in fits)
+        qm = max(len(np.atleast_1d(f.beta)) for f in fits)
+        A = len(fits)
+        alpha, beta = np.zeros((A, pm)), np.zeros((A, qm))
+        p_arr, q_arr = np.zeros(A, np.int64), np.zeros(A, np.int64)
+        for i, f in enumerate(fits):
+            a_i, b_i = np.atleast_1d(f.alpha), np.atleast_1d(f.beta)
+            alpha[i, :len(a_i)], beta[i, :len(b_i)] = a_i, b_i
+            p_arr[i], q_arr[i] = len(a_i), len(b_i)
+        omega = np.asarray([f.omega for f in fits], dtype=np.float64)
+        return tuple(torch.as_tensor(v, device=dev)
+                     for v in (omega, alpha, beta, p_arr, q_arr))
+
+    def marginals_densities(self, in_sample, fits, device="cuda"):
+        """marginals = Phi(eps_t), densities = phi(eps_t) of the
+        standardized residuals (`garch_estimation.py:56-119`), every asset
+        in one batched recursion -> (N, dim) each."""
+        dev = resolve_device(device)
+        omega, alpha, beta, _, _ = self._padded_params(fits, dev)
+        eps = garch_mod.standardized_residuals(_rows(in_sample, dev), omega,
+                                               alpha, beta)
+        return norm_cdf(eps).T.cpu().numpy(), norm_pdf(eps).T.cpu().numpy()
+
+    def integration_inputs(self, windows, fits, num_points: int,
+                           box=(-5.0, 5.0), device="cuda"):
+        """The one-step forecast vol of every asset and window (T, dim),
+        one batched recursion, and the GARCH grid."""
+        dev = resolve_device(device)
+        omega, alpha, beta, p, q = self._padded_params(fits, dev)
+        fv = garch_mod.forecast_vol_padded(
+            _rows(windows, dev), omega[:, None], alpha[:, None],
+            beta[:, None], p[:, None], q[:, None])  # (dim, T)
+        x, dx = garch_grid(num_points, box[0], box[1])
+        return GarchIntegrationInputs(x, dx, fv.T.cpu().numpy())
 
     def day_tensors(self, inputs: GarchIntegrationInputs, spec):
         return garch_day_tensors(inputs.forecast_vols, inputs.x, spec)
@@ -132,6 +303,29 @@ class GarchAdapter:
 
 
 _ADAPTERS = {"msm": MsmAdapter, "garch": GarchAdapter}
+_COPULA_FITTERS = {
+    "gaussian": copula_fit.fit_gaussian,
+    "student": copula_fit.fit_student,
+    "plackett": copula_fit.fit_plackett,
+}
+_COPULA_SPEC_BUILDERS = {}
+
+
+def register_adapter(name: str, adapter_cls) -> None:
+    """Plug in a volatility-model adapter. It provides `fit(in_sample,
+    device, timings)`, `marginals_densities(in_sample, fits, device)`,
+    `integration_inputs(windows, fits, num_points, box, device)` and the
+    serving methods of `MsmAdapter` / `GarchAdapter` (`day_tensors`,
+    `sweep_operands`, and at dim 3 `day_columns`, `contract3_operands`)."""
+    _ADAPTERS[name] = adapter_cls
+
+
+def register_copula(name: str, fitter, spec_builder) -> None:
+    """Plug in a copula: `fitter(marginals, densities, device=...) -> fit`
+    and `spec_builder(fit, device) -> CopulaSpec` of a kind the
+    quadrature serves ('gaussian', 'student', 'plackett')."""
+    _COPULA_FITTERS[name] = fitter
+    _COPULA_SPEC_BUILDERS[name] = spec_builder
 
 
 def _copula_spec(kind: str, fit_result, device) -> CopulaSpec:
@@ -145,6 +339,8 @@ def _copula_spec(kind: str, fit_result, device) -> CopulaSpec:
         return CopulaSpec("student", (float(fit_result.nu), corr()))
     if kind == "plackett":
         return CopulaSpec("plackett", (float(fit_result.theta),))
+    if kind in _COPULA_SPEC_BUILDERS:
+        return _COPULA_SPEC_BUILDERS[kind](fit_result, device)
     raise ValueError(f"unknown copula: {kind}")
 
 
@@ -155,7 +351,8 @@ class VaRBacktest:
     copula_fit / model_fits: fitted records; integration_inputs: the
     adapter's inputs (tensors are moved to `device`, the card unless the
     caller asks for "cpu"); marginals / densities: the in-sample IFM
-    inputs, kept for the record.
+    inputs, kept for the record. `prep_seconds` counts the fit that made
+    the state (`create_var_backtest`) and the sweep operands' build.
     """
 
     def __init__(self, data: ReturnsData, adapter, copula: str, copula_fit,
@@ -216,9 +413,8 @@ class VaRBacktest:
             else:
                 tensors = self.adapter.day_tensors(inputs, spec)
                 self._ops = self.adapter.sweep_operands(tensors, inputs)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.prep_seconds = time.perf_counter() - t0
+            synchronize(self.device)
+            self.prep_seconds += time.perf_counter() - t0
         return self._ops
 
     def _tensor(self, a):
@@ -315,3 +511,71 @@ class VaRBacktest:
         flat = self.calc_var_portfolios(np.repeat(weights_batch, L, axis=0),
                                         obj_var=np.tile(obj_vars, P), **kw)
         return flat.reshape(P, L, -1)
+
+
+def create_var_backtest(
+    data: ReturnsData,
+    estimation_type: str,
+    copula_type: str,
+    num_points: int = 100,
+    box: tuple = (-5.0, 5.0),
+    copula_fit_kwargs: Optional[dict] = None,
+    model_fits_override: Optional[list] = None,
+    copula_fit_override: Optional[object] = None,
+    device="cuda",
+    **adapter_kwargs,
+) -> VaRBacktest:
+    """Fit and build a solve-ready backtest on `device` (the card unless
+    the caller asks for "cpu"; the device picks the path): model fit per
+    asset -> in-sample marginals and densities -> IFM copula fit ->
+    integration inputs of every out-of-sample window -> `VaRBacktest`.
+
+    model_fits_override / copula_fit_override inject fitted records and
+    skip that fit (resume from saved artifacts, or reuse one family's fits
+    across copulas). `prep_seconds` covers the whole preparation, as in
+    the JAX package; `prep_stages` holds each step's wall seconds (the
+    device synchronized at each end), with the fit's own stages."""
+    if estimation_type == "mean_reverting":
+        raise NotImplementedError(
+            "the UKF mean-reverting model is not ported yet (ROADMAP.md "
+            "queue 1, item 6)")
+    if estimation_type not in _ADAPTERS:
+        raise ValueError(f"Unsupported estimation type: {estimation_type}")
+    if copula_type not in _COPULA_FITTERS:
+        raise ValueError(f"Unsupported copula type: {copula_type}")
+    dev = resolve_device(device)
+    adapter = _ADAPTERS[estimation_type](**adapter_kwargs)
+    stages = {}
+    t0 = clock = time.perf_counter()
+
+    def lap(name):
+        nonlocal clock
+        synchronize(dev)
+        now = time.perf_counter()
+        stages[name] = now - clock
+        clock = now
+
+    in_sample = data.in_sample
+    if model_fits_override is not None:
+        fits = list(model_fits_override)
+    else:
+        fits = adapter.fit(in_sample, device=dev, timings=stages)
+    lap("model_fit")
+    marginals, densities = adapter.marginals_densities(in_sample, fits,
+                                                       device=dev)
+    lap("marginals_densities")
+    if copula_fit_override is not None:
+        cfit = copula_fit_override
+    else:
+        cfit = _COPULA_FITTERS[copula_type](
+            marginals, densities, device=dev, **(copula_fit_kwargs or {}))
+    lap("copula_fit")
+    inputs = adapter.integration_inputs(data.rolling_windows(), fits,
+                                        num_points, box, device=dev)
+    lap("integration_inputs")
+    bt = VaRBacktest(data, adapter, copula_type, cfit, fits, inputs,
+                     marginals=marginals, densities=densities,
+                     num_points=num_points, box=box, device=dev)
+    bt.prep_seconds = time.perf_counter() - t0
+    bt.prep_stages = stages
+    return bt

@@ -23,3 +23,10 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {str(device)!r}: use 'cpu' or 'cuda'")
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so that a
+    host clock read after it covers the work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

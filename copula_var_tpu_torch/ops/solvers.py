@@ -1,9 +1,34 @@
-"""Stage-2 bracketing of the VaR solve (counterpart of
-`copula_var_tpu/ops/solvers.py::bracket_state_batched`)."""
+"""Stage-2 bracketing of the VaR solve and the batched golden-section
+scan of the IFM fits (counterpart of `copula_var_tpu/ops/solvers.py`:
+`bracket_state_batched`, `golden_section_min`)."""
 
 from __future__ import annotations
 
 import torch
+
+_GR = 0.6180339887498949  # (sqrt(5) - 1) / 2
+
+
+def golden_section_min(fn, lo, hi, iters: int = 90):
+    """Batched golden-section minimization.
+
+    fn maps (k*B,) -> (k*B,) for k in {1, 2}: both probes of an iteration
+    are evaluated in ONE stacked call (fn sees the two probe vectors
+    concatenated), so a closure carrying (B,)-shaped companion data must
+    tile it to the input length. lo/hi: (B,) bracket endpoints, float64
+    tensors. Returns (x (B,), fn(x) (B,)) with x the bracket midpoint after
+    `iters` contractions. No host read happens inside the loop.
+    """
+    a, b = lo, hi
+    B = a.shape[0]
+    for _ in range(iters):
+        m1 = b - _GR * (b - a)
+        m2 = a + _GR * (b - a)
+        f = fn(torch.cat([m1, m2]))
+        keep_left = f[:B] < f[B:]
+        a, b = torch.where(keep_left, a, m1), torch.where(keep_left, m2, b)
+    x = 0.5 * (a + b)
+    return x, fn(x)
 
 
 def bracket_state_batched(F1, obj, sweep_batched, cfg, quirks):

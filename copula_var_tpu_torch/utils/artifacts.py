@@ -1,10 +1,10 @@
-"""Load saved precompute artifacts into a solve-ready backtest
-(counterpart of `copula_var_tpu/utils/artifacts.py::load_artifacts`).
+"""Save and load a backtest's precompute artifacts (counterpart of
+`copula_var_tpu/utils/artifacts.py`).
 
-Reads the same `.npz` schema the JAX package writes (`save_artifacts`):
-a JSON `meta` with the fitted model and copula parameters, the
-integration inputs as `ii_<field>` arrays, and the in-sample marginals
-and densities. No refit happens.
+The `.npz` schema is the JAX package's, format version 1: a JSON `meta`
+with the fitted model and copula parameters, the integration inputs as
+`ii_<field>` arrays, and the in-sample marginals and densities. Either
+package loads the other's files. Loading refits nothing.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import json
 
 import numpy as np
+import torch
 
 from copula_var_tpu_torch import backtest as bt_mod
 from copula_var_tpu_torch.copulas import fit as copula_fit_mod
@@ -23,6 +24,37 @@ _FORMAT_VERSION = 1
 def _restore(v):
     arr = np.asarray(v)
     return arr.item() if arr.ndim == 0 else arr
+
+
+def save_artifacts(path: str, backtest) -> None:
+    """Serialize a backtest's fitted state and integration inputs."""
+    ii = backtest.integration_inputs
+
+    def host(v):
+        return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    meta = {
+        "version": _FORMAT_VERSION,
+        "copula": backtest.copula,
+        "adapter": backtest.adapter.name,
+        "num_points": backtest.num_points,
+        "box": list(backtest.box),
+        "inputs_kind": type(ii).__name__,
+        "model_fits": [
+            {k: np.asarray(v).tolist() for k, v in f._asdict().items()}
+            for f in backtest.model_fits
+        ],
+        "fit_type": type(backtest.model_fits[0]).__name__,
+        "copula_fit": {
+            k: np.asarray(v).tolist()
+            for k, v in backtest.copula_fit._asdict().items()
+        },
+        "copula_fit_type": type(backtest.copula_fit).__name__,
+    }
+    arrays = {f"ii_{k}": host(v) for k, v in ii._asdict().items()}
+    arrays["marginals"] = host(backtest.marginals)
+    arrays["densities"] = host(backtest.densities)
+    np.savez_compressed(path, meta=json.dumps(meta), **arrays)
 
 
 def load_artifacts(path: str, data, device="cuda", adapter=None,

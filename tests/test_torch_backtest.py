@@ -17,7 +17,11 @@ from copula_var_tpu.data import from_csv as jax_from_csv
 from copula_var_tpu.data import from_returns as jax_from_returns
 from copula_var_tpu.utils.artifacts import load_artifacts as jax_load
 from copula_var_tpu_torch import stats as tstats
-from copula_var_tpu_torch.backtest import GarchAdapter, MsmAdapter
+from copula_var_tpu_torch.backtest import (
+    GarchAdapter,
+    MsmAdapter,
+    create_var_backtest,
+)
 from copula_var_tpu_torch.data import from_csv, from_returns
 from copula_var_tpu_torch.device import resolve_device
 from copula_var_tpu_torch.ops import cuda_quadrature as cq
@@ -203,9 +207,12 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
     with pytest.raises(ValueError, match="ROADMAP"):
         VaRBacktest(four, bt.adapter, bt.copula, bt.copula_fit,
                     bt.model_fits, bt.integration_inputs)
-    for adapter in (MsmAdapter(), GarchAdapter()):
+    for adapter in (MsmAdapter(reference_quirks=True),
+                    GarchAdapter(reference_quirks=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            adapter.fit(tdata.in_sample)
+            adapter.fit(tdata.in_sample, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_var_backtest(tdata, "mean_reverting", "student", device="cpu")
 
 
 def test_cpu_main_path_launches_no_kernel(tmp_path):
