@@ -26,23 +26,40 @@ Phases, each fatal on failure:
      card from the artifact's own fits, to its arrays at rtol 1e-9, and
      those of the refit at atol 1e-6; the VaR to `data/flagship_var.npz`
      at atol 1e-9; each step's wall time is printed beside the card;
-  5. main path, three assets, counted: the same for the dim-3 artifacts
+  5. mean-reverting family, counted: `from_csv` -> `load_artifacts(
+     data/flagship_artifacts_mean_reverting.npz, device="cuda")` ->
+     `calc_var(0.05)` held against `data/flagship_mr_var.npz` at atol
+     1e-9; then `config.run_backtest(data, cfg, device="cuda")` with cfg
+     the mean-reverting family and a Student-t copula at perturb_scale = 0
+     (the rest at its defaults): the UKF EM, the copula fit and the
+     integration inputs on the card, the fits held to the artifact's
+     `meta` (a, l, q within 1e-9 relative, LL 1e-10 relative; rho 1e-6,
+     nu 1e-2), the VaR to the record at 1e-9, each stage's wall time
+     printed beside the card; and one `synthetic_dataset` of a GARCH, an
+     MSM and an OU series simulated on the card, their sample variances
+     printed;
+  6. main path, three assets, counted: the same for the dim-3 artifacts
      (`data/dim3_artifacts_{msm,garch}.npz`, weights (0.5, 0.3, 0.2)) held
      against `data/dim3_var.npz`; the prep builds each backtest's table U
-     (4.0 GB) once, and the path's peak device memory is read. Before each
-     main path every kernel launch counter is zeroed and after it read;
-     each kernel of that path must have launched and the other path's
-     kernels must not;
-  6. parity: each kernel against its plain PyTorch twin on the card, at
+     (4.0 GB) once, and the path's peak device memory is read;
+  7. the dim-3 path fitted from `data/dim3.csv` on the card, counted:
+     `create_var_backtest(device="cuda")` for GARCH and MSM (k = 4,
+     basin_iter = 100, seed 0) with a Student-t copula (its correlations
+     by L-BFGS), the fits held to the dim-3 artifacts' `meta` with phase
+     4's bounds and the VaR to `data/dim3_var.npz` at atol 1e-9, each
+     step's wall time printed. Before each counted path every kernel
+     launch counter is zeroed and after it read; each kernel of that path
+     must have launched and the other paths' kernels must not;
+  8. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
      unequal weights; K4 also with a Gaussian copula; the dim-2 table P
      whole, the dim-3 table U on 16 days), a repeated launch of each that
      must give the same bits, a dim-2 sweep row alone against its bits
      inside a 128-row batch, and the serving batches (128 rows at dim 2,
      8 portfolios x 4 levels at dim 3) against the plain solves;
-  7. timings: CUDA events after warm-up, median and min of the reps,
+  9. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns;
-  8. device profile: torch.profiler over calls of each kernel, `calc_var`
+  10. device profile: torch.profiler over calls of each kernel, `calc_var`
      and the serving batches: host ms per call, the device's busy ms, and
      each kernel's launches and device ms per launch.
 
@@ -82,6 +99,10 @@ FIT_ATOL_BOUND, FIT_ATOL_RHO, FIT_ATOL_NU = 1e-6, 1e-6, 1e-2
 # where MSM's m_0 is pinned only to its optimizer's stall resolution
 # (~1e-8), so its probabilities move by ~1e-8 while no VaR day does
 RTOL_FIT_ARRAYS, ATOL_REFIT_ARRAYS = 1e-9, 1e-6
+# the UKF EM at perturb_scale = 0 draws nothing: its fit is the JAX one to
+# the rounding of the filter (measured ~1e-14 on the CPU)
+FIT_RTOL_UKF, FIT_RTOL_UKF_LL = 1e-9, 1e-10
+SYNTHETIC = (1635, 1135, ("garch", "msm", "ou"))  # n_total, N, spec
 # kernel sweep vs plain sweep: the two sum the same float64 terms in
 # different orders (dim 2: masked U = V .* (wfc W1) per warp vs
 # W0 (V .* M) W1^T then . FC; dim 3: masked U = V .* (W1^T G W2) per slab
@@ -246,9 +267,10 @@ def main() -> int:
 
     from copula_var_tpu_torch import stats
     from copula_var_tpu_torch.backtest import create_var_backtest
+    from copula_var_tpu_torch.config import BacktestConfig, run_backtest
     from copula_var_tpu_torch.copulas import fit as copula_fit_mod
     from copula_var_tpu_torch.models import fit as model_fit_mod
-    from copula_var_tpu_torch.data import from_csv
+    from copula_var_tpu_torch.data import from_csv, synthetic_dataset
     from copula_var_tpu_torch.ops import _build
     from copula_var_tpu_torch.ops import cuda_quadrature as cq
     from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
@@ -367,7 +389,13 @@ def main() -> int:
             return float(np.max(np.abs(a - b) / np.abs(b)))
 
         for i, (f, m) in enumerate(zip(bt.model_fits, meta["model_fits"])):
-            if est == "garch":
+            if est == "mean_reverting":
+                for k in ("a", "l", "q"):
+                    gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
+                                         FIT_RTOL_UKF)
+                gaps[f"LL[{i}]"] = (rel(f.log_likelihood, m["log_likelihood"]),
+                                    FIT_RTOL_UKF_LL)
+            elif est == "garch":
                 if (f.p, f.q) != (m["p"], m["q"]):
                     raise AssertionError(f"garch asset {i}: (p, q) = "
                                          f"{(f.p, f.q)}, artifact "
@@ -489,6 +517,75 @@ def main() -> int:
         raise AssertionError("a dim-3 kernel launched on the fit path")
     del fit_bts
 
+    # -- mean-reverting family: served, then fitted by run_backtest, counted --
+    mr = "mean_reverting"
+    rec_mr = np.load(os.path.join(root, "data", "flagship_mr_var.npz"))
+    meta_mr = json.loads(str(np.load(os.path.join(
+        root, "data", f"flagship_artifacts_{mr}.npz"))["meta"]))
+    want_mr = rec_mr[f"{mr}_var"]
+    zero_counts()
+    bt_mr, var_mr, prep_mr, solve_mr = serve(
+        "flagship.csv", f"flagship_artifacts_{mr}.npz", rec_mr)
+    if var_mr.shape != want_mr.shape or not np.all(np.isfinite(var_mr)):
+        raise AssertionError(f"{mr}: bad VaR series {var_mr.shape}")
+    err_mr = float(np.max(np.abs(var_mr - want_mr)))
+    if err_mr > ATOL_VAR:
+        raise AssertionError(f"{mr}: VaR off the record by {err_mr:.3e}")
+    rate, kup = coverage(mr, bt_mr, var_mr, rec_mr)
+    print(f"main path {mr}: max |VaR - record| = {err_mr:.3e} (bound "
+          f"{ATOL_VAR:g}), exception rate {rate:.4f}, Kupiec p {kup:.4f}; "
+          f"load+prep {prep_mr:.3f} s, calc_var {solve_mr:.3f} s (host "
+          "clock)")
+    del bt_mr
+    cfg_mr = BacktestConfig(estimation_type=mr, copula_type="student",
+                            n_insample=int(rec_mr["n_insample"]),
+                            num_points=int(rec_mr["num_points"]))
+    cfg_mr.mean_reverting.perturb_scale = float(rec_mr["perturb_scale"])
+    cfg_mr.solver.obj_var = float(rec_mr["obj_var"])
+    t0 = time.perf_counter()
+    data_mr = from_csv(os.path.join(root, "data", "flagship.csv"),
+                       n_insample=cfg_mr.n_insample)
+    bt_rb, var_rb = run_backtest(data_mr, cfg_mr, device="cuda")
+    csv_to_var_mr = time.perf_counter() - t0
+    gaps_mr = fit_gaps(mr, bt_rb, meta_mr)
+    diff_mr = np.abs(var_rb - want_mr)
+    times_mr = dict(bt_rb.prep_stages, csv_to_var=csv_to_var_mr)
+    print(f"run_backtest {mr}: max |VaR - record| = {diff_mr.max():.3e} "
+          f"(bound {ATOL_VAR:g}), days above 1e-9: "
+          f"{int(np.sum(diff_mr > 1e-9))}; fit vs artifact "
+          + ", ".join(f"{k} {g:.2e} (bound {b:g})"
+                      for k, (g, b) in gaps_mr.items()))
+    print(f"run_backtest {mr} wall s (host clock, {smi}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times_mr.items()))
+    bad = {k: v for k, v in gaps_mr.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"run_backtest {mr}: fitted state off the "
+                             f"artifact: {bad}")
+    if var_rb.shape != want_mr.shape or not diff_mr.max() <= ATOL_VAR:
+        raise AssertionError(f"run_backtest {mr}: VaR off the record by "
+                             f"{diff_mr.max():.3e}")
+    launches_mr = read_counts()
+    print(f"mean-reverting path: launches {launches_mr}")
+    for name in ("sweep_table", "masked_sweep", "bisect_levels"):
+        if launches_mr[name] <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 "mean-reverting path")
+    if launches_mr["masked_contract3"] or launches_mr["contract3_weights"]:
+        raise AssertionError("a dim-3 kernel launched on the mean-reverting "
+                             "path")
+    del bt_rb
+    t0 = time.perf_counter()
+    syn = synthetic_dataset(0, *SYNTHETIC, device="cuda")
+    syn_s = time.perf_counter() - t0
+    syn_var = syn.returns.var(axis=0)
+    if syn.returns.shape != (SYNTHETIC[0], len(SYNTHETIC[2])) or \
+            not np.all(np.isfinite(syn.returns)):
+        raise AssertionError(f"synthetic_dataset: bad returns "
+                             f"{syn.returns.shape}")
+    print(f"simulators: synthetic_dataset(0, {SYNTHETIC[0]}, {SYNTHETIC[1]}"
+          f", {SYNTHETIC[2]}) on the card in {syn_s:.3f} s, sample variances "
+          + ", ".join(f"{t} {v:.4f}" for t, v in zip(syn.tickers, syn_var)))
+
     # -- main path, three assets, counted -----------------------------------
     rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
     w3 = np.asarray(rec3["weights"], np.float64)
@@ -544,6 +641,61 @@ def main() -> int:
                   f"{plain[d]!r}, record {rec3[f'{est}_var'][d]!r}")
         raise AssertionError(f"dim3 {est}: VaR off the record by "
                              f"{np.max(diff):.3e}")
+
+    # -- the dim-3 path fitted from the CSV on the card, counted -------------
+    zero_counts()
+    fit3_report = {}
+    for est in ("garch", "msm"):
+        meta3 = json.loads(str(np.load(os.path.join(
+            root, "data", f"dim3_artifacts_{est}.npz"))["meta"]))
+        kw = ({"k": int(rec3["k"]), "basin_iter": BASIN_ITER, "seed": 0}
+              if est == "msm" else {})
+        t0 = time.perf_counter()
+        data3 = from_csv(os.path.join(root, "data", "dim3.csv"),
+                         n_insample=int(rec3["n_insample"]), weights=w3)
+        bt = create_var_backtest(data3, est, "student",
+                                 num_points=int(rec3["num_points"]),
+                                 device="cuda", **kw)
+        t1 = time.perf_counter()
+        bt.sweep_operands()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        var = bt.calc_var(alpha)
+        t3 = time.perf_counter()
+        gaps = fit_gaps(est, bt, meta3)
+        diff = np.abs(var - rec3[f"{est}_var"])
+        times = dict(bt.prep_stages, sweep_operands=t2 - t1,
+                     first_calc_var=t3 - t2, csv_to_first_var=t3 - t0)
+        print(f"dim3 fit path {est}: max |VaR - record| = {diff.max():.3e} "
+              f"(bound {ATOL_VAR:g}), days above 1e-9: "
+              f"{int(np.sum(diff > 1e-9))}; fit vs artifact "
+              + ", ".join(f"{k} {g:.2e} (bound {b:g})"
+                          for k, (g, b) in gaps.items()))
+        print(f"dim3 fit path {est} wall s (host clock, {smi}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        bad = {k: v for k, v in gaps.items() if not v[0] <= v[1]}
+        if bad:
+            raise AssertionError(f"dim3 fit path {est}: fitted state off the "
+                                 f"artifact: {bad}")
+        if var.shape != diff.shape or not diff.max() <= ATOL_VAR:
+            raise AssertionError(f"dim3 fit path {est}: VaR off the record "
+                                 f"by {diff.max():.3e}")
+        fit3_report[est] = {"wall_s": times, "fit_gaps": gaps,
+                            "var_max_err": float(diff.max())}
+        del bt
+        torch.cuda.empty_cache()
+    launches_fit3 = read_counts()
+    print(f"dim3 fit path: launches {launches_fit3}")
+    if launches_fit3["contract3_weights"] != len(fit3_report):
+        raise AssertionError("contract3_weights did not build one table per "
+                             "fitted dim-3 backtest")
+    if launches_fit3["masked_contract3"] <= 0:
+        raise AssertionError("masked_contract3 never launched on the fitted "
+                             "dim-3 path")
+    if launches_fit3["masked_sweep"] or launches_fit3["bisect_levels"] or \
+            launches_fit3["sweep_table"]:
+        raise AssertionError("a dim-2 kernel launched on the fitted dim-3 "
+                             "path")
 
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
@@ -854,6 +1006,14 @@ def main() -> int:
         "dim3_table_bytes": int(ops3_m.U.numel() * 8),
         "launches_dim2": launches, "launches_dim3": launches3,
         "launches_fit_path": launches_fit, "fit_path": fit_report,
+        "mean_reverting": {
+            "served_var_max_err": err_mr, "host_prep_s": prep_mr,
+            "host_calc_var_s": solve_mr, "run_backtest_wall_s": times_mr,
+            "fit_gaps": gaps_mr, "var_max_err": float(diff_mr.max()),
+            "launches": launches_mr},
+        "synthetic": {"seconds": syn_s, "tickers": syn.tickers,
+                      "sample_variances": syn_var.tolist()},
+        "dim3_fit_path": fit3_report, "launches_dim3_fit_path": launches_fit3,
         "timing_ms": timing, "profile": profiles,
     }
 

@@ -2,9 +2,10 @@
 
 The JAX package beside it stays the reference; every module here mirrors
 its counterpart's name and layout so each piece is easy to hold against
-it. The port goes from returns to a VaR series: fit MSM or GARCH per
-asset and a Gaussian, Student-t or Plackett copula by IFM
-(`backtest.create_var_backtest`), or load saved fitted artifacts; build
+it. The port goes from returns to a VaR series: fit MSM, GARCH or the UKF
+mean-reverting model per asset and a Gaussian, Student-t or Plackett
+copula by IFM (`backtest.create_var_backtest`, or `config.run_backtest`
+from a `BacktestConfig`), or load saved fitted artifacts; build
 the bounds-invariant sweep operands (dim 2: day tensors; dim 3:
 transform columns); and solve the three-stage VaR (stage-1 sweep,
 stage-2 bracket, bisection) for one level, many levels, many portfolios
@@ -12,12 +13,13 @@ or their product grid.
 
   device.py      device resolution: the card by default; a CUDA request
                  without a GPU raises
-  data/          returns ingestion without pandas
+  config.py      the run's dataclasses and run_backtest
+  data/          returns ingestion without pandas, synthetic_dataset
   ops/           special functions, grids, cached and transform-cached
                  quadrature, bracketing, golden-section and batched
                  L-BFGS solvers, and the hand-written CUDA kernels
                  (csrc/) with their wrappers
-  models/        GARCH and MSM filters and their fits
+  models/        GARCH, MSM and UKF filters, their simulators and fits
   copulas/       Gaussian, Student-t and Plackett IFM likelihoods and fits
   backtest.py    create_var_backtest, the adapters, VaRBacktest
   utils/         artifact save and load

@@ -3,7 +3,8 @@
 
 `create_var_backtest` goes from returns to a solve-ready backtest on the
 caller's device, as the JAX factory does: model fit per asset
-(`MsmAdapter.fit`, `GarchAdapter.fit`), in-sample marginals and
+(`MsmAdapter.fit`, `GarchAdapter.fit`, `MeanRevertingAdapter.fit`),
+in-sample marginals and
 densities, the IFM copula fit, the per-day integration inputs of every
 out-of-sample window, then `VaRBacktest`. `utils.artifacts.
 load_artifacts` builds the same object from saved fitted state instead.
@@ -45,6 +46,7 @@ from copula_var_tpu_torch.device import resolve_device, synchronize
 from copula_var_tpu_torch.models import fit as model_fit
 from copula_var_tpu_torch.models import garch as garch_mod
 from copula_var_tpu_torch.models import msm as msm_mod
+from copula_var_tpu_torch.models import ukf as ukf_mod
 from copula_var_tpu_torch.ops.cuda_quadrature import sweep_operands
 from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
 from copula_var_tpu_torch.ops.cuda_solver import (
@@ -302,7 +304,68 @@ class GarchAdapter:
                                   p_cols=p_cols)
 
 
-_ADAPTERS = {"msm": MsmAdapter, "garch": GarchAdapter}
+class MeanRevertingAdapter(GarchAdapter):
+    """UKF mean-reverting family (`mean_reverting_estimation.py`): the
+    GARCH integrand (one forecast vol per asset and day, q = 1) with the
+    UKF's fit, residuals and forecasts. The constructor takes the JAX
+    adapter's arguments and defaults."""
+
+    name = "mean_reverting"
+
+    def __init__(self, em_max_iter: int = 200, seed: int = 0,
+                 a0: float = 0.99, l0: float = 0.5, q0: float = 0.1,
+                 em_tol: float = 1e-6, perturb_scale: float = 0.05,
+                 restart_attempts: int = 5,
+                 reference_quirks: bool = False):
+        self.em_max_iter = em_max_iter
+        self.seed = seed
+        self.a0, self.l0, self.q0 = a0, l0, q0
+        self.em_tol = em_tol
+        self.perturb_scale = perturb_scale
+        self.restart_attempts = restart_attempts
+        self.reference_quirks = reference_quirks
+
+    def fit(self, in_sample, device="cuda", timings=None):
+        """Every asset's EM in lockstep on `device` (asset i seeded
+        `seed + i`; one stage: `timings` gets nothing of its own)."""
+        return model_fit.fit_ukf_em_batch(
+            in_sample, a0=self.a0, l0=self.l0, q0=self.q0,
+            max_iter=self.em_max_iter, tol=self.em_tol,
+            perturb_scale=self.perturb_scale,
+            restart_attempts=self.restart_attempts, seed=self.seed,
+            reference_quirks=self.reference_quirks, device=device,
+        )
+
+    @staticmethod
+    def _params(fits, dev):
+        """(a, l, q), each (A,) on `dev`."""
+        p = torch.tensor([[f.a, f.l, f.q] for f in fits],
+                         dtype=torch.float64, device=dev)
+        return p[:, 0], p[:, 1], p[:, 2]
+
+    def marginals_densities(self, in_sample, fits, device="cuda"):
+        """marginals = Phi(eps_t), densities = phi(eps_t) of the UKF
+        residuals (`mean_reverting_estimation.py:95-106`), every asset in
+        one batched filter -> (N, dim) each."""
+        dev = resolve_device(device)
+        eps = ukf_mod.standardized_residuals(_rows(in_sample, dev),
+                                             *self._params(fits, dev))
+        return norm_cdf(eps).T.cpu().numpy(), norm_pdf(eps).T.cpu().numpy()
+
+    def integration_inputs(self, windows, fits, num_points: int,
+                           box=(-5.0, 5.0), device="cuda"):
+        """The UKF's one-step forecast vol of every asset and window
+        (T, dim), one batched filter, and the GARCH grid."""
+        dev = resolve_device(device)
+        a, l, q = self._params(fits, dev)
+        fv = ukf_mod.forecast_vol_windows(_rows(windows, dev), a[:, None],
+                                          l[:, None], q[:, None])  # (dim, T)
+        x, dx = garch_grid(num_points, box[0], box[1])
+        return GarchIntegrationInputs(x, dx, fv.T.cpu().numpy())
+
+
+_ADAPTERS = {"msm": MsmAdapter, "garch": GarchAdapter,
+             "mean_reverting": MeanRevertingAdapter}
 _COPULA_FITTERS = {
     "gaussian": copula_fit.fit_gaussian,
     "student": copula_fit.fit_student,
@@ -344,6 +407,24 @@ def _copula_spec(kind: str, fit_result, device) -> CopulaSpec:
     raise ValueError(f"unknown copula: {kind}")
 
 
+def _check_options(dim: int, copula: str, refine_root: bool) -> None:
+    """Refuse what the port does not serve yet, naming the roadmap."""
+    if dim not in (2, 3):
+        raise ValueError(
+            f"the port serves dim 2 and 3 (got dim={dim}); dim >= 4 is "
+            "queued in ROADMAP.md (queue 1, item 9)"
+        )
+    if dim == 3 and copula == "plackett":
+        raise ValueError(
+            "the Plackett copula is bivariate; dim 3 takes Gaussian or "
+            "Student (ROADMAP.md queue 1, item 9)"
+        )
+    if refine_root:
+        raise ValueError(
+            "refine_root is not ported yet (ROADMAP.md queue 1, item 6)"
+        )
+
+
 class VaRBacktest:
     """Out-of-sample VaR backtest from fitted state.
 
@@ -359,20 +440,7 @@ class VaRBacktest:
                  model_fits, integration_inputs, marginals=None,
                  densities=None, num_points=100, box=(-5.0, 5.0),
                  device="cuda", reference_quirks=False, refine_root=False):
-        if data.dim not in (2, 3):
-            raise ValueError(
-                f"the port serves dim 2 and 3 (got dim={data.dim}); dim >= 4 "
-                "is queued in ROADMAP.md (queue 1, item 10)"
-            )
-        if data.dim == 3 and copula == "plackett":
-            raise ValueError(
-                "the Plackett copula is bivariate; dim 3 takes Gaussian or "
-                "Student (ROADMAP.md queue 1, item 10)"
-            )
-        if refine_root:
-            raise ValueError(
-                "refine_root is not ported yet (ROADMAP.md queue 1, item 10)"
-            )
+        _check_options(data.dim, copula, refine_root)
         self.device = resolve_device(device)
         self.data = data
         self.adapter = adapter
@@ -522,6 +590,7 @@ def create_var_backtest(
     copula_fit_kwargs: Optional[dict] = None,
     model_fits_override: Optional[list] = None,
     copula_fit_override: Optional[object] = None,
+    refine_root: bool = False,
     device="cuda",
     **adapter_kwargs,
 ) -> VaRBacktest:
@@ -532,17 +601,15 @@ def create_var_backtest(
 
     model_fits_override / copula_fit_override inject fitted records and
     skip that fit (resume from saved artifacts, or reuse one family's fits
-    across copulas). `prep_seconds` covers the whole preparation, as in
-    the JAX package; `prep_stages` holds each step's wall seconds (the
-    device synchronized at each end), with the fit's own stages."""
-    if estimation_type == "mean_reverting":
-        raise NotImplementedError(
-            "the UKF mean-reverting model is not ported yet (ROADMAP.md "
-            "queue 1, item 6)")
+    across copulas). `refine_root` goes to `VaRBacktest`, which refuses
+    it before any fit runs. `prep_seconds` covers the whole preparation,
+    as in the JAX package; `prep_stages` holds each step's wall seconds
+    (the device synchronized at each end), with the fit's own stages."""
     if estimation_type not in _ADAPTERS:
         raise ValueError(f"Unsupported estimation type: {estimation_type}")
     if copula_type not in _COPULA_FITTERS:
         raise ValueError(f"Unsupported copula type: {copula_type}")
+    _check_options(data.dim, copula_type, refine_root)
     dev = resolve_device(device)
     adapter = _ADAPTERS[estimation_type](**adapter_kwargs)
     stages = {}
@@ -575,7 +642,8 @@ def create_var_backtest(
     lap("integration_inputs")
     bt = VaRBacktest(data, adapter, copula_type, cfit, fits, inputs,
                      marginals=marginals, densities=densities,
-                     num_points=num_points, box=box, device=dev)
+                     num_points=num_points, box=box, device=dev,
+                     refine_root=refine_root)
     bt.prep_seconds = time.perf_counter() - t0
     bt.prep_stages = stages
     return bt

@@ -6,8 +6,9 @@ demeaning by in-sample means, and the portfolio mean
 
 `from_csv` there reads through pandas; this one reads with the `csv`
 module and gives byte-equal returns on the same file, so the port runs
-where pandas is not installed. The yfinance and synthetic sources are not
-ported yet.
+where pandas is not installed. `synthetic_dataset` simulates the assets
+with the port's simulators on a device. The yfinance source is not
+ported: it needs the network.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["ReturnsData", "from_csv", "from_prices", "from_returns"]
+__all__ = ["ReturnsData", "from_csv", "from_prices", "from_returns",
+           "synthetic_dataset"]
 
 
 @dataclass(frozen=True)
@@ -169,3 +171,42 @@ def from_csv(path, n_insample, weights=None, date_column=None) -> ReturnsData:
         dates = dates[keep]
     return from_prices(np.asfortranarray(prices[keep]), tickers, n_insample,
                        weights, dates)
+
+
+def synthetic_dataset(seed, n_total: int, n_insample: int,
+                      spec=("garch", "garch"), weights=None,
+                      device="cuda") -> ReturnsData:
+    """Seeded multi-asset synthetic dataset for offline end-to-end runs,
+    simulated on `device` (the card unless the caller asks for "cpu").
+
+    seed: an int or a `torch.Generator` (in place of the JAX package's
+    key); the assets draw one after another from it. spec: per-asset
+    model names: 'garch' (omega .02, alpha .08, beta .9: unit
+    unconditional variance), 'msm' (k=4, m0 .4, sigma 1.0, b 3, gamma
+    .5), or 'ou' (a .95, l -0.2, q .2). Assets are simulated
+    independently (dependence in the backtest then comes from the copula
+    under test). Parameters are calibrated to vol ~ 1 because the
+    quadrature box is [-5, 5] in return units (`calc_var_class.py:201-202`)
+    -- the reference's convention for demeaned daily log-returns x 100.
+    """
+    from copula_var_tpu_torch.device import generator
+    from copula_var_tpu_torch.models import garch as garch_mod
+    from copula_var_tpu_torch.models import msm as msm_mod
+    from copula_var_tpu_torch.models import ukf as ukf_mod
+
+    gen = generator(seed, device)
+    cols = []
+    for s in spec:
+        if s == "garch":
+            y, _, _ = garch_mod.simulate(gen, 0.02, [0.08], [0.9], n_total)
+        elif s == "msm":
+            y, _, _, _ = msm_mod.simulate(gen, 4, 0.4, 1.0, 3.0, 0.5,
+                                          n_total)
+        elif s == "ou":
+            _, _, y = ukf_mod.simulate(gen, 0.95, -0.2, 0.2, n_total)
+        else:
+            raise ValueError(f"unknown synthetic asset spec: {s}")
+        cols.append(y.cpu().numpy())
+    rets = np.stack(cols, axis=1)
+    return from_returns(rets, [f"{s}_{i}" for i, s in enumerate(spec)],
+                        n_insample, weights)

@@ -30,3 +30,14 @@ def synchronize(device: torch.device) -> None:
     host clock read after it covers the work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def generator(seed, device="cuda") -> torch.Generator:
+    """A `torch.Generator` for a simulator: `seed` as it is when it is
+    one already (its device then rules), else a new one on `device`
+    seeded with the integer `seed`."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(int(seed))
+    return gen

@@ -1,8 +1,6 @@
 """In-sample volatility-model fits (counterpart of
 `copula_var_tpu/models/fit.py`): the GARCH Newton sweep with BIC
-selection and the MSM basin hop with its L-BFGS polish. The UKF EM fit
-is not ported yet (ROADMAP.md queue 1); `UkfFit` stays so that saved
-artifacts load.
+selection, the MSM basin hop with its L-BFGS polish, and the UKF EM.
 
   * GARCH: every asset x (p, q) pair x start is one row of a batched
     damped-Newton solve (`_newton_garch_assets`) with exact gradients and
@@ -13,12 +11,19 @@ artifacts load.
     asset are polished by `box_lbfgs_batch`, and the start with the
     maximum true log-likelihood wins (`opti.py:25-139`; the reference's
     minimum-LL selection is a defect the JAX package fixes too).
+  * UKF: EM over (a, l, q) (`kalman_mean_reverting/optimize.py:28-167`):
+    the E-step is the filter, the M-step closed form (q from the state's
+    spread, l from q, a by OLS on the state's autoregression), with
+    rejection perturbations of a and a restart sweep at convergence. The
+    assets are rows of one batched filter and advance in lockstep; a
+    finished row no-ops while the others run, as the JAX vmapped
+    while-loop does.
 
 Randomness comes from an explicit `torch.Generator` per asset on the work
 device, seeded `seed + i`: a different stream from JAX's, so the two are
 held to each other at the optimum, not along the trajectory.
-`reference_quirks=True` (the reference's optimizer trajectories) is not
-ported and raises.
+`reference_quirks=True` is the UKF's frozen-a M-step; the GARCH and MSM
+reference trajectories are not ported and raise.
 """
 
 from __future__ import annotations
@@ -29,13 +34,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from copula_var_tpu_torch.device import resolve_device, synchronize
+from copula_var_tpu_torch.device import generator, resolve_device, synchronize
 from copula_var_tpu_torch.models import garch as garch_mod
 from copula_var_tpu_torch.models import msm as msm_mod
+from copula_var_tpu_torch.models import ukf as ukf_mod
 from copula_var_tpu_torch.ops.lbfgs import box_lbfgs_batch
 
-_QUIRKS_LATER = ("the reference_quirks optimizer trajectories are not "
-                 "ported yet (ROADMAP.md queue 1, item 8)")
+_QUIRKS_LATER = ("the reference_quirks optimizer trajectories of GARCH and "
+                 "MSM are not ported yet (ROADMAP.md queue 1, item 5)")
 
 
 class GarchFit(NamedTuple):
@@ -392,11 +398,7 @@ def fit_msm_batch(returns_2d, k: int, basin_iter: int = 100,
     lo, hi = t(bounds[:, 0]), t(bounds[:, 1])
     cur0 = np.tile(np.array([0.5, 10.0, 0.5]), (A, n_starts, 1))
     cur0[:, :, 1] = b_values
-    gens = []
-    for i in range(A):
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed + i)
-        gens.append(g)
+    gens = [generator(seed + i, dev) for i in range(A)]
     clock = time.perf_counter()
 
     def lap(name):
@@ -450,3 +452,167 @@ def fit_msm_batch(returns_2d, k: int, basin_iter: int = 100,
                            float(estimate_sigma(sample_var[a], m0, k)),
                            float(final_ll[a, i])))
     return fits
+
+
+# ---------------------------------------------------------------------------
+# UKF mean-reverting
+# ---------------------------------------------------------------------------
+
+A_CLIP = (0.5, 0.99)  # the M-step's OLS a (`optimize.py:141-149`)
+A_PERTURB_CLIP = (0.5, 0.999999)  # a perturbed a (`optimize.py:55-76`)
+_STALL_LIMIT = 30  # EM iterations without a best-LL gain before stopping
+
+
+def fit_ukf_em(returns, a0: float = 0.99, l0: float = 0.5, q0: float = 0.1,
+               max_iter: int = 1000, tol: float = 1e-6,
+               perturb_scale: float = 0.05, restart_attempts: int = 5,
+               seed: int = 0, reference_quirks: bool = False,
+               device="cuda") -> UkfFit:
+    """EM over (a, l, q) of one series (`optimize.py:78-167`); see
+    `fit_ukf_em_batch`."""
+    return fit_ukf_em_batch(
+        np.asarray(returns, dtype=float)[:, None], a0=a0, l0=l0, q0=q0,
+        max_iter=max_iter, tol=tol, perturb_scale=perturb_scale,
+        restart_attempts=restart_attempts, seed=seed,
+        reference_quirks=reference_quirks, device=device,
+    )[0]
+
+
+def fit_ukf_em_batch(returns_2d, a0: float = 0.99, l0: float = 0.5,
+                     q0: float = 0.1, max_iter: int = 1000, tol: float = 1e-6,
+                     perturb_scale: float = 0.05, restart_attempts: int = 5,
+                     seed: int = 0, reference_quirks: bool = False,
+                     device="cuda") -> list:
+    """UKF EM of a whole (N, A) asset panel on `device`, the assets in
+    lockstep as rows of one batched filter.
+
+    Per iteration and asset: the E-step filters with init (l, q). An
+    invalid filter perturbs a (below). A log-likelihood within tol_eff =
+    max(tol, 50 eps max(1, |best LL|)) of the best is converged and runs
+    the restart sweep: `restart_attempts` perturbations of the best point,
+    each kept when its LL beats the best; an asset whose sweep finds no
+    gain is done. Otherwise the M-step: q = std(state) sqrt(1 - a^2), l =
+    q^2 / (2 (1 - a^2)), a by OLS on the state shifted by a l, clipped to
+    [0.5, 0.99]; when that a equals the current one exactly (pinned at
+    the clip), the best point is perturbed instead. An asset also stops
+    after 30 valid iterations without a gain, or at max_iter.
+
+    A perturbation adds U(-perturb_scale, perturb_scale) to a, clipped to
+    [0.5, 0.999999], cumulatively until the filter runs valid, then sets
+    q and l from that filter's state as the M-step does. At
+    perturb_scale = 0 an invalid filter would repeat forever (the JAX
+    loop spins); here it raises.
+
+    reference_quirks=True is the reference's frozen-a M-step: q, l and
+    the OLS shift use a0 on every iteration (`optimize.py:83-84`).
+
+    Asset i draws from a `torch.Generator` seeded `seed + i`. One host
+    read per iteration, and one per perturbation attempt."""
+    dev = resolve_device(device)
+    r = torch.as_tensor(np.asarray(returns_2d, dtype=np.float64).T.copy(),
+                        device=dev)  # (A, N)
+    A = r.shape[0]
+    dt = r.dtype
+    eps = torch.finfo(dt).eps
+    scale = float(perturb_scale)
+    gens = [generator(seed + i, dev) for i in range(A)]
+
+    def e_step(p, rows=None):
+        means, _, ll, _, valid = ukf_mod.filter_series(
+            r if rows is None else r[rows], p[:, 0], p[:, 1], p[:, 2])
+        return means, ll, valid
+
+    def from_state(a, state):
+        """The M-step's (l, q) for a given a and filtered state."""
+        q = torch.std(state, dim=-1, correction=0) * torch.sqrt(1.0 - a * a)
+        return q * q / (2.0 * (1.0 - a * a)), q
+
+    def perturb(base, rows):
+        """Rejection perturbation of the points base (R, 3) of the assets
+        `rows` (R host indices) -> (R, 3) (`optimize.py:55-76`)."""
+        p = base.clone()
+        state = torch.empty((len(rows), r.shape[1]), dtype=dt, device=dev)
+        todo = np.arange(len(rows))
+        while len(todo):
+            u = torch.stack([torch.rand((), generator=gens[rows[j]], dtype=dt,
+                                        device=dev) for j in todo])
+            at = torch.as_tensor(todo, device=dev)
+            p[at, 0] = torch.clamp(p[at, 0] - scale + 2.0 * scale * u,
+                                   *A_PERTURB_CLIP)
+            means, _, valid = e_step(p[at], [rows[j] for j in todo])
+            state[at] = means
+            ok = valid.cpu().numpy()
+            if scale == 0.0 and not ok.all():
+                raise RuntimeError(
+                    "fit_ukf_em: the filter is invalid (a step's likelihood "
+                    "Z < 1e-10) at a point the perturbation cannot move, "
+                    "since perturb_scale=0 (the JAX loop spins forever "
+                    "there); use perturb_scale > 0 or other starting values")
+            todo = todo[~ok]
+        l, q = from_state(p[:, 0], state)
+        return torch.stack([p[:, 0], l, q], -1)
+
+    params = torch.tensor([[a0, l0, q0]] * A, dtype=dt, device=dev)
+    best_p = params.clone()
+    best_ll = torch.full((A,), -np.inf, dtype=dt, device=dev)
+    no_imp = torch.zeros(A, dtype=torch.int64, device=dev)
+    done = torch.zeros(A, dtype=torch.bool, device=dev)
+    a_frozen = torch.full((A,), float(a0), dtype=dt, device=dev)
+    for _ in range(max_iter):
+        state, ll, valid = e_step(params)
+        mag = torch.where(torch.isfinite(best_ll), best_ll.abs(), 1.0)
+        tol_eff = torch.clamp_min(50.0 * eps * torch.clamp_min(mag, 1.0),
+                                  float(tol))
+        converged = (ll - best_ll).abs() < tol_eff
+        # the M-step of every row; a row takes it only on its own branch
+        a_m = a_frozen if reference_quirks else params[:, 0]
+        l_new, q_new = from_state(a_m, state)
+        shifted = state - (a_m * l_new)[:, None]
+        denom = torch.sum(shifted[:, :-1] ** 2, -1)
+        pos = denom > 0.0
+        a_ols = torch.where(
+            pos, torch.sum(shifted[:, :-1] * shifted[:, 1:], -1)
+            / torch.where(pos, denom, 1.0), 0.01)
+        a_new = torch.clamp(a_ols, *A_CLIP)
+        stuck = params[:, 0] == a_new
+        flags = torch.stack([done, valid, converged, stuck]).cpu().numpy()
+        act = ~flags[0]
+        if not act.any():
+            break
+        valid_h, conv_h, stuck_h = flags[1], flags[2], flags[3]
+        act_d = ~done
+        took = act_d & valid
+        bl = torch.where(took, torch.maximum(best_ll, ll), best_ll)
+        bp = torch.where((took & (ll > best_ll))[:, None], params, best_p)
+        nxt = torch.where((act_d & valid & ~converged & ~stuck)[:, None],
+                          torch.stack([a_new, l_new, q_new], -1), params)
+        finished = torch.zeros(A, dtype=torch.bool, device=dev)
+        # invalid: perturb the current point; stuck: perturb the best
+        redo = np.flatnonzero(act & (~valid_h | (~conv_h & stuck_h)))
+        if len(redo):
+            at = torch.as_tensor(redo, device=dev)
+            base = torch.where(valid[at][:, None], bp[at], params[at])
+            nxt[at] = perturb(base, list(redo))
+        # converged: the restart sweep around the best point
+        sweep = np.flatnonzero(act & valid_h & conv_h)
+        if len(sweep):
+            at = torch.as_tensor(sweep, device=dev)
+            bl_s, bp_s = bl[at], bp[at]
+            improved = torch.zeros(len(sweep), dtype=torch.bool, device=dev)
+            for _ in range(restart_attempts):
+                cand = perturb(bp_s, list(sweep))
+                _, cll, cvalid = e_step(cand, list(sweep))
+                better = cvalid & (cll > bl_s)
+                bl_s = torch.where(better, cll, bl_s)
+                bp_s = torch.where(better[:, None], cand, bp_s)
+                improved = improved | better
+            bl[at], bp[at], nxt[at] = bl_s, bp_s, bp_s
+            finished[at] = ~improved
+        # invalid E-steps neither stall nor reset the counter
+        no_imp = torch.where(act_d, torch.where(
+            bl > best_ll, 0, torch.where(valid, no_imp + 1, no_imp)), no_imp)
+        done = done | (act_d & (finished | (no_imp >= _STALL_LIMIT)))
+        params, best_ll, best_p = nxt, bl, bp
+    best_p, best_ll = best_p.cpu().numpy(), best_ll.cpu().numpy()
+    return [UkfFit(float(best_p[i, 0]), float(best_p[i, 1]),
+                   float(best_p[i, 2]), float(best_ll[i])) for i in range(A)]

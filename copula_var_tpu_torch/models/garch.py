@@ -1,7 +1,7 @@
 """GARCH(p, q) volatility model on float64 tensors (counterpart of
 `copula_var_tpu/models/garch.py`: the variance recursion, the Gaussian
-log-likelihood, standardized residuals and the one-step forecast; the
-simulators are not ported yet).
+log-likelihood, standardized residuals, the one-step forecast and the
+simulators).
 
 Every function broadcasts over leading batch axes: `returns` (..., N)
 against `omega` (...), `alpha` (..., p) and `beta` (..., q). That one
@@ -18,10 +18,36 @@ all steps at once before the loop.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from copula_var_tpu_torch.device import generator
+
 EPS_VAR_FLOOR = 1e-7  # reference `estimation.py:17` variance floor
+
+
+class GarchParams(NamedTuple):
+    """omega > 0, alpha (p,) > 0, beta (q,) > 0, sum(alpha)+sum(beta) < 1."""
+
+    omega: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+
+
+def validate_params(omega, alpha, beta) -> None:
+    """Host-side parameter checks (reference `estimation.py:22-38`)."""
+    alpha = np.asarray(alpha)
+    beta = np.asarray(beta)
+    if not np.all(alpha > 0):
+        raise ValueError("All elements of alpha must be positive.")
+    if not np.all(beta > 0):
+        raise ValueError("All elements of beta must be positive.")
+    if not omega > 0:
+        raise ValueError("omega must be positive.")
+    if alpha.sum() + beta.sum() >= 1:
+        raise ValueError("sum(alpha) + sum(beta) must be < 1.")
 
 
 def _as(v, ref: torch.Tensor) -> torch.Tensor:
@@ -132,3 +158,53 @@ def forecast_vol_windows(windows, omega, alpha, beta):
     """Forecast over rolling windows (T, N) under one parameter set ->
     (T,)."""
     return forecast_vol(windows, omega, alpha, beta)
+
+
+def simulate(seed, omega, alpha, beta, n: int, device="cuda"):
+    """Simulate a GARCH(p, q) series (`garch/generate_data.py:34-69`): a
+    burn-in of max(p, q) steps is generated and discarded. `seed` is an
+    int or a `torch.Generator` (whose device is used); parameters may
+    carry a batch shape. Returns (y, sigma2, eps), each (..., n). The
+    stream is torch's, not JAX's."""
+    gen = generator(seed, device)
+    ref = torch.zeros((), dtype=torch.float64, device=gen.device)
+    omega = _as(omega, ref)
+    alpha, beta = torch.atleast_1d(_as(alpha, ref)), torch.atleast_1d(
+        _as(beta, ref))
+    batch = torch.broadcast_shapes(omega.shape, alpha.shape[:-1],
+                                   beta.shape[:-1])
+    extra = max(alpha.shape[-1], beta.shape[-1])
+    draws = torch.randn(batch + (n + extra - 1,), generator=gen,
+                        dtype=ref.dtype, device=ref.device)
+    return simulate_from_draws(draws, omega, alpha, beta, n)
+
+
+def simulate_from_draws(draws, omega, alpha, beta, n: int):
+    """The GARCH simulator driven by explicit N(0, 1) draws (..., n +
+    max(p, q) - 1): one innovation per generated step t = 1 .. n + extra
+    - 1 of the reference loop (`generate_data.py:55-69`, which leaves
+    y[0] = 0 and sigma2[0] at the unconditional variance). Returns (y,
+    sigma2, eps), each (..., n)."""
+    draws = torch.as_tensor(draws, dtype=torch.float64)
+    omega = _as(omega, draws)
+    alpha, beta = torch.atleast_1d(_as(alpha, draws)), torch.atleast_1d(
+        _as(beta, draws))
+    p, q = alpha.shape[-1], beta.shape[-1]
+    extra = max(p, q)
+    batch = torch.broadcast_shapes(omega.shape, alpha.shape[:-1],
+                                   beta.shape[:-1], draws.shape[:-1])
+    s2_0 = (omega / (1.0 - alpha.sum(-1) - beta.sum(-1))).expand(batch)
+    y2h = torch.zeros(batch + (p,), dtype=draws.dtype, device=draws.device)
+    s2h = torch.nn.functional.pad(s2_0[..., None], (0, q - 1))
+    ys, s2s = [torch.zeros_like(s2_0)], [s2_0]
+    for z in torch.unbind(draws.expand(batch + draws.shape[-1:]), -1):
+        s2 = omega + (y2h * alpha).sum(-1) + (s2h * beta).sum(-1)
+        y = z * torch.sqrt(s2)
+        y2h = torch.cat([(y * y)[..., None], y2h[..., :p - 1]], -1)
+        s2h = torch.cat([s2[..., None], s2h[..., :q - 1]], -1)
+        ys.append(y)
+        s2s.append(s2)
+    eps = torch.nn.functional.pad(draws.expand(batch + draws.shape[-1:]),
+                                  (1, 0))
+    return (torch.stack(ys, -1)[..., extra:],
+            torch.stack(s2s, -1)[..., extra:], eps[..., extra:])

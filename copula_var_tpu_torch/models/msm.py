@@ -1,7 +1,7 @@
 """Markov-Switching Multifractal (MSM) volatility model on float64 tensors
 (counterpart of `copula_var_tpu/models/msm.py`: state space, transition,
 vol states, the Hamilton filter and its log-likelihood, the predictive
-marginals, densities and forecasts; the simulator is not ported yet).
+marginals, densities and forecasts, and the simulator).
 
 Every function broadcasts the parameters `m_0`, `sigma`, `b`, `gamma`
 (batch shape Bp) against `returns` (batch shape Br, then N). The filter
@@ -20,12 +20,24 @@ component 0 is the most-significant bit, bit value 1 selects `2 - m_0`.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from copula_var_tpu_torch.device import generator
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
 
 # Above this k the dense 2^k x 2^k matvec loses to the factored form.
 _DENSE_K_MAX = 6
+
+
+class MsmParams(NamedTuple):
+    """m_0 in (0, 2), sigma > 0, b > 1, gamma in (0, 1)."""
+
+    m_0: torch.Tensor
+    sigma: torch.Tensor
+    b: torch.Tensor
+    gamma: torch.Tensor
 
 
 def _as(v, ref: torch.Tensor) -> torch.Tensor:
@@ -235,3 +247,37 @@ def forecast_windows(k: int, m_0, sigma, b, gamma, windows):
     parameter set -> (T, 2^k); a parameter batch (A, 1) with windows
     (A, T, N) gives (A, T, 2^k)."""
     return forecast_state_distribution(k, m_0, sigma, b, gamma, windows)
+
+
+def simulate(seed, k: int, m_0, sigma, b, gamma, n: int, device="cuda"):
+    """Simulate an MSM series (`generate_data.py:23-57`). Returns
+    (returns (..., n), vol (..., n), eps (..., n), components
+    (..., n + 1, k)).
+
+    The components start uniform over {m_0, 2 - m_0}; each step,
+    component j flips to 2 - m with probability gamma_j / 2; vol_t =
+    sigma sqrt(prod comps_t) over rows 1 .. n; returns = vol N(0, 1).
+    `seed` is an int or a `torch.Generator` (whose device is used);
+    parameters may carry a batch shape. The stream is torch's, not
+    JAX's."""
+    gen = generator(seed, device)
+    ref = torch.zeros((), dtype=torch.float64, device=gen.device)
+    m_0, sigma, b, gamma = (_as(v, ref) for v in (m_0, sigma, b, gamma))
+    batch = torch.broadcast_shapes(m_0.shape, sigma.shape, b.shape,
+                                   gamma.shape)
+    j = torch.arange(k, dtype=ref.dtype, device=ref.device)
+    gamma_j = 1.0 - (1.0 - gamma[..., None]) ** (b[..., None] ** j)
+    init = torch.rand(batch + (k,), generator=gen, dtype=ref.dtype,
+                      device=ref.device) < 0.5
+    flips = torch.rand(batch + (n, k), generator=gen, dtype=ref.dtype,
+                       device=ref.device) < (gamma_j / 2.0)[..., None, :]
+    # a component's bit is its initial bit XOR the parity of its flips
+    bits = init[..., None, :] ^ (torch.cumsum(flips.to(torch.int64), -2)
+                                 % 2).bool()
+    bits = torch.cat([init[..., None, :], bits], -2)
+    m = m_0[..., None, None]
+    comps = torch.where(bits, 2.0 - m, m)
+    vol = sigma[..., None] * torch.sqrt(torch.prod(comps[..., 1:, :], -1))
+    eps = torch.randn(batch + (n,), generator=gen, dtype=ref.dtype,
+                      device=ref.device)
+    return vol * eps, vol, eps, comps

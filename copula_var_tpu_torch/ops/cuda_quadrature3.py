@@ -15,8 +15,8 @@ other route.
 
 U holds T*n^3 float64 (4.0 GB at T = 500, n = 100, 4.04 GB with its
 pads) on the card; building it raises when the card's free memory cannot
-hold it (ROADMAP.md queue 1, item 10, keeps the per-sweep rebuild as the
-design for such grids). Its rows have an odd pitch (`row_pitch`) and its
+hold it (ROADMAP.md section 2, "The dim-3 table's memory", keeps the
+per-sweep rebuild as the design for such grids). Its rows have an odd pitch (`row_pitch`) and its
 (t, i0) slabs an even stride (`slab_stride`), so every slab starts on 16
 bytes, as the sweep's bulk copies need, and one thread per row scans the
 slab without bank conflicts; `table_cells` views the cells.
@@ -97,7 +97,7 @@ def _require_kernel_copula(kind: str) -> None:
     if kind not in ("gaussian", "student"):
         raise ValueError(
             f"the dim-3 path takes the Gaussian or Student copula, not "
-            f"{kind!r} (Plackett is bivariate; ROADMAP.md queue 1, item 10)"
+            f"{kind!r} (Plackett is bivariate; ROADMAP.md queue 1, item 9)"
         )
 
 
@@ -121,7 +121,8 @@ def require_table_fits(T: int, n: int, free_bytes: int) -> None:
             f"the dim-3 table U of T={T} days at num_points={n} needs "
             f"{need} bytes ({need / 2**30:.2f} GiB) of device memory, but "
             f"only {free_bytes} bytes are free; grids that do not fit need "
-            "the per-sweep rebuild design (ROADMAP.md queue 1, item 10)"
+            "the per-sweep rebuild design (ROADMAP.md section 2, \"The "
+            "dim-3 table's memory\")"
         )
 
 

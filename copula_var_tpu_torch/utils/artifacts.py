@@ -69,8 +69,8 @@ def load_artifacts(path: str, data, device="cuda", adapter=None,
     if adapter is None:
         if meta["adapter"] not in bt_mod._ADAPTERS:
             raise ValueError(
-                f"adapter {meta['adapter']!r} is not ported yet (the port "
-                f"serves {sorted(bt_mod._ADAPTERS)}; ROADMAP.md queue 1)"
+                f"unknown adapter {meta['adapter']!r} (the port serves "
+                f"{sorted(bt_mod._ADAPTERS)}; register_adapter adds one)"
             )
         adapter = bt_mod._ADAPTERS[meta["adapter"]]()
     fit_cls = getattr(model_fit_mod, meta["fit_type"])

@@ -211,8 +211,9 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
                     GarchAdapter(reference_quirks=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             adapter.fit(tdata.in_sample, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_var_backtest(tdata, "mean_reverting", "student", device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        create_var_backtest(tdata, "msm", "student", device="cpu",
+                            refine_root=True)
 
 
 def test_cpu_main_path_launches_no_kernel(tmp_path):

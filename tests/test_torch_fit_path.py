@@ -1,7 +1,10 @@
 """The fitted slice as a whole, on the CPU: `create_var_backtest` from
 returns to a VaR series, held against the flagship artifacts and record,
 against the JAX package's `create_var_backtest`, and through saved
-artifacts in both directions."""
+artifacts in both directions. The mean-reverting family is served here
+from its record's artifacts (`data/flagship_artifacts_mean_reverting.npz`,
+`data/flagship_mr_var.npz`); its fit from the CSV is held in
+tests/test_torch_mean_reverting.py."""
 
 import json
 
@@ -34,6 +37,13 @@ RTOL_ARRAYS = 1e-11
 CUT_N, CUT_T = 300, 20
 
 
+def _record(est):
+    """The (T,) VaR the JAX package recorded for the flagship under est."""
+    path = ("data/flagship_mr_var.npz" if est == "mean_reverting"
+            else "data/flagship_var.npz")
+    return np.load(path)[f"{est}_var"]
+
+
 def _meta_fits(est):
     z = np.load(f"data/flagship_artifacts_{est}.npz")
     meta = json.loads(str(z["meta"]))
@@ -44,7 +54,7 @@ def _meta_fits(est):
     return z, fits, cfit
 
 
-@pytest.mark.parametrize("est", ["msm", "garch"])
+@pytest.mark.parametrize("est", ["msm", "garch", "mean_reverting"])
 def test_overridden_fits_reproduce_artifacts_and_record(est):
     """From the artifacts' fitted parameters, the port's marginals,
     densities and integration inputs equal the saved arrays and the VaR
@@ -59,7 +69,7 @@ def test_overridden_fits_reproduce_artifacts_and_record(est):
     np.testing.assert_allclose(bt.marginals, z["marginals"], rtol=RTOL_ARRAYS)
     np.testing.assert_allclose(bt.densities, z["densities"], rtol=RTOL_ARRAYS)
     var = bt.calc_var(0.05)
-    diff = np.abs(var - np.load("data/flagship_var.npz")[f"{est}_var"])
+    diff = np.abs(var - _record(est))
     assert diff.max() <= ATOL_VAR and int(np.sum(diff > 1e-9)) == 0
     assert set(bt.prep_stages) == {"model_fit", "marginals_densities",
                                    "copula_fit", "integration_inputs"}
@@ -129,8 +139,9 @@ def test_defaults_to_the_card_and_rejects_unported(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_var_backtest(data, "garch", "student")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_var_backtest(data, "mean_reverting", "gaussian", device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        create_var_backtest(data, "mean_reverting", "gaussian", device="cpu",
+                            refine_root=True)
     with pytest.raises(ValueError, match="estimation type"):
         create_var_backtest(data, "arma", "gaussian", device="cpu")
     with pytest.raises(ValueError, match="copula type"):
@@ -159,3 +170,28 @@ def test_registered_adapter_and_copula(monkeypatch):
     b = create_var_backtest(data, "garch", "gaussian", device="cpu",
                             model_fits_override=fits)
     np.testing.assert_array_equal(a.calc_var(0.05), b.calc_var(0.05))
+
+
+def test_mean_reverting_artifacts_round_trip_with_jax(tmp_path):
+    """The JAX-written mean-reverting file serves the record in the port
+    at full T, and the port's file of the same state serves it in the JAX
+    package, with the JAX file's keys."""
+    data = from_csv("data/flagship.csv", n_insample=N_IN)
+    want = _record("mean_reverting")
+    art = "data/flagship_artifacts_mean_reverting.npz"
+    bt = load_artifacts(art, data, device="cpu")
+    assert isinstance(bt.adapter, bt_mod.MeanRevertingAdapter)
+    assert type(bt.model_fits[0]).__name__ == "UkfFit"
+    np.testing.assert_allclose(bt.calc_var(0.05), want, rtol=0,
+                               atol=ATOL_VAR)
+    path = tmp_path / "port_mr.npz"
+    save_artifacts(str(path), bt)
+    jdata = jax_from_returns(data.returns, tickers=data.tickers,
+                             n_insample=N_IN)
+    from_port = jax_load(str(path), jdata)
+    assert type(from_port.adapter).__name__ == "MeanRevertingAdapter"
+    np.testing.assert_allclose(np.asarray(from_port.calc_var(0.05)), want,
+                               rtol=0, atol=ATOL_VAR)
+    z_port, z_jax = np.load(path), np.load(art)
+    assert sorted(z_port.files) == sorted(z_jax.files)
+    assert json.loads(str(z_port["meta"])) == json.loads(str(z_jax["meta"]))

@@ -321,7 +321,7 @@ def test_table_bytes_and_memory_guard():
     cq3.require_table_fits(500, 100, 4_040_000_000)  # exactly fits
     with pytest.raises(RuntimeError,
                        match=r"4040000000 bytes .* 4039999999 bytes are "
-                             r"free.*ROADMAP.md queue 1, item 10"):
+                             r"free.*ROADMAP.md section 2, \"The dim-3 "):
         cq3.require_table_fits(500, 100, 4_039_999_999)
 
 
