@@ -50,23 +50,45 @@ Phases, each fatal on failure:
      step's wall time printed. Before each counted path every kernel
      launch counter is zeroed and after it read; each kernel of that path
      must have launched and the other paths' kernels must not;
-  8. parity: each kernel against its plain PyTorch twin on the card, at
+  8. refine_root and the reference-quirks fits, counted:
+     `load_artifacts(..., refine_root=True, device="cuda")` for the
+     flagship and the dim-3 MSM and GARCH artifacts, `calc_var_levels`,
+     `calc_var_portfolios` and a `calc_var_grid` row held against
+     `data/{flagship,dim3}_refined_var.npz` at atol 1e-9 (the trap
+     re-solve, `ops/refine.py`, is plain PyTorch: the refined paths launch
+     the same kernels as the unrefined ones); then
+     `create_var_backtest(flagship, "garch", "student",
+     reference_quirks=True)` on the card, its GARCH quirk fits (both
+     assets, p, q <= 3) held to `data/flagship_quirk_fits.npz` ((p, q)
+     equal, params rtol 1e-9, nll 1e-10 relative; rho 1e-6, nu 1e-2) and
+     its `calc_var(0.05)` with `reference_quirks = True` to the record at
+     1e-9; the MSM quirk fits (k = 4, basin_iter = 0) at 1e-9 (LL 1e-10);
+     `generate_student_t_copula_data()` on the card: its density step
+     held to the JAX-written copy at rtol 1e-12 on the copy's pairs, its
+     pairs equal to the copy's, or, where numpy sorts the 100000 tied
+     copula values otherwise, drawn from the same seeded draw; each
+     stage's wall time printed;
+  9. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
      unequal weights; K4 also with a Gaussian copula; the dim-2 table P
      whole, the dim-3 table U on 16 days), a repeated launch of each that
      must give the same bits, a dim-2 sweep row alone against its bits
      inside a 128-row batch, and the serving batches (128 rows at dim 2,
      8 portfolios x 4 levels at dim 3) against the plain solves;
-  9. timings: CUDA events after warm-up, median and min of the reps,
-     kernel and plain twin taken in turns;
-  10. device profile: torch.profiler over calls of each kernel, `calc_var`
-     and the serving batches: host ms per call, the device's busy ms, and
-     each kernel's launches and device ms per launch.
+  10. timings: CUDA events after warm-up, median and min of the reps,
+     kernel and plain twin taken in turns, and the refine_root trap pass
+     per call (L = 1 and 128 at dim 2, L = 1 at dim 3) beside the
+     unrefined solve of the same rows;
+  11. device profile: torch.profiler over calls of each kernel, `calc_var`,
+     the serving batches, the unrefined solves and the trap passes: host
+     ms per call, the device's busy ms and ops, and each kernel's
+     launches and device ms per launch.
 
 Each kernel's bound in the record is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float64
 operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet; FP64 outside the
-tensor cores), counted from this run's shapes by `bounds()`.
+tensor cores), counted from this run's shapes by `bound()`; the trap
+pass's by `trap_bound()`.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
@@ -102,6 +124,10 @@ RTOL_FIT_ARRAYS, ATOL_REFIT_ARRAYS = 1e-9, 1e-6
 # the UKF EM at perturb_scale = 0 draws nothing: its fit is the JAX one to
 # the rounding of the filter (measured ~1e-14 on the CPU)
 FIT_RTOL_UKF, FIT_RTOL_UKF_LL = 1e-9, 1e-10
+# the reference-quirks fits draw nothing (MSM at basin_iter = 0): held
+# along the trajectory, to the JAX-written record
+QUIRK_RTOL_PARAMS, QUIRK_RTOL_LL = 1e-9, 1e-10
+RTOL_SAMPLER = 1e-12  # the Student-t fixture's densities
 SYNTHETIC = (1635, 1135, ("garch", "msm", "ou"))  # n_total, N, spec
 # kernel sweep vs plain sweep: the two sum the same float64 terms in
 # different orders (dim 2: masked U = V .* (wfc W1) per warp vs
@@ -194,6 +220,28 @@ def weights_bound(T, n, q, student, garch):
                  T * n ** 3 * (24 + 2 * q + 3 * garch) + T * n * n * 2 * q * q)
 
 
+def trap_bound(T, n, q, L, dim, garch, student, halvings):
+    """The refine_root trap pass (plain PyTorch, no kernel of its own): in,
+    the day tensors (dim 2) or the transform columns (dim 3), the state
+    combinations and weights, the (L, T) staircase roots, levels, weights
+    and half-widths; out, the (L, T) refined roots. Per halving, row and
+    day: the boundary fraction and the mask of
+    each cell (13), at dim 3 the density rebuilt from the columns (17,
+    7 more for Student-t, 4 more for GARCH), and the state contraction."""
+    if dim == 2:
+        day_in, per_cell = T * n * n, 13
+        contract = 2 * q * n * n + 2 * q * q * n + 2 * q * q
+    else:
+        day_in = T * 3 * n * (1 + 2 * student + garch)
+        per_cell = 30 + 7 * student + 4 * garch
+        contract = (2 * q * n ** 3 + 2 * q * q * n * n + 2 * q ** 3 * n
+                    + 2 * q ** 3)
+    nbytes = 8 * (day_in + T * q ** dim + dim * q * n + n + 2 * L * T
+                  + L * (dim + 2))
+    return bound(nbytes,
+                 halvings * L * T * (n ** dim * per_cell + contract))
+
+
 def cuda_ms(torch, fns, reps=REPS, warmup=2):
     """{name: (median_ms, min_ms)} for each callable, timed in turns with
     CUDA events after `warmup` untimed calls of each."""
@@ -248,7 +296,7 @@ def device_profile(torch, fn, reps=REPS):
         kernels[k] = {"launches": n / reps,
                       "device_ms": us / n / 1e3 if n else None}
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3 / reps,
-            "kernels": kernels}
+            "device_ops": len(spans) / reps, "kernels": kernels}
 
 
 def main() -> int:
@@ -269,6 +317,11 @@ def main() -> int:
     from copula_var_tpu_torch.backtest import create_var_backtest
     from copula_var_tpu_torch.config import BacktestConfig, run_backtest
     from copula_var_tpu_torch.copulas import fit as copula_fit_mod
+    from copula_var_tpu_torch.copulas.student_sampler import (
+        fixture_densities,
+        generate_student_t_copula_data,
+        t_copula_value,
+    )
     from copula_var_tpu_torch.models import fit as model_fit_mod
     from copula_var_tpu_torch.data import from_csv, synthetic_dataset
     from copula_var_tpu_torch.ops import _build
@@ -276,6 +329,7 @@ def main() -> int:
     from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
     from copula_var_tpu_torch.ops import cuda_solver as cs
     from copula_var_tpu_torch.ops.quadrature import CopulaSpec
+    from copula_var_tpu_torch.ops.refine import TRAP_HALVINGS, refine_roots
     from copula_var_tpu_torch.ops.solvers import bracket_state_batched
     from copula_var_tpu_torch.utils.artifacts import _restore, load_artifacts
 
@@ -697,6 +751,194 @@ def main() -> int:
         raise AssertionError("a dim-2 kernel launched on the fitted dim-3 "
                              "path")
 
+    # -- refine_root and the reference-quirks fits, counted -------------------
+    def refined(csv, prefix, rec_r, dim_name, weights=None):
+        """load_artifacts(refine_root=True) on the card for both families:
+        levels, portfolios and a grid row, held against the refined
+        record; returns {est: backtest} and {est: report}."""
+        obj_r = float(rec_r["obj_var"])
+        rows = np.asarray(rec_r["portfolio_weights"])
+        out_bts, out = {}, {}
+        for est in ("msm", "garch"):
+            t0 = time.perf_counter()
+            data = from_csv(os.path.join(root, "data", csv),
+                            n_insample=int(rec_r["n_insample"]),
+                            weights=weights)
+            bt = load_artifacts(os.path.join(root, "data",
+                                             f"{prefix}_{est}.npz"), data,
+                                device="cuda", refine_root=True)
+            bt.sweep_operands()
+            t1 = time.perf_counter()
+            lv = bt.calc_var_levels(tuple(rec_r["levels"]))
+            t2 = time.perf_counter()
+            trap_lv = bt.refine_seconds
+            pf = bt.calc_var_portfolios(rows, obj_r)
+            t3 = time.perf_counter()
+            trap_pf = bt.refine_seconds
+            row = bt.calc_var_grid(rows[1:], [obj_r])[0, 0]
+            want_lv = rec_r[f"{est}_levels"]
+            want_pf = rec_r[f"{est}_portfolios"]
+            errs = {"levels": float(np.max(np.abs(lv - want_lv))),
+                    "portfolios": float(np.max(np.abs(pf - want_pf))),
+                    "grid_row": float(np.max(np.abs(row - want_pf[1])))}
+            times = {"load_prep": t1 - t0, "levels": t2 - t1,
+                     "levels_trap": trap_lv, "portfolios": t3 - t2,
+                     "portfolios_trap": trap_pf}
+            print(f"refine {dim_name} {est}: max |VaR - record| "
+                  + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                  + f" (bound {ATOL_VAR:g}); wall s (host clock, {smi}): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+            for arr in (lv, pf, row):
+                if not np.all(np.isfinite(arr)):
+                    raise AssertionError(f"refine {dim_name} {est}: "
+                                         "non-finite VaR")
+            bad = {k: e for k, e in errs.items() if not e <= ATOL_VAR}
+            if bad:
+                raise AssertionError(f"refine {dim_name} {est}: off the "
+                                     f"record {bad}")
+            out_bts[est], out[est] = bt, {"max_err": errs, "wall_s": times}
+        return out_bts, out
+
+    refine_report = {}
+    rec_r2 = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
+    zero_counts()
+    bts_r, refine_report["dim2"] = refined("flagship.csv",
+                                           "flagship_artifacts", rec_r2,
+                                           "dim2")
+    launches_r2 = read_counts()
+    print(f"refine dim2: launches {launches_r2}")
+    if launches_r2["sweep_table"] != len(bts_r):
+        raise AssertionError("sweep_table did not build one table per "
+                             "refined dim-2 backtest")
+    for name in ("masked_sweep", "bisect_levels"):
+        if launches_r2[name] <= 0:
+            raise AssertionError(f"{name} never launched on the refined "
+                                 "dim-2 path")
+    if launches_r2["masked_contract3"] or launches_r2["contract3_weights"]:
+        raise AssertionError("a dim-3 kernel launched on the refined dim-2 "
+                             "path")
+    rec_r3 = np.load(os.path.join(root, "data", "dim3_refined_var.npz"))
+    zero_counts()
+    bts_r3, refine_report["dim3"] = refined("dim3.csv", "dim3_artifacts",
+                                            rec_r3, "dim3", weights=w3)
+    launches_r3 = read_counts()
+    print(f"refine dim3: launches {launches_r3}")
+    if launches_r3["contract3_weights"] != len(bts_r3):
+        raise AssertionError("contract3_weights did not build one table per "
+                             "refined dim-3 backtest")
+    if launches_r3["masked_contract3"] <= 0:
+        raise AssertionError("masked_contract3 never launched on the refined "
+                             "dim-3 path")
+    if launches_r3["masked_sweep"] or launches_r3["bisect_levels"] or \
+            launches_r3["sweep_table"]:
+        raise AssertionError("a dim-2 kernel launched on the refined dim-3 "
+                             "path")
+    refine_report["launches"] = {"dim2": launches_r2, "dim3": launches_r3}
+    del bts_r, bts_r3
+    torch.cuda.empty_cache()
+
+    rec_q = np.load(os.path.join(root, "data", "flagship_quirk_fits.npz"))
+    zero_counts()
+    t0 = time.perf_counter()
+    data_q = from_csv(os.path.join(root, "data", "flagship.csv"),
+                      n_insample=int(rec_q["n_insample"]))
+    bt_q = create_var_backtest(data_q, "garch", "student",
+                               num_points=int(rec_q["num_points"]),
+                               device="cuda", reference_quirks=True)
+    bt_q.reference_quirks = True
+    t1 = time.perf_counter()
+    var_q = bt_q.calc_var(float(rec_q["obj_var"]))
+    t2 = time.perf_counter()
+    launches_q = read_counts()
+    quirk_gaps = {}
+    for i, f in enumerate(bt_q.model_fits):
+        pq = (int(rec_q["garch_p"][i]), int(rec_q["garch_q"][i]))
+        if (f.p, f.q) != pq:
+            raise AssertionError(f"garch quirk fit {i}: (p, q) = "
+                                 f"{(f.p, f.q)}, record {pq}")
+        want = rec_q["garch_params"][i][:len(f.params)]
+        quirk_gaps[f"garch params[{i}]"] = (
+            float(np.max(np.abs(f.params - want) / np.abs(want))),
+            QUIRK_RTOL_PARAMS)
+        quirk_gaps[f"garch nll[{i}]"] = (
+            abs(f.nll - rec_q["garch_nll"][i]) / abs(rec_q["garch_nll"][i]),
+            QUIRK_RTOL_LL)
+    quirk_gaps["rho"] = (float(abs(bt_q.copula_fit.packed_params[1]
+                                   - rec_q["quirk_copula_packed"][1])),
+                         FIT_ATOL_RHO)
+    quirk_gaps["nu"] = (abs(bt_q.copula_fit.nu - float(rec_q[
+        "quirk_copula_nu"])), FIT_ATOL_NU)
+    t3 = time.perf_counter()
+    mfits_q = model_fit_mod.fit_msm_batch(
+        data_q.in_sample, int(rec_q["k"]), basin_iter=int(rec_q["basin_iter"]),
+        reference_quirks=True, device="cuda")
+    msm_q_s = time.perf_counter() - t3
+    for i, f in enumerate(mfits_q):
+        want = rec_q["msm_params"][i]
+        got = np.array([f.m_0, f.b, f.gamma, f.sigma])
+        quirk_gaps[f"msm params[{i}]"] = (
+            float(np.max(np.abs(got - want) / np.abs(want))),
+            QUIRK_RTOL_PARAMS)
+        quirk_gaps[f"msm LL[{i}]"] = (
+            abs(f.log_likelihood - rec_q["msm_ll"][i])
+            / abs(rec_q["msm_ll"][i]), QUIRK_RTOL_LL)
+    diff_q = np.abs(var_q - rec_q["garch_quirk_var"])
+    times_q = dict(bt_q.prep_stages, csv_to_backtest=t1 - t0,
+                   calc_var=t2 - t1, msm_quirk_fit=msm_q_s)
+    print("quirk fits vs record: " + ", ".join(
+        f"{k} {g:.2e} (bound {b:g})" for k, (g, b) in quirk_gaps.items())
+        + f"; quirk pipeline max |VaR - record| = {diff_q.max():.3e} (bound "
+        f"{ATOL_VAR:g}), launches {launches_q}")
+    print(f"quirk wall s (host clock, {smi}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times_q.items()))
+    bad = {k: v for k, v in quirk_gaps.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"quirk fits off the record: {bad}")
+    if var_q.shape != diff_q.shape or not diff_q.max() <= ATOL_VAR:
+        raise AssertionError(f"quirk pipeline: VaR off the record by "
+                             f"{diff_q.max():.3e}")
+    for name in ("sweep_table", "masked_sweep", "bisect_levels"):
+        if launches_q[name] <= 0:
+            raise AssertionError(f"{name} never launched on the quirk path")
+    if launches_q["masked_contract3"] or launches_q["contract3_weights"]:
+        raise AssertionError("a dim-3 kernel launched on the quirk path")
+    del bt_q
+    # the default fixture on the card; its pairs are the rows numpy's
+    # argsort leaves last among 100000 tied copula values (the sampler's
+    # docstring), so they equal the JAX-written copy's only where numpy
+    # sorts ties alike; the card's density step is held to the copy on the
+    # copy's own pairs either way
+    t0 = time.perf_counter()
+    marg_s, dens_s = generate_student_t_copula_data(device="cuda")
+    sampler_s = time.perf_counter() - t0
+    rec_m, rec_d = rec_q["student_marginals"], rec_q["student_densities"]
+    err_s = float(np.max(np.abs(fixture_densities(rec_m, 5, device="cuda")
+                                - rec_d) / np.abs(rec_d)))
+    same_pairs = bool(np.array_equal(marg_s, rec_m))
+    np.random.seed(42)
+    draw = np.random.rand(100000, 2)
+    ties = bool(np.all(t_copula_value(draw[:, 0], draw[:, 1], 0.5, 5)
+                       == 1.0))
+    drawn = {tuple(r) for r in draw}
+    from_draw = all(tuple(r) in drawn for r in marg_s)
+    print(f"student sampler on the card: {sampler_s:.3f} s, "
+          f"{marg_s.shape[0]} pairs, equal to the JAX-written copy's "
+          f"{same_pairs} (numpy {np.__version__}; all copula values tie "
+          f"{ties}, every pair from the seeded draw {from_draw}); density "
+          f"step on the copy's pairs max rel {err_s:.3e} (bound "
+          f"{RTOL_SAMPLER:g})")
+    if same_pairs:
+        err_s = max(err_s, float(np.max(np.abs(dens_s - rec_d)
+                                        / np.abs(rec_d))))
+    if not (err_s <= RTOL_SAMPLER and marg_s.shape == rec_m.shape
+            and np.all(np.isfinite(dens_s)) and from_draw
+            and (same_pairs or ties)):
+        raise AssertionError("student sampler off the JAX-written fixture")
+    quirk_report = {"gaps": quirk_gaps, "var_max_err": float(diff_q.max()),
+                    "wall_s": times_q, "launches": launches_q,
+                    "sampler_s": sampler_s, "sampler_rel_err": err_s,
+                    "sampler_pairs_equal_record": same_pairs}
+
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev)
@@ -956,6 +1198,26 @@ def main() -> int:
                                                cfg),
         "plain": lambda: cs.full_solve_levels_reference(
             ops3_m, obj[2:3], w3_main, cfg)}, reps=REPS_DIM3_PLAIN, warmup=1)
+    # the refine_root trap pass per call (plain PyTorch), beside the
+    # unrefined solve of the same rows above (full_L1, full_rows128,
+    # dim3_full_L1)
+    roots1, _ = cs.full_solve_levels(ops_m, obj[2:3], w_main, cfg)
+    roots128, _ = cs.full_solve_portfolios(ops_m, ar, wr, cfg)
+    roots3, _ = cs.full_solve_levels(ops3_m, obj[2:3], w3_main, cfg)
+    h1 = tens([bts["msm"]._plateau_h()])
+    h128 = tens(bts["msm"]._plateau_h(w_rows))
+    h3 = tens([bts3["msm"]._plateau_h()])
+    trap_calls = {
+        "trap_L1": lambda: refine_roots(ops_m, roots1, obj[2:3],
+                                        w_main.expand(1, -1), h1),
+        f"trap_L{L128}": lambda: refine_roots(ops_m, roots128, ar, wr, h128),
+        "dim3_trap_L1": lambda: refine_roots(ops3_m, roots3, obj[2:3],
+                                             w3_main.expand(1, -1), h3),
+    }
+    for key, fn in trap_calls.items():
+        timing[key] = cuda_ms(torch, {"plain": fn},
+                              **({} if key == "trap_L1"
+                                 else {"reps": 3, "warmup": 1}))
     for name, res in timing.items():
         print(f"time {name}: " + ", ".join(
             f"{k} median {v[0]:.3f} ms min {v[1]:.3f} ms"
@@ -986,10 +1248,20 @@ def main() -> int:
         "dim3_grid_8x4": device_profile(
             torch, lambda: bts3["msm"].calc_var_grid(w_batch3, levels),
             reps=2),
+        "full_L1": device_profile(torch, lambda: cs.full_solve_levels(
+            ops_m, obj[2:3], w_main, cfg)),
+        f"full_rows{L128}": device_profile(
+            torch, lambda: cs.full_solve_portfolios(ops_m, ar, wr, cfg),
+            reps=3),
+        "dim3_full_L1": device_profile(torch, lambda: cs.full_solve_levels(
+            ops3_m, obj[2:3], w3_main, cfg), reps=3),
+        **{k: device_profile(torch, fn, reps=10 if k == "trap_L1" else 2)
+           for k, fn in trap_calls.items()},
     }
     for name, p in profiles.items():
         print(f"profile {name}: host {p['wall_ms']:.3f} ms/call, device busy "
-              f"{p['busy_ms']:.3f} ms/call; " + ", ".join(
+              f"{p['busy_ms']:.3f} ms/call, {p['device_ops']:g} device ops "
+              "per call; " + ", ".join(
                   f"{k} {v['launches']:g} launches x "
                   + ("not measured" if v["device_ms"] is None
                      else f"{v['device_ms']:.4f} ms")
@@ -1052,7 +1324,29 @@ def main() -> int:
         print(f"bound {key}: {b_ms:.4f} ms by {by}; kernel call "
               f"{timing[key]['kernel'][0]:.3f} ms, device {dev_ms:.4f} ms, "
               f"{b_ms / dev_ms:.1%} of the bound")
+    trap_bounds = {
+        "trap_L1": trap_bound(T, n, q, 1, 2, False, True, TRAP_HALVINGS),
+        f"trap_L{L128}": trap_bound(T, n, q, L128, 2, False, True,
+                                    TRAP_HALVINGS),
+        "dim3_trap_L1": trap_bound(T3, n3, q3, 1, 3, False,
+                                   ops3_m.spec.kind == "student",
+                                   TRAP_HALVINGS),
+    }
+    unrefined = {"trap_L1": "full_L1", f"trap_L{L128}": f"full_rows{L128}",
+                 "dim3_trap_L1": "dim3_full_L1"}
+    for key, (b_ms, by) in trap_bounds.items():
+        pr, base = profiles[key], profiles[unrefined[key]]
+        print(f"refine {key}: trap pass call {timing[key]['plain'][0]:.3f} "
+              f"ms, device busy {pr['busy_ms']:.3f} ms, "
+              f"{pr['device_ops']:g} device ops per call; bound "
+              f"{b_ms:.4f} ms by {by} ({b_ms / pr['busy_ms']:.1%} of the "
+              f"busy time); the unrefined solve "
+              f"{timing[unrefined[key]]['kernel'][0]:.3f} ms, device busy "
+              f"{base['busy_ms']:.3f} ms ({smi})")
+    bounds_ms.update(trap_bounds)
     report["bounds_ms"] = bounds_ms
+    report["refine"] = refine_report
+    report["quirks"] = quirk_report
     report["halvings"] = iters
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),

@@ -20,6 +20,10 @@ queries with the three-stage solve (`ops/cuda_solver.py`):
   calc_var_portfolios  L (weights, level) rows        -> (L, T)
   calc_var_grid        P portfolios x L levels        -> (P, L, T)
 
+With `refine_root=True` each query's staircase roots are re-solved in a
++-h window against the trapezoid sweep (`ops/refine.py`, plain PyTorch on
+the same operands), h = max(dx) |w0| per portfolio row.
+
 On a CUDA device every sweep and the bisection run the hand-written
 kernels (`masked_sweep` and `bisect_levels` at dim 2, `masked_contract3`
 at dim 3); on the CPU they run the plain twins, the f64 oracle that
@@ -64,6 +68,7 @@ from copula_var_tpu_torch.ops.quadrature import (
     msm_day_tensors,
     msm_integrals_cached,
 )
+from copula_var_tpu_torch.ops.refine import refine_roots
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
 
 VOL_STATE_ROUND_TOL = 1e-6  # `msm_estimation.py:204-248`
@@ -407,7 +412,7 @@ def _copula_spec(kind: str, fit_result, device) -> CopulaSpec:
     raise ValueError(f"unknown copula: {kind}")
 
 
-def _check_options(dim: int, copula: str, refine_root: bool) -> None:
+def _check_options(dim: int, copula: str) -> None:
     """Refuse what the port does not serve yet, naming the roadmap."""
     if dim not in (2, 3):
         raise ValueError(
@@ -418,10 +423,6 @@ def _check_options(dim: int, copula: str, refine_root: bool) -> None:
         raise ValueError(
             "the Plackett copula is bivariate; dim 3 takes Gaussian or "
             "Student (ROADMAP.md queue 1, item 9)"
-        )
-    if refine_root:
-        raise ValueError(
-            "refine_root is not ported yet (ROADMAP.md queue 1, item 6)"
         )
 
 
@@ -434,13 +435,17 @@ class VaRBacktest:
     caller asks for "cpu"); marginals / densities: the in-sample IFM
     inputs, kept for the record. `prep_seconds` counts the fit that made
     the state (`create_var_backtest`) and the sweep operands' build.
+    reference_quirks: the reference's stage-2 bracket anchor
+    (`ops/solvers.py::bracket_state_batched`); refine_root: the trap
+    re-solve of every query (`ops/refine.py`), whose last wall seconds
+    are `refine_seconds`.
     """
 
     def __init__(self, data: ReturnsData, adapter, copula: str, copula_fit,
                  model_fits, integration_inputs, marginals=None,
                  densities=None, num_points=100, box=(-5.0, 5.0),
                  device="cuda", reference_quirks=False, refine_root=False):
-        _check_options(data.dim, copula, refine_root)
+        _check_options(data.dim, copula)
         self.device = resolve_device(device)
         self.data = data
         self.adapter = adapter
@@ -450,7 +455,7 @@ class VaRBacktest:
         self.num_points = num_points
         self.box = tuple(box)
         self.reference_quirks = bool(reference_quirks)
-        self.refine_root = False
+        self.refine_root = bool(refine_root)
         self.marginals = marginals
         self.densities = densities
         self.copula_spec = _copula_spec(copula, copula_fit, self.device)
@@ -526,6 +531,10 @@ class VaRBacktest:
                       max_var_value),
             tolerance, self.reference_quirks, self.box[0],
         )
+        if self.refine_root:
+            L = roots.shape[0]
+            roots = self._refine(roots, obj, self.weights.expand(L, -1),
+                                 np.full(L, self._plateau_h()))
         final = torch.where(nan_days, torch.full_like(roots, np.nan), roots)
         out = final.cpu().numpy() + self.data.ptf_mean
         self.solve_seconds = time.perf_counter() - t0
@@ -555,17 +564,46 @@ class VaRBacktest:
         L = weights_batch.shape[0]
         obj = np.broadcast_to(np.atleast_1d(np.asarray(obj_var, float)), (L,))
         t0 = time.perf_counter()
+        obj, w_rows = self._tensor(obj), self._tensor(weights_batch)
         roots, nan_days = full_solve_portfolios(
-            self.sweep_operands(), self._tensor(obj),
-            self._tensor(weights_batch).contiguous(),
+            self.sweep_operands(), obj, w_rows.contiguous(),
             self._cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
             tolerance, self.reference_quirks, self.box[0],
         )
+        if self.refine_root:
+            roots = self._refine(roots, obj, w_rows,
+                                 self._plateau_h(weights_batch))
         final = torch.where(nan_days, torch.full_like(roots, np.nan), roots)
         ptf_means = np.asarray(self.data.in_sample_mean) @ weights_batch.T
         out = final.cpu().numpy() + ptf_means[:, None]
         self.solve_seconds = time.perf_counter() - t0
+        return out
+
+    def _plateau_h(self, weights=None):
+        """Half-width of the refinement window: one grid cell times
+        |weights[0]| (the data's weights, or each row's of (L, dim)
+        `weights`); the staircase and the continuous root lie within it."""
+        w0 = (np.asarray(self.data.weights)[0] if weights is None
+              else np.asarray(weights)[..., 0])
+        return float(self.integration_inputs.dx.max()) * np.abs(w0)
+
+    def _refine(self, roots, obj, weights, h):
+        """The trap re-solve of the staircase roots (L, T) for obj (L,),
+        weights (L, dim) and half-widths h (L,); its wall seconds (device
+        synchronized) go to `refine_seconds`."""
+        if not isinstance(self.integration_inputs,
+                          (MsmIntegrationInputs, GarchIntegrationInputs)):
+            raise ValueError(
+                "refine_root needs a trapezoid twin of the sweep: the MSM "
+                "or GARCH integrand (MsmIntegrationInputs or "
+                "GarchIntegrationInputs); a plugin adapter with inputs "
+                f"{type(self.integration_inputs).__name__} cannot refine")
+        t0 = time.perf_counter()
+        out = refine_roots(self.sweep_operands(), roots, obj, weights,
+                           self._tensor(h), self.box[0])
+        synchronize(self.device)
+        self.refine_seconds = time.perf_counter() - t0
         return out
 
     def calc_var_grid(self, weights_batch, obj_vars, **kw):
@@ -601,15 +639,15 @@ def create_var_backtest(
 
     model_fits_override / copula_fit_override inject fitted records and
     skip that fit (resume from saved artifacts, or reuse one family's fits
-    across copulas). `refine_root` goes to `VaRBacktest`, which refuses
-    it before any fit runs. `prep_seconds` covers the whole preparation,
-    as in the JAX package; `prep_stages` holds each step's wall seconds
-    (the device synchronized at each end), with the fit's own stages."""
+    across copulas). `refine_root` goes to `VaRBacktest`. `prep_seconds`
+    covers the whole preparation, as in the JAX package; `prep_stages`
+    holds each step's wall seconds (the device synchronized at each end),
+    with the fit's own stages."""
     if estimation_type not in _ADAPTERS:
         raise ValueError(f"Unsupported estimation type: {estimation_type}")
     if copula_type not in _COPULA_FITTERS:
         raise ValueError(f"Unsupported copula type: {copula_type}")
-    _check_options(data.dim, copula_type, refine_root)
+    _check_options(data.dim, copula_type)
     dev = resolve_device(device)
     adapter = _ADAPTERS[estimation_type](**adapter_kwargs)
     stages = {}

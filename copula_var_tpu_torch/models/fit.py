@@ -5,12 +5,15 @@ selection, the MSM basin hop with its L-BFGS polish, and the UKF EM.
   * GARCH: every asset x (p, q) pair x start is one row of a batched
     damped-Newton solve (`_newton_garch_assets`) with exact gradients and
     Hessians from autograd; BIC selection happens on the host
-    (`garch/opti.py:89-181`).
+    (`garch/opti.py:89-181`). `reference_quirks=True` replays the
+    reference optimizer's own trajectory instead
+    (`_garch_reference_trajectories`).
   * MSM: the 10 b-grid starts of every asset advance in lockstep through
     the basin hop (one batched filter per hop), the top 3 starts per
     asset are polished by `box_lbfgs_batch`, and the start with the
     maximum true log-likelihood wins (`opti.py:25-139`; the reference's
-    minimum-LL selection is a defect the JAX package fixes too).
+    minimum-LL selection is a defect the JAX package fixes too, and
+    `reference_quirks=True` restores it, with no polish).
   * UKF: EM over (a, l, q) (`kalman_mean_reverting/optimize.py:28-167`):
     the E-step is the filter, the M-step closed form (q from the state's
     spread, l from q, a by OLS on the state's autoregression), with
@@ -21,9 +24,9 @@ selection, the MSM basin hop with its L-BFGS polish, and the UKF EM.
 
 Randomness comes from an explicit `torch.Generator` per asset on the work
 device, seeded `seed + i`: a different stream from JAX's, so the two are
-held to each other at the optimum, not along the trajectory.
-`reference_quirks=True` is the UKF's frozen-a M-step; the GARCH and MSM
-reference trajectories are not ported and raise.
+held to each other at the optimum, not along the trajectory; the
+reference-quirks trajectories draw nothing (MSM at basin_iter = 0) and
+are held along it.
 """
 
 from __future__ import annotations
@@ -39,9 +42,6 @@ from copula_var_tpu_torch.models import garch as garch_mod
 from copula_var_tpu_torch.models import msm as msm_mod
 from copula_var_tpu_torch.models import ukf as ukf_mod
 from copula_var_tpu_torch.ops.lbfgs import box_lbfgs_batch
-
-_QUIRKS_LATER = ("the reference_quirks optimizer trajectories of GARCH and "
-                 "MSM are not ported yet (ROADMAP.md queue 1, item 5)")
 
 
 class GarchFit(NamedTuple):
@@ -213,6 +213,125 @@ def _garch_candidates(returns, p_max, q_max):
     return np.stack(inits), np.stack(masks), np.asarray(extras), pairs
 
 
+def _garch_stencil_nll(returns_a, p_max, q_max):
+    """The reference trajectory's default stencil evaluator: NLL rows
+    `(x (R, 1 + p_max + q_max), asset (R,), p (R,), q (R,)) -> (R,)`, all
+    numpy, as one batched `_garch_nll_rows` call on the device of
+    returns_a (A, N): row r is asset[r]'s series under GARCH(p[r], q[r])
+    with x[r] packed [omega, alpha (p_max), beta (q_max)]."""
+    m = 1 + p_max + q_max
+    dev = returns_a.device
+
+    def nll_rows(x, asset, p, q):
+        col = np.arange(m)
+        mask = ((col == 0) | ((col >= 1) & (col < 1 + p[:, None]))
+                | ((col >= 1 + p_max) & (col < 1 + p_max + q[:, None])))
+        vals = _garch_nll_rows(
+            torch.as_tensor(x, dtype=torch.float64, device=dev),
+            returns_a[torch.as_tensor(asset, device=dev)],
+            torch.as_tensor(mask, dtype=torch.float64, device=dev),
+            torch.as_tensor(np.maximum(p, q), device=dev), p_max)
+        return vals.cpu().numpy()
+
+    return nll_rows
+
+
+def _garch_reference_trajectories(n_obs, n_assets, p_max, q_max, tol,
+                                  max_iter, eps, nll_rows) -> list:
+    """The reference `GarchOptimizer`'s own trajectory
+    (`garch/opti.py:39-181`) for every asset and (p, q) pair, all in
+    lockstep: per pair the single start [0.1] + [0.5 / (p + q)] * (p + q);
+    per iteration a central-difference gradient and Hessian from the
+    2m + 1 points x, x +- eps e_i (m = 1 + p + q), with the reference's
+    mixed-partial stencil (f(+e_i) - f(+e_j) - f(-e_i) + f(-e_j)) /
+    (4 eps^2), which is not a cross derivative and is kept for the
+    trajectory; a `np.linalg.pinv` Newton step on the host; alpha, beta
+    renormalized when they sum above 1, then every coordinate floored at
+    eps + 1e-7; stop when the pre-projection step's norm is below tol or
+    after max_iter steps. A pair whose pinv fails is skipped. Per asset,
+    the pair of strictly lowest BIC in p-major order.
+
+    Every pair of every asset still running evaluates its stencil as
+    rows of ONE `nll_rows(x, asset, p, q)` call per iteration (see
+    `_garch_stencil_nll`; x padded to 1 + p_max + q_max), so the host
+    reads once per iteration; a finished pair drops out. Returns one
+    GarchFit per asset (None when every pair failed)."""
+    width = 1 + p_max + q_max
+    tasks = [(a, p, q) for a in range(n_assets) for p in range(1, p_max + 1)
+             for q in range(1, q_max + 1)]
+
+    def padded(x, p, q):
+        out = np.zeros(x.shape[:-1] + (width,))
+        out[..., :1 + p] = x[..., :1 + p]
+        out[..., 1 + p_max:1 + p_max + q] = x[..., 1 + p:]
+        return out
+
+    def call(xs, idx):
+        """nll_rows of the unpadded point rows xs[k] of tasks idx[k]."""
+        rows = [padded(x, tasks[i][1], tasks[i][2]) for x, i in zip(xs, idx)]
+        own = [np.full(len(x), i) for x, i in zip(xs, idx)]
+        meta = np.asarray(tasks)[np.concatenate(own)]
+        return nll_rows(np.concatenate(rows), meta[:, 0], meta[:, 1],
+                        meta[:, 2])
+
+    x = [np.array([0.1] + [0.5 / (p + q)] * (p + q)) for _, p, q in tasks]
+    result = [None] * len(tasks)
+    running = list(range(len(tasks)))
+    for _ in range(max_iter):
+        if not running:
+            break
+        pts = []
+        for i in running:
+            eye = np.eye(len(x[i]))
+            pts.append(np.concatenate([x[i][None, :] + eps * eye,
+                                       x[i][None, :] - eps * eye,
+                                       x[i][None, :]], axis=0))
+        vals = call(pts, running)
+        nxt, at = [], 0
+        for i in running:
+            m = len(x[i])
+            v = vals[at:at + 2 * m + 1]
+            at += 2 * m + 1
+            f_up, f_dn, f0 = v[:m], v[m:2 * m], v[2 * m]
+            grad = (f_up - f_dn) / (2.0 * eps)
+            hess = np.empty((m, m))
+            for a in range(m):
+                hess[a, a] = (f_up[a] - 2.0 * f0 + f_dn[a]) / eps**2
+                for b in range(a + 1, m):
+                    hess[a, b] = hess[b, a] = (
+                        f_up[a] - f_up[b] - f_dn[a] + f_dn[b]
+                    ) / (4.0 * eps**2)
+            try:
+                hess_inv = np.linalg.pinv(hess)
+            except np.linalg.LinAlgError:
+                result[i] = None  # `opti.py:110-112`: the pair is skipped
+                continue
+            delta = -hess_inv @ grad
+            xi = x[i] + delta
+            s_rest = np.sum(xi[1:])
+            if s_rest > 1:
+                xi[1:] = xi[1:] / s_rest
+            x[i] = result[i] = np.maximum(xi, eps + 1e-7)
+            if not np.linalg.norm(delta) < tol:
+                nxt.append(i)
+        running = nxt
+    done = [i for i in range(len(tasks)) if result[i] is not None]
+    nlls = (dict(zip(done, call([result[i][None, :] for i in done], done)))
+            if done else {})
+    fits = []
+    for a in range(n_assets):
+        best: Optional[GarchFit] = None
+        for i in (i for i in done if tasks[i][0] == a):
+            _, p, q = tasks[i]
+            xi, nll = result[i], float(nlls[i])
+            bic = 2.0 * nll + (1 + p + q) * np.log(n_obs)
+            if best is None or bic < best.bic:
+                best = GarchFit(p, q, float(xi[0]), xi[1:1 + p].copy(),
+                                xi[1 + p:].copy(), nll, bic, xi.copy())
+        fits.append(best)
+    return fits
+
+
 def fit_garch(returns, p_max: int = 3, q_max: int = 3, tol: float = 1e-10,
               max_iter: int = 1000, eps: float = 1e-5,
               reference_quirks: bool = False, device="cuda") -> GarchFit:
@@ -227,15 +346,25 @@ def fit_garch(returns, p_max: int = 3, q_max: int = 3, tol: float = 1e-10,
 def fit_garch_batch(returns_2d, p_max: int = 3, q_max: int = 3,
                     tol: float = 1e-10, max_iter: int = 1000,
                     eps: float = 1e-5, reference_quirks: bool = False,
-                    device="cuda") -> list:
+                    device="cuda", nll_rows=None) -> list:
     """`fit_garch` for a whole (N, A) asset panel in one batched solve on
     `device`: per asset and pair the start with the lowest nll, then the
-    pair with the strictly lowest BIC in p-major order."""
-    if reference_quirks:
-        raise NotImplementedError(f"fit_garch_batch: {_QUIRKS_LATER}")
+    pair with the strictly lowest BIC in p-major order.
+
+    reference_quirks=True runs the reference optimizer's trajectory
+    (`_garch_reference_trajectories`) for every asset and pair in
+    lockstep, its stencil points evaluated by `nll_rows` (default: the
+    port's NLL on `device`, `_garch_stencil_nll`)."""
     dev = resolve_device(device)
     returns_2d = np.asarray(returns_2d, dtype=float)
     n_obs, A = returns_2d.shape
+    if reference_quirks:
+        if nll_rows is None:
+            nll_rows = _garch_stencil_nll(
+                torch.as_tensor(returns_2d.T.copy(), device=dev), p_max,
+                q_max)
+        return _garch_reference_trajectories(n_obs, A, p_max, q_max, tol,
+                                             max_iter, eps, nll_rows)
     per_asset = [_garch_candidates(returns_2d[:, i], p_max, q_max)
                  for i in range(A)]
     masks, extras, pairs = per_asset[0][1], per_asset[0][2], per_asset[0][3]
@@ -376,11 +505,11 @@ def fit_msm_batch(returns_2d, k: int, basin_iter: int = 100,
     better), and the true log-likelihood of every start in one call; each
     asset takes its start of maximum log-likelihood. Asset i draws from a
     `torch.Generator` seeded `seed + i`. polish_max_iter=0 skips the
-    polish. When `timings` is a dict, it receives the wall seconds of
-    "basin", "polish" and "final_ll" (the device synchronized at each
-    end)."""
-    if reference_quirks:
-        raise NotImplementedError(f"fit_msm_batch: {_QUIRKS_LATER}")
+    polish. reference_quirks=True is the reference's selection: no
+    polish, and each asset takes its start of MINIMUM final
+    log-likelihood (`opti.py:125-128`). When `timings` is a dict, it
+    receives the wall seconds of "basin", "polish" and "final_ll" (the
+    device synchronized at each end)."""
     dev = resolve_device(device)
     returns_2d = np.asarray(returns_2d, dtype=float)
     n, A = returns_2d.shape
@@ -415,7 +544,7 @@ def fit_msm_batch(returns_2d, k: int, basin_iter: int = 100,
             sv[:, None], float(gamma_weight), float(b_weight), float(n),
             basin_iter)
     lap("basin")
-    if polish_max_iter > 0:
+    if not reference_quirks and polish_max_iter > 0:
         # L-BFGS polish of each asset's top starts by basin NLL
         # (`fit.py:671-703`); rows are asset x top start
         top = min(3, n_starts)
@@ -446,7 +575,8 @@ def fit_msm_batch(returns_2d, k: int, basin_iter: int = 100,
     cur = cur.cpu().numpy()
     fits = []
     for a in range(A):
-        i = int(np.argmax(final_ll[a]))
+        i = int(np.argmin(final_ll[a]) if reference_quirks
+                else np.argmax(final_ll[a]))
         m0, b, gm = cur[a, i]
         fits.append(MsmFit(float(m0), float(b), float(gm),
                            float(estimate_sigma(sample_var[a], m0, k)),

@@ -58,14 +58,12 @@ def _expand(v, d, dim):
                      + (1,) * (dim - 1 - d))
 
 
-def halfspace_mask(x, lower, upper, weights, box_min=BOX_MIN):
-    """(..., n, ..., n) bool mask (dim grid axes) of the portfolio cut
-    {lower < w.x <= upper} resolved on the inner (last) grid axis, for
-    bounds of any leading shape (...). weights (dim,): weights[0] pairs
-    the inner axis, weights[1:] the outer axes in order. Inner cut:
-    x_in > max(dyn_lower, box_min) and x_in <= dyn_upper, with
-    dyn = (bound - prev) / weights[0] and prev = sum_d x_d * weights[1 + d]
-    summed in grid-axis order, as the JAX module forms it."""
+def _inner_bounds(x, lower, upper, weights, box_min):
+    """The inner axis's dynamic bounds (..., n, ..., n) (dim - 1 outer grid
+    axes) of the cut {lower < w.x <= upper}: (max(dyn_lower, box_min),
+    dyn_upper), dyn = (bound - prev) / weights[0] and prev = sum_d x_d *
+    weights[1 + d] summed in grid-axis order, as the JAX module forms
+    it."""
     dim = weights.shape[0]
     prev = _expand(x, 0, dim - 1) * weights[1]
     for d in range(1, dim - 1):
@@ -75,7 +73,18 @@ def halfspace_mask(x, lower, upper, weights, box_min=BOX_MIN):
     dyn_lower = torch.maximum(
         (lower[lead] - prev) / weights[0], dyn_upper.new_tensor(box_min)
     )
-    return (x > dyn_lower[..., None]) & (x <= dyn_upper[..., None])
+    return dyn_lower[..., None], dyn_upper[..., None]
+
+
+def halfspace_mask(x, lower, upper, weights, box_min=BOX_MIN):
+    """(..., n, ..., n) bool mask (dim grid axes) of the portfolio cut
+    {lower < w.x <= upper} resolved on the inner (last) grid axis, for
+    bounds of any leading shape (...). weights (dim,): weights[0] pairs
+    the inner axis, weights[1:] the outer axes in order. Inner cut:
+    x_in > max(dyn_lower, box_min) and x_in <= dyn_upper
+    (`_inner_bounds`)."""
+    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min)
+    return (x > dyn_lower) & (x <= dyn_upper)
 
 
 def _all_pairs_quad(z_cols, sigma_inv):
@@ -372,4 +381,112 @@ def garch_integrals_tcached(bounds, cols, p_cols, x, dx, weights,
         M = halfspace_mask(x, bounds[s, 0], bounds[s, 1], weights, box_min)
         V = torch.where(M, V, zero)
         out.append(_contract_states(V, w_cols).reshape(V.shape[0]))
+    return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
+# Trapezoid refinement sweeps (refine_root)
+# ---------------------------------------------------------------------------
+#
+# The masked sweeps above are the reference's right-rectangle rule with a
+# hard inner cut: the CDF is a staircase in the VaR bound and the solved
+# root carries an O(cell) bias. The refinement re-solves in a +-h window
+# against a second-order estimate of the same integrand: trapezoid node
+# weights (node k owns [x_k - tw_k / 2, x_k + tw_k / 2]) and the inner
+# axis's boundary cell included in proportion to its share inside the
+# slab, which makes F continuous and piecewise linear in the bound. No
+# TPU kernel computes these: the JAX package runs them in XLA, and the
+# port in plain PyTorch on the work device.
+
+
+def trap_weights(x):
+    """(n,) trapezoid node weights of the grid: interior node k owns
+    (x_{k+1} - x_{k-1}) / 2, each end node one full adjacent step."""
+    return torch.cat([(x[1] - x[0])[None], (x[2:] - x[:-2]) / 2.0,
+                      (x[-1] - x[-2])[None]])
+
+
+def halfspace_frac(x, tw, lower, upper, weights, box_min=BOX_MIN):
+    """Fractional-cell analog of `halfspace_mask`: (..., n, ..., n) float,
+    the share of each inner-axis node's cell [x - tw / 2, x + tw / 2]
+    inside {lower < w.x <= upper}, for bounds of any leading shape (...).
+    Continuous in the bounds; the same pairing and dynamic bounds as
+    `halfspace_mask`."""
+    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min)
+    cell_lo = x - tw / 2.0
+    a_up = torch.clamp((dyn_upper - cell_lo) / tw, 0.0, 1.0)
+    a_lo = torch.clamp((dyn_lower - cell_lo) / tw, 0.0, 1.0)
+    return torch.clamp_min(a_up - a_lo, 0.0)
+
+
+def _inside(C, A):
+    """C .* A with C's cells outside the slab (A == 0) zeroed first, so a
+    NaN cell outside the slab contributes 0 as under the staircase's
+    mask, and a NaN cell inside it surfaces."""
+    return torch.where(A > 0.0, C, torch.zeros((), dtype=C.dtype,
+                                               device=C.device)) * A
+
+
+def msm_integrals_trap(bounds, C, forecast_combos, x, densities, weights,
+                       box_min=BOX_MIN, day_batch=None):
+    """(T,) trapezoid integrals from the dim-2 MSM day tensors C
+    (T, n, n) (twin of `msm_integrals_cached`). Days run in chunks of
+    `day_batch` (default `_device_day_batch`)."""
+    tw = trap_weights(x)
+    w0, w1 = state_weight_matrices(densities, tw)
+    out = []
+    for s in _chunks(C.shape[0], x.shape[0], 2, x.device, day_batch):
+        A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
+                           box_min)
+        per_combo = (w0 @ _inside(C[s], A) @ w1.T).reshape(A.shape[0], -1)
+        out.append(torch.sum(per_combo * forecast_combos[s], dim=-1))
+    return torch.cat(out)
+
+
+def garch_integrals_trap(bounds, V, x, weights, box_min=BOX_MIN,
+                         day_batch=None):
+    """(T,) trapezoid integrals from the dim-2 GARCH-family day tensors V
+    (T, n, n) (twin of `garch_integrals_cached`): tw^T (V .* A) tw."""
+    tw = trap_weights(x)
+    out = []
+    for s in _chunks(V.shape[0], x.shape[0], 2, x.device, day_batch):
+        A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
+                           box_min)
+        out.append((tw @ _inside(V[s], A)) @ tw)
+    return torch.cat(out)
+
+
+def msm_tcached_trap(bounds, cols, forecast_combos, x, densities, weights,
+                     spec: CopulaSpec, box_min=BOX_MIN, day_batch=None):
+    """(T,) trapezoid integrals from cached transform columns, MSM family,
+    any dim (twin of `msm_integrals_tcached`)."""
+    dim, n = densities.shape[0], x.shape[0]
+    tw = trap_weights(x)
+    w_cols = state_weight_matrices(densities, tw)
+    out = []
+    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
+        C = copula_density_cols(tuple(c[s] for c in cols), spec)
+        A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
+                           box_min)
+        per_combo = _contract_states(_inside(C, A), w_cols).reshape(
+            C.shape[0], -1)
+        out.append(torch.sum(per_combo * forecast_combos[s], dim=-1))
+    return torch.cat(out)
+
+
+def garch_tcached_trap(bounds, cols, p_cols, x, weights, spec: CopulaSpec,
+                       box_min=BOX_MIN, day_batch=None):
+    """(T,) trapezoid integrals from cached transform columns and pdf
+    columns, GARCH family, any dim (twin of `garch_integrals_tcached`):
+    nan_to_num(C * pdf-product) .* A, with no mask before the product."""
+    dim, n = p_cols.shape[1], x.shape[0]
+    tw = trap_weights(x)
+    w_cols = [tw[None, :]] * dim
+    out = []
+    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
+        C = copula_density_cols(tuple(c[s] for c in cols), spec)
+        V = torch.nan_to_num(C * _pdf_product(p_cols[s]))
+        A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
+                           box_min)
+        out.append(_contract_states(V * A, w_cols).reshape(V.shape[0]))
     return torch.cat(out)

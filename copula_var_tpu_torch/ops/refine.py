@@ -1,0 +1,61 @@
+"""The `refine_root` pass on the solve (counterpart of the trap re-solve
+that `copula_var_tpu/backtest.py` runs after its staircase bisection:
+`_trap_refine_levels_jit`, `_trap_refine_portfolios_jit` and the in-program
+refine of `_device_full_solve_{levels,portfolios}_jit`).
+
+`full_solve_levels` / `full_solve_portfolios` return the staircase roots
+through the kernels; `refine_roots` then re-solves each (row, day) in a
++-h window with 12 halvings of the trapezoid sweep (`ops/solvers.py::
+trap_bisect`). The trap sweep reads the operands the backtest already
+holds and builds nothing per query: the day tensors V of `SweepOperands`
+at dim 2, the transform columns of `Contract3Operands` at dim 3. No TPU
+kernel computes it (the JAX package runs it in XLA), so it is plain
+PyTorch on the operands' device, rows one after another and days in
+chunks of `ops/quadrature._device_day_batch`, which bounds its transient
+memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from copula_var_tpu_torch.ops.cuda_quadrature3 import Contract3Operands
+from copula_var_tpu_torch.ops.quadrature import (
+    garch_integrals_trap,
+    garch_tcached_trap,
+    msm_integrals_trap,
+    msm_tcached_trap,
+)
+from copula_var_tpu_torch.ops.solvers import trap_bisect
+
+TRAP_HALVINGS = 12
+
+
+def trap_sweep(ops, bounds, weights, box_min=-5.0):
+    """(L, T) trapezoid slab integrals for bounds (L, T, 2) and per-row
+    portfolio weights (L, dim), from `SweepOperands` (dim 2) or
+    `Contract3Operands` (dim 3), on their device."""
+    rows = []
+    for b, w in zip(bounds, weights):
+        if isinstance(ops, Contract3Operands):
+            if ops.p_cols is None:
+                rows.append(msm_tcached_trap(
+                    b, ops.cols, ops.forecast_combos, ops.x, ops.densities,
+                    w, ops.spec, box_min))
+            else:
+                rows.append(garch_tcached_trap(b, ops.cols, ops.p_cols, ops.x,
+                                               w, ops.spec, box_min))
+        elif ops.densities is None:
+            rows.append(garch_integrals_trap(b, ops.V, ops.x, w, box_min))
+        else:
+            rows.append(msm_integrals_trap(b, ops.V, ops.forecast_combos,
+                                           ops.x, ops.densities, w, box_min))
+    return torch.stack(rows)
+
+
+def refine_roots(ops, roots, obj, weights, h, box_min=-5.0):
+    """Refined (L, T) roots from the staircase roots (L, T): row l
+    re-solves for obj[l] with its own weights[l] (L, dim) in the window
+    +-h[l] (L,)."""
+    return trap_bisect(lambda b: trap_sweep(ops, b, weights, box_min),
+                       roots, obj[:, None], h[:, None], TRAP_HALVINGS)

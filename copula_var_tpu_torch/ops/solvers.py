@@ -1,6 +1,7 @@
-"""Stage-2 bracketing of the VaR solve and the batched golden-section
-scan of the IFM fits (counterpart of `copula_var_tpu/ops/solvers.py`:
-`bracket_state_batched`, `golden_section_min`)."""
+"""Stage-2 bracketing of the VaR solve, the trapezoid re-solve of
+`refine_root` and the batched golden-section scan of the IFM fits
+(counterpart of `copula_var_tpu/ops/solvers.py`: `bracket_state_batched`,
+`trap_bisect`, `golden_section_min`)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,23 @@ def bracket_state_batched(F1, obj, sweep_batched, cfg, quirks):
     hi = torch.where(m, c(sg1), hi)
     ustack = ~((hi == sg0) | (hi == sg1))
     return lo, hi, res, prev_upper, ustack, torch.isnan(res)
+
+
+def trap_bisect(sweep_batched, roots, obj2, h2, iters: int = 12):
+    """Re-solve in a +-h window around the staircase roots (L, T) against
+    a second-order trap sweep `sweep_batched((L, T, 2)) -> (L, T)` of the
+    CDF slab [-100, bound]: F_trap is continuous and monotone in the
+    bound, so `iters` halvings pin the refined root to 2h / 2^iters. obj2
+    (L, 1); h2 broadcastable to (L, T). A fixed count, no host read. A
+    cell whose trap sweep ever turns non-finite keeps its staircase
+    root."""
+    lo, hi = roots - h2, roots + h2
+    low_edge = torch.full_like(roots, -100.0)
+    bad = torch.zeros(roots.shape, dtype=torch.bool, device=roots.device)
+    for _ in range(iters):
+        mid = (lo + hi) / 2.0
+        F = sweep_batched(torch.stack([low_edge, mid], dim=-1))
+        bad = bad | ~torch.isfinite(F)
+        below = F < obj2
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    return torch.where(bad, roots, (lo + hi) / 2.0)

@@ -146,8 +146,9 @@ def test_portfolio_rows_equal_single_portfolio_solves(tmp_path):
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """The port imports and solves with `jax` unimportable, and pulls in
-    nothing of the JAX package."""
+    """The port imports and solves (refined too) and samples the Student-t
+    fixture with `jax` unimportable, and pulls in nothing of the JAX
+    package."""
     path, _, _ = _truncated(tmp_path, "garch", 6)
     code = f"""
 import sys
@@ -159,6 +160,13 @@ full = from_csv({CSV!r}, n_insample={N_IN})
 data = from_returns(full.returns[:{N_IN + 6}], full.tickers, {N_IN})
 var = load_artifacts({path!r}, data, device="cpu").calc_var(0.05)
 assert var.shape == (6,) and np.all(np.isfinite(var)), var
+refined = load_artifacts({path!r}, data, device="cpu",
+                         refine_root=True).calc_var(0.05)
+assert np.all(np.isfinite(refined)), refined
+from copula_var_tpu_torch.copulas.student_sampler import (
+    generate_student_t_copula_data)
+marg, dens = generate_student_t_copula_data(n=500, top_n=10, device="cpu")
+assert dens.shape == (10, 2) and np.all(np.isfinite(dens)), dens
 leaked = [m for m, mod in sys.modules.items() if mod is not None
           and m.split(".")[0] in ("jax", "jaxlib", "copula_var_tpu")]
 assert not leaked, leaked
@@ -196,24 +204,43 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
-    path, _, tdata = _truncated(tmp_path, "msm", 4)
+    """dim >= 4 still raises naming ROADMAP item 9; refine_root and the
+    adapters' reference_quirks, once refused here, now serve as JAX
+    does."""
+    path, jdata, tdata = _truncated(tmp_path, "msm", 4)
     bt = load_artifacts(path, tdata, device="cpu")
+    from copula_var_tpu.models import fit as jfit
     from copula_var_tpu_torch.backtest import VaRBacktest
 
-    with pytest.raises(ValueError, match="ROADMAP"):
-        VaRBacktest(tdata, bt.adapter, bt.copula, bt.copula_fit,
-                    bt.model_fits, bt.integration_inputs, refine_root=True)
+    refined = VaRBacktest(tdata, bt.adapter, bt.copula, bt.copula_fit,
+                          bt.model_fits, bt.integration_inputs,
+                          device="cpu", refine_root=True)
+    jb = jax_load(path, jdata)
+    jb.refine_root = True
+    np.testing.assert_allclose(refined.calc_var(0.05), jb.calc_var(0.05),
+                               rtol=0, atol=ATOL_ROOT)
     four = from_returns(np.zeros((N_IN + 4, 4)), n_insample=N_IN)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"ROADMAP.md \(queue 1, item 9\)"):
         VaRBacktest(four, bt.adapter, bt.copula, bt.copula_fit,
                     bt.model_fits, bt.integration_inputs)
-    for adapter in (MsmAdapter(reference_quirks=True),
-                    GarchAdapter(reference_quirks=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            adapter.fit(tdata.in_sample, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        create_var_backtest(tdata, "msm", "student", device="cpu",
-                            refine_root=True)
+    r = tdata.in_sample[:300]
+    got = MsmAdapter(k=2, basin_iter=0, reference_quirks=True).fit(
+        r, device="cpu")
+    want = jfit.fit_msm_batch(r, 2, basin_iter=0, reference_quirks=True)
+    np.testing.assert_allclose([f.log_likelihood for f in got],
+                               [f.log_likelihood for f in want], rtol=1e-10)
+    got = GarchAdapter(p_max=1, q_max=1, reference_quirks=True).fit(
+        r, device="cpu")
+    want = jfit.fit_garch_batch(r, p_max=1, q_max=1, max_iter=200,
+                                reference_quirks=True)
+    np.testing.assert_allclose([f.params for f in got],
+                               [f.params for f in want], rtol=1e-9)
+    again = create_var_backtest(tdata, "msm", "student", device="cpu",
+                                model_fits_override=bt.model_fits,
+                                copula_fit_override=bt.copula_fit,
+                                refine_root=True, k=4)
+    assert again.refine_root
+    np.testing.assert_array_equal(again.calc_var(0.05), refined.calc_var(0.05))
 
 
 def test_cpu_main_path_launches_no_kernel(tmp_path):

@@ -372,8 +372,9 @@ def test_dim3_rejections(case, tmp_path):
     with pytest.raises(ValueError, match="ROADMAP"):
         VaRBacktest(tdata, bt.adapter, "plackett", bt.copula_fit,
                     bt.model_fits, bt.integration_inputs)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        VaRBacktest(tdata, *args, refine_root=True)
+    refined = VaRBacktest(tdata, *args, device="cpu", refine_root=True)
+    got, plain = refined.calc_var(0.05), bt.calc_var(0.05)
+    assert np.all(np.abs(got - plain) <= refined._plateau_h())
     with pytest.raises(ValueError, match="Plackett"):
         tq.copula_density_cols((_t(np.full((3, 4), 0.5)),),
                                tq.CopulaSpec("plackett", (4.0,)))

@@ -139,9 +139,14 @@ def test_defaults_to_the_card_and_rejects_unported(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_var_backtest(data, "garch", "student")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        create_var_backtest(data, "mean_reverting", "gaussian", device="cpu",
-                            refine_root=True)
+    refined = create_var_backtest(data, "mean_reverting", "gaussian",
+                                  device="cpu", refine_root=True,
+                                  perturb_scale=0.0)
+    want = jax_create(
+        jax_from_returns(returns, tickers=tickers, n_insample=CUT_N),
+        "mean_reverting", "gaussian", perturb_scale=0.0, refine_root=True)
+    np.testing.assert_allclose(refined.calc_var(0.05), want.calc_var(0.05),
+                               rtol=0, atol=ATOL_VAR)
     with pytest.raises(ValueError, match="estimation type"):
         create_var_backtest(data, "arma", "gaussian", device="cpu")
     with pytest.raises(ValueError, match="copula type"):
