@@ -68,18 +68,34 @@ Phases, each fatal on failure:
      pairs equal to the copy's, or, where numpy sorts the 100000 tied
      copula values otherwise, drawn from the same seeded draw; each
      stage's wall time printed;
-  9. parity: each kernel against its plain PyTorch twin on the card, at
+  9. four assets (dim 4), counted: `load_artifacts(data/dim4_artifacts_
+     {msm,garch}.npz, device="cuda")` -> `calc_var(0.05)` over T = 500 at
+     n = 32, held against `data/dim4_var.npz` at atol 1e-9 with the
+     coverage statistics recomputed; the same fits at n = 90 on the record's
+     16-day cut (`create_var_backtest(..., model_fits_override=,
+     copula_fit_override=)`), its two portfolio rows at n = 32 and
+     `refine_root=True` at n = 32 on 8 days, all at 1e-9; one stage-1
+     sweep of the MSM backtest at n = 90 over all 500 days, timed with CUDA
+     events, its first 16 days bit-equal to the same sweep of those days
+     alone; `create_var_backtest(dim4, "garch", "student", num_points=32)`
+     from the artifact's model fits, so the dim-4 Student fit runs on the
+     card (rho 1e-6, nu 1e-2 of the artifact's `meta`, VaR at 1e-9). The
+     dim >= 4 path is plain PyTorch (the JAX package has no Pallas kernel
+     there): K1-K4 must launch 0 times. Prints each query's wall time, the
+     phase's peak device memory, a torch.profiler reading of one n = 32
+     `calc_var` and the plain sweep's bound (`tcached_bound`);
+  10. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
      unequal weights; K4 also with a Gaussian copula; the dim-2 table P
      whole, the dim-3 table U on 16 days), a repeated launch of each that
      must give the same bits, a dim-2 sweep row alone against its bits
      inside a 128-row batch, and the serving batches (128 rows at dim 2,
      8 portfolios x 4 levels at dim 3) against the plain solves;
-  10. timings: CUDA events after warm-up, median and min of the reps,
+  11. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns, and the refine_root trap pass
      per call (L = 1 and 128 at dim 2, L = 1 at dim 3) beside the
      unrefined solve of the same rows;
-  11. device profile: torch.profiler over calls of each kernel, `calc_var`,
+  12. device profile: torch.profiler over calls of each kernel, `calc_var`,
      the serving batches, the unrefined solves and the trap passes: host
      ms per call, the device's busy ms and ops, and each kernel's
      launches and device ms per launch.
@@ -88,7 +104,7 @@ Each kernel's bound in the record is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float64
 operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet; FP64 outside the
 tensor cores), counted from this run's shapes by `bound()`; the trap
-pass's by `trap_bound()`.
+pass's by `trap_bound()` and the dim-4 plain sweep's by `tcached_bound()`.
 
 Prints the kernels' JSON record on the line before the last, and as the
 last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
@@ -242,6 +258,28 @@ def trap_bound(T, n, q, L, dim, garch, student, halvings):
                  halvings * L * T * (n ** dim * per_cell + contract))
 
 
+def tcached_bound(T, n, dim, q, L, student, garch):
+    """The dim >= 4 plain sweep (`ops/tcached.py::tcached_sweep`, no kernel
+    of its own): in, the transform columns (z and the log univariate
+    density as float64, the finite flags as bytes, Student-t), the pdf
+    columns (GARCH) or the state combinations and densities (MSM), x, dx,
+    the (L, T, 2) bounds and (L, dim) weights; out, the (L, T) integrals.
+    Per cell of the L T n^dim: the quadratic form (2 dim + 3 dim (dim - 1)
+    / 2), the density (Student-t 2 dim + 8: the division, log1p, scale,
+    the dim - 1 sums of the univariate terms and dim - 1 finite ANDs, the
+    difference, exp and the NaN select; Gaussian dim + 3), the mask and its
+    select (4), at GARCH the pdf product, the product and nan_to_num
+    (dim + 1), and the first state contraction (2q; the later ones and the
+    combination sum are a factor n smaller and not counted)."""
+    per_cell = (2 * dim + 3 * dim * (dim - 1) // 2
+                + (2 * dim + 8 if student else dim + 3) + 4
+                + (dim + 1 if garch else 0) + 2 * q)
+    cols = T * dim * n * ((8 + 1 + 8) if student else 8)
+    state = T * dim * n * 8 if garch else 8 * (T * q ** dim + dim * q * n)
+    nbytes = cols + state + 8 * (2 * n + 2 * L * T + L * dim + L * T)
+    return bound(nbytes, L * T * n ** dim * per_cell)
+
+
 def cuda_ms(torch, fns, reps=REPS, warmup=2):
     """{name: (median_ms, min_ms)} for each callable, timed in turns with
     CUDA events after `warmup` untimed calls of each."""
@@ -314,7 +352,7 @@ def main() -> int:
     import numpy as np
 
     from copula_var_tpu_torch import stats
-    from copula_var_tpu_torch.backtest import create_var_backtest
+    from copula_var_tpu_torch.backtest import VaRBacktest, create_var_backtest
     from copula_var_tpu_torch.config import BacktestConfig, run_backtest
     from copula_var_tpu_torch.copulas import fit as copula_fit_mod
     from copula_var_tpu_torch.copulas.student_sampler import (
@@ -323,7 +361,11 @@ def main() -> int:
         t_copula_value,
     )
     from copula_var_tpu_torch.models import fit as model_fit_mod
-    from copula_var_tpu_torch.data import from_csv, synthetic_dataset
+    from copula_var_tpu_torch.data import (
+        from_csv,
+        from_returns,
+        synthetic_dataset,
+    )
     from copula_var_tpu_torch.ops import _build
     from copula_var_tpu_torch.ops import cuda_quadrature as cq
     from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
@@ -331,6 +373,7 @@ def main() -> int:
     from copula_var_tpu_torch.ops.quadrature import CopulaSpec
     from copula_var_tpu_torch.ops.refine import TRAP_HALVINGS, refine_roots
     from copula_var_tpu_torch.ops.solvers import bracket_state_batched
+    from copula_var_tpu_torch.ops.tcached import ColumnOperands, tcached_sweep
     from copula_var_tpu_torch.utils.artifacts import _restore, load_artifacts
 
     if "jax" in sys.modules or "copula_var_tpu" in sys.modules:
@@ -939,6 +982,188 @@ def main() -> int:
                     "sampler_s": sampler_s, "sampler_rel_err": err_s,
                     "sampler_pairs_equal_record": same_pairs}
 
+    # -- four assets (dim 4): the plain transform-cached path, counted -------
+    rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
+    w4 = np.asarray(rec4["weights"], np.float64)
+    n_in4, obj4 = int(rec4["n_insample"]), float(rec4["obj_var"])
+    days_w4, days_r4 = int(rec4["days_wide"]), int(rec4["days_refined"])
+    n_wide4 = int(rec4["num_points_wide"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base4 = torch.cuda.memory_allocated()
+    zero_counts()
+    t_dim4 = time.perf_counter()
+    data4 = from_csv(os.path.join(root, "data", "dim4.csv"),
+                     n_insample=n_in4, weights=w4)
+
+    def cut4(days):
+        return from_returns(data4.returns[:n_in4 + days], data4.tickers,
+                            n_in4, weights=w4)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    dim4_report, bts4 = {}, {}
+    for est in ("msm", "garch"):
+        bt, load_s = timed(lambda est=est: load_artifacts(os.path.join(
+            root, "data", f"dim4_artifacts_{est}.npz"), data4, device="cuda"))
+        ops4, ops_s = timed(bt.sweep_operands)
+        if not isinstance(ops4, ColumnOperands):
+            raise AssertionError(f"dim4 {est}: operands {type(ops4).__name__}")
+        var, var_s = timed(lambda bt=bt: bt.calc_var(obj4))
+        kw = {"model_fits_override": bt.model_fits,
+              "copula_fit_override": bt.copula_fit, "device": "cuda"}
+        if est == "msm":
+            kw["k"] = int(rec4["k"])
+        wide, wide_build_s = timed(lambda est=est, kw=kw: create_var_backtest(
+            cut4(days_w4), est, "student", num_points=n_wide4, **kw))
+        var90, var90_s = timed(lambda wide=wide: wide.calc_var(obj4))
+        narrow = create_var_backtest(cut4(days_w4), est, "student",
+                                     num_points=int(rec4["num_points"]),
+                                     **kw)
+        ptf, ptf_s = timed(lambda narrow=narrow: narrow.calc_var_portfolios(
+            rec4["ptf_rows"], rec4["ptf_levels"]))
+        refined = create_var_backtest(cut4(days_r4), est, "student",
+                                      num_points=int(rec4["num_points"]),
+                                      refine_root=True, **kw)
+        ref, ref_s = timed(lambda refined=refined: refined.calc_var(obj4))
+        got = {"var": var, "var90": var90, "ptf": ptf, "refined": ref}
+        errs, above = {}, {}
+        for k, a in got.items():
+            want = rec4[f"{est}_{k}"]
+            if a.shape != want.shape or not np.all(np.isfinite(a)):
+                raise AssertionError(f"dim4 {est} {k}: bad VaR {a.shape}")
+            d = np.abs(a - want)
+            errs[k], above[k] = float(d.max()), int(np.sum(d > ATOL_VAR))
+        rate, kup = coverage(est, bt, var, rec4)
+        times = {"load": load_s, "sweep_operands": ops_s,
+                 "calc_var_n32": var_s,
+                 f"build_n{n_wide4}_{days_w4}d": wide_build_s,
+                 f"calc_var_n{n_wide4}_{days_w4}d": var90_s,
+                 f"portfolios_n32_{days_w4}d": ptf_s,
+                 f"refined_n32_{days_r4}d": ref_s}
+        print(f"dim4 {est}: max |VaR - record| "
+              + ", ".join(f"{k} {e:.3e} ({above[k]} days above)"
+                          for k, e in errs.items())
+              + f" (bound {ATOL_VAR:g}); exception rate {rate:.4f}, Kupiec p "
+              f"{kup:.4f}; wall s (host clock, {smi}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        bad = {k: e for k, e in errs.items() if not e <= ATOL_VAR}
+        if bad:
+            raise AssertionError(f"dim4 {est}: off the record {bad}")
+        dim4_report[est] = {"max_err": errs, "wall_s": times,
+                            "exception_rate": rate, "kupiec_p": kup}
+        bts4[est] = bt
+        if est == "msm":
+            wide_msm = wide
+        del wide, narrow, refined
+    # one stage-1 sweep at the widest grid over all T days; each day is its
+    # own chunk at n = 90, so its first days are the cut's bits
+    bt_m = bts4["msm"]
+    full90 = VaRBacktest(data4, bt_m.adapter, "student", bt_m.copula_fit,
+                         bt_m.model_fits, bt_m.adapter.integration_inputs(
+                             data4.rolling_windows(), bt_m.model_fits,
+                             n_wide4, device="cuda"),
+                         num_points=n_wide4, device="cuda")
+    ops90, ops90_s = timed(full90.sweep_operands)
+    T4 = ops90.days
+    st90 = torch.stack([torch.full((T4,), -100.0, device=dev),
+                        torch.full((T4,), -3.0, device=dev)],
+                       -1).double()[None]
+    w90 = full90.weights[None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sweep90 = tcached_sweep(ops90, st90, w90)
+    end.record()
+    end.synchronize()
+    sweep90_ms = start.elapsed_time(end)
+    # the same sweep of the first days alone: on the same columns, bit for
+    # bit (a day's chunk does not depend on the others); on the 16-day
+    # backtest's own columns to the sweep's rounding (t_ppf iterates until
+    # every lane of its batch has converged, so a 16-day batch's columns
+    # may differ from the 500-day batch's in the last bit)
+    head = st90[:, :days_w4].contiguous()
+    sweep90_cut = tcached_sweep(ops90._replace(
+        cols=tuple(c[:days_w4] for c in ops90.cols),
+        forecast_combos=ops90.forecast_combos[:days_w4]), head, w90)
+    if not torch.equal(sweep90[:, :days_w4], sweep90_cut):
+        raise AssertionError("dim4: the full-T n = 90 sweep's first days "
+                             "differ from the same sweep of those days")
+    sweep90_wide = tcached_sweep(wide_msm.sweep_operands(), head, w90)
+    e90 = float((sweep90[:, :days_w4] - sweep90_wide).abs().max())
+    s90 = float(sweep90_wide.abs().max())
+    if not (e90 <= RTOL_SWEEP * s90 and bool(torch.isfinite(sweep90).all())):
+        raise AssertionError(f"dim4: the n = 90 sweep off the 16-day "
+                             f"backtest's by {e90:.3e} (scale {s90:.3e})")
+    del full90, ops90, wide_msm
+    # the dim-4 Student fit on the card, from the artifact's model fits
+    meta4 = json.loads(str(np.load(os.path.join(
+        root, "data", "dim4_artifacts_garch.npz"))["meta"]))
+    bt_f, fit4_s = timed(lambda: create_var_backtest(
+        data4, "garch", "student", num_points=int(rec4["num_points"]),
+        model_fits_override=bts4["garch"].model_fits, device="cuda"))
+    var_f, var_f_s = timed(lambda: bt_f.calc_var(obj4))
+    rho4 = np.asarray(meta4["copula_fit"]["packed_params"][1:])
+    gaps4 = {"rho": (float(np.max(np.abs(bt_f.copula_fit.packed_params[1:]
+                                         - rho4))), FIT_ATOL_RHO),
+             "nu": (abs(bt_f.copula_fit.nu - meta4["copula_fit"]["nu"]),
+                    FIT_ATOL_NU)}
+    diff_f = np.abs(var_f - rec4["garch_var"])
+    print(f"dim4 student fit on the card: fit vs artifact "
+          + ", ".join(f"{k} {g:.2e} (bound {b:g})"
+                      for k, (g, b) in gaps4.items())
+          + f"; max |VaR - record| {diff_f.max():.3e}, days above 1e-9: "
+          f"{int(np.sum(diff_f > ATOL_VAR))}; wall s (host clock, {smi}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in dict(
+              bt_f.prep_stages, create_var_backtest=fit4_s,
+              calc_var=var_f_s).items()))
+    bad = {k: v for k, v in gaps4.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"dim4 student fit off the artifact: {bad}")
+    if var_f.shape != diff_f.shape or not diff_f.max() <= ATOL_VAR:
+        raise AssertionError(f"dim4 student fit: VaR off the record by "
+                             f"{diff_f.max():.3e}")
+    fit4_times = dict(bt_f.prep_stages, create_var_backtest=fit4_s,
+                      calc_var=var_f_s)
+    del bt_f
+    launches4 = read_counts()
+    torch.cuda.synchronize()
+    peak4 = torch.cuda.max_memory_allocated()
+    phase4_s = time.perf_counter() - t_dim4
+    if any(launches4.values()):
+        raise AssertionError(f"a kernel launched on the dim-4 path: "
+                             f"{launches4}")
+    # its torch.profiler reading (~19 000 device ops a call) is taken last,
+    # after the kernels' own short traces (section "device time")
+    bt4 = bts4["msm"]
+    n4, q4 = bt4.integration_inputs.x.shape[0], \
+        bt4.integration_inputs.densities.shape[1]
+    bound4 = tcached_bound(T4, n_wide4, 4, q4, 1, True, False)
+    bound4_32 = tcached_bound(T4, n4, 4, q4, 1, True, False)
+    print(f"dim4 phase: {phase4_s:.3f} s, launches {launches4}; device memory "
+          f"peak {peak4} bytes ({base4} before the phase); stage-1 sweep "
+          f"n={n_wide4} over {T4} days {sweep90_ms:.3f} ms (CUDA events), "
+          f"operands {ops90_s:.3f} s, first {days_w4} days bit-equal to "
+          f"those days alone, {e90 / s90:.2e} rel off the {days_w4}-day "
+          f"backtest's (bound {RTOL_SWEEP:g}); bound {bound4[0]:.3f} ms by "
+          f"{bound4[1]} "
+          f"({bound4[0] / sweep90_ms:.2%} of the sweep) ({smi})")
+    dim4_report.update({
+        "launches": launches4, "peak_device_bytes": peak4,
+        "bytes_before_phase": base4, "phase_s": phase4_s,
+        "sweep_n90_full_T_ms": sweep90_ms, "sweep_n90_operands_s": ops90_s,
+        "sweep_n90_rel_err_cut_backtest": e90 / s90,
+        "bound_sweep_n90_ms": bound4, "bound_sweep_n32_ms": bound4_32,
+        "student_fit_gaps": gaps4,
+        "student_fit_wall_s": fit4_times,
+        "student_fit_var_max_err": float(diff_f.max())})
+    del bts4
+    torch.cuda.empty_cache()
+
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev)
@@ -1173,7 +1398,8 @@ def main() -> int:
     timing[f"full_rows{ROWS_P * len(LEVELS)}"] = cuda_ms(torch, {
         "kernel": lambda: cs.full_solve_portfolios(ops_m, ar, wr, cfg),
         "plain": lambda: cs.full_solve_portfolios_reference(ops_m, ar, wr,
-                                                            cfg)})
+                                                            cfg)},
+        reps=3, warmup=1)
     # dim 3: K4 per sweep, the whole calc_var, and the column prep
     for est, bt in bts3.items():  # t_ppf etc. on 3 n T values: plain PyTorch
         timing[f"dim3_prep_{est}"] = cuda_ms(torch, {
@@ -1257,7 +1483,15 @@ def main() -> int:
             ops3_m, obj[2:3], w3_main, cfg), reps=3),
         **{k: device_profile(torch, fn, reps=10 if k == "trap_L1" else 2)
            for k, fn in trap_calls.items()},
+        "dim4_calc_var_msm": device_profile(
+            torch, lambda: bt4.calc_var(obj4), reps=1),
     }
+    prof4 = profiles["dim4_calc_var_msm"]
+    print(f"dim4 profile calc_var n={n4} MSM: host {prof4['wall_ms']:.3f} "
+          f"ms/call, device busy {prof4['busy_ms']:.3f} ms/call "
+          f"({prof4['busy_ms'] / prof4['wall_ms']:.1%}), "
+          f"{prof4['device_ops']:g} device ops per call; one n={n4} sweep's "
+          f"bound {bound4_32[0]:.4f} ms by {bound4_32[1]} ({smi})")
     for name, p in profiles.items():
         print(f"profile {name}: host {p['wall_ms']:.3f} ms/call, device busy "
               f"{p['busy_ms']:.3f} ms/call, {p['device_ops']:g} device ops "
@@ -1322,8 +1556,9 @@ def main() -> int:
         prof, kern = prof_key[key]
         dev_ms = profiles[prof]["kernels"][kern]["device_ms"]
         print(f"bound {key}: {b_ms:.4f} ms by {by}; kernel call "
-              f"{timing[key]['kernel'][0]:.3f} ms, device {dev_ms:.4f} ms, "
-              f"{b_ms / dev_ms:.1%} of the bound")
+              f"{timing[key]['kernel'][0]:.3f} ms, device "
+              + ("not measured (no trace of the kernel)" if dev_ms is None
+                 else f"{dev_ms:.4f} ms, {b_ms / dev_ms:.1%} of the bound"))
     trap_bounds = {
         "trap_L1": trap_bound(T, n, q, 1, 2, False, True, TRAP_HALVINGS),
         f"trap_L{L128}": trap_bound(T, n, q, L128, 2, False, True,
@@ -1339,14 +1574,17 @@ def main() -> int:
         print(f"refine {key}: trap pass call {timing[key]['plain'][0]:.3f} "
               f"ms, device busy {pr['busy_ms']:.3f} ms, "
               f"{pr['device_ops']:g} device ops per call; bound "
-              f"{b_ms:.4f} ms by {by} ({b_ms / pr['busy_ms']:.1%} of the "
-              f"busy time); the unrefined solve "
+              f"{b_ms:.4f} ms by {by} ("
+              + (f"{b_ms / pr['busy_ms']:.1%}" if pr["busy_ms"] else
+                 "not measured")
+              + " of the busy time); the unrefined solve "
               f"{timing[unrefined[key]]['kernel'][0]:.3f} ms, device busy "
               f"{base['busy_ms']:.3f} ms ({smi})")
     bounds_ms.update(trap_bounds)
     report["bounds_ms"] = bounds_ms
     report["refine"] = refine_report
     report["quirks"] = quirk_report
+    report["dim4"] = dim4_report
     report["halvings"] = iters
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),

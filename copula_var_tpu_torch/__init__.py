@@ -6,8 +6,8 @@ it. The port goes from returns to a VaR series: fit MSM, GARCH or the UKF
 mean-reverting model per asset and a Gaussian, Student-t or Plackett
 copula by IFM (`backtest.create_var_backtest`, or `config.run_backtest`
 from a `BacktestConfig`), or load saved fitted artifacts; build
-the bounds-invariant sweep operands (dim 2: day tensors; dim 3:
-transform columns); and solve the three-stage VaR (stage-1 sweep,
+the bounds-invariant sweep operands (dim 2: day tensors; dim 3 and
+above: transform columns); and solve the three-stage VaR (stage-1 sweep,
 stage-2 bracket, bisection) for one level, many levels, many portfolios
 or their product grid.
 
@@ -22,11 +22,14 @@ or their product grid.
   models/        GARCH, MSM and UKF filters, their simulators and fits
   copulas/       Gaussian, Student-t and Plackett IFM likelihoods and fits
   backtest.py    create_var_backtest, the adapters, VaRBacktest
-  utils/         artifact save and load
+  utils/         artifact save and load, StageTimer and trace_to
+  native.py      ctypes bindings of native/libgrid_builder.so (numpy only)
+  plots.py       diagnostic figures (matplotlib, imported at first use)
 
 The entry points run on the card unless the caller asks for "cpu";
 tensors on the CPU run the plain PyTorch versions, tensors on a CUDA
-device run the kernels.
+device run the kernels (dim 2 and 3; four or more assets run the plain
+transform-cached sweep on every device, as the JAX package's XLA does).
 """
 
 from copula_var_tpu_torch.device import resolve_device

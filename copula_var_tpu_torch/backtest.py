@@ -12,7 +12,8 @@ load_artifacts` builds the same object from saved fitted state instead.
 A `VaRBacktest` holds the integration inputs on its device, builds the
 bounds-invariant sweep operands once (two assets: the (T, n, n) day
 tensors; three assets: the per-day transform columns and
-`Contract3Operands`, with the table U on a CUDA device), and answers VaR
+`Contract3Operands`, with the table U on a CUDA device; four or more: the
+transform columns as `ColumnOperands`, no table), and answers VaR
 queries with the three-stage solve (`ops/cuda_solver.py`):
 
   calc_var             one confidence level           -> (T,)
@@ -27,9 +28,12 @@ the same operands), h = max(dx) |w0| per portfolio row.
 On a CUDA device every sweep and the bisection run the hand-written
 kernels (`masked_sweep` and `bisect_levels` at dim 2, `masked_contract3`
 at dim 3); on the CPU they run the plain twins, the f64 oracle that
-matches the JAX `xla` engine. Fitting is plain PyTorch on the same
-device. Results come back as numpy float64, with the portfolio mean
-added, as the JAX package returns them.
+matches the JAX `xla` engine. At dim >= 4 the JAX package has no Pallas
+kernel, and every device runs the plain transform-cached sweep
+(`ops/tcached.py`), as its `xla` engine does; the grid is capped at
+2^26 cells per day (num_points <= 90 at dim 4). Fitting is plain
+PyTorch on the same device. Results come back as numpy float64, with the
+portfolio mean added, as the JAX package returns them.
 
 Weights pairing, kept from the reference: `weights[0]` pairs the inner
 grid axis and `weights[1:]` the outer axes in order; only unequal
@@ -70,6 +74,7 @@ from copula_var_tpu_torch.ops.quadrature import (
 )
 from copula_var_tpu_torch.ops.refine import refine_roots
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
+from copula_var_tpu_torch.ops.tcached import column_operands
 
 VOL_STATE_ROUND_TOL = 1e-6  # `msm_estimation.py:204-248`
 
@@ -220,6 +225,11 @@ class MsmAdapter:
                                   densities=inputs.densities,
                                   forecast_combos=inputs.forecast_combos)
 
+    def column_operands(self, cols, inputs: MsmIntegrationInputs, spec):
+        return column_operands(cols, inputs.x, inputs.dx, spec,
+                               densities=inputs.densities,
+                               forecast_combos=inputs.forecast_combos)
+
 
 class GarchAdapter:
     """GARCH family (`garch_estimation.py`): one forecast vol per asset
@@ -308,6 +318,11 @@ class GarchAdapter:
         return contract3_operands(tcols, inputs.x, inputs.dx, spec,
                                   p_cols=p_cols)
 
+    def column_operands(self, cols, inputs: GarchIntegrationInputs, spec):
+        tcols, p_cols = cols
+        return column_operands(tcols, inputs.x, inputs.dx, spec,
+                               p_cols=p_cols)
+
 
 class MeanRevertingAdapter(GarchAdapter):
     """UKF mean-reverting family (`mean_reverting_estimation.py`): the
@@ -384,7 +399,8 @@ def register_adapter(name: str, adapter_cls) -> None:
     device, timings)`, `marginals_densities(in_sample, fits, device)`,
     `integration_inputs(windows, fits, num_points, box, device)` and the
     serving methods of `MsmAdapter` / `GarchAdapter` (`day_tensors`,
-    `sweep_operands`, and at dim 3 `day_columns`, `contract3_operands`)."""
+    `sweep_operands`; at dim 3 `day_columns`, `contract3_operands`; at
+    dim >= 4 `day_columns`, `column_operands`)."""
     _ADAPTERS[name] = adapter_cls
 
 
@@ -413,16 +429,15 @@ def _copula_spec(kind: str, fit_result, device) -> CopulaSpec:
 
 
 def _check_options(dim: int, copula: str) -> None:
-    """Refuse what the port does not serve yet, naming the roadmap."""
-    if dim not in (2, 3):
+    """Refuse what neither package serves: a one-asset book, and the
+    bivariate Plackett copula above dim 2."""
+    if dim < 2:
+        raise ValueError(f"a VaR backtest needs two or more assets (got "
+                         f"dim={dim})")
+    if dim >= 3 and copula == "plackett":
         raise ValueError(
-            f"the port serves dim 2 and 3 (got dim={dim}); dim >= 4 is "
-            "queued in ROADMAP.md (queue 1, item 9)"
-        )
-    if dim == 3 and copula == "plackett":
-        raise ValueError(
-            "the Plackett copula is bivariate; dim 3 takes Gaussian or "
-            "Student (ROADMAP.md queue 1, item 9)"
+            f"the Plackett copula is bivariate; dim {dim} takes Gaussian "
+            "or Student"
         )
 
 
@@ -472,10 +487,10 @@ class VaRBacktest:
     # -- bounds-invariant state ------------------------------------------
 
     def sweep_operands(self):
-        """The kernels' bounds-invariant operands, built once: day tensors
+        """The sweeps' bounds-invariant operands, built once: day tensors
         and their hoisted contraction at dim 2, transform columns and
-        `Contract3Operands` (with the table U on a CUDA device) at
-        dim 3."""
+        `Contract3Operands` (with the table U on a CUDA device) at dim 3,
+        transform columns as `ColumnOperands` at dim >= 4."""
         if self._ops is None:
             t0 = time.perf_counter()
             inputs, spec = self.integration_inputs, self.copula_spec
@@ -483,6 +498,9 @@ class VaRBacktest:
                 cols = self.adapter.day_columns(inputs, spec)
                 self._ops = self.adapter.contract3_operands(cols, inputs,
                                                             spec)
+            elif self.data.dim >= 4:
+                cols = self.adapter.day_columns(inputs, spec)
+                self._ops = self.adapter.column_operands(cols, inputs, spec)
             else:
                 tensors = self.adapter.day_tensors(inputs, spec)
                 self._ops = self.adapter.sweep_operands(tensors, inputs)
@@ -496,7 +514,7 @@ class VaRBacktest:
 
     def compute_integral(self, bounds) -> np.ndarray:
         """(T,) integrals over per-day [lower, upper] slabs (T, 2): one
-        sweep, through the kernel on a CUDA device."""
+        sweep, through the kernel on a CUDA device at dim 2 and 3."""
         b = self._tensor(bounds).reshape(1, -1, 2).contiguous()
         ops = self.sweep_operands()
         out = sweep_for(ops)(ops, b, self.weights.reshape(1, -1),

@@ -47,11 +47,10 @@ from copula_var_tpu_torch.ops.quadrature import (
     _chunks,
     _pdf_product,
     copula_density_cols,
-    garch_integrals_tcached,
-    msm_integrals_tcached,
     state_weight_matrices,
     student_log_norm,
 )
+from copula_var_tpu_torch.ops.tcached import tcached_sweep
 
 
 class Contract3Operands(NamedTuple):
@@ -97,7 +96,7 @@ def _require_kernel_copula(kind: str) -> None:
     if kind not in ("gaussian", "student"):
         raise ValueError(
             f"the dim-3 path takes the Gaussian or Student copula, not "
-            f"{kind!r} (Plackett is bivariate; ROADMAP.md queue 1, item 9)"
+            f"{kind!r} (the Plackett copula is bivariate)"
         )
 
 
@@ -242,19 +241,9 @@ contract3_weights.launches = 0  # kernel launches (CUDA path only)
 def masked_contract3_reference(ops: Contract3Operands, bounds, weights,
                                box_min=-5.0):
     """Plain PyTorch twin, on any device: row l is the transform-cached
-    sweep of `ops/quadrature.py` at bounds[l] (T, 2) and weights[l] (3,).
-    Returns (L, T)."""
-    rows = []
-    for b, w in zip(bounds, weights):
-        if ops.p_cols is None:
-            rows.append(msm_integrals_tcached(
-                b, ops.cols, ops.forecast_combos, ops.x, ops.dx,
-                ops.densities, w, ops.spec, box_min))
-        else:
-            rows.append(garch_integrals_tcached(
-                b, ops.cols, ops.p_cols, ops.x, ops.dx, w, ops.spec,
-                box_min))
-    return torch.stack(rows)
+    sweep of `ops/quadrature.py` at bounds[l] (T, 2) and weights[l] (3,)
+    (`ops/tcached.py::tcached_sweep`). Returns (L, T)."""
+    return tcached_sweep(ops, bounds, weights, box_min)
 
 
 def check_contract3_operands(ops: Contract3Operands):

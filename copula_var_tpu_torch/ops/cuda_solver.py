@@ -24,12 +24,19 @@ all-zeros freeze and the while-loop's own exit are `torch.where` gates on
 the device, so no halving reads the host and the roots equal the
 while-loop's.
 
+`bisect_tcached` is the same loop for four or more assets
+(`ColumnOperands`, `ops/tcached.py`), whose every sweep is the plain
+transform-cached sweep `tcached_sweep`: the JAX package serves dim >= 4
+only through XLA, with no Pallas kernel, so nothing on that path launches
+K1-K4.
+
 `full_solve_levels` / `full_solve_portfolios` port
 `_device_full_solve_levels_jit` / `_device_full_solve_portfolios_jit`:
 stage-1 sweep over [-100, first_guess], stage-2 bracket, bisection, for
-two-asset (`SweepOperands`) or three-asset (`Contract3Operands`)
-operands. Their `*_reference` forms run the same flow through the plain
-twins on any device, so the two can be compared on the card.
+two-asset (`SweepOperands`), three-asset (`Contract3Operands`) or
+dim >= 4 (`ColumnOperands`) operands. Their `*_reference` forms run the
+same flow through the plain twins on any device, so the two can be
+compared on the card.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature3 import (
     masked_contract3_reference,
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched
+from copula_var_tpu_torch.ops.tcached import ColumnOperands, tcached_sweep
 
 
 def halvings(width: float, tolerance: float) -> int:
@@ -166,28 +174,56 @@ def bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack, obj,
     return (state[0] + state[1]) / 2.0
 
 
+def _bisect_by_sweeps(ops, state, obj, weights, tolerance, box_min,
+                      plain_sweep, sweep, name):
+    """The bisection whose every halving is one `sweep` call: on the CPU
+    the plain while-loop over `plain_sweep`; on a CUDA device
+    `bisect_fixed_count` over `sweep` for the host-counted number of
+    halvings; any other device raises."""
+    dev = ops.x.device
+    if dev.type == "cpu":
+        return bisect_levels_reference(ops, *state, obj, weights, tolerance,
+                                       box_min, sweep=plain_sweep)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n_iters = halvings(float((state[1] - state[0]).max()), tolerance)
+    return bisect_fixed_count(ops, *state, obj, weights, tolerance, n_iters,
+                              sweep, box_min)
+
+
 def bisect_contract3(ops: Contract3Operands, lower, upper, prev_res, prev_up,
                      ustack, obj, weights, tolerance, box_min=-5.0):
     """(L, T) three-asset bisection roots; state as `bisect_levels`,
     weights (L, 3). CPU tensors run the plain while-loop; CUDA tensors run
     `bisect_fixed_count` with `masked_contract3` for the host-counted
     number of halvings; any other device raises."""
-    dev = ops.z.device
-    if dev.type == "cpu":
-        return bisect_levels_reference(
-            ops, lower, upper, prev_res, prev_up, ustack, obj, weights,
-            tolerance, box_min, sweep=masked_contract3_reference)
-    if dev.type != "cuda":
-        raise ValueError(f"bisect_contract3: unsupported device {dev}")
-    n_iters = halvings(float((upper - lower).max()), tolerance)
-    return bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack,
-                              obj, weights, tolerance, n_iters,
-                              masked_contract3, box_min)
+    return _bisect_by_sweeps(
+        ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
+        tolerance, box_min, masked_contract3_reference, masked_contract3,
+        "bisect_contract3")
+
+
+def bisect_tcached(ops: ColumnOperands, lower, upper, prev_res, prev_up,
+                   ustack, obj, weights, tolerance, box_min=-5.0):
+    """(L, T) bisection roots of a dim >= 4 backtest; state as
+    `bisect_levels`, weights (L, dim). CPU tensors run the plain
+    while-loop; CUDA tensors run `bisect_fixed_count` with `tcached_sweep`
+    for the host-counted number of halvings (the freeze and the exit gated
+    on the device); any other device raises."""
+    return _bisect_by_sweeps(
+        ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
+        tolerance, box_min, tcached_sweep, tcached_sweep, "bisect_tcached")
 
 
 def _routes(ops, plain):
     """(sweep, bisect) for the operands' asset count: the dispatching
-    wrappers, or their plain twins."""
+    wrappers, or their plain twins. Dim >= 4 has no kernel: its sweep is
+    plain on every device."""
+    if isinstance(ops, ColumnOperands):
+        if plain:
+            return tcached_sweep, functools.partial(
+                bisect_levels_reference, sweep=tcached_sweep)
+        return tcached_sweep, bisect_tcached
     if isinstance(ops, Contract3Operands):
         if plain:
             return masked_contract3_reference, functools.partial(

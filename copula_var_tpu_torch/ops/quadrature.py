@@ -13,8 +13,9 @@ Two bounds-invariant caches feed the VaR sweeps:
     copula pre-transforms are cached (`msm_day_columns`,
     `garch_day_columns`) and every sweep rebuilds the density in day
     chunks, masks and contracts it (`msm_integrals_tcached`,
-    `garch_integrals_tcached`), the plain twin of the dim-3 CUDA kernel
-    (`ops/cuda_quadrature3.py`).
+    `garch_integrals_tcached`; `tcached_integrals` for L bound rows on
+    one density per chunk), the plain twin of the dim-3 CUDA kernel
+    (`ops/cuda_quadrature3.py`) and the dim >= 4 path (`ops/tcached.py`).
 
 The JAX module's parity quirks are kept:
   * grid dim d weights with `densities[(d - 1) mod dim]` (rotated rows);
@@ -352,17 +353,9 @@ def msm_integrals_tcached(bounds, cols, forecast_combos, x, dx, densities,
     bounds (T, 2); cols leaves (T, dim, n); forecast_combos (T, q^dim) in
     ij order; densities (dim, q, n); weights (dim,). Days run in chunks
     of `day_batch` (default `_device_day_batch`)."""
-    dim, n = densities.shape[0], x.shape[0]
-    w_cols = state_weight_matrices(densities, dx)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    out = []
-    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
-        C = copula_density_cols(tuple(c[s] for c in cols), spec)
-        M = halfspace_mask(x, bounds[s, 0], bounds[s, 1], weights, box_min)
-        V = torch.where(M, C, zero)
-        per_combo = _contract_states(V, w_cols).reshape(V.shape[0], -1)
-        out.append(torch.sum(per_combo * forecast_combos[s], dim=-1))
-    return torch.cat(out)
+    return tcached_integrals(bounds[None], weights[None], cols, x, dx, spec,
+                             box_min, day_batch, densities=densities,
+                             forecast_combos=forecast_combos)[0]
 
 
 def garch_integrals_tcached(bounds, cols, p_cols, x, dx, weights,
@@ -371,17 +364,43 @@ def garch_integrals_tcached(bounds, cols, p_cols, x, dx, weights,
     """(T,) GARCH-family integrals from cached transform columns and pdf
     columns p_cols (T, dim, n) (any dim): nan_to_num(C * pdf-product),
     masked, contracted with dx on every axis."""
-    dim, n = p_cols.shape[1], x.shape[0]
-    w_cols = [dx[None, :]] * dim
+    return tcached_integrals(bounds[None], weights[None], cols, x, dx, spec,
+                             box_min, day_batch, p_cols=p_cols)[0]
+
+
+def tcached_integrals(bounds, weights, cols, x, dx, spec: CopulaSpec,
+                      box_min=BOX_MIN, day_batch=None, p_cols=None,
+                      densities=None, forecast_combos=None, trap=False):
+    """(L, T) transform-cached integrals of L bound rows (L, T, 2), row l
+    with its own weights[l] (L, dim): the MSM family (densities,
+    forecast_combos) or the GARCH family (p_cols). Each day chunk's
+    density (at GARCH nan_to_num(C * pdf-product)) is built once and
+    shared by the rows; per row it is masked (`halfspace_mask`) and
+    contracted with dx, or with `trap=True` cut fractionally
+    (`halfspace_frac`) and contracted with the trapezoid weights, every
+    row's arithmetic that of the one-row sweeps above and below."""
+    dim, n = cols[0].shape[-2], x.shape[0]
+    tw = trap_weights(x) if trap else None
+    step = dx if tw is None else tw
+    w_cols = ([step[None, :]] * dim if densities is None
+              else state_weight_matrices(densities, step))
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    out = []
-    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
+    out = torch.empty(bounds.shape[:2], dtype=x.dtype, device=x.device)
+    for s in _chunks(bounds.shape[1], n, dim, x.device, day_batch):
         C = copula_density_cols(tuple(c[s] for c in cols), spec)
-        V = torch.nan_to_num(C * _pdf_product(p_cols[s]))
-        M = halfspace_mask(x, bounds[s, 0], bounds[s, 1], weights, box_min)
-        V = torch.where(M, V, zero)
-        out.append(_contract_states(V, w_cols).reshape(V.shape[0]))
-    return torch.cat(out)
+        if p_cols is not None:
+            C = torch.nan_to_num(C * _pdf_product(p_cols[s]))
+        for row, (b, w) in enumerate(zip(bounds, weights)):
+            if tw is None:
+                V = torch.where(halfspace_mask(x, b[s, 0], b[s, 1], w,
+                                               box_min), C, zero)
+            else:
+                A = halfspace_frac(x, tw, b[s, 0], b[s, 1], w, box_min)
+                V = C * A if p_cols is not None else _inside(C, A)
+            per_combo = _contract_states(V, w_cols).reshape(V.shape[0], -1)
+            out[row, s] = (per_combo[:, 0] if forecast_combos is None else
+                           torch.sum(per_combo * forecast_combos[s], dim=-1))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -460,18 +479,9 @@ def msm_tcached_trap(bounds, cols, forecast_combos, x, densities, weights,
                      spec: CopulaSpec, box_min=BOX_MIN, day_batch=None):
     """(T,) trapezoid integrals from cached transform columns, MSM family,
     any dim (twin of `msm_integrals_tcached`)."""
-    dim, n = densities.shape[0], x.shape[0]
-    tw = trap_weights(x)
-    w_cols = state_weight_matrices(densities, tw)
-    out = []
-    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
-        C = copula_density_cols(tuple(c[s] for c in cols), spec)
-        A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
-                           box_min)
-        per_combo = _contract_states(_inside(C, A), w_cols).reshape(
-            C.shape[0], -1)
-        out.append(torch.sum(per_combo * forecast_combos[s], dim=-1))
-    return torch.cat(out)
+    return tcached_integrals(bounds[None], weights[None], cols, x, None,
+                             spec, box_min, day_batch, densities=densities,
+                             forecast_combos=forecast_combos, trap=True)[0]
 
 
 def garch_tcached_trap(bounds, cols, p_cols, x, weights, spec: CopulaSpec,
@@ -479,14 +489,6 @@ def garch_tcached_trap(bounds, cols, p_cols, x, weights, spec: CopulaSpec,
     """(T,) trapezoid integrals from cached transform columns and pdf
     columns, GARCH family, any dim (twin of `garch_integrals_tcached`):
     nan_to_num(C * pdf-product) .* A, with no mask before the product."""
-    dim, n = p_cols.shape[1], x.shape[0]
-    tw = trap_weights(x)
-    w_cols = [tw[None, :]] * dim
-    out = []
-    for s in _chunks(bounds.shape[0], n, dim, x.device, day_batch):
-        C = copula_density_cols(tuple(c[s] for c in cols), spec)
-        V = torch.nan_to_num(C * _pdf_product(p_cols[s]))
-        A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
-                           box_min)
-        out.append(_contract_states(V * A, w_cols).reshape(V.shape[0]))
-    return torch.cat(out)
+    return tcached_integrals(bounds[None], weights[None], cols, x, None,
+                             spec, box_min, day_batch, p_cols=p_cols,
+                             trap=True)[0]

@@ -8,7 +8,8 @@ through the kernels; `refine_roots` then re-solves each (row, day) in a
 +-h window with 12 halvings of the trapezoid sweep (`ops/solvers.py::
 trap_bisect`). The trap sweep reads the operands the backtest already
 holds and builds nothing per query: the day tensors V of `SweepOperands`
-at dim 2, the transform columns of `Contract3Operands` at dim 3. No TPU
+at dim 2, the transform columns of `Contract3Operands` at dim 3 and of
+`ColumnOperands` at dim >= 4. No TPU
 kernel computes it (the JAX package runs it in XLA), so it is plain
 PyTorch on the operands' device, rows one after another and days in
 chunks of `ops/quadrature._device_day_batch`, which bounds its transient
@@ -22,30 +23,24 @@ import torch
 from copula_var_tpu_torch.ops.cuda_quadrature3 import Contract3Operands
 from copula_var_tpu_torch.ops.quadrature import (
     garch_integrals_trap,
-    garch_tcached_trap,
     msm_integrals_trap,
-    msm_tcached_trap,
 )
 from copula_var_tpu_torch.ops.solvers import trap_bisect
+from copula_var_tpu_torch.ops.tcached import ColumnOperands, tcached_trap_sweep
 
 TRAP_HALVINGS = 12
 
 
 def trap_sweep(ops, bounds, weights, box_min=-5.0):
     """(L, T) trapezoid slab integrals for bounds (L, T, 2) and per-row
-    portfolio weights (L, dim), from `SweepOperands` (dim 2) or
-    `Contract3Operands` (dim 3), on their device."""
+    portfolio weights (L, dim), from `SweepOperands` (dim 2),
+    `Contract3Operands` (dim 3) or `ColumnOperands` (dim >= 4), on their
+    device."""
+    if isinstance(ops, (Contract3Operands, ColumnOperands)):
+        return tcached_trap_sweep(ops, bounds, weights, box_min)
     rows = []
     for b, w in zip(bounds, weights):
-        if isinstance(ops, Contract3Operands):
-            if ops.p_cols is None:
-                rows.append(msm_tcached_trap(
-                    b, ops.cols, ops.forecast_combos, ops.x, ops.densities,
-                    w, ops.spec, box_min))
-            else:
-                rows.append(garch_tcached_trap(b, ops.cols, ops.p_cols, ops.x,
-                                               w, ops.spec, box_min))
-        elif ops.densities is None:
+        if ops.densities is None:
             rows.append(garch_integrals_trap(b, ops.V, ops.x, w, box_min))
         else:
             rows.append(msm_integrals_trap(b, ops.V, ops.forecast_combos,

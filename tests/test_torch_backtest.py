@@ -204,9 +204,8 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise_naming_the_roadmap(tmp_path):
-    """dim >= 4 still raises naming ROADMAP item 9; refine_root and the
-    adapters' reference_quirks, once refused here, now serve as JAX
-    does."""
+    """dim >= 4, refine_root and the adapters' reference_quirks, once
+    refused here, now serve as JAX does; a one-asset book still raises."""
     path, jdata, tdata = _truncated(tmp_path, "msm", 4)
     bt = load_artifacts(path, tdata, device="cpu")
     from copula_var_tpu.models import fit as jfit
@@ -219,9 +218,25 @@ def test_unported_options_raise_naming_the_roadmap(tmp_path):
     jb.refine_root = True
     np.testing.assert_allclose(refined.calc_var(0.05), jb.calc_var(0.05),
                                rtol=0, atol=ATOL_ROOT)
-    four = from_returns(np.zeros((N_IN + 4, 4)), n_insample=N_IN)
-    with pytest.raises(ValueError, match=r"ROADMAP.md \(queue 1, item 9\)"):
-        VaRBacktest(four, bt.adapter, bt.copula, bt.copula_fit,
+    z = np.load(os.path.join(DATA, "dim4_artifacts_garch.npz"))
+    arrays = {k: z[k] for k in z.files}
+    arrays["ii_forecast_vols"] = arrays["ii_forecast_vols"][:4]
+    path4 = str(tmp_path / "dim4_garch_4.npz")
+    np.savez(path4, **arrays)
+    w4 = np.load(os.path.join(DATA, "dim4_var.npz"))["weights"]
+    full4 = jax_from_csv(os.path.join(DATA, "dim4.csv"), N_IN, weights=w4)
+    r4 = full4.returns[:N_IN + 4]
+    four = from_returns(r4, full4.tickers, N_IN, weights=w4)
+    bt4 = load_artifacts(path4, four, device="cpu")
+    got4 = VaRBacktest(four, bt4.adapter, bt4.copula, bt4.copula_fit,
+                       bt4.model_fits, bt4.integration_inputs, device="cpu")
+    np.testing.assert_allclose(
+        got4.calc_var(0.05), jax_load(path4, jax_from_returns(
+            r4, full4.tickers, N_IN, weights=w4)).calc_var(0.05),
+        rtol=0, atol=ATOL_ROOT)
+    one = from_returns(np.zeros((N_IN + 4, 1)), n_insample=N_IN)
+    with pytest.raises(ValueError, match="two or more assets"):
+        VaRBacktest(one, bt.adapter, bt.copula, bt.copula_fit,
                     bt.model_fits, bt.integration_inputs)
     r = tdata.in_sample[:300]
     got = MsmAdapter(k=2, basin_iter=0, reference_quirks=True).fit(

@@ -361,17 +361,33 @@ print("ok")
 
 
 def test_dim3_rejections(case, tmp_path):
-    """dim 4, Plackett at dim 3 and the `meta` device raise."""
+    """Plackett at dim 3 and 4 and the `meta` device raise; dim 4, once
+    refused here, serves as JAX does."""
     path, _, tdata = _truncated(tmp_path, "garch", 2)
     bt = load_artifacts(path, tdata, device="cpu")
     args = (bt.adapter, bt.copula, bt.copula_fit, bt.model_fits,
             bt.integration_inputs)
-    four = from_returns(np.zeros((N_IN + 2, 4)), n_insample=N_IN)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        VaRBacktest(four, *args)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        VaRBacktest(tdata, bt.adapter, "plackett", bt.copula_fit,
-                    bt.model_fits, bt.integration_inputs)
+    z = np.load(os.path.join(DATA, "dim4_artifacts_msm.npz"))
+    arrays = {k: z[k] for k in z.files}
+    for k in ("ii_forecasts_by_states", "ii_forecast_combos"):
+        arrays[k] = arrays[k][:2]
+    path4 = str(tmp_path / "dim4_msm_2.npz")
+    np.savez(path4, **arrays)
+    w4 = np.load(os.path.join(DATA, "dim4_var.npz"))["weights"]
+    full4 = jax_from_csv(os.path.join(DATA, "dim4.csv"), N_IN, weights=w4)
+    four = from_returns(full4.returns[:N_IN + 2], full4.tickers, N_IN,
+                        weights=w4)
+    bt4 = load_artifacts(path4, four, device="cpu")
+    got4 = VaRBacktest(four, bt4.adapter, bt4.copula, bt4.copula_fit,
+                       bt4.model_fits, bt4.integration_inputs, device="cpu")
+    np.testing.assert_allclose(
+        got4.calc_var(0.05), jax_load(path4, jax_from_returns(
+            full4.returns[:N_IN + 2], full4.tickers, N_IN,
+            weights=w4)).calc_var(0.05), rtol=0, atol=ATOL_ROOT)
+    for data in (tdata, four):
+        with pytest.raises(ValueError, match="bivariate"):
+            VaRBacktest(data, bt.adapter, "plackett", bt.copula_fit,
+                        bt.model_fits, bt.integration_inputs)
     refined = VaRBacktest(tdata, *args, device="cpu", refine_root=True)
     got, plain = refined.calc_var(0.05), bt.calc_var(0.05)
     assert np.all(np.abs(got - plain) <= refined._plateau_h())
