@@ -84,18 +84,35 @@ Phases, each fatal on failure:
      there): K1-K4 must launch 0 times. Prints each query's wall time, the
      phase's peak device memory, a torch.profiler reading of one n = 32
      `calc_var` and the plain sweep's bound (`tcached_bound`);
-  10. parity: each kernel against its plain PyTorch twin on the card, at
+  10. day sharding (`parallel/`), counted per rank: every path below
+     first on one card with no mesh (the one-card series): the flagship
+     MSM and GARCH artifacts' `calc_var(0.05)`, the 32 x 4 `calc_var_grid`
+     and `refine_root=True` levels of `data/flagship_refined_var.npz`;
+     the dim-3 artifacts' `calc_var(0.05)` and 8 x 4 grid; the dim-4 MSM
+     artifact at n = 32 over T = 500. (a) A world of one NCCL rank in
+     this process (`distributed.initialize`, tcp on 127.0.0.1) serves the
+     flagship MSM through a `DayMesh`; (b) three gloo ranks share the card
+     (NCCL refuses two ranks on one GPU), spawned by
+     `distributed.run_world` after the kernels are built, days [0, 167),
+     [167, 334), [334, 500), and serve every path. Each result is held
+     bit-equal to the one-card series and within 1e-9 of its record (0
+     days above); each rank must launch K1 and K2 on the dim-2 path and
+     K4 on the dim-3 path (and nothing on dim 4). Prints each rank's day
+     block, launches, peak device memory (U split three ways) and wall
+     seconds; the ranks share one card, so no figure here is a scaling
+     figure;
+  11. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
      unequal weights; K4 also with a Gaussian copula; the dim-2 table P
      whole, the dim-3 table U on 16 days), a repeated launch of each that
      must give the same bits, a dim-2 sweep row alone against its bits
      inside a 128-row batch, and the serving batches (128 rows at dim 2,
      8 portfolios x 4 levels at dim 3) against the plain solves;
-  11. timings: CUDA events after warm-up, median and min of the reps,
+  12. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns, and the refine_root trap pass
      per call (L = 1 and 128 at dim 2, L = 1 at dim 3) beside the
      unrefined solve of the same rows;
-  12. device profile: torch.profiler over calls of each kernel, `calc_var`,
+  13. device profile: torch.profiler over calls of each kernel, `calc_var`,
      the serving batches, the unrefined solves and the trap passes: host
      ms per call, the device's busy ms and ops, and each kernel's
      launches and device ms per launch.
@@ -335,6 +352,250 @@ def device_profile(torch, fn, reps=REPS):
                       "device_ms": us / n / 1e3 if n else None}
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3 / reps,
             "device_ops": len(spans) / reps, "kernels": kernels}
+
+
+
+SHARDED_RANKS = 3  # the day-sharded phase's gloo ranks, on the one card
+SHARDED_TIMEOUT_S = 300  # a rank that dies fails the others by then
+
+
+def _served(root, name, data, mesh, **kw):
+    """load_artifacts(data/<name>, device="cuda", mesh=mesh, **kw)."""
+    from copula_var_tpu_torch.utils.artifacts import load_artifacts
+
+    return load_artifacts(os.path.join(root, "data", name), data,
+                          device="cuda", mesh=mesh, **kw)
+
+
+def serve_day_sharded(root, mesh, w_batch, w_batch3):
+    """Every path of the day-sharded phase through `mesh` (None: one
+    card, cuda:0), each counted alone: ({name: array}, {path: launches},
+    {path: peak device bytes}, {path: wall s}). dim2: the flagship MSM
+    and GARCH artifacts' calc_var(0.05), the ROWS_P x LEVELS grid and the
+    refined levels of `flagship_refined_var.npz`; dim3: the dim-3
+    artifacts' calc_var(0.05) and the ROWS_P3 x LEVELS grid, one
+    backtest at a time; dim4: the MSM artifact's calc_var(0.05) at
+    n = 32 over T = 500."""
+    import numpy as np
+    import torch
+
+    from copula_var_tpu_torch.data import from_csv
+    from copula_var_tpu_torch.ops import cuda_quadrature as cq
+    from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
+    from copula_var_tpu_torch.ops import cuda_solver as cs
+
+    counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
+                cq3.contract3_weights, cq3.masked_contract3)
+    rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
+    rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
+    rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
+    out = {}
+
+    def dim2():
+        data = from_csv(os.path.join(root, "data", "flagship.csv"), 1135)
+        for est in ("msm", "garch"):
+            bt = _served(root, f"flagship_artifacts_{est}.npz", data, mesh)
+            out[f"dim2/{est}/var"] = bt.calc_var(0.05)
+            out[f"dim2/{est}/grid"] = bt.calc_var_grid(w_batch, LEVELS)
+            bt = _served(root, f"flagship_artifacts_{est}.npz", data, mesh,
+                         refine_root=True)
+            out[f"dim2/{est}/refined"] = bt.calc_var_levels(
+                tuple(rec_r["levels"]))
+
+    def dim3():
+        data = from_csv(os.path.join(root, "data", "dim3.csv"),
+                        int(rec3["n_insample"]), weights=rec3["weights"])
+        for est in ("msm", "garch"):
+            bt = _served(root, f"dim3_artifacts_{est}.npz", data, mesh)
+            out[f"dim3/{est}/var"] = bt.calc_var(0.05)
+            out[f"dim3/{est}/grid"] = bt.calc_var_grid(w_batch3, LEVELS)
+            out[f"dim3/{est}/table_bytes"] = np.array(
+                bt.sweep_operands().U.numel() * 8)
+            del bt
+            torch.cuda.empty_cache()
+
+    def dim4():
+        data = from_csv(os.path.join(root, "data", "dim4.csv"),
+                        int(rec4["n_insample"]), weights=rec4["weights"])
+        bt = _served(root, "dim4_artifacts_msm.npz", data, mesh)
+        out["dim4/msm/var"] = bt.calc_var(float(rec4["obj_var"]))
+
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    launches, peaks, walls = {}, {}, {}
+    for name, fn in (("dim2", dim2), ("dim3", dim3), ("dim4", dim4)):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {c.__name__: c.launches for c in counters}
+        peaks[name] = torch.cuda.max_memory_allocated(dev)
+    return out, launches, peaks, walls
+
+
+def day_sharded_rank(root, out_dir, w_batch, w_batch3):
+    """One gloo rank of the day-sharded phase (spawned by
+    `parallel.distributed.run_world`): serve every path through the
+    world's mesh and save what this rank got, its day block, launches,
+    peak device memory and wall seconds to out_dir/rank<r>.{npz,json}."""
+    import numpy as np
+
+    from copula_var_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    out, launches, peaks, walls = serve_day_sharded(root, mesh, w_batch,
+                                                    w_batch3)
+    np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump({"rank": mesh.rank, "device": str(mesh.device),
+                   "block_T500": list(mesh.day_block(500)),
+                   "launches": launches, "peak_bytes": peaks,
+                   "wall_s": walls}, f)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def day_sharded_phase(root, smi, w_batch, w_batch3):
+    """The day-sharded phase. First every path of `serve_day_sharded` on
+    one card, with no mesh: the one-card series. (a) A world of one NCCL
+    rank in this process serves the flagship MSM through a `DayMesh`,
+    bit-equal to the one-card series and within 1e-9 of the record;
+    (b) SHARDED_RANKS gloo ranks on the one card, spawned after this
+    process built the kernels, serve every path, each rank's results
+    bit-equal to the one-card series and within 1e-9 of the records
+    (0 days above). Returns the phase's report."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from copula_var_tpu_torch.data import from_csv
+    from copula_var_tpu_torch.parallel import distributed, make_mesh
+
+    def held(name, got, want_bits, record):
+        if got.shape != want_bits.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"day-sharded {name}: bad output {got.shape}")
+        if not np.array_equal(got, want_bits):
+            raise AssertionError(
+                f"day-sharded {name}: off the one-card series by "
+                f"{np.max(np.abs(got - want_bits)):.3e}")
+        if record is None:
+            return None
+        d = np.abs(got - record)
+        if not d.max() <= ATOL_VAR:
+            raise AssertionError(f"day-sharded {name}: off the record by "
+                                 f"{d.max():.3e}, {int(np.sum(d > ATOL_VAR))}"
+                                 " days above")
+        return float(d.max())
+
+    unsharded, launches1, peaks1, walls1 = serve_day_sharded(
+        root, None, w_batch, w_batch3)
+    report = {"one_card": {"launches": launches1, "peak_bytes": peaks1,
+                           "wall_s": walls1}}
+    print(f"day-sharded, one card (no mesh): launches {launches1}; peak "
+          f"device bytes {peaks1}; dim-3 table U "
+          f"{int(unsharded['dim3/msm/table_bytes'])} bytes; wall s "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls1.items()))
+    rec = np.load(os.path.join(root, "data", "flagship_var.npz"))
+    rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
+    rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
+    rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
+    records = {"dim2/msm/var": rec["msm_var"],
+               "dim2/garch/var": rec["garch_var"],
+               "dim2/msm/refined": rec_r["msm_levels"],
+               "dim2/garch/refined": rec_r["garch_levels"],
+               "dim3/msm/var": rec3["msm_var"],
+               "dim3/garch/var": rec3["garch_var"],
+               "dim4/msm/var": rec4["msm_var"]}
+
+    # (a) NCCL, a world of one in this process
+    t0 = time.perf_counter()
+    distributed.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                           rank=0, backend="nccl", device="cuda",
+                           timeout_s=SHARDED_TIMEOUT_S)
+    try:
+        mesh = make_mesh()
+        data = from_csv(os.path.join(root, "data", "flagship.csv"), 1135)
+        var = _served(root, "flagship_artifacts_msm.npz", data,
+                      mesh).calc_var(0.05)
+        backend = torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+    err = held("nccl dim2/msm/var", var, unsharded["dim2/msm/var"],
+               records["dim2/msm/var"])
+    report["nccl_world1"] = {"backend": backend, "max_err": err,
+                             "wall_s": time.perf_counter() - t0}
+    print(f"day-sharded (a): world of 1, {backend}, flagship MSM through a "
+          f"DayMesh: bit-equal to the one-card series, max |VaR - record| "
+          f"= {err:.3e} (bound {ATOL_VAR:g}); "
+          f"{report['nccl_world1']['wall_s']:.3f} s (host clock)")
+
+    # (b) SHARDED_RANKS gloo ranks sharing this card
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        distributed.run_world(day_sharded_rank, SHARDED_RANKS,
+                              (root, out_dir, w_batch, w_batch3),
+                              backend="gloo", device="cuda",
+                              timeout_s=SHARDED_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                info = json.load(f)
+            info["results"] = dict(np.load(os.path.join(out_dir,
+                                                        f"rank{r}.npz")))
+            ranks.append(info)
+    errs = {}
+    for info in ranks:
+        r, got = info["rank"], info["results"]
+        for name, want in unsharded.items():
+            if name.endswith("table_bytes"):
+                continue
+            e = held(f"rank {r} {name}", got[name], want, records.get(name))
+            if e is not None:
+                errs[name] = max(errs.get(name, 0.0), e)
+        lc = info["launches"]
+        for k in ("sweep_table", "masked_sweep", "bisect_levels"):
+            if lc["dim2"][k] <= 0:
+                raise AssertionError(f"rank {r}: {k} never launched on the "
+                                     "dim-2 path")
+        if lc["dim2"]["sweep_table"] != 4:
+            raise AssertionError(f"rank {r}: sweep_table did not build one "
+                                 "table per dim-2 backtest")
+        if lc["dim3"]["contract3_weights"] != 2 or \
+                lc["dim3"]["masked_contract3"] <= 0:
+            raise AssertionError(f"rank {r}: K4 did not run its dim-3 path "
+                                 f"{lc['dim3']}")
+        if lc["dim2"]["masked_contract3"] or lc["dim3"]["masked_sweep"] or \
+                any(lc["dim4"].values()):
+            raise AssertionError(f"rank {r}: a kernel launched off its path "
+                                 f"{lc}")
+        print(f"day-sharded (b) rank {r} of {SHARDED_RANKS} "
+              f"({info['device']}, gloo): days [{info['block_T500'][0]}, "
+              f"{info['block_T500'][1]}) of 500; launches {lc}; peak device "
+              f"bytes {info['peak_bytes']}; dim-3 table U "
+              f"{int(got['dim3/msm/table_bytes'])} bytes; wall s "
+              + ", ".join(f"{k} {v:.3f}" for k, v in info["wall_s"].items()))
+    print(f"day-sharded (b): {SHARDED_RANKS} ranks, every result bit-equal "
+          f"to the one-card series and each record within {ATOL_VAR:g} "
+          "(0 days above): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; phase wall {wall:.3f} s, host clock, spawn included ({smi}; "
+          "ranks share one card: not a scaling figure)")
+    report["gloo_world"] = {
+        "ranks": [{k: v for k, v in info.items() if k != "results"}
+                  for info in ranks],
+        "max_err": errs, "wall_s": wall}
+    return report
 
 
 def main() -> int:
@@ -1164,6 +1425,12 @@ def main() -> int:
     del bts4
     torch.cuda.empty_cache()
 
+    # -- day sharding (parallel/): a world of one NCCL rank, then gloo ranks
+    # sharing the card, each rank on its block of days ----------------------
+    sharded_report = day_sharded_phase(
+        root, smi, w_batch,
+        np.random.default_rng(3).dirichlet([2.0, 2.0, 2.0], size=ROWS_P3))
+
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=dev)
@@ -1585,6 +1852,7 @@ def main() -> int:
     report["refine"] = refine_report
     report["quirks"] = quirk_report
     report["dim4"] = dim4_report
+    report["day_sharded"] = sharded_report
     report["halvings"] = iters
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),

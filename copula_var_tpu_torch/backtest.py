@@ -38,6 +38,20 @@ portfolio mean added, as the JAX package returns them.
 Weights pairing, kept from the reference: `weights[0]` pairs the inner
 grid axis and `weights[1:]` the outer axes in order; only unequal
 weights show it.
+
+Day sharding (the JAX engine "sharded", `backtest.py:1164-1340,
+2204-2258`): with `mesh=` a `parallel.mesh.DayMesh`, one process per
+rank, every rank holds the full replicated state and builds the full-T
+day tensors or transform columns (`t_ppf` rounds by its batch, so a
+block built alone could move by an ulp), then keeps its own block of
+days and builds P (K2), U (K4) or `ColumnOperands` for that block only.
+Every query runs the single-card solve on the block, with the
+bisection's global decisions reduced over the mesh
+(`ops/cuda_solver.py`), and gathers the (L, T) series, so every rank
+returns the full result, bit-equal to one card's. `create_var_backtest`
+with a mesh fits on every rank and then takes rank 0's fitted state, so
+the ranks serve one state even where a card's fit does not reproduce
+its bits.
 """
 
 from __future__ import annotations
@@ -75,8 +89,13 @@ from copula_var_tpu_torch.ops.quadrature import (
 from copula_var_tpu_torch.ops.refine import refine_roots
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
 from copula_var_tpu_torch.ops.tcached import column_operands
+from copula_var_tpu_torch.parallel.multiprocess import gather_days
+from copula_var_tpu_torch.parallel.quadrature import gather_solution
 
 VOL_STATE_ROUND_TOL = 1e-6  # `msm_estimation.py:204-248`
+# the integration inputs' fields with a leading day axis, cut to a rank's
+# block with the day tensors or transform columns
+_DAY_FIELDS = ("forecasts_by_states", "forecast_combos", "forecast_vols")
 
 
 def _rows(a, dev):
@@ -428,6 +447,26 @@ def _copula_spec(kind: str, fit_result, device) -> CopulaSpec:
     raise ValueError(f"unknown copula: {kind}")
 
 
+def _mesh_device(device, mesh):
+    """The device a backtest serves on: `device` (the card unless the
+    caller asks for "cpu"), or with a mesh the rank's own device, whose
+    type `device` must name."""
+    if mesh is None:
+        return resolve_device(device)
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {str(device)!r} but the mesh's ranks serve "
+                         f"on {mesh.device}")
+    return mesh.device
+
+
+def _take_days(tree, days):
+    """Every tensor leaf of the nested tuple `tree`, cut to `days` on its
+    leading axis (a copy, so the full-T build can be freed)."""
+    if torch.is_tensor(tree):
+        return tree[days].clone()
+    return type(tree)(_take_days(t, days) for t in tree)
+
+
 def _check_options(dim: int, copula: str) -> None:
     """Refuse what neither package serves: a one-asset book, and the
     bivariate Plackett copula above dim 2."""
@@ -453,15 +492,19 @@ class VaRBacktest:
     reference_quirks: the reference's stage-2 bracket anchor
     (`ops/solvers.py::bracket_state_batched`); refine_root: the trap
     re-solve of every query (`ops/refine.py`), whose last wall seconds
-    are `refine_seconds`.
+    are `refine_seconds`. mesh: a `parallel.mesh.DayMesh` to serve this
+    rank's block of days and gather every result over the ranks (the
+    backtest then lives on the mesh's device), or None for one card.
     """
 
     def __init__(self, data: ReturnsData, adapter, copula: str, copula_fit,
                  model_fits, integration_inputs, marginals=None,
                  densities=None, num_points=100, box=(-5.0, 5.0),
-                 device="cuda", reference_quirks=False, refine_root=False):
+                 device="cuda", reference_quirks=False, refine_root=False,
+                 mesh=None):
         _check_options(data.dim, copula)
-        self.device = resolve_device(device)
+        self.device = _mesh_device(device, mesh)
+        self.mesh = mesh
         self.data = data
         self.adapter = adapter
         self.copula = copula
@@ -490,23 +533,53 @@ class VaRBacktest:
         """The sweeps' bounds-invariant operands, built once: day tensors
         and their hoisted contraction at dim 2, transform columns and
         `Contract3Operands` (with the table U on a CUDA device) at dim 3,
-        transform columns as `ColumnOperands` at dim >= 4."""
+        transform columns as `ColumnOperands` at dim >= 4. With a mesh,
+        those of this rank's block of days, cut from the full-T day
+        tensors or columns."""
         if self._ops is None:
             t0 = time.perf_counter()
             inputs, spec = self.integration_inputs, self.copula_spec
-            if self.data.dim == 3:
-                cols = self.adapter.day_columns(inputs, spec)
-                self._ops = self.adapter.contract3_operands(cols, inputs,
-                                                            spec)
-            elif self.data.dim >= 4:
-                cols = self.adapter.day_columns(inputs, spec)
-                self._ops = self.adapter.column_operands(cols, inputs, spec)
+            if self.data.dim >= 3:
+                cols = self._block(self.adapter.day_columns(inputs, spec))
+                build = (self.adapter.contract3_operands
+                         if self.data.dim == 3
+                         else self.adapter.column_operands)
+                self._ops = build(cols, self._block_inputs(), spec)
             else:
-                tensors = self.adapter.day_tensors(inputs, spec)
-                self._ops = self.adapter.sweep_operands(tensors, inputs)
+                tensors = self._block(self.adapter.day_tensors(inputs, spec))
+                self._ops = self.adapter.sweep_operands(
+                    tensors, self._block_inputs())
             synchronize(self.device)
             self.prep_seconds += time.perf_counter() - t0
         return self._ops
+
+    def _days(self):
+        """This rank's block of the T days, or None without a mesh."""
+        if self.mesh is None:
+            return None
+        return self.mesh.days(self.data.out_sample_n)
+
+    def _block(self, tree):
+        days = self._days()
+        return tree if days is None else _take_days(tree, days)
+
+    def _block_inputs(self):
+        """The integration inputs with their day fields cut to this
+        rank's block."""
+        inputs, days = self.integration_inputs, self._days()
+        if days is None:
+            return inputs
+        return inputs._replace(**{f: getattr(inputs, f)[days]
+                                  for f in _DAY_FIELDS
+                                  if f in inputs._fields})
+
+    def _gather(self, roots, nan_days):
+        """The (L, T) series with NaN days masked, gathered from every
+        rank's block with a mesh."""
+        if self.mesh is not None:
+            roots, nan_days = gather_solution(roots, nan_days, self.mesh,
+                                              self.data.out_sample_n)
+        return torch.where(nan_days, torch.full_like(roots, np.nan), roots)
 
     def _tensor(self, a):
         return torch.tensor(np.asarray(a, dtype=np.float64),
@@ -515,11 +588,13 @@ class VaRBacktest:
     def compute_integral(self, bounds) -> np.ndarray:
         """(T,) integrals over per-day [lower, upper] slabs (T, 2): one
         sweep, through the kernel on a CUDA device at dim 2 and 3."""
-        b = self._tensor(bounds).reshape(1, -1, 2).contiguous()
+        b = self._block(self._tensor(bounds).reshape(-1, 2))
         ops = self.sweep_operands()
-        out = sweep_for(ops)(ops, b, self.weights.reshape(1, -1),
-                             self.box[0])
-        return out[0].cpu().numpy()
+        out = sweep_for(ops)(ops, b[None].contiguous(),
+                             self.weights.reshape(1, -1), self.box[0])[0]
+        if self.mesh is not None:
+            out = gather_days(out, self.mesh, self.data.out_sample_n)
+        return out.cpu().numpy()
 
     @staticmethod
     def adjust_integral(new_result, prev_results, bounds, prev_upper):
@@ -547,14 +622,13 @@ class VaRBacktest:
             self.sweep_operands(), obj, self.weights,
             self._cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
-            tolerance, self.reference_quirks, self.box[0],
+            tolerance, self.reference_quirks, self.box[0], self.mesh,
         )
         if self.refine_root:
             L = roots.shape[0]
             roots = self._refine(roots, obj, self.weights.expand(L, -1),
                                  np.full(L, self._plateau_h()))
-        final = torch.where(nan_days, torch.full_like(roots, np.nan), roots)
-        out = final.cpu().numpy() + self.data.ptf_mean
+        out = self._gather(roots, nan_days).cpu().numpy() + self.data.ptf_mean
         self.solve_seconds = time.perf_counter() - t0
         return out
 
@@ -587,14 +661,14 @@ class VaRBacktest:
             self.sweep_operands(), obj, w_rows.contiguous(),
             self._cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
-            tolerance, self.reference_quirks, self.box[0],
+            tolerance, self.reference_quirks, self.box[0], self.mesh,
         )
         if self.refine_root:
             roots = self._refine(roots, obj, w_rows,
                                  self._plateau_h(weights_batch))
-        final = torch.where(nan_days, torch.full_like(roots, np.nan), roots)
         ptf_means = np.asarray(self.data.in_sample_mean) @ weights_batch.T
-        out = final.cpu().numpy() + ptf_means[:, None]
+        out = self._gather(roots, nan_days).cpu().numpy() + \
+            ptf_means[:, None]
         self.solve_seconds = time.perf_counter() - t0
         return out
 
@@ -648,6 +722,7 @@ def create_var_backtest(
     copula_fit_override: Optional[object] = None,
     refine_root: bool = False,
     device="cuda",
+    mesh=None,
     **adapter_kwargs,
 ) -> VaRBacktest:
     """Fit and build a solve-ready backtest on `device` (the card unless
@@ -660,13 +735,15 @@ def create_var_backtest(
     across copulas). `refine_root` goes to `VaRBacktest`. `prep_seconds`
     covers the whole preparation, as in the JAX package; `prep_stages`
     holds each step's wall seconds (the device synchronized at each end),
-    with the fit's own stages."""
+    with the fit's own stages. With a `mesh` every rank fits on its own
+    device, then all take rank 0's fitted state (a `broadcast`) and serve
+    their blocks of days."""
     if estimation_type not in _ADAPTERS:
         raise ValueError(f"Unsupported estimation type: {estimation_type}")
     if copula_type not in _COPULA_FITTERS:
         raise ValueError(f"Unsupported copula type: {copula_type}")
     _check_options(data.dim, copula_type)
-    dev = resolve_device(device)
+    dev = _mesh_device(device, mesh)
     adapter = _ADAPTERS[estimation_type](**adapter_kwargs)
     stages = {}
     t0 = clock = time.perf_counter()
@@ -696,10 +773,16 @@ def create_var_backtest(
     inputs = adapter.integration_inputs(data.rolling_windows(), fits,
                                         num_points, box, device=dev)
     lap("integration_inputs")
+    if mesh is not None:
+        host = type(inputs)(*[v.cpu().numpy() if torch.is_tensor(v) else v
+                              for v in inputs])
+        fits, marginals, densities, cfit, inputs = mesh.broadcast_object(
+            (fits, marginals, densities, cfit, host))
+        lap("broadcast")
     bt = VaRBacktest(data, adapter, copula_type, cfit, fits, inputs,
                      marginals=marginals, densities=densities,
                      num_points=num_points, box=box, device=dev,
-                     refine_root=refine_root)
+                     refine_root=refine_root, mesh=mesh)
     bt.prep_seconds = time.perf_counter() - t0
     bt.prep_stages = stages
     return bt

@@ -6,11 +6,14 @@ constructor defaults of `utils/calc_var_class.py:9-20,95,111-112,201-202`
 and the optimizers' hyperparameters) with the reference's defaults;
 `run_backtest` is the reference's `main.py` pipeline: fit, build, solve.
 
-The JAX config's `engine`, `n_mesh_devices` and `pallas_day_block` are
-left out: here the device picks the path (the card's kernels or the plain
-twins on the CPU), and one card serves. `BacktestConfig.from_dict` takes
-a dict written by the JAX `to_dict` when those keys hold their defaults,
-and refuses any other value of them.
+Here the device picks the path (the card's kernels or the plain twins on
+the CPU), so the JAX config's engines mean one path: "xla" one device,
+"sharded" and "sharded_pallas" the day-sharded serving of `parallel/`
+over a mesh of `n_mesh_devices` ranks (both the port's f64 path: the
+port follows the f64 `xla` engine and has no f32 fused kernel).
+"pallas", "grid_sharded" and a non-default `pallas_day_block` (which the
+port does not carry) are refused. `BacktestConfig.from_dict` takes a dict
+written by the JAX `to_dict`.
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-# the JAX-only keys and the values under which a JAX config means what a
-# config of the port means
-_JAX_ONLY_DEFAULTS = {"engine": "xla", "n_mesh_devices": None,
-                      "pallas_day_block": 32}
+# the JAX engines the port serves: one device, or day-sharded over a mesh
+ENGINES = ("xla", "sharded", "sharded_pallas")
+SHARDED_ENGINES = ("sharded", "sharded_pallas")
+# the JAX-only key (the f32 Pallas kernel's day block) and the one value
+# under which a JAX config means what a config of the port means
+_PALLAS_DAY_BLOCK = 32
 
 
 @dataclass
@@ -110,6 +115,10 @@ class BacktestConfig:
     copula_type: str = "student"  # 'gaussian' | 'student' | 'plackett'
     n_insample: int = 1135
     num_points: int = 100
+    # 'xla': one device; 'sharded' / 'sharded_pallas': the day-sharded
+    # path over a mesh of n_mesh_devices ranks (None: the whole world)
+    engine: str = "xla"
+    n_mesh_devices: Optional[int] = None
     weights: Optional[Sequence[float]] = None  # default equal weights
     msm: MsmConfig = field(default_factory=MsmConfig)
     garch: GarchConfig = field(default_factory=GarchConfig)
@@ -118,23 +127,33 @@ class BacktestConfig:
     copula: CopulaConfig = field(default_factory=CopulaConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
 
+    def __post_init__(self):
+        if self.engine == "grid_sharded":
+            raise ValueError(
+                "engine='grid_sharded' (the outer grid axis sharded over the "
+                "mesh) is not ported yet: ROADMAP.md queue 1, item 12; "
+                "engine='sharded' serves day-sharded")
+        if self.engine not in ENGINES:
+            raise ValueError(
+                f"engine={self.engine!r}: the port serves {ENGINES} (the "
+                "device picks the path, and the port follows the f64 xla "
+                "engine: the JAX f32 'pallas' kernels have no counterpart)")
+
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d: dict) -> "BacktestConfig":
         """The config of a dict from `to_dict`, of this package or of the
-        JAX package (whose `engine`, `n_mesh_devices` and
-        `pallas_day_block` must hold their defaults: one card, the device
-        picks the path)."""
+        JAX package (whose `pallas_day_block` must hold its default, and
+        whose `engine` must be one the port serves)."""
         d = dict(d)
-        for key, default in _JAX_ONLY_DEFAULTS.items():
-            value = d.pop(key, default)
-            if value != default:
-                raise ValueError(
-                    f"{key}={value!r} is a JAX engine setting; the port "
-                    "serves one card and the device picks the path "
-                    "(multi-GPU: ROADMAP.md queue 1, item 11)")
+        value = d.pop("pallas_day_block", _PALLAS_DAY_BLOCK)
+        if value != _PALLAS_DAY_BLOCK:
+            raise ValueError(
+                f"pallas_day_block={value!r} sizes the JAX package's f32 "
+                "Pallas kernel; the port follows the f64 xla engine and the "
+                "device picks the path")
         for name, sub in (
             ("msm", MsmConfig),
             ("garch", GarchConfig),
@@ -193,14 +212,20 @@ def copula_fit_kwargs(cfg: BacktestConfig) -> dict:
     return dict(tol=c.tol, max_iter=c.max_iter)
 
 
-def run_backtest(data, cfg: BacktestConfig, device="cuda"):
+def run_backtest(data, cfg: BacktestConfig, device="cuda", mesh=None):
     """Config-driven pipeline (the reference `main.py`): the factory
     fits and builds the backtest on `device` (the card unless the caller
     asks for "cpu"), then the VaR series of `solver.obj_var`, or of every
-    level of `solver.obj_levels` in one batched solve. Returns
-    (VaRBacktest, var)."""
+    level of `solver.obj_levels` in one batched solve. A sharded `engine`
+    serves over `mesh`, or when none is given over `make_mesh(
+    n_mesh_devices, device)` (the initialized world); a given `mesh` is
+    used at any engine. Returns (VaRBacktest, var)."""
     from copula_var_tpu_torch.backtest import create_var_backtest
 
+    if mesh is None and cfg.engine in SHARDED_ENGINES:
+        from copula_var_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(cfg.n_mesh_devices, device)
     bt = create_var_backtest(
         data,
         cfg.estimation_type,
@@ -209,6 +234,7 @@ def run_backtest(data, cfg: BacktestConfig, device="cuda"):
         box=cfg.solver.box,
         copula_fit_kwargs=copula_fit_kwargs(cfg),
         device=device,
+        mesh=mesh,
         **adapter_kwargs(cfg),
     )
     common = dict(

@@ -37,6 +37,20 @@ two-asset (`SweepOperands`), three-asset (`Contract3Operands`) or
 dim >= 4 (`ColumnOperands`) operands. Their `*_reference` forms run the
 same flow through the plain twins on any device, so the two can be
 compared on the card.
+
+Day sharding (`parallel/`): every solve and bisection takes an optional
+`reducer`, a `parallel.mesh.DayMesh` whose rank holds one block of the
+days; `None` (one card) leaves the path as it was. The stages and the
+bracket are per day; the bisection is not, and three of its decisions
+are taken over all days (the counterparts of `_spmd_bisection_levels`,
+`parallel/quadrature.py:1229-1288`, and of the shard_map wrappers of K1,
+`pallas_solver.py:661,823`): the host-counted halving count from the
+global MAX of the widest bracket, so K1 and `bisect_fixed_count` run the
+while-loop's global count on every rank; each halving's all-zeros
+freeze from the global ALL of `result == 0` (JAX's `gall`), a device
+tensor, so no halving reads the host; and the loop's condition from the
+global ANY (JAX's `gany`). K1 has no freeze, so a sharded K1 equals the
+unsharded one once the count is global.
 """
 
 from __future__ import annotations
@@ -72,27 +86,45 @@ def halvings(width: float, tolerance: float) -> int:
     return k
 
 
-def _running(state, tolerance):
+def _halving_count(lower, upper, tolerance, reducer):
+    """The while-loop's halving count, from the widest bracket on the
+    host (one read): over every rank's days with a `reducer`, where an
+    empty day block counts 0."""
+    width = upper - lower
+    if reducer is None:
+        return halvings(float(width.max()), tolerance)
+    local = width.max() if width.numel() else width.new_zeros(())
+    return halvings(float(reducer.max(local)), tolerance)
+
+
+def _running(state, tolerance, reducer=None):
     """The while-loop's condition, as a device tensor: some bracket of a
-    row that has not frozen is wider than `tolerance`."""
+    row that has not frozen is wider than `tolerance` (on any rank's days
+    with a `reducer`)."""
     lo, up, _, _, _, brk = state
-    return ((up - lo > tolerance) & ~brk[:, None]).any()
+    running = ((up - lo > tolerance) & ~brk[:, None]).any()
+    return running if reducer is None else reducer.any(running)
 
 
-def _halving(ops, state, obj, weights, tolerance, sweep, box_min):
+def _halving(ops, state, obj, weights, tolerance, sweep, box_min,
+             reducer=None):
     """One iteration of the `xla` engine's whole-array bisection over the
     (L, T) state (lo, up, prev_res, prev_up, ustack, frozen rows), one
-    `sweep` per call. A row whose results are all exactly zero freezes
-    (the reference's early break). Gated on the device by the loop's own
-    condition: once it fails, the call changes nothing."""
+    `sweep` per call. A row whose results are all exactly zero (on every
+    rank's days with a `reducer`) freezes (the reference's early break).
+    Gated on the device by the loop's own condition: once it fails, the
+    call changes nothing."""
     lo, up, pr, pu, us, brk = state
-    running = _running(state, tolerance)
+    running = _running(state, tolerance, reducer)
     mid = (lo + up) / 2.0
     b_lo = torch.where(us, lo, mid)
     b_up = torch.where(us, mid, up)
     slab = sweep(ops, torch.stack((b_lo, b_up), dim=-1), weights, box_min)
     result = torch.where(b_lo == pu, pr + slab, pr - slab)
-    zero = torch.all(result == 0.0, dim=1) & running
+    zero = torch.all(result == 0.0, dim=1)
+    if reducer is not None:
+        zero = reducer.all(zero)
+    zero = zero & running
     us_n = result < obj[:, None]
     frozen = (zero | brk)[:, None] | ~running
     return (torch.where(frozen | ~us_n, lo, mid),
@@ -110,28 +142,32 @@ def _state(lower, upper, prev_res, prev_up, ustack):
 
 def bisect_levels_reference(ops, lower, upper, prev_res, prev_up, ustack,
                             obj, weights, tolerance, box_min=-5.0,
-                            sweep=masked_sweep_reference):
+                            sweep=masked_sweep_reference, reducer=None):
     """Plain twin on any device: the `xla` engine's while-loop bisection
     over the (L, T) state, one `sweep` per halving (the dim-2 or dim-3
-    plain sweep), with its per-row all-zeros break. Returns (L, T)
-    roots."""
+    plain sweep), with its per-row all-zeros break; with a `reducer` the
+    loop's condition and the break are taken over every rank's days.
+    Returns (L, T) roots."""
     state = _state(lower, upper, prev_res, prev_up, ustack)
-    while bool(_running(state, tolerance)):
-        state = _halving(ops, state, obj, weights, tolerance, sweep, box_min)
+    while bool(_running(state, tolerance, reducer)):
+        state = _halving(ops, state, obj, weights, tolerance, sweep, box_min,
+                         reducer)
     return (state[0] + state[1]) / 2.0
 
 
 def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
-                  ustack, obj, weights, tolerance, box_min=-5.0):
+                  ustack, obj, weights, tolerance, box_min=-5.0,
+                  reducer=None):
     """(L, T) bisection roots. State lower/upper/prev_res/prev_up (L, T)
     float64, ustack (L, T) bool, obj (L,), weights (L, 2). CPU tensors
     run the plain twin; CUDA tensors launch the kernel for the global
-    iteration count; any other device raises."""
+    iteration count (over every rank's days with a `reducer`); any other
+    device raises."""
     dev = ops.V.device
     if dev.type == "cpu":
         return bisect_levels_reference(ops, lower, upper, prev_res, prev_up,
                                        ustack, obj, weights, tolerance,
-                                       box_min)
+                                       box_min, reducer=reducer)
     if dev.type != "cuda":
         raise ValueError(f"bisect_levels: unsupported device {dev}")
     T, n, q = check_day_operands(ops)
@@ -142,7 +178,7 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
     _check_operand("ustack", ustack, (L, T), dev, torch.bool)
     _check_operand("obj", obj, (L,), dev)
     _check_operand("weights", weights, (L, 2), dev)
-    n_iters = halvings(float((upper - lower).max()), tolerance)
+    n_iters = _halving_count(lower, upper, tolerance, reducer)
     roots = torch.empty((L, T), dtype=torch.float64, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -163,19 +199,21 @@ bisect_levels.launches = 0  # kernel launches (CUDA path only)
 
 
 def bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack, obj,
-                       weights, tolerance, n_iters, sweep, box_min=-5.0):
+                       weights, tolerance, n_iters, sweep, box_min=-5.0,
+                       reducer=None):
     """`n_iters` gated halvings (`_halving`) of the (L, T) state with no
     host read. With `n_iters` at least the while-loop's count the roots
     equal `bisect_levels_reference`'s: halvings past the loop's exit
     change nothing."""
     state = _state(lower, upper, prev_res, prev_up, ustack)
     for _ in range(n_iters):
-        state = _halving(ops, state, obj, weights, tolerance, sweep, box_min)
+        state = _halving(ops, state, obj, weights, tolerance, sweep, box_min,
+                         reducer)
     return (state[0] + state[1]) / 2.0
 
 
 def _bisect_by_sweeps(ops, state, obj, weights, tolerance, box_min,
-                      plain_sweep, sweep, name):
+                      plain_sweep, sweep, name, reducer):
     """The bisection whose every halving is one `sweep` call: on the CPU
     the plain while-loop over `plain_sweep`; on a CUDA device
     `bisect_fixed_count` over `sweep` for the host-counted number of
@@ -183,16 +221,18 @@ def _bisect_by_sweeps(ops, state, obj, weights, tolerance, box_min,
     dev = ops.x.device
     if dev.type == "cpu":
         return bisect_levels_reference(ops, *state, obj, weights, tolerance,
-                                       box_min, sweep=plain_sweep)
+                                       box_min, sweep=plain_sweep,
+                                       reducer=reducer)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    n_iters = halvings(float((state[1] - state[0]).max()), tolerance)
+    n_iters = _halving_count(state[0], state[1], tolerance, reducer)
     return bisect_fixed_count(ops, *state, obj, weights, tolerance, n_iters,
-                              sweep, box_min)
+                              sweep, box_min, reducer)
 
 
 def bisect_contract3(ops: Contract3Operands, lower, upper, prev_res, prev_up,
-                     ustack, obj, weights, tolerance, box_min=-5.0):
+                     ustack, obj, weights, tolerance, box_min=-5.0,
+                     reducer=None):
     """(L, T) three-asset bisection roots; state as `bisect_levels`,
     weights (L, 3). CPU tensors run the plain while-loop; CUDA tensors run
     `bisect_fixed_count` with `masked_contract3` for the host-counted
@@ -200,11 +240,12 @@ def bisect_contract3(ops: Contract3Operands, lower, upper, prev_res, prev_up,
     return _bisect_by_sweeps(
         ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
         tolerance, box_min, masked_contract3_reference, masked_contract3,
-        "bisect_contract3")
+        "bisect_contract3", reducer)
 
 
 def bisect_tcached(ops: ColumnOperands, lower, upper, prev_res, prev_up,
-                   ustack, obj, weights, tolerance, box_min=-5.0):
+                   ustack, obj, weights, tolerance, box_min=-5.0,
+                   reducer=None):
     """(L, T) bisection roots of a dim >= 4 backtest; state as
     `bisect_levels`, weights (L, dim). CPU tensors run the plain
     while-loop; CUDA tensors run `bisect_fixed_count` with `tcached_sweep`
@@ -212,7 +253,8 @@ def bisect_tcached(ops: ColumnOperands, lower, upper, prev_res, prev_up,
     on the device); any other device raises."""
     return _bisect_by_sweeps(
         ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
-        tolerance, box_min, tcached_sweep, tcached_sweep, "bisect_tcached")
+        tolerance, box_min, tcached_sweep, tcached_sweep, "bisect_tcached",
+        reducer)
 
 
 def _routes(ops, plain):
@@ -239,12 +281,15 @@ def sweep_for(ops):
     return _routes(ops, plain=False)[0]
 
 
-def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain):
+def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
+                reducer=None):
     """Stage-1 sweep + stage-2 bracket + bisection for L rows. weights is
     (dim,) for one portfolio shared by every row (one stage-1 sweep
     serves them all) or (L, dim) for one portfolio per row. `plain`
-    picks the plain twins over the dispatching wrappers. Returns
-    (roots (L, T), nan_days (L, T))."""
+    picks the plain twins over the dispatching wrappers. With a
+    `reducer` the operands hold one rank's day block, and only the
+    bisection's global decisions are reduced. Returns (roots (L, T),
+    nan_days (L, T))."""
     sweep, bisect = _routes(ops, plain)
     T, L = ops.days, obj.shape[0]
     dev = ops.x.device
@@ -266,37 +311,40 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain):
     )
     roots = bisect(ops, lower.contiguous(), upper.contiguous(),
                    prev_res.contiguous(), prev_up.contiguous(),
-                   ustack.contiguous(), obj, weights, tolerance, box_min)
+                   ustack.contiguous(), obj, weights, tolerance, box_min,
+                   reducer=reducer)
     return roots, nan_days
 
 
 def full_solve_levels(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
-                      box_min=-5.0):
+                      box_min=-5.0, reducer=None):
     """All L confidence levels `obj` (L,) of one portfolio `weights` (dim,)
     -> (roots (L, T), nan_days (L, T)), through the kernels on a CUDA
     device and the plain twins on the CPU. cfg = (first_guess, sg0, sg1,
-    min_var, max_var)."""
+    min_var, max_var). With a `reducer` (a `DayMesh`) `ops` holds this
+    rank's day block and T is its length."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       False)
+                       False, reducer)
 
 
 def full_solve_levels_reference(ops, obj, weights, cfg, tolerance=1e-6,
-                                quirks=False, box_min=-5.0):
+                                quirks=False, box_min=-5.0, reducer=None):
     """`full_solve_levels` through the plain twins, on any device."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       True)
+                       True, reducer)
 
 
 def full_solve_portfolios(ops, obj, weights, cfg, tolerance=1e-6,
-                          quirks=False, box_min=-5.0):
+                          quirks=False, box_min=-5.0, reducer=None):
     """L portfolio rows, row l with its own weights[l] (L, dim) and level
     obj[l] -> (roots (L, T), nan_days (L, T))."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       False)
+                       False, reducer)
 
 
 def full_solve_portfolios_reference(ops, obj, weights, cfg, tolerance=1e-6,
-                                    quirks=False, box_min=-5.0):
+                                    quirks=False, box_min=-5.0,
+                                    reducer=None):
     """`full_solve_portfolios` through the plain twins, on any device."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       True)
+                       True, reducer)

@@ -51,6 +51,9 @@ def trap_sweep(ops, bounds, weights, box_min=-5.0):
 def refine_roots(ops, roots, obj, weights, h, box_min=-5.0):
     """Refined (L, T) roots from the staircase roots (L, T): row l
     re-solves for obj[l] with its own weights[l] (L, dim) in the window
-    +-h[l] (L,)."""
+    +-h[l] (L,). A rank's empty day block (`parallel/`) has nothing to
+    refine."""
+    if roots.shape[-1] == 0:
+        return roots
     return trap_bisect(lambda b: trap_sweep(ops, b, weights, box_min),
                        roots, obj[:, None], h[:, None], TRAP_HALVINGS)

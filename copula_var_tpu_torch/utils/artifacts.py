@@ -58,11 +58,12 @@ def save_artifacts(path: str, backtest) -> None:
 
 
 def load_artifacts(path: str, data, device="cuda", adapter=None,
-                   reference_quirks=False, refine_root=False):
+                   reference_quirks=False, refine_root=False, mesh=None):
     """Rebuild a solve-ready `VaRBacktest` on `device` ("cuda", the
     default, or "cpu"; CUDA without a GPU raises) from saved artifacts and
     the same ReturnsData, with the solve options `reference_quirks` and
-    `refine_root`."""
+    `refine_root`. With a `mesh` (`parallel.mesh.DayMesh`) every rank
+    loads the whole file and serves its block of days."""
     z = np.load(path, allow_pickle=False)
     meta = json.loads(str(z["meta"]))
     if meta["version"] != _FORMAT_VERSION:
@@ -91,4 +92,5 @@ def load_artifacts(path: str, data, device="cuda", adapter=None,
         num_points=meta["num_points"],
         box=tuple(meta.get("box", (-5.0, 5.0))), device=device,
         reference_quirks=reference_quirks, refine_root=refine_root,
+        mesh=mesh,
     )

@@ -22,7 +22,7 @@ torch.set_num_threads(2)
 
 ATOL_VAR = 1e-9
 CUT_N, CUT_T = 300, 20  # as tests/test_torch_fit_path.py
-JAX_ONLY = {"engine": "xla", "n_mesh_devices": None, "pallas_day_block": 32}
+JAX_ONLY = {"pallas_day_block": 32}
 
 
 def _without_jax_keys(d):
@@ -74,13 +74,38 @@ def test_from_dict_takes_a_jax_dict():
 
 
 @pytest.mark.parametrize("key, value", [
-    ("engine", "pallas"), ("n_mesh_devices", 4), ("pallas_day_block", 8),
+    ("engine", "pallas"), ("pallas_day_block", 8), ("engine", "grid_sharded"),
 ])
 def test_from_dict_refuses_jax_engine_settings(key, value):
+    """The JAX engines the port does not serve: its f32 Pallas kernels
+    (the port follows the f64 xla engine) and grid sharding (queued)."""
     d = jcfg.BacktestConfig().to_dict()
     d[key] = value
-    with pytest.raises(ValueError, match=r"ROADMAP.md queue 1, item 11"):
+    match = (r"ROADMAP.md queue 1, item 12" if value == "grid_sharded"
+             else "f64 xla engine")
+    with pytest.raises(ValueError, match=match):
         tcfg.BacktestConfig.from_dict(d)
+
+
+@pytest.mark.parametrize("engine, n", [
+    ("sharded", 4), ("sharded", None), ("sharded_pallas", 2),
+])
+def test_from_dict_accepts_sharded_engines(engine, n):
+    """The day-sharded engines (and their mesh size) round-trip from a
+    JAX dict; both mean the port's f64 day-sharded path."""
+    j = jcfg.BacktestConfig(engine=engine, n_mesh_devices=n)
+    got = tcfg.BacktestConfig.from_dict(j.to_dict())
+    assert (got.engine, got.n_mesh_devices) == (engine, n)
+    assert got.to_dict() == _without_jax_keys(j.to_dict())
+
+
+def test_sharded_engine_needs_the_world_it_names():
+    """engine="sharded" builds its mesh over the world: in one process
+    n_mesh_devices=4 is refused before any fit runs."""
+    cfg = tcfg.BacktestConfig(engine="sharded", n_mesh_devices=4)
+    data = from_returns(np.zeros((40, 2)), tickers=["A", "B"], n_insample=30)
+    with pytest.raises(ValueError, match="one process per device"):
+        tcfg.run_backtest(data, cfg, device="cpu")
 
 
 def _cut():

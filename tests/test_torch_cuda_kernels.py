@@ -597,3 +597,23 @@ def test_dim3_through_kernels(dev, est):
     assert after[2] == before[2] + 1 and after[3] > before[3]
     np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
                                atol=ATOL_ROOT)
+
+
+def test_day_sharded_ranks_equal_one_card(dev, tmp_path):
+    """Three gloo ranks sharing the card (NCCL refuses two ranks on one
+    GPU) serve the CPU sharding tests' fixtures through the kernels on
+    their day blocks (the 4-day case leaves the last rank none): every
+    rank's series bit-equal to one card's."""
+    import _torch_parallel_worker as wk
+    from copula_var_tpu_torch.parallel import distributed
+
+    want = wk.serve(None, "cuda")
+    path = str(tmp_path / "rank%d.npz")
+    distributed.run_world(wk.rank_main, 3, (path, str(tmp_path), False,
+                                            "cuda"),
+                          backend="gloo", device="cuda", timeout_s=120)
+    for r in range(3):
+        got = np.load(path % r)
+        for key, w in want.items():
+            np.testing.assert_array_equal(got[key], w,
+                                          err_msg=f"rank {r} {key}")
