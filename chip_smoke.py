@@ -101,18 +101,41 @@ Phases, each fatal on failure:
      block, launches, peak device memory (U split three ways) and wall
      seconds; the ranks share one card, so no figure here is a scaling
      figure;
-  11. parity: each kernel against its plain PyTorch twin on the card, at
+  11. grid sharding (`parallel/`, a ('days', 'grid') `GridMesh`), counted
+     per rank, held to phase 10's one-card series: (a) a world of one
+     NCCL rank in this process serves the flagship MSM through a (1, 1)
+     grid mesh (within 1e-12, bit-equal expected; the largest difference
+     printed); (b) four gloo ranks share the card as a (1, 4) mesh, each
+     on its n / 4 outer grid rows (25 of 100 at dim 2 and 3, 8 of 32 at
+     dim 4), and serve every path of phase 10; (c) the same ranks as a
+     (2, 2) mesh serve the flagship MSM `calc_var(0.05)` and 32 x 4 grid
+     (the MSM dim-2 days split over the day axis too). Every rank's
+     results within 1e-12 of the one-card series and 1e-9 of the records
+     (0 days above), and bit-equal to rank 0's; K1 launches 0 times (a
+     grid rank bisects by K2 or K4 sweeps summed over the ranks), K2 and
+     K4 on every rank, one table per backtest; the dim-3 table U of a
+     rank is a quarter of one card's and the dim-3 path's peak below half
+     of it. Prints each rank's rows, day block, launches, peak device
+     memory and wall seconds (the ranks share one card: no scaling
+     figure);
+  12. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
      unequal weights; K4 also with a Gaussian copula; the dim-2 table P
      whole, the dim-3 table U on 16 days), a repeated launch of each that
      must give the same bits, a dim-2 sweep row alone against its bits
      inside a 128-row batch, and the serving batches (128 rows at dim 2,
-     8 portfolios x 4 levels at dim 3) against the plain solves;
-  12. timings: CUDA events after warm-up, median and min of the reps,
-     kernel and plain twin taken in turns, and the refine_root trap pass
-     per call (L = 1 and 128 at dim 2, L = 1 at dim 3) beside the
-     unrefined solve of the same rows;
-  13. device profile: torch.profiler over calls of each kernel, `calc_var`,
+     8 portfolios x 4 levels at dim 3) against the plain solves; K2 and K4
+     on the four outer row ranges of a (1, 4) grid mesh at n = 100: P and
+     U the whole tables' rows bit for bit, each range against its plain
+     twin, its repeat bit-equal, the four partials summed in rank order
+     against the whole launch at rtol 1e-13, and the range of all rows
+     bit-equal to the whole launch;
+  13. timings: CUDA events after warm-up, median and min of the reps,
+     kernel and plain twin taken in turns (one grid rank's 25-row K2 and
+     K4 launches among them), and the refine_root trap pass per call
+     (L = 1 and 128 at dim 2, L = 1 at dim 3) beside the unrefined solve
+     of the same rows;
+  14. device profile: torch.profiler over calls of each kernel, `calc_var`,
      the serving batches, the unrefined solves and the trap passes: host
      ms per call, the device's busy ms and ops, and each kernel's
      launches and device ms per launch.
@@ -123,8 +146,9 @@ operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet; FP64 outside the
 tensor cores), counted from this run's shapes by `bound()`; the trap
 pass's by `trap_bound()` and the dim-4 plain sweep's by `tcached_bound()`.
 
-Prints the kernels' JSON record on the line before the last, and as the
-last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
+Prints the kernels' JSON record on the line before the last (each
+kernel's launches on the main path and, as `grid_launches_per_rank`, on
+one rank of phase 11 (b)), and as the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
 line, when torch sees no CUDA device or the port's sources are missing.
 """
 
@@ -168,6 +192,9 @@ SYNTHETIC = (1635, 1135, ("garch", "msm", "ou"))  # n_total, N, spec
 # vs three tensordots then . FC, with CUDA's exp/log1p), so they agree to
 # a few ulps of the scale
 RTOL_SWEEP = 1e-12
+# the partial sweeps of grid ranks' outer rows summed in rank order against
+# one launch over all rows: the same terms, grouped by range
+RTOL_PARTS = 1e-13
 # kernel bisection vs plain bisection: identical masks and bookkeeping;
 # a root could move only if a slab's rounding flipped res < obj
 ATOL_ROOT = 1e-9
@@ -216,14 +243,16 @@ def table_bound(T, n, q):
                  T * n * n * (2 * q + 2))
 
 
-def sweep_bound(T, n, q, L):
-    """masked_sweep (K2): of the prefix table only the cells the interval
-    rule reads (two per row lookup, at most the table's T n^2), the T n
-    row flags, x, the (L, T, 2) bounds and (L, 2) weights in, (L, T) out;
-    n row lookups per bound row and day."""
-    cells = min(T * n * n, 2 * L * T * n)
-    return bound(8 * (cells + n + 2 * L * T + 2 * L + L * T) + T * n,
-                 L * T * n * lookups(n))
+def sweep_bound(T, n, q, L, rows=None):
+    """masked_sweep (K2) on `rows` outer rows (n by default): of the
+    prefix table only the cells the interval rule reads (two per row
+    lookup, at most the table's T rows n), the T rows row flags, x, the
+    (L, T, 2) bounds and (L, 2) weights in, (L, T) out; one row lookup
+    per bound row, day and outer row."""
+    r = n if rows is None else rows
+    cells = min(T * r * n, 2 * L * T * r)
+    return bound(8 * (cells + n + 2 * L * T + 2 * L + L * T) + T * r,
+                 L * T * r * lookups(n))
 
 
 def bisect_bound(T, n, q, L, n_iters):
@@ -234,13 +263,14 @@ def bisect_bound(T, n, q, L, n_iters):
                  T * n * n * (2 * q + 2) + n_iters * L * T * n * lookups(n))
 
 
-def contract3_bound(T, n, L):
-    """masked_contract3 (K4 sweep): the T n^3 cells of U (not the layout's
-    pad cells, which are never summed) and (L, T, 2) bounds in, (L, T)
-    out; every row scanned once, n lookups per (row, day, i0), n partials
-    summed per (row, day)."""
-    return bound(8 * (T * n ** 3 + n + 2 * L * T + 3 * L + L * T),
-                 T * n ** 3 + L * T * n * n * lookups(n) + L * T * n)
+def contract3_bound(T, n, L, rows=None):
+    """masked_contract3 (K4 sweep) on `rows` outer slabs (n by default):
+    the T rows n^2 cells of U (not the layout's pad cells, which are never
+    summed) and (L, T, 2) bounds in, (L, T) out; every row scanned once,
+    n lookups per (row, day, i0), rows partials summed per (row, day)."""
+    r = n if rows is None else rows
+    return bound(8 * (T * r * n * n + n + 2 * L * T + 3 * L + L * T),
+                 T * r * n * n + L * T * r * n * lookups(n) + L * T * r)
 
 
 def weights_bound(T, n, q, student, garch):
@@ -367,15 +397,18 @@ def _served(root, name, data, mesh, **kw):
                           device="cuda", mesh=mesh, **kw)
 
 
-def serve_day_sharded(root, mesh, w_batch, w_batch3):
-    """Every path of the day-sharded phase through `mesh` (None: one
-    card, cuda:0), each counted alone: ({name: array}, {path: launches},
-    {path: peak device bytes}, {path: wall s}). dim2: the flagship MSM
-    and GARCH artifacts' calc_var(0.05), the ROWS_P x LEVELS grid and the
-    refined levels of `flagship_refined_var.npz`; dim3: the dim-3
-    artifacts' calc_var(0.05) and the ROWS_P3 x LEVELS grid, one
-    backtest at a time; dim4: the MSM artifact's calc_var(0.05) at
-    n = 32 over T = 500."""
+def serve_day_sharded(root, mesh, w_batch, w_batch3,
+                      paths=("dim2", "dim3", "dim4")):
+    """The `paths` of the sharded phases through `mesh` (a DayMesh or a
+    GridMesh; None: one card, cuda:0), each counted alone: ({name:
+    array}, {path: launches}, {path: peak device bytes above what was
+    allocated when the path began}, {path: wall s}).
+    dim2: the flagship MSM and GARCH artifacts' calc_var(0.05), the
+    ROWS_P x LEVELS grid and the refined levels of
+    `flagship_refined_var.npz`; dim2_msm: the flagship MSM calc_var(0.05)
+    and grid alone; dim3: the dim-3 artifacts' calc_var(0.05) and the
+    ROWS_P3 x LEVELS grid, one backtest at a time; dim4: the MSM
+    artifact's calc_var(0.05) at n = 32 over T = 500."""
     import numpy as np
     import torch
 
@@ -391,12 +424,14 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3):
     rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
     out = {}
 
-    def dim2():
+    def dim2(families=("msm", "garch"), refined=True):
         data = from_csv(os.path.join(root, "data", "flagship.csv"), 1135)
-        for est in ("msm", "garch"):
+        for est in families:
             bt = _served(root, f"flagship_artifacts_{est}.npz", data, mesh)
             out[f"dim2/{est}/var"] = bt.calc_var(0.05)
             out[f"dim2/{est}/grid"] = bt.calc_var_grid(w_batch, LEVELS)
+            if not refined:
+                continue
             bt = _served(root, f"flagship_artifacts_{est}.npz", data, mesh,
                          refine_root=True)
             out[f"dim2/{est}/refined"] = bt.calc_var_levels(
@@ -422,17 +457,21 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3):
 
     dev = torch.device("cuda", 0) if mesh is None else mesh.device
     launches, peaks, walls = {}, {}, {}
-    for name, fn in (("dim2", dim2), ("dim3", dim3), ("dim4", dim4)):
+    fns = {"dim2": dim2, "dim3": dim3, "dim4": dim4,
+           "dim2_msm": lambda: dim2(("msm",), refined=False)}
+    for name in paths:
+        fn = fns[name]
         for c in counters:
             c.launches = 0
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
         walls[name] = time.perf_counter() - t0
         launches[name] = {c.__name__: c.launches for c in counters}
-        peaks[name] = torch.cuda.max_memory_allocated(dev)
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base
     return out, launches, peaks, walls
 
 
@@ -464,6 +503,47 @@ def free_port():
         return s.getsockname()[1]
 
 
+def _records(root):
+    """The records the sharded phases' series are held to, by name."""
+    import numpy as np
+
+    def load(name):
+        return np.load(os.path.join(root, "data", name))
+
+    rec, rec_r = load("flagship_var.npz"), load("flagship_refined_var.npz")
+    rec3, rec4 = load("dim3_var.npz"), load("dim4_var.npz")
+    return {"dim2/msm/var": rec["msm_var"],
+            "dim2/garch/var": rec["garch_var"],
+            "dim2/msm/refined": rec_r["msm_levels"],
+            "dim2/garch/refined": rec_r["garch_levels"],
+            "dim3/msm/var": rec3["msm_var"],
+            "dim3/garch/var": rec3["garch_var"],
+            "dim4/msm/var": rec4["msm_var"]}
+
+
+def _held(phase, name, got, one_card, record, atol=0.0):
+    """Raise unless `got` is finite, of the one-card series' shape,
+    within `atol` of it (0.0: bit-equal) and within ATOL_VAR of its
+    record (0 days above). Returns (|got - one card| max, |got - record|
+    max or None)."""
+    import numpy as np
+
+    if got.shape != one_card.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"{phase} {name}: bad output {got.shape}")
+    e1 = float(np.max(np.abs(got - one_card)))
+    if not (np.array_equal(got, one_card) if atol == 0.0 else e1 <= atol):
+        raise AssertionError(f"{phase} {name}: off the one-card series by "
+                             f"{e1:.3e} (bound {atol:g})")
+    if record is None:
+        return e1, None
+    d = np.abs(got - record)
+    if not d.max() <= ATOL_VAR:
+        raise AssertionError(f"{phase} {name}: off the record by "
+                             f"{d.max():.3e}, {int(np.sum(d > ATOL_VAR))}"
+                             " days above")
+    return e1, float(d.max())
+
+
 def day_sharded_phase(root, smi, w_batch, w_batch3):
     """The day-sharded phase. First every path of `serve_day_sharded` on
     one card, with no mesh: the one-card series. (a) A world of one NCCL
@@ -472,7 +552,8 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
     (b) SHARDED_RANKS gloo ranks on the one card, spawned after this
     process built the kernels, serve every path, each rank's results
     bit-equal to the one-card series and within 1e-9 of the records
-    (0 days above). Returns the phase's report."""
+    (0 days above). Returns (the phase's report, the one-card series,
+    its peak device bytes per path)."""
     import tempfile
 
     import numpy as np
@@ -482,40 +563,17 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
     from copula_var_tpu_torch.parallel import distributed, make_mesh
 
     def held(name, got, want_bits, record):
-        if got.shape != want_bits.shape or not np.all(np.isfinite(got)):
-            raise AssertionError(f"day-sharded {name}: bad output {got.shape}")
-        if not np.array_equal(got, want_bits):
-            raise AssertionError(
-                f"day-sharded {name}: off the one-card series by "
-                f"{np.max(np.abs(got - want_bits)):.3e}")
-        if record is None:
-            return None
-        d = np.abs(got - record)
-        if not d.max() <= ATOL_VAR:
-            raise AssertionError(f"day-sharded {name}: off the record by "
-                                 f"{d.max():.3e}, {int(np.sum(d > ATOL_VAR))}"
-                                 " days above")
-        return float(d.max())
+        return _held("day-sharded", name, got, want_bits, record)[1]
 
     unsharded, launches1, peaks1, walls1 = serve_day_sharded(
         root, None, w_batch, w_batch3)
     report = {"one_card": {"launches": launches1, "peak_bytes": peaks1,
                            "wall_s": walls1}}
     print(f"day-sharded, one card (no mesh): launches {launches1}; peak "
-          f"device bytes {peaks1}; dim-3 table U "
+          f"device bytes above each path's start {peaks1}; dim-3 table U "
           f"{int(unsharded['dim3/msm/table_bytes'])} bytes; wall s "
           + ", ".join(f"{k} {v:.3f}" for k, v in walls1.items()))
-    rec = np.load(os.path.join(root, "data", "flagship_var.npz"))
-    rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
-    rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
-    rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
-    records = {"dim2/msm/var": rec["msm_var"],
-               "dim2/garch/var": rec["garch_var"],
-               "dim2/msm/refined": rec_r["msm_levels"],
-               "dim2/garch/refined": rec_r["garch_levels"],
-               "dim3/msm/var": rec3["msm_var"],
-               "dim3/garch/var": rec3["garch_var"],
-               "dim4/msm/var": rec4["msm_var"]}
+    records = _records(root)
 
     # (a) NCCL, a world of one in this process
     t0 = time.perf_counter()
@@ -582,7 +640,7 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
         print(f"day-sharded (b) rank {r} of {SHARDED_RANKS} "
               f"({info['device']}, gloo): days [{info['block_T500'][0]}, "
               f"{info['block_T500'][1]}) of 500; launches {lc}; peak device "
-              f"bytes {info['peak_bytes']}; dim-3 table U "
+              f"bytes above each path's start {info['peak_bytes']}; dim-3 table U "
               f"{int(got['dim3/msm/table_bytes'])} bytes; wall s "
               + ", ".join(f"{k} {v:.3f}" for k, v in info["wall_s"].items()))
     print(f"day-sharded (b): {SHARDED_RANKS} ranks, every result bit-equal "
@@ -595,6 +653,189 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
         "ranks": [{k: v for k, v in info.items() if k != "results"}
                   for info in ranks],
         "max_err": errs, "wall_s": wall}
+    return report, unsharded, peaks1
+
+
+GRID_RANKS = 4  # the grid-sharded phase's gloo ranks, on the one card
+GRID_SHAPES = ((1, GRID_RANKS), (2, 2))  # (b) every path; (c) dim2_msm
+ATOL_GRID = 1e-12  # a grid-sharded series against the one-card series
+
+
+def grid_sharded_rank(root, out_dir, w_batch, w_batch3):
+    """One gloo rank of the grid-sharded phase (spawned by
+    `parallel.distributed.run_world`): (b) every path through the
+    (1, GRID_RANKS) grid mesh, (c) the flagship MSM `calc_var` and grid
+    through the (2, 2) mesh; saves what this rank got, its outer rows,
+    day block, launches, peak device memory and wall seconds to
+    out_dir/rank<r>.{npz,json}."""
+    import numpy as np
+
+    from copula_var_tpu_torch.parallel import make_mesh
+
+    meshes = [make_mesh(axis_names=("days", "grid"), shape=s)
+              for s in GRID_SHAPES]
+    out, info = {}, {"rank": meshes[0].rank, "device": str(meshes[0].device)}
+    for shape, mesh, paths in zip(GRID_SHAPES, meshes,
+                                  (("dim2", "dim3", "dim4"), ("dim2_msm",))):
+        tag = f"{shape[0]}x{shape[1]}"
+        res, launches, peaks, walls = serve_day_sharded(
+            root, mesh, w_batch, w_batch3, paths)
+        out.update({f"{tag}/{k}": v for k, v in res.items()})
+        info[tag] = {"rows_n100": list(mesh.rows(100)),
+                     "rows_n32": list(mesh.rows(32)),
+                     "days_T500": list(mesh.day_mesh.day_block(500)),
+                     "launches": launches, "peak_bytes": peaks,
+                     "wall_s": walls}
+    np.savez(os.path.join(out_dir, f"rank{info['rank']}.npz"), **out)
+    with open(os.path.join(out_dir, f"rank{info['rank']}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def grid_sharded_phase(root, smi, w_batch, w_batch3, one_card,
+                       one_card_peaks):
+    """The grid-sharded phase, held to the day-sharded phase's one-card
+    series `one_card`. (a) A world of one NCCL rank in this process
+    serves the flagship MSM through a (1, 1) grid mesh (its grid_sum an
+    NCCL all_reduce over the world): within 1e-12 of the one-card series
+    (bit-equal expected; the largest difference printed) and 1e-9 of
+    the record. (b) GRID_RANKS gloo ranks share the card, a (1, 4) mesh
+    (n / 4 outer rows each), and serve every path; (c) the same ranks as
+    a (2, 2) mesh serve the flagship MSM `calc_var` and grid (its days
+    split over the day axis too). Every rank's results within 1e-12 of
+    the one-card series and 1e-9 of the records (0 days above), and
+    bit-equal to rank 0's; K1 launches 0 times, K2 and K4 on every rank,
+    one table per backtest; the dim-3 table U of a rank is a quarter of
+    one card's. Returns the phase's report."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from copula_var_tpu_torch.data import from_csv
+    from copula_var_tpu_torch.ops.cuda_quadrature3 import table_bytes
+    from copula_var_tpu_torch.parallel import distributed, make_mesh
+
+    records = _records(root)
+    report = {}
+
+    # (a) NCCL, a (1, 1) grid mesh over a world of one in this process
+    t0 = time.perf_counter()
+    distributed.initialize(f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                           rank=0, backend="nccl", device="cuda",
+                           timeout_s=SHARDED_TIMEOUT_S)
+    try:
+        mesh = make_mesh(axis_names=("days", "grid"), shape=(1, 1))
+        data = from_csv(os.path.join(root, "data", "flagship.csv"), 1135)
+        var = _served(root, "flagship_artifacts_msm.npz", data,
+                      mesh).calc_var(0.05)
+        backend = torch.distributed.get_backend()
+    finally:
+        distributed.shutdown()
+    e1, err = _held("grid-sharded (a)", "dim2/msm/var", var,
+                    one_card["dim2/msm/var"], records["dim2/msm/var"],
+                    ATOL_GRID)
+    report["nccl_world1"] = {"backend": backend, "max_err": err,
+                             "max_diff_one_card": e1,
+                             "bit_equal": bool(np.array_equal(
+                                 var, one_card["dim2/msm/var"])),
+                             "wall_s": time.perf_counter() - t0}
+    print(f"grid-sharded (a): world of 1, {backend}, flagship MSM through a "
+          f"(1, 1) grid mesh: max |VaR - one card| = {e1:.3e} (bound "
+          f"{ATOL_GRID:g}; bit-equal {report['nccl_world1']['bit_equal']}), "
+          f"max |VaR - record| = {err:.3e} (bound {ATOL_VAR:g}); "
+          f"{report['nccl_world1']['wall_s']:.3f} s (host clock)")
+
+    # (b), (c) GRID_RANKS gloo ranks sharing this card
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        distributed.run_world(grid_sharded_rank, GRID_RANKS,
+                              (root, out_dir, w_batch, w_batch3),
+                              backend="gloo", device="cuda",
+                              timeout_s=SHARDED_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(GRID_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                info = json.load(f)
+            info["results"] = dict(np.load(os.path.join(out_dir,
+                                                        f"rank{r}.npz")))
+            ranks.append(info)
+    u_rank = table_bytes(500, 100, 100 // GRID_RANKS)
+    u_card = int(one_card["dim3/msm/table_bytes"])
+    errs, diffs = {}, {}
+    first = ranks[0]["results"]
+    for info in ranks:
+        r, got = info["rank"], info["results"]
+        for key, value in got.items():
+            if not np.array_equal(value, first[key]):
+                raise AssertionError(f"grid-sharded rank {r} {key}: not "
+                                     "bit-equal to rank 0's")
+            tag, name = key.split("/", 1)
+            if name.endswith("table_bytes"):
+                if int(value) != u_rank:
+                    raise AssertionError(f"grid-sharded rank {r} {key}: "
+                                         f"{int(value)} bytes, not {u_rank}")
+                continue
+            e1, e = _held(f"grid-sharded rank {r}", key, value,
+                          one_card[name], records.get(name), ATOL_GRID)
+            diffs[key] = max(diffs.get(key, 0.0), e1)
+            if e is not None:
+                errs[key] = max(errs.get(key, 0.0), e)
+        for shape in GRID_SHAPES:
+            tag = f"{shape[0]}x{shape[1]}"
+            lc = info[tag]["launches"]
+            if any(c["bisect_levels"] for c in lc.values()):
+                raise AssertionError(f"grid-sharded rank {r} {tag}: K1 "
+                                     f"launched {lc}")
+            dim2 = lc.get("dim2", lc.get("dim2_msm"))
+            if dim2["masked_sweep"] <= 0 or dim2["sweep_table"] != (
+                    4 if "dim2" in lc else 1):
+                raise AssertionError(f"grid-sharded rank {r} {tag}: K2 did "
+                                     f"not run its dim-2 path {lc}")
+            if "dim3" in lc and (lc["dim3"]["contract3_weights"] != 2 or
+                                 lc["dim3"]["masked_contract3"] <= 0):
+                raise AssertionError(f"grid-sharded rank {r} {tag}: K4 did "
+                                     f"not run its dim-3 path {lc}")
+            if dim2["masked_contract3"] or (
+                    "dim3" in lc and lc["dim3"]["masked_sweep"]) or (
+                    "dim4" in lc and any(lc["dim4"].values())):
+                raise AssertionError(f"grid-sharded rank {r} {tag}: a "
+                                     f"kernel launched off its path {lc}")
+        peak3 = info["1x4"]["peak_bytes"]["dim3"]
+        if not peak3 < 0.5 * one_card_peaks["dim3"]:
+            raise AssertionError(
+                f"grid-sharded rank {r}: dim-3 peak {peak3} bytes is not "
+                f"below half of one card's {one_card_peaks['dim3']}")
+        for shape in GRID_SHAPES:
+            tag = f"{shape[0]}x{shape[1]}"
+            i = info[tag]
+            print(f"grid-sharded ({'b' if tag == '1x4' else 'c'}) rank {r} "
+                  f"of {GRID_RANKS} ({info['device']}, gloo), mesh {shape}: "
+                  f"outer rows [{i['rows_n100'][0]}, {i['rows_n100'][1]}) "
+                  f"of 100, [{i['rows_n32'][0]}, {i['rows_n32'][1]}) of "
+                  f"32; days [{i['days_T500'][0]}, {i['days_T500'][1]}) of "
+                  f"500 on the MSM dim-2 path; launches {i['launches']}; "
+                  f"peak device bytes above each path's start "
+                  f"{i['peak_bytes']}; wall s "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in i["wall_s"].items()))
+    print(f"grid-sharded (b), (c): {GRID_RANKS} ranks, every result "
+          "bit-equal to rank 0's, within "
+          f"{ATOL_GRID:g} of the one-card series (largest: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in diffs.items())
+          + f") and each record within {ATOL_VAR:g} (0 days above): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; dim-3 table U per rank {u_rank} bytes against {u_card} on "
+          f"one card, dim-3 path peak per rank "
+          f"{ranks[0]['1x4']['peak_bytes']['dim3']} bytes against "
+          f"{one_card_peaks['dim3']}; phase wall {wall:.3f} s, host clock, "
+          f"spawn included ({smi}; ranks share one card: not a scaling "
+          "figure)")
+    report["gloo_world"] = {
+        "ranks": [{k: v for k, v in info.items() if k != "results"}
+                  for info in ranks],
+        "max_err": errs, "max_diff_one_card": diffs,
+        "table_bytes_per_rank": u_rank, "table_bytes_one_card": u_card,
+        "wall_s": wall}
     return report
 
 
@@ -1427,9 +1668,15 @@ def main() -> int:
 
     # -- day sharding (parallel/): a world of one NCCL rank, then gloo ranks
     # sharing the card, each rank on its block of days ----------------------
-    sharded_report = day_sharded_phase(
-        root, smi, w_batch,
-        np.random.default_rng(3).dirichlet([2.0, 2.0, 2.0], size=ROWS_P3))
+    w_batch3_s = np.random.default_rng(3).dirichlet([2.0, 2.0, 2.0],
+                                                    size=ROWS_P3)
+    sharded_report, one_card, one_card_peaks = day_sharded_phase(
+        root, smi, w_batch, w_batch3_s)
+
+    # -- grid sharding (parallel/): a (1, 1) grid mesh over one NCCL rank,
+    # then gloo ranks sharing the card, each on its outer grid rows -------
+    grid_report = grid_sharded_phase(root, smi, w_batch, w_batch3_s,
+                                     one_card, one_card_peaks)
 
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
@@ -1518,6 +1765,68 @@ def main() -> int:
     print(f"parity masked_sweep L={len(w_rows)}: max abs {e:.3e} rel "
           f"{e / scale:.3e} (bound rel {RTOL_SWEEP:g}); rows alone bit-equal "
           "to the batch")
+    # ranges of outer grid rows (grid sharding): the GRID_RANKS ranges of
+    # a (1, GRID_RANKS) mesh, P the whole table's rows bit for bit, each
+    # range's sweep against its plain twin on its rows, a repeat the same
+    # bits, the partials summed in rank order against the whole launch,
+    # and the range of all rows the whole launch's bits
+    grid_parity = {}
+    for est, bt in bts.items():
+        ops = bt.sweep_operands()
+        n, T = ops.x.shape[0], ops.days
+        lo = rng.uniform(-8.0, -1.0, (3, T))
+        b_g = tens(np.concatenate([
+            np.stack([np.full(T, -100.0), np.full(T, -3.0)], -1)[None],
+            np.stack([lo, lo + rng.uniform(0.0, 3.0, (3, T))], -1)]))
+
+        def range_ops(rows, ops=ops):
+            return cq.sweep_operands(ops.V, ops.x, ops.dx, ops.densities,
+                                     ops.forecast_combos, rows=rows)
+
+        full = cq.masked_sweep(ops, b_g, wrows, -5.0)
+        scale = float(full.abs().max())
+        parts, e_k = [], 0.0
+        for k_ in range(GRID_RANKS):
+            rows = (k_ * n // GRID_RANKS, (k_ + 1) * n // GRID_RANKS)
+            ops_r = range_ops(rows)
+            if not (torch.equal(ops_r.P, ops.P[:, rows[0]:rows[1]]) and
+                    torch.equal(ops_r.flags, ops.flags[:, rows[0]:rows[1]])):
+                raise AssertionError(f"sweep_table {est} rows {rows}: not "
+                                     "the whole table's rows")
+            k = cq.masked_sweep(ops_r, b_g, wrows, -5.0)
+            p = cq.masked_sweep_reference(ops_r, b_g, wrows, -5.0)
+            e = float((k - p).abs().max())
+            if not e <= RTOL_SWEEP * scale:
+                raise AssertionError(f"masked_sweep {est} rows {rows}: "
+                                     f"|kernel - plain| {e:.3e}")
+            if not torch.equal(k, cq.masked_sweep(ops_r, b_g, wrows, -5.0)):
+                raise AssertionError(f"masked_sweep {est} rows {rows}: a "
+                                     "repeated launch changed the sweep")
+            parts.append(k)
+            e_k = max(e_k, e)
+        summed = parts[0]
+        for part in parts[1:]:
+            summed = summed + part
+        e_sum = float((summed - full).abs().max())
+        if not e_sum <= RTOL_PARTS * scale:
+            raise AssertionError(f"masked_sweep {est}: the ranges' partials "
+                                 f"off the whole launch by {e_sum:.3e}")
+        if not torch.equal(cq.masked_sweep(range_ops((0, n)), b_g, wrows,
+                                           -5.0), full):
+            raise AssertionError(f"masked_sweep {est}: rows (0, {n}) differ "
+                                 "from the whole launch")
+        grid_parity[f"masked_sweep/{est}"] = {"max_abs_err": e_k,
+                                              "partials_sum_err": e_sum}
+        err_sweep = max(err_sweep, e_k)
+        print(f"parity masked_sweep {est} on {GRID_RANKS} row ranges of "
+              f"{n}: P the table's rows bit for bit; max abs vs plain "
+              f"{e_k:.3e} (bound rel {RTOL_SWEEP:g}); partials summed vs "
+              f"the whole launch {e_sum:.3e} rel {e_sum / scale:.3e} (bound "
+              f"rel {RTOL_PARTS:g}); rows (0, {n}) bit-equal; repeats "
+              "bit-equal")
+    ops_r25 = cq.sweep_operands(ops_m.V, ops_m.x, ops_m.dx, ops_m.densities,
+                                ops_m.forecast_combos,
+                                rows=(0, ops_m.x.shape[0] // GRID_RANKS))
     r_plain, nd_plain = cs.full_solve_portfolios_reference(
         ops_m, tens(a_rows), tens(w_rows), cfg)
     ptf_means = np.asarray(bts["msm"].data.in_sample_mean) @ w_rows.T
@@ -1582,6 +1891,73 @@ def main() -> int:
                   f"max abs {e:.3e} rel {e / scale:.3e} (bound rel "
                   f"{RTOL_SWEEP:g}); repeats bit-equal")
             del ops3
+    for est, bt in bts3.items():
+        ops3 = bt.sweep_operands()
+        n3 = ops3.x.shape[0]
+
+        def range_ops3(rows, ops3=ops3):
+            return cq3.contract3_operands(
+                ops3.cols, ops3.x, ops3.dx, ops3.spec, ops3.densities,
+                ops3.forecast_combos, ops3.p_cols, rows=rows)
+
+        full = cq3.masked_contract3(ops3, bounds3, w3rows, -5.0)
+        scale = float(full.abs().max())
+        parts, e_k, e_u3 = [], 0.0, 0.0
+        for k_ in range(GRID_RANKS):
+            rows = (k_ * n3 // GRID_RANKS, (k_ + 1) * n3 // GRID_RANKS)
+            ops_r = range_ops3(rows)
+            if not torch.equal(ops_r.U, ops3.U[:, rows[0]:rows[1]]):
+                raise AssertionError(f"contract3_weights {est} rows {rows}: "
+                                     "not the whole table's slabs")
+            u_k = cq3.table_cells(ops_r.U[days], n3)
+            u_p = cq3.contract3_weights_reference(ops_r, days)
+            fin = torch.isfinite(u_p)
+            if not bool(torch.isclose(u_k, u_p, rtol=RTOL_TABLE, atol=1e-300,
+                                      equal_nan=True).all()):
+                raise AssertionError(f"contract3_weights {est} rows {rows}: "
+                                     "cells off the plain twin")
+            e_u3 = max(e_u3, float((u_k[fin] - u_p[fin]).abs().max()))
+            del u_k, u_p, fin
+            k = cq3.masked_contract3(ops_r, bounds3, w3rows, -5.0)
+            p = cq3.masked_contract3_reference(ops_r, bounds3, w3rows, -5.0)
+            e = float((k - p).abs().max())
+            if not e <= RTOL_SWEEP * scale:
+                raise AssertionError(f"masked_contract3 {est} rows {rows}: "
+                                     f"|kernel - plain| {e:.3e}")
+            if not torch.equal(k, cq3.masked_contract3(ops_r, bounds3,
+                                                       w3rows, -5.0)):
+                raise AssertionError(f"masked_contract3 {est} rows {rows}: a"
+                                     " repeated launch changed the sweep")
+            parts.append(k)
+            e_k = max(e_k, e)
+            del ops_r
+            torch.cuda.empty_cache()
+        summed = parts[0]
+        for part in parts[1:]:
+            summed = summed + part
+        e_sum = float((summed - full).abs().max())
+        if not e_sum <= RTOL_PARTS * scale:
+            raise AssertionError(f"masked_contract3 {est}: the ranges' "
+                                 f"partials off the whole launch by "
+                                 f"{e_sum:.3e}")
+        ops_all = range_ops3((0, n3))
+        if not (torch.equal(ops_all.U, ops3.U) and torch.equal(
+                cq3.masked_contract3(ops_all, bounds3, w3rows, -5.0), full)):
+            raise AssertionError(f"masked_contract3 {est}: rows (0, {n3}) "
+                                 "differ from the whole launch")
+        del ops_all
+        torch.cuda.empty_cache()
+        grid_parity[f"masked_contract3/{est}"] = {"max_abs_err": e_k,
+                                                  "partials_sum_err": e_sum,
+                                                  "table_max_abs_err": e_u3}
+        err3, err_u = max(err3, e_k), max(err_u, e_u3)
+        print(f"parity dim3 {est} on {GRID_RANKS} slab ranges of {n3}: U "
+              f"the table's slabs bit for bit, its cells on {TABLE_DAYS} "
+              f"days max abs {e_u3:.3e} vs plain; masked_contract3 max abs "
+              f"vs plain {e_k:.3e} (bound rel {RTOL_SWEEP:g}); partials "
+              f"summed vs the whole launch {e_sum:.3e} rel "
+              f"{e_sum / scale:.3e} (bound rel {RTOL_PARTS:g}); rows (0, "
+              f"{n3}) bit-equal; repeats bit-equal")
     u_first = bts3["msm"].sweep_operands().U
     if not torch.equal(u_first, cq3.contract3_weights(
             bts3["msm"].sweep_operands())):
@@ -1630,6 +2006,12 @@ def main() -> int:
             "kernel": lambda b=b, w=w: cq.masked_sweep(ops_m, b, w, -5.0),
             "plain": lambda b=b, w=w: cq.masked_sweep_reference(ops_m, b, w,
                                                                 -5.0)})
+    # one grid rank's launch: its n / GRID_RANKS outer rows
+    r25 = ops_r25.V.shape[1]
+    b1, w1_ = st1[None].contiguous(), wrows[:1].contiguous()
+    timing[f"sweep_rows{r25}_L1"] = cuda_ms(torch, {
+        "kernel": lambda: cq.masked_sweep(ops_r25, b1, w1_, -5.0),
+        "plain": lambda: cq.masked_sweep_reference(ops_r25, b1, w1_, -5.0)})
     ops_b, st_b = states["msm"]
     s1 = [s[:1].contiguous() for s in st_b]
     timing["bisect_L1"] = cuda_ms(torch, {
@@ -1685,6 +2067,17 @@ def main() -> int:
                                                             -5.0),
             "plain": lambda b=b, w=w: cq3.masked_contract3_reference(
                 ops3_m, b, w, -5.0)}, reps=REPS_DIM3_PLAIN, warmup=1)
+    ops3_r25 = cq3.contract3_operands(
+        ops3_m.cols, ops3_m.x, ops3_m.dx, ops3_m.spec, ops3_m.densities,
+        ops3_m.forecast_combos, ops3_m.p_cols,
+        rows=(0, ops3_m.x.shape[0] // GRID_RANKS))
+    r3_25 = ops3_r25.n_rows
+    b3_1, w3_1 = st3[None].contiguous(), tens(w3[None])
+    timing[f"contract3_rows{r3_25}_L1"] = cuda_ms(torch, {
+        "kernel": lambda: cq3.masked_contract3(ops3_r25, b3_1, w3_1, -5.0),
+        "plain": lambda: cq3.masked_contract3_reference(ops3_r25, b3_1, w3_1,
+                                                        -5.0)},
+        reps=REPS_DIM3_PLAIN, warmup=1)
     w3_main = bts3["msm"].weights
     timing["dim3_full_L1"] = cuda_ms(torch, {
         "kernel": lambda: cs.full_solve_levels(ops3_m, obj[2:3], w3_main,
@@ -1732,6 +2125,10 @@ def main() -> int:
             torch, lambda: bts["msm"].calc_var_grid(w_batch, levels)),
         "contract3_L1": device_profile(torch, lambda: cq3.masked_contract3(
             ops3_m, st3[None].contiguous(), tens(w3[None]), -5.0)),
+        f"sweep_rows{r25}_L1": device_profile(
+            torch, lambda: cq.masked_sweep(ops_r25, b1, w1_, -5.0)),
+        f"contract3_rows{r3_25}_L1": device_profile(
+            torch, lambda: cq3.masked_contract3(ops3_r25, b3_1, w3_1, -5.0)),
         "contract3_weights": device_profile(
             torch, lambda: cq3.contract3_weights(ops3_m), reps=2),
         "dim3_calc_var_msm": device_profile(
@@ -1807,6 +2204,8 @@ def main() -> int:
             ops3_m.p_cols is not None),
         "contract3_L1": contract3_bound(T3, n3, 1),
         f"contract3_L{L3}": contract3_bound(T3, n3, L3),
+        f"sweep_rows{r25}_L1": sweep_bound(T, n, q, 1, rows=r25),
+        f"contract3_rows{r3_25}_L1": contract3_bound(T3, n3, 1, rows=r3_25),
     }
     # the profile holding each shape's kernel at that L (the serving
     # batches' sweeps run at L = 128 and 32)
@@ -1818,7 +2217,11 @@ def main() -> int:
                 "contract3_weights": ("contract3_weights",
                                       "contract3_weights"),
                 "contract3_L1": ("contract3_L1", "masked_contract3"),
-                f"contract3_L{L3}": ("dim3_grid_8x4", "masked_contract3")}
+                f"contract3_L{L3}": ("dim3_grid_8x4", "masked_contract3"),
+                f"sweep_rows{r25}_L1": (f"sweep_rows{r25}_L1",
+                                        "masked_sweep"),
+                f"contract3_rows{r3_25}_L1": (f"contract3_rows{r3_25}_L1",
+                                              "masked_contract3")}
     for key, (b_ms, by) in bounds_ms.items():
         prof, kern = prof_key[key]
         dev_ms = profiles[prof]["kernels"][kern]["device_ms"]
@@ -1853,12 +2256,21 @@ def main() -> int:
     report["quirks"] = quirk_report
     report["dim4"] = dim4_report
     report["day_sharded"] = sharded_report
+    report["grid_sharded"] = grid_report
+    report["grid_parity"] = grid_parity
     report["halvings"] = iters
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),
               "w") as f:
         json.dump(report, f, indent=1)
     print("report " + json.dumps(report))
+
+    # launches of each kernel per rank on the grid-sharded path (rank 0 of
+    # phase 11 (b), every path)
+    grid_launches = {}
+    for c in grid_report["gloo_world"]["ranks"][0]["1x4"]["launches"].values():
+        for k_, v in c.items():
+            grid_launches[k_] = grid_launches.get(k_, 0) + v
 
     def entry(name, source, replaces, launches_, err, key):
         b = bounds_ms[key]
@@ -1867,7 +2279,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches_,
                 "max_abs_err": err, "ms": timing[key]["kernel"][0],
                 "plain_ms": timing[key]["plain"][0], "bound_ms": b[0],
-                "bound_by": b[1], "library_ms": None}
+                "bound_by": b[1], "library_ms": None,
+                "grid_launches_per_rank": grid_launches[name]}
 
     k4 = "copula_var_tpu/ops/pallas_quadrature3.py:92"
     k23 = "copula_var_tpu/ops/pallas_quadrature.py"

@@ -22,8 +22,9 @@ or their product grid.
   models/        GARCH, MSM and UKF filters, their simulators and fits
   copulas/       Gaussian, Student-t and Plackett IFM likelihoods and fits
   backtest.py    create_var_backtest, the adapters, VaRBacktest
-  parallel/      day-sharded serving over several GPUs, one process per
-                 rank (torch.distributed): DayMesh, the all_reduce gather
+  parallel/      day- and grid-sharded serving over several GPUs, one
+                 process per rank (torch.distributed): DayMesh, GridMesh,
+                 the all_reduce gather and the exact grid_sum
   utils/         artifact save and load, StageTimer and trace_to
   native.py      ctypes bindings of native/libgrid_builder.so (numpy only)
   plots.py       diagnostic figures (matplotlib, imported at first use)

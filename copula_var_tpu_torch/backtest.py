@@ -52,6 +52,17 @@ returns the full result, bit-equal to one card's. `create_var_backtest`
 with a mesh fits on every rank and then takes rank 0's fitted state, so
 the ranks serve one state even where a card's fit does not reproduce
 its bits.
+
+Grid sharding (the JAX engine "grid_sharded", `backtest.py:1342-1486`):
+with `mesh=` a `parallel.mesh.GridMesh` of shape (d, g), each rank builds
+the full-T day tensors or columns, then P, U or `ColumnOperands` for its
+n / g outer grid rows only. Every sweep of every query is the rank's
+share (K2 or K4 on a CUDA device, the plain twins on the CPU) summed
+over the grid ranks exactly and in rank order, so every rank holds the
+same bits and returns the full result; the bisection is a loop of such
+sweeps (K1 bisects whole days and is not on this path). As in JAX, the
+day axis shards the days too only for the MSM family at dim 2 when d
+divides T; elsewhere the day rows repeat the work.
 """
 
 from __future__ import annotations
@@ -89,6 +100,7 @@ from copula_var_tpu_torch.ops.quadrature import (
 from copula_var_tpu_torch.ops.refine import refine_roots
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
 from copula_var_tpu_torch.ops.tcached import column_operands
+from copula_var_tpu_torch.parallel.mesh import GridMesh
 from copula_var_tpu_torch.parallel.multiprocess import gather_days
 from copula_var_tpu_torch.parallel.quadrature import gather_solution
 
@@ -231,23 +243,28 @@ class MsmAdapter:
             inputs.densities, weights, box_min,
         )
 
-    def sweep_operands(self, tensors, inputs: MsmIntegrationInputs):
+    def sweep_operands(self, tensors, inputs: MsmIntegrationInputs,
+                       rows=None):
         return sweep_operands(tensors, inputs.x, inputs.dx, inputs.densities,
-                              inputs.forecast_combos)
+                              inputs.forecast_combos, rows=rows)
 
     def day_columns(self, inputs: MsmIntegrationInputs, spec):
         return msm_day_columns(inputs.forecasts_by_states, inputs.x,
                                inputs.unique_vols, spec)
 
-    def contract3_operands(self, cols, inputs: MsmIntegrationInputs, spec):
+    def contract3_operands(self, cols, inputs: MsmIntegrationInputs, spec,
+                           rows=None):
         return contract3_operands(cols, inputs.x, inputs.dx, spec,
                                   densities=inputs.densities,
-                                  forecast_combos=inputs.forecast_combos)
+                                  forecast_combos=inputs.forecast_combos,
+                                  rows=rows)
 
-    def column_operands(self, cols, inputs: MsmIntegrationInputs, spec):
+    def column_operands(self, cols, inputs: MsmIntegrationInputs, spec,
+                        rows=None):
         return column_operands(cols, inputs.x, inputs.dx, spec,
                                densities=inputs.densities,
-                               forecast_combos=inputs.forecast_combos)
+                               forecast_combos=inputs.forecast_combos,
+                               rows=rows)
 
 
 class GarchAdapter:
@@ -326,21 +343,24 @@ class GarchAdapter:
         return garch_integrals_cached(bounds, tensors, inputs.x, inputs.dx,
                                       weights, box_min)
 
-    def sweep_operands(self, tensors, inputs: GarchIntegrationInputs):
-        return sweep_operands(tensors, inputs.x, inputs.dx)
+    def sweep_operands(self, tensors, inputs: GarchIntegrationInputs,
+                       rows=None):
+        return sweep_operands(tensors, inputs.x, inputs.dx, rows=rows)
 
     def day_columns(self, inputs: GarchIntegrationInputs, spec):
         return garch_day_columns(inputs.forecast_vols, inputs.x, spec)
 
-    def contract3_operands(self, cols, inputs: GarchIntegrationInputs, spec):
+    def contract3_operands(self, cols, inputs: GarchIntegrationInputs, spec,
+                           rows=None):
         tcols, p_cols = cols
         return contract3_operands(tcols, inputs.x, inputs.dx, spec,
-                                  p_cols=p_cols)
+                                  p_cols=p_cols, rows=rows)
 
-    def column_operands(self, cols, inputs: GarchIntegrationInputs, spec):
+    def column_operands(self, cols, inputs: GarchIntegrationInputs, spec,
+                        rows=None):
         tcols, p_cols = cols
         return column_operands(tcols, inputs.x, inputs.dx, spec,
-                               p_cols=p_cols)
+                               p_cols=p_cols, rows=rows)
 
 
 class MeanRevertingAdapter(GarchAdapter):
@@ -419,7 +439,8 @@ def register_adapter(name: str, adapter_cls) -> None:
     `integration_inputs(windows, fits, num_points, box, device)` and the
     serving methods of `MsmAdapter` / `GarchAdapter` (`day_tensors`,
     `sweep_operands`; at dim 3 `day_columns`, `contract3_operands`; at
-    dim >= 4 `day_columns`, `column_operands`)."""
+    dim >= 4 `day_columns`, `column_operands`; the operand constructors take
+    `rows=(i0, i1)` to serve a grid mesh)."""
     _ADAPTERS[name] = adapter_cls
 
 
@@ -493,8 +514,10 @@ class VaRBacktest:
     (`ops/solvers.py::bracket_state_batched`); refine_root: the trap
     re-solve of every query (`ops/refine.py`), whose last wall seconds
     are `refine_seconds`. mesh: a `parallel.mesh.DayMesh` to serve this
-    rank's block of days and gather every result over the ranks (the
-    backtest then lives on the mesh's device), or None for one card.
+    rank's block of days and gather every result over the ranks, a
+    `parallel.mesh.GridMesh` to serve this rank's outer grid rows and sum
+    every sweep over the grid ranks (the backtest then lives on the
+    mesh's device), or None for one card.
     """
 
     def __init__(self, data: ReturnsData, adapter, copula: str, copula_fit,
@@ -505,6 +528,7 @@ class VaRBacktest:
         _check_options(data.dim, copula)
         self.device = _mesh_device(device, mesh)
         self.mesh = mesh
+        self._grid = mesh if isinstance(mesh, GridMesh) else None
         self.data = data
         self.adapter = adapter
         self.copula = copula
@@ -535,29 +559,48 @@ class VaRBacktest:
         `Contract3Operands` (with the table U on a CUDA device) at dim 3,
         transform columns as `ColumnOperands` at dim >= 4. With a mesh,
         those of this rank's block of days, cut from the full-T day
-        tensors or columns."""
+        tensors or columns, and with a grid mesh those of its outer grid
+        rows."""
         if self._ops is None:
             t0 = time.perf_counter()
             inputs, spec = self.integration_inputs, self.copula_spec
+            kw = ({} if self._grid is None else
+                  {"rows": self._grid.rows(inputs.x.shape[0])})
             if self.data.dim >= 3:
                 cols = self._block(self.adapter.day_columns(inputs, spec))
                 build = (self.adapter.contract3_operands
                          if self.data.dim == 3
                          else self.adapter.column_operands)
-                self._ops = build(cols, self._block_inputs(), spec)
+                self._ops = build(cols, self._block_inputs(), spec, **kw)
             else:
                 tensors = self._block(self.adapter.day_tensors(inputs, spec))
                 self._ops = self.adapter.sweep_operands(
-                    tensors, self._block_inputs())
+                    tensors, self._block_inputs(), **kw)
             synchronize(self.device)
             self.prep_seconds += time.perf_counter() - t0
         return self._ops
 
+    def _day_mesh(self):
+        """The mesh that shards this backtest's days: a `DayMesh`, or a
+        grid mesh's day axis where JAX's grid engine shards days (the MSM
+        family at dim 2, the axis wider than 1 and dividing T); else
+        None."""
+        if self._grid is None:
+            return self.mesh
+        days = self._grid.day_mesh
+        if (self.data.dim == 2 and days.size > 1
+                and isinstance(self.integration_inputs, MsmIntegrationInputs)
+                and self.data.out_sample_n % days.size == 0):
+            return days
+        return None
+
     def _days(self):
-        """This rank's block of the T days, or None without a mesh."""
-        if self.mesh is None:
+        """This rank's block of the T days, or None when no mesh shards
+        them."""
+        mesh = self._day_mesh()
+        if mesh is None:
             return None
-        return self.mesh.days(self.data.out_sample_n)
+        return mesh.days(self.data.out_sample_n)
 
     def _block(self, tree):
         days = self._days()
@@ -575,9 +618,10 @@ class VaRBacktest:
 
     def _gather(self, roots, nan_days):
         """The (L, T) series with NaN days masked, gathered from every
-        rank's block with a mesh."""
-        if self.mesh is not None:
-            roots, nan_days = gather_solution(roots, nan_days, self.mesh,
+        rank's block when a mesh shards the days."""
+        mesh = self._day_mesh()
+        if mesh is not None:
+            roots, nan_days = gather_solution(roots, nan_days, mesh,
                                               self.data.out_sample_n)
         return torch.where(nan_days, torch.full_like(roots, np.nan), roots)
 
@@ -592,8 +636,10 @@ class VaRBacktest:
         ops = self.sweep_operands()
         out = sweep_for(ops)(ops, b[None].contiguous(),
                              self.weights.reshape(1, -1), self.box[0])[0]
-        if self.mesh is not None:
-            out = gather_days(out, self.mesh, self.data.out_sample_n)
+        if self._grid is not None:
+            out = self._grid.grid_sum(out)
+        if self._day_mesh() is not None:
+            out = gather_days(out, self._day_mesh(), self.data.out_sample_n)
         return out.cpu().numpy()
 
     @staticmethod
@@ -622,7 +668,8 @@ class VaRBacktest:
             self.sweep_operands(), obj, self.weights,
             self._cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
-            tolerance, self.reference_quirks, self.box[0], self.mesh,
+            tolerance, self.reference_quirks, self.box[0], self._day_mesh(),
+            self._grid,
         )
         if self.refine_root:
             L = roots.shape[0]
@@ -661,7 +708,8 @@ class VaRBacktest:
             self.sweep_operands(), obj, w_rows.contiguous(),
             self._cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
-            tolerance, self.reference_quirks, self.box[0], self.mesh,
+            tolerance, self.reference_quirks, self.box[0], self._day_mesh(),
+            self._grid,
         )
         if self.refine_root:
             roots = self._refine(roots, obj, w_rows,
@@ -693,7 +741,7 @@ class VaRBacktest:
                 f"{type(self.integration_inputs).__name__} cannot refine")
         t0 = time.perf_counter()
         out = refine_roots(self.sweep_operands(), roots, obj, weights,
-                           self._tensor(h), self.box[0])
+                           self._tensor(h), self.box[0], self._grid)
         synchronize(self.device)
         self.refine_seconds = time.perf_counter() - t0
         return out
@@ -737,7 +785,8 @@ def create_var_backtest(
     holds each step's wall seconds (the device synchronized at each end),
     with the fit's own stages. With a `mesh` every rank fits on its own
     device, then all take rank 0's fitted state (a `broadcast`) and serve
-    their blocks of days."""
+    their blocks of days (a `DayMesh`) or outer grid rows (a
+    `GridMesh`)."""
     if estimation_type not in _ADAPTERS:
         raise ValueError(f"Unsupported estimation type: {estimation_type}")
     if copula_type not in _COPULA_FITTERS:

@@ -10,9 +10,10 @@ Here the device picks the path (the card's kernels or the plain twins on
 the CPU), so the JAX config's engines mean one path: "xla" one device,
 "sharded" and "sharded_pallas" the day-sharded serving of `parallel/`
 over a mesh of `n_mesh_devices` ranks (both the port's f64 path: the
-port follows the f64 `xla` engine and has no f32 fused kernel).
-"pallas", "grid_sharded" and a non-default `pallas_day_block` (which the
-port does not carry) are refused. `BacktestConfig.from_dict` takes a dict
+port follows the f64 `xla` engine and has no f32 fused kernel), and
+"grid_sharded" the grid-sharded serving of `parallel/` over a (1, D)
+('days', 'grid') mesh. "pallas" and a non-default `pallas_day_block`
+(which the port does not carry) are refused. `BacktestConfig.from_dict` takes a dict
 written by the JAX `to_dict`.
 """
 
@@ -24,8 +25,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-# the JAX engines the port serves: one device, or day-sharded over a mesh
-ENGINES = ("xla", "sharded", "sharded_pallas")
+# the JAX engines the port serves: one device, day-sharded over a mesh, or
+# grid-sharded over a (1, D) ('days', 'grid') mesh
+ENGINES = ("xla", "sharded", "sharded_pallas", "grid_sharded")
 SHARDED_ENGINES = ("sharded", "sharded_pallas")
 # the JAX-only key (the f32 Pallas kernel's day block) and the one value
 # under which a JAX config means what a config of the port means
@@ -116,7 +118,8 @@ class BacktestConfig:
     n_insample: int = 1135
     num_points: int = 100
     # 'xla': one device; 'sharded' / 'sharded_pallas': the day-sharded
-    # path over a mesh of n_mesh_devices ranks (None: the whole world)
+    # path over a mesh of n_mesh_devices ranks (None: the whole world);
+    # 'grid_sharded': the outer grid axis split over them
     engine: str = "xla"
     n_mesh_devices: Optional[int] = None
     weights: Optional[Sequence[float]] = None  # default equal weights
@@ -128,11 +131,6 @@ class BacktestConfig:
     solver: SolverConfig = field(default_factory=SolverConfig)
 
     def __post_init__(self):
-        if self.engine == "grid_sharded":
-            raise ValueError(
-                "engine='grid_sharded' (the outer grid axis sharded over the "
-                "mesh) is not ported yet: ROADMAP.md queue 1, item 12; "
-                "engine='sharded' serves day-sharded")
         if self.engine not in ENGINES:
             raise ValueError(
                 f"engine={self.engine!r}: the port serves {ENGINES} (the "
@@ -218,14 +216,17 @@ def run_backtest(data, cfg: BacktestConfig, device="cuda", mesh=None):
     asks for "cpu"), then the VaR series of `solver.obj_var`, or of every
     level of `solver.obj_levels` in one batched solve. A sharded `engine`
     serves over `mesh`, or when none is given over `make_mesh(
-    n_mesh_devices, device)` (the initialized world); a given `mesh` is
-    used at any engine. Returns (VaRBacktest, var)."""
+    n_mesh_devices, device)` (the initialized world), at "grid_sharded" a
+    (1, D) ('days', 'grid') mesh of its D ranks (JAX `config.py:203-209`,
+    `_get_mesh`); a given `mesh` is used at any engine. Returns
+    (VaRBacktest, var)."""
     from copula_var_tpu_torch.backtest import create_var_backtest
+    from copula_var_tpu_torch.parallel.mesh import make_mesh
 
     if mesh is None and cfg.engine in SHARDED_ENGINES:
-        from copula_var_tpu_torch.parallel.mesh import make_mesh
-
         mesh = make_mesh(cfg.n_mesh_devices, device)
+    elif mesh is None and cfg.engine == "grid_sharded":
+        mesh = make_mesh(cfg.n_mesh_devices, device, axis_names=("grid",))
     bt = create_var_backtest(
         data,
         cfg.estimation_type,

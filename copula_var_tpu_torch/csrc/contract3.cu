@@ -54,6 +54,13 @@
 //     slab's lookups, at L = 32 each of 16 warps takes four tasks). The
 //     barriers are two per slab (prefix done, slab done).
 //   * the sum kernel adds the partials of each (l, t) in index order.
+//   * Outer slabs: the sum over i0 is linear, so the build and the sweep
+//     take a range of slabs, i0 in [row0, row0 + rows) of the n outer grid
+//     points (grid sharding: each rank builds and sweeps the table of its
+//     range, U (T, rows, stride), and the ranks' partial sums add up to
+//     the whole day). The columns z, lu, fin, p and G stay whole and are
+//     read at row0 + the local slab. At row0 = 0, rows = n every launch is
+//     the one-card launch, bit for bit.
 // No floating-point atomics anywhere: repeated launches give identical
 // bits. No tensor cores: the work is a masked sum, not a product.
 //
@@ -123,11 +130,12 @@ contract3_weights_kernel(const double* __restrict__ z,           // (T, 3, n)
                          const double* __restrict__ sigma_inv,   // (3, 3)
                          int student, double nu, double log_norm,
                          double logdet,
-                         double* __restrict__ u,  // (T, n, stride)
-                         int T, int n, int q, int pitch, int stride) {
+                         double* __restrict__ u,  // (T, rows, stride)
+                         int T, int n, int row0, int rows, int q, int pitch,
+                         int stride) {
   extern __shared__ double a[];  // (q, n)
-  const int t = blockIdx.x / n;
-  const int i0 = blockIdx.x - t * n;
+  const int t = blockIdx.x / rows;
+  const int i0 = row0 + (blockIdx.x - t * rows);  // grid point of the slab
   const size_t day = static_cast<size_t>(t) * 3 * n;
   const double* gt = g + (static_cast<size_t>(t) * n + i0) * q * q;
   for (int idx = threadIdx.x; idx < q * n; idx += blockDim.x) {
@@ -235,14 +243,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 __global__ void __launch_bounds__(kSweepThreads)
-contract3_sweep_kernel(const double* __restrict__ u,        // (T, n, stride)
+contract3_sweep_kernel(const double* __restrict__ u,  // (T, rows, stride)
                        const double* __restrict__ x,        // (n,)
                        const double* __restrict__ bounds,   // (L, T, 2)
                        const double* __restrict__ weights,  // (L, 3)
                        double box_min,
-                       double* __restrict__ partial,  // (L, T, n, spans)
-                       int T, int n, int L, int pitch, int stride,
-                       int bufs) {
+                       double* __restrict__ partial,  // (L, T, rows, spans)
+                       int T, int n, int row0, int rows, int L, int pitch,
+                       int stride, int bufs) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // (2,)
   double* buf = reinterpret_cast<double*>(smem + kBarrierBytes);
@@ -250,7 +258,7 @@ contract3_sweep_kernel(const double* __restrict__ u,        // (T, n, stride)
   unsigned char* flag = reinterpret_cast<unsigned char*>(xs + n);  // (n,)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int slabs = T * n;
+  const int slabs = T * rows;
   const uint32_t bytes = static_cast<uint32_t>(stride) * sizeof(double);
 
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
@@ -271,14 +279,14 @@ contract3_sweep_kernel(const double* __restrict__ u,        // (T, n, stride)
     const int b = k % bufs;
     double* slab = buf + static_cast<size_t>(b) * stride;
     mbar_wait(&bar[b], (k / bufs) & 1);
-    const int t = s / n;
-    const int i0 = s - t * n;
+    const int t = s / rows;
+    const int i0 = s - t * rows;  // the range's slab, grid point row0 + i0
     const double* cells = u + static_cast<size_t>(s) * stride;  // in HBM
     for (int i1 = threadIdx.x; i1 < n; i1 += blockDim.x)
       flag[i1] = interval::scan_row_once(
           slab + static_cast<size_t>(i1) * pitch, n);
     __syncthreads();
-    const double x0 = xs[i0];
+    const double x0 = xs[row0 + i0];
     const int spans = (n + kSpan - 1) / kSpan;  // tasks per bound row
     for (int task = warp; task < L * spans; task += kSweepWarps) {
       const int l = task / spans;
@@ -305,7 +313,7 @@ contract3_sweep_kernel(const double* __restrict__ u,        // (T, n, stride)
         }
       }
       acc = interval::warp_sum(acc);
-      if (lane == 0) partial[(o * n + i0) * spans + k] = acc;
+      if (lane == 0) partial[(o * rows + i0) * spans + k] = acc;
     }
     // the prefix writes (generic proxy) before the next bulk copy (async
     // proxy) into this buffer; every warp done with the slab and its flags
@@ -357,10 +365,11 @@ extern "C" int cvt_contract3_weights(
     const double* z, const unsigned char* fin, const double* lu,
     const double* p, const double* w1, const double* w2, const double* g,
     const double* sigma_inv, int student, double nu, double log_norm,
-    double logdet, double* u, int T, int n, int q, int pitch, int stride,
-    void* stream) {
+    double logdet, double* u, int T, int n, int row0, int rows, int q,
+    int pitch, int stride, void* stream) {
   if (n <= 0 || q <= 0 || T < 0 || !valid_layout(n, pitch, stride) ||
-      static_cast<long long>(T) * n > 0x7fffffffLL) {
+      row0 < 0 || rows <= 0 || row0 + rows > n ||
+      static_cast<long long>(T) * rows > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = weights_shared_bytes(n, q);
@@ -370,23 +379,25 @@ extern "C" int cvt_contract3_weights(
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0) return 0;
-  contract3_weights_kernel<<<T * n, kWeightsThreads, bytes,
+  contract3_weights_kernel<<<T * rows, kWeightsThreads, bytes,
                              static_cast<cudaStream_t>(stream)>>>(
       z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet, u,
-      T, n, q, pitch, stride);
+      T, n, row0, rows, q, pitch, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// partial: (L, T, n, ceil(n / kSpan)) scratch, summed in order into out
+// u: the slabs [row0, row0 + rows) of every day; partial: (L, T, rows,
+// ceil(n / kSpan)) scratch, summed in order into out
 extern "C" int cvt_masked_contract3(const double* u, const double* x,
                                     const double* bounds,
                                     const double* weights, double box_min,
                                     double* partial, double* out, int T,
-                                    int n, int L, int pitch, int stride,
-                                    void* stream) {
+                                    int n, int row0, int rows, int L,
+                                    int pitch, int stride, void* stream) {
   if (n <= 0 || n > interval::kMaxRow || T < 0 || L < 0 ||
       !valid_layout(n, pitch, stride) ||
-      static_cast<long long>(T) * n > 0x7fffffffLL ||
+      row0 < 0 || rows <= 0 || row0 + rows > n ||
+      static_cast<long long>(T) * rows > 0x7fffffffLL ||
       static_cast<long long>(L) * T > 0x7fffffffLL ||
       static_cast<long long>(L) * ((n + kSpan - 1) / kSpan) > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -407,19 +418,20 @@ extern "C" int cvt_masked_contract3(const double* u, const double* x,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, contract3_sweep_kernel, kSweepThreads, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long slabs = static_cast<long long>(T) * n;
+  const long long slabs = static_cast<long long>(T) * rows;
   const int grid = static_cast<int>(
       slabs < static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1)
           ? slabs
           : static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   contract3_sweep_kernel<<<grid, kSweepThreads, bytes, s>>>(
-      u, x, bounds, weights, box_min, partial, T, n, L, pitch, stride, bufs);
+      u, x, bounds, weights, box_min, partial, T, n, row0, rows, L, pitch,
+      stride, bufs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rows = L * T;
-  const int m = n * ((n + kSpan - 1) / kSpan);  // partials per row
-  contract3_sum_kernel<<<(rows + kSumThreads - 1) / kSumThreads, kSumThreads,
-                         0, s>>>(partial, out, m, rows);
+  const int sums = L * T;  // one per (bound row, day)
+  const int m = rows * ((n + kSpan - 1) / kSpan);  // partials per sum
+  contract3_sum_kernel<<<(sums + kSumThreads - 1) / kSumThreads, kSumThreads,
+                         0, s>>>(partial, out, m, sums);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,8 @@
 // path, float64.
 //
 //   sweep_table    builds, once per backtest, the bounds-invariant prefix
-//                  table P (T, n, pitch) and one flag byte per (t, i) row
-//                  (sweep_table_kernel).
+//                  table P (T, rows, pitch) and one flag byte per (t, i)
+//                  row (sweep_table_kernel).
 //   masked_sweep   replaces copula_var_tpu/ops/pallas_quadrature.py
 //                  ::_sweep_block_kernel (K2, B days per program) and
 //                  ::_day_kernel (K3, one day per program): one masked
@@ -20,6 +20,13 @@
 // in each row i, one interval of the ascending grid x, so a row's masked
 // sum is the interval rule of interval.cuh: two binary searches on x and
 // one subtraction of the row's inclusive prefix sums.
+//
+// Outer grid rows: the sweep sums over the rows i of each day, and that sum
+// is linear, so the table and the sweep take a range of them, [row0, row0 +
+// rows) of the n outer grid points (grid sharding: each rank holds its
+// range, and the ranks' partial sums add up to the whole day). The inner
+// axis j, where the interval rule searches, is always the whole grid x. At
+// row0 = 0, rows = n both kernels do what they do for one card, bit for bit.
 //
 // sweep_table: one block per (day, 32 rows) forms those rows of U
 // (`form_rows`) in shared memory at the odd pitch n | 1, one thread per row
@@ -125,36 +132,36 @@ __device__ void load_day(const double* __restrict__ v,
 }
 
 __global__ void __launch_bounds__(kTableThreads)
-sweep_table_kernel(const double* __restrict__ v,    // (T, n, n)
-                   const double* __restrict__ wfc,  // (T, n, q)
+sweep_table_kernel(const double* __restrict__ v,    // (T, rows, n)
+                   const double* __restrict__ wfc,  // (T, rows, q)
                    const double* __restrict__ w1,   // (q, n)
-                   double* __restrict__ p,          // (T, n, pitch)
-                   unsigned char* __restrict__ flag,  // (T, n)
-                   int n, int q, int pitch) {
+                   double* __restrict__ p,          // (T, rows, pitch)
+                   unsigned char* __restrict__ flag,  // (T, rows)
+                   int n, int rows, int q, int pitch) {
   extern __shared__ double u[];  // (kTableRows, pitch)
   const int r0 = blockIdx.y * kTableRows;
-  const int rows = min(kTableRows, n - r0);
-  const size_t first = static_cast<size_t>(blockIdx.x) * n + r0;  // (t, r0)
-  form_rows(v + first * n, wfc + first * q, w1, u, rows, n, q, pitch);
+  const int nr = min(kTableRows, rows - r0);
+  const size_t first = static_cast<size_t>(blockIdx.x) * rows + r0;  // (t, r0)
+  form_rows(v + first * n, wfc + first * q, w1, u, nr, n, q, pitch);
   __syncthreads();
-  if (threadIdx.x < rows)
+  if (threadIdx.x < nr)
     flag[first + threadIdx.x] =
         interval::scan_row(u + static_cast<size_t>(threadIdx.x) * pitch, n);
   __syncthreads();
   double* out = p + first * pitch;
-  const int cells = rows * pitch;
+  const int cells = nr * pitch;
   for (int idx = threadIdx.x; idx < cells; idx += blockDim.x)
     out[idx] = idx % pitch < n ? u[idx] : 0.0;  // pad cells: defined, unread
 }
 
 __global__ void __launch_bounds__(kSweepThreads)
-prefix_sweep_kernel(const double* __restrict__ p,  // (T, n, pitch)
-                    const unsigned char* __restrict__ flag,  // (T, n)
+prefix_sweep_kernel(const double* __restrict__ p,  // (T, rows, pitch)
+                    const unsigned char* __restrict__ flag,  // (T, rows)
                     const double* __restrict__ x,        // (n,)
                     const double* __restrict__ bounds,   // (L, T, 2)
                     const double* __restrict__ weights,  // (L, 2)
                     double box_min, double* __restrict__ out,  // (L, T)
-                    int T, int n, int L, int pitch) {
+                    int T, int n, int row0, int rows, int L, int pitch) {
   __shared__ double xs[interval::kMaxRow];
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   __syncthreads();
@@ -166,14 +173,14 @@ prefix_sweep_kernel(const double* __restrict__ p,  // (T, n, pitch)
   const size_t o = static_cast<size_t>(l) * T + t;
   const double b_lo = bounds[2 * o], b_up = bounds[2 * o + 1];
   const double w_in = weights[2 * l], w_out = weights[2 * l + 1];
-  const double* day = p + static_cast<size_t>(t) * n * pitch;
-  const unsigned char* fl = flag + static_cast<size_t>(t) * n;
+  const double* day = p + static_cast<size_t>(t) * rows * pitch;
+  const unsigned char* fl = flag + static_cast<size_t>(t) * rows;
   double acc = 0.0;
 #pragma unroll
   for (int c = 0; c < interval::kMaxChunks; ++c) {
-    const int i = c * 32 + lane;
-    if (c * 32 < n && i < n) {
-      const double pv = __dmul_rn(xs[i], w_out);
+    const int i = c * 32 + lane;  // the range's row i, grid point row0 + i
+    if (c * 32 < rows && i < rows) {
+      const double pv = __dmul_rn(xs[row0 + i], w_out);
       const double dup = __ddiv_rn(__dsub_rn(b_up, pv), w_in);
       const double d = __ddiv_rn(__dsub_rn(b_lo, pv), w_in);
       // NaN-propagating max, as jnp.maximum / torch.maximum
@@ -268,9 +275,12 @@ extern "C" const char* cvt_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// The largest grid of the dim-2 kernels: the bisection's day (n*(n|1) f64
-// prefix rows, x and the row flags) resident in one block's shared memory,
-// and no more than the interval rule's rows.
+// The largest grid of the dim-2 table and sweep: the interval rule's rows.
+extern "C" int cvt_sweep_max_grid_points() { return interval::kMaxRow; }
+
+// The largest grid of the bisection: its day (n*(n|1) f64 prefix rows, x
+// and the row flags) resident in one block's shared memory, and no more
+// than the interval rule's rows.
 extern "C" int cvt_max_grid_points() {
   int n = 1;
   while (n + 1 <= interval::kMaxRow &&
@@ -279,30 +289,35 @@ extern "C" int cvt_max_grid_points() {
   return n;
 }
 
+// v, wfc, p and flag hold `rows` outer grid rows of every day
 extern "C" int cvt_sweep_table(const double* v, const double* wfc,
                                const double* w1, double* p,
-                               unsigned char* flag, int T, int n, int q,
-                               int pitch, void* stream) {
-  if (n > interval::kMaxRow || pitch != interval::row_pitch(n)) {
+                               unsigned char* flag, int T, int n, int rows,
+                               int q, int pitch, void* stream) {
+  if (n > interval::kMaxRow || pitch != interval::row_pitch(n) ||
+      rows <= 0 || rows > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = table_shared_bytes(n);
   cudaError_t e = prepare(sweep_table_kernel, bytes, T, n, q, 1);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0) return 0;
-  const dim3 grid(T, (n + kTableRows - 1) / kTableRows);
+  const dim3 grid(T, (rows + kTableRows - 1) / kTableRows);
   sweep_table_kernel<<<grid, kTableThreads, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(v, wfc, w1, p,
-                                                            flag, n, q, pitch);
+                       static_cast<cudaStream_t>(stream)>>>(
+      v, wfc, w1, p, flag, n, rows, q, pitch);
   return static_cast<int>(cudaGetLastError());
 }
 
+// p and flag hold the outer grid rows [row0, row0 + rows) of every day;
+// out gets their partial sums
 extern "C" int cvt_masked_sweep(const double* p, const unsigned char* flag,
                                 const double* x, const double* bounds,
                                 const double* weights, double box_min,
-                                double* out, int T, int n, int L, int pitch,
-                                void* stream) {
+                                double* out, int T, int n, int row0, int rows,
+                                int L, int pitch, void* stream) {
   if (n <= 0 || n > interval::kMaxRow || T < 0 || L < 0 ||
+      row0 < 0 || rows <= 0 || row0 + rows > n ||
       pitch != interval::row_pitch(n) ||
       static_cast<long long>(L) * T > INT_MAX - kSweepWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -311,7 +326,7 @@ extern "C" int cvt_masked_sweep(const double* p, const unsigned char* flag,
   const int grid = (L * T + kSweepWarps - 1) / kSweepWarps;
   prefix_sweep_kernel<<<grid, kSweepThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      p, flag, x, bounds, weights, box_min, out, T, n, L, pitch);
+      p, flag, x, bounds, weights, box_min, out, T, n, row0, rows, L, pitch);
   return static_cast<int>(cudaGetLastError());
 }
 

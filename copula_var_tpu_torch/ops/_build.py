@@ -34,11 +34,13 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 SOURCES = {
     "quadrature.cu": {
         "cvt_max_grid_points": [],
+        "cvt_sweep_max_grid_points": [],
         "cvt_error_string": [_I],
-        # v, wfc, w1, P, flags, T, n, q, pitch, stream
-        "cvt_sweep_table": [_P] * 5 + [_I] * 4 + [_P],
-        # P, flags, x, bounds, weights, box_min, out, T, n, L, pitch, stream
-        "cvt_masked_sweep": [_P] * 5 + [_D, _P] + [_I] * 4 + [_P],
+        # v, wfc, w1, P, flags, T, n, rows, q, pitch, stream
+        "cvt_sweep_table": [_P] * 5 + [_I] * 5 + [_P],
+        # P, flags, x, bounds, weights, box_min, out, T, n, row0, rows, L,
+        # pitch, stream
+        "cvt_masked_sweep": [_P] * 5 + [_D, _P] + [_I] * 6 + [_P],
         # v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj,
         # weights, box_min, n_iters, roots, T, n, q, L, stream
         "cvt_bisect_levels": [_P] * 11 + [_D, _I, _P] + [_I] * 4 + [_P],
@@ -46,12 +48,12 @@ SOURCES = {
     "contract3.cu": {
         "cvt_contract3_max_grid_points": [_I],
         # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
-        # logdet, U, T, n, q, pitch, stride, stream
+        # logdet, U, T, n, row0, rows, q, pitch, stride, stream
         "cvt_contract3_weights": [_P] * 8 + [_I] + [_D] * 3 + [_P]
-        + [_I] * 5 + [_P],
-        # U, x, bounds, weights, box_min, partial, out, T, n, L, pitch,
-        # stride, stream
-        "cvt_masked_contract3": [_P] * 4 + [_D] + [_P] * 2 + [_I] * 5 + [_P],
+        + [_I] * 7 + [_P],
+        # U, x, bounds, weights, box_min, partial, out, T, n, row0, rows, L,
+        # pitch, stride, stream
+        "cvt_masked_contract3": [_P] * 4 + [_D] + [_P] * 2 + [_I] * 7 + [_P],
     },
 }
 

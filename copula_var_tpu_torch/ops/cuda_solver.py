@@ -51,6 +51,20 @@ freeze from the global ALL of `result == 0` (JAX's `gall`), a device
 tensor, so no halving reads the host; and the loop's condition from the
 global ANY (JAX's `gany`). K1 has no freeze, so a sharded K1 equals the
 unsharded one once the count is global.
+
+Grid sharding (`parallel/`): the solves also take `grid`, a
+`parallel.mesh.GridMesh` whose rank holds a range of the outer grid rows
+(operands built with `rows=`). Every sweep is then the rank's share
+(K2, K4 or the plain sweep on its rows) summed over the grid ranks by
+`grid.grid_sum`, exact and in rank order, so every grid rank holds the
+same (L, T) bits and takes the same bracket, halving count, freezes and
+loop exits with no further collective. K1 runs every halving of a day
+inside one launch and would need every rank's share in each, so the
+grid path bisects as dim 3 does (`_bisect_by_sweeps`: on a CUDA device
+`bisect_fixed_count` over the summed K2 or K4 sweep, on the CPU the
+while-loop), as the JAX grid engine's while-loop calls its sweep every
+halving. `reducer` then names the day mesh of a mesh whose day axis
+shards the days too, else None.
 """
 
 from __future__ import annotations
@@ -170,7 +184,7 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
                                        box_min, reducer=reducer)
     if dev.type != "cuda":
         raise ValueError(f"bisect_levels: unsupported device {dev}")
-    T, n, q = check_day_operands(ops)
+    T, n, q = check_bisect_operands(ops)
     L = lower.shape[0]
     for name, t in (("lower", lower), ("upper", upper),
                     ("prev_res", prev_res), ("prev_up", prev_up)):
@@ -196,6 +210,25 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
 
 
 bisect_levels.launches = 0  # kernel launches (CUDA path only)
+
+
+def check_bisect_operands(ops: SweepOperands):
+    """Validate K1's operands: whole days (all n outer rows) of a grid
+    whose day fits in one block's shared memory; returns (T, n, q)."""
+    T, n, q = check_day_operands(ops)
+    if ops.V.shape[1] != n:
+        raise ValueError(
+            f"bisect_levels: K1 bisects whole days; operands of outer rows "
+            f"{ops.rows} are bisected by their summed sweeps (the solves' "
+            "`grid`)")
+    n_max = _build.load().cvt_max_grid_points()
+    if n > n_max:
+        raise ValueError(
+            f"num_points={n}: the dim-2 bisection takes n <= {n_max}, "
+            f"holding a day's {n}x{n} float64 in one block's shared memory "
+            "(tiling is later work)"
+        )
+    return T, n, q
 
 
 def bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack, obj,
@@ -257,23 +290,58 @@ def bisect_tcached(ops: ColumnOperands, lower, upper, prev_res, prev_up,
         reducer)
 
 
+def _sweeps(ops):
+    """(dispatching sweep, plain sweep) for the operands' asset count.
+    Dim >= 4 has no kernel: its sweep is plain on every device."""
+    if isinstance(ops, ColumnOperands):
+        return tcached_sweep, tcached_sweep
+    if isinstance(ops, Contract3Operands):
+        return masked_contract3, masked_contract3_reference
+    return masked_sweep, masked_sweep_reference
+
+
+def _grid_summed(sweep, grid):
+    """`sweep` whose (L, T) share of the operands' outer rows is summed
+    over the grid ranks (`grid.grid_sum`: exact, in rank order)."""
+    def summed(ops, bounds, weights, box_min=-5.0):
+        return grid.grid_sum(sweep(ops, bounds, weights, box_min))
+    return summed
+
+
+def _grid_routes(ops, plain, grid):
+    """(sweep, bisect) of operands that hold a range of outer grid rows:
+    each sweep summed over the grid ranks, and the bisection a loop of
+    such sweeps (`_bisect_by_sweeps`; with `plain` the while-loop)."""
+    kernel, twin = _sweeps(ops)
+    plain_sweep = _grid_summed(twin, grid)
+    sweep = plain_sweep if plain else _grid_summed(kernel, grid)
+
+    def bisect(ops, lower, upper, prev_res, prev_up, ustack, obj, weights,
+               tolerance, box_min=-5.0, reducer=None):
+        state = (lower, upper, prev_res, prev_up, ustack)
+        if plain:
+            return bisect_levels_reference(ops, *state, obj, weights,
+                                           tolerance, box_min,
+                                           sweep=plain_sweep,
+                                           reducer=reducer)
+        return _bisect_by_sweeps(ops, state, obj, weights, tolerance,
+                                 box_min, plain_sweep, sweep,
+                                 "grid-sharded bisection", reducer)
+    return sweep, bisect
+
+
 def _routes(ops, plain):
     """(sweep, bisect) for the operands' asset count: the dispatching
     wrappers, or their plain twins. Dim >= 4 has no kernel: its sweep is
     plain on every device."""
-    if isinstance(ops, ColumnOperands):
-        if plain:
-            return tcached_sweep, functools.partial(
-                bisect_levels_reference, sweep=tcached_sweep)
-        return tcached_sweep, bisect_tcached
-    if isinstance(ops, Contract3Operands):
-        if plain:
-            return masked_contract3_reference, functools.partial(
-                bisect_levels_reference, sweep=masked_contract3_reference)
-        return masked_contract3, bisect_contract3
+    kernel, twin = _sweeps(ops)
     if plain:
-        return masked_sweep_reference, bisect_levels_reference
-    return masked_sweep, bisect_levels
+        return twin, functools.partial(bisect_levels_reference, sweep=twin)
+    if isinstance(ops, ColumnOperands):
+        return kernel, bisect_tcached
+    if isinstance(ops, Contract3Operands):
+        return kernel, bisect_contract3
+    return kernel, bisect_levels
 
 
 def sweep_for(ops):
@@ -282,15 +350,17 @@ def sweep_for(ops):
 
 
 def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
-                reducer=None):
+                reducer=None, grid=None):
     """Stage-1 sweep + stage-2 bracket + bisection for L rows. weights is
     (dim,) for one portfolio shared by every row (one stage-1 sweep
     serves them all) or (L, dim) for one portfolio per row. `plain`
     picks the plain twins over the dispatching wrappers. With a
     `reducer` the operands hold one rank's day block, and only the
-    bisection's global decisions are reduced. Returns (roots (L, T),
-    nan_days (L, T))."""
-    sweep, bisect = _routes(ops, plain)
+    bisection's global decisions are reduced. With a `grid` they hold one
+    rank's outer grid rows, and every sweep is summed over the grid
+    ranks. Returns (roots (L, T), nan_days (L, T))."""
+    sweep, bisect = (_routes(ops, plain) if grid is None
+                     else _grid_routes(ops, plain, grid))
     T, L = ops.days, obj.shape[0]
     dev = ops.x.device
     stage1 = torch.stack(
@@ -317,34 +387,37 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
 
 
 def full_solve_levels(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
-                      box_min=-5.0, reducer=None):
+                      box_min=-5.0, reducer=None, grid=None):
     """All L confidence levels `obj` (L,) of one portfolio `weights` (dim,)
     -> (roots (L, T), nan_days (L, T)), through the kernels on a CUDA
     device and the plain twins on the CPU. cfg = (first_guess, sg0, sg1,
     min_var, max_var). With a `reducer` (a `DayMesh`) `ops` holds this
-    rank's day block and T is its length."""
+    rank's day block and T is its length; with a `grid` (a `GridMesh`)
+    this rank's outer grid rows."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       False, reducer)
+                       False, reducer, grid)
 
 
 def full_solve_levels_reference(ops, obj, weights, cfg, tolerance=1e-6,
-                                quirks=False, box_min=-5.0, reducer=None):
+                                quirks=False, box_min=-5.0, reducer=None,
+                                grid=None):
     """`full_solve_levels` through the plain twins, on any device."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       True, reducer)
+                       True, reducer, grid)
 
 
 def full_solve_portfolios(ops, obj, weights, cfg, tolerance=1e-6,
-                          quirks=False, box_min=-5.0, reducer=None):
+                          quirks=False, box_min=-5.0, reducer=None,
+                          grid=None):
     """L portfolio rows, row l with its own weights[l] (L, dim) and level
     obj[l] -> (roots (L, T), nan_days (L, T))."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       False, reducer)
+                       False, reducer, grid)
 
 
 def full_solve_portfolios_reference(ops, obj, weights, cfg, tolerance=1e-6,
                                     quirks=False, box_min=-5.0,
-                                    reducer=None):
+                                    reducer=None, grid=None):
     """`full_solve_portfolios` through the plain twins, on any device."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       True, reducer)
+                       True, reducer, grid)

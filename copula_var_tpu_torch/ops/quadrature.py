@@ -17,6 +17,14 @@ Two bounds-invariant caches feed the VaR sweeps:
     one density per chunk), the plain twin of the dim-3 CUDA kernel
     (`ops/cuda_quadrature3.py`) and the dim >= 4 path (`ops/tcached.py`).
 
+Grid sharding (`parallel/`): the sums over the outer grid axis 0 are
+linear, so every sweep, trap sweep and density function here takes
+`rows`, a slice of axis 0's n points (None: all of them), and returns
+those rows' share: the density on (rows, n, ..., n), axis 0 masked at
+x[rows] and contracted with its weight rows cut to `rows`. The shares of
+ranks that split the n rows add up to the whole sweep; at rows = all of
+them every value is the one-device value, bit for bit.
+
 The JAX module's parity quirks are kept:
   * grid dim d weights with `densities[(d - 1) mod dim]` (rotated rows);
   * the half-space cut is resolved on the innermost grid axis, paired with
@@ -59,14 +67,15 @@ def _expand(v, d, dim):
                      + (1,) * (dim - 1 - d))
 
 
-def _inner_bounds(x, lower, upper, weights, box_min):
+def _inner_bounds(x, lower, upper, weights, box_min, x0=None):
     """The inner axis's dynamic bounds (..., n, ..., n) (dim - 1 outer grid
     axes) of the cut {lower < w.x <= upper}: (max(dyn_lower, box_min),
     dyn_upper), dyn = (bound - prev) / weights[0] and prev = sum_d x_d *
     weights[1 + d] summed in grid-axis order, as the JAX module forms
-    it."""
+    it. `x0`, when given, holds the points of outer axis 0 (a range of
+    x's rows)."""
     dim = weights.shape[0]
-    prev = _expand(x, 0, dim - 1) * weights[1]
+    prev = _expand(x if x0 is None else x0, 0, dim - 1) * weights[1]
     for d in range(1, dim - 1):
         prev = prev + _expand(x, d, dim - 1) * weights[1 + d]
     lead = (...,) + (None,) * (dim - 1)
@@ -77,14 +86,16 @@ def _inner_bounds(x, lower, upper, weights, box_min):
     return dyn_lower[..., None], dyn_upper[..., None]
 
 
-def halfspace_mask(x, lower, upper, weights, box_min=BOX_MIN):
+def halfspace_mask(x, lower, upper, weights, box_min=BOX_MIN, x0=None):
     """(..., n, ..., n) bool mask (dim grid axes) of the portfolio cut
     {lower < w.x <= upper} resolved on the inner (last) grid axis, for
     bounds of any leading shape (...). weights (dim,): weights[0] pairs
     the inner axis, weights[1:] the outer axes in order. Inner cut:
     x_in > max(dyn_lower, box_min) and x_in <= dyn_upper
-    (`_inner_bounds`)."""
-    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min)
+    (`_inner_bounds`). `x0` (a range of x's rows) replaces the points of
+    outer axis 0."""
+    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min,
+                                         x0)
     return (x > dyn_lower) & (x <= dyn_upper)
 
 
@@ -143,19 +154,21 @@ def transform_u_columns(u_cols, spec: CopulaSpec):
     raise ValueError(f"unknown copula kind: {spec.kind}")
 
 
-def copula_density_cols(cols, spec: CopulaSpec):
+def copula_density_cols(cols, spec: CopulaSpec, rows=None):
     """Copula density over the (n,) * dim grid from transformed columns
     (output of `transform_u_columns`, each leaf (..., dim, n)) ->
-    (..., n, ..., n). Gaussian and Student take any dim; Plackett is
+    (..., n, ..., n), or with `rows` (a slice of grid axis 0) over
+    (rows, n, ..., n). Gaussian and Student take any dim; Plackett is
     dim 2 only."""
     dim = cols[0].shape[-2]
     axis = [[leaf[..., d, :] for leaf in cols] for d in range(dim)]
+    if rows is not None:
+        axis[0] = [a[..., rows] for a in axis[0]]
     if spec.kind == "plackett":
         if dim != 2:
             raise ValueError("Plackett copula requires dim == 2")
         (theta,) = spec.params
-        u = cols[0]
-        a, b = u[..., 0, :, None], u[..., 1, None, :]
+        a, b = axis[0][0][..., :, None], axis[1][0][..., None, :]
         tm1 = theta - 1.0
         num = theta * (1.0 + tm1 * (a + b - 2.0 * a * b))
         den = ((1.0 + tm1 * (a + b)) * (1.0 + tm1 * (1.0 - a - b))) ** 2
@@ -214,10 +227,12 @@ def _contract_states(V, w_cols):
     return out
 
 
-def _pdf_product(p_cols):
-    """prod_d p_cols[..., d, :] over the grid -> (..., n, ..., n)."""
+def _pdf_product(p_cols, rows=None):
+    """prod_d p_cols[..., d, :] over the grid -> (..., n, ..., n), axis 0
+    cut to `rows` when given."""
     dim = p_cols.shape[-2]
-    out = _expand(p_cols[..., 0, :], 0, dim)
+    out = _expand(p_cols[..., 0, :] if rows is None else p_cols[..., 0, rows],
+                  0, dim)
     for d in range(1, dim):
         out = out * _expand(p_cols[..., d, :], d, dim)
     return out
@@ -271,25 +286,52 @@ def garch_day_tensors(forecast_vols, x, spec: CopulaSpec):
 # ---------------------------------------------------------------------------
 
 
+def outer_slice(rows):
+    """The slice of outer grid rows that an operands' `rows` ((i0, i1),
+    or None for all) names, or None."""
+    return None if rows is None else slice(*rows)
+
+
+def row_range(rows, n: int):
+    """(i0, i1) as ints, checked to lie in [0, n) and hold a row."""
+    i0, i1 = (int(r) for r in rows)
+    if not 0 <= i0 < i1 <= n:
+        raise ValueError(f"rows ({i0}, {i1}): not a range of the {n} outer "
+                         "grid rows")
+    return i0, i1
+
+
+def _outer(x, w0, rows):
+    """(points, weight rows) of outer axis 0: whole, or cut to `rows`."""
+    if rows is None:
+        return None, w0
+    return x[rows], w0[..., rows]
+
+
 def msm_integrals_cached(bounds, C, forecast_combos, x, dx, densities,
-                         weights, box_min=BOX_MIN):
-    """(T,) integrals from day tensors C (T, n, n). bounds (T, 2);
-    forecast_combos (T, q*q) in ij order; densities (2, q, n);
-    weights (2,). Masked-out cells contribute nothing (a NaN cell only
-    poisons slabs that include it)."""
+                         weights, box_min=BOX_MIN, rows=None):
+    """(T,) integrals from day tensors C (T, n, n), or the share of outer
+    rows `rows` from C (T, rows, n). bounds (T, 2); forecast_combos
+    (T, q*q) in ij order; densities (2, q, n); weights (2,). Masked-out
+    cells contribute nothing (a NaN cell only poisons slabs that include
+    it)."""
     w0, w1 = state_weight_matrices(densities, dx)
-    M = halfspace_mask(x, bounds[:, 0], bounds[:, 1], weights, box_min)
+    x0, w0 = _outer(x, w0, rows)
+    M = halfspace_mask(x, bounds[:, 0], bounds[:, 1], weights, box_min, x0)
     V = torch.where(M, C, torch.zeros((), dtype=C.dtype, device=C.device))
     per_combo = (w0 @ V @ w1.T).reshape(C.shape[0], -1)  # (T, q*q)
     return torch.sum(per_combo * forecast_combos, dim=-1)
 
 
-def garch_integrals_cached(bounds, V, x, dx, weights, box_min=BOX_MIN):
+def garch_integrals_cached(bounds, V, x, dx, weights, box_min=BOX_MIN,
+                           rows=None):
     """(T,) integrals from GARCH-family day tensors V (T, n, n):
-    dx^T (V .* M) dx per day."""
-    M = halfspace_mask(x, bounds[:, 0], bounds[:, 1], weights, box_min)
+    dx^T (V .* M) dx per day; or the share of outer rows `rows` from V
+    (T, rows, n)."""
+    x0, d0 = _outer(x, dx, rows)
+    M = halfspace_mask(x, bounds[:, 0], bounds[:, 1], weights, box_min, x0)
     vm = torch.where(M, V, torch.zeros((), dtype=V.dtype, device=V.device))
-    return (dx @ vm) @ dx
+    return (d0 @ vm) @ dx
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +357,7 @@ def _day_batch(n: int, dim: int, T: int) -> int:
             f"num_points (e.g. <= {int(MAX_GRID_ELEMENTS_PER_DAY ** (1 / dim))} "
             f"at dim={dim}) or the portfolio dimension."
         )
-    return max(1, min(T, (1 << 21) // max(1, n**dim)))
+    return _days_per_chunk(n, dim, T, "cpu")
 
 
 def _device_day_batch(n: int, dim: int, T: int, device) -> int:
@@ -323,10 +365,31 @@ def _device_day_batch(n: int, dim: int, T: int, device) -> int:
     up to MAX_GRID_ELEMENTS_PER_DAY cells (512 MB per f64 transient, a few
     GB per sweep at n = 100, dim = 3), so a full-width plain solve takes
     a handful of chunks per sweep and fits in the card's memory."""
-    batch = _day_batch(n, dim, T)
+    _day_batch(n, dim, T)
+    return _days_per_chunk(n, dim, T, device)
+
+
+def _days_per_chunk(n: int, dim: int, T: int, device) -> int:
+    """Days per chunk, unchecked: ~2^21 f64 cells on the CPU, up to
+    MAX_GRID_ELEMENTS_PER_DAY on a GPU."""
+    batch = max(1, min(T, (1 << 21) // max(1, n**dim)))
     if torch.device(device).type == "cpu":
         return batch
     return max(batch, min(T, MAX_GRID_ELEMENTS_PER_DAY // n**dim))
+
+
+def check_grid_slab(n: int, dim: int, rows: int) -> None:
+    """Raise, with the JAX grid engine's message, when one day's slab of
+    `rows` outer grid rows, rows * n^(dim - 1) cells, exceeds the per-day
+    transient budget (grid sharding exists to push n past one device's
+    budget, so the budget holds per device)."""
+    per_dev = rows * n ** (dim - 1)
+    if per_dev > MAX_GRID_ELEMENTS_PER_DAY:
+        raise ValueError(
+            f"per-device grid slab {per_dev:.2e} elements exceeds the "
+            f"{MAX_GRID_ELEMENTS_PER_DAY:.2e}-element transient "
+            "budget; reduce num_points or widen the grid axis"
+        )
 
 
 def msm_day_columns(forecasts_by_states, x, unique_vols, spec: CopulaSpec):
@@ -341,8 +404,17 @@ def garch_day_columns(forecast_vols, x, spec: CopulaSpec):
     return transform_u_columns(u_cols, spec), p_cols
 
 
-def _chunks(T, n, dim, device, day_batch):
-    step = day_batch or _device_day_batch(n, dim, T, device)
+def _chunks(T, n, dim, device, day_batch, rows=None):
+    """Day chunks of `day_batch` days, or of the device's count. A range
+    of outer rows takes the whole grid's days per chunk, so its chunks
+    hold rows / n of the cells."""
+    if day_batch:
+        step = day_batch
+    elif rows is None:
+        step = _device_day_batch(n, dim, T, device)
+    else:
+        check_grid_slab(n, dim, len(range(n)[rows]))
+        step = _days_per_chunk(n, dim, T, device)
     return [slice(s, min(T, s + step)) for s in range(0, T, step)]
 
 
@@ -370,7 +442,8 @@ def garch_integrals_tcached(bounds, cols, p_cols, x, dx, weights,
 
 def tcached_integrals(bounds, weights, cols, x, dx, spec: CopulaSpec,
                       box_min=BOX_MIN, day_batch=None, p_cols=None,
-                      densities=None, forecast_combos=None, trap=False):
+                      densities=None, forecast_combos=None, trap=False,
+                      rows=None):
     """(L, T) transform-cached integrals of L bound rows (L, T, 2), row l
     with its own weights[l] (L, dim): the MSM family (densities,
     forecast_combos) or the GARCH family (p_cols). Each day chunk's
@@ -378,24 +451,27 @@ def tcached_integrals(bounds, weights, cols, x, dx, spec: CopulaSpec,
     shared by the rows; per row it is masked (`halfspace_mask`) and
     contracted with dx, or with `trap=True` cut fractionally
     (`halfspace_frac`) and contracted with the trapezoid weights, every
-    row's arithmetic that of the one-row sweeps above and below."""
+    row's arithmetic that of the one-row sweeps above and below. With
+    `rows` (a slice of outer grid axis 0) the share of those rows."""
     dim, n = cols[0].shape[-2], x.shape[0]
     tw = trap_weights(x) if trap else None
     step = dx if tw is None else tw
     w_cols = ([step[None, :]] * dim if densities is None
               else state_weight_matrices(densities, step))
+    x0, w_first = _outer(x, w_cols[0], rows)
+    w_cols = [w_first] + list(w_cols[1:])
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     out = torch.empty(bounds.shape[:2], dtype=x.dtype, device=x.device)
-    for s in _chunks(bounds.shape[1], n, dim, x.device, day_batch):
-        C = copula_density_cols(tuple(c[s] for c in cols), spec)
+    for s in _chunks(bounds.shape[1], n, dim, x.device, day_batch, rows):
+        C = copula_density_cols(tuple(c[s] for c in cols), spec, rows)
         if p_cols is not None:
-            C = torch.nan_to_num(C * _pdf_product(p_cols[s]))
+            C = torch.nan_to_num(C * _pdf_product(p_cols[s], rows))
         for row, (b, w) in enumerate(zip(bounds, weights)):
             if tw is None:
                 V = torch.where(halfspace_mask(x, b[s, 0], b[s, 1], w,
-                                               box_min), C, zero)
+                                               box_min, x0), C, zero)
             else:
-                A = halfspace_frac(x, tw, b[s, 0], b[s, 1], w, box_min)
+                A = halfspace_frac(x, tw, b[s, 0], b[s, 1], w, box_min, x0)
                 V = C * A if p_cols is not None else _inside(C, A)
             per_combo = _contract_states(V, w_cols).reshape(V.shape[0], -1)
             out[row, s] = (per_combo[:, 0] if forecast_combos is None else
@@ -425,13 +501,14 @@ def trap_weights(x):
                       (x[-1] - x[-2])[None]])
 
 
-def halfspace_frac(x, tw, lower, upper, weights, box_min=BOX_MIN):
+def halfspace_frac(x, tw, lower, upper, weights, box_min=BOX_MIN, x0=None):
     """Fractional-cell analog of `halfspace_mask`: (..., n, ..., n) float,
     the share of each inner-axis node's cell [x - tw / 2, x + tw / 2]
     inside {lower < w.x <= upper}, for bounds of any leading shape (...).
     Continuous in the bounds; the same pairing and dynamic bounds as
-    `halfspace_mask`."""
-    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min)
+    `halfspace_mask` (and its `x0`)."""
+    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min,
+                                         x0)
     cell_lo = x - tw / 2.0
     a_up = torch.clamp((dyn_upper - cell_lo) / tw, 0.0, 1.0)
     a_lo = torch.clamp((dyn_lower - cell_lo) / tw, 0.0, 1.0)
@@ -447,31 +524,35 @@ def _inside(C, A):
 
 
 def msm_integrals_trap(bounds, C, forecast_combos, x, densities, weights,
-                       box_min=BOX_MIN, day_batch=None):
+                       box_min=BOX_MIN, day_batch=None, rows=None):
     """(T,) trapezoid integrals from the dim-2 MSM day tensors C
-    (T, n, n) (twin of `msm_integrals_cached`). Days run in chunks of
-    `day_batch` (default `_device_day_batch`)."""
+    (T, n, n) (twin of `msm_integrals_cached`), or the share of outer
+    rows `rows` from C (T, rows, n). Days run in chunks of `day_batch`
+    (default `_device_day_batch`)."""
     tw = trap_weights(x)
     w0, w1 = state_weight_matrices(densities, tw)
+    x0, w0 = _outer(x, w0, rows)
     out = []
     for s in _chunks(C.shape[0], x.shape[0], 2, x.device, day_batch):
         A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
-                           box_min)
+                           box_min, x0)
         per_combo = (w0 @ _inside(C[s], A) @ w1.T).reshape(A.shape[0], -1)
         out.append(torch.sum(per_combo * forecast_combos[s], dim=-1))
     return torch.cat(out)
 
 
 def garch_integrals_trap(bounds, V, x, weights, box_min=BOX_MIN,
-                         day_batch=None):
+                         day_batch=None, rows=None):
     """(T,) trapezoid integrals from the dim-2 GARCH-family day tensors V
-    (T, n, n) (twin of `garch_integrals_cached`): tw^T (V .* A) tw."""
+    (T, n, n) (twin of `garch_integrals_cached`): tw^T (V .* A) tw; or
+    the share of outer rows `rows` from V (T, rows, n)."""
     tw = trap_weights(x)
+    x0, t0 = _outer(x, tw, rows)
     out = []
     for s in _chunks(V.shape[0], x.shape[0], 2, x.device, day_batch):
         A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
-                           box_min)
-        out.append((tw @ _inside(V[s], A)) @ tw)
+                           box_min, x0)
+        out.append((t0 @ _inside(V[s], A)) @ tw)
     return torch.cat(out)
 
 

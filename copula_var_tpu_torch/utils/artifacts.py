@@ -62,8 +62,9 @@ def load_artifacts(path: str, data, device="cuda", adapter=None,
     """Rebuild a solve-ready `VaRBacktest` on `device` ("cuda", the
     default, or "cpu"; CUDA without a GPU raises) from saved artifacts and
     the same ReturnsData, with the solve options `reference_quirks` and
-    `refine_root`. With a `mesh` (`parallel.mesh.DayMesh`) every rank
-    loads the whole file and serves its block of days."""
+    `refine_root`. With a `mesh` every rank loads the whole file and
+    serves its block of days (`parallel.mesh.DayMesh`) or its outer grid
+    rows (`parallel.mesh.GridMesh`)."""
     z = np.load(path, allow_pickle=False)
     meta = json.loads(str(z["meta"]))
     if meta["version"] != _FORMAT_VERSION:

@@ -70,12 +70,14 @@ CASES = {
 
 
 def port_backtest(case, mesh=None, device="cpu", **kw):
+    """The port's backtest of `case` (a name of CASES, or its tuple)."""
     from copula_var_tpu_torch.backtest import create_var_backtest
     from copula_var_tpu_torch.copulas import fit as cfit
     from copula_var_tpu_torch.data import from_returns
     from copula_var_tpu_torch.models import fit as mfit
 
-    est, kind, dim, days, n, k = CASES[case]
+    est, kind, dim, days, n, k = CASES[case] if isinstance(case, str) \
+        else case
     data = from_returns(returns(dim, days), [f"A{i}" for i in range(dim)],
                         N_IN, weights(dim))
     fit_cls = mfit.MsmFit if est == "msm" else mfit.GarchFit

@@ -74,25 +74,25 @@ def test_from_dict_takes_a_jax_dict():
 
 
 @pytest.mark.parametrize("key, value", [
-    ("engine", "pallas"), ("pallas_day_block", 8), ("engine", "grid_sharded"),
+    ("engine", "pallas"), ("pallas_day_block", 8),
 ])
 def test_from_dict_refuses_jax_engine_settings(key, value):
-    """The JAX engines the port does not serve: its f32 Pallas kernels
-    (the port follows the f64 xla engine) and grid sharding (queued)."""
+    """The JAX settings the port does not serve: its f32 Pallas kernels
+    (the port follows the f64 xla engine)."""
     d = jcfg.BacktestConfig().to_dict()
     d[key] = value
-    match = (r"ROADMAP.md queue 1, item 12" if value == "grid_sharded"
-             else "f64 xla engine")
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="f64 xla engine"):
         tcfg.BacktestConfig.from_dict(d)
 
 
 @pytest.mark.parametrize("engine, n", [
     ("sharded", 4), ("sharded", None), ("sharded_pallas", 2),
+    ("grid_sharded", 4), ("grid_sharded", None),
 ])
 def test_from_dict_accepts_sharded_engines(engine, n):
-    """The day-sharded engines (and their mesh size) round-trip from a
-    JAX dict; both mean the port's f64 day-sharded path."""
+    """The sharded engines (and their mesh size) round-trip from a JAX
+    dict: "sharded" and "sharded_pallas" mean the port's f64 day-sharded
+    path, "grid_sharded" its grid-sharded path."""
     j = jcfg.BacktestConfig(engine=engine, n_mesh_devices=n)
     got = tcfg.BacktestConfig.from_dict(j.to_dict())
     assert (got.engine, got.n_mesh_devices) == (engine, n)
@@ -103,6 +103,16 @@ def test_sharded_engine_needs_the_world_it_names():
     """engine="sharded" builds its mesh over the world: in one process
     n_mesh_devices=4 is refused before any fit runs."""
     cfg = tcfg.BacktestConfig(engine="sharded", n_mesh_devices=4)
+    data = from_returns(np.zeros((40, 2)), tickers=["A", "B"], n_insample=30)
+    with pytest.raises(ValueError, match="one process per device"):
+        tcfg.run_backtest(data, cfg, device="cpu")
+
+
+def test_grid_sharded_engine_needs_the_world_it_names():
+    """engine="grid_sharded" builds a (1, n_mesh_devices) mesh over the
+    world: in one process n_mesh_devices=4 is refused before any fit
+    runs."""
+    cfg = tcfg.BacktestConfig(engine="grid_sharded", n_mesh_devices=4)
     data = from_returns(np.zeros((40, 2)), tickers=["A", "B"], n_insample=30)
     with pytest.raises(ValueError, match="one process per device"):
         tcfg.run_backtest(data, cfg, device="cpu")

@@ -5,7 +5,10 @@ redesigned kernels (K1 `bisect_levels`, K2 `sweep_table` +
 `masked_sweep`, K4 `contract3_weights` + `masked_contract3`) are held at
 odd n, at their largest n and one past it, q = 1 and 5, L = 1, 3 and 33
 (more rows than warps), with NaN, inf and saturated cells, and launched
-twice for bit-identical results. This file
+twice for bit-identical results. K2 and K4 are also held on ranges of
+outer grid rows (grid sharding): each range against its plain twin, the
+ranges' partials summed against the whole launch, and the range of all
+rows bit-equal to the whole launch. This file
 imports neither JAX nor the JAX package, so it runs where JAX is not
 installed (the repository's conftest imports JAX, hence `--noconftest`):
 
@@ -50,10 +53,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True):
+def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True,
+         rows=None):
     """Random day operands on the card; n not a multiple of 32; `edit(V)`
     may poke cells of the day tensors first. With `table` False they are
-    built on the CPU and moved, so they carry no prefix table."""
+    built on the CPU and moved, so they carry no prefix table; with
+    `rows` (i0, i1) they hold those outer grid rows."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -61,7 +66,7 @@ def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True):
                             device=dev if table else "cpu")
 
     if not table:
-        ops = _ops("cpu", family, T, n, q, seed, edit)
+        ops = _ops("cpu", family, T, n, q, seed, edit, rows=rows)
         return cq.SweepOperands(*[
             v.to(dev) if torch.is_tensor(v) else v for v in ops])
 
@@ -71,10 +76,10 @@ def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True):
     if edit is not None:
         edit(V)
     if family == "garch":
-        return cq.sweep_operands(t(V), t(x), t(dx))
+        return cq.sweep_operands(t(V), t(x), t(dx), rows=rows)
     dens = rng.uniform(0.0, 0.5, (2, q, n))
     fc = rng.dirichlet(np.ones(q * q), size=T)
-    return cq.sweep_operands(t(V), t(x), t(dx), t(dens), t(fc))
+    return cq.sweep_operands(t(V), t(x), t(dx), t(dens), t(fc), rows=rows)
 
 
 def _rows(dev, T, L, seed=1):
@@ -218,7 +223,7 @@ def test_flagship_through_kernels(dev, est):
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
-    with pytest.raises(ValueError, match="shared"):  # past K1's day
+    with pytest.raises(ValueError, match="interval rule"):  # past kMaxRow
         _ops(dev, "garch", T=2, n=200)
     bounds, weights = _rows(dev, 2, 1)
     ops = _ops(dev, "garch", T=2)
@@ -279,12 +284,14 @@ def test_masked_sweep_rows_and_widths(dev, q, L):
 
 
 def test_masked_sweep_at_its_largest_grid(dev):
-    n_max = _build.load().cvt_max_grid_points()
+    """K2 takes the interval rule's rows (192), past K1's day (169)."""
+    n_max = _build.load().cvt_sweep_max_grid_points()
+    assert n_max > _build.load().cvt_max_grid_points()
     ops = _ops(dev, "msm", T=3, n=n_max)
     bounds, weights = _rows(dev, 3, 4)
     _sweep_close(cq.masked_sweep(ops, bounds, weights),
                  cq.masked_sweep_reference(ops, bounds, weights))
-    with pytest.raises(ValueError, match="shared"):
+    with pytest.raises(ValueError, match="interval rule"):
         _ops(dev, "msm", T=3, n=n_max + 1)
 
 
@@ -366,9 +373,10 @@ def test_compute_integral_through_the_kernel(dev):
 CORR3 = np.array([[1.0, 0.45, 0.25], [0.45, 1.0, 0.35], [0.25, 0.35, 1.0]])
 
 
-def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None):
+def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None, rows=None):
     """Random dim-3 operands on the card; `edit(cols, p)` may poke cells
-    of the transform or pdf columns before the operands are built."""
+    of the transform or pdf columns before the operands are built; with
+    `rows` (i0, i1) those of outer slabs [i0, i1)."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -385,11 +393,12 @@ def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None):
     if edit is not None:
         edit(cols, p)
     if family == "garch":
-        return cq3.contract3_operands(tuple(cols), x, dx, spec, p_cols=p)
+        return cq3.contract3_operands(tuple(cols), x, dx, spec, p_cols=p,
+                                      rows=rows)
     dens = t(rng.uniform(0.0, 0.5, (3, q, n)))
     fc = t(rng.dirichlet(np.ones(q**3), size=T))
     return cq3.contract3_operands(tuple(cols), x, dx, spec, densities=dens,
-                                  forecast_combos=fc)
+                                  forecast_combos=fc, rows=rows)
 
 
 def _rows3(dev, T, L, seed=1):
@@ -617,3 +626,100 @@ def test_day_sharded_ranks_equal_one_card(dev, tmp_path):
         for key, w in want.items():
             np.testing.assert_array_equal(got[key], w,
                                           err_msg=f"rank {r} {key}")
+
+
+# -- ranges of outer grid rows (grid sharding) ----------------------------------
+
+SPLITS = [(0, 13), (13, 30), (30, 48)]  # uneven ranges of n = 48
+RTOL_PARTS = 1e-13  # the ranges' partials summed vs the whole launch
+
+
+def _summed(parts):
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_masked_sweep_on_row_ranges(dev, family):
+    """K2 on ranges of outer rows: P the whole table's rows, bit for bit;
+    each range's sweep against its plain twin; the partials summed
+    against the whole launch; the range of all rows the whole launch's
+    bits; a repeated launch the same bits."""
+    whole = _ops(dev, family)
+    bounds, weights = _rows(dev, whole.days, 33)
+    full = cq.masked_sweep(whole, bounds, weights)
+    parts = []
+    for i0, i1 in SPLITS:
+        ops = _ops(dev, family, rows=(i0, i1))
+        assert torch.equal(ops.P, whole.P[:, i0:i1])
+        assert torch.equal(ops.flags, whole.flags[:, i0:i1])
+        got = cq.masked_sweep(ops, bounds, weights)
+        _sweep_close(got, cq.masked_sweep_reference(ops, bounds, weights))
+        assert torch.equal(got, cq.masked_sweep(ops, bounds, weights))
+        parts.append(got)
+    torch.testing.assert_close(_summed(parts), full, rtol=0,
+                               atol=RTOL_PARTS * float(full.abs().max()))
+    assert torch.equal(cq.masked_sweep(_ops(dev, family, rows=(0, 48)),
+                                       bounds, weights), full)
+
+
+def test_bisect_levels_refuses_a_row_range(dev):
+    ops = _ops(dev, "garch", T=3, rows=(0, 24))
+    obj, weights, state = _bracketed(_ops(dev, "garch", T=3), dev, 3)
+    with pytest.raises(ValueError, match="whole days"):
+        cs.bisect_levels(ops, *state, obj, weights, 1e-6)
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_masked_contract3_on_row_ranges(dev, family):
+    """K4 on ranges of outer slabs: U the whole table's slabs, bit for
+    bit; each range against its plain twins; the partials summed against
+    the whole launch; the range of all slabs the whole launch's bits."""
+    n = 40
+    whole = _ops3(dev, family, "student", n=n)
+    bounds, weights = _rows3(dev, whole.days, 5)
+    full = cq3.masked_contract3(whole, bounds, weights)
+    parts = []
+    for i0, i1 in ((0, 7), (7, 20), (20, n)):
+        ops = _ops3(dev, family, "student", n=n, rows=(i0, i1))
+        assert torch.equal(ops.U, whole.U[:, i0:i1])
+        torch.testing.assert_close(
+            cq3.table_cells(ops.U, n), cq3.contract3_weights_reference(ops),
+            rtol=1e-12, atol=1e-300, equal_nan=True)
+        got = cq3.masked_contract3(ops, bounds, weights)
+        want = cq3.masked_contract3_reference(ops, bounds, weights)
+        np.testing.assert_allclose(
+            got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+            atol=RTOL_SWEEP * float(want.abs().max()))
+        assert torch.equal(got, cq3.masked_contract3(ops, bounds, weights))
+        parts.append(got)
+    torch.testing.assert_close(_summed(parts), full, rtol=0,
+                               atol=RTOL_PARTS * float(full.abs().max()))
+    assert torch.equal(cq3.masked_contract3(
+        _ops3(dev, family, "student", n=n, rows=(0, n)), bounds, weights),
+        full)
+
+
+def test_grid_sharded_ranks_on_the_card(dev, tmp_path):
+    """Four gloo ranks sharing the card (NCCL refuses two ranks on one
+    GPU) serve the CPU grid tests' fixtures through K2 and K4 on their
+    outer rows, on (1, 4) and (2, 2) meshes: every rank's series
+    bit-equal to rank 0's and within 1e-12 of one card's."""
+    import _torch_grid_worker as gw
+    from copula_var_tpu_torch.parallel import distributed
+
+    want = gw.serve(None, "cuda")
+    path = str(tmp_path / "rank%d.npz")
+    distributed.run_world(gw.rank_main, 4, (path, str(tmp_path), 4, "cuda"),
+                          backend="gloo", device="cuda", timeout_s=300)
+    ranks = [np.load(path % r) for r in range(4)]
+    for shape in gw.MESHES[4]:
+        for key, w in want.items():
+            k = f"{gw.tag(shape)}/{key}"
+            np.testing.assert_allclose(ranks[0][k], w, rtol=0, atol=1e-12,
+                                       err_msg=k)
+            for r in range(1, 4):
+                np.testing.assert_array_equal(ranks[r][k], ranks[0][k],
+                                              err_msg=f"rank {r} {k}")
