@@ -118,7 +118,29 @@ Phases, each fatal on failure:
      of it. Prints each rank's rows, day block, launches, peak device
      memory and wall seconds (the ranks share one card: no scaling
      figure);
-  12. parity: each kernel against its plain PyTorch twin on the card, at
+  12. wide grids, counted per series: each series of
+     `data/wide_grid_var.npz` (written by JAX's xla engine on the CPU:
+     dim 2 at n = 180, 200 and 400 on 16 days, dim 3 at n = 180 and 300
+     on 8 days, MSM and GARCH, Student-t, the artifacts' fits and the
+     record's inputs at that width) served on the card with every plain
+     sweep made to raise, at atol 1e-9 with 0 days above; dim 2 past
+     K1's 169 must bisect by K2 sweeps (K1 0 launches), dim 3 past the
+     table's 169 by the rebuild kernel (`masked_contract3_rebuild`: no
+     table, no table sweep); the route and the K1 / K2 / K4-table /
+     K4-rebuild launches printed per series; each dim-2 series' table P
+     and K2 sweeps (the long-row form at n = 200 and 400) held to their
+     plain twins on that series' operands (P rtol 1e-12 with equal flags,
+     a stage row and three random rows rtol 1e-12, repeats bit-equal).
+     The rebuild kernel against
+     its plain twin (n = 300 and 180, all slabs and a range, rtol 1e-13,
+     repeats bit-equal); one full-T rebuild sweep at dim 3, n = 300
+     (T = 500, L = 1) timed with CUDA events beside its plain twin and
+     traced by torch.profiler, as a share of `rebuild_bound`; and an
+     adapter holding only the JAX package's minimal contract (GARCH,
+     `fit`, `marginals_densities`, `integration_inputs`, `integrals`) on
+     a 16-day flagship cut at n = 40 against its JAX record at 1e-9, no
+     kernel launched, portfolios refused;
+  13. parity: each kernel against its plain PyTorch twin on the card, at
      the main paths' shapes (q = 5 and q = 1, stage and random bounds,
      unequal weights; K4 also with a Gaussian copula; the dim-2 table P
      whole, the dim-3 table U on 16 days), a repeated launch of each that
@@ -130,25 +152,31 @@ Phases, each fatal on failure:
      twin, its repeat bit-equal, the four partials summed in rank order
      against the whole launch at rtol 1e-13, and the range of all rows
      bit-equal to the whole launch;
-  13. timings: CUDA events after warm-up, median and min of the reps,
+  14. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns (one grid rank's 25-row K2 and
      K4 launches among them), and the refine_root trap pass per call
      (L = 1 and 128 at dim 2, L = 1 at dim 3) beside the unrefined solve
      of the same rows;
-  14. device profile: torch.profiler over calls of each kernel, `calc_var`,
+  15. device profile: torch.profiler over calls of each kernel, `calc_var`,
      the serving batches, the unrefined solves and the trap passes: host
      ms per call, the device's busy ms and ops, and each kernel's
-     launches and device ms per launch.
+     launches and device ms per launch (each session opens with pad
+     kernels, read past, since the trace drops a session's first device
+     activities once child processes have used the card; a session that
+     lost every pad is run again, up to three times, and then reads "not
+     measured").
 
 Each kernel's bound in the record is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float64
 operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet; FP64 outside the
 tensor cores), counted from this run's shapes by `bound()`; the trap
-pass's by `trap_bound()` and the dim-4 plain sweep's by `tcached_bound()`.
+pass's by `trap_bound()`, the dim-4 plain sweep's by `tcached_bound()`
+and the rebuild sweep's by `rebuild_bound()`.
 
 Prints the kernels' JSON record on the line before the last (each
-kernel's launches on the main path and, as `grid_launches_per_rank`, on
-one rank of phase 11 (b)), and as the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
+kernel's launches on the main path, the rebuild's on phase 12, and, as
+`grid_launches_per_rank`, on one rank of phase 11 (b)), and as the last
+line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
 line, when torch sees no CUDA device or the port's sources are missing.
 """
 
@@ -213,6 +241,8 @@ KERNEL_SPANS = {
     "bisect_levels": ("bisect_levels_kernel",),
     "contract3_weights": ("contract3_weights_kernel",),
     "masked_contract3": ("contract3_sweep_kernel", "contract3_sum_kernel"),
+    "masked_contract3_rebuild": ("contract3_rebuild_kernel",
+                                 "contract3_sum_kernel"),
 }
 
 
@@ -349,26 +379,57 @@ def cuda_ms(torch, fns, reps=REPS, warmup=2):
     return {k: (statistics.median(v), min(v)) for k, v in times.items()}
 
 
+# Once child processes have used the card, torch.profiler drops the first
+# device activities of a session (on the H100 with torch 2.11; 0-10 of
+# them in one run, every pad of one session in another): every session
+# first launches PROFILE_PAD spin kernels, and only what follows the last
+# one that was recorded is read. A session that lost every pad is run
+# again, up to PROFILE_ATTEMPTS times; then its device figures are None
+# (not measured).
+PROFILE_PAD = 128
+PROFILE_PAD_CYCLES = 10000  # ~5 us each
+PROFILE_PAD_SPAN = "spin_kernel"  # torch.cuda._sleep's kernel
+PROFILE_ATTEMPTS = 3
+
+
 def device_profile(torch, fn, reps=REPS):
-    """Per call of `fn`, traced by torch.profiler after one warm-up call:
-    host wall ms, device busy ms (the union of the device's activity
-    intervals), and for each of the port's kernels its launches and mean
-    device ms per launch (None when the trace holds none)."""
+    """Per call of `fn`, traced by torch.profiler after one warm-up call
+    and PROFILE_PAD pad kernels: host wall ms, device busy ms (the union
+    of the device's activity intervals), and for each of the port's
+    kernels its launches and mean device ms per launch (None when the
+    trace holds none); pad_lost, the pad kernels the trace dropped, and
+    attempts, the sessions run. When every session lost every pad, the
+    device figures are None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(PROFILE_PAD_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        spans = sorted(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+        )
+        pads = [i for i, (_, _, name) in enumerate(spans)
+                if PROFILE_PAD_SPAN in name]
+        if pads:
+            break
+    else:
+        return {"wall_ms": wall_ms, "busy_ms": None, "device_ops": None,
+                "kernels": {k: {"launches": None, "device_ms": None}
+                            for k in KERNEL_SPANS},
+                "pad_lost": PROFILE_PAD, "attempts": PROFILE_ATTEMPTS}
+    spans = spans[pads[-1] + 1:]
     busy_us, end = 0.0, float("-inf")
     for a, b, _ in spans:
         busy_us += max(0.0, b - max(a, end))
@@ -381,8 +442,13 @@ def device_profile(torch, fn, reps=REPS):
         kernels[k] = {"launches": n / reps,
                       "device_ms": us / n / 1e3 if n else None}
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3 / reps,
-            "device_ops": len(spans) / reps, "kernels": kernels}
+            "device_ops": len(spans) / reps, "kernels": kernels,
+            "pad_lost": PROFILE_PAD - len(pads), "attempts": attempt}
 
+
+def _ms(v, fmt=".3f"):
+    """A profile's figure, or "not measured" where the trace had none."""
+    return "not measured" if v is None else format(v, fmt)
 
 
 SHARDED_RANKS = 3  # the day-sharded phase's gloo ranks, on the one card
@@ -418,7 +484,8 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
     from copula_var_tpu_torch.ops import cuda_solver as cs
 
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
-                cq3.contract3_weights, cq3.masked_contract3)
+                cq3.contract3_weights, cq3.masked_contract3,
+                cq3.masked_contract3_rebuild)
     rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
     rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
     rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
@@ -633,8 +700,9 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
                 lc["dim3"]["masked_contract3"] <= 0:
             raise AssertionError(f"rank {r}: K4 did not run its dim-3 path "
                                  f"{lc['dim3']}")
-        if lc["dim2"]["masked_contract3"] or lc["dim3"]["masked_sweep"] or \
-                any(lc["dim4"].values()):
+        if lc["dim2"]["masked_contract3"] or \
+                lc["dim2"]["masked_contract3_rebuild"] or \
+                lc["dim3"]["masked_sweep"] or any(lc["dim4"].values()):
             raise AssertionError(f"rank {r}: a kernel launched off its path "
                                  f"{lc}")
         print(f"day-sharded (b) rank {r} of {SHARDED_RANKS} "
@@ -796,7 +864,7 @@ def grid_sharded_phase(root, smi, w_batch, w_batch3, one_card,
                                  lc["dim3"]["masked_contract3"] <= 0):
                 raise AssertionError(f"grid-sharded rank {r} {tag}: K4 did "
                                      f"not run its dim-3 path {lc}")
-            if dim2["masked_contract3"] or (
+            if dim2["masked_contract3"] or dim2["masked_contract3_rebuild"] or (
                     "dim3" in lc and lc["dim3"]["masked_sweep"]) or (
                     "dim4" in lc and any(lc["dim4"].values())):
                 raise AssertionError(f"grid-sharded rank {r} {tag}: a "
@@ -837,6 +905,359 @@ def grid_sharded_phase(root, smi, w_batch, w_batch3, one_card,
         "table_bytes_per_rank": u_rank, "table_bytes_one_card": u_card,
         "wall_s": wall}
     return report
+
+
+WIDE_DAYS_T = 500  # the full-T rebuild sweep's days (dim 3, n = 300)
+WIDE_N_TIMED = 300
+REPS_WIDE = 3  # a full-T n = 300 rebuild sweep takes ~0.1-0.3 s
+# the rebuild kernel against its plain twin: the same cells (CUDA's exp
+# and log1p against torch's), summed by tiles instead of tensordots
+RTOL_REBUILD = 1e-13
+
+
+class MinimalGarch:
+    """A plugin adapter with the JAX package's minimal contract only:
+    the GARCH family's fit, marginals, integration inputs and uncached
+    integrand, and no day_tensors / day_columns (the host route)."""
+
+    name = "minimal_garch"
+
+    def __init__(self, **kw):
+        from copula_var_tpu_torch.backtest import GarchAdapter
+
+        self._inner = GarchAdapter(**kw)
+
+    def fit(self, in_sample, device="cuda", timings=None):
+        return self._inner.fit(in_sample, device=device)
+
+    def marginals_densities(self, in_sample, fits, device="cuda"):
+        return self._inner.marginals_densities(in_sample, fits, device=device)
+
+    def integration_inputs(self, windows, fits, num_points, box=(-5.0, 5.0),
+                           device="cuda"):
+        return self._inner.integration_inputs(windows, fits, num_points, box,
+                                              device=device)
+
+    def integrals(self, bounds, inputs, spec, weights, box_min=-5.0):
+        return self._inner.integrals(bounds, inputs, spec, weights, box_min)
+
+
+def rebuild_bound(T, n, q, L, student, garch, rows=None):
+    """masked_contract3_rebuild (K4 without U) on `rows` outer slabs (n
+    by default): in, the columns (z, lu as float64, the finite flags as
+    bytes; the pdf columns at GARCH), G, W1, W2, x, the (L, T, 2) bounds
+    and (L, 3) weights; out, the (L, T) integrals. Per cell of the
+    T rows n^2 of a sweep `weights_bound`'s operations (quadratic form,
+    density with one exp and one log1p, pdf product, state sum) and the
+    prefix add; the (q, n) fold per slab; n lookups per (row, day, i0)."""
+    r = n if rows is None else rows
+    cols = 3 * T * n * (8 * (1 + student + garch) + 1)
+    nbytes = cols + 8 * (T * n * q * q + 2 * q * n + n + 2 * L * T + 3 * L
+                         + L * T)
+    flops = (T * r * n * n * (24 + 2 * q + 3 * garch + 1)
+             + T * r * n * 2 * q * q + L * T * r * n * lookups(n))
+    return bound(nbytes, flops)
+
+
+def wide_grid_phase(root, smi):
+    """Grids past the flagship's, through the kernels, counted per series:
+    each series of `data/wide_grid_var.npz` (dim 2 at n = 180, 200, 400
+    on 16 days; dim 3 at n = 180, 300 on 8 days; MSM and GARCH, the
+    committed artifacts' fits and the record's inputs at that width)
+    served on the card with every plain sweep made to raise, held at atol
+    1e-9 (0 days above); the route and the K1 / K2 / K4-table /
+    K4-rebuild launches printed per series (dim 2 past K1's 169: K2
+    sweeps only; dim 3 past the table's 169: the rebuild only), and each
+    dim-2 series' P and K2 sweeps, at its width, against their plain
+    twins (`k2_parity`). Then the rebuild kernel against its plain twin (n = 300 and 180, all slabs
+    and a range, repeats bit-equal), one full-T rebuild sweep at dim 3,
+    n = 300 (T = 500, L = 1) timed with CUDA events beside the plain
+    twin and traced by torch.profiler, as a share of `rebuild_bound`;
+    and the minimal-plugin GARCH adapter against its JAX record.
+    Returns (report, the rebuild's kernels-line numbers)."""
+    import numpy as np
+    import torch
+
+    from copula_var_tpu_torch import backtest as bt_mod
+    from copula_var_tpu_torch.data import from_csv, from_returns
+    from copula_var_tpu_torch.ops import cuda_quadrature as cq
+    from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
+    from copula_var_tpu_torch.ops import cuda_solver as cs
+    from copula_var_tpu_torch.ops import tcached
+    from copula_var_tpu_torch.utils.artifacts import load_artifacts
+
+    t_phase = time.perf_counter()
+    rec = np.load(os.path.join(root, "data", "wide_grid_var.npz"))
+    alpha = float(rec["obj_var"])
+    counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
+                cq3.contract3_weights, cq3.masked_contract3,
+                cq3.masked_contract3_rebuild)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain sweep ran on the card")
+
+    # every plain sweep the solver could reach, made to raise while the
+    # series are served
+    plain = [(cs, "masked_sweep_reference"), (cs, "masked_contract3_reference"),
+             (cs, "tcached_sweep"), (cq, "masked_sweep_reference"),
+             (cq3, "masked_contract3_reference"), (tcached, "tcached_sweep")]
+    dev = torch.device("cuda", 0)
+    wrows = torch.tensor([[0.5, 0.5], [0.3, 0.7], [0.75, 0.25], [0.9, 0.1]],
+                         dtype=torch.float64, device=dev)
+
+    def k2_parity(tag, ops):
+        """K2 at a dim-2 series' width (n > 192: the long-row form) on the
+        series' own operands, after its launches were counted: P and its
+        flags against `sweep_table_reference`, the sweep of a stage row
+        and three random rows against `masked_sweep_reference`, and
+        repeated launches bit-equal."""
+        T, n = ops.days, ops.x.shape[0]
+        p_p, f_p = cq.sweep_table_reference(ops)
+        close = torch.isclose(ops.P, p_p, rtol=RTOL_TABLE, atol=1e-300,
+                              equal_nan=True)
+        if not (bool(close.all()) and torch.equal(ops.flags, f_p)):
+            raise AssertionError(
+                f"wide {tag} sweep_table: {int((~close).sum())} cells, "
+                f"{int((ops.flags != f_p).sum())} flags off the plain twin")
+        fin = torch.isfinite(p_p)
+        e_p = float((ops.P[fin] - p_p[fin]).abs().max())
+        if not torch.equal(ops.P, cq.sweep_table(ops)[0]):
+            raise AssertionError(f"wide {tag} sweep_table: a rebuild "
+                                 "changed P")
+        rng = np.random.default_rng(n)
+        lo = rng.uniform(-8.0, -1.0, (3, T))
+        rand = np.stack([lo, lo + rng.uniform(0.0, 3.0, (3, T))], -1)
+        stage1 = np.stack([np.full(T, -100.0), np.full(T, -3.0)], -1)
+        bounds = torch.tensor(np.concatenate([stage1[None], rand]),
+                              device=dev)
+        k = cq.masked_sweep(ops, bounds, wrows, -5.0)
+        p = cq.masked_sweep_reference(ops, bounds, wrows, -5.0)
+        scale = float(p.abs().max())
+        e = float((k - p).abs().max())
+        if not e <= RTOL_SWEEP * scale:
+            raise AssertionError(f"wide {tag} masked_sweep: |kernel - plain| "
+                                 f"{e:.3e} > {RTOL_SWEEP:g} x {scale:.3e}")
+        if not torch.equal(k, cq.masked_sweep(ops, bounds, wrows, -5.0)):
+            raise AssertionError(f"wide {tag} masked_sweep: a repeated "
+                                 "launch changed the sweep")
+        form = "long" if n > cq.BISECT_MAX_ROW else "short"
+        print(f"parity wide {tag} (n={n}, {form}-row K2, {T} days): "
+              f"sweep_table max abs {e_p:.3e} (bound rel {RTOL_TABLE:g} per "
+              f"cell), {int(ops.flags.sum())} rows flagged; masked_sweep L=4 "
+              f"max abs {e:.3e} rel {e / scale:.3e} (bound rel "
+              f"{RTOL_SWEEP:g}); repeats bit-equal")
+        return {"form": form, "sweep_table_max_abs": e_p,
+                "masked_sweep_max_abs": e, "masked_sweep_rel": e / scale}
+
+    cases = {2: ("flagship.csv", "flagship_artifacts", None),
+             3: ("dim3.csv", "dim3_artifacts", tuple(rec["weights3"]))}
+    series, bases, total, k2_report = {}, {}, {}, {}
+    for dim, (csv, prefix, w) in cases.items():
+        data = from_csv(os.path.join(root, "data", csv), 1135, weights=w)
+        days = int(rec[f"dim{dim}_days"])
+        cut = from_returns(data.returns[:1135 + days], data.tickers, 1135,
+                           weights=w)
+        for est in ("msm", "garch"):
+            base = load_artifacts(os.path.join(root, "data",
+                                               f"{prefix}_{est}.npz"),
+                                  data, device="cuda")
+            bases[(dim, est)] = (data, base)
+            cls = (bt_mod.MsmIntegrationInputs if est == "msm"
+                   else bt_mod.GarchIntegrationInputs)
+            for n in (int(v) for v in rec[f"dim{dim}_widths"]):
+                tag = f"dim{dim}_{est}_n{n}"
+                inputs = cls(*[rec[f"{tag}_ii_{f}"] for f in cls._fields])
+                for c in counters:
+                    c.launches = 0
+                saved = [(m, a, getattr(m, a)) for m, a in plain]
+                for m, a, _ in saved:
+                    setattr(m, a, refuse)
+                t0 = time.perf_counter()
+                try:
+                    bt = bt_mod.VaRBacktest(
+                        cut, base.adapter, base.copula, base.copula_fit,
+                        base.model_fits, inputs, num_points=n, device="cuda")
+                    var = bt.calc_var(alpha)
+                    ops = bt.sweep_operands()
+                finally:
+                    for m, a, fn in saved:
+                        setattr(m, a, fn)
+                wall = time.perf_counter() - t0
+                lc = {c.__name__: c.launches for c in counters}
+                for k, v in lc.items():
+                    total[k] = total.get(k, 0) + v
+                route = (cs.dim2_bisect_route(n) if dim == 2 else
+                         "table" if ops.U is not None else "rebuild")
+                want = rec[f"{tag}_var"]
+                if var.shape != want.shape or not np.all(np.isfinite(var)):
+                    raise AssertionError(f"wide {tag}: bad VaR {var.shape}")
+                diff = np.abs(var - want)
+                above = int(np.sum(diff > ATOL_VAR))
+                if above:
+                    raise AssertionError(f"wide {tag}: {above} days off the "
+                                         f"record, max {diff.max():.3e}")
+                if dim == 2 and (route != "sweeps" or lc["bisect_levels"] or
+                                 lc["masked_sweep"] <= 0 or
+                                 lc["sweep_table"] != 1):
+                    raise AssertionError(f"wide {tag}: not bisected by K2 "
+                                         f"sweeps: {route} {lc}")
+                if dim == 3 and (route != "rebuild" or
+                                 lc["masked_contract3"] or
+                                 lc["contract3_weights"] or
+                                 lc["masked_contract3_rebuild"] <= 0):
+                    raise AssertionError(f"wide {tag}: not swept by the "
+                                         f"rebuild kernel: {route} {lc}")
+                series[tag] = {"route": route, "launches": lc,
+                               "max_err": float(diff.max()),
+                               "days_above": above, "wall_s": wall}
+                print(f"wide {tag}: route {route}, max |VaR - record| = "
+                      f"{diff.max():.3e} (bound {ATOL_VAR:g}), days above "
+                      f"{above} of {len(var)}; launches K1 "
+                      f"{lc['bisect_levels']}, K2 table {lc['sweep_table']} "
+                      f"sweep {lc['masked_sweep']}, K4 table "
+                      f"{lc['contract3_weights']} sweep "
+                      f"{lc['masked_contract3']}, K4 rebuild "
+                      f"{lc['masked_contract3_rebuild']}; {wall:.3f} s "
+                      "(host clock)")
+                if dim == 2:
+                    k2_report[tag] = k2_parity(tag, ops)
+                del bt, ops
+    torch.cuda.empty_cache()
+
+    # the rebuild kernel against its plain twin, repeats bit-equal
+    def rows3(T, L, seed):
+        rng = np.random.default_rng(seed)
+        lo = rng.uniform(-6.0, -0.5, (L, T))
+        b = np.stack([lo, lo + rng.uniform(0.3, 4.0, (L, T))], -1)
+        return (torch.tensor(b, device="cuda"),
+                torch.tensor(rng.dirichlet([2.0, 2.0, 2.0], size=L),
+                             device="cuda"))
+
+    parity = {}
+    for est, n, rows in (("msm", 300, None), ("msm", 300, (100, 220)),
+                         ("garch", 180, None), ("garch", 180, (0, 61))):
+        data, base = bases[(3, est)]
+        days = int(rec["dim3_days"])
+        cls = (bt_mod.MsmIntegrationInputs if est == "msm"
+               else bt_mod.GarchIntegrationInputs)
+        tag = f"dim3_{est}_n{n}"
+        inputs = cls(*[torch.as_tensor(rec[f"{tag}_ii_{f}"], device=dev)
+                       for f in cls._fields])
+        cols = base.adapter.day_columns(inputs, base.copula_spec)
+        ops = base.adapter.contract3_operands(cols, inputs, base.copula_spec,
+                                              rows=rows)
+        b, w = rows3(days, 4, n)
+        got = cq3.masked_contract3_rebuild(ops, b, w)
+        want = cq3.masked_contract3_reference(ops, b, w)
+        rel = float((got - want).abs().max() / want.abs().max())
+        if not rel <= RTOL_REBUILD:
+            raise AssertionError(f"rebuild {tag} rows {rows}: {rel:.3e} "
+                                 f"relative off its plain twin")
+        if not torch.equal(got, cq3.masked_contract3_rebuild(ops, b, w)):
+            raise AssertionError(f"rebuild {tag} rows {rows}: a repeated "
+                                 "launch gave other bits")
+        parity[f"{tag}_rows{rows}"] = {
+            "max_abs_err": float((got - want).abs().max()), "rel": rel}
+        print(f"parity rebuild {tag} rows {rows or (0, n)}, L=4, {days} "
+              f"days: {rel:.3e} relative off the plain twin (bound "
+              f"{RTOL_REBUILD:g}), repeat bit-equal")
+
+    # one full-T rebuild sweep at dim 3, n = 300 (T = 500, L = 1): the MSM
+    # artifact's T = 500 forecasts at the record's n = 300 grid
+    data, base = bases[(3, "msm")]
+    ii = base.integration_inputs
+    tag = f"dim3_msm_n{WIDE_N_TIMED}"
+    full = ii._replace(**{f: torch.as_tensor(rec[f"{tag}_ii_{f}"],
+                                             device=dev)
+                          for f in ("x", "dx", "densities")})
+    bt = bt_mod.VaRBacktest(data, base.adapter, base.copula, base.copula_fit,
+                            base.model_fits, full, num_points=WIDE_N_TIMED,
+                            device="cuda")
+    ops = bt.sweep_operands()
+    T, q = ops.days, ops.w1.shape[0]
+    if ops.U is not None or T != WIDE_DAYS_T:
+        raise AssertionError(f"the full-T n={WIDE_N_TIMED} operands took the "
+                             "table route")
+    stage1 = torch.tensor([-100.0, -3.0], dtype=torch.float64,
+                          device=dev).expand(1, T, 2).contiguous()
+    w1 = bt.weights.reshape(1, 3)
+    got = cq3.masked_contract3_rebuild(ops, stage1, w1)
+    want = cq3.masked_contract3_reference(ops, stage1, w1)  # warms it up
+    kern = cuda_ms(torch, {"kernel": lambda: cq3.masked_contract3_rebuild(
+        ops, stage1, w1)}, reps=REPS_WIDE)
+    plain_ms = cuda_ms(torch, {"plain": lambda: cq3.masked_contract3_reference(
+        ops, stage1, w1)}, reps=1, warmup=0)["plain"]
+    err_full = float((got - want).abs().max())
+    rel_full = err_full / float(want.abs().max())
+    if not rel_full <= RTOL_REBUILD:
+        raise AssertionError(f"rebuild full T: {rel_full:.3e} relative off "
+                             "its plain twin")
+    prof = device_profile(torch, lambda: cq3.masked_contract3_rebuild(
+        ops, stage1, w1), reps=2)
+    dev_ms = prof["kernels"]["masked_contract3_rebuild"]["device_ms"]
+    b_ms, by = rebuild_bound(T, WIDE_N_TIMED, q, 1, True, False)
+    share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.1%}"
+    print(f"wide rebuild sweep dim3 MSM n={WIDE_N_TIMED}, T={T}, L=1, q={q}: "
+          f"call {kern['kernel'][0]:.3f} ms (min {kern['kernel'][1]:.3f}; "
+          f"CUDA events), device "
+          + ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms")
+          + f" (torch.profiler); plain twin {plain_ms[0]:.3f} ms; "
+          f"{rel_full:.3e} relative off it; bound {b_ms:.3f} ms by {by} "
+          f"({share} of the device time) ({smi})")
+    del bt, ops
+    torch.cuda.empty_cache()
+
+    # the minimal-plugin route: JAX's host bisection over `integrals`
+    bt_mod.register_adapter(MinimalGarch.name, MinimalGarch)
+    days, n = int(rec["plugin_days"]), int(rec["plugin_points"])
+    data, base = bases[(2, "garch")]
+    cut = from_returns(data.returns[:1135 + days], data.tickers, 1135)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    pb = bt_mod.create_var_backtest(
+        cut, MinimalGarch.name, "student", num_points=n,
+        model_fits_override=base.model_fits,
+        copula_fit_override=base.copula_fit, device="cuda")
+    var = pb.calc_var(alpha)
+    levels = pb.calc_var_levels(tuple(rec["plugin_levels"]))
+    plugin_s = time.perf_counter() - t0
+    lc = {c.__name__: c.launches for c in counters}
+    e_var = float(np.max(np.abs(var - rec["plugin_garch_var"])))
+    e_lv = float(np.max(np.abs(levels - rec["plugin_garch_levels"])))
+    if not (pb.plugin and e_var <= ATOL_VAR and e_lv <= ATOL_VAR):
+        raise AssertionError(f"minimal plugin: VaR {e_var:.3e}, levels "
+                             f"{e_lv:.3e} off the JAX record")
+    if any(lc.values()):
+        raise AssertionError(f"minimal plugin: a kernel launched {lc}")
+    try:
+        pb.calc_var_portfolios([[0.5, 0.5]], alpha)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("minimal plugin: calc_var_portfolios served")
+    print(f"minimal plugin GARCH (fit, marginals_densities, "
+          f"integration_inputs, integrals only), {days} days, n={n}: max "
+          f"|VaR - JAX record| = {e_var:.3e}, levels {e_lv:.3e} (bound "
+          f"{ATOL_VAR:g}); host bisection, plain PyTorch on the card, "
+          f"launches {lc}; portfolios refused; {plugin_s:.3f} s (host "
+          "clock)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"wide phase: {phase_s:.3f} s, launches {total} ({smi})")
+    report = {"series": series, "launches": total, "parity": parity,
+              "k2_parity": k2_report,
+              "full_T_sweep": {"T": T, "n": WIDE_N_TIMED, "q": q,
+                               "kernel_ms": kern["kernel"],
+                               "plain_ms": plain_ms, "device_ms": dev_ms,
+                               "profile": prof, "bound_ms": [b_ms, by],
+                               "rel_err": rel_full},
+              "plugin": {"var_max_err": e_var, "levels_max_err": e_lv,
+                         "launches": lc, "wall_s": plugin_s},
+              "phase_s": phase_s}
+    entry = {"launches": total["masked_contract3_rebuild"],
+             "max_abs_err": err_full, "ms": kern["kernel"][0],
+             "plain_ms": plain_ms[0], "bound_ms": b_ms, "bound_by": by}
+    return report, entry
 
 
 def main() -> int:
@@ -902,7 +1323,8 @@ def main() -> int:
             print(f"  {line.strip()}")
 
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
-                cq3.contract3_weights, cq3.masked_contract3)
+                cq3.contract3_weights, cq3.masked_contract3,
+                cq3.masked_contract3_rebuild)
 
     def zero_counts():
         for c in counters:
@@ -975,7 +1397,8 @@ def main() -> int:
     if launches["sweep_table"] != len(bts):
         raise AssertionError("sweep_table did not build one table per dim-2 "
                              "backtest")
-    if launches["masked_contract3"] or launches["contract3_weights"]:
+    if launches["masked_contract3"] or launches["contract3_weights"] or \
+            launches["masked_contract3_rebuild"]:
         raise AssertionError("a dim-3 kernel launched on the dim-2 path")
 
     # -- main path from the CSV, fitted on the card, counted -----------------
@@ -1226,6 +1649,8 @@ def main() -> int:
     if launches3["masked_sweep"] or launches3["bisect_levels"] or \
             launches3["sweep_table"]:
         raise AssertionError("a dim-2 kernel launched on the dim-3 path")
+    if launches3["masked_contract3_rebuild"]:
+        raise AssertionError("the flagship dim-3 path left its table route")
     cfg = (-3.0, -3.5, -2.0, -7.5, 0.0)
     for est, bt in bts3.items():
         diff = np.abs(vars3[est] - rec3[f"{est}_var"])
@@ -1677,6 +2102,10 @@ def main() -> int:
     # then gloo ranks sharing the card, each on its outer grid rows -------
     grid_report = grid_sharded_phase(root, smi, w_batch, w_batch3_s,
                                      one_card, one_card_peaks)
+
+    # -- wide grids: dim 2 past K1's day through K2 sweeps, dim 3 past the
+    # table through the rebuild kernel, and the minimal plugin, counted ----
+    wide_report, wide_entry = wide_grid_phase(root, smi)
 
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
@@ -2151,15 +2580,19 @@ def main() -> int:
             torch, lambda: bt4.calc_var(obj4), reps=1),
     }
     prof4 = profiles["dim4_calc_var_msm"]
+    busy4 = prof4["busy_ms"]
     print(f"dim4 profile calc_var n={n4} MSM: host {prof4['wall_ms']:.3f} "
-          f"ms/call, device busy {prof4['busy_ms']:.3f} ms/call "
-          f"({prof4['busy_ms'] / prof4['wall_ms']:.1%}), "
-          f"{prof4['device_ops']:g} device ops per call; one n={n4} sweep's "
+          f"ms/call, device busy {_ms(busy4)} ms/call ("
+          + _ms(None if busy4 is None else busy4 / prof4["wall_ms"], ".1%")
+          + f"), {_ms(prof4['device_ops'], 'g')} device ops per call; one "
+          f"n={n4} sweep's "
           f"bound {bound4_32[0]:.4f} ms by {bound4_32[1]} ({smi})")
     for name, p in profiles.items():
         print(f"profile {name}: host {p['wall_ms']:.3f} ms/call, device busy "
-              f"{p['busy_ms']:.3f} ms/call, {p['device_ops']:g} device ops "
-              "per call; " + ", ".join(
+              f"{_ms(p['busy_ms'])} ms/call, {_ms(p['device_ops'], 'g')} "
+              f"device ops per call ({p['pad_lost']} of {PROFILE_PAD} pad "
+              f"kernels dropped by the trace, session {p['attempts']} of "
+              f"{PROFILE_ATTEMPTS}); " + ", ".join(
                   f"{k} {v['launches']:g} launches x "
                   + ("not measured" if v["device_ms"] is None
                      else f"{v['device_ms']:.4f} ms")
@@ -2242,14 +2675,14 @@ def main() -> int:
     for key, (b_ms, by) in trap_bounds.items():
         pr, base = profiles[key], profiles[unrefined[key]]
         print(f"refine {key}: trap pass call {timing[key]['plain'][0]:.3f} "
-              f"ms, device busy {pr['busy_ms']:.3f} ms, "
-              f"{pr['device_ops']:g} device ops per call; bound "
+              f"ms, device busy {_ms(pr['busy_ms'])} ms, "
+              f"{_ms(pr['device_ops'], 'g')} device ops per call; bound "
               f"{b_ms:.4f} ms by {by} ("
               + (f"{b_ms / pr['busy_ms']:.1%}" if pr["busy_ms"] else
                  "not measured")
               + " of the busy time); the unrefined solve "
               f"{timing[unrefined[key]]['kernel'][0]:.3f} ms, device busy "
-              f"{base['busy_ms']:.3f} ms ({smi})")
+              f"{_ms(base['busy_ms'])} ms ({smi})")
     bounds_ms.update(trap_bounds)
     report["bounds_ms"] = bounds_ms
     report["refine"] = refine_report
@@ -2258,6 +2691,7 @@ def main() -> int:
     report["day_sharded"] = sharded_report
     report["grid_sharded"] = grid_report
     report["grid_parity"] = grid_parity
+    report["wide_grid"] = wide_report
     report["halvings"] = iters
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),
@@ -2297,6 +2731,14 @@ def main() -> int:
               launches3["contract3_weights"], err_u, "contract3_weights"),
         entry("masked_contract3", "contract3.cu", k4,
               launches3["masked_contract3"], err3, "contract3_L1"),
+        # its launches: the wide-grid phase's dim-3 series (the only path
+        # that takes the rebuild route); its times: the full-T n = 300
+        # sweep
+        dict({"name": "masked_contract3_rebuild", "route": "cuda",
+              "source": "copula_var_tpu_torch/csrc/contract3.cu",
+              "replaces": k4, "library_ms": None,
+              "grid_launches_per_rank":
+                  grid_launches["masked_contract3_rebuild"]}, **wide_entry),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -92,9 +92,11 @@ from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
     garch_day_columns,
     garch_day_tensors,
+    garch_integrals,
     garch_integrals_cached,
     msm_day_columns,
     msm_day_tensors,
+    msm_integrals,
     msm_integrals_cached,
 )
 from copula_var_tpu_torch.ops.refine import refine_roots
@@ -115,6 +117,12 @@ def _rows(a, dev):
     first, on `dev`."""
     return torch.as_tensor(np.moveaxis(np.asarray(a, dtype=np.float64), -1,
                                        0).copy(), device=dev)
+
+
+def _on(a, like):
+    """`a` (array-like or tensor) as a float64 tensor on `like`'s
+    device."""
+    return torch.as_tensor(a, dtype=torch.float64, device=like.device)
 
 
 class MsmIntegrationInputs(NamedTuple):
@@ -232,6 +240,16 @@ class MsmAdapter:
         return MsmIntegrationInputs(x, dx, densities, unique_vols, fbs,
                                     combos)
 
+    def integrals(self, bounds, inputs: MsmIntegrationInputs, spec,
+                  weights, box_min=-5.0):
+        """(T,) integrals over per-day slabs bounds (T, 2), the density
+        rebuilt from the inputs (the minimal contract's integrand)."""
+        x = inputs.x
+        return msm_integrals(
+            _on(bounds, x), inputs.forecasts_by_states,
+            inputs.forecast_combos, x, inputs.dx, inputs.densities,
+            inputs.unique_vols, _on(weights, x), spec, box_min)
+
     def day_tensors(self, inputs: MsmIntegrationInputs, spec):
         return msm_day_tensors(inputs.forecasts_by_states, inputs.x,
                                inputs.unique_vols, spec)
@@ -335,6 +353,15 @@ class GarchAdapter:
         x, dx = garch_grid(num_points, box[0], box[1])
         return GarchIntegrationInputs(x, dx, fv.T.cpu().numpy())
 
+    def integrals(self, bounds, inputs: GarchIntegrationInputs, spec,
+                  weights, box_min=-5.0):
+        """(T,) integrals over per-day slabs bounds (T, 2), the density
+        rebuilt from the forecast vols (the minimal contract's
+        integrand)."""
+        x = inputs.x
+        return garch_integrals(_on(bounds, x), inputs.forecast_vols, x,
+                               inputs.dx, _on(weights, x), spec, box_min)
+
     def day_tensors(self, inputs: GarchIntegrationInputs, spec):
         return garch_day_tensors(inputs.forecast_vols, inputs.x, spec)
 
@@ -434,13 +461,19 @@ _COPULA_SPEC_BUILDERS = {}
 
 
 def register_adapter(name: str, adapter_cls) -> None:
-    """Plug in a volatility-model adapter. It provides `fit(in_sample,
-    device, timings)`, `marginals_densities(in_sample, fits, device)`,
-    `integration_inputs(windows, fits, num_points, box, device)` and the
-    serving methods of `MsmAdapter` / `GarchAdapter` (`day_tensors`,
-    `sweep_operands`; at dim 3 `day_columns`, `contract3_operands`; at
-    dim >= 4 `day_columns`, `column_operands`; the operand constructors take
-    `rows=(i0, i1)` to serve a grid mesh)."""
+    """Plug in a volatility-model adapter (the reference's
+    `VaRCalculationMethod`). The minimal contract is JAX's: `fit(
+    in_sample, device, timings)`, `marginals_densities(in_sample, fits,
+    device)`, `integration_inputs(windows, fits, num_points, box, device)`
+    and `integrals(bounds, inputs, spec, weights, box_min)` -> (T,). Such
+    an adapter is served by a host bisection over `integrals`
+    (`calc_var`, `calc_var_levels`); portfolios, grids and refine_root
+    raise, as in JAX. The fast path, through the kernels, takes the
+    serving methods of `MsmAdapter` / `GarchAdapter`: `day_tensors` and
+    `sweep_operands` at dim 2; `day_columns` and `contract3_operands` at
+    dim 3, `column_operands` at dim >= 4 (the operand constructors take
+    `rows=(i0, i1)` to serve a grid mesh). An adapter with neither
+    `day_tensors` nor `day_columns` takes the minimal route."""
     _ADAPTERS[name] = adapter_cls
 
 
@@ -550,6 +583,14 @@ class VaRBacktest:
                                        device=self.device)
         self._ops = None
         self.prep_seconds = 0.0
+        # JAX's minimal plugin contract: no cached path, so every sweep
+        # is `adapter.integrals` and the bisection runs on the host
+        self.plugin = not (hasattr(adapter, "day_tensors")
+                           or hasattr(adapter, "day_columns"))
+        if self.plugin and mesh is not None:
+            raise ValueError(
+                "a plugin adapter without day_tensors / day_columns serves "
+                "on one device (its integrals have no sharded form)")
 
     # -- bounds-invariant state ------------------------------------------
 
@@ -561,6 +602,11 @@ class VaRBacktest:
         those of this rank's block of days, cut from the full-T day
         tensors or columns, and with a grid mesh those of its outer grid
         rows."""
+        if self.plugin:
+            raise ValueError(
+                f"adapter {type(self.adapter).__name__} has no cached path "
+                "(day_tensors / day_columns): its sweeps are its "
+                "`integrals`")
         if self._ops is None:
             t0 = time.perf_counter()
             inputs, spec = self.integration_inputs, self.copula_spec
@@ -631,7 +677,13 @@ class VaRBacktest:
 
     def compute_integral(self, bounds) -> np.ndarray:
         """(T,) integrals over per-day [lower, upper] slabs (T, 2): one
-        sweep, through the kernel on a CUDA device at dim 2 and 3."""
+        sweep, through the kernel on a CUDA device at dim 2 and 3; for a
+        plugin adapter its `integrals` (plain PyTorch, as JAX's XLA)."""
+        if self.plugin:
+            out = self.adapter.integrals(
+                self._tensor(bounds).reshape(-1, 2), self.integration_inputs,
+                self.copula_spec, self.weights, self.box[0])
+            return torch.as_tensor(out).cpu().numpy()
         b = self._block(self._tensor(bounds).reshape(-1, 2))
         ops = self.sweep_operands()
         out = sweep_for(ops)(ops, b[None].contiguous(),
@@ -645,10 +697,12 @@ class VaRBacktest:
     @staticmethod
     def adjust_integral(new_result, prev_results, bounds, prev_upper):
         """Incremental CDF bookkeeping: add the slab when its lower edge
-        continues the previous upper bound, else subtract it."""
+        continues the previous upper bound, else subtract it (numpy
+        arrays or tensors)."""
         add = bounds[:, 0] == prev_upper
-        return torch.where(add, prev_results + new_result,
-                           prev_results - new_result)
+        where = torch.where if torch.is_tensor(new_result) else np.where
+        return where(add, prev_results + new_result,
+                     prev_results - new_result)
 
     # -- VaR solve --------------------------------------------------------
 
@@ -659,9 +713,16 @@ class VaRBacktest:
 
     def calc_var_levels(self, obj_vars=(0.01, 0.025, 0.05), first_guess=-3.0,
                         second_guess=(-3.5, -2.0), tolerance=1e-6,
-                        min_var_value=-7.5, max_var_value=0.0):
+                        min_var_value=-7.5, max_var_value=0.0,
+                        verbose=False):
         """VaR at L confidence levels in one batched solve -> (L, T);
-        row l equals `calc_var(obj_vars[l])`."""
+        row l equals `calc_var(obj_vars[l])`. A plugin adapter's levels
+        are bisected one by one on the host (`verbose` prints each
+        halving's widest gap, as JAX's `_bisection`)."""
+        if self.plugin:
+            return self._host_levels(obj_vars, first_guess, second_guess,
+                                     tolerance, min_var_value,
+                                     max_var_value, verbose)
         obj = self._tensor(np.atleast_1d(obj_vars))
         t0 = time.perf_counter()
         roots, nan_days = full_solve_levels(
@@ -681,14 +742,101 @@ class VaRBacktest:
 
     def calc_var(self, obj_var=0.05, first_guess=-3.0,
                  second_guess=(-3.5, -2.0), tolerance=1e-6,
-                 min_var_value=-7.5, max_var_value=0.0):
+                 min_var_value=-7.5, max_var_value=0.0, verbose=False):
         """Three-stage VaR solve (`calc_var_class.py:95-177,250-309`):
         slab [-100, first_guess], one refinement slab, bisection to
-        `tolerance`, plus the portfolio mean -> (T,)."""
+        `tolerance`, plus the portfolio mean -> (T,). `verbose` prints the
+        host bisection's halvings of a plugin adapter."""
         return self.calc_var_levels(
             [obj_var], first_guess, second_guess, tolerance, min_var_value,
-            max_var_value,
+            max_var_value, verbose,
         )[0]
+
+    # -- the minimal-plugin route (JAX `_bracket` / `_bisection`) ----------
+
+    def _host_levels(self, obj_vars, first_guess, second_guess, tolerance,
+                     min_var_value, max_var_value, verbose):
+        """(L, T) VaR of a plugin adapter: the shared stage-1 sweep, each
+        level's stage-2 bracket and its host bisection over `integrals`
+        (JAX `calc_var_levels` without a cached integral)."""
+        if self.refine_root:
+            raise ValueError(
+                "refine_root is not supported for adapter "
+                f"{type(self.adapter).__name__}: a plugin adapter without "
+                "a cached path (day_tensors / day_columns) has no trapezoid "
+                "twin and cannot refine")
+        T = self.data.out_sample_n
+        obj_vars = np.atleast_1d(np.asarray(obj_vars, dtype=np.float64))
+        t0 = time.perf_counter()
+        bounds = np.column_stack((np.full(T, -100.0), np.full(T, first_guess)))
+        results = self.compute_integral(bounds)
+        final = []
+        for ov in obj_vars:
+            bis, res, upper_stack, prev_upper, nan_days = self._bracket(
+                ov, results, first_guess, second_guess, min_var_value,
+                max_var_value)
+            roots = self._bisection(ov, bis, res, upper_stack, prev_upper,
+                                    tolerance, verbose)
+            final.append(np.where(nan_days, np.nan, roots))
+        self.solve_seconds = time.perf_counter() - t0
+        return np.stack(final) + self.data.ptf_mean
+
+    def _bracket(self, obj_var, results, first_guess, second_guess,
+                 min_var_value, max_var_value):
+        """Stage-2 refinement and bisection set-up for one level, given
+        the stage-1 CDF at `first_guess` (JAX `VaRBacktest._bracket`, the
+        reference's add-group anchor under `reference_quirks`). Returns
+        (bisection bounds (T, 2), result, upper_stack, prev_upper,
+        nan_days)."""
+        T = self.data.out_sample_n
+        new_lower = np.where(results >= obj_var, second_guess[0], first_guess)
+        new_upper = np.where(results < obj_var, second_guess[1], first_guess)
+        bounds = np.column_stack((new_lower, new_upper))
+        add_anchor = first_guess if self.reference_quirks else second_guess[1]
+        prev_upper = np.where(new_lower == second_guess[0], second_guess[0],
+                              add_anchor)
+        result = self.adjust_integral(self.compute_integral(bounds),
+                                      results, bounds, np.full(T, first_guess))
+        upper = bounds[:, 1]
+        bis = np.tile(np.array([min_var_value, max_var_value]), (T, 1))
+        nan_days = np.isnan(result)
+        hi = result > obj_var
+        bis[hi, 0], bis[hi, 1] = min_var_value, second_guess[0]
+        m = (result < obj_var) & (upper == first_guess)
+        bis[m, 0], bis[m, 1] = second_guess[0], first_guess
+        m = (result < obj_var) & (upper == second_guess[1])
+        bis[m, 0], bis[m, 1] = second_guess[1], max_var_value
+        m = (result > obj_var) & (upper == second_guess[1])
+        bis[m, 0], bis[m, 1] = first_guess, second_guess[1]
+        upper_stack = ~np.isin(bis[:, 1], list(second_guess))
+        return bis, result, upper_stack, prev_upper, nan_days
+
+    def _bisection(self, obj_var, bisection_bounds, prev_result, upper_stack,
+                   prev_upper, tolerance=1e-6, verbose=False):
+        """Whole-array bisection on the host, one `integrals` sweep per
+        halving, with the early break when every day's CDF is exactly 0
+        (JAX `VaRBacktest._bisection`, `calc_var_class.py:250-309`)."""
+        lower = bisection_bounds[:, 0].copy()
+        upper = bisection_bounds[:, 1].copy()
+        it = 0
+        while np.any(upper - lower > tolerance):
+            mid = (lower + upper) / 2.0
+            bounds = np.where(upper_stack[:, None],
+                              np.column_stack((lower, mid)),
+                              np.column_stack((mid, upper)))
+            result = self.adjust_integral(self.compute_integral(bounds),
+                                          prev_result, bounds, prev_upper)
+            if np.all(result == 0):
+                break
+            upper_stack = result < obj_var
+            lower = np.where(~upper_stack, lower, mid)
+            upper = np.where(upper_stack, upper, mid)
+            prev_result = result
+            prev_upper = mid
+            it += 1
+            if verbose:
+                print(f"bisection iter {it}: gap {np.max(upper - lower):.2e}")
+        return (lower + upper) / 2.0
 
     def calc_var_portfolios(self, weights_batch, obj_var=0.05,
                             first_guess=-3.0, second_guess=(-3.5, -2.0),
@@ -700,6 +848,12 @@ class VaRBacktest:
         weights_batch = np.atleast_2d(np.asarray(weights_batch, float))
         if weights_batch.shape[1] != self.data.dim:
             raise ValueError(f"weights_batch must be (L, {self.data.dim})")
+        if self.plugin:
+            raise ValueError(
+                "calc_var_portfolios needs a cached integral (the adapter's "
+                "day_tensors at dim 2, day_columns at dim >= 3); adapter "
+                f"{type(self.adapter).__name__} has only `integrals`, which "
+                "serves calc_var and calc_var_levels")
         L = weights_batch.shape[0]
         obj = np.broadcast_to(np.atleast_1d(np.asarray(obj_var, float)), (L,))
         t0 = time.perf_counter()

@@ -24,7 +24,10 @@ from copula_var_tpu_torch.copulas.common import (
     corr_matrix_from_params,
     safe_corr,
 )
-from copula_var_tpu_torch.ops.special import t_ppf
+from copula_var_tpu_torch.ops.special import (
+    t_pdf,  # noqa: F401  (re-exported: the JAX module's name)
+    t_ppf,
+)
 
 
 def _log_norm(nu, d):

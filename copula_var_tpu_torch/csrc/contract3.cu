@@ -11,6 +11,14 @@
 //                      memory (contract3_sweep_kernel), then sums the
 //                      per-slab partials in a fixed order
 //                      (contract3_sum_kernel).
+//   masked_contract3_rebuild
+//                      the same sweep with no table, as the TPU kernel
+//                      computes it: every launch rebuilds each slab's
+//                      cells from the transform columns
+//                      (contract3_rebuild_kernel), then the same sum
+//                      kernel. It serves the grids the table cannot: n
+//                      past the sweep's one-slab shared memory (169 at
+//                      q = 5), or a U larger than the card's free memory.
 //
 // What they compute, per row l and day t:
 //
@@ -61,6 +69,26 @@
 //     the whole day). The columns z, lu, fin, p and G stay whole and are
 //     read at row0 + the local slab. At row0 = 0, rows = n every launch is
 //     the one-card launch, bit for bit.
+//   * contract3_rebuild_kernel: one block per (t, i0) slab and tile of
+//     tile_rows consecutive i1 rows (64, or the largest power of two below it
+//     whose rows fit in shared memory: 64 up to n ~ 410 at q = 5, 16 at n =
+//     1024; the caller picks it, ops/cuda_quadrature3.py
+//     `rebuild_tile_rows`), so shared memory bounds no n <=
+//     interval::kMaxRow. The block folds G[t, i0] with W2, forms the tile's
+//     cells with the build kernel's arithmetic (`cell`), turns each row into
+//     its prefix sum (interval::scan_row: a flagged row keeps its cells), and
+//     warps take the bound rows, lanes over the tile's rows, each tile's warp
+//     sum one partial (l, t, i0, tile). The sweep is latency-bound (chains of
+//     f64 exp, log1p and division), so the launcher sizes the block for the
+//     most resident warps per SM (256-1024 threads; the bits do not depend on
+//     it): at n = 300 one 154 KB tile fits a SM, and 1024 threads keep 32
+//     warps on it. At 64 rows a tile is exactly a lookup span of
+//     contract3_sweep_kernel: the cells, the prefix sums, the lane order and
+//     the partials are the table sweep's, so the two routes give the same
+//     bits. Bound by the float64 arithmetic of the cells (one exp and one
+//     log1p each, ~n^3 T per sweep), not by memory: it reads only the (T, 3,
+//     n) columns and G. The TPU kernel does the same (pallas_quadrature3.py
+//     rebuilds a day's slab per call).
 // No floating-point atomics anywhere: repeated launches give identical
 // bits. No tensor cores: the work is a masked sum, not a product.
 //
@@ -95,7 +123,12 @@ constexpr int kSweepThreads = 512;
 constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kSpan = 64;  // consecutive i1 of one lookup task, 2 per lane
 constexpr int kSumThreads = 128;
-constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in per block
+// rebuild: threads per block, a power of two in [min, max], chosen per
+// launch for the most resident threads per SM (ties: the smaller block)
+constexpr int kRebuildMinThreads = 256;
+constexpr int kRebuildMaxThreads = 1024;
+constexpr int kMaxTileRows = kSpan;  // rebuild: i1 rows per block, at most
+constexpr size_t kMaxSharedBytes = CVT_MAX_SHARED_BYTES;  // opt-in per block
 constexpr size_t kBarrierBytes = 16;        // two mbarriers
 
 __host__ __device__ size_t weights_shared_bytes(int n, int q) {
@@ -119,6 +152,108 @@ __device__ __forceinline__ double nan_to_num(double v) {
   return v;
 }
 
+// The copula density of one slab (day t, outer point i0) at cells (i1, i2),
+// times the marginal pdfs (GARCH, nan_to_num), from the transform columns;
+// its per-slab constants are formed once (`Slab`). Both the table build and
+// the rebuild sweep take their cells from `cell`, so the two hold the same
+// bits.
+struct Slab {
+  const double* z1;
+  const double* z2;
+  const double* lu1;
+  const double* lu2;
+  const unsigned char* f1;
+  const unsigned char* f2;
+  const double* p;  // the day's (3, n) pdf columns; null: MSM
+  double z0, lu0, p0, zz0, q00;
+  double s01x2, s02x2, s11, s12x2, s22, coef;
+  bool f0;
+  int n, student;
+  double nu, log_norm, logdet;
+};
+
+__device__ __forceinline__ Slab make_slab(
+    const double* __restrict__ z, const unsigned char* __restrict__ fin,
+    const double* __restrict__ lu, const double* __restrict__ p,
+    const double* __restrict__ sigma_inv, int student, double nu,
+    double log_norm, double logdet, int t, int i0, int n) {
+  Slab s;
+  const size_t day = static_cast<size_t>(t) * 3 * n;
+  s.s01x2 = 2.0 * sigma_inv[1];
+  s.s02x2 = 2.0 * sigma_inv[2];
+  s.s11 = sigma_inv[4];
+  s.s12x2 = 2.0 * sigma_inv[5];
+  s.s22 = sigma_inv[8];
+  s.coef = (nu + 3.0) / 2.0;
+  s.z0 = z[day + i0];
+  s.z1 = z + day + n;
+  s.z2 = z + day + 2 * n;
+  s.lu0 = lu[day + i0];
+  s.lu1 = lu + day + n;
+  s.lu2 = lu + day + 2 * n;
+  s.f0 = fin[day + i0] != 0;
+  s.f1 = fin + day + n;
+  s.f2 = fin + day + 2 * n;
+  s.p = p != nullptr ? p + day : nullptr;
+  s.p0 = p != nullptr ? p[day + i0] : 0.0;
+  s.zz0 = __dmul_rn(s.z0, s.z0);
+  s.q00 = __dmul_rn(sigma_inv[0], s.zz0);
+  s.n = n;
+  s.student = student;
+  s.nu = nu;
+  s.log_norm = log_norm;
+  s.logdet = logdet;
+  return s;
+}
+
+// A[b, i2] = sum_c G[t, i0, b, c] W2[c, i2] into shared memory (q, n)
+__device__ __forceinline__ void fold_w2(const double* __restrict__ gt,
+                                        const double* __restrict__ w2,
+                                        double* a, int q, int n) {
+  for (int idx = threadIdx.x; idx < q * n; idx += blockDim.x) {
+    const int b = idx / n;
+    const int j = idx - b * n;
+    double s = 0.0;
+    for (int c = 0; c < q; ++c) s += gt[b * q + c] * w2[c * n + j];
+    a[idx] = s;
+  }
+}
+
+// U[t, i0, i1, i2] = V * sum_b W1[b, i1] A[b, i2]
+__device__ __forceinline__ double cell(const Slab& s,
+                                       const double* __restrict__ w1,
+                                       const double* a, int q, int i1,
+                                       int i2) {
+  const int n = s.n;
+  const double za = s.z1[i1];
+  const double zb = s.z2[i2];
+  // z^T Sigma^-1 z in the plain twin's order
+  double quad = __dadd_rn(s.q00, __dmul_rn(s.s01x2, __dmul_rn(s.z0, za)));
+  quad = __dadd_rn(quad, __dmul_rn(s.s02x2, __dmul_rn(s.z0, zb)));
+  quad = __dadd_rn(quad, __dmul_rn(s.s11, __dmul_rn(za, za)));
+  quad = __dadd_rn(quad, __dmul_rn(s.s12x2, __dmul_rn(za, zb)));
+  quad = __dadd_rn(quad, __dmul_rn(s.s22, __dmul_rn(zb, zb)));
+  double v;
+  if (s.student) {
+    const double log_mvt = __dsub_rn(
+        s.log_norm, __dmul_rn(s.coef, log1p(__ddiv_rn(quad, s.nu))));
+    const double lu_sum = __dadd_rn(__dadd_rn(s.lu0, s.lu1[i1]), s.lu2[i2]);
+    v = exp(__dsub_rn(log_mvt, lu_sum));
+    if (!(s.f0 && s.f1[i1] != 0 && s.f2[i2] != 0)) v = CUDART_NAN;
+  } else {
+    const double sum_z2 = __dadd_rn(__dadd_rn(s.zz0, __dmul_rn(za, za)),
+                                    __dmul_rn(zb, zb));
+    v = exp(__dmul_rn(-0.5, __dsub_rn(__dadd_rn(s.logdet, quad), sum_z2)));
+  }
+  if (s.p != nullptr) {
+    v = nan_to_num(__dmul_rn(
+        v, __dmul_rn(__dmul_rn(s.p0, s.p[n + i1]), s.p[2 * n + i2])));
+  }
+  double h = 0.0;
+  for (int b = 0; b < q; ++b) h += w1[b * n + i1] * a[b * n + i2];
+  return v * h;
+}
+
 __global__ void __launch_bounds__(kWeightsThreads)
 contract3_weights_kernel(const double* __restrict__ z,           // (T, 3, n)
                          const unsigned char* __restrict__ fin,  // (T, 3, n)
@@ -136,69 +271,16 @@ contract3_weights_kernel(const double* __restrict__ z,           // (T, 3, n)
   extern __shared__ double a[];  // (q, n)
   const int t = blockIdx.x / rows;
   const int i0 = row0 + (blockIdx.x - t * rows);  // grid point of the slab
-  const size_t day = static_cast<size_t>(t) * 3 * n;
-  const double* gt = g + (static_cast<size_t>(t) * n + i0) * q * q;
-  for (int idx = threadIdx.x; idx < q * n; idx += blockDim.x) {
-    const int b = idx / n;
-    const int j = idx - b * n;
-    double s = 0.0;
-    for (int c = 0; c < q; ++c) s += gt[b * q + c] * w2[c * n + j];
-    a[idx] = s;
-  }
+  fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n);
   __syncthreads();
-
-  const double s00 = sigma_inv[0], s01x2 = 2.0 * sigma_inv[1],
-               s02x2 = 2.0 * sigma_inv[2], s11 = sigma_inv[4],
-               s12x2 = 2.0 * sigma_inv[5], s22 = sigma_inv[8];
-  const double coef = (nu + 3.0) / 2.0;
-  const double z0 = z[day + i0];
-  const double* z1 = z + day + n;
-  const double* z2 = z + day + 2 * n;
-  const double lu0 = lu[day + i0];
-  const double* lu1 = lu + day + n;
-  const double* lu2 = lu + day + 2 * n;
-  const bool f0 = fin[day + i0] != 0;
-  const unsigned char* f1 = fin + day + n;
-  const unsigned char* f2 = fin + day + 2 * n;
-  const double p0 = p != nullptr ? p[day + i0] : 0.0;
-  const double zz0 = __dmul_rn(z0, z0);
-  const double q00 = __dmul_rn(s00, zz0);
+  const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
+                            logdet, t, i0, n);
   double* slab = u + static_cast<size_t>(blockIdx.x) * stride;
   for (int idx = threadIdx.x; idx < stride; idx += blockDim.x) {
     const int i1 = idx / pitch;
     const int i2 = idx - i1 * pitch;
-    if (i1 >= n || i2 >= n) {  // pad cells: defined, never summed
-      slab[idx] = 0.0;
-      continue;
-    }
-    const double za = z1[i1];
-    const double zb = z2[i2];
-    // z^T Sigma^-1 z in the plain twin's order
-    double quad = __dadd_rn(q00, __dmul_rn(s01x2, __dmul_rn(z0, za)));
-    quad = __dadd_rn(quad, __dmul_rn(s02x2, __dmul_rn(z0, zb)));
-    quad = __dadd_rn(quad, __dmul_rn(s11, __dmul_rn(za, za)));
-    quad = __dadd_rn(quad, __dmul_rn(s12x2, __dmul_rn(za, zb)));
-    quad = __dadd_rn(quad, __dmul_rn(s22, __dmul_rn(zb, zb)));
-    double v;
-    if (student) {
-      const double log_mvt =
-          __dsub_rn(log_norm, __dmul_rn(coef, log1p(__ddiv_rn(quad, nu))));
-      const double lu_sum = __dadd_rn(__dadd_rn(lu0, lu1[i1]), lu2[i2]);
-      v = exp(__dsub_rn(log_mvt, lu_sum));
-      if (!(f0 && f1[i1] != 0 && f2[i2] != 0)) v = CUDART_NAN;
-    } else {
-      const double sum_z2 = __dadd_rn(__dadd_rn(zz0, __dmul_rn(za, za)),
-                                      __dmul_rn(zb, zb));
-      v = exp(__dmul_rn(-0.5, __dsub_rn(__dadd_rn(logdet, quad), sum_z2)));
-    }
-    if (p != nullptr) {
-      const double* pd = p + day;
-      v = nan_to_num(__dmul_rn(
-          v, __dmul_rn(__dmul_rn(p0, pd[n + i1]), pd[2 * n + i2])));
-    }
-    double h = 0.0;
-    for (int b = 0; b < q; ++b) h += w1[b * n + i1] * a[b * n + i2];
-    slab[idx] = v * h;
+    // pad cells: defined, never summed
+    slab[idx] = (i1 >= n || i2 >= n) ? 0.0 : cell(sl, w1, a, q, i1, i2);
   }
 }
 
@@ -308,8 +390,8 @@ contract3_sweep_kernel(const double* __restrict__ u,  // (T, rows, stride)
           // NaN-propagating max, as torch.maximum
           const double dlo = (d > box_min || d != d) ? d : box_min;
           const size_t r = static_cast<size_t>(i1) * pitch;
-          acc += interval::row_sum(slab + r, cells + r, flag[i1] != 0, xs, n,
-                                   dlo, dup);
+          acc += interval::row_sum<interval::kShortTop>(
+              slab + r, cells + r, flag[i1] != 0, xs, n, dlo, dup);
         }
       }
       acc = interval::warp_sum(acc);
@@ -337,29 +419,106 @@ __global__ void contract3_sum_kernel(const double* __restrict__ partial,
   out[r] = s;
 }
 
+// rebuild: x (n,), the (q, n) fold, `tile_rows` rows at the odd pitch and
+// a flag byte per row
+__host__ __device__ size_t rebuild_shared_bytes(int n, int q,
+                                                int tile_rows) {
+  return (static_cast<size_t>(n) + static_cast<size_t>(q) * n +
+          static_cast<size_t>(tile_rows) * interval::row_pitch(n)) *
+             sizeof(double) +
+         tile_rows;
+}
+
+__global__ void __launch_bounds__(kRebuildMaxThreads)
+contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
+                         const unsigned char* __restrict__ fin,  // (T, 3, n)
+                         const double* __restrict__ lu,          // (T, 3, n)
+                         const double* __restrict__ p,  // (T, 3, n); null: MSM
+                         const double* __restrict__ w1,          // (q, n)
+                         const double* __restrict__ w2,          // (q, n)
+                         const double* __restrict__ g,       // (T, n, q, q)
+                         const double* __restrict__ sigma_inv,   // (3, 3)
+                         int student, double nu, double log_norm,
+                         double logdet,
+                         const double* __restrict__ x,        // (n,)
+                         const double* __restrict__ bounds,   // (L, T, 2)
+                         const double* __restrict__ weights,  // (L, 3)
+                         double box_min,
+                         double* __restrict__ partial,  // (L, T, rows, tiles)
+                         int T, int n, int row0, int rows, int q, int L,
+                         int tile_rows) {
+  // not `smem`: contract3_sweep_kernel declares that name with another type
+  extern __shared__ double rebuild_shared[];
+  const int pitch = interval::row_pitch(n);
+  const int tiles = (n + tile_rows - 1) / tile_rows;
+  double* xs = rebuild_shared;                        // (n,)
+  double* a = xs + n;                                 // (q, n)
+  double* u = a + static_cast<size_t>(q) * n;         // (tile_rows, pitch)
+  unsigned char* flag = reinterpret_cast<unsigned char*>(
+      u + static_cast<size_t>(tile_rows) * pitch);    // (tile_rows,)
+  const int tile = blockIdx.x % tiles;
+  const int s = blockIdx.x / tiles;  // the slab (t, local)
+  const int t = s / rows;
+  const int local = s - t * rows;
+  const int i0 = row0 + local;       // its grid point
+  const int r0 = tile * tile_rows;   // the tile's first i1
+  const int nr = min(tile_rows, n - r0);
+
+  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
+  fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n);
+  __syncthreads();
+  const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
+                            logdet, t, i0, n);
+  for (int idx = threadIdx.x; idx < nr * n; idx += blockDim.x) {
+    const int r = idx / n;
+    const int i2 = idx - r * n;
+    u[static_cast<size_t>(r) * pitch + i2] = cell(sl, w1, a, q, r0 + r, i2);
+  }
+  __syncthreads();
+  // each row its inclusive prefix sum over i2, or flagged and kept as its
+  // cells (interval::scan_row)
+  if (threadIdx.x < nr)
+    flag[threadIdx.x] =
+        interval::scan_row(u + static_cast<size_t>(threadIdx.x) * pitch, n);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const double x0 = xs[i0];
+  for (int l = warp; l < L; l += warps) {
+    const size_t o = static_cast<size_t>(l) * T + t;
+    const double b_lo = bounds[2 * o];
+    const double b_up = bounds[2 * o + 1];
+    const double w_in = weights[3 * l];
+    const double p0w = __dmul_rn(x0, weights[3 * l + 1]);
+    const double w_o2 = weights[3 * l + 2];
+    double acc = 0.0;
+#pragma unroll
+    for (int c = 0; c < (kMaxTileRows + 31) / 32; ++c) {
+      const int r = c * 32 + lane;  // the tile's row, i1 = r0 + r
+      if (r < nr) {
+        const double prev = __dadd_rn(p0w, __dmul_rn(xs[r0 + r], w_o2));
+        const double dup = __ddiv_rn(__dsub_rn(b_up, prev), w_in);
+        const double d = __ddiv_rn(__dsub_rn(b_lo, prev), w_in);
+        // NaN-propagating max, as torch.maximum
+        const double dlo = (d > box_min || d != d) ? d : box_min;
+        const double* row = u + static_cast<size_t>(r) * pitch;
+        acc += interval::row_sum<interval::kMaxTop>(row, row, flag[r] != 0,
+                                                    xs, n, dlo, dup);
+      }
+    }
+    acc = interval::warp_sum(acc);
+    if (lane == 0) partial[(o * rows + local) * tiles + tile] = acc;
+  }
+}
+
 bool valid_layout(int n, int pitch, int stride) {
   const long long np = static_cast<long long>(n) * pitch;
   return pitch == interval::row_pitch(n) && stride == np + np % 2;
 }
 
 }  // namespace
-
-// The largest n the dim-3 sweep takes: one padded n*n slab (two where
-// they fit), the grid and the row flags in one block's shared memory,
-// rows no longer than the prefix scan's, and the build kernel's (q, n).
-extern "C" int cvt_contract3_max_grid_points(int q) {
-  int n = 1;
-  for (;;) {
-    const int m = n + 1;
-    const int rows = m * interval::row_pitch(m);
-    const int stride = rows + rows % 2;
-    if (m > interval::kMaxRow ||
-        sweep_shared_bytes(m, stride, 1) > kMaxSharedBytes ||
-        weights_shared_bytes(m, q) > kMaxSharedBytes)
-      return n;
-    n = m;
-  }
-}
 
 extern "C" int cvt_contract3_weights(
     const double* z, const unsigned char* fin, const double* lu,
@@ -433,5 +592,61 @@ extern "C" int cvt_masked_contract3(const double* u, const double* x,
   const int m = rows * ((n + kSpan - 1) / kSpan);  // partials per sum
   contract3_sum_kernel<<<(sums + kSumThreads - 1) / kSumThreads, kSumThreads,
                          0, s>>>(partial, out, m, sums);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sweep without a table: the columns, G and the outer slabs [row0,
+// row0 + rows) of every day, in tiles of tile_rows i1 rows (a divisor of
+// kSpan whose rows fit in shared memory, chosen by the caller);
+// partial: (L, T, rows, ceil(n / tile_rows)) scratch, summed in order
+// into out
+extern "C" int cvt_masked_contract3_rebuild(
+    const double* z, const unsigned char* fin, const double* lu,
+    const double* p, const double* w1, const double* w2, const double* g,
+    const double* sigma_inv, int student, double nu, double log_norm,
+    double logdet, const double* x, const double* bounds,
+    const double* weights, double box_min, double* partial, double* out,
+    int T, int n, int row0, int rows, int q, int L, int tile_rows,
+    void* stream) {
+  if (n <= 0 || n > interval::kMaxRow || q <= 0 || tile_rows <= 0 ||
+      tile_rows > kMaxTileRows || kMaxTileRows % tile_rows != 0 || T < 0 ||
+      L < 0 || row0 < 0 || rows <= 0 || row0 + rows > n ||
+      rebuild_shared_bytes(n, q, tile_rows) > kMaxSharedBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (n + tile_rows - 1) / tile_rows;
+  if (static_cast<long long>(T) * rows * tiles > 0x7fffffffLL ||
+      static_cast<long long>(L) * T > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = rebuild_shared_bytes(n, q, tile_rows);
+  cudaError_t e = cudaFuncSetAttribute(
+      contract3_rebuild_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (T == 0 || L == 0) return 0;
+  // the block size that keeps the most threads resident per SM (the
+  // sweep is latency-bound: one 1024-thread block per SM at n = 300,
+  // two of 512 at n = 180); the result's bits do not depend on it
+  int threads = kRebuildMinThreads, resident = 0;
+  for (int t = kRebuildMinThreads; t <= kRebuildMaxThreads; t *= 2) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, contract3_rebuild_kernel, t, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm * t > resident) {
+      resident = per_sm * t;
+      threads = t;
+    }
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  contract3_rebuild_kernel<<<T * rows * tiles, threads, bytes, s>>>(
+      z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet, x,
+      bounds, weights, box_min, partial, T, n, row0, rows, q, L, tile_rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int sums = L * T;  // one per (bound row, day)
+  contract3_sum_kernel<<<(sums + kSumThreads - 1) / kSumThreads, kSumThreads,
+                         0, s>>>(partial, out, rows * tiles, sums);
   return static_cast<int>(cudaGetLastError());
 }

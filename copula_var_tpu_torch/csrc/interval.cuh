@@ -36,27 +36,53 @@
 
 #include <cuda_runtime.h>
 
+// The kernels' limits have one home, copula_var_tpu_torch/ops/_build.py,
+// which passes them to nvcc: the interval rule's two longest rows in
+// chunks of 32 cells (CVT_SHORT_CHUNKS, CVT_MAX_CHUNKS) and a block's
+// opt-in shared memory (CVT_MAX_SHARED_BYTES).
+#if !defined(CVT_SHORT_CHUNKS) || !defined(CVT_MAX_CHUNKS) || \
+    !defined(CVT_MAX_SHARED_BYTES)
+#error "build through copula_var_tpu_torch/ops/_build.py: it defines the limits"
+#endif
+
 namespace interval {
 
-// Rows of up to kMaxRow cells: a warp's lanes cover them in kMaxChunks
-// groups of 32, and the binary searches take the steps kTopStep, ..., 1.
-constexpr int kMaxChunks = 6;
+// The largest power of two <= n (n >= 1).
+constexpr int top_step(int n) { return n < 2 ? 1 : 2 * top_step(n / 2); }
+
+// Rows of up to kMaxRow cells. A kernel's lookups are compiled for a
+// fixed longest row: rows of up to kShortRow cells (K1, the dim-3 table
+// sweep and K2 at n <= kShortRow: a warp's lanes cover them in
+// kShortChunks unrolled groups of 32, the searches take the steps
+// kShortTop, ..., 1) or of up to kMaxRow (K2 past kShortRow and the dim-3
+// rebuild: kMaxChunks groups, steps kMaxTop, ..., 1). A step that would
+// pass n changes no count (a + step <= n) and a chunk past the row adds
+// nothing, so both forms give the same counts and the same sums for every
+// n they take.
+constexpr int kShortChunks = CVT_SHORT_CHUNKS;
+constexpr int kShortRow = 32 * kShortChunks;
+constexpr int kShortTop = top_step(kShortRow);
+constexpr int kMaxChunks = CVT_MAX_CHUNKS;
 constexpr int kMaxRow = 32 * kMaxChunks;
-constexpr int kTopStep = 128;  // the largest power of two <= kMaxRow
+constexpr int kMaxTop = top_step(kMaxRow);
+static_assert(kShortChunks > 0 && kShortChunks <= kMaxChunks,
+              "the short rows are the shorter");
 constexpr double kMaxCell = 1.0;  // the largest magnitude of a scanned cell
 
 // The pitch of a row of n cells: n rounded up to odd.
 __host__ __device__ __forceinline__ int row_pitch(int n) { return n | 1; }
 
-// (#{j : x_j <= dlo}, #{j : x_j <= dup}) for x strictly ascending (n
-// entries, shared memory): both counts by binary lifting, interleaved, in
-// a fixed number of branch-free steps; a NaN bound counts 0.
+// (#{j : x_j <= dlo}, #{j : x_j <= dup}) for x strictly ascending (n <=
+// 2 kTop - 1 entries, shared memory): both counts by binary lifting,
+// interleaved, in a fixed number of branch-free steps; a NaN bound
+// counts 0.
+template <int kTop>
 __device__ __forceinline__ void counts_le(const double* xs, int n,
                                           double dlo, double dup, int* lo,
                                           int* hi) {
   int a = 0, b = 0;
 #pragma unroll
-  for (int step = kTopStep; step > 0; step >>= 1) {
+  for (int step = kTop; step > 0; step >>= 1) {
     if (a + step <= n && xs[a + step - 1] <= dlo) a += step;
     if (b + step <= n && xs[b + step - 1] <= dup) b += step;
   }
@@ -65,14 +91,16 @@ __device__ __forceinline__ void counts_le(const double* xs, int n,
 }
 
 // Masked sum of one row: from its prefix sums `row` when it is not
-// flagged, else from its cells `cells`, one by one.
+// flagged, else from its cells `cells`, one by one (searches of
+// counts_le<kTop>).
+template <int kTop>
 __device__ __forceinline__ double row_sum(const double* row,
                                           const double* cells, bool flagged,
                                           const double* xs, int n,
                                           double dlo, double dup) {
   if (dlo != dlo || dup != dup) return 0.0;
   int lo, hi;
-  counts_le(xs, n, dlo, dup, &lo, &hi);
+  counts_le<kTop>(xs, n, dlo, dup, &lo, &hi);
   if (hi <= lo) return 0.0;
   if (!flagged) return lo > 0 ? row[hi - 1] - row[lo - 1] : row[hi - 1];
   double s = 0.0;

@@ -28,7 +28,9 @@
 // axis j, where the interval rule searches, is always the whole grid x. At
 // row0 = 0, rows = n both kernels do what they do for one card, bit for bit.
 //
-// sweep_table: one block per (day, 32 rows) forms those rows of U
+// sweep_table: one block per (day, up to 32 rows; fewer where 32 rows of
+// the grid's width would pass the block's shared memory, 28 at n = 1024)
+// forms those rows of U
 // (`form_rows`) in shared memory at the odd pitch n | 1, one thread per row
 // turns its row into its inclusive prefix sum (interval::scan_row, two
 // passes: a flagged row keeps its cells for the cell-by-cell sum) and the
@@ -38,8 +40,10 @@
 //
 // masked_sweep: one warp per task (bound row l, day t), four warps per
 // block, tasks day-major (t * L + l) so a block's warps read one day's rows.
-// Lanes stride over the rows i (interval::kMaxChunks groups of 32, unrolled
-// so the lookups overlap); each forms the row's two dynamic bounds, reads
+// Lanes stride over the rows i (up to six chunks of 32, unrolled so the
+// lookups overlap; past 192 rows a second instantiation takes 32 chunks,
+// up to interval::kMaxRow = 1024 rows); each forms the row's two dynamic
+// bounds, reads
 // two cells of P (or, for a flagged row, its cells over [lo, hi)) and the
 // warp sums the rows in a fixed order. So a result's bits depend on (l, t)
 // alone, not on L or the other rows of its batch, and no atomics or block
@@ -85,17 +89,26 @@
 
 namespace {
 
-constexpr int kTableRows = 32;  // sweep_table: rows of U per block
+constexpr int kTableRows = 32;  // sweep_table: rows of U per block, at most
 constexpr int kTableThreads = 128;
 constexpr int kSweepThreads = 128;  // masked_sweep: one (l, t) task per warp
 constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kBisectThreads = 512;  // bisect_levels: 16 warps take rows
 constexpr int kBisectWarps = kBisectThreads / 32;
-constexpr size_t kMaxSharedBytes = 232448;  // 227 KB opt-in per block
+constexpr size_t kMaxSharedBytes = CVT_MAX_SHARED_BYTES;  // opt-in per block
 
-// sweep_table: kTableRows rows of U at `pitch`
+// sweep_table: rows of U per block, kTableRows or as many as the block's
+// shared memory holds at the row pitch of n
+__host__ __device__ int table_block_rows(int n) {
+  const size_t row = static_cast<size_t>(interval::row_pitch(n)) *
+                     sizeof(double);
+  const size_t fit = kMaxSharedBytes / row;
+  return fit < static_cast<size_t>(kTableRows) ? static_cast<int>(fit)
+                                               : kTableRows;
+}
+
 __host__ __device__ size_t table_shared_bytes(int n) {
-  return static_cast<size_t>(kTableRows) * interval::row_pitch(n) *
+  return static_cast<size_t>(table_block_rows(n)) * interval::row_pitch(n) *
          sizeof(double);
 }
 
@@ -137,10 +150,10 @@ sweep_table_kernel(const double* __restrict__ v,    // (T, rows, n)
                    const double* __restrict__ w1,   // (q, n)
                    double* __restrict__ p,          // (T, rows, pitch)
                    unsigned char* __restrict__ flag,  // (T, rows)
-                   int n, int rows, int q, int pitch) {
-  extern __shared__ double u[];  // (kTableRows, pitch)
-  const int r0 = blockIdx.y * kTableRows;
-  const int nr = min(kTableRows, rows - r0);
+                   int n, int rows, int q, int pitch, int block_rows) {
+  extern __shared__ double u[];  // (block_rows, pitch)
+  const int r0 = blockIdx.y * block_rows;
+  const int nr = min(block_rows, rows - r0);
   const size_t first = static_cast<size_t>(blockIdx.x) * rows + r0;  // (t, r0)
   form_rows(v + first * n, wfc + first * q, w1, u, nr, n, q, pitch);
   __syncthreads();
@@ -154,6 +167,9 @@ sweep_table_kernel(const double* __restrict__ v,    // (T, rows, n)
     out[idx] = idx % pitch < n ? u[idx] : 0.0;  // pad cells: defined, unread
 }
 
+// kChunks groups of 32 rows at most (interval.cuh: rows of up to
+// kShortRow or kMaxRow cells), searches from kTop
+template <int kChunks, int kTop>
 __global__ void __launch_bounds__(kSweepThreads)
 prefix_sweep_kernel(const double* __restrict__ p,  // (T, rows, pitch)
                     const unsigned char* __restrict__ flag,  // (T, rows)
@@ -162,7 +178,7 @@ prefix_sweep_kernel(const double* __restrict__ p,  // (T, rows, pitch)
                     const double* __restrict__ weights,  // (L, 2)
                     double box_min, double* __restrict__ out,  // (L, T)
                     int T, int n, int row0, int rows, int L, int pitch) {
-  __shared__ double xs[interval::kMaxRow];
+  __shared__ double xs[kChunks * 32];
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   __syncthreads();
   const int task = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
@@ -177,7 +193,7 @@ prefix_sweep_kernel(const double* __restrict__ p,  // (T, rows, pitch)
   const unsigned char* fl = flag + static_cast<size_t>(t) * rows;
   double acc = 0.0;
 #pragma unroll
-  for (int c = 0; c < interval::kMaxChunks; ++c) {
+  for (int c = 0; c < kChunks; ++c) {
     const int i = c * 32 + lane;  // the range's row i, grid point row0 + i
     if (c * 32 < rows && i < rows) {
       const double pv = __dmul_rn(xs[row0 + i], w_out);
@@ -186,7 +202,7 @@ prefix_sweep_kernel(const double* __restrict__ p,  // (T, rows, pitch)
       // NaN-propagating max, as jnp.maximum / torch.maximum
       const double dlo = (d > box_min || d != d) ? d : box_min;
       const double* row = day + static_cast<size_t>(i) * pitch;
-      acc += interval::row_sum(row, row, fl[i] != 0, xs, n, dlo, dup);
+      acc += interval::row_sum<kTop>(row, row, fl[i] != 0, xs, n, dlo, dup);
     }
   }
   acc = interval::warp_sum(acc);
@@ -236,7 +252,7 @@ bisect_levels_kernel(const double* __restrict__ v,
       double acc = 0.0;
       // i = lane, lane + 32, ...: unrolled, so the lookups overlap
 #pragma unroll
-      for (int c = 0; c < interval::kMaxChunks; ++c) {
+      for (int c = 0; c < interval::kShortChunks; ++c) {
         const int i = c * 32 + lane;
         if (c * 32 < n && i < n) {
           const double p = __dmul_rn(xs[i], w_out);
@@ -245,7 +261,8 @@ bisect_levels_kernel(const double* __restrict__ v,
           // NaN-propagating max, as jnp.maximum / torch.maximum
           const double dlo = (d > box_min || d != d) ? d : box_min;
           const double* row = u + static_cast<size_t>(i) * pitch;
-          acc += interval::row_sum(row, row, flag[i] != 0, xs, n, dlo, dup);
+          acc += interval::row_sum<interval::kShortTop>(
+              row, row, flag[i] != 0, xs, n, dlo, dup);
         }
       }
       const double sl = interval::warp_sum(acc);
@@ -275,20 +292,6 @@ extern "C" const char* cvt_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// The largest grid of the dim-2 table and sweep: the interval rule's rows.
-extern "C" int cvt_sweep_max_grid_points() { return interval::kMaxRow; }
-
-// The largest grid of the bisection: its day (n*(n|1) f64 prefix rows, x
-// and the row flags) resident in one block's shared memory, and no more
-// than the interval rule's rows.
-extern "C" int cvt_max_grid_points() {
-  int n = 1;
-  while (n + 1 <= interval::kMaxRow &&
-         bisect_shared_bytes(n + 1) <= kMaxSharedBytes)
-    ++n;
-  return n;
-}
-
 // v, wfc, p and flag hold `rows` outer grid rows of every day
 extern "C" int cvt_sweep_table(const double* v, const double* wfc,
                                const double* w1, double* p,
@@ -298,14 +301,15 @@ extern "C" int cvt_sweep_table(const double* v, const double* wfc,
       rows <= 0 || rows > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int block_rows = table_block_rows(n);
   const size_t bytes = table_shared_bytes(n);
   cudaError_t e = prepare(sweep_table_kernel, bytes, T, n, q, 1);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0) return 0;
-  const dim3 grid(T, (rows + kTableRows - 1) / kTableRows);
+  const dim3 grid(T, (rows + block_rows - 1) / block_rows);
   sweep_table_kernel<<<grid, kTableThreads, bytes,
                        static_cast<cudaStream_t>(stream)>>>(
-      v, wfc, w1, p, flag, n, rows, q, pitch);
+      v, wfc, w1, p, flag, n, rows, q, pitch, block_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,9 +328,18 @@ extern "C" int cvt_masked_sweep(const double* p, const unsigned char* flag,
   }
   if (T == 0 || L == 0) return 0;
   const int grid = (L * T + kSweepWarps - 1) / kSweepWarps;
-  prefix_sweep_kernel<<<grid, kSweepThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      p, flag, x, bounds, weights, box_min, out, T, n, row0, rows, L, pitch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // rows of up to 192 cells: the short form (six unrolled chunks, eight
+  // search steps); longer rows: the long form (same sums and counts)
+  if (n <= interval::kShortRow) {
+    prefix_sweep_kernel<interval::kShortChunks, interval::kShortTop>
+        <<<grid, kSweepThreads, 0, s>>>(p, flag, x, bounds, weights, box_min,
+                                        out, T, n, row0, rows, L, pitch);
+  } else {
+    prefix_sweep_kernel<interval::kMaxChunks, interval::kMaxTop>
+        <<<grid, kSweepThreads, 0, s>>>(p, flag, x, bounds, weights, box_min,
+                                        out, T, n, row0, rows, L, pitch);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,7 +352,7 @@ extern "C" int cvt_bisect_levels(const double* v, const double* wfc,
                                  const double* obj, const double* weights,
                                  double box_min, int n_iters, double* roots,
                                  int T, int n, int q, int L, void* stream) {
-  if (n > interval::kMaxRow || n_iters < 0) {
+  if (n > interval::kShortRow || n_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = bisect_shared_bytes(n);

@@ -24,17 +24,25 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
+# The kernels' limits, in one place: compiled into every source as -D
+# defines, and read by the routes of ops/cuda_quadrature*.py. A block's
+# opt-in shared memory on the H100 (227 KB), and the interval rule's two
+# longest rows in chunks of 32 cells (csrc/interval.cuh): 192 (K1, the
+# dim-3 table sweep, K2 up to 192) and 1024 (K2 past 192, the rebuild).
+MAX_SHARED_BYTES = 232448
+SHORT_CHUNKS = 6
+MAX_CHUNKS = 32
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    f"-DCVT_MAX_SHARED_BYTES={MAX_SHARED_BYTES}",
+    f"-DCVT_SHORT_CHUNKS={SHORT_CHUNKS}", f"-DCVT_MAX_CHUNKS={MAX_CHUNKS}",
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # source -> {C function: argtypes}
 SOURCES = {
     "quadrature.cu": {
-        "cvt_max_grid_points": [],
-        "cvt_sweep_max_grid_points": [],
         "cvt_error_string": [_I],
         # v, wfc, w1, P, flags, T, n, rows, q, pitch, stream
         "cvt_sweep_table": [_P] * 5 + [_I] * 5 + [_P],
@@ -46,7 +54,6 @@ SOURCES = {
         "cvt_bisect_levels": [_P] * 11 + [_D, _I, _P] + [_I] * 4 + [_P],
     },
     "contract3.cu": {
-        "cvt_contract3_max_grid_points": [_I],
         # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
         # logdet, U, T, n, row0, rows, q, pitch, stride, stream
         "cvt_contract3_weights": [_P] * 8 + [_I] + [_D] * 3 + [_P]
@@ -54,6 +61,11 @@ SOURCES = {
         # U, x, bounds, weights, box_min, partial, out, T, n, row0, rows, L,
         # pitch, stride, stream
         "cvt_masked_contract3": [_P] * 4 + [_D] + [_P] * 2 + [_I] * 7 + [_P],
+        # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
+        # logdet, x, bounds, weights, box_min, partial, out, T, n, row0,
+        # rows, q, L, tile_rows, stream
+        "cvt_masked_contract3_rebuild": [_P] * 8 + [_I] + [_D] * 3
+        + [_P] * 3 + [_D] + [_P] * 2 + [_I] * 7 + [_P],
     },
 }
 

@@ -21,7 +21,17 @@ unit combination weight); it is not padded to q = 2.
 
 The interval rule reads each row's mask off the grid by binary search,
 so operands on a CUDA device need a strictly ascending grid;
-`sweep_operands` checks it once.
+`sweep_operands` checks it once. It takes rows of up to
+SWEEP_MAX_GRID_POINTS = 1024 cells (`csrc/interval.cuh` kMaxRow), so the
+table and the sweep serve every n up to 1024 whose P fits in the card's
+free memory (P is 661 MB at n = 406, T = 500); past either limit
+`sweep_operands` raises, naming it. The bisection kernel K1 holds a day
+in shared memory and takes n <= `bisect_max_grid_points()` (169); wider
+grids bisect by K2 sweeps (`ops/cuda_solver.py`).
+
+The limits are `ops/_build.py`'s, which it compiles into the kernels, and
+the routes are computed from them here, so a route can be chosen, and
+tested, without the library; the launchers refuse what passes them.
 
 Grid sharding (`parallel/`): operands built with `rows=(i0, i1)` hold
 outer grid rows [i0, i1) of every day (V, wfc, P and flags cut to them;
@@ -47,6 +57,9 @@ from copula_var_tpu_torch.ops.quadrature import (
 )
 
 MAX_CELL = 1.0  # interval.cuh kMaxCell: a row with a larger cell is flagged
+SWEEP_MAX_GRID_POINTS = 32 * _build.MAX_CHUNKS  # the rule's longest row
+BISECT_MAX_ROW = 32 * _build.SHORT_CHUNKS  # the rows K1 is compiled for
+MAX_SHARED_BYTES = _build.MAX_SHARED_BYTES
 
 
 class SweepOperands(NamedTuple):
@@ -87,6 +100,50 @@ def row_pitch(n: int) -> int:
     pad cell when n is even), so one thread per row scans shared memory
     without bank conflicts."""
     return n | 1
+
+
+def bisect_shared_bytes(n: int) -> int:
+    """K1's shared memory for a day of n points: the (n, row_pitch(n))
+    prefix rows and x as float64, a flag byte per row."""
+    return (n * row_pitch(n) + n) * 8 + n
+
+
+def bisect_max_grid_points() -> int:
+    """The largest n whose day K1 holds in one block's shared memory (169),
+    no longer than the short rows it is compiled for."""
+    n = 1
+    while (n + 1 <= BISECT_MAX_ROW
+           and bisect_shared_bytes(n + 1) <= MAX_SHARED_BYTES):
+        n += 1
+    return n
+
+
+def prefix_table_bytes(T: int, n: int, rows: Optional[int] = None) -> int:
+    """Bytes of P and its flags, (T, rows, row_pitch(n)) float64 and
+    (T, rows) bool (rows: the outer rows held, n by default)."""
+    r = n if rows is None else rows
+    return T * r * (row_pitch(n) * 8 + 1)
+
+
+def require_prefix_table_fits(T: int, n: int, free_bytes: int,
+                              rows: Optional[int] = None) -> None:
+    """Raise unless P of `rows` outer rows (n by default) fits in
+    `free_bytes` of device memory."""
+    need = prefix_table_bytes(T, n, rows)
+    if need > free_bytes:
+        raise RuntimeError(
+            f"the dim-2 prefix table P of T={T} days at num_points={n} "
+            f"needs {need} bytes ({need / 2**30:.2f} GiB) of device memory, "
+            f"but only {free_bytes} bytes are free (the dim-2 sweep reads "
+            "P; shard the days or the grid over more cards)")
+
+
+def free_device_bytes(dev: torch.device) -> int:
+    """Bytes a new tensor on `dev` can take: the device's free memory
+    (`cudaMemGetInfo`) plus the blocks PyTorch's caching allocator holds
+    unused."""
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return torch.cuda.mem_get_info(dev)[0] + cached
 
 
 def require_ascending(x):
@@ -144,14 +201,17 @@ def sweep_table_reference(ops: SweepOperands):
 
 def sweep_table(ops: SweepOperands):
     """The prefix table (P, flags) on the operands' CUDA device: the build
-    kernel (one block per day and 32 rows). Other devices raise: the CPU
-    route sums the cells through the plain sweep and needs no table."""
+    kernel (one block per day and up to 32 rows), launched after checking
+    that the card's free memory holds the table. Other devices raise: the
+    CPU route sums the cells through the plain sweep and needs no
+    table."""
     dev = ops.V.device
     if dev.type != "cuda":
         raise ValueError(f"sweep_table: unsupported device {dev} (the "
                          "table is built on a CUDA device only)")
     T, n, q = check_day_operands(ops)
     r = ops.V.shape[1]
+    require_prefix_table_fits(T, n, free_device_bytes(dev), r)
     P = torch.empty((T, r, row_pitch(n)), dtype=torch.float64, device=dev)
     flags = torch.empty((T, r), dtype=torch.bool, device=dev)
     lib = _build.load()
@@ -216,11 +276,11 @@ def check_day_operands(ops: SweepOperands):
     _check_operand("wfc", ops.wfc, (T, r, q), dev)
     _check_operand("w1", ops.w1, (q, n), dev)
     _check_operand("x", ops.x, (n,), dev)
-    n_max = _build.load().cvt_sweep_max_grid_points()
-    if n > n_max:
+    if n > SWEEP_MAX_GRID_POINTS:
         raise ValueError(
-            f"num_points={n}: the dim-2 table and sweep take n <= {n_max}, "
-            "the interval rule's longest row (csrc/interval.cuh kMaxRow)"
+            f"num_points={n}: the dim-2 table and sweep take n <= "
+            f"{SWEEP_MAX_GRID_POINTS}, the interval rule's longest row "
+            "(csrc/interval.cuh kMaxRow)"
         )
     return T, n, q
 

@@ -5,21 +5,36 @@
 U[t, i0, i1, i2] = V_t[i0, i1, i2] * sum_{b,c} W1[b, i1] G[t, i0, b, c]
 W2[c, i2] (the density folded with its state weights); `masked_contract3`
 evaluates L rows of (T,) slab integrals of a three-asset backtest as
-masked sums of U. Tensors on a CUDA device launch the hand-written kernels
-of csrc/contract3.cu (`contract3_weights_kernel`; `contract3_sweep_kernel`
-and `contract3_sum_kernel`), which together replace the Pallas kernel
-`_kernel3` (K4); tensors on the CPU run the plain twins
+masked sums of U; `masked_contract3_rebuild` evaluates the same sums with
+no table, rebuilding every slab's cells from the transform columns on
+each launch, as the TPU kernel does. Tensors on a CUDA device launch the
+hand-written kernels of csrc/contract3.cu (`contract3_weights_kernel`;
+`contract3_sweep_kernel` and `contract3_sum_kernel`;
+`contract3_rebuild_kernel` and the same sum kernel), which replace the
+Pallas kernel `_kernel3` (K4); tensors on the CPU run the plain twins
 `contract3_weights_reference` and `masked_contract3_reference`, i.e. the
 transform-cached sweeps of `ops/quadrature.py`, row by row. There is no
 other route.
 
+The route is `contract3_route(T, n, q, rows, free_bytes)`: the table when
+n <= `table_max_grid_points(q)` (one slab in a block's shared memory:
+169 at q = 5) and U fits in the card's free memory, else the rebuild
+(n <= 1024, the interval rule's rows). `contract3_operands` builds U only
+on the table route; operands without U sweep by the rebuild kernel. The
+two routes give the same bits where both serve (the rebuild's 64-row
+tiles are the table sweep's lookup spans), so U's memory is a matter of
+speed, not of the answer.
+
 U holds T*n^3 float64 (4.0 GB at T = 500, n = 100, 4.04 GB with its
-pads) on the card; building it raises when the card's free memory cannot
-hold it (ROADMAP.md section 2, "The dim-3 table's memory", keeps the
-per-sweep rebuild as the design for such grids). Its rows have an odd pitch (`row_pitch`) and its
+pads) on the card. Its rows have an odd pitch (`row_pitch`) and its
 (t, i0) slabs an even stride (`slab_stride`), so every slab starts on 16
 bytes, as the sweep's bulk copies need, and one thread per row scans the
 slab without bank conflicts; `table_cells` views the cells.
+
+The routes and the rebuild's tile are computed here, from the limits
+`ops/_build.py` compiles into the kernels (a block's shared memory, the
+interval rule's rows), so the route can be chosen, and tested, without
+the library; the launchers refuse what passes those limits.
 
 Grid sharding (`parallel/`): operands built with `rows=(i0, i1)` hold the
 table of outer slabs i0 in [i0, i1) only, U (T, i1 - i0, slab_stride(n)),
@@ -43,7 +58,10 @@ import torch
 
 from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops.cuda_quadrature import (
+    MAX_SHARED_BYTES,
+    SWEEP_MAX_GRID_POINTS,
     _check_operand,
+    free_device_bytes,
     require_ascending,
     row_pitch,
 )
@@ -144,17 +162,74 @@ def require_table_fits(T: int, n: int, free_bytes: int,
         raise RuntimeError(
             f"the dim-3 table U of T={T} days at num_points={n}{held} needs "
             f"{need} bytes ({need / 2**30:.2f} GiB) of device memory, but "
-            f"only {free_bytes} bytes are free; grids that do not fit need "
-            "the per-sweep rebuild design (ROADMAP.md section 2, \"The "
-            "dim-3 table's memory\")"
+            f"only {free_bytes} bytes are free; `contract3_operands` builds "
+            "no table for such a backtest, and its sweeps rebuild the "
+            "slabs on every launch (`masked_contract3_rebuild`)"
         )
 
 
-def free_device_bytes(dev: torch.device) -> int:
-    """Bytes a new tensor on `dev` can take: the driver's free memory
-    plus the blocks PyTorch's caching allocator holds unused."""
-    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    return torch.cuda.mem_get_info(dev)[0] + cached
+def _sweep_shared_bytes(n: int) -> int:
+    """The table sweep's shared memory at one slab buffer: two mbarriers,
+    the slab, x and a flag byte per row (the layout of csrc
+    `sweep_shared_bytes`)."""
+    return 16 + (slab_stride(n) + n) * 8 + n
+
+
+def table_max_grid_points(q: int) -> int:
+    """The largest n of the table route at q states (169 at q = 5): one
+    padded n x n slab, x and the row flags in one block's shared memory,
+    rows no longer than the interval rule's, and the build kernel's
+    (q, n) fold."""
+    n = 1
+    while True:
+        m = n + 1
+        if (m > SWEEP_MAX_GRID_POINTS
+                or _sweep_shared_bytes(m) > MAX_SHARED_BYTES
+                or q * m * 8 > MAX_SHARED_BYTES):
+            return n
+        n = m
+
+
+def rebuild_tile_rows(n: int, q: int) -> int:
+    """i1 rows per block of the rebuild kernel at (n, q), which the
+    launcher takes: 64 (a lookup span of the table sweep, so both routes
+    give the same bits), or the largest power of two below it whose rows,
+    x and the (q, n) fold fit in one block's shared memory (csrc
+    `rebuild_shared_bytes`); 0 when none does or n passes the interval
+    rule's rows."""
+    if not 0 < n <= SWEEP_MAX_GRID_POINTS or q <= 0:
+        return 0
+    r = 64
+    while r and (n + q * n + r * row_pitch(n)) * 8 + r > MAX_SHARED_BYTES:
+        r //= 2
+    return r
+
+
+def _rebuild_rows(n: int, q: int) -> int:
+    """`rebuild_tile_rows(n, q)`; a grid the rebuild does not take raises,
+    naming the limit."""
+    rows = rebuild_tile_rows(n, q)
+    if rows == 0:
+        raise ValueError(
+            f"num_points={n}: the dim-3 kernels take n <= "
+            f"{SWEEP_MAX_GRID_POINTS} (the interval rule's rows, "
+            f"csrc/interval.cuh kMaxRow) with the (q, n) fold in shared "
+            f"memory (q={q})")
+    return rows
+
+
+def contract3_route(T: int, n: int, q: int, rows: Optional[int],
+                    free_bytes: int) -> str:
+    """"table" or "rebuild": how a CUDA device sweeps a dim-3 backtest of
+    T days at num_points n, q states, `rows` outer slabs held (n when
+    None), with `free_bytes` of device memory. The table when its sweep
+    takes n and U fits; else the rebuild kernel; a grid neither takes
+    raises."""
+    _rebuild_rows(n, q)
+    if (n <= table_max_grid_points(q)
+            and table_bytes(T, n, rows) <= free_bytes):
+        return "table"
+    return "rebuild"
 
 
 def table_cells(U: torch.Tensor, n: int) -> torch.Tensor:
@@ -175,7 +250,9 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
     """Contract3Operands for the MSM family (densities and
     forecast_combos given) or the GARCH family (p_cols given); with
     `rows` (i0, i1) those of outer slabs [i0, i1) (the columns whole). On
-    a CUDA device the table U is built here, once."""
+    a CUDA device the table U is built here, once, where `contract3_route`
+    takes the table; else U stays None and every sweep rebuilds the
+    slabs."""
     _require_kernel_copula(spec.kind)
     if spec.kind == "student":
         nu, corr = spec.params
@@ -211,7 +288,10 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
     )
     if z.device.type == "cuda":
         require_ascending(x)
-        ops = ops._replace(U=contract3_weights(ops))
+        route = contract3_route(T, n, ops.w1.shape[0], ops.n_rows,
+                                free_device_bytes(z.device))
+        if route == "table":
+            ops = ops._replace(U=contract3_weights(ops))
     return ops
 
 
@@ -278,8 +358,9 @@ def masked_contract3_reference(ops: Contract3Operands, bounds, weights,
     return tcached_sweep(ops, bounds, weights, box_min)
 
 
-def check_contract3_operands(ops: Contract3Operands):
-    """Validate the build kernel's operands; returns (T, n, q)."""
+def _check_columns(ops: Contract3Operands):
+    """Validate the columns, grid, weights and G the build and rebuild
+    kernels read; returns (T, n, q)."""
     _require_kernel_copula(ops.spec.kind)
     T, _, n = ops.z.shape
     q = ops.w1.shape[0]
@@ -294,12 +375,19 @@ def check_contract3_operands(ops: Contract3Operands):
     _check_operand("w2", ops.w2, (q, n), dev)
     _check_operand("G", ops.G, (T, n, q, q), dev)
     _check_operand("sigma_inv", ops.sigma_inv, (3, 3), dev)
-    n_max = _build.load().cvt_contract3_max_grid_points(q)
+    return T, n, q
+
+
+def check_contract3_operands(ops: Contract3Operands):
+    """Validate the build kernel's operands; returns (T, n, q)."""
+    T, n, q = _check_columns(ops)
+    n_max = table_max_grid_points(q)
     if n > n_max:
         raise ValueError(
             f"num_points={n} needs an {n}x{n} float64 slab in one block's "
-            f"shared memory; the dim-3 kernels take n <= {n_max} at q={q} "
-            "(tiling is later work)"
+            f"shared memory; the dim-3 table and its sweep take n <= "
+            f"{n_max} at q={q} (wider grids sweep by the rebuild kernel, "
+            "`masked_contract3_rebuild`)"
         )
     return T, n, q
 
@@ -345,3 +433,48 @@ def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
 
 
 masked_contract3.launches = 0  # kernel launches (CUDA path only)
+
+
+def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
+                             box_min=-5.0):
+    """`masked_contract3` without the table: (L, T) slab integrals for
+    bounds (L, T, 2) and weights (L, 3), the share of the operands' outer
+    slabs. CPU tensors run the plain twin; CUDA tensors launch the
+    rebuild kernel (one block per (day, i0) slab and tile of i1 rows: the
+    slab's cells from the transform columns, each row a prefix-interval
+    sum per bound row), then a fixed-order sum of the tiles' partials;
+    any other device raises."""
+    dev = ops.z.device
+    if dev.type == "cpu":
+        return masked_contract3_reference(ops, bounds, weights, box_min)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_contract3_rebuild: unsupported device {dev}")
+    T, n, q = _check_columns(ops)
+    tile_rows = _rebuild_rows(n, q)
+    r = ops.n_rows
+    L = bounds.shape[0]
+    _check_operand("bounds", bounds, (L, T, 2), dev)
+    _check_operand("weights", weights, (L, 3), dev)
+    p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+    lib = _build.load()
+    # one partial per (row, day, i0 held, tile of i1), summed in order
+    partial = torch.empty((L, T, r * -(-n // tile_rows)), dtype=torch.float64,
+                          device=dev)
+    out = torch.empty((L, T), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.cvt_masked_contract3_rebuild(
+            ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
+            ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
+            ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
+            ops.nu, ops.log_norm, ops.logdet, ops.x.data_ptr(),
+            bounds.data_ptr(), weights.data_ptr(), float(box_min),
+            partial.data_ptr(), out.data_ptr(), T, n, ops.row0, r, q, L,
+            tile_rows, stream,
+        )
+    _build.check(status, "masked_contract3_rebuild")
+    masked_contract3_rebuild.launches += 1
+    return out
+
+
+masked_contract3_rebuild.launches = 0  # kernel launches (CUDA path only)

@@ -19,10 +19,18 @@ break is the one difference (see the kernel source).
 `bisect_contract3` is the three-asset bisection. The JAX package has no
 fused dim-3 bisection: its while-loop calls the sweep every halving. On a
 CUDA device the port runs the host-counted number of halvings, each one
-`masked_contract3` launch plus the bookkeeping as device ops; the
+`masked_contract3` launch (or `masked_contract3_rebuild` for operands
+built without the table U) plus the bookkeeping as device ops; the
 all-zeros freeze and the while-loop's own exit are `torch.where` gates on
 the device, so no halving reads the host and the roots equal the
 while-loop's.
+
+Routes by width (`dim2_bisect_route`, `cuda_quadrature3.contract3_route`):
+at dim 2 K1 bisects a grid whose day it holds in shared memory (n <= 169);
+a wider grid (up to 1024) bisects by K2 sweeps (`_bisect_by_sweeps`, the
+grid path's loop, whose prefix rows and lane sums are K1's). At dim 3 the
+table route sweeps U, the rebuild route rebuilds the slabs per launch. On
+a CUDA device no route of dim 2 or 3 runs a plain sweep.
 
 `bisect_tcached` is the same loop for four or more assets
 (`ColumnOperands`, `ops/tcached.py`), whose every sweep is the plain
@@ -77,6 +85,7 @@ from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops.cuda_quadrature import (
     SweepOperands,
     _check_operand,
+    bisect_max_grid_points,
     check_day_operands,
     masked_sweep,
     masked_sweep_reference,
@@ -84,6 +93,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature import (
 from copula_var_tpu_torch.ops.cuda_quadrature3 import (
     Contract3Operands,
     masked_contract3,
+    masked_contract3_rebuild,
     masked_contract3_reference,
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched
@@ -212,6 +222,27 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
 bisect_levels.launches = 0  # kernel launches (CUDA path only)
 
 
+def dim2_bisect_route(n: int) -> str:
+    """How a CUDA device bisects a dim-2 grid of n points: "k1" (the
+    bisection kernel) when a day fits its block's shared memory, else
+    "sweeps" (a halving per K2 launch); the sweep's own limit (1024)
+    raises where its operands are built."""
+    return "k1" if n <= bisect_max_grid_points() else "sweeps"
+
+
+def bisect_by_k2_sweeps(ops: SweepOperands, lower, upper, prev_res,
+                        prev_up, ustack, obj, weights, tolerance,
+                        box_min=-5.0, reducer=None):
+    """(L, T) dim-2 bisection roots for grids wider than K1's day: on a
+    CUDA device `bisect_fixed_count` over `masked_sweep` (K2) for the
+    host-counted number of halvings, on the CPU the plain while-loop;
+    state and weights as `bisect_levels`."""
+    return _bisect_by_sweeps(
+        ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
+        tolerance, box_min, masked_sweep_reference, masked_sweep,
+        "bisect_by_k2_sweeps", reducer)
+
+
 def check_bisect_operands(ops: SweepOperands):
     """Validate K1's operands: whole days (all n outer rows) of a grid
     whose day fits in one block's shared memory; returns (T, n, q)."""
@@ -221,12 +252,12 @@ def check_bisect_operands(ops: SweepOperands):
             f"bisect_levels: K1 bisects whole days; operands of outer rows "
             f"{ops.rows} are bisected by their summed sweeps (the solves' "
             "`grid`)")
-    n_max = _build.load().cvt_max_grid_points()
+    n_max = bisect_max_grid_points()
     if n > n_max:
         raise ValueError(
-            f"num_points={n}: the dim-2 bisection takes n <= {n_max}, "
+            f"num_points={n}: the dim-2 bisection kernel takes n <= {n_max}, "
             f"holding a day's {n}x{n} float64 in one block's shared memory "
-            "(tiling is later work)"
+            "(wider grids bisect by K2 sweeps, `bisect_by_k2_sweeps`)"
         )
     return T, n, q
 
@@ -268,11 +299,12 @@ def bisect_contract3(ops: Contract3Operands, lower, upper, prev_res, prev_up,
                      reducer=None):
     """(L, T) three-asset bisection roots; state as `bisect_levels`,
     weights (L, 3). CPU tensors run the plain while-loop; CUDA tensors run
-    `bisect_fixed_count` with `masked_contract3` for the host-counted
-    number of halvings; any other device raises."""
+    `bisect_fixed_count` with the operands' K4 sweep (`masked_contract3`
+    on the table U, `masked_contract3_rebuild` without it) for the
+    host-counted number of halvings; any other device raises."""
     return _bisect_by_sweeps(
         ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
-        tolerance, box_min, masked_contract3_reference, masked_contract3,
+        tolerance, box_min, masked_contract3_reference, _sweeps(ops)[0],
         "bisect_contract3", reducer)
 
 
@@ -291,12 +323,15 @@ def bisect_tcached(ops: ColumnOperands, lower, upper, prev_res, prev_up,
 
 
 def _sweeps(ops):
-    """(dispatching sweep, plain sweep) for the operands' asset count.
-    Dim >= 4 has no kernel: its sweep is plain on every device."""
+    """(dispatching sweep, plain sweep) for the operands' asset count; at
+    dim 3 the table sweep, or the rebuild for operands without U. Dim >= 4
+    has no kernel: its sweep is plain on every device."""
     if isinstance(ops, ColumnOperands):
         return tcached_sweep, tcached_sweep
     if isinstance(ops, Contract3Operands):
-        return masked_contract3, masked_contract3_reference
+        kernel = (masked_contract3_rebuild if ops.U is None
+                  else masked_contract3)
+        return kernel, masked_contract3_reference
     return masked_sweep, masked_sweep_reference
 
 
@@ -331,9 +366,9 @@ def _grid_routes(ops, plain, grid):
 
 
 def _routes(ops, plain):
-    """(sweep, bisect) for the operands' asset count: the dispatching
-    wrappers, or their plain twins. Dim >= 4 has no kernel: its sweep is
-    plain on every device."""
+    """(sweep, bisect) for the operands' asset count and width: the
+    dispatching wrappers, or their plain twins. Dim >= 4 has no kernel:
+    its sweep is plain on every device."""
     kernel, twin = _sweeps(ops)
     if plain:
         return twin, functools.partial(bisect_levels_reference, sweep=twin)
@@ -341,12 +376,21 @@ def _routes(ops, plain):
         return kernel, bisect_tcached
     if isinstance(ops, Contract3Operands):
         return kernel, bisect_contract3
+    if dim2_bisect_route(ops.x.shape[0]) == "sweeps":
+        return kernel, bisect_by_k2_sweeps
     return kernel, bisect_levels
 
 
 def sweep_for(ops):
     """The dispatching sweep wrapper for the operands' asset count."""
     return _routes(ops, plain=False)[0]
+
+
+def bisect_for(ops):
+    """The bisection for the operands' asset count and width (K1, K2
+    sweeps, K4 sweeps or the plain dim >= 4 loop), with the signature of
+    `bisect_levels`."""
+    return _routes(ops, plain=False)[1]
 
 
 def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,

@@ -1,7 +1,11 @@
 """Masked dense tensor-product quadrature (counterpart of
 `copula_var_tpu/ops/quadrature.py`).
 
-Two bounds-invariant caches feed the VaR sweeps:
+Two bounds-invariant caches feed the VaR sweeps (a third route rebuilds
+everything on every call, for a plugin adapter with JAX's minimal
+contract: `msm_integrals`, `garch_integrals`, their one-day forms and
+the ragged-column helpers `copula_density_from_transformed`,
+`halfspace_mask_cols`, `halfspace_frac_cols`):
 
   * dim 2, day tensors: the copula density on the full n x n grid is
     built once per day (`msm_day_tensors`, `garch_day_tensors`) and every
@@ -50,6 +54,7 @@ import torch
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf, norm_ppf, t_ppf
 
 BOX_MIN = -5.0
+BOX_MAX = 5.0
 
 
 class CopulaSpec(NamedTuple):
@@ -67,17 +72,22 @@ def _expand(v, d, dim):
                      + (1,) * (dim - 1 - d))
 
 
-def _inner_bounds(x, lower, upper, weights, box_min, x0=None):
-    """The inner axis's dynamic bounds (..., n, ..., n) (dim - 1 outer grid
-    axes) of the cut {lower < w.x <= upper}: (max(dyn_lower, box_min),
+def _cols_bounds(x_cols, lower, upper, weights, box_min):
+    """The inner axis's dynamic bounds (..., n_0, ..., n_{dim-2}, 1) of the
+    cut {lower < w.x <= upper} for per-axis coordinates x_cols[d] (n_d,)
+    and bounds of any leading shape (...): (max(dyn_lower, box_min),
     dyn_upper), dyn = (bound - prev) / weights[0] and prev = sum_d x_d *
     weights[1 + d] summed in grid-axis order, as the JAX module forms
-    it. `x0`, when given, holds the points of outer axis 0 (a range of
-    x's rows)."""
+    it."""
     dim = weights.shape[0]
-    prev = _expand(x if x0 is None else x0, 0, dim - 1) * weights[1]
-    for d in range(1, dim - 1):
-        prev = prev + _expand(x, d, dim - 1) * weights[1 + d]
+    if dim == 1:
+        prev = torch.zeros((), dtype=weights.dtype, device=weights.device)
+    else:
+        prev = _expand(x_cols[0], 0, dim - 1) * weights[1]
+        for d in range(1, dim - 1):
+            prev = prev + _expand(x_cols[d], d, dim - 1) * weights[1 + d]
+    lower, upper = (torch.as_tensor(b, dtype=prev.dtype, device=prev.device)
+                    for b in (lower, upper))
     lead = (...,) + (None,) * (dim - 1)
     dyn_upper = (upper[lead] - prev) / weights[0]
     dyn_lower = torch.maximum(
@@ -86,17 +96,43 @@ def _inner_bounds(x, lower, upper, weights, box_min, x0=None):
     return dyn_lower[..., None], dyn_upper[..., None]
 
 
+def _grid_cols(x, dim, x0=None):
+    """The per-axis coordinates of the (n,) * dim grid, outer axis 0 cut
+    to `x0` (a range of x's rows) when given."""
+    return [x if x0 is None else x0] + [x] * (dim - 1)
+
+
+def halfspace_mask_cols(x_cols, lower, upper, weights, box_min=BOX_MIN):
+    """(..., n_0, ..., n_{dim-1}) bool mask of the portfolio cut {lower <
+    w.x <= upper} over per-axis coordinate vectors x_cols[d] (n_d,),
+    resolved on the inner (last) axis, for bounds of any leading shape
+    (...) (JAX's helper takes one scalar pair). weights (dim,): weights[0]
+    pairs the inner axis, weights[1:] the outer axes in order. Inner cut:
+    x_in > max(dyn_lower, box_min) and x_in <= dyn_upper."""
+    dyn_lower, dyn_upper = _cols_bounds(x_cols, lower, upper, weights,
+                                        box_min)
+    return (x_cols[-1] > dyn_lower) & (x_cols[-1] <= dyn_upper)
+
+
 def halfspace_mask(x, lower, upper, weights, box_min=BOX_MIN, x0=None):
-    """(..., n, ..., n) bool mask (dim grid axes) of the portfolio cut
-    {lower < w.x <= upper} resolved on the inner (last) grid axis, for
-    bounds of any leading shape (...). weights (dim,): weights[0] pairs
-    the inner axis, weights[1:] the outer axes in order. Inner cut:
-    x_in > max(dyn_lower, box_min) and x_in <= dyn_upper
-    (`_inner_bounds`). `x0` (a range of x's rows) replaces the points of
-    outer axis 0."""
-    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min,
-                                         x0)
-    return (x > dyn_lower) & (x <= dyn_upper)
+    """`halfspace_mask_cols` on the (n,) * dim grid -> (..., n, ..., n);
+    `x0` (a range of x's rows) replaces the points of outer axis 0."""
+    return halfspace_mask_cols(_grid_cols(x, weights.shape[0], x0), lower,
+                               upper, weights, box_min)
+
+
+def halfspace_frac_cols(x_cols, tw_inner, lower, upper, weights,
+                        box_min=BOX_MIN):
+    """Fractional-cell analog of `halfspace_mask_cols`: the share of each
+    inner-axis node's cell [x - tw / 2, x + tw / 2] (tw_inner (n_last,))
+    inside {lower < w.x <= upper} -> (..., n_0, ..., n_{dim-1}) float,
+    continuous in the bounds."""
+    dyn_lower, dyn_upper = _cols_bounds(x_cols, lower, upper, weights,
+                                        box_min)
+    cell_lo = x_cols[-1] - tw_inner / 2.0
+    a_up = torch.clamp((dyn_upper - cell_lo) / tw_inner, 0.0, 1.0)
+    a_lo = torch.clamp((dyn_lower - cell_lo) / tw_inner, 0.0, 1.0)
+    return torch.clamp_min(a_up - a_lo, 0.0)
 
 
 def _all_pairs_quad(z_cols, sigma_inv):
@@ -197,6 +233,13 @@ def copula_density_cols(cols, spec: CopulaSpec, rows=None):
         ratio = torch.exp(log_mvt - log_uni_sum)
         return torch.where(finite, ratio, torch.full_like(ratio, math.nan))
     raise ValueError(f"unknown copula kind: {spec.kind}")
+
+
+def copula_density_from_transformed(cols, spec: CopulaSpec):
+    """JAX's name for the density over the full grid from pre-transformed
+    columns (leaves (dim, n), or (..., dim, n)) -> (n,) * dim: the same
+    formulas as `copula_density_cols`, which it calls."""
+    return copula_density_cols(cols, spec)
 
 
 def grid_copula_density(u_cols, spec: CopulaSpec):
@@ -404,6 +447,53 @@ def garch_day_columns(forecast_vols, x, spec: CopulaSpec):
     return transform_u_columns(u_cols, spec), p_cols
 
 
+# ---------------------------------------------------------------------------
+# Uncached integrands (a plugin adapter's `integrals`, JAX's minimal
+# contract): every call rebuilds the columns and the density
+# ---------------------------------------------------------------------------
+
+
+def msm_integrals(bounds, forecasts_by_states, forecast_combos, x, dx,
+                  densities, unique_vols, weights, spec: CopulaSpec,
+                  box_min=BOX_MIN):
+    """(T,) MSM-family integrals straight from the integration inputs
+    (JAX `msm_integrals`): the per-day transform columns, then the
+    transform-cached sweep, both on every call. bounds (T, 2);
+    forecasts_by_states (T, dim, q); forecast_combos (T, q^dim);
+    densities (dim, q, n); unique_vols (dim, q); weights (dim,)."""
+    cols = msm_day_columns(forecasts_by_states, x, unique_vols, spec)
+    return msm_integrals_tcached(bounds, cols, forecast_combos, x, dx,
+                                 densities, weights, spec, box_min)
+
+
+def garch_integrals(bounds, forecast_vols, x, dx, weights, spec: CopulaSpec,
+                    box_min=BOX_MIN):
+    """(T,) GARCH / mean-reverting integrals straight from the forecast
+    vols (T, dim) (JAX `garch_integrals`): nan_to_num(copula * pdf
+    product), masked, contracted with dx on every axis."""
+    cols, p_cols = garch_day_columns(forecast_vols, x, spec)
+    return garch_integrals_tcached(bounds, cols, p_cols, x, dx, weights,
+                                   spec, box_min)
+
+
+def msm_integral_day(bounds, forecasts_by_states, forecast_combos, x, dx,
+                     densities, unique_vols, weights, spec: CopulaSpec,
+                     box_min=BOX_MIN):
+    """One day's MSM integral (JAX `msm_integral_day`): bounds (2,),
+    forecasts_by_states (dim, q), forecast_combos (q^dim,)."""
+    return msm_integrals(bounds[None], forecasts_by_states[None],
+                         forecast_combos[None], x, dx, densities,
+                         unique_vols, weights, spec, box_min)[0]
+
+
+def garch_integral_day(bounds, forecast_vols, x, dx, weights,
+                       spec: CopulaSpec, box_min=BOX_MIN):
+    """One day's GARCH-family integral (JAX `garch_integral_day`): bounds
+    (2,), forecast_vols (dim,)."""
+    return garch_integrals(bounds[None], forecast_vols[None], x, dx,
+                           weights, spec, box_min)[0]
+
+
 def _chunks(T, n, dim, device, day_batch, rows=None):
     """Day chunks of `day_batch` days, or of the device's count. A range
     of outer rows takes the whole grid's days per chunk, so its chunks
@@ -502,17 +592,11 @@ def trap_weights(x):
 
 
 def halfspace_frac(x, tw, lower, upper, weights, box_min=BOX_MIN, x0=None):
-    """Fractional-cell analog of `halfspace_mask`: (..., n, ..., n) float,
-    the share of each inner-axis node's cell [x - tw / 2, x + tw / 2]
-    inside {lower < w.x <= upper}, for bounds of any leading shape (...).
-    Continuous in the bounds; the same pairing and dynamic bounds as
-    `halfspace_mask` (and its `x0`)."""
-    dyn_lower, dyn_upper = _inner_bounds(x, lower, upper, weights, box_min,
-                                         x0)
-    cell_lo = x - tw / 2.0
-    a_up = torch.clamp((dyn_upper - cell_lo) / tw, 0.0, 1.0)
-    a_lo = torch.clamp((dyn_lower - cell_lo) / tw, 0.0, 1.0)
-    return torch.clamp_min(a_up - a_lo, 0.0)
+    """`halfspace_frac_cols` on the (n,) * dim grid -> (..., n, ..., n)
+    float, for bounds of any leading shape (...); the same pairing and
+    dynamic bounds as `halfspace_mask` (and its `x0`)."""
+    return halfspace_frac_cols(_grid_cols(x, weights.shape[0], x0), tw,
+                               lower, upper, weights, box_min)
 
 
 def _inside(C, A):

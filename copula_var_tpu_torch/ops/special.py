@@ -31,6 +31,12 @@ def norm_pdf(x, mean=0.0, std=1.0):
     return torch.exp(-0.5 * z * z - _LOG_SQRT_2PI) / std
 
 
+def norm_logpdf(x, mean=0.0, std=1.0):
+    """Normal log pdf, elementwise, in JAX's order of terms."""
+    z = (x - mean) / std
+    return -0.5 * z * z - _LOG_SQRT_2PI - torch.log(_like(std, z))
+
+
 _HALF_SQRT_2 = 0.5 * math.sqrt(2.0)
 
 
@@ -145,6 +151,12 @@ def t_logpdf(x, nu):
         - 0.5 * torch.log(nu * math.pi)
     )
     return lognorm - 0.5 * (nu + 1.0) * torch.log1p(x * x / nu)
+
+
+def t_pdf(x, nu):
+    """Student-t pdf, elementwise: exp(t_logpdf). Finite inputs only (the
+    copula layer guards non-finite ones)."""
+    return torch.exp(t_logpdf(x, nu))
 
 
 _SMALL_Z = 1e-8  # below this betainc loses accuracy; the log series takes over

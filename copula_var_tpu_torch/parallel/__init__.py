@@ -6,8 +6,10 @@ of `copula_var_tpu/parallel/`).
                    rank's outer grid rows on a ('days', 'grid') mesh and
                    the exact grid_sum), make_mesh
   multiprocess.py  shard_days, gather_days (the all_reduce gather)
-  quadrature.py    the day-sharded sweeps and solves, and the
-                   grid-sharded transforms, sweeps and trap sweeps
+  quadrature.py    the day-sharded sweeps and solves (dim 2, and dim >= 3
+                   as `sharded_tcached_*`), the post-hoc trap refine,
+                   and the grid-sharded transforms, sweeps and trap
+                   sweeps
 
 `VaRBacktest(..., mesh=make_mesh())` serves every query of a backtest
 day-sharded at every dim; `mesh=make_mesh(axis_names=("days", "grid"),
@@ -35,6 +37,11 @@ from copula_var_tpu_torch.parallel.quadrature import (
     sharded_full_solve_portfolios,
     sharded_garch_step,
     sharded_msm_step,
+    sharded_tcached_bisection_solve_levels,
+    sharded_tcached_full_solve_levels,
+    sharded_tcached_integrals,
+    sharded_tcached_trap_refine,
+    trap_refine_gspmd_jit,
 )
 
 __all__ = [
@@ -51,6 +58,11 @@ __all__ = [
     "sharded_full_solve_levels",
     "sharded_full_solve_portfolios",
     "pad_days",
+    "sharded_tcached_integrals",
+    "sharded_tcached_bisection_solve_levels",
+    "sharded_tcached_full_solve_levels",
+    "sharded_tcached_trap_refine",
+    "trap_refine_gspmd_jit",
     "grid_sharded_garch_integrals",
     "grid_sharded_garch_transforms",
     "grid_sharded_garch_sweep",

@@ -23,6 +23,17 @@ and the dim >= 3 transform-cached sweeps are plain PyTorch, as JAX's are
 XLA. The transforms hold all the t_ppf work and are built once per
 backtest.
 
+The day-sharded dim >= 3 functions (`sharded_tcached_*`, JAX's names)
+take the full transform columns on every rank where JAX takes them
+placed and padded (`_tcached_place`), and build this rank's block of
+operands as `VaRBacktest(mesh=)` does: `Contract3Operands` at dim 3 (K4
+on a CUDA device, by the table or the rebuild), `ColumnOperands` above.
+`day_batch` is taken for JAX's signature; the port's sweeps chunk days by
+their own budget (`ops/quadrature._device_day_batch`).
+`trap_refine_gspmd_jit` is JAX's post-hoc trap refine over dim-2 day
+tensors: the port has no GSPMD, so it refines the roots of the tensors
+it is given, on their device (a rank's block when called per rank).
+
 `VaRBacktest(mesh=...)` serves the same solves from operands it builds
 once per backtest, at every dim, for either mesh.
 """
@@ -33,13 +44,16 @@ import numpy as np
 import torch
 
 from copula_var_tpu_torch.ops.cuda_quadrature import (
+    SweepOperands,
     masked_sweep,
     sweep_operands,
 )
+from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
 from copula_var_tpu_torch.ops.cuda_solver import (
-    bisect_levels,
+    bisect_for,
     full_solve_levels,
     full_solve_portfolios,
+    sweep_for,
 )
 from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
@@ -55,6 +69,7 @@ from copula_var_tpu_torch.ops.quadrature import (
     trap_weights,
 )
 from copula_var_tpu_torch.ops.refine import refine_roots
+from copula_var_tpu_torch.ops.tcached import column_operands
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
 from copula_var_tpu_torch.parallel.mesh import DayMesh, GridMesh
 from copula_var_tpu_torch.parallel.multiprocess import gather_days
@@ -105,12 +120,12 @@ def _block_operands(mesh, day_tensors, fcombos, densities, x, dx):
     ), V.shape[0]
 
 
-def _block_sweep(mesh, ops, T, bounds, weights):
+def _block_sweep(mesh, ops, T, bounds, weights, box_min=-5.0):
     """(T,) sweep of one bound set on every rank, this rank's block
-    through `masked_sweep`."""
+    through the operands' sweep (`masked_sweep` at dim 2)."""
     b = _f64(mesh, bounds)[mesh.days(T)].contiguous()
     w = _f64(mesh, weights).reshape(1, -1)
-    return gather_days(masked_sweep(ops, b[None], w)[0], mesh, T)
+    return gather_days(sweep_for(ops)(ops, b[None], w, box_min)[0], mesh, T)
 
 
 def sharded_msm_step(mesh: DayMesh, bounds, fbs, fcombos, x, dx, densities,
@@ -149,16 +164,31 @@ def sharded_bisection_solve_levels(mesh: DayMesh, day_tensors, fcombos,
     """The multi-level bisection day-sharded over the mesh: state (L, T)
     each, obj_vars (L,), weights (2,) -> (L, T) roots on every rank. On
     a CUDA device each rank launches K1 on its block for the global
-    halving count."""
+    halving count (K2 sweeps past K1's grid)."""
     ops, T = _block_operands(mesh, day_tensors, fcombos, densities, x, dx)
+    return _block_bisection(mesh, ops, T, weights, lower, upper,
+                            prev_result, prev_upper, upper_stack, obj_vars,
+                            tolerance, box_min)
+
+
+def _block_bisection(mesh, ops, T, weights, lower, upper, prev_result,
+                     prev_upper, upper_stack, obj_vars, tolerance, box_min):
+    """(L, T) roots on every rank: this rank's block of the (L, T) state
+    bisected by the operands' bisection, its global decisions reduced
+    over the mesh."""
     days = mesh.days(T)
-    lo, up, pr, pu = (_f64(mesh, a)[:, days].contiguous()
-                      for a in (lower, upper, prev_result, prev_upper))
-    us = _t(mesh, upper_stack).to(torch.bool)[:, days].contiguous()
+
+    def block(a, dtype=torch.float64):  # (L, T) or (T,) -> (L, block)
+        a = _t(mesh, a).to(dtype)
+        return (a[None] if a.dim() == 1 else a)[:, days].contiguous()
+
+    lo, up, pr, pu = (block(a) for a in (lower, upper, prev_result,
+                                         prev_upper))
+    us = block(upper_stack, torch.bool)
     obj = _f64(mesh, obj_vars).reshape(-1)
     w = _f64(mesh, weights).reshape(1, -1).expand(obj.shape[0], -1)
-    roots = bisect_levels(ops, lo, up, pr, pu, us, obj, w.contiguous(),
-                          float(tolerance), box_min, reducer=mesh)
+    roots = bisect_for(ops)(ops, lo, up, pr, pu, us, obj, w.contiguous(),
+                            float(tolerance), box_min, reducer=mesh)
     return gather_days(roots, mesh, T)
 
 
@@ -176,9 +206,8 @@ def sharded_bisection_solve(mesh: DayMesh, day_tensors, fcombos, densities,
     )[0]
 
 
-def _full(mesh, solve, day_tensors, fcombos, densities, x, dx, weights,
-          obj_vars, cfg, tolerance, box_min, quirks, refine, h_rows):
-    ops, T = _block_operands(mesh, day_tensors, fcombos, densities, x, dx)
+def _full(mesh, solve, ops, T, weights, obj_vars, cfg, tolerance, box_min,
+          quirks, refine, h_rows):
     obj = _f64(mesh, obj_vars).reshape(-1)
     weights = _f64(mesh, weights)
     roots, nan_days = solve(ops, obj, weights, cfg, float(tolerance),
@@ -209,8 +238,8 @@ def sharded_full_solve_levels(mesh: DayMesh, day_tensors, fcombos,
     `refine` the trap re-solve in +-refine_h) of L levels of one
     portfolio, day-sharded -> host (roots (L, T), nan_days (L, T)) on
     every rank."""
-    return _full(mesh, full_solve_levels, day_tensors, fcombos, densities,
-                 x, dx, weights, obj_vars,
+    ops, T = _block_operands(mesh, day_tensors, fcombos, densities, x, dx)
+    return _full(mesh, full_solve_levels, ops, T, weights, obj_vars,
                  _cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
                  tolerance, box_min, reference_quirks, refine,
@@ -225,12 +254,137 @@ def sharded_full_solve_portfolios(mesh: DayMesh, day_tensors, fcombos,
                                   refine_h=0.0):
     """`sharded_full_solve_levels` for L portfolio rows (weights_batch
     (L, 2), obj_vars (L,), refine_h scalar or (L,))."""
-    return _full(mesh, full_solve_portfolios, day_tensors, fcombos,
-                 densities, x, dx, weights_batch, obj_vars,
+    ops, T = _block_operands(mesh, day_tensors, fcombos, densities, x, dx)
+    return _full(mesh, full_solve_portfolios, ops, T, weights_batch,
+                 obj_vars,
                  _cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
                  tolerance, box_min, reference_quirks, refine,
                  np.atleast_1d(refine_h))
+
+
+def trap_refine_gspmd_jit(tensors, fcombos, densities, x, weights, roots,
+                          obj, h, box_min=-5.0, is_msm=True,
+                          portfolios=False):
+    """Post-hoc trapezoid refinement of (L, T) staircase roots over dim-2
+    day tensors (T, n, n) (JAX's second dispatch of refine_root on the
+    fused engine): row l re-solves for obj[l] in +-h, with the shared
+    weights (2,), or with `portfolios` its own weights[l] (L, 2) and h
+    scalar or (L,). On the tensors' device; `is_msm` selects the MSM
+    family (fcombos, densities) over the GARCH family."""
+    V = (tensors.to(torch.float64) if torch.is_tensor(tensors)
+         else _f64_any(tensors))
+    dev = V.device
+
+    def on(a):
+        return None if a is None else torch.as_tensor(
+            np.asarray(a) if not torch.is_tensor(a) else a,
+            dtype=torch.float64, device=dev)
+
+    roots, obj = on(roots), on(obj).reshape(-1)
+    L = roots.shape[0]
+    weights = on(weights)
+    rows = (weights if portfolios
+            else weights.reshape(1, -1).expand(L, -1)).contiguous()
+    # the trap sweep reads the day tensors, the grid and the state weights
+    ops = SweepOperands(V, on(x), None, on(densities) if is_msm else None,
+                        on(fcombos) if is_msm else None, None, None)
+    return refine_roots(ops, roots, obj, rows,
+                        on(h).reshape(-1).expand(L).contiguous(), box_min)
+
+
+def _tcached_block_operands(mesh, cols, fcombos, densities, x, dx, spec,
+                            family, table=True):
+    """(operands of this rank's block of days, T) from the full transform
+    columns: the MSM family (`cols` the transform leaves, fcombos,
+    densities) or the GARCH family (`cols` = (transform leaves, p_cols)).
+    `Contract3Operands` at dim 3 (the K4 route on a CUDA device) when
+    `table`, else (and at dim >= 4) `ColumnOperands`."""
+    msm = family == "msm"
+    leaves, p_cols = (cols, None) if msm else cols
+    leaves = tuple(_t(mesh, c) for c in leaves)
+    T, dim = leaves[0].shape[0], leaves[0].shape[-2]
+    days = mesh.days(T)
+    block = tuple(c[days].contiguous() for c in leaves)
+    kw = (dict(densities=_f64(mesh, densities),
+               forecast_combos=_f64(mesh, fcombos)[days].contiguous())
+          if msm else dict(p_cols=_f64(mesh, p_cols)[days].contiguous()))
+    build = contract3_operands if dim == 3 and table else column_operands
+    return build(block, _f64(mesh, x),
+                 None if dx is None else _f64(mesh, dx), spec, **kw), T
+
+
+def _check_T(T, given):
+    if given is not None and int(given) != T:
+        raise ValueError(f"T={given}, but the columns hold {T} days (the "
+                         "port takes the unpadded columns)")
+
+
+def sharded_tcached_integrals(mesh: DayMesh, bounds, cols, fcombos,
+                              densities, x, dx, weights, spec: CopulaSpec,
+                              family, day_batch=None, box_min=-5.0):
+    """(T,) dim >= 3 integrals of the transform columns, day-sharded:
+    this rank's block swept (K4 at dim 3 on a CUDA device), gathered on
+    every rank. family "msm" or "garch"."""
+    ops, T = _tcached_block_operands(mesh, cols, fcombos, densities, x, dx,
+                                     spec, family)
+    return _block_sweep(mesh, ops, T, bounds, weights, box_min)
+
+
+def sharded_tcached_bisection_solve_levels(
+        mesh: DayMesh, cols, fcombos, densities, x, dx, weights, lower,
+        upper, prev_result, prev_upper, upper_stack, obj_vars, tolerance,
+        spec: CopulaSpec, family, day_batch=None, box_min=-5.0):
+    """The dim >= 3 multi-level bisection, day-sharded: state (L, T),
+    obj_vars (L,), weights (dim,) -> (L, T) roots on every rank."""
+    ops, T = _tcached_block_operands(mesh, cols, fcombos, densities, x, dx,
+                                     spec, family)
+    return _block_bisection(mesh, ops, T, weights, lower, upper,
+                            prev_result, prev_upper, upper_stack, obj_vars,
+                            tolerance, box_min)
+
+
+def sharded_tcached_full_solve_levels(
+        mesh: DayMesh, cols, fcombos, densities, x, dx, weights, obj_vars,
+        first_guess, second_guess, tolerance, min_var_value, max_var_value,
+        spec: CopulaSpec, family, day_batch=None, box_min=-5.0,
+        reference_quirks=False, T=None, portfolios=False, refine=False,
+        refine_h=0.0):
+    """The whole dim >= 3 solve, day-sharded -> host (roots (L, T),
+    nan_days (L, T)) on every rank; with `portfolios` weights is an
+    (L, dim) batch, one row per level; with `refine` the trap re-solve
+    in +-refine_h."""
+    ops, T_cols = _tcached_block_operands(mesh, cols, fcombos, densities,
+                                          x, dx, spec, family)
+    _check_T(T_cols, T)
+    solve = full_solve_portfolios if portfolios else full_solve_levels
+    return _full(mesh, solve, ops, T_cols, weights, obj_vars,
+                 _cfg(first_guess, second_guess, min_var_value,
+                      max_var_value),
+                 tolerance, box_min, reference_quirks, refine,
+                 np.atleast_1d(refine_h))
+
+
+def sharded_tcached_trap_refine(mesh: DayMesh, cols, fcombos, densities, x,
+                                weights, roots, obj_vars, refine_h,
+                                spec: CopulaSpec, family, day_batch=None,
+                                box_min=-5.0, T=None, portfolios=False):
+    """Refine (L, T) staircase roots against the day-sharded dim >= 3
+    trap sweep -> host (L, T) on every rank; weights (dim,) shared, or
+    with `portfolios` (L, dim), one row per level."""
+    ops, T_cols = _tcached_block_operands(mesh, cols, fcombos, densities,
+                                          x, None, spec, family,
+                                          table=False)
+    _check_T(T_cols, T)
+    days = mesh.days(T_cols)
+    r = _f64(mesh, roots)[:, days].contiguous()
+    obj = _f64(mesh, obj_vars).reshape(-1)
+    w = _f64(mesh, weights)
+    rows = (w if portfolios else w.reshape(1, -1).expand(r.shape[0], -1))
+    h = _f64(mesh, np.atleast_1d(refine_h)).expand(r.shape[0])
+    out = refine_roots(ops, r, obj, rows.contiguous(), h.contiguous(),
+                       box_min)
+    return gather_days(out, mesh, T_cols).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

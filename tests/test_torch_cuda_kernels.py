@@ -2,10 +2,13 @@
 
 Every test here needs an NVIDIA GPU and skips without one. The
 redesigned kernels (K1 `bisect_levels`, K2 `sweep_table` +
-`masked_sweep`, K4 `contract3_weights` + `masked_contract3`) are held at
-odd n, at their largest n and one past it, q = 1 and 5, L = 1, 3 and 33
-(more rows than warps), with NaN, inf and saturated cells, and launched
-twice for bit-identical results. K2 and K4 are also held on ranges of
+`masked_sweep`, K4 `contract3_weights` + `masked_contract3`, and the
+rebuild sweep `masked_contract3_rebuild`) are held at odd n, at their
+largest n and one past it, q = 1 and 5, L = 1, 3 and 33 (more rows than
+warps), with NaN, inf and saturated cells, and launched twice for
+bit-identical results; K2 on rows of 193 and 1024 cells, the rebuild at
+n = 2, 170 and 300 and equal to the table sweep where both serve, and
+the wide dim-2 and dim-3 solves through K2 sweeps and the rebuild. K2 and K4 are also held on ranges of
 outer grid rows (grid sharding): each range against its plain twin, the
 ranges' partials summed against the whole launch, and the range of all
 rows bit-equal to the whole launch. This file
@@ -196,7 +199,7 @@ def test_bisect_levels_nan_and_inf_cells(dev):
 
 
 def test_bisect_levels_at_its_largest_grid(dev):
-    n_max = _build.load().cvt_max_grid_points()
+    n_max = cq.bisect_max_grid_points()
     assert n_max >= 168
     ops = _ops(dev, "garch", T=3, n=n_max)
     obj, weights, state = _bracketed(ops, dev, 3)
@@ -224,7 +227,7 @@ def test_flagship_through_kernels(dev, est):
 
 def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="interval rule"):  # past kMaxRow
-        _ops(dev, "garch", T=2, n=200)
+        _ops(dev, "garch", T=2, n=1025)
     bounds, weights = _rows(dev, 2, 1)
     ops = _ops(dev, "garch", T=2)
     with pytest.raises(ValueError, match="prefix table"):
@@ -284,9 +287,9 @@ def test_masked_sweep_rows_and_widths(dev, q, L):
 
 
 def test_masked_sweep_at_its_largest_grid(dev):
-    """K2 takes the interval rule's rows (192), past K1's day (169)."""
-    n_max = _build.load().cvt_sweep_max_grid_points()
-    assert n_max > _build.load().cvt_max_grid_points()
+    """K2 takes the interval rule's rows (1024), past K1's day (169)."""
+    n_max = cq.SWEEP_MAX_GRID_POINTS
+    assert n_max > cq.bisect_max_grid_points()
     ops = _ops(dev, "msm", T=3, n=n_max)
     bounds, weights = _rows(dev, 3, 4)
     _sweep_close(cq.masked_sweep(ops, bounds, weights),
@@ -470,8 +473,10 @@ def test_masked_contract3_is_deterministic(dev):
 
 
 def test_masked_contract3_rejects_what_it_does_not_take(dev):
+    wide = _ops3(dev, "garch", "gaussian", T=2, n=200)
+    assert wide.U is None  # the operands take the rebuild route
     with pytest.raises(ValueError, match="shared"):  # slab over 227 KB
-        _ops3(dev, "garch", "gaussian", T=2, n=200)
+        cq3.contract3_weights(wide)
     bounds, weights = _rows3(dev, 2, 1)
     ops = _ops3(dev, "garch", "gaussian", T=2)
     with pytest.raises(ValueError, match="float64"):
@@ -578,7 +583,7 @@ def test_masked_contract3_rows_are_batch_invariant(dev):
 
 
 def test_masked_contract3_at_its_largest_grid(dev):
-    n_max = _build.load().cvt_contract3_max_grid_points(5)
+    n_max = cq3.table_max_grid_points(5)
     assert n_max >= 166  # every n the former fused kernel took at q = 5
     ops = _ops3(dev, "msm", "gaussian", T=2, n=n_max, q=5)
     bounds, weights = _rows3(dev, 2, 3)
@@ -586,8 +591,10 @@ def test_masked_contract3_at_its_largest_grid(dev):
     want = cq3.masked_contract3_reference(ops, bounds, weights)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= RTOL_SWEEP * scale
+    wide = _ops3(dev, "msm", "gaussian", T=2, n=n_max + 1, q=5)
+    assert wide.U is None  # the operands take the rebuild route
     with pytest.raises(ValueError, match="shared"):
-        _ops3(dev, "msm", "gaussian", T=2, n=n_max + 1, q=5)
+        cq3.contract3_weights(wide)
 
 
 @pytest.mark.parametrize("est", ["msm", "garch"])
@@ -723,3 +730,156 @@ def test_grid_sharded_ranks_on_the_card(dev, tmp_path):
             for r in range(1, 4):
                 np.testing.assert_array_equal(ranks[r][k], ranks[0][k],
                                               err_msg=f"rank {r} {k}")
+
+
+# -- wide grids: K2 past 192 rows, the rebuild kernel (K4 without U) ----------
+
+def test_limits_mirror_the_launchers(dev):
+    """The launchers take each limit the Python routes compute and refuse
+    one past it (no day, so nothing runs): K1 at bisect_max_grid_points(),
+    K2 at SWEEP_MAX_GRID_POINTS, the table sweep at table_max_grid_points,
+    the rebuild at rebuild_tile_rows(n, q) but not at twice its rows."""
+    lib = _build.load()
+    invalid = 1  # cudaErrorInvalidValue
+
+    def k1(n):
+        return lib.cvt_bisect_levels(*[None] * 11, -5.0, 1, None, 0, n, 5,
+                                     1, None)
+
+    def k2(n):
+        return lib.cvt_masked_sweep(*[None] * 5, -5.0, None, 0, n, 0, n, 1,
+                                    cq.row_pitch(n), None)
+
+    def table(n):
+        return lib.cvt_masked_contract3(*[None] * 4, -5.0, None, None, 0, n,
+                                        0, n, 1, cq.row_pitch(n),
+                                        cq3.slab_stride(n), None)
+
+    def rebuild(n, q, tile):
+        return lib.cvt_masked_contract3_rebuild(
+            *[None] * 8, 1, 5.0, 0.0, 0.0, None, None, None, -5.0, None,
+            None, 0, n, 0, n, q, 1, tile, None)
+
+    n1 = cq.bisect_max_grid_points()
+    assert n1 == 169 and (k1(n1), k1(n1 + 1)) == (0, invalid)
+    n2 = cq.SWEEP_MAX_GRID_POINTS
+    assert n2 == 1024 and (k2(n2), k2(n2 + 1)) == (0, invalid)
+    for q in (1, 5, 16):
+        n3 = cq3.table_max_grid_points(q)
+        assert (table(n3), table(n3 + 1)) == (0, invalid)
+        for n in (2, 40, 170, 300, 406, 420, 1024):
+            tile = cq3.rebuild_tile_rows(n, q)
+            assert tile > 0 and rebuild(n, q, tile) == 0, (n, q)
+            assert rebuild(n, q, 2 * tile) == invalid, (n, q)
+        assert cq3.rebuild_tile_rows(1025, q) == 0
+        assert rebuild(1025, q, 16) == invalid
+
+
+@pytest.mark.parametrize("n", [193, 1024])
+def test_masked_sweep_on_wide_rows(dev, n):
+    """K2 past the former 192-cell rows: P against its plain twin, the
+    sweep against its plain twin, a repeat bit-equal."""
+    ops = _ops(dev, "msm", T=3, n=n)
+    want_p, flags = cq.sweep_table_reference(ops)
+    assert torch.equal(ops.flags, flags)
+    assert bool(torch.isclose(ops.P, want_p, rtol=RTOL_TABLE,
+                              atol=1e-300).all())
+    bounds, weights = _rows(dev, 3, 5)
+    got = cq.masked_sweep(ops, bounds, weights)
+    _sweep_close(got, cq.masked_sweep_reference(ops, bounds, weights))
+    assert torch.equal(got, cq.masked_sweep(ops, bounds, weights))
+
+
+def test_wide_dim2_bisects_by_k2_sweeps(dev):
+    """n = 193: the solve bisects by K2 sweeps (no K1 launch), at the
+    plain solve's roots."""
+    ops = _ops(dev, "garch", T=4, n=193)
+    obj = torch.tensor([0.05, 0.01], dtype=torch.float64, device=dev)
+    w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
+    before = (cs.bisect_levels.launches, cq.masked_sweep.launches)
+    got, _ = cs.full_solve_levels(ops, obj, w, CFG)
+    assert cs.bisect_levels.launches == before[0]
+    assert cq.masked_sweep.launches > before[1] + 10
+    want, _ = cs.full_solve_levels_reference(ops, obj, w, CFG)
+    assert float((got - want).abs().max()) <= ATOL_ROOT
+
+
+def _rebuilt(ops):
+    """The operands without their table (the rebuild route)."""
+    return ops._replace(U=None)
+
+
+@pytest.mark.parametrize("n, rows", [(2, None), (170, None), (170, (37, 101)),
+                                     (300, None), (300, (0, 150))])
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_rebuild_matches_plain(dev, n, rows, family):
+    """The rebuild kernel against its plain twin, on all outer slabs and
+    on a range of them; a repeat gives the same bits."""
+    ops = _ops3(dev, family, "student", T=2, n=n, q=3, rows=rows)
+    if n > cq3.table_max_grid_points(3):
+        assert ops.U is None
+    ops = _rebuilt(ops)
+    bounds, weights = _rows3(dev, ops.days, 3)
+    before = cq3.masked_contract3_rebuild.launches
+    got = cq3.masked_contract3_rebuild(ops, bounds, weights)
+    assert cq3.masked_contract3_rebuild.launches == before + 1
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert float((got[fin] - want[fin]).abs().max()) <= \
+        1e-13 * float(want[fin].abs().max())
+    assert torch.equal(got, cq3.masked_contract3_rebuild(ops, bounds,
+                                                        weights))
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+@pytest.mark.parametrize("kind", ["student", "gaussian"])
+def test_rebuild_equals_the_table_sweep(dev, family, kind):
+    """Where both routes serve (64-row tiles), the rebuild gives the table
+    sweep's bits: the same cells, prefix sums, lanes and partials."""
+    ops = _ops3(dev, family, kind, n=41)
+    bounds, weights = _rows3(dev, ops.days, 33)
+    assert torch.equal(
+        cq3.masked_contract3_rebuild(_rebuilt(ops), bounds, weights),
+        cq3.masked_contract3(ops, bounds, weights))
+
+
+def test_rebuild_nan_and_inf_cells(dev):
+    """A non-finite column (NaN cells) and an overflowing one (inf cells):
+    each poisons exactly the slabs that hold it, as in the plain twin."""
+    def edit(cols, p):
+        cols[1][:, 1, 7] = False
+        cols[2][:, 2, 30] = -1000.0
+
+    ops = _rebuilt(_ops3(dev, "msm", "student", n=180, edit=edit))
+    bounds, weights = _rows3(dev, ops.days, 8)
+    got = cq3.masked_contract3_rebuild(ops, bounds, weights)
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    assert bool(torch.isfinite(want).any())
+    assert not bool(torch.isfinite(want).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= \
+        1e-13 * float(want[fin].abs().max())
+
+
+def test_wide_dim3_solve_through_the_rebuild(dev):
+    """n = 180: no table is built, every sweep and halving launches the
+    rebuild kernel, and the roots are the plain solve's."""
+    ops = _ops3(dev, "garch", "student", T=3, n=180)
+    assert ops.U is None
+    obj = torch.tensor([0.05], dtype=torch.float64, device=dev)
+    w = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64, device=dev)
+    before = (cq3.masked_contract3.launches,
+              cq3.masked_contract3_rebuild.launches)
+    got, _ = cs.full_solve_levels(ops, obj, w, CFG)
+    assert cq3.masked_contract3.launches == before[0]
+    assert cq3.masked_contract3_rebuild.launches > before[1] + 10
+    want, _ = cs.full_solve_levels_reference(ops, obj, w, CFG)
+    assert float((got - want).abs().max()) <= ATOL_ROOT
+
+
+def test_rebuild_rejects_past_the_interval_rule(dev):
+    with pytest.raises(ValueError, match="1024"):
+        _ops3(dev, "garch", "gaussian", T=1, n=1025)
