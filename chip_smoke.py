@@ -126,16 +126,25 @@ Phases, each fatal on failure:
      sweep made to raise, at atol 1e-9 with 0 days above; dim 2 past
      K1's 169 must bisect by K2 sweeps (K1 0 launches), dim 3 past the
      table's 169 by the rebuild kernel (`masked_contract3_rebuild`: no
-     table, no table sweep); the route and the K1 / K2 / K4-table /
-     K4-rebuild launches printed per series; each dim-2 series' table P
+     table, no table sweep, one flag table: `contract3_row_flags`); the
+     route and the K1 / K2 / K4-table / K4-rebuild / flag launches
+     printed per series; each dim-2 series' table P
      and K2 sweeps (the long-row form at n = 200 and 400) held to their
      plain twins on that series' operands (P rtol 1e-12 with equal flags,
      a stage row and three random rows rtol 1e-12, repeats bit-equal).
      The rebuild kernel against
      its plain twin (n = 300 and 180, all slabs and a range, rtol 1e-13,
-     repeats bit-equal); one full-T rebuild sweep at dim 3, n = 300
-     (T = 500, L = 1) timed with CUDA events beside its plain twin and
-     traced by torch.profiler, as a share of `rebuild_bound`; and an
+     repeats and the full-row walk bit-equal, the flag table equal to its
+     twin); then the full-T dim-3 backtests at n = 300 (T = 500), MSM
+     and GARCH: the flag pass against its twin and timed (MSM), the
+     stage-1 sweep (MSM) and a late bisection band of the real solve
+     (both) on the truncated and the full-row route, bit-equal, timed
+     with CUDA events in turns, traced by torch.profiler, against the
+     plain twin, as shares of `rebuild_bound` over the cells the sweep's
+     bounds need (`walk_cells`, counted on the host) and over the full
+     cube; and a whole `calc_var(0.05)` on both routes (the full-row one
+     by handing the operands over without their flags), the series
+     bit-equal, host-clock seconds and launches printed; and an
      adapter holding only the JAX package's minimal contract (GARCH,
      `fit`, `marginals_densities`, `integration_inputs`, `integrals`) on
      a 16-day flagship cut at n = 40 against its JAX record at 1e-9, no
@@ -170,11 +179,14 @@ Each kernel's bound in the record is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float64
 operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet; FP64 outside the
 tensor cores), counted from this run's shapes by `bound()`; the trap
-pass's by `trap_bound()`, the dim-4 plain sweep's by `tcached_bound()`
-and the rebuild sweep's by `rebuild_bound()`.
+pass's by `trap_bound()`, the dim-4 plain sweep's by `tcached_bound()`,
+the rebuild sweep's by `rebuild_bound()` over the cells its bounds need
+(`walk_cells`; the full cube's printed beside it) and the flag pass's by
+`flags_bound()`.
 
 Prints the kernels' JSON record on the line before the last (each
-kernel's launches on the main path, the rebuild's on phase 12, and, as
+kernel's launches on the main path, the rebuild's and the flag pass's on
+phase 12, and, as
 `grid_launches_per_rank`, on one rank of phase 11 (b)), and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
 line, when torch sees no CUDA device or the port's sources are missing.
@@ -241,6 +253,7 @@ KERNEL_SPANS = {
     "bisect_levels": ("bisect_levels_kernel",),
     "contract3_weights": ("contract3_weights_kernel",),
     "masked_contract3": ("contract3_sweep_kernel", "contract3_sum_kernel"),
+    "contract3_row_flags": ("contract3_flags_kernel",),
     "masked_contract3_rebuild": ("contract3_rebuild_kernel",
                                  "contract3_sum_kernel"),
 }
@@ -485,7 +498,7 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
 
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
-                cq3.masked_contract3_rebuild)
+                cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
     rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
     rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
     rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
@@ -702,6 +715,8 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
                                  f"{lc['dim3']}")
         if lc["dim2"]["masked_contract3"] or \
                 lc["dim2"]["masked_contract3_rebuild"] or \
+                lc["dim2"]["contract3_row_flags"] or \
+                lc["dim3"]["contract3_row_flags"] or \
                 lc["dim3"]["masked_sweep"] or any(lc["dim4"].values()):
             raise AssertionError(f"rank {r}: a kernel launched off its path "
                                  f"{lc}")
@@ -865,7 +880,9 @@ def grid_sharded_phase(root, smi, w_batch, w_batch3, one_card,
                 raise AssertionError(f"grid-sharded rank {r} {tag}: K4 did "
                                      f"not run its dim-3 path {lc}")
             if dim2["masked_contract3"] or dim2["masked_contract3_rebuild"] or (
-                    "dim3" in lc and lc["dim3"]["masked_sweep"]) or (
+                    dim2["contract3_row_flags"]) or (
+                    "dim3" in lc and (lc["dim3"]["masked_sweep"] or
+                                      lc["dim3"]["contract3_row_flags"])) or (
                     "dim4" in lc and any(lc["dim4"].values())):
                 raise AssertionError(f"grid-sharded rank {r} {tag}: a "
                                      f"kernel launched off its path {lc}")
@@ -942,21 +959,84 @@ class MinimalGarch:
         return self._inner.integrals(bounds, inputs, spec, weights, box_min)
 
 
-def rebuild_bound(T, n, q, L, student, garch, rows=None):
+def cell_ops(q, garch):
+    """f64 operations of one cell of U (`weights_bound`'s count: the
+    quadratic form, the density with one exp and one log1p counted one
+    each, the pdf product at GARCH, the state sum) and one more: the
+    prefix add, or the flag pass's test."""
+    return 24 + 2 * q + 3 * garch + 1
+
+
+def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
+    """(cells, fold columns, rows, slabs) of one rebuild sweep, an exact
+    count on the host. Per (t, i0, i1) row of the outer slabs `rows`
+    ((i0, i1), all by default) its reach, the longest hi = #{x_j <= dup}
+    of the bound rows whose interval (dlo, dup] holds a grid point (the
+    kernel's arithmetic: prev = x0 w1 + x1 w2, dup = (b_up - prev) /
+    w_in, dlo = max((b_lo - prev) / w_in, box_min), NaN an empty
+    interval). cells: the reaches summed, the cells the truncated walk
+    needs; fold columns: per (t, i0) slab its longest reach, summed; rows
+    and slabs: those with a reach, each of whose n cells (rows) or n fold
+    columns (slabs) the full-row walk forms."""
+    import torch
+
+    x = x.detach().cpu()
+    b = bounds.detach().cpu()
+    w = weights.detach().cpu()
+    x0 = x if rows is None else x[rows[0]:rows[1]]
+    lo_box = torch.tensor(box_min, dtype=torch.float64)
+    cells = cols = used_rows = used_slabs = 0
+    for t0 in range(0, b.shape[1], day_chunk):
+        reach = None
+        for l in range(b.shape[0]):
+            prev = x0[:, None] * w[l, 1] + x[None, :] * w[l, 2]
+            bt = b[l, t0:t0 + day_chunk]
+            dup = (bt[:, 1, None, None] - prev) / w[l, 0]
+            dlo = torch.maximum((bt[:, 0, None, None] - prev) / w[l, 0],
+                                lo_box)
+            hi = torch.searchsorted(x, dup.contiguous(), right=True)
+            lo = torch.searchsorted(x, dlo.contiguous(), right=True)
+            used = (hi > lo) & ~torch.isnan(dup) & ~torch.isnan(dlo)
+            h = torch.where(used, hi, torch.zeros_like(hi))
+            reach = h if reach is None else torch.maximum(reach, h)
+        cells += int(reach.sum())
+        slab = reach.amax(dim=-1)
+        cols += int(slab.sum())
+        used_rows += int((reach > 0).sum())
+        used_slabs += int((slab > 0).sum())
+    return cells, cols, used_rows, used_slabs
+
+
+def rebuild_bound(T, n, q, L, student, garch, rows=None, walk=None):
     """masked_contract3_rebuild (K4 without U) on `rows` outer slabs (n
     by default): in, the columns (z, lu as float64, the finite flags as
     bytes; the pdf columns at GARCH), G, W1, W2, x, the (L, T, 2) bounds
-    and (L, 3) weights; out, the (L, T) integrals. Per cell of the
-    T rows n^2 of a sweep `weights_bound`'s operations (quadratic form,
-    density with one exp and one log1p, pdf product, state sum) and the
-    prefix add; the (q, n) fold per slab; n lookups per (row, day, i0)."""
+    and (L, 3) weights, and with `walk` the row flags; out, the (L, T)
+    integrals. Per cell `cell_ops`, the (q, n) fold's 2q^2 per column, and
+    n lookups per (row, day, i0). Without `walk` every cell of the T rows
+    n^2 and every fold column (the full cube); with `walk`, (cells, fold
+    columns): the work this sweep's bounds need (`walk_cells`)."""
     r = n if rows is None else rows
     cols = 3 * T * n * (8 * (1 + student + garch) + 1)
     nbytes = cols + 8 * (T * n * q * q + 2 * q * n + n + 2 * L * T + 3 * L
                          + L * T)
-    flops = (T * r * n * n * (24 + 2 * q + 3 * garch + 1)
-             + T * r * n * 2 * q * q + L * T * r * n * lookups(n))
+    cells, fold = (T * r * n * n, T * r * n) if walk is None else walk
+    if walk is not None:
+        nbytes += T * r * n
+    flops = (cells * cell_ops(q, garch) + fold * 2 * q * q
+             + L * T * r * n * lookups(n))
     return bound(nbytes, flops)
+
+
+def flags_bound(T, n, q, student, garch, rows=None):
+    """contract3_row_flags: the columns and G in, a byte per (t, i0, i1)
+    row out; every cell of the T rows n^2 formed and tested once
+    (`cell_ops`), the (q, n) fold per slab."""
+    r = n if rows is None else rows
+    cols = 3 * T * n * (8 * (1 + student + garch) + 1)
+    nbytes = cols + 8 * (T * n * q * q + 2 * q * n + 9) + T * r * n
+    return bound(nbytes, T * r * n * n * cell_ops(q, garch)
+                 + T * r * n * 2 * q * q)
 
 
 def wide_grid_phase(root, smi):
@@ -966,15 +1046,18 @@ def wide_grid_phase(root, smi):
     committed artifacts' fits and the record's inputs at that width)
     served on the card with every plain sweep made to raise, held at atol
     1e-9 (0 days above); the route and the K1 / K2 / K4-table /
-    K4-rebuild launches printed per series (dim 2 past K1's 169: K2
-    sweeps only; dim 3 past the table's 169: the rebuild only), and each
-    dim-2 series' P and K2 sweeps, at its width, against their plain
-    twins (`k2_parity`). Then the rebuild kernel against its plain twin (n = 300 and 180, all slabs
-    and a range, repeats bit-equal), one full-T rebuild sweep at dim 3,
-    n = 300 (T = 500, L = 1) timed with CUDA events beside the plain
-    twin and traced by torch.profiler, as a share of `rebuild_bound`;
-    and the minimal-plugin GARCH adapter against its JAX record.
-    Returns (report, the rebuild's kernels-line numbers)."""
+    K4-rebuild / flag launches printed per series (dim 2 past K1's 169:
+    K2 sweeps only; dim 3 past the table's 169: one flag table and the
+    rebuild only), and each dim-2 series' P and K2 sweeps, at its width,
+    against their plain twins (`k2_parity`). Then the rebuild kernel
+    against its plain twin (n = 300 and 180, all slabs and a range,
+    repeats and the full-row walk bit-equal, the flags equal to their
+    twin); the full-T n = 300 backtests (MSM, GARCH): the flag pass, the
+    stage-1 sweep and a late band of the real solve on both routes, and a
+    whole `calc_var` on both routes, bit-equal, timed against both
+    bounds; and the minimal-plugin GARCH adapter against its JAX record.
+    Returns (report, the rebuild's and the flag pass's kernels-line
+    numbers)."""
     import numpy as np
     import torch
 
@@ -991,7 +1074,7 @@ def wide_grid_phase(root, smi):
     alpha = float(rec["obj_var"])
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
-                cq3.masked_contract3_rebuild)
+                cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
 
     def refuse(*_a, **_k):
         raise AssertionError("a plain sweep ran on the card")
@@ -1087,7 +1170,9 @@ def wide_grid_phase(root, smi):
                 for k, v in lc.items():
                     total[k] = total.get(k, 0) + v
                 route = (cs.dim2_bisect_route(n) if dim == 2 else
-                         "table" if ops.U is not None else "rebuild")
+                         "table" if ops.U is not None else
+                         "rebuild" if ops.flags is not None else
+                         "rebuild_full")
                 want = rec[f"{tag}_var"]
                 if var.shape != want.shape or not np.all(np.isfinite(var)):
                     raise AssertionError(f"wide {tag}: bad VaR {var.shape}")
@@ -1101,9 +1186,13 @@ def wide_grid_phase(root, smi):
                                  lc["sweep_table"] != 1):
                     raise AssertionError(f"wide {tag}: not bisected by K2 "
                                          f"sweeps: {route} {lc}")
+                if dim == 2 and lc["contract3_row_flags"]:
+                    raise AssertionError(f"wide {tag}: a dim-3 kernel "
+                                         f"launched: {lc}")
                 if dim == 3 and (route != "rebuild" or
                                  lc["masked_contract3"] or
                                  lc["contract3_weights"] or
+                                 lc["contract3_row_flags"] != 1 or
                                  lc["masked_contract3_rebuild"] <= 0):
                     raise AssertionError(f"wide {tag}: not swept by the "
                                          f"rebuild kernel: {route} {lc}")
@@ -1117,7 +1206,8 @@ def wide_grid_phase(root, smi):
                       f"sweep {lc['masked_sweep']}, K4 table "
                       f"{lc['contract3_weights']} sweep "
                       f"{lc['masked_contract3']}, K4 rebuild "
-                      f"{lc['masked_contract3_rebuild']}; {wall:.3f} s "
+                      f"{lc['masked_contract3_rebuild']} (flags "
+                      f"{lc['contract3_row_flags']}); {wall:.3f} s "
                       "(host clock)")
                 if dim == 2:
                     k2_report[tag] = k2_parity(tag, ops)
@@ -1146,6 +1236,10 @@ def wide_grid_phase(root, smi):
         cols = base.adapter.day_columns(inputs, base.copula_spec)
         ops = base.adapter.contract3_operands(cols, inputs, base.copula_spec,
                                               rows=rows)
+        if ops.flags is None or not torch.equal(
+                ops.flags, cq3.contract3_row_flags_reference(ops)):
+            raise AssertionError(f"rebuild {tag} rows {rows}: the flag "
+                                 "table is missing or off its plain twin")
         b, w = rows3(days, 4, n)
         got = cq3.masked_contract3_rebuild(ops, b, w)
         want = cq3.masked_contract3_reference(ops, b, w)
@@ -1156,57 +1250,210 @@ def wide_grid_phase(root, smi):
         if not torch.equal(got, cq3.masked_contract3_rebuild(ops, b, w)):
             raise AssertionError(f"rebuild {tag} rows {rows}: a repeated "
                                  "launch gave other bits")
+        if not torch.equal(got, cq3.masked_contract3_rebuild(
+                ops._replace(flags=None), b, w)):
+            raise AssertionError(f"rebuild {tag} rows {rows}: the full-row "
+                                 "walk gave other bits")
         parity[f"{tag}_rows{rows}"] = {
-            "max_abs_err": float((got - want).abs().max()), "rel": rel}
+            "max_abs_err": float((got - want).abs().max()), "rel": rel,
+            "flags_set": int(ops.flags.sum())}
         print(f"parity rebuild {tag} rows {rows or (0, n)}, L=4, {days} "
               f"days: {rel:.3e} relative off the plain twin (bound "
-              f"{RTOL_REBUILD:g}), repeat bit-equal")
+              f"{RTOL_REBUILD:g}), repeat and full-row walk bit-equal; flag "
+              f"table equal to its twin, {int(ops.flags.sum())} rows "
+              "flagged")
 
-    # one full-T rebuild sweep at dim 3, n = 300 (T = 500, L = 1): the MSM
-    # artifact's T = 500 forecasts at the record's n = 300 grid
-    data, base = bases[(3, "msm")]
-    ii = base.integration_inputs
-    tag = f"dim3_msm_n{WIDE_N_TIMED}"
-    full = ii._replace(**{f: torch.as_tensor(rec[f"{tag}_ii_{f}"],
-                                             device=dev)
-                          for f in ("x", "dx", "densities")})
-    bt = bt_mod.VaRBacktest(data, base.adapter, base.copula, base.copula_fit,
-                            base.model_fits, full, num_points=WIDE_N_TIMED,
-                            device="cuda")
-    ops = bt.sweep_operands()
-    T, q = ops.days, ops.w1.shape[0]
-    if ops.U is not None or T != WIDE_DAYS_T:
-        raise AssertionError(f"the full-T n={WIDE_N_TIMED} operands took the "
-                             "table route")
-    stage1 = torch.tensor([-100.0, -3.0], dtype=torch.float64,
-                          device=dev).expand(1, T, 2).contiguous()
-    w1 = bt.weights.reshape(1, 3)
-    got = cq3.masked_contract3_rebuild(ops, stage1, w1)
-    want = cq3.masked_contract3_reference(ops, stage1, w1)  # warms it up
-    kern = cuda_ms(torch, {"kernel": lambda: cq3.masked_contract3_rebuild(
-        ops, stage1, w1)}, reps=REPS_WIDE)
-    plain_ms = cuda_ms(torch, {"plain": lambda: cq3.masked_contract3_reference(
-        ops, stage1, w1)}, reps=1, warmup=0)["plain"]
-    err_full = float((got - want).abs().max())
-    rel_full = err_full / float(want.abs().max())
-    if not rel_full <= RTOL_REBUILD:
-        raise AssertionError(f"rebuild full T: {rel_full:.3e} relative off "
-                             "its plain twin")
-    prof = device_profile(torch, lambda: cq3.masked_contract3_rebuild(
-        ops, stage1, w1), reps=2)
-    dev_ms = prof["kernels"]["masked_contract3_rebuild"]["device_ms"]
-    b_ms, by = rebuild_bound(T, WIDE_N_TIMED, q, 1, True, False)
-    share = "not measured" if dev_ms is None else f"{b_ms / dev_ms:.1%}"
-    print(f"wide rebuild sweep dim3 MSM n={WIDE_N_TIMED}, T={T}, L=1, q={q}: "
-          f"call {kern['kernel'][0]:.3f} ms (min {kern['kernel'][1]:.3f}; "
-          f"CUDA events), device "
-          + ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms")
-          + f" (torch.profiler); plain twin {plain_ms[0]:.3f} ms; "
-          f"{rel_full:.3e} relative off it; bound {b_ms:.3f} ms by {by} "
-          f"({share} of the device time) ({smi})")
-    del bt, ops
-    torch.cuda.empty_cache()
+    # the full-T dim-3 backtests at n = 300 (T = 500): the artifacts'
+    # T = 500 forecasts at the record's n = 300 grid, on the truncated route
+    # (the flag table built with the operands) and on the full-row route
+    # (the same operands handed over without their flags)
+    def full_T(est):
+        data, base = bases[(3, est)]
+        tag = f"dim3_{est}_n{WIDE_N_TIMED}"
+        grid = ("x", "dx", "densities") if est == "msm" else ("x", "dx")
+        inputs = base.integration_inputs._replace(
+            **{f: torch.as_tensor(rec[f"{tag}_ii_{f}"], device=dev)
+               for f in grid})
+        for c in counters:
+            c.launches = 0
+        bt = bt_mod.VaRBacktest(data, base.adapter, base.copula,
+                                base.copula_fit, base.model_fits, inputs,
+                                num_points=WIDE_N_TIMED, device="cuda")
+        ops = bt.sweep_operands()
+        if (ops.U is not None or ops.flags is None or ops.days != WIDE_DAYS_T
+                or cq3.contract3_row_flags.launches != 1):
+            raise AssertionError(f"the full-T {est} n={WIDE_N_TIMED} "
+                                 "operands did not take the rebuild route "
+                                 "with one flag table")
+        return bt, ops
 
+    def timed_sweep(label, ops, b, w):
+        """A sweep on both routes: bit-equal, call ms (CUDA events) in
+        turns, the truncated route's device ms (torch.profiler), its plain
+        twin's time and error, and its bounds: the cells this sweep's
+        bounds need (`walk_cells`) and the full cube."""
+        full_ops = ops._replace(flags=None)
+        got = cq3.masked_contract3_rebuild(ops, b, w)
+        if not torch.equal(got, cq3.masked_contract3_rebuild(full_ops, b,
+                                                              w)):
+            raise AssertionError(f"rebuild {label}: the truncated and "
+                                 "full-row walks gave other bits")
+        ms = cuda_ms(torch, {
+            "truncated": lambda: cq3.masked_contract3_rebuild(ops, b, w),
+            "full_row": lambda: cq3.masked_contract3_rebuild(full_ops, b,
+                                                             w)},
+            reps=REPS_WIDE)
+        prof = device_profile(torch, lambda: cq3.masked_contract3_rebuild(
+            ops, b, w), reps=2)
+        dev_ms = prof["kernels"]["masked_contract3_rebuild"]["device_ms"]
+        cells, fold, used_rows, used_slabs = walk_cells(ops.x, b, w)
+        kw = dict(student=ops.spec.kind == "student",
+                  garch=ops.p_cols is not None)
+        shape = (ops.days, WIDE_N_TIMED, ops.w1.shape[0], b.shape[0])
+        b_ms, by = rebuild_bound(*shape, walk=(cells, fold), **kw)
+        row_ms, row_by = rebuild_bound(
+            *shape, walk=(used_rows * WIDE_N_TIMED,
+                          used_slabs * WIDE_N_TIMED), **kw)
+        cube_ms = rebuild_bound(*shape, **kw)[0]
+        want = cq3.masked_contract3_reference(ops, b, w)
+        plain_ms = cuda_ms(torch, {
+            "plain": lambda: cq3.masked_contract3_reference(ops, b, w)},
+            reps=1, warmup=0)["plain"]
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not rel <= RTOL_REBUILD:
+            raise AssertionError(f"rebuild {label}: {rel:.3e} relative off "
+                                 "its plain twin")
+        cube = ops.days * WIDE_N_TIMED ** 3
+        out = {"truncated_ms": ms["truncated"], "full_row_ms":
+               ms["full_row"], "device_ms": dev_ms, "profile": prof,
+               "bound_ms": [b_ms, by], "full_row_bound_ms": [row_ms, row_by],
+               "cube_bound_ms": cube_ms, "cells": cells,
+               "fold_columns": fold, "rows_walked": used_rows,
+               "cube_cells": cube, "plain_ms": plain_ms,
+               "max_abs_err": err, "rel_err": rel}
+        print(f"wide rebuild {label}, n={WIDE_N_TIMED}, T={ops.days}, "
+              f"L={b.shape[0]}: truncated call {ms['truncated'][0]:.3f} ms "
+              f"(min {ms['truncated'][1]:.3f}; CUDA events), device "
+              + _ms(dev_ms) + f" ms (torch.profiler), {cells} cells walked "
+              f"({cells / cube:.2%} of the cube), bound {b_ms:.3f} ms by "
+              f"{by} ("
+              + ("not measured" if dev_ms is None else f"{b_ms / dev_ms:.1%}")
+              + f" of the device time); full-row call "
+              f"{ms['full_row'][0]:.3f} ms (in turns), {used_rows} rows "
+              f"walked whole, bound {row_ms:.3f} ms by {row_by} "
+              f"({row_ms / ms['full_row'][0]:.1%} of the call); bit-equal; "
+              f"the whole cube's bound {cube_ms:.3f} ms; plain twin "
+              f"{plain_ms[0]:.3f} ms, {rel:.3e} relative off it ({smi})")
+        return out
+
+    full_report = {}
+    for est in ("msm", "garch"):
+        bt, ops = full_T(est)
+        T, q = ops.days, ops.w1.shape[0]
+        rep_e = full_report[est] = {"flag_launches":
+                                    cq3.contract3_row_flags.launches}
+        w1 = bt.weights.reshape(1, 3)
+        if est == "msm":
+            # the flag pass, once per backtest: against its plain twin, timed
+            flags = cq3.contract3_row_flags(ops)
+            want_f = cq3.contract3_row_flags_reference(ops)
+            if not (torch.equal(flags, ops.flags) and
+                    torch.equal(flags, want_f)):
+                raise AssertionError("contract3_row_flags: off its plain "
+                                     "twin at full T")
+            f_ms = cuda_ms(torch, {"kernel": lambda: cq3.contract3_row_flags(
+                ops)}, reps=REPS_WIDE, warmup=1)["kernel"]
+            fp_ms = cuda_ms(torch, {
+                "plain": lambda: cq3.contract3_row_flags_reference(ops)},
+                reps=1, warmup=0)["plain"]
+            f_prof = device_profile(torch, lambda: cq3.contract3_row_flags(
+                ops), reps=1)
+            f_dev = f_prof["kernels"]["contract3_row_flags"]["device_ms"]
+            fb_ms, fb_by = flags_bound(T, WIDE_N_TIMED, q, True, False)
+            rep_e["flags"] = {
+                "kernel_ms": f_ms, "plain_ms": fp_ms, "device_ms": f_dev,
+                "bytes": flags.numel(), "rows_flagged": int(flags.sum()),
+                "bound_ms": [fb_ms, fb_by], "max_abs_err": 0.0}
+            print(f"wide flag pass dim3 MSM n={WIDE_N_TIMED}, T={T}: call "
+                  f"{f_ms[0]:.3f} ms (min {f_ms[1]:.3f}; CUDA events), device "
+                  + _ms(f_dev) + f" ms (torch.profiler), {flags.numel()} "
+                  f"bytes, {int(flags.sum())} rows flagged; equal to its "
+                  f"plain twin ({fp_ms[0]:.3f} ms); bound {fb_ms:.3f} ms by "
+                  f"{fb_by} ("
+                  + ("not measured" if f_dev is None else
+                     f"{fb_ms / f_dev:.1%}") + f" of the device time) ({smi})")
+            # the stage-1 sweep of PR 11's timing
+            stage1 = torch.tensor([-100.0, -3.0], dtype=torch.float64,
+                                  device=dev).expand(1, T, 2).contiguous()
+            rep_e["stage1"] = timed_sweep("stage-1 sweep dim3 MSM", ops,
+                                          stage1, w1)
+        # the query on the truncated route, its sweeps' bounds recorded
+        calls, call_ms = [], []
+        real = cs.masked_contract3_rebuild
+
+        def recorder(ops_, bounds, weights, box_min=-5.0):
+            calls.append((bounds.clone(), weights.clone()))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(ops_, bounds, weights, box_min)
+            end.record()
+            end.synchronize()
+            call_ms.append(start.elapsed_time(end))
+            return out
+
+        cs.masked_contract3_rebuild = recorder
+        try:
+            rec_var = bt.calc_var(alpha)
+        finally:
+            cs.masked_contract3_rebuild = real
+        queries = {}
+        for route, flags_ in (("truncated", ops.flags), ("full_row", None),
+                              ("truncated_again", ops.flags)):
+            bt._ops = ops._replace(flags=flags_)
+            before = cq3.masked_contract3_rebuild.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            var = bt.calc_var(alpha)
+            torch.cuda.synchronize()
+            queries[route] = (var, time.perf_counter() - t0,
+                              cq3.masked_contract3_rebuild.launches - before)
+        bt._ops = ops
+        var_t = queries["truncated"][0]
+        if not (np.array_equal(var_t, queries["full_row"][0]) and
+                np.array_equal(var_t, rec_var) and
+                np.array_equal(var_t, queries["truncated_again"][0])):
+            raise AssertionError(f"full-T {est} calc_var: the truncated and "
+                                 "full-row routes gave other series")
+        if var_t.shape != (T,) or not np.all(np.isfinite(var_t)):
+            raise AssertionError(f"full-T {est} calc_var: bad series")
+        rep_e["query"] = {r: {"wall_s": v[1], "launches": v[2]}
+                          for r, v in queries.items()}
+        rep_e["query"]["sweep_ms"] = call_ms
+        print(f"wide full-T {est} query, each rebuild sweep in order (ms, "
+              "CUDA events, a synchronized run): "
+              + ", ".join(f"{v:.2f}" for v in call_ms) + f" ({smi})")
+        print(f"wide full-T calc_var({alpha:g}) dim3 {est.upper()} "
+              f"n={WIDE_N_TIMED}, T={T}: truncated "
+              f"{queries['truncated'][1]:.3f} s (again "
+              f"{queries['truncated_again'][1]:.3f} s), full-row "
+              f"{queries['full_row'][1]:.3f} s (host clock, synchronized), "
+              f"{queries['truncated'][2]} rebuild launches each; the two "
+              f"series bit-equal ({smi})")
+        # a late halving of that solve: its bounds on both routes
+        band_b, band_w = calls[-4]
+        rep_e["band"] = timed_sweep(f"band sweep dim3 {est.upper()} "
+                                    f"(call {len(calls) - 3} of "
+                                    f"{len(calls)})", ops,
+                                    band_b.contiguous(),
+                                    band_w.contiguous())
+        rep_e["band"]["bounds_median"] = [
+            float(band_b[..., 0].median()), float(band_b[..., 1].median())]
+        del bt, ops
+        torch.cuda.empty_cache()
+    stage = full_report["msm"]["stage1"]
+    flag_rep = full_report["msm"]["flags"]
     # the minimal-plugin route: JAX's host bisection over `integrals`
     bt_mod.register_adapter(MinimalGarch.name, MinimalGarch)
     days, n = int(rec["plugin_days"]), int(rec["plugin_points"])
@@ -1246,18 +1493,24 @@ def wide_grid_phase(root, smi):
     print(f"wide phase: {phase_s:.3f} s, launches {total} ({smi})")
     report = {"series": series, "launches": total, "parity": parity,
               "k2_parity": k2_report,
-              "full_T_sweep": {"T": T, "n": WIDE_N_TIMED, "q": q,
-                               "kernel_ms": kern["kernel"],
-                               "plain_ms": plain_ms, "device_ms": dev_ms,
-                               "profile": prof, "bound_ms": [b_ms, by],
-                               "rel_err": rel_full},
+              "full_T": full_report,
               "plugin": {"var_max_err": e_var, "levels_max_err": e_lv,
                          "launches": lc, "wall_s": plugin_s},
               "phase_s": phase_s}
     entry = {"launches": total["masked_contract3_rebuild"],
-             "max_abs_err": err_full, "ms": kern["kernel"][0],
-             "plain_ms": plain_ms[0], "bound_ms": b_ms, "bound_by": by}
-    return report, entry
+             "max_abs_err": stage["max_abs_err"],
+             "ms": stage["truncated_ms"][0], "plain_ms": stage["plain_ms"][0],
+             "bound_ms": stage["bound_ms"][0],
+             "bound_by": stage["bound_ms"][1],
+             "full_cube_bound_ms": stage["cube_bound_ms"],
+             "full_row_ms": stage["full_row_ms"][0]}
+    flags_entry = {"launches": total["contract3_row_flags"],
+                   "max_abs_err": flag_rep["max_abs_err"],
+                   "ms": flag_rep["kernel_ms"][0],
+                   "plain_ms": flag_rep["plain_ms"][0],
+                   "bound_ms": flag_rep["bound_ms"][0],
+                   "bound_by": flag_rep["bound_ms"][1]}
+    return report, entry, flags_entry
 
 
 def main() -> int:
@@ -1324,7 +1577,7 @@ def main() -> int:
 
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
-                cq3.masked_contract3_rebuild)
+                cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
 
     def zero_counts():
         for c in counters:
@@ -1398,7 +1651,8 @@ def main() -> int:
         raise AssertionError("sweep_table did not build one table per dim-2 "
                              "backtest")
     if launches["masked_contract3"] or launches["contract3_weights"] or \
-            launches["masked_contract3_rebuild"]:
+            launches["masked_contract3_rebuild"] or \
+            launches["contract3_row_flags"]:
         raise AssertionError("a dim-3 kernel launched on the dim-2 path")
 
     # -- main path from the CSV, fitted on the card, counted -----------------
@@ -1649,7 +1903,8 @@ def main() -> int:
     if launches3["masked_sweep"] or launches3["bisect_levels"] or \
             launches3["sweep_table"]:
         raise AssertionError("a dim-2 kernel launched on the dim-3 path")
-    if launches3["masked_contract3_rebuild"]:
+    if launches3["masked_contract3_rebuild"] or \
+            launches3["contract3_row_flags"]:
         raise AssertionError("the flagship dim-3 path left its table route")
     cfg = (-3.0, -3.5, -2.0, -7.5, 0.0)
     for est, bt in bts3.items():
@@ -2105,7 +2360,7 @@ def main() -> int:
 
     # -- wide grids: dim 2 past K1's day through K2 sweeps, dim 3 past the
     # table through the rebuild kernel, and the minimal plugin, counted ----
-    wide_report, wide_entry = wide_grid_phase(root, smi)
+    wide_report, wide_entry, flags_entry = wide_grid_phase(root, smi)
 
     # -- parity: kernels vs plain twins on the card ---------------------------
     def tens(a):
@@ -2731,14 +2986,20 @@ def main() -> int:
               launches3["contract3_weights"], err_u, "contract3_weights"),
         entry("masked_contract3", "contract3.cu", k4,
               launches3["masked_contract3"], err3, "contract3_L1"),
-        # its launches: the wide-grid phase's dim-3 series (the only path
-        # that takes the rebuild route); its times: the full-T n = 300
-        # sweep
+        # their launches: the wide-grid phase's dim-3 series (the only
+        # path that takes the rebuild route); their times: the full-T n =
+        # 300 stage-1 sweep (its bound the cells the sweep's bounds need,
+        # the full cube's beside it) and flag pass
         dict({"name": "masked_contract3_rebuild", "route": "cuda",
               "source": "copula_var_tpu_torch/csrc/contract3.cu",
               "replaces": k4, "library_ms": None,
               "grid_launches_per_rank":
                   grid_launches["masked_contract3_rebuild"]}, **wide_entry),
+        dict({"name": "contract3_row_flags", "route": "cuda",
+              "source": "copula_var_tpu_torch/csrc/contract3.cu",
+              "replaces": k4, "library_ms": None,
+              "grid_launches_per_rank":
+                  grid_launches["contract3_row_flags"]}, **flags_entry),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,15 @@
 //                      memory (contract3_sweep_kernel), then sums the
 //                      per-slab partials in a fixed order
 //                      (contract3_sum_kernel).
+//   contract3_row_flags
+//                      builds, once per backtest that sweeps without U, a
+//                      byte per (t, i0, i1) row: 1 where a cell of the
+//                      whole row is outside [-kMaxCell, kMaxCell] or NaN
+//                      (contract3_flags_kernel);
 //   masked_contract3_rebuild
-//                      the same sweep with no table, as the TPU kernel
-//                      computes it: every launch rebuilds each slab's
-//                      cells from the transform columns
+//                      the same sweep with no table: every launch forms
+//                      from the transform columns the cells its lookups
+//                      read, each row's prefix [0, max_l hi)
 //                      (contract3_rebuild_kernel), then the same sum
 //                      kernel. It serves the grids the table cannot: n
 //                      past the sweep's one-slab shared memory (169 at
@@ -69,26 +74,40 @@
 //     the whole day). The columns z, lu, fin, p and G stay whole and are
 //     read at row0 + the local slab. At row0 = 0, rows = n every launch is
 //     the one-card launch, bit for bit.
-//   * contract3_rebuild_kernel: one block per (t, i0) slab and tile of
-//     tile_rows consecutive i1 rows (64, or the largest power of two below it
-//     whose rows fit in shared memory: 64 up to n ~ 410 at q = 5, 16 at n =
-//     1024; the caller picks it, ops/cuda_quadrature3.py
-//     `rebuild_tile_rows`), so shared memory bounds no n <=
-//     interval::kMaxRow. The block folds G[t, i0] with W2, forms the tile's
-//     cells with the build kernel's arithmetic (`cell`), turns each row into
-//     its prefix sum (interval::scan_row: a flagged row keeps its cells), and
-//     warps take the bound rows, lanes over the tile's rows, each tile's warp
-//     sum one partial (l, t, i0, tile). The sweep is latency-bound (chains of
-//     f64 exp, log1p and division), so the launcher sizes the block for the
-//     most resident warps per SM (256-1024 threads; the bits do not depend on
-//     it): at n = 300 one 154 KB tile fits a SM, and 1024 threads keep 32
-//     warps on it. At 64 rows a tile is exactly a lookup span of
-//     contract3_sweep_kernel: the cells, the prefix sums, the lane order and
-//     the partials are the table sweep's, so the two routes give the same
-//     bits. Bound by the float64 arithmetic of the cells (one exp and one
-//     log1p each, ~n^3 T per sweep), not by memory: it reads only the (T, 3,
-//     n) columns and G. The TPU kernel does the same (pallas_quadrature3.py
-//     rebuilds a day's slab per call).
+//   * contract3_rebuild_kernel. Its first form built all n^2 cells of every
+//     slab on every sweep, then scanned each row by one thread while the
+//     other 960 of its 1024 waited (242.5 ms a full-T n = 300 sweep on an
+//     H100 SXM at 700 W). A masked sum reads only S[lo - 1] and S[hi - 1] of
+//     a row's prefix, and a solve's bounds sit in the lower tail, so a sweep
+//     needs the cells [0, hi) of each row with an interval: 5-25 % of the
+//     cube, and less late in a bisection, where most intervals hold no grid
+//     point. One block of 64 threads per (t, i0) slab and tile of 64 i1
+//     rows (a lookup span of contract3_sweep_kernel), thread r on row r:
+//     (a) each row's (lo, hi) per bound row from x, the bounds and the
+//     weights alone; a tile where every interval is empty writes its 0.0
+//     partials and stops; (b) the (q, n) fold of the columns the tile
+//     reads; (c) each thread walks its row in index order to the longest hi
+//     of its bound rows, forming each cell with `cell` and adding it to the
+//     row's running prefix sum, which it keeps at lo - 1 and differences at
+//     hi - 1 as the walk passes them (`capture`, out of line). No row is
+//     stored and no thread waits on a scan: the prefix is the walk. The
+//     row flag does not depend on the bounds, so it comes from the flag
+//     table (contract3_row_flags, built once per backtest): a flagged row
+//     adds its cells to each interval's sum instead, as interval::row_sum
+//     does. Without a table (flags null: the route where not even the flags
+//     fit in the card's memory) every row with an interval is walked whole,
+//     flagged by the scan and summed both ways. Either way every branch is
+//     the table route's, so a row's sum, the lanes r and r + 32 and the
+//     warp_sum of each partial (l, t, i0, tile) are its bits. What bounds
+//     it now: the float64 arithmetic of the cells walked (one exp, one
+//     log1p and one division each), at a lower rate than the flag kernel's
+//     because a warp walks as far as its longest row; small blocks (12
+//     resident per SM) let one tile's tail overlap another's walk. Bound
+//     rows go in turns of kWalkRows per launch; a partial depends on (l, t,
+//     i0, tile) alone, so that changes no bit.
+//   * contract3_flags_kernel: one block per (t, i0) slab, warps over rows,
+//     lanes over cells (`cell`): the whole cube once, bound by its f64
+//     arithmetic as the table build is, with one byte per row out.
 // No floating-point atomics anywhere: repeated launches give identical
 // bits. No tensor cores: the work is a masked sum, not a product.
 //
@@ -123,11 +142,17 @@ constexpr int kSweepThreads = 512;
 constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kSpan = 64;  // consecutive i1 of one lookup task, 2 per lane
 constexpr int kSumThreads = 128;
-// rebuild: threads per block, a power of two in [min, max], chosen per
-// launch for the most resident threads per SM (ties: the smaller block)
-constexpr int kRebuildMinThreads = 256;
-constexpr int kRebuildMaxThreads = 1024;
-constexpr int kMaxTileRows = kSpan;  // rebuild: i1 rows per block, at most
+constexpr int kFlagsThreads = 256;
+// rebuild: one thread per row of a kSpan-row tile; the resident blocks per
+// SM its registers are sized for (12, 80 registers a thread, ran faster on
+// the H100 than 8 or 10 with more, or 16, which spill; so did one cell per
+// step of the walk against two or three)
+constexpr int kRebuildMinBlocks = 12;
+// bound rows per launch (more go in turns; its home is ops/_build.py)
+#ifndef CVT_WALK_ROWS
+#error "build through copula_var_tpu_torch/ops/_build.py: it defines the limits"
+#endif
+constexpr int kWalkRows = CVT_WALK_ROWS;
 constexpr size_t kMaxSharedBytes = CVT_MAX_SHARED_BYTES;  // opt-in per block
 constexpr size_t kBarrierBytes = 16;        // two mbarriers
 
@@ -206,16 +231,24 @@ __device__ __forceinline__ Slab make_slab(
   return s;
 }
 
-// A[b, i2] = sum_c G[t, i0, b, c] W2[c, i2] into shared memory (q, n)
+// A[b, i2] = sum_c G[t, i0, b, c] W2[c, i2]: one entry, in c order
+__device__ __forceinline__ double fold_entry(const double* __restrict__ gt,
+                                             const double* __restrict__ w2,
+                                             int q, int n, int b, int j) {
+  double s = 0.0;
+  for (int c = 0; c < q; ++c) s += gt[b * q + c] * w2[c * n + j];
+  return s;
+}
+
+// the columns [0, cols) of A into shared memory (q, n)
 __device__ __forceinline__ void fold_w2(const double* __restrict__ gt,
                                         const double* __restrict__ w2,
-                                        double* a, int q, int n) {
-  for (int idx = threadIdx.x; idx < q * n; idx += blockDim.x) {
-    const int b = idx / n;
-    const int j = idx - b * n;
-    double s = 0.0;
-    for (int c = 0; c < q; ++c) s += gt[b * q + c] * w2[c * n + j];
-    a[idx] = s;
+                                        double* a, int q, int n,
+                                        int cols) {
+  for (int idx = threadIdx.x; idx < q * cols; idx += blockDim.x) {
+    const int b = idx / cols;
+    const int j = idx - b * cols;
+    a[b * n + j] = fold_entry(gt, w2, q, n, b, j);
   }
 }
 
@@ -251,7 +284,9 @@ __device__ __forceinline__ double cell(const Slab& s,
   }
   double h = 0.0;
   for (int b = 0; b < q; ++b) h += w1[b * n + i1] * a[b * n + i2];
-  return v * h;
+  // rounded here: a caller that adds the cell to a sum (the rebuild's
+  // prefix walk) must not get it contracted into an FMA
+  return __dmul_rn(v, h);
 }
 
 __global__ void __launch_bounds__(kWeightsThreads)
@@ -271,7 +306,7 @@ contract3_weights_kernel(const double* __restrict__ z,           // (T, 3, n)
   extern __shared__ double a[];  // (q, n)
   const int t = blockIdx.x / rows;
   const int i0 = row0 + (blockIdx.x - t * rows);  // grid point of the slab
-  fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n);
+  fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n, n);
   __syncthreads();
   const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
                             logdet, t, i0, n);
@@ -419,17 +454,109 @@ __global__ void contract3_sum_kernel(const double* __restrict__ partial,
   out[r] = s;
 }
 
-// rebuild: x (n,), the (q, n) fold, `tile_rows` rows at the odd pitch and
-// a flag byte per row
-__host__ __device__ size_t rebuild_shared_bytes(int n, int q,
-                                                int tile_rows) {
+// rebuild: x (n,), the (q, n) fold, and per (bound row, tile row) the packed
+// interval, the row's masked sum and, walking full rows (no flag table),
+// its cell-by-cell sum
+__host__ __device__ size_t rebuild_shared_bytes(int n, int q, int rows_l,
+                                                bool full) {
+  const size_t lookups = static_cast<size_t>(rows_l) * kSpan;
   return (static_cast<size_t>(n) + static_cast<size_t>(q) * n +
-          static_cast<size_t>(tile_rows) * interval::row_pitch(n)) *
-             sizeof(double) +
-         tile_rows;
+          lookups * (full ? 2 : 1)) * sizeof(double) +
+         lookups * sizeof(int);
 }
 
-__global__ void __launch_bounds__(kRebuildMaxThreads)
+// The row flags: flags[t, local, i1] = 1 when a cell of the whole row
+// (t, row0 + local, i1) lies outside [-kMaxCell, kMaxCell] or is NaN, the
+// test of interval::scan_row_once on the same cells (`cell`). One block
+// per (t, local) slab; warps take rows, lanes columns.
+__global__ void __launch_bounds__(kFlagsThreads)
+contract3_flags_kernel(const double* __restrict__ z,           // (T, 3, n)
+                       const unsigned char* __restrict__ fin,  // (T, 3, n)
+                       const double* __restrict__ lu,          // (T, 3, n)
+                       const double* __restrict__ p,  // (T, 3, n); null: MSM
+                       const double* __restrict__ w1,          // (q, n)
+                       const double* __restrict__ w2,          // (q, n)
+                       const double* __restrict__ g,       // (T, n, q, q)
+                       const double* __restrict__ sigma_inv,   // (3, 3)
+                       int student, double nu, double log_norm,
+                       double logdet,
+                       unsigned char* __restrict__ flags,  // (T, rows, n)
+                       int T, int n, int row0, int rows, int q) {
+  extern __shared__ double a[];  // (q, n)
+  const int t = blockIdx.x / rows;
+  const int i0 = row0 + (blockIdx.x - t * rows);
+  fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n, n);
+  __syncthreads();
+  const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
+                            logdet, t, i0, n);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  unsigned char* out = flags + static_cast<size_t>(blockIdx.x) * n;
+  for (int i1 = warp; i1 < n; i1 += kFlagsThreads / 32) {
+    bool ok = true;
+    for (int j = lane; j < n; j += 32)
+      ok &= fabs(cell(sl, w1, a, q, i1, j)) <= interval::kMaxCell;
+    const bool flagged = __any_sync(0xffffffffu, !ok);
+    if (lane == 0) out[i1] = flagged;
+  }
+}
+
+// The intervals of row r (packed spans, (rows_l, kSpan)) that the walk
+// passes at j, its running prefix `run`: S[lo - 1] kept, then S[hi - 1] -
+// S[lo - 1] (S[hi - 1] when lo = 0) stored in sums. Returns the next j that
+// ends an interval, len when none does. Out of line: the walk's hot loop
+// calls it once or twice per interval, and keeps its registers.
+__device__ __noinline__ int capture(double* sums, const int* spans, int r,
+                                    int rows_l, int j, double run, int len) {
+  int next = len;
+  for (int l = 0; l < rows_l; ++l) {
+    const int k = l * kSpan + r;
+    const int sp = spans[k];
+    if (sp == 0) continue;
+    const int lo = sp & 0xffff;
+    const int hi = sp >> 16;
+    if (j == lo - 1) sums[k] = run;
+    if (j == hi - 1) sums[k] = lo > 0 ? run - sums[k] : run;
+    if (lo - 1 > j) next = min(next, lo - 1);
+    if (hi - 1 > j) next = min(next, hi - 1);
+  }
+  return next;
+}
+
+// Cell c of row r at j added, in index order, to the sum of every interval
+// of the row that holds j (a flagged row's masked sums).
+__device__ __forceinline__ void add_in(double* to, const int* spans, int r,
+                                       int rows_l, int j, double c) {
+  for (int l = 0; l < rows_l; ++l) {
+    const int k = l * kSpan + r;
+    const int sp = spans[k];
+    if (j >= (sp & 0xffff) && j < (sp >> 16)) to[k] += c;
+  }
+}
+
+// add_in out of line, for the rows the flag table flags (rare)
+__device__ __noinline__ void add_in_flagged(double* to, const int* spans,
+                                            int r, int rows_l, int j,
+                                            double c) {
+  add_in(to, spans, r, rows_l, j, c);
+}
+
+// The sweep without U. One block of kSpan threads per (t, i0) slab and
+// tile of kSpan consecutive i1 rows, thread r on row i1 = r0 + r; `rows_l`
+// bound rows per launch. The block first reads each row's interval per
+// bound row (interval::counts_le on x), then walks each row in index order
+// only as far as its longest interval reaches, forming each cell with
+// `cell` and adding it to the row's running prefix sum (a flagged row:
+// to the sums of the intervals that hold it), and captures the prefix at
+// lo - 1 and hi - 1 as the walk passes them. The flags come from the flag
+// table; without one (`flags` null) every row with an interval is walked
+// whole, flagged by the scan and summed both ways (kFull, one
+// instantiation each). Either way each row's masked sum is
+// interval::row_sum's over the full row's prefix, bit for bit, and the
+// partial of each (l, t, i0, tile) adds lanes r and r + 32 and then
+// warp_sum, as contract3_sweep_kernel adds a span.
+template <bool kFull>
+__global__ void __launch_bounds__(kSpan, kRebuildMinBlocks)
 contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
                          const unsigned char* __restrict__ fin,  // (T, 3, n)
                          const double* __restrict__ lu,          // (T, 3, n)
@@ -440,76 +567,128 @@ contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
                          const double* __restrict__ sigma_inv,   // (3, 3)
                          int student, double nu, double log_norm,
                          double logdet,
+                         // (T, rows, n) row flags; null: full rows
+                         const unsigned char* __restrict__ flags,
                          const double* __restrict__ x,        // (n,)
                          const double* __restrict__ bounds,   // (L, T, 2)
                          const double* __restrict__ weights,  // (L, 3)
                          double box_min,
                          double* __restrict__ partial,  // (L, T, rows, tiles)
-                         int T, int n, int row0, int rows, int q, int L,
-                         int tile_rows) {
+                         int T, int n, int row0, int rows, int q,
+                         int rows_l) {
   // not `smem`: contract3_sweep_kernel declares that name with another type
   extern __shared__ double rebuild_shared[];
-  const int pitch = interval::row_pitch(n);
-  const int tiles = (n + tile_rows - 1) / tile_rows;
-  double* xs = rebuild_shared;                        // (n,)
-  double* a = xs + n;                                 // (q, n)
-  double* u = a + static_cast<size_t>(q) * n;         // (tile_rows, pitch)
-  unsigned char* flag = reinterpret_cast<unsigned char*>(
-      u + static_cast<size_t>(tile_rows) * pitch);    // (tile_rows,)
+  __shared__ int warp_reach[kSpan / 32];
+  const int tiles = (n + kSpan - 1) / kSpan;
+  const size_t lookups = static_cast<size_t>(rows_l) * kSpan;
+  double* xs = rebuild_shared;                          // (n,)
+  double* a = xs + n;                                   // (q, n)
+  double* sums = a + static_cast<size_t>(q) * n;        // (rows_l, kSpan)
+  double* cell_sums = sums + lookups;            // kFull: (rows_l, kSpan)
+  int* spans = reinterpret_cast<int*>(sums + lookups * (kFull ? 2 : 1));
   const int tile = blockIdx.x % tiles;
   const int s = blockIdx.x / tiles;  // the slab (t, local)
   const int t = s / rows;
   const int local = s - t * rows;
   const int i0 = row0 + local;       // its grid point
-  const int r0 = tile * tile_rows;   // the tile's first i1
-  const int nr = min(tile_rows, n - r0);
+  const int r0 = tile * kSpan;       // the tile's first i1
+  const int nr = min(kSpan, n - r0);
+  const int r = threadIdx.x;
+  const int i1 = r0 + r;
 
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
-  fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n);
-  __syncthreads();
-  const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
-                            logdet, t, i0, n);
-  for (int idx = threadIdx.x; idx < nr * n; idx += blockDim.x) {
-    const int r = idx / n;
-    const int i2 = idx - r * n;
-    u[static_cast<size_t>(r) * pitch + i2] = cell(sl, w1, a, q, r0 + r, i2);
-  }
-  __syncthreads();
-  // each row its inclusive prefix sum over i2, or flagged and kept as its
-  // cells (interval::scan_row)
-  if (threadIdx.x < nr)
-    flag[threadIdx.x] =
-        interval::scan_row(u + static_cast<size_t>(threadIdx.x) * pitch, n);
   __syncthreads();
 
+  // 1. lookups before cells: each row's (lo, hi) per bound row (packed lo |
+  // hi << 16, 0 for an interval that row_sum makes 0) and the prefix length
+  // the row's lookups read
+  int reach = 0;
+  if (r < nr) {
+    const double x0 = xs[i0];
+    for (int l = 0; l < rows_l; ++l) {
+      const size_t o = static_cast<size_t>(l) * T + t;
+      const double b_lo = bounds[2 * o];
+      const double b_up = bounds[2 * o + 1];
+      const double w_in = weights[3 * l];
+      const double p0w = __dmul_rn(x0, weights[3 * l + 1]);
+      const double prev =
+          __dadd_rn(p0w, __dmul_rn(xs[i1], weights[3 * l + 2]));
+      const double dup = __ddiv_rn(__dsub_rn(b_up, prev), w_in);
+      const double d = __ddiv_rn(__dsub_rn(b_lo, prev), w_in);
+      // NaN-propagating max, as torch.maximum
+      const double dlo = (d > box_min || d != d) ? d : box_min;
+      int lo = 0, hi = 0;
+      if (!(dlo != dlo || dup != dup))
+        interval::counts_le<interval::kMaxTop>(xs, n, dlo, dup, &lo, &hi);
+      const size_t k = static_cast<size_t>(l) * kSpan + r;
+      spans[k] = hi > lo ? (lo | hi << 16) : 0;
+      sums[k] = 0.0;
+      if (kFull) cell_sums[k] = 0.0;
+      if (hi > lo) reach = max(reach, hi);
+    }
+  }
+  const int warp_max = __reduce_max_sync(0xffffffffu, reach);
+  if ((threadIdx.x & 31) == 0) warp_reach[threadIdx.x >> 5] = warp_max;
+  if (!__syncthreads_or(reach > 0)) {
+    // every interval of the tile empty: each partial is the 0.0 the full
+    // form adds up
+    for (int l = threadIdx.x; l < rows_l; l += blockDim.x)
+      partial[((static_cast<size_t>(l) * T + t) * rows + local) * tiles +
+              tile] = 0.0;
+    return;
+  }
+  int cols = n;  // the fold's columns the walks read
+  if (!kFull) {
+    cols = 0;
+    for (int w = 0; w < kSpan / 32; ++w) cols = max(cols, warp_reach[w]);
+  }
+  fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n, cols);
+  __syncthreads();
+
+  // 2. the walk of row r: cells [0, len) in index order
+  if (reach > 0) {
+    const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
+                              logdet, t, i0, n);
+    const bool flagged =
+        !kFull && flags[(static_cast<size_t>(t) * rows + local) * n + i1] != 0;
+    const int len = kFull ? n : reach;
+    double run = 0.0;  // the row's inclusive prefix sum
+    bool ok = true;    // kFull: no cell outside [-kMaxCell, kMaxCell] yet
+    int next = capture(sums, spans, r, rows_l, -1, run, len);
+    for (int j = 0; j < len; ++j) {
+      const double c = cell(sl, w1, a, q, i1, j);
+      if (flagged) {
+        add_in_flagged(sums, spans, r, rows_l, j, c);
+        continue;
+      }
+      if (kFull) {
+        ok &= fabs(c) <= interval::kMaxCell;
+        if (j < reach) add_in(cell_sums, spans, r, rows_l, j, c);
+      }
+      run += c;
+      if (j == next) next = capture(sums, spans, r, rows_l, j, run, len);
+    }
+    if (kFull && !ok) {
+      for (int l = 0; l < rows_l; ++l)
+        sums[l * kSpan + r] = cell_sums[l * kSpan + r];
+    }
+  }
+  __syncthreads();
+
+  // 3. the partials: warps take the bound rows, lanes rows r and r + 32
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const double x0 = xs[i0];
-  for (int l = warp; l < L; l += warps) {
-    const size_t o = static_cast<size_t>(l) * T + t;
-    const double b_lo = bounds[2 * o];
-    const double b_up = bounds[2 * o + 1];
-    const double w_in = weights[3 * l];
-    const double p0w = __dmul_rn(x0, weights[3 * l + 1]);
-    const double w_o2 = weights[3 * l + 2];
+  for (int l = warp; l < rows_l; l += kSpan / 32) {
     double acc = 0.0;
 #pragma unroll
-    for (int c = 0; c < (kMaxTileRows + 31) / 32; ++c) {
-      const int r = c * 32 + lane;  // the tile's row, i1 = r0 + r
-      if (r < nr) {
-        const double prev = __dadd_rn(p0w, __dmul_rn(xs[r0 + r], w_o2));
-        const double dup = __ddiv_rn(__dsub_rn(b_up, prev), w_in);
-        const double d = __ddiv_rn(__dsub_rn(b_lo, prev), w_in);
-        // NaN-propagating max, as torch.maximum
-        const double dlo = (d > box_min || d != d) ? d : box_min;
-        const double* row = u + static_cast<size_t>(r) * pitch;
-        acc += interval::row_sum<interval::kMaxTop>(row, row, flag[r] != 0,
-                                                    xs, n, dlo, dup);
-      }
+    for (int c = 0; c < kSpan / 32; ++c) {
+      const int rr = c * 32 + lane;
+      if (rr < nr) acc += sums[static_cast<size_t>(l) * kSpan + rr];
     }
     acc = interval::warp_sum(acc);
-    if (lane == 0) partial[(o * rows + local) * tiles + tile] = acc;
+    if (lane == 0)
+      partial[((static_cast<size_t>(l) * T + t) * rows + local) * tiles +
+              tile] = acc;
   }
 }
 
@@ -595,56 +774,78 @@ extern "C" int cvt_masked_contract3(const double* u, const double* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The row flags of the outer slabs [row0, row0 + rows) of every day:
+// flags (T, rows, n) bytes
+extern "C" int cvt_contract3_row_flags(
+    const double* z, const unsigned char* fin, const double* lu,
+    const double* p, const double* w1, const double* w2, const double* g,
+    const double* sigma_inv, int student, double nu, double log_norm,
+    double logdet, unsigned char* flags, int T, int n, int row0, int rows,
+    int q, void* stream) {
+  if (n <= 0 || q <= 0 || T < 0 || row0 < 0 || rows <= 0 ||
+      row0 + rows > n || static_cast<long long>(T) * rows > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = weights_shared_bytes(n, q);
+  if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      contract3_flags_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (T == 0) return 0;
+  contract3_flags_kernel<<<T * rows, kFlagsThreads, bytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet,
+      flags, T, n, row0, rows, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The sweep without a table: the columns, G and the outer slabs [row0,
-// row0 + rows) of every day, in tiles of tile_rows i1 rows (a divisor of
-// kSpan whose rows fit in shared memory, chosen by the caller);
-// partial: (L, T, rows, ceil(n / tile_rows)) scratch, summed in order
-// into out
+// row0 + rows) of every day, in tiles of kSpan i1 rows; flags (T, rows, n)
+// the row flags of those slabs, or null to walk full rows and flag them
+// by the scan; partial: (L, T, rows, ceil(n / kSpan)) scratch, summed in
+// order into out. Launches take up to kWalkRows bound rows each.
 extern "C" int cvt_masked_contract3_rebuild(
     const double* z, const unsigned char* fin, const double* lu,
     const double* p, const double* w1, const double* w2, const double* g,
     const double* sigma_inv, int student, double nu, double log_norm,
-    double logdet, const double* x, const double* bounds,
-    const double* weights, double box_min, double* partial, double* out,
-    int T, int n, int row0, int rows, int q, int L, int tile_rows,
-    void* stream) {
-  if (n <= 0 || n > interval::kMaxRow || q <= 0 || tile_rows <= 0 ||
-      tile_rows > kMaxTileRows || kMaxTileRows % tile_rows != 0 || T < 0 ||
-      L < 0 || row0 < 0 || rows <= 0 || row0 + rows > n ||
-      rebuild_shared_bytes(n, q, tile_rows) > kMaxSharedBytes) {
+    double logdet, const unsigned char* flags, const double* x,
+    const double* bounds, const double* weights, double box_min,
+    double* partial, double* out, int T, int n, int row0, int rows, int q,
+    int L, void* stream) {
+  const bool full = flags == nullptr;
+  // the limit does not depend on the flags or L: the most a launch takes
+  const size_t bytes = rebuild_shared_bytes(n, q, kWalkRows, true);
+  if (n <= 0 || n > interval::kMaxRow || q <= 0 || T < 0 || L < 0 ||
+      row0 < 0 || rows <= 0 || row0 + rows > n || bytes > kMaxSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tiles = (n + tile_rows - 1) / tile_rows;
+  const int tiles = (n + kSpan - 1) / kSpan;
   if (static_cast<long long>(T) * rows * tiles > 0x7fffffffLL ||
       static_cast<long long>(L) * T > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = rebuild_shared_bytes(n, q, tile_rows);
+  const auto kernel = full ? contract3_rebuild_kernel<true>
+                           : contract3_rebuild_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      contract3_rebuild_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0 || L == 0) return 0;
-  // the block size that keeps the most threads resident per SM (the
-  // sweep is latency-bound: one 1024-thread block per SM at n = 300,
-  // two of 512 at n = 180); the result's bits do not depend on it
-  int threads = kRebuildMinThreads, resident = 0;
-  for (int t = kRebuildMinThreads; t <= kRebuildMaxThreads; t *= 2) {
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, contract3_rebuild_kernel, t, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm * t > resident) {
-      resident = per_sm * t;
-      threads = t;
-    }
-  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  contract3_rebuild_kernel<<<T * rows * tiles, threads, bytes, s>>>(
-      z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet, x,
-      bounds, weights, box_min, partial, T, n, row0, rows, q, L, tile_rows);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  // a partial depends on (l, t, i0, tile) alone: bound rows in turns of
+  // kWalkRows give the bits of one launch
+  const size_t per_row = static_cast<size_t>(T) * rows * tiles;
+  for (int l0 = 0; l0 < L; l0 += kWalkRows) {
+    const int rows_l = min(kWalkRows, L - l0);
+    kernel<<<T * rows * tiles, kSpan,
+             rebuild_shared_bytes(n, q, rows_l, full), s>>>(
+        z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet,
+        flags, x, bounds + 2 * static_cast<size_t>(l0) * T, weights + 3 * l0,
+        box_min, partial + l0 * per_row, T, n, row0, rows, q, rows_l);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int sums = L * T;  // one per (bound row, day)
   contract3_sum_kernel<<<(sums + kSumThreads - 1) / kSumThreads, kSumThreads,
                          0, s>>>(partial, out, rows * tiles, sums);

@@ -32,11 +32,15 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 MAX_SHARED_BYTES = 232448
 SHORT_CHUNKS = 6
 MAX_CHUNKS = 32
+# The dim-3 rebuild's bound rows per launch (csrc/contract3.cu): its
+# per-row lookup state in shared memory, and so the widest (n, q) it takes.
+WALK_ROWS = 32
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DCVT_MAX_SHARED_BYTES={MAX_SHARED_BYTES}",
     f"-DCVT_SHORT_CHUNKS={SHORT_CHUNKS}", f"-DCVT_MAX_CHUNKS={MAX_CHUNKS}",
+    f"-DCVT_WALK_ROWS={WALK_ROWS}",
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -62,10 +66,14 @@ SOURCES = {
         # pitch, stride, stream
         "cvt_masked_contract3": [_P] * 4 + [_D] + [_P] * 2 + [_I] * 7 + [_P],
         # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
-        # logdet, x, bounds, weights, box_min, partial, out, T, n, row0,
-        # rows, q, L, tile_rows, stream
+        # logdet, flags, T, n, row0, rows, q, stream
+        "cvt_contract3_row_flags": [_P] * 8 + [_I] + [_D] * 3 + [_P]
+        + [_I] * 5 + [_P],
+        # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
+        # logdet, flags, x, bounds, weights, box_min, partial, out, T, n,
+        # row0, rows, q, L, stream
         "cvt_masked_contract3_rebuild": [_P] * 8 + [_I] + [_D] * 3
-        + [_P] * 3 + [_D] + [_P] * 2 + [_I] * 7 + [_P],
+        + [_P] * 4 + [_D] + [_P] * 2 + [_I] * 6 + [_P],
     },
 }
 

@@ -6,24 +6,31 @@ U[t, i0, i1, i2] = V_t[i0, i1, i2] * sum_{b,c} W1[b, i1] G[t, i0, b, c]
 W2[c, i2] (the density folded with its state weights); `masked_contract3`
 evaluates L rows of (T,) slab integrals of a three-asset backtest as
 masked sums of U; `masked_contract3_rebuild` evaluates the same sums with
-no table, rebuilding every slab's cells from the transform columns on
-each launch, as the TPU kernel does. Tensors on a CUDA device launch the
-hand-written kernels of csrc/contract3.cu (`contract3_weights_kernel`;
-`contract3_sweep_kernel` and `contract3_sum_kernel`;
+no table, forming on each launch, from the transform columns, the cells
+its lookups read (each row's prefix up to the longest interval's end).
+`contract3_row_flags` builds, once per backtest swept that way, a byte per
+(day, i0, i1) row that says whether a cell of the whole row lies outside
+[-MAX_CELL, MAX_CELL] or is NaN (the interval rule then sums the row cell
+by cell). Tensors on a CUDA device launch the hand-written kernels of
+csrc/contract3.cu (`contract3_weights_kernel`; `contract3_sweep_kernel`
+and `contract3_sum_kernel`; `contract3_flags_kernel`;
 `contract3_rebuild_kernel` and the same sum kernel), which replace the
 Pallas kernel `_kernel3` (K4); tensors on the CPU run the plain twins
-`contract3_weights_reference` and `masked_contract3_reference`, i.e. the
-transform-cached sweeps of `ops/quadrature.py`, row by row. There is no
-other route.
+`contract3_weights_reference`, `contract3_row_flags_reference` and
+`masked_contract3_reference`, i.e. the transform-cached sweeps of
+`ops/quadrature.py`, row by row. There is no other route.
 
-The route is `contract3_route(T, n, q, rows, free_bytes)`: the table when
-n <= `table_max_grid_points(q)` (one slab in a block's shared memory:
-169 at q = 5) and U fits in the card's free memory, else the rebuild
-(n <= 1024, the interval rule's rows). `contract3_operands` builds U only
-on the table route; operands without U sweep by the rebuild kernel. The
-two routes give the same bits where both serve (the rebuild's 64-row
-tiles are the table sweep's lookup spans), so U's memory is a matter of
-speed, not of the answer.
+The route is `contract3_route(T, n, q, rows, free_bytes)`, one of three:
+"table" when n <= `table_max_grid_points(q)` (one slab in a block's
+shared memory: 169 at q = 5) and U fits in the card's free memory;
+"rebuild" when the flag table (T rows n bytes, 45 MB at T = 500, n =
+300) fits; else "rebuild_full", the same rebuild kernel without flags,
+which walks every row with an interval whole and flags it by the scan.
+All take n <= 1024 (the interval rule's rows). `contract3_operands`
+builds U on the table route and the flags on the rebuild route. The
+routes give the same bits wherever they serve (the rebuild's 64-row
+tiles are the table sweep's lookup spans, and every row takes the
+table's branch), so memory is a matter of speed, not of the answer.
 
 U holds T*n^3 float64 (4.0 GB at T = 500, n = 100, 4.04 GB with its
 pads) on the card. Its rows have an odd pitch (`row_pitch`) and its
@@ -58,6 +65,7 @@ import torch
 
 from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops.cuda_quadrature import (
+    MAX_CELL,
     MAX_SHARED_BYTES,
     SWEEP_MAX_GRID_POINTS,
     _check_operand,
@@ -93,6 +101,9 @@ class Contract3Operands(NamedTuple):
     and nu as floats.
     Sweep kernel's input: U (T, r, slab_stride(n)), the table built from
     those on a CUDA device for the r outer slabs held; None on the CPU.
+    Rebuild kernel's input: flags (T, r, n) bool, the row flags of the r
+    outer slabs held (the "rebuild" route); None on the other routes and
+    on the CPU, where the rebuild walks full rows.
     rows: (i0, i1), the outer grid rows (slabs i0) held, or None for
     all."""
 
@@ -115,6 +126,7 @@ class Contract3Operands(NamedTuple):
     nu: float
     U: Optional[torch.Tensor] = None
     rows: Optional[Tuple[int, int]] = None
+    flags: Optional[torch.Tensor] = None
 
     @property
     def days(self) -> int:
@@ -150,6 +162,12 @@ def table_bytes(T: int, n: int, rows: Optional[int] = None) -> int:
     """Bytes of the padded U table, (T, rows, slab_stride(n)) float64
     (rows: the outer slabs held, n by default)."""
     return T * (n if rows is None else rows) * slab_stride(n) * 8
+
+
+def flag_table_bytes(T: int, n: int, rows: Optional[int] = None) -> int:
+    """Bytes of the rebuild's row flags, (T, rows, n) bool (rows: the
+    outer slabs held, n by default)."""
+    return T * (n if rows is None else rows) * n
 
 
 def require_table_fits(T: int, n: int, free_bytes: int,
@@ -191,18 +209,17 @@ def table_max_grid_points(q: int) -> int:
 
 
 def rebuild_tile_rows(n: int, q: int) -> int:
-    """i1 rows per block of the rebuild kernel at (n, q), which the
-    launcher takes: 64 (a lookup span of the table sweep, so both routes
-    give the same bits), or the largest power of two below it whose rows,
-    x and the (q, n) fold fit in one block's shared memory (csrc
-    `rebuild_shared_bytes`); 0 when none does or n passes the interval
-    rule's rows."""
+    """i1 rows per block of the rebuild kernel at (n, q): 64 (a lookup
+    span of the table sweep, so both routes give the same bits) when x,
+    the (q, n) fold and the lookup state of `_build.WALK_ROWS` bound rows
+    (csrc `rebuild_shared_bytes`, walking full rows) fit in one block's
+    shared memory; 0 when they do not or n passes the interval rule's
+    rows."""
     if not 0 < n <= SWEEP_MAX_GRID_POINTS or q <= 0:
         return 0
-    r = 64
-    while r and (n + q * n + r * row_pitch(n)) * 8 + r > MAX_SHARED_BYTES:
-        r //= 2
-    return r
+    lookups = _build.WALK_ROWS * 64
+    fits = (n + q * n + 2 * lookups) * 8 + 4 * lookups <= MAX_SHARED_BYTES
+    return 64 if fits else 0
 
 
 def _rebuild_rows(n: int, q: int) -> int:
@@ -220,16 +237,19 @@ def _rebuild_rows(n: int, q: int) -> int:
 
 def contract3_route(T: int, n: int, q: int, rows: Optional[int],
                     free_bytes: int) -> str:
-    """"table" or "rebuild": how a CUDA device sweeps a dim-3 backtest of
-    T days at num_points n, q states, `rows` outer slabs held (n when
-    None), with `free_bytes` of device memory. The table when its sweep
-    takes n and U fits; else the rebuild kernel; a grid neither takes
-    raises."""
+    """"table", "rebuild" or "rebuild_full": how a CUDA device sweeps a
+    dim-3 backtest of T days at num_points n, q states, `rows` outer slabs
+    held (n when None), with `free_bytes` of device memory. The table when
+    its sweep takes n and U fits; else the rebuild kernel with its row
+    flags when they fit; else the rebuild kernel walking full rows; a grid
+    none takes raises."""
     _rebuild_rows(n, q)
     if (n <= table_max_grid_points(q)
             and table_bytes(T, n, rows) <= free_bytes):
         return "table"
-    return "rebuild"
+    if flag_table_bytes(T, n, rows) <= free_bytes:
+        return "rebuild"
+    return "rebuild_full"
 
 
 def table_cells(U: torch.Tensor, n: int) -> torch.Tensor:
@@ -251,8 +271,8 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
     forecast_combos given) or the GARCH family (p_cols given); with
     `rows` (i0, i1) those of outer slabs [i0, i1) (the columns whole). On
     a CUDA device the table U is built here, once, where `contract3_route`
-    takes the table; else U stays None and every sweep rebuilds the
-    slabs."""
+    takes the table, and the row flags where it takes the rebuild; else
+    both stay None (on the CPU, and on the full-row route)."""
     _require_kernel_copula(spec.kind)
     if spec.kind == "student":
         nu, corr = spec.params
@@ -292,7 +312,26 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
                                 free_device_bytes(z.device))
         if route == "table":
             ops = ops._replace(U=contract3_weights(ops))
+        elif route == "rebuild":
+            ops = ops._replace(flags=contract3_row_flags(ops))
     return ops
+
+
+def _table_chunks(ops: Contract3Operands, days):
+    """(day slice, cells (d, r, n, n)) for each day chunk: the cells of U
+    for the days `days` selects and the operands' outer slabs, built from
+    the transform columns as the transform-cached sweeps build their
+    density."""
+    outer = outer_slice(ops.rows)
+    cols = tuple(c[days] for c in ops.cols)
+    p = None if ops.p_cols is None else ops.p_cols[days]
+    G = ops.G[days] if outer is None else ops.G[days][:, outer]
+    for s in _chunks(G.shape[0], ops.x.shape[0], 3, ops.x.device, None,
+                     outer):
+        V = copula_density_cols(tuple(c[s] for c in cols), ops.spec, outer)
+        if p is not None:
+            V = torch.nan_to_num(V * _pdf_product(p[s], outer))
+        yield s, V * torch.einsum("bj,tibc,ck->tijk", ops.w1, G[s], ops.w2)
 
 
 def contract3_weights_reference(ops: Contract3Operands, days=slice(None)):
@@ -300,19 +339,59 @@ def contract3_weights_reference(ops: Contract3Operands, days=slice(None)):
     `days` selects and the operands' outer slabs, (D, r, n, n),
     unpadded, built in day chunks from the transform columns as the
     transform-cached sweeps build their density."""
-    outer = outer_slice(ops.rows)
-    cols = tuple(c[days] for c in ops.cols)
-    p = None if ops.p_cols is None else ops.p_cols[days]
-    G = ops.G[days] if outer is None else ops.G[days][:, outer]
-    D, n = G.shape[0], ops.x.shape[0]
-    out = torch.empty((D, ops.n_rows, n, n), dtype=torch.float64,
-                      device=ops.x.device)
-    for s in _chunks(D, n, 3, ops.x.device, None, outer):
-        V = copula_density_cols(tuple(c[s] for c in cols), ops.spec, outer)
-        if p is not None:
-            V = torch.nan_to_num(V * _pdf_product(p[s], outer))
-        out[s] = V * torch.einsum("bj,tibc,ck->tijk", ops.w1, G[s], ops.w2)
+    n = ops.x.shape[0]
+    out = torch.empty((ops.G[days].shape[0], ops.n_rows, n, n),
+                      dtype=torch.float64, device=ops.x.device)
+    for s, U in _table_chunks(ops, days):
+        out[s] = U
     return out
+
+
+def contract3_row_flags_reference(ops: Contract3Operands,
+                                  days=slice(None)):
+    """Plain PyTorch twin of the row flags, on any device: (D, r, n) bool
+    for the days `days` selects and the operands' outer slabs, True where
+    a cell of the row (day, i0, i1) of U lies outside [-MAX_CELL,
+    MAX_CELL] or is NaN; U is formed a day chunk at a time."""
+    out = torch.empty((ops.G[days].shape[0], ops.n_rows, ops.x.shape[0]),
+                      dtype=torch.bool, device=ops.x.device)
+    for s, U in _table_chunks(ops, days):
+        out[s] = ~(U.abs() <= MAX_CELL).all(dim=-1)
+    return out
+
+
+def contract3_row_flags(ops: Contract3Operands):
+    """The row flags (T, r, n) bool of the operands' r outer slabs. CPU
+    tensors run the plain twin; CUDA tensors launch the flag kernel (one
+    block per (day, i0) slab, the cells of the whole slab formed as the
+    table build forms them, one byte per row out); any other device
+    raises."""
+    dev = ops.z.device
+    if dev.type == "cpu":
+        return contract3_row_flags_reference(ops)
+    if dev.type != "cuda":
+        raise ValueError(f"contract3_row_flags: unsupported device {dev}")
+    T, n, q = _check_columns(ops)
+    _rebuild_rows(n, q)
+    r = ops.n_rows
+    flags = torch.empty((T, r, n), dtype=torch.bool, device=dev)
+    p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.cvt_contract3_row_flags(
+            ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
+            ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
+            ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
+            ops.nu, ops.log_norm, ops.logdet, flags.data_ptr(), T, n,
+            ops.row0, r, q, stream,
+        )
+    _build.check(status, "contract3_row_flags")
+    contract3_row_flags.launches += 1
+    return flags
+
+
+contract3_row_flags.launches = 0  # kernel launches (CUDA path only)
 
 
 def contract3_weights(ops: Contract3Operands):
@@ -440,10 +519,12 @@ def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
     """`masked_contract3` without the table: (L, T) slab integrals for
     bounds (L, T, 2) and weights (L, 3), the share of the operands' outer
     slabs. CPU tensors run the plain twin; CUDA tensors launch the
-    rebuild kernel (one block per (day, i0) slab and tile of i1 rows: the
-    slab's cells from the transform columns, each row a prefix-interval
-    sum per bound row), then a fixed-order sum of the tiles' partials;
-    any other device raises."""
+    rebuild kernel (one block per (day, i0) slab and tile of 64 i1 rows:
+    each row's intervals from x, the bounds and the weights, then each
+    row's cells from the transform columns as far as its intervals reach,
+    summed into its prefix in index order; with the operands' row flags,
+    or, without them, over whole rows flagged by the scan), then a
+    fixed-order sum of the tiles' partials; any other device raises."""
     dev = ops.z.device
     if dev.type == "cpu":
         return masked_contract3_reference(ops, bounds, weights, box_min)
@@ -455,7 +536,10 @@ def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
     L = bounds.shape[0]
     _check_operand("bounds", bounds, (L, T, 2), dev)
     _check_operand("weights", weights, (L, 3), dev)
+    if ops.flags is not None:
+        _check_operand("flags", ops.flags, (T, r, n), dev, torch.bool)
     p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+    flags = None if ops.flags is None else ops.flags.data_ptr()
     lib = _build.load()
     # one partial per (row, day, i0 held, tile of i1), summed in order
     partial = torch.empty((L, T, r * -(-n // tile_rows)), dtype=torch.float64,
@@ -467,10 +551,10 @@ def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
             ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
             ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
             ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
-            ops.nu, ops.log_norm, ops.logdet, ops.x.data_ptr(),
+            ops.nu, ops.log_norm, ops.logdet, flags, ops.x.data_ptr(),
             bounds.data_ptr(), weights.data_ptr(), float(box_min),
             partial.data_ptr(), out.data_ptr(), T, n, ops.row0, r, q, L,
-            tile_rows, stream,
+            stream,
         )
     _build.check(status, "masked_contract3_rebuild")
     masked_contract3_rebuild.launches += 1

@@ -2,13 +2,17 @@
 
 Every test here needs an NVIDIA GPU and skips without one. The
 redesigned kernels (K1 `bisect_levels`, K2 `sweep_table` +
-`masked_sweep`, K4 `contract3_weights` + `masked_contract3`, and the
-rebuild sweep `masked_contract3_rebuild`) are held at odd n, at their
-largest n and one past it, q = 1 and 5, L = 1, 3 and 33 (more rows than
-warps), with NaN, inf and saturated cells, and launched twice for
-bit-identical results; K2 on rows of 193 and 1024 cells, the rebuild at
-n = 2, 170 and 300 and equal to the table sweep where both serve, and
-the wide dim-2 and dim-3 solves through K2 sweeps and the rebuild. K2 and K4 are also held on ranges of
+`masked_sweep`, K4 `contract3_weights` + `masked_contract3`, the
+rebuild sweep `masked_contract3_rebuild` and its row flags
+`contract3_row_flags`) are held at odd n, at their largest n and one past
+it, q = 1 and 5, L = 1, 3 and 33 (more rows than warps), with NaN, inf
+and saturated cells, and launched twice for bit-identical results; K2 on
+rows of 193 and 1024 cells; the rebuild at n = 2, 170, 180 and 300, both
+its walks (truncated with the flag table, and full rows without it) bit
+for bit equal to each other and to the table sweep where both serve (the
+dim-3 artifacts at n = 100 too), on row ranges and day blocks; the flags
+equal to their plain twin; and the wide dim-2 and dim-3 solves through K2
+sweeps and the rebuild. K2 and K4 are also held on ranges of
 outer grid rows (grid sharding): each range against its plain twin, the
 ranges' partials summed against the whole launch, and the range of all
 rows bit-equal to the whole launch. This file
@@ -738,7 +742,8 @@ def test_limits_mirror_the_launchers(dev):
     """The launchers take each limit the Python routes compute and refuse
     one past it (no day, so nothing runs): K1 at bisect_max_grid_points(),
     K2 at SWEEP_MAX_GRID_POINTS, the table sweep at table_max_grid_points,
-    the rebuild at rebuild_tile_rows(n, q) but not at twice its rows."""
+    the rebuild wherever rebuild_tile_rows(n, q) takes (n, q) and not
+    where it refuses the fold or n."""
     lib = _build.load()
     invalid = 1  # cudaErrorInvalidValue
 
@@ -755,10 +760,10 @@ def test_limits_mirror_the_launchers(dev):
                                         0, n, 1, cq.row_pitch(n),
                                         cq3.slab_stride(n), None)
 
-    def rebuild(n, q, tile):
+    def rebuild(n, q):
         return lib.cvt_masked_contract3_rebuild(
-            *[None] * 8, 1, 5.0, 0.0, 0.0, None, None, None, -5.0, None,
-            None, 0, n, 0, n, q, 1, tile, None)
+            *[None] * 8, 1, 5.0, 0.0, 0.0, None, None, None, None, -5.0,
+            None, None, 0, n, 0, n, q, 1, None)
 
     n1 = cq.bisect_max_grid_points()
     assert n1 == 169 and (k1(n1), k1(n1 + 1)) == (0, invalid)
@@ -768,11 +773,13 @@ def test_limits_mirror_the_launchers(dev):
         n3 = cq3.table_max_grid_points(q)
         assert (table(n3), table(n3 + 1)) == (0, invalid)
         for n in (2, 40, 170, 300, 406, 420, 1024):
-            tile = cq3.rebuild_tile_rows(n, q)
-            assert tile > 0 and rebuild(n, q, tile) == 0, (n, q)
-            assert rebuild(n, q, 2 * tile) == invalid, (n, q)
+            assert cq3.rebuild_tile_rows(n, q) == 64
+            assert rebuild(n, q) == 0, (n, q)
         assert cq3.rebuild_tile_rows(1025, q) == 0
-        assert rebuild(1025, q, 16) == invalid
+        assert rebuild(1025, q) == invalid
+    assert cq3.rebuild_tile_rows(1024, 22) == 64 and rebuild(1024, 22) == 0
+    assert cq3.rebuild_tile_rows(1024, 23) == 0
+    assert rebuild(1024, 23) == invalid
 
 
 @pytest.mark.parametrize("n", [193, 1024])
@@ -805,20 +812,41 @@ def test_wide_dim2_bisects_by_k2_sweeps(dev):
 
 
 def _rebuilt(ops):
-    """The operands without their table (the rebuild route)."""
-    return ops._replace(U=None)
+    """The operands without their table or flags: the rebuild walking
+    full rows (the "rebuild_full" route)."""
+    return ops._replace(U=None, flags=None)
 
 
+def _walk(ops, walk):
+    """The operands on one of the rebuild's walks: "full" rows without
+    flags, or "truncated" with the flag table (built here where the
+    operands took the table route)."""
+    if walk == "full":
+        return _rebuilt(ops)
+    flags = ops.flags if ops.flags is not None else \
+        cq3.contract3_row_flags(ops)
+    return ops._replace(U=None, flags=flags)
+
+
+def _same(a, b):
+    """Equal bits, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("walk", ["truncated", "full"])
 @pytest.mark.parametrize("n, rows", [(2, None), (170, None), (170, (37, 101)),
-                                     (300, None), (300, (0, 150))])
+                                     (180, None), (300, None),
+                                     (300, (0, 150))])
 @pytest.mark.parametrize("family", ["msm", "garch"])
-def test_rebuild_matches_plain(dev, n, rows, family):
+def test_rebuild_matches_plain(dev, n, rows, family, walk):
     """The rebuild kernel against its plain twin, on all outer slabs and
-    on a range of them; a repeat gives the same bits."""
+    on a range of them, on either walk; a repeat gives the same bits, and
+    the two walks give the same bits."""
     ops = _ops3(dev, family, "student", T=2, n=n, q=3, rows=rows)
     if n > cq3.table_max_grid_points(3):
-        assert ops.U is None
-    ops = _rebuilt(ops)
+        assert ops.U is None and ops.flags is not None
+    ops = _walk(ops, walk)
     bounds, weights = _rows3(dev, ops.days, 3)
     before = cq3.masked_contract3_rebuild.launches
     got = cq3.masked_contract3_rebuild(ops, bounds, weights)
@@ -830,28 +858,118 @@ def test_rebuild_matches_plain(dev, n, rows, family):
         1e-13 * float(want[fin].abs().max())
     assert torch.equal(got, cq3.masked_contract3_rebuild(ops, bounds,
                                                         weights))
+    other = _walk(ops, "full" if walk == "truncated" else "truncated")
+    assert torch.equal(got, cq3.masked_contract3_rebuild(other, bounds,
+                                                        weights))
 
 
+@pytest.mark.parametrize("walk", ["truncated", "full"])
 @pytest.mark.parametrize("family", ["msm", "garch"])
 @pytest.mark.parametrize("kind", ["student", "gaussian"])
-def test_rebuild_equals_the_table_sweep(dev, family, kind):
+def test_rebuild_equals_the_table_sweep(dev, family, kind, walk):
     """Where both routes serve (64-row tiles), the rebuild gives the table
     sweep's bits: the same cells, prefix sums, lanes and partials."""
     ops = _ops3(dev, family, kind, n=41)
     bounds, weights = _rows3(dev, ops.days, 33)
     assert torch.equal(
-        cq3.masked_contract3_rebuild(_rebuilt(ops), bounds, weights),
+        cq3.masked_contract3_rebuild(_walk(ops, walk), bounds, weights),
         cq3.masked_contract3(ops, bounds, weights))
 
 
-def test_rebuild_nan_and_inf_cells(dev):
+def _poke(cols, p):
+    """A non-finite column (NaN cells) and an overflowing one (inf cells;
+    GARCH: DBL_MAX) of asset 2 near the top of the grid, past the bounds'
+    hi, and a non-finite asset-1 point (a whole row of NaN cells)."""
+    cols[1][0, 2, -2] = False
+    cols[2][1, 2, -3] = -1000.0
+    cols[1][2, 1, 5] = False
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+@pytest.mark.parametrize("n, rows", [(48, None), (180, None),
+                                     (180, (37, 101))])
+def test_row_flags_match_plain(dev, family, n, rows):
+    """The flag kernel against its plain twin (torch.equal), on all outer
+    slabs and on a range; one launch per operands built on the rebuild
+    route; a repeat the same bytes."""
+    before = cq3.contract3_row_flags.launches
+    ops = _ops3(dev, family, "student", T=4, n=n, rows=rows, edit=_poke)
+    if ops.flags is None:  # the table route: no flags built
+        assert cq3.contract3_row_flags.launches == before
+        flags = cq3.contract3_row_flags(ops)
+    else:
+        flags = ops.flags
+    assert cq3.contract3_row_flags.launches == before + 1
+    assert flags.shape == (4, ops.n_rows, n) and flags.dtype == torch.bool
+    want = cq3.contract3_row_flags_reference(ops)
+    assert torch.equal(flags, want) and bool(want.any())
+    assert torch.equal(cq3.contract3_row_flags(ops), flags)
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_rebuild_on_a_day_block(dev, family):
+    """Operands built on a block of days (a day-sharded rank's) hold the
+    whole operands' flags of those days, and their sweep, on both walks,
+    is the whole sweep's days bit for bit."""
+    whole = _ops3(dev, family, "student", T=6, n=180, edit=_poke)
+    days = slice(2, 5)
+    kw = (dict(densities=whole.densities,
+               forecast_combos=whole.forecast_combos[days].contiguous())
+          if family == "msm" else
+          dict(p_cols=whole.p_cols[days].contiguous()))
+    block = cq3.contract3_operands(
+        tuple(c[days].contiguous() for c in whole.cols), whole.x, whole.dx,
+        whole.spec, **kw)
+    assert torch.equal(block.flags, whole.flags[days])
+    bounds, weights = _rows3(dev, 6, 4)
+    full = cq3.masked_contract3_rebuild(whole, bounds, weights)
+    b = bounds[:, days].contiguous()
+    for walk in ("truncated", "full"):
+        got = cq3.masked_contract3_rebuild(_walk(block, walk), b, weights)
+        assert _same(got, full[:, days])
+
+
+@pytest.mark.parametrize("est", ["msm", "garch"])
+def test_rebuild_routes_on_the_dim3_artifacts(dev, est):
+    """The dim-3 artifacts at n = 100 (the table route): the table sweep,
+    the truncated walk with the flag table and the full-row walk give the
+    same bits, at the stage bounds and at bands near the record's VaR, L =
+    1 and 4; repeats too."""
+    rec = np.load(os.path.join(DATA, "dim3_var.npz"))
+    data = from_csv(os.path.join(DATA, "dim3.csv"), n_insample=1135,
+                    weights=rec["weights"])
+    bt = load_artifacts(os.path.join(DATA, f"dim3_artifacts_{est}.npz"),
+                        data, device="cuda")
+    ops = bt.sweep_operands()
+    assert ops.U is not None and ops.flags is None
+    T = ops.days
+    rng = np.random.default_rng(12)
+    lo = rng.uniform(-1.9, -1.1, (3, T))
+    band = np.stack([lo, lo + rng.uniform(0.01, 0.3, (3, T))], -1)
+    stage = np.stack([np.full(T, -100.0), np.full(T, -3.0)], -1)
+    bounds = torch.tensor(np.concatenate([stage[None], band]), device=dev)
+    w = np.concatenate([np.asarray(rec["weights"])[None],
+                        rng.dirichlet([2.0, 2.0, 2.0], size=3)])
+    weights = torch.tensor(w, device=dev)
+    for rows in (slice(0, 1), slice(0, 4)):
+        b, wt = bounds[rows].contiguous(), weights[rows].contiguous()
+        table = cq3.masked_contract3(ops, b, wt)
+        for walk in ("truncated", "full"):
+            got = cq3.masked_contract3_rebuild(_walk(ops, walk), b, wt)
+            assert torch.equal(got, table), (walk, rows)
+            assert torch.equal(got, cq3.masked_contract3_rebuild(
+                _walk(ops, walk), b, wt))
+
+
+@pytest.mark.parametrize("walk", ["truncated", "full"])
+def test_rebuild_nan_and_inf_cells(dev, walk):
     """A non-finite column (NaN cells) and an overflowing one (inf cells):
     each poisons exactly the slabs that hold it, as in the plain twin."""
     def edit(cols, p):
         cols[1][:, 1, 7] = False
         cols[2][:, 2, 30] = -1000.0
 
-    ops = _rebuilt(_ops3(dev, "msm", "student", n=180, edit=edit))
+    ops = _walk(_ops3(dev, "msm", "student", n=180, edit=edit), walk)
     bounds, weights = _rows3(dev, ops.days, 8)
     got = cq3.masked_contract3_rebuild(ops, bounds, weights)
     want = cq3.masked_contract3_reference(ops, bounds, weights)
@@ -865,10 +983,12 @@ def test_rebuild_nan_and_inf_cells(dev):
 
 
 def test_wide_dim3_solve_through_the_rebuild(dev):
-    """n = 180: no table is built, every sweep and halving launches the
-    rebuild kernel, and the roots are the plain solve's."""
+    """n = 180: no table is built, the flags once, every sweep and halving
+    launches the rebuild kernel, and the roots are the plain solve's."""
+    before_flags = cq3.contract3_row_flags.launches
     ops = _ops3(dev, "garch", "student", T=3, n=180)
-    assert ops.U is None
+    assert ops.U is None and ops.flags is not None
+    assert cq3.contract3_row_flags.launches == before_flags + 1
     obj = torch.tensor([0.05], dtype=torch.float64, device=dev)
     w = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64, device=dev)
     before = (cq3.masked_contract3.launches,

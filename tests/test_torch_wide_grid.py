@@ -117,11 +117,14 @@ def test_dim3_route_refuses_past_the_interval_rule():
 
 @pytest.mark.parametrize("n, q, tile", [(2, 5, 64), (100, 5, 64),
                                         (300, 5, 64), (406, 5, 64),
-                                        (420, 5, 32), (1024, 5, 16),
-                                        (1024, 1, 16), (1024, 16, 8)])
+                                        (420, 5, 64), (1024, 5, 64),
+                                        (1024, 1, 64), (1024, 16, 64),
+                                        (1024, 22, 64), (1024, 23, 0)])
 def test_rebuild_tiles(n, q, tile):
-    """64 rows a block (the table sweep's lookup span) while they fit in
-    shared memory with x and the (q, n) fold, then halves."""
+    """64 rows a block (the table sweep's lookup span) at every n: the
+    walk stores no row, so shared memory holds x, the (q, n) fold and the
+    lookup state of WALK_ROWS bound rows, and refuses (0) only a fold too
+    large for it."""
     assert cq3.rebuild_tile_rows(n, q) == tile
 
 
@@ -133,24 +136,55 @@ def test_table_limit(q):
 
 # -- the rebuild kernel's tiling, modelled in PyTorch ---------------------------
 
-def _rule_rows(rows, x, dlo, dup):
-    """interval.cuh's row sum: prefix difference, NaN bounds 0."""
+def _rule_rows(rows, x, dlo, dup, flagged=None):
+    """interval.cuh's row sum: prefix difference, NaN bounds 0; a flagged
+    row summed cell by cell over [lo, hi), in index order."""
     S0 = torch.cat([torch.zeros_like(rows[..., :1]),
                     torch.cumsum(rows, dim=-1)], dim=-1)
     hi = torch.searchsorted(x, dup.contiguous(), right=True)
     lo = torch.searchsorted(x, dlo.contiguous(), right=True)
     out = (torch.gather(S0, -1, hi[..., None])
            - torch.gather(S0, -1, lo[..., None]))[..., 0]
+    if flagged is not None:
+        j = torch.arange(x.shape[0])
+        inside = (j >= lo[..., None]) & (j < hi[..., None])
+        cells = torch.cumsum(torch.where(inside, rows, torch.zeros(())), -1)
+        last = torch.gather(cells, -1, (hi - 1).clamp(min=0)[..., None])
+        out = torch.where(flagged, last[..., 0], out)
     out = torch.where(hi > lo, out, torch.zeros_like(out))
     return torch.where(torch.isnan(dlo) | torch.isnan(dup),
                        torch.zeros_like(out), out)
 
 
+def tile_sums(rows, tile_rows):
+    """(..., tiles) partials of (..., n) row sums as the kernels add a
+    tile: lane r adds rows r and r + 32 to 0.0, then the warp's xor
+    butterfly (interval::warp_sum), read on lane 0."""
+    n = rows.shape[-1]
+    parts = []
+    for s in range(0, n, tile_rows):
+        t = rows[..., s:min(s + tile_rows, n)]
+        acc = torch.zeros(rows.shape[:-1] + (32,), dtype=rows.dtype)
+        for c in range(0, t.shape[-1], 32):
+            add = t[..., c:c + 32]
+            acc[..., :add.shape[-1]] += add
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[..., torch.arange(32) ^ off]
+        parts.append(acc[..., 0])
+    return torch.stack(parts, dim=-1)
+
+
+def in_order(partials):
+    """The sum kernel: (..., m) partials added in index order."""
+    return torch.cumsum(partials, dim=-1)[..., -1]
+
+
 def rebuild_model(ops, bounds, w, tile_rows, box_min=-5.0):
-    """(T,) as the rebuild kernel sums one bound row: per (t, i0) slab the
-    cells of U, per tile of `tile_rows` i1 rows one partial (each row's
-    masked sum read off its prefix sums), the partials added in (i0,
-    tile) order."""
+    """(T,) as the full-row rebuild sums one bound row: per (t, i0) slab
+    the cells of U, each row flagged when a cell lies outside [-1, 1] or
+    is NaN and its masked sum read off its prefix sums (cell by cell when
+    flagged), per tile of `tile_rows` i1 rows one partial in the kernel's
+    lane order, the partials added in (i0, tile) order."""
     U = cq3.contract3_weights_reference(ops)  # (T, n, n, n)
     x = ops.x
     n = x.shape[0]
@@ -158,11 +192,10 @@ def rebuild_model(ops, bounds, w, tile_rows, box_min=-5.0):
     dup = (bounds[:, 1, None, None] - prev) / w[0]
     dlo = torch.maximum((bounds[:, 0, None, None] - prev) / w[0],
                         torch.tensor(box_min, dtype=torch.float64))
-    rows = _rule_rows(U, x, dlo, dup)  # (T, i0, i1)
-    tiles = [rows[:, :, s:s + tile_rows].sum(dim=-1)
-             for s in range(0, n, tile_rows)]
-    partial = torch.stack(tiles, dim=-1).reshape(rows.shape[0], -1)
-    return partial.sum(dim=-1)
+    flagged = ~(U.abs() <= cq.MAX_CELL).all(dim=-1)
+    rows = _rule_rows(U, x, dlo, dup, flagged)  # (T, i0, i1)
+    partial = tile_sums(rows, tile_rows).reshape(rows.shape[0], -1)
+    return in_order(partial)
 
 
 def _case3(n=24, T=4, q=2, seed=5):
