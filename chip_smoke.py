@@ -173,7 +173,25 @@ Phases, each fatal on failure:
      kernels, read past, since the trace drops a session's first device
      activities once child processes have used the card; a session that
      lost every pad is run again, up to three times, and then reads "not
-     measured").
+     measured");
+  16. the f32 engine (`engine="pallas"`), counted (`f32_engine_phase`):
+     with TF32 off (set and asserted), the flagship MSM and GARCH and the
+     dim-3 MSM and GARCH artifacts loaded, then `bt.engine = "pallas"`,
+     `calc_var(0.05)` held to `data/{flagship,dim3}_var.npz`, the 32 x 4
+     and 8 x 4 grids to this run's f64 grids, and a full-T (T = 500)
+     dim-3 MSM n = 300 query on the f32 truncated rebuild route to the
+     f64 truncated route's series: every day within
+     `root_plateau_bound(dx, weights)`, the 0.9 quantile within the
+     median-dx bound, NaN days equal. No f32 kernel may launch before
+     the phase (every earlier phase serves the f64 engine), and on it
+     every f32 kernel must launch and no f64 one. Then each f32 kernel
+     against its f32 twin (RTOL_F32 of the scale; K1 for 23 halvings
+     bit-equal to 23 f32 K2 sweeps and within the plateau bound of its
+     twin; the rebuild bit-equal to the f32 table sweep and to its
+     full-row walk; the f32 flags equal to their twin), timed and traced
+     beside the f64 figures, with bounds at float32 bytes and the
+     float32 rate (67 TFLOP/s), the f32 queries' times and the f32 path's
+     peak device memory (U in float32) beside the f64 path's.
 
 Each kernel's bound in the record is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float64
@@ -182,11 +200,12 @@ tensor cores), counted from this run's shapes by `bound()`; the trap
 pass's by `trap_bound()`, the dim-4 plain sweep's by `tcached_bound()`,
 the rebuild sweep's by `rebuild_bound()` over the cells its bounds need
 (`walk_cells`; the full cube's printed beside it) and the flag pass's by
-`flags_bound()`.
+`flags_bound()`; the f32 instantiations' by the same functions at 4
+bytes an entry and 67 TFLOP/s.
 
 Prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path, the rebuild's and the flag pass's on
-phase 12, and, as
+phase 12, the f32 instantiations' ("<name>_f32") on phase 16, and, as
 `grid_launches_per_rank`, on one rank of phase 11 (b)), and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
 line, when torch sees no CUDA device or the port's sources are missing.
@@ -246,6 +265,7 @@ RTOL_TABLE = 1e-12
 TABLE_DAYS = 16  # days of U held against the plain twin
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F64_FLOP_PER_S = 34e12  # H100 SXM data sheet, FP64 outside the tensor cores
+F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
 # the device spans of each wrapper's launch: (counted kernel, others...)
 KERNEL_SPANS = {
     "sweep_table": ("sweep_table_kernel",),
@@ -259,10 +279,12 @@ KERNEL_SPANS = {
 }
 
 
-def bound(nbytes, flops):
-    """(bound ms, "bytes" or "operations"): the least time for the work."""
+def bound(nbytes, flops, isz=8):
+    """(bound ms, "bytes" or "operations"): the least time for the work,
+    its operations at the float64 rate (isz 8) or the float32 rate (isz
+    4, the f32 engine's kernels)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F64_FLOP_PER_S * 1e3
+    t_ops = flops / (F64_FLOP_PER_S if isz == 8 else F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -273,20 +295,21 @@ def lookups(n):
     return 7 + 2 * math.ceil(math.log2(n + 1))
 
 
-def day_bytes(T, n, q):
-    """The dim-2 kernels' day operands: V, wfc, W1 and x."""
-    return 8 * (T * n * n + T * n * q + q * n + n)
+def day_bytes(T, n, q, isz=8):
+    """The dim-2 kernels' day operands: V, wfc, W1 and x, of `isz` bytes
+    an entry (8: float64; 4: the f32 engine's float32)."""
+    return isz * (T * n * n + T * n * q + q * n + n)
 
 
-def table_bound(T, n, q):
+def table_bound(T, n, q, isz=8):
     """sweep_table (K2 build): the day operands in, the T n^2 cells of P
     (not its pad cells) and the T n row flags out; per cell the state sum
     (2q), the product with V and the prefix add."""
-    return bound(day_bytes(T, n, q) + 8 * T * n * n + T * n,
-                 T * n * n * (2 * q + 2))
+    return bound(day_bytes(T, n, q, isz) + isz * T * n * n + T * n,
+                 T * n * n * (2 * q + 2), isz)
 
 
-def sweep_bound(T, n, q, L, rows=None):
+def sweep_bound(T, n, q, L, rows=None, isz=8):
     """masked_sweep (K2) on `rows` outer rows (n by default): of the
     prefix table only the cells the interval rule reads (two per row
     lookup, at most the table's T rows n), the T rows row flags, x, the
@@ -294,36 +317,40 @@ def sweep_bound(T, n, q, L, rows=None):
     per bound row, day and outer row."""
     r = n if rows is None else rows
     cells = min(T * r * n, 2 * L * T * r)
-    return bound(8 * (cells + n + 2 * L * T + 2 * L + L * T) + T * r,
-                 L * T * r * lookups(n))
+    return bound(isz * (cells + n + 2 * L * T + 2 * L + L * T) + T * r,
+                 L * T * r * lookups(n), isz)
 
 
-def bisect_bound(T, n, q, L, n_iters):
+def bisect_bound(T, n, q, L, n_iters, isz=8):
     """bisect_levels (K1): the day operands and the (L, T) state in, the
     roots out; U formed and scanned once, then n lookups per row, day and
     halving."""
-    return bound(day_bytes(T, n, q) + L * T * (8 * 5 + 1) + 8 * 3 * L,
-                 T * n * n * (2 * q + 2) + n_iters * L * T * n * lookups(n))
+    return bound(day_bytes(T, n, q, isz) + L * T * (isz * 5 + 1)
+                 + isz * 3 * L,
+                 T * n * n * (2 * q + 2) + n_iters * L * T * n * lookups(n),
+                 isz)
 
 
-def contract3_bound(T, n, L, rows=None):
+def contract3_bound(T, n, L, rows=None, isz=8):
     """masked_contract3 (K4 sweep) on `rows` outer slabs (n by default):
     the T rows n^2 cells of U (not the layout's pad cells, which are never
     summed) and (L, T, 2) bounds in, (L, T) out; every row scanned once,
     n lookups per (row, day, i0), rows partials summed per (row, day)."""
     r = n if rows is None else rows
-    return bound(8 * (T * r * n * n + n + 2 * L * T + 3 * L + L * T),
-                 T * r * n * n + L * T * r * n * lookups(n) + L * T * r)
+    return bound(isz * (T * r * n * n + n + 2 * L * T + 3 * L + L * T),
+                 T * r * n * n + L * T * r * n * lookups(n) + L * T * r, isz)
 
 
-def weights_bound(T, n, q, student, garch):
+def weights_bound(T, n, q, student, garch, isz=8):
     """contract3_weights (K4 build): the columns and G in, the T n^3 cells
     of U out (not its pad cells); per cell the quadratic form (15), the
     density (8, exp and log1p one each), the pdf product (3, GARCH) and the
     state sum (2q + 1); the (q, n) fold per slab."""
-    cols = 3 * T * n * (8 * (1 + student + garch) + 1)
-    return bound(cols + 8 * (2 * q * n + T * n * q * q + 9 + T * n ** 3),
-                 T * n ** 3 * (24 + 2 * q + 3 * garch) + T * n * n * 2 * q * q)
+    cols = 3 * T * n * (isz * (1 + student + garch) + 1)
+    return bound(cols + isz * (2 * q * n + T * n * q * q + T * n ** 3)
+                 + 8 * 9,
+                 T * n ** 3 * (24 + 2 * q + 3 * garch) + T * n * n * 2 * q * q,
+                 isz)
 
 
 def trap_bound(T, n, q, L, dim, garch, student, halvings):
@@ -1007,7 +1034,8 @@ def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
     return cells, cols, used_rows, used_slabs
 
 
-def rebuild_bound(T, n, q, L, student, garch, rows=None, walk=None):
+def rebuild_bound(T, n, q, L, student, garch, rows=None, walk=None,
+                  isz=8):
     """masked_contract3_rebuild (K4 without U) on `rows` outer slabs (n
     by default): in, the columns (z, lu as float64, the finite flags as
     bytes; the pdf columns at GARCH), G, W1, W2, x, the (L, T, 2) bounds
@@ -1017,26 +1045,26 @@ def rebuild_bound(T, n, q, L, student, garch, rows=None, walk=None):
     n^2 and every fold column (the full cube); with `walk`, (cells, fold
     columns): the work this sweep's bounds need (`walk_cells`)."""
     r = n if rows is None else rows
-    cols = 3 * T * n * (8 * (1 + student + garch) + 1)
-    nbytes = cols + 8 * (T * n * q * q + 2 * q * n + n + 2 * L * T + 3 * L
-                         + L * T)
+    cols = 3 * T * n * (isz * (1 + student + garch) + 1)
+    nbytes = cols + isz * (T * n * q * q + 2 * q * n + n + 2 * L * T + 3 * L
+                           + L * T)
     cells, fold = (T * r * n * n, T * r * n) if walk is None else walk
     if walk is not None:
         nbytes += T * r * n
     flops = (cells * cell_ops(q, garch) + fold * 2 * q * q
              + L * T * r * n * lookups(n))
-    return bound(nbytes, flops)
+    return bound(nbytes, flops, isz)
 
 
-def flags_bound(T, n, q, student, garch, rows=None):
+def flags_bound(T, n, q, student, garch, rows=None, isz=8):
     """contract3_row_flags: the columns and G in, a byte per (t, i0, i1)
     row out; every cell of the T rows n^2 formed and tested once
     (`cell_ops`), the (q, n) fold per slab."""
     r = n if rows is None else rows
-    cols = 3 * T * n * (8 * (1 + student + garch) + 1)
-    nbytes = cols + 8 * (T * n * q * q + 2 * q * n + 9) + T * r * n
+    cols = 3 * T * n * (isz * (1 + student + garch) + 1)
+    nbytes = cols + isz * (T * n * q * q + 2 * q * n) + 8 * 9 + T * r * n
     return bound(nbytes, T * r * n * n * cell_ops(q, garch)
-                 + T * r * n * 2 * q * q)
+                 + T * r * n * 2 * q * q, isz)
 
 
 def wide_grid_phase(root, smi):
@@ -1511,6 +1539,458 @@ def wide_grid_phase(root, smi):
                    "bound_ms": flag_rep["bound_ms"][0],
                    "bound_by": flag_rep["bound_ms"][1]}
     return report, entry, flags_entry
+
+
+# the f32 engine's kernels against their f32 plain twins: the same float32
+# cells (CUDA's expf / log1pf against torch's), summed in float64 and
+# rounded once by the kernels, in float32 by the twins' products (n or
+# n^2 terms): a few float32 ulps of the scale
+RTOL_F32 = 1e-5
+
+
+def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
+                     f64_figures, peak3_64):
+    """The f32 engine (`engine="pallas"`), counted: the flagship MSM and
+    GARCH and the dim-3 MSM and GARCH artifacts served through
+    `bt.engine = "pallas"` after `load_artifacts` (calc_var(0.05)), the
+    32 x 4 and 8 x 4 grids, and one full-T (T = 500) dim-3 MSM n = 300
+    query on the f32 truncated rebuild route; every series held to its
+    f64 counterpart (the records, the f64 grids of this run, the f64
+    n = 300 series) within `root_plateau_bound(dx, weights)` on every day
+    and the median-dx bound at the 0.9 quantile. Before it no f32 kernel
+    may have launched (every earlier phase serves the f64 engine); on it
+    every f32 kernel must launch and no f64 one. Then each f32 kernel
+    against its f32 twin at the path's shapes (RTOL_F32 of the scale; K1
+    bit-equal to the same count of f32 K2 sweeps and within the plateau
+    bound of its twin; the rebuild bit-equal to the f32 table sweep and
+    its full-row walk, the flags equal to their twin), timed (CUDA
+    events, kernel and twin in turns) and traced (torch.profiler), beside
+    their f64 figures, with their bounds at float32 bytes and the float32
+    rate, and the f32 path's peak device memory (U in float32) beside the
+    f64 one (`f64_figures`: {key: {"call_ms", "device_ms"}} of this run's
+    f64 kernels and queries at the same keys; `peak3_64` the f64 dim-3
+    path's peak above its start). Returns (report, the f32 kernels'
+    entries of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from copula_var_tpu_torch.backtest import VaRBacktest
+    from copula_var_tpu_torch.data import from_csv
+    from copula_var_tpu_torch.ops import cuda_quadrature as cq
+    from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
+    from copula_var_tpu_torch.ops import cuda_solver as cs
+    from copula_var_tpu_torch.ops.solvers import (
+        bracket_state_batched,
+        full_iters,
+        root_plateau_bound,
+    )
+    from copula_var_tpu_torch.utils.artifacts import load_artifacts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    F32 = torch.float32
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
+                cq3.contract3_weights, cq3.masked_contract3,
+                cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
+    earlier = {c.__name__: c.launches_f32 for c in counters}
+    if any(earlier.values()):
+        raise AssertionError(f"an f64 phase launched an f32 kernel: {earlier}")
+
+    def zero():
+        for c in counters:
+            c.launches = c.launches_f32 = 0
+
+    def read():
+        return {c.__name__: (c.launches, c.launches_f32) for c in counters}
+
+    def held(tag, got, want, dx, weights):
+        """max |f32 - f64|, 0.9 quantile and their bounds, over rows with
+        each row's weights; raises past them or on unequal NaN days."""
+        got, want = np.atleast_2d(got), np.atleast_2d(want)
+        weights = np.atleast_2d(weights)
+        if got.shape != want.shape or not np.array_equal(np.isnan(got),
+                                                         np.isnan(want)):
+            raise AssertionError(f"f32 {tag}: shape or NaN days differ")
+        worst = {"max": 0.0, "q90": 0.0, "bound": 0.0, "median_bound": 0.0}
+        for r in range(got.shape[0]):
+            w = weights[r % weights.shape[0]]
+            d = np.abs(got[r] - want[r])[~np.isnan(want[r])]
+            b = root_plateau_bound(dx, w)
+            m = root_plateau_bound(np.median(dx, keepdims=True), w)
+            if not (d.max() <= b and np.quantile(d, 0.9) <= m):
+                raise AssertionError(
+                    f"f32 {tag} row {r}: max {d.max():.3e} (bound {b:.3e}),"
+                    f" 0.9 quantile {np.quantile(d, 0.9):.3e} (bound "
+                    f"{m:.3e}) off the f64 series")
+            worst = {"max": max(worst["max"], float(d.max())),
+                     "q90": max(worst["q90"], float(np.quantile(d, 0.9))),
+                     "bound": max(worst["bound"], b),
+                     "median_bound": max(worst["median_bound"], m)}
+        print(f"f32 {tag}: max |f32 - f64| {worst['max']:.3e} (plateau "
+              f"bound {worst['bound']:.3e}), 0.9 quantile {worst['q90']:.3e} "
+              f"(median-dx bound {worst['median_bound']:.3e}), "
+              f"{int(np.sum(np.abs(got - want) > 0))} days moved")
+        return worst
+
+    levels = np.array(LEVELS)
+    rec = np.load(os.path.join(root, "data", "flagship_var.npz"))
+    rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
+    wide = np.load(os.path.join(root, "data", "wide_grid_var.npz"))
+    alpha = float(rec["obj_var"])
+    w3 = tuple(np.asarray(rec3["weights"], np.float64))
+
+    # the f64 n = 300 series the f32 one is held to (outside the count)
+    data300 = from_csv(os.path.join(root, "data", "dim3.csv"), 1135,
+                       weights=tuple(wide["weights3"]))
+    base300 = load_artifacts(os.path.join(root, "data",
+                                          "dim3_artifacts_msm.npz"),
+                             data300, device="cuda")
+    tag300 = f"dim3_msm_n{WIDE_N_TIMED}"
+    inputs300 = base300.integration_inputs._replace(
+        **{f: torch.as_tensor(wide[f"{tag300}_ii_{f}"], device=dev)
+           for f in ("x", "dx", "densities")})
+
+    def bt300(engine):
+        return VaRBacktest(data300, base300.adapter, base300.copula,
+                           base300.copula_fit, base300.model_fits, inputs300,
+                           num_points=WIDE_N_TIMED, device="cuda",
+                           engine=engine)
+
+    b64 = bt300("xla")
+    var300_64 = b64.calc_var(alpha)
+    del b64
+    torch.cuda.empty_cache()
+
+    # -- the f32 main path, counted ----------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    zero()
+    bts, host, report = {}, {}, {"series": {}}
+    for dim, csv, prefix, rec_, w in (
+            (2, "flagship.csv", "flagship_artifacts", rec, None),
+            (3, "dim3.csv", "dim3_artifacts", rec3, w3)):
+        for est in ("msm", "garch"):
+            key = f"dim{dim}_{est}"
+            t0 = time.perf_counter()
+            data = from_csv(os.path.join(root, "data", csv), 1135, weights=w)
+            bt = load_artifacts(os.path.join(root, "data",
+                                             f"{prefix}_{est}.npz"),
+                                data, device="cuda")
+            bt.engine = "pallas"
+            ops = bt.sweep_operands()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            var = bt.calc_var(alpha)
+            t2 = time.perf_counter()
+            host[key] = {"load_prep_s": t1 - t0, "calc_var_s": t2 - t1}
+            if ops.x.dtype != F32 or (dim == 3 and ops.U is None):
+                raise AssertionError(f"f32 {key}: not the f32 table route")
+            report["series"][key] = held(
+                f"{key} calc_var({alpha:g}) vs the f64 record", var,
+                rec_[f"{est}_var"], bt.integration_inputs.dx.cpu().numpy(),
+                bt.data.weights)
+            bts[key] = bt
+    for key, wb, want in (("dim2_msm", w_batch, grid64),
+                          ("dim3_msm", w_batch3, grid3_64)):
+        t0 = time.perf_counter()
+        got = bts[key].calc_var_grid(wb, levels)
+        host[f"{key}_grid_s"] = time.perf_counter() - t0
+        report["series"][f"{key}_grid"] = held(
+            f"{key} {len(wb)}x{len(levels)} grid vs the f64 grid",
+            got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]),
+            bts[key].integration_inputs.dx.cpu().numpy(),
+            np.repeat(wb, len(levels), axis=0))
+    torch.cuda.synchronize()
+    peak3 = torch.cuda.max_memory_allocated()
+    b32 = bt300("pallas")
+    t0 = time.perf_counter()
+    ops300 = b32.sweep_operands()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    var300 = b32.calc_var(alpha)
+    host["dim3_msm_n300"] = {"prep_s": t1 - t0,
+                             "calc_var_s": time.perf_counter() - t1}
+    if ops300.U is not None or ops300.flags is None or ops300.x.dtype != F32:
+        raise AssertionError("f32 n=300: not the f32 truncated rebuild route")
+    report["series"]["dim3_msm_n300"] = held(
+        f"dim3 MSM n={WIDE_N_TIMED} T={ops300.days} calc_var vs the f64 "
+        "truncated route", var300, var300_64,
+        inputs300.dx.cpu().numpy(), data300.weights)
+    launches = read()
+    report["launches"] = launches
+    print(f"f32 main path: launches (f64, f32) {launches}; host s {host}; "
+          f"peak device memory of the f32 dim-2 and dim-3 backtests "
+          f"{peak3 - base_bytes} bytes above the phase's start, U float32 "
+          f"{[int(b.sweep_operands().U.numel() * 4) for k, b in bts.items() if k.startswith('dim3')]}"
+          f" bytes (the f64 dim-3 path's peak {peak3_64} bytes, U float64 "
+          f"4040000000 bytes each) ({smi})")
+    for name, (n64, n32) in launches.items():
+        if n64:
+            raise AssertionError(f"f32 phase: the f64 {name} launched")
+        if n32 <= 0:
+            raise AssertionError(f"f32 phase: the f32 {name} never launched")
+    report.update(host_s=host, peak_bytes=peak3 - base_bytes,
+                  peak_bytes_f64_dim3=peak3_64)
+
+    # -- each f32 kernel against its f32 twin ------------------------------
+    rng = np.random.default_rng(32)
+    ops_m = bts["dim2_msm"].sweep_operands()
+    ops3_m = bts["dim3_msm"].sweep_operands()
+    T, T3 = ops_m.days, ops3_m.days
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev).to(F32)
+
+    def close(tag, got, want):
+        fin = ~torch.isnan(want)
+        if not torch.equal(fin, ~torch.isnan(got)):
+            raise AssertionError(f"f32 {tag}: NaN cells differ")
+        scale = float(want[fin].abs().max())
+        err = float((got[fin] - want[fin]).abs().max())
+        if not err <= RTOL_F32 * scale:
+            raise AssertionError(f"f32 {tag}: |kernel - plain| {err:.3e} > "
+                                 f"{RTOL_F32:g} x {scale:.3e}")
+        print(f"parity f32 {tag}: max abs {err:.3e} rel {err / scale:.3e} "
+              f"(bound rel {RTOL_F32:g})")
+        return err
+
+    errs = {}
+    p_p, f_p = cq.sweep_table_reference(ops_m)
+    if not torch.equal(f_p, ops_m.flags):
+        raise AssertionError("f32 sweep_table: flags off the plain twin")
+    errs["sweep_table"] = close("sweep_table dim2 MSM", ops_m.P, p_p)
+    del p_p, f_p
+    stage = np.stack([np.full(T, -100.0), np.full(T, -3.0)], -1)
+    lo = rng.uniform(-8.0, -1.0, (3, T))
+    bounds = t32(np.concatenate(
+        [stage[None], np.stack([lo, lo + rng.uniform(0.0, 3.0, (3, T))],
+                               -1)]))
+    wrows = t32([[0.5, 0.5], [0.3, 0.7], [0.75, 0.25], [0.9, 0.1]])
+    k = cq.masked_sweep(ops_m, bounds, wrows)
+    errs["masked_sweep"] = close("masked_sweep dim2 MSM L=4", k,
+                                 cq.masked_sweep_reference(ops_m, bounds,
+                                                           wrows))
+    if not torch.equal(k, cq.masked_sweep(ops_m, bounds, wrows)):
+        raise AssertionError("f32 masked_sweep: a repeat gave other bits")
+    cfg = (-3.0, -3.5, -2.0, -7.5, 0.0)
+    n_iters = full_iters(1e-6, cfg[3], cfg[4])
+    obj = t32(LEVELS)
+
+    def k1_state(ops, w, ob):
+        F1 = cq.masked_sweep(ops, bounds[:1].expand(len(ob), T, 2)
+                             .contiguous(), w)
+        return [s.contiguous() for s in bracket_state_batched(
+            F1, ob, lambda b: cq.masked_sweep(ops, b.contiguous(), w), cfg,
+            False)[:5]]
+
+    st = k1_state(ops_m, wrows, obj)
+    rk = cs.bisect_fixed(ops_m, *st, obj, wrows, n_iters)
+    if not torch.equal(rk, cs.fixed_halvings(ops_m, *st, obj, wrows, n_iters,
+                                             cq.masked_sweep)):
+        raise AssertionError("f32 bisect_levels: K1 off the same count of "
+                             "f32 K2 sweeps")
+    rp = cs.fixed_halvings(ops_m, *st, obj, wrows, n_iters,
+                           cq.masked_sweep_reference)
+    errs["bisect_levels"] = float((rk - rp).abs().max())
+    kb = root_plateau_bound(ops_m.dx.double(), [0.9])
+    if not errs["bisect_levels"] <= kb:
+        raise AssertionError(f"f32 bisect_levels: {errs['bisect_levels']:.3e}"
+                             f" off its plain twin (bound {kb:.3e})")
+    print(f"parity f32 bisect_levels dim2 MSM L=4, {n_iters} halvings: "
+          f"bit-equal to {n_iters} f32 K2 sweeps; max abs "
+          f"{errs['bisect_levels']:.3e} off the plain twin (plateau bound "
+          f"{kb:.3e})")
+    days = slice(0, TABLE_DAYS)
+    n3 = ops3_m.x.shape[0]
+    errs["contract3_weights"] = close(
+        f"contract3_weights dim3 MSM, {TABLE_DAYS} days",
+        cq3.table_cells(ops3_m.U[days], n3),
+        cq3.contract3_weights_reference(ops3_m, days))
+    stage3 = np.stack([np.full(T3, -100.0), np.full(T3, -3.0)], -1)
+    lo3 = rng.uniform(-6.0, -0.5, (3, T3))
+    b3 = t32(np.concatenate(
+        [stage3[None], np.stack([lo3, lo3 + rng.uniform(0.3, 4.0, (3, T3))],
+                                -1)]))
+    w3r = t32(np.concatenate([np.asarray(w3)[None],
+                              rng.dirichlet([2.0, 2.0, 2.0], size=3)]))
+    k3 = cq3.masked_contract3(ops3_m, b3, w3r)
+    errs["masked_contract3"] = close(
+        "masked_contract3 dim3 MSM L=4", k3,
+        cq3.masked_contract3_reference(ops3_m, b3, w3r))
+    walked = ops3_m._replace(U=None, flags=cq3.contract3_row_flags(ops3_m))
+    if not (torch.equal(k3, cq3.masked_contract3_rebuild(walked, b3, w3r))
+            and torch.equal(k3, cq3.masked_contract3(ops3_m, b3, w3r))):
+        raise AssertionError("f32 rebuild at n=100: off the f32 table sweep")
+    flags300 = cq3.contract3_row_flags(ops300)
+    if not (torch.equal(flags300, ops300.flags) and torch.equal(
+            flags300, cq3.contract3_row_flags_reference(ops300))):
+        raise AssertionError("f32 contract3_row_flags: off its plain twin")
+    errs["contract3_row_flags"] = 0.0
+    st300 = t32(np.stack([np.full(ops300.days, -100.0),
+                          np.full(ops300.days, -3.0)], -1)[None])
+    w300 = t32(np.asarray(data300.weights)[None])
+    r300 = cq3.masked_contract3_rebuild(ops300, st300, w300)
+    if not torch.equal(r300, cq3.masked_contract3_rebuild(
+            ops300._replace(flags=None), st300, w300)):
+        raise AssertionError("f32 rebuild n=300: the truncated and full-row "
+                             "walks gave other bits")
+    errs["masked_contract3_rebuild"] = close(
+        f"masked_contract3_rebuild dim3 MSM n={WIDE_N_TIMED} stage-1", r300,
+        cq3.masked_contract3_reference(ops300, st300, w300))
+    print("parity f32 rebuild: bit-equal to the f32 table sweep at n=100 "
+          "(L=4) and to its full-row walk at n=300; the f32 flags equal to "
+          "their twin")
+
+    # -- times (CUDA events, in turns) and device time (torch.profiler) ----
+    L128 = ROWS_P * len(LEVELS)
+    wr = t32(np.repeat(w_batch, len(LEVELS), axis=0))
+    ar = t32(np.tile(levels, ROWS_P))
+    st1 = bounds[:1].contiguous()
+    st128 = k1_state(ops_m, wr, ar)
+    s1 = [s[:1].contiguous() for s in st]
+    calls = {
+        "sweep_table": (lambda: cq.sweep_table(ops_m),
+                        lambda: cq.sweep_table_reference(ops_m)),
+        "sweep_L1": (lambda: cq.masked_sweep(ops_m, st1, wrows[:1]),
+                     lambda: cq.masked_sweep_reference(ops_m, st1,
+                                                       wrows[:1])),
+        f"sweep_L{L128}": (
+            lambda: cq.masked_sweep(ops_m, st1.expand(L128, T, 2)
+                                    .contiguous(), wr),
+            lambda: cq.masked_sweep_reference(
+                ops_m, st1.expand(L128, T, 2).contiguous(), wr)),
+        "bisect_L1": (
+            lambda: cs.bisect_fixed(ops_m, *s1, obj[:1], wrows[:1], n_iters),
+            lambda: cs.fixed_halvings(ops_m, *s1, obj[:1], wrows[:1],
+                                      n_iters, cq.masked_sweep_reference)),
+        f"bisect_L{L128}": (
+            lambda: cs.bisect_fixed(ops_m, *st128, ar, wr, n_iters),
+            lambda: cs.fixed_halvings(ops_m, *st128, ar, wr, n_iters,
+                                      cq.masked_sweep_reference)),
+        "contract3_weights": (lambda: cq3.contract3_weights(ops3_m),
+                              lambda: cq3.contract3_weights_reference(
+                                  ops3_m)),
+        "contract3_L1": (
+            lambda: cq3.masked_contract3(ops3_m, b3[:1], w3r[:1]),
+            lambda: cq3.masked_contract3_reference(ops3_m, b3[:1],
+                                                   w3r[:1])),
+        "rebuild_n300_L1": (
+            lambda: cq3.masked_contract3_rebuild(ops300, st300, w300),
+            lambda: cq3.masked_contract3_reference(ops300, st300, w300)),
+        "flags_n300": (lambda: cq3.contract3_row_flags(ops300),
+                       lambda: cq3.contract3_row_flags_reference(ops300)),
+    }
+    heavy = ("contract3_weights", "contract3_L1", "rebuild_n300_L1",
+             "flags_n300", f"bisect_L{L128}")
+    timing = {}
+    for key, (kern, plain) in calls.items():
+        kw = {"reps": 3, "warmup": 1} if key in heavy else {}
+        timing[key] = cuda_ms(torch, {"kernel": kern}, **kw)
+        timing[key].update(cuda_ms(
+            torch, {"plain": plain},
+            **({"reps": 1, "warmup": 0} if key.endswith("n300") else kw)))
+    queries = {
+        "calc_var_dim2_msm": lambda: bts["dim2_msm"].calc_var(alpha),
+        "calc_var_dim2_garch": lambda: bts["dim2_garch"].calc_var(alpha),
+        "grid_32x4": lambda: bts["dim2_msm"].calc_var_grid(w_batch, levels),
+        "calc_var_dim3_msm": lambda: bts["dim3_msm"].calc_var(alpha),
+        "calc_var_dim3_garch": lambda: bts["dim3_garch"].calc_var(alpha),
+        "grid_8x4": lambda: bts["dim3_msm"].calc_var_grid(w_batch3, levels),
+        "calc_var_dim3_msm_n300": lambda: b32.calc_var(alpha),
+    }
+    for key, fn in queries.items():
+        timing[key] = cuda_ms(torch, {"query": fn},
+                              **({"reps": 2, "warmup": 0}
+                                 if key.endswith("n300") else
+                                 {"reps": 3, "warmup": 1}))
+    kern_of = {"sweep_table": "sweep_table", "sweep_L1": "masked_sweep",
+               f"sweep_L{L128}": "masked_sweep",
+               "bisect_L1": "bisect_levels",
+               f"bisect_L{L128}": "bisect_levels",
+               "contract3_weights": "contract3_weights",
+               "contract3_L1": "masked_contract3",
+               "rebuild_n300_L1": "masked_contract3_rebuild",
+               "flags_n300": "contract3_row_flags"}
+    profiles = {key: device_profile(torch, calls[key][0],
+                                    reps=2 if key in heavy else REPS)
+                for key in calls}
+    profiles.update({key: device_profile(torch, fn, reps=1
+                                         if key.endswith("n300") else 3)
+                     for key, fn in queries.items()})
+    q = ops_m.w1.shape[0]
+    n = ops_m.x.shape[0]
+    cells, fold, _, _ = walk_cells(ops300.x.double(), st300.double(),
+                                   w300.double())
+    q3 = ops3_m.w1.shape[0]
+    bounds_ms = {
+        "sweep_table": table_bound(T, n, q, 4),
+        "sweep_L1": sweep_bound(T, n, q, 1, isz=4),
+        f"sweep_L{L128}": sweep_bound(T, n, q, L128, isz=4),
+        "bisect_L1": bisect_bound(T, n, q, 1, n_iters, 4),
+        f"bisect_L{L128}": bisect_bound(T, n, q, L128, n_iters, 4),
+        "contract3_weights": weights_bound(T3, n3, q3, True, False, 4),
+        "contract3_L1": contract3_bound(T3, n3, 1, isz=4),
+        "rebuild_n300_L1": rebuild_bound(ops300.days, WIDE_N_TIMED,
+                                         ops300.w1.shape[0], 1, True, False,
+                                         walk=(cells, fold), isz=4),
+        "flags_n300": flags_bound(ops300.days, WIDE_N_TIMED,
+                                  ops300.w1.shape[0], True, False, isz=4),
+    }
+    def f64(key):
+        fig = f64_figures.get(key)
+        if fig is None:
+            return "f64 not measured in this call"
+        return (f"f64 call {_ms(fig['call_ms'])} ms, device "
+                + _ms(fig["device_ms"], ".4f") + " ms")
+
+    for key, (b_ms, by) in bounds_ms.items():
+        dev_ms = profiles[key]["kernels"][kern_of[key]]["device_ms"]
+        print(f"f32 {key}: kernel call {timing[key]['kernel'][0]:.3f} ms "
+              f"(min {timing[key]['kernel'][1]:.3f}; CUDA events), device "
+              + _ms(dev_ms, ".4f") + " ms (torch.profiler), plain twin "
+              f"{timing[key]['plain'][0]:.3f} ms; bound {b_ms:.4f} ms by "
+              f"{by} at float32 ("
+              + ("not measured" if dev_ms is None else f"{b_ms / dev_ms:.1%}")
+              + f" of the device time); {f64(key)} ({smi})")
+    for key in queries:
+        p = profiles[key]
+        print(f"f32 query {key}: {timing[key]['query'][0]:.3f} ms per call "
+              f"(CUDA events), host {p['wall_ms']:.3f} ms, device busy "
+              f"{_ms(p['busy_ms'])} ms, {_ms(p['device_ops'], 'g')} device "
+              "ops; " + ", ".join(
+                  f"{k} {v['launches']:g} x " + _ms(v["device_ms"], ".4f")
+                  + " ms" for k, v in p["kernels"].items() if v["launches"])
+              + f"; {f64(key)} ({smi})")
+    phase_s = time.perf_counter() - t_phase
+    print(f"f32 phase: {phase_s:.3f} s ({smi})")
+    report.update(max_abs_err=errs, timing_ms=timing, profile=profiles,
+                  bounds_ms=bounds_ms, phase_s=phase_s,
+                  walk_cells=cells, n_iters=n_iters)
+    k23 = "copula_var_tpu/ops/pallas_quadrature.py"
+    k4 = "copula_var_tpu/ops/pallas_quadrature3.py:92"
+    rows = (("sweep_table", "quadrature.cu", f"{k23}:101; {k23}:32",
+             "sweep_table"),
+            ("masked_sweep", "quadrature.cu", f"{k23}:101", "sweep_L1"),
+            ("bisect_levels", "quadrature.cu",
+             "copula_var_tpu/ops/pallas_solver.py:93", "bisect_L1"),
+            ("contract3_weights", "contract3.cu", k4, "contract3_weights"),
+            ("masked_contract3", "contract3.cu", k4, "contract3_L1"),
+            ("masked_contract3_rebuild", "contract3.cu", k4,
+             "rebuild_n300_L1"),
+            ("contract3_row_flags", "contract3.cu", k4, "flags_n300"))
+    entries = [{"name": f"{name}_f32", "route": "cuda",
+                "source": f"copula_var_tpu_torch/csrc/{src}",
+                "replaces": rep_, "launches": launches[name][1],
+                "max_abs_err": errs[name], "ms": timing[key]["kernel"][0],
+                "plain_ms": timing[key]["plain"][0],
+                "bound_ms": bounds_ms[key][0], "bound_by": bounds_ms[key][1],
+                "library_ms": None}
+               for name, src, rep_, key in rows]
+    return report, entries
 
 
 def main() -> int:
@@ -2939,6 +3419,38 @@ def main() -> int:
               f"{timing[unrefined[key]]['kernel'][0]:.3f} ms, device busy "
               f"{_ms(base['busy_ms'])} ms ({smi})")
     bounds_ms.update(trap_bounds)
+
+    # -- the f32 engine (engine="pallas"), counted -------------------------
+    # the f64 figures it prints beside its own, at its keys
+    f64_figures = {key: {"call_ms": timing[key]["kernel"][0],
+                         "device_ms": profiles[pk]["kernels"][kern][
+                             "device_ms"]}
+                   for key, (pk, kern) in prof_key.items()
+                   if not key.startswith(("sweep_rows", "contract3_rows",
+                                          "contract3_L"))
+                   or key == "contract3_L1"}
+    for key, pk in (("calc_var_dim2_msm", "calc_var_msm"),
+                    ("calc_var_dim2_garch", "calc_var_garch"),
+                    ("grid_32x4", "grid_32x4"),
+                    ("calc_var_dim3_msm", "dim3_calc_var_msm"),
+                    ("calc_var_dim3_garch", "dim3_calc_var_garch"),
+                    ("grid_8x4", "dim3_grid_8x4")):
+        f64_figures[key] = {"call_ms": profiles[pk]["wall_ms"],
+                            "device_ms": profiles[pk]["busy_ms"]}
+    wide_msm = wide_report["full_T"]["msm"]
+    f64_figures["rebuild_n300_L1"] = {
+        "call_ms": wide_msm["stage1"]["truncated_ms"][0],
+        "device_ms": wide_msm["stage1"]["device_ms"]}
+    f64_figures["flags_n300"] = {
+        "call_ms": wide_msm["flags"]["kernel_ms"][0],
+        "device_ms": wide_msm["flags"]["device_ms"]}
+    f64_figures["calc_var_dim3_msm_n300"] = {
+        "call_ms": wide_msm["query"]["truncated"]["wall_s"] * 1e3,
+        "device_ms": None}
+    f32_report, f32_entries = f32_engine_phase(
+        root, smi, w_batch, w_batch3, grid, grid3, f64_figures,
+        peak3 - base3)
+    report["f32_engine"] = f32_report
     report["bounds_ms"] = bounds_ms
     report["refine"] = refine_report
     report["quirks"] = quirk_report
@@ -3000,7 +3512,7 @@ def main() -> int:
               "replaces": k4, "library_ms": None,
               "grid_launches_per_rank":
                   grid_launches["contract3_row_flags"]}, **flags_entry),
-    ]
+    ] + f32_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

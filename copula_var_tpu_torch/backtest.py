@@ -25,6 +25,18 @@ With `refine_root=True` each query's staircase roots are re-solved in a
 +-h window against the trapezoid sweep (`ops/refine.py`, plain PyTorch on
 the same operands), h = max(dx) |w0| per portfolio row.
 
+Engines (`engine`, JAX's `VaRBacktest.engine`): "xla", the default, is
+the f64 path below; "pallas" is the f32 engine of JAX's "Production
+serving" recipe (`ops/cuda_solver.py::full_solve_pallas`): the f64 prep
+cast to float32, the f32 kernels (K1 for a fixed count of halvings, K2,
+K4) or their f32 plain twins on the CPU, roots within
+`ops/solvers.root_plateau_bound(dx, weights)` (one grid cell x |w0|) of
+the f64 engine's, not its bits; `refine_root` re-solves them against the
+float64 trapezoid sweep. It serves dim 2 and 3 with the MSM or GARCH
+integrand on one device; dim >= 4, a plugin adapter or a mesh raise.
+Assigning `engine` drops the built operands, so `bt.engine = "pallas"`
+after `load_artifacts` serves the f32 engine.
+
 On a CUDA device every sweep and the bisection run the hand-written
 kernels (`masked_sweep` and `bisect_levels` at dim 2, `masked_contract3`
 at dim 3); on the CPU they run the plain twins, the f64 oracle that
@@ -80,10 +92,11 @@ from copula_var_tpu_torch.models import fit as model_fit
 from copula_var_tpu_torch.models import garch as garch_mod
 from copula_var_tpu_torch.models import msm as msm_mod
 from copula_var_tpu_torch.models import ukf as ukf_mod
-from copula_var_tpu_torch.ops.cuda_quadrature import sweep_operands
+from copula_var_tpu_torch.ops.cuda_quadrature import F32, F64, sweep_operands
 from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
 from copula_var_tpu_torch.ops.cuda_solver import (
     full_solve_levels,
+    full_solve_pallas,
     full_solve_portfolios,
     sweep_for,
 )
@@ -107,6 +120,10 @@ from copula_var_tpu_torch.parallel.multiprocess import gather_days
 from copula_var_tpu_torch.parallel.quadrature import gather_solution
 
 VOL_STATE_ROUND_TOL = 1e-6  # `msm_estimation.py:204-248`
+# "xla": the f64 path (the default); "pallas": the f32 engine
+ENGINES = ("xla", "pallas")
+_PALLAS_SCOPE = ("engine='pallas' requires dim in {2, 3} and an adapter "
+                 "with a Pallas/cached-columns path")
 # the integration inputs' fields with a leading day axis, cut to a rank's
 # block with the day tensors or transform columns
 _DAY_FIELDS = ("forecasts_by_states", "forecast_combos", "forecast_vols")
@@ -262,20 +279,21 @@ class MsmAdapter:
         )
 
     def sweep_operands(self, tensors, inputs: MsmIntegrationInputs,
-                       rows=None):
+                       rows=None, dtype=F64, table=True):
         return sweep_operands(tensors, inputs.x, inputs.dx, inputs.densities,
-                              inputs.forecast_combos, rows=rows)
+                              inputs.forecast_combos, rows=rows, dtype=dtype,
+                              table=table)
 
     def day_columns(self, inputs: MsmIntegrationInputs, spec):
         return msm_day_columns(inputs.forecasts_by_states, inputs.x,
                                inputs.unique_vols, spec)
 
     def contract3_operands(self, cols, inputs: MsmIntegrationInputs, spec,
-                           rows=None):
+                           rows=None, dtype=F64):
         return contract3_operands(cols, inputs.x, inputs.dx, spec,
                                   densities=inputs.densities,
                                   forecast_combos=inputs.forecast_combos,
-                                  rows=rows)
+                                  rows=rows, dtype=dtype)
 
     def column_operands(self, cols, inputs: MsmIntegrationInputs, spec,
                         rows=None):
@@ -371,17 +389,18 @@ class GarchAdapter:
                                       weights, box_min)
 
     def sweep_operands(self, tensors, inputs: GarchIntegrationInputs,
-                       rows=None):
-        return sweep_operands(tensors, inputs.x, inputs.dx, rows=rows)
+                       rows=None, dtype=F64, table=True):
+        return sweep_operands(tensors, inputs.x, inputs.dx, rows=rows,
+                              dtype=dtype, table=table)
 
     def day_columns(self, inputs: GarchIntegrationInputs, spec):
         return garch_day_columns(inputs.forecast_vols, inputs.x, spec)
 
     def contract3_operands(self, cols, inputs: GarchIntegrationInputs, spec,
-                           rows=None):
+                           rows=None, dtype=F64):
         tcols, p_cols = cols
         return contract3_operands(tcols, inputs.x, inputs.dx, spec,
-                                  p_cols=p_cols, rows=rows)
+                                  p_cols=p_cols, rows=rows, dtype=dtype)
 
     def column_operands(self, cols, inputs: GarchIntegrationInputs, spec,
                         rows=None):
@@ -550,14 +569,16 @@ class VaRBacktest:
     rank's block of days and gather every result over the ranks, a
     `parallel.mesh.GridMesh` to serve this rank's outer grid rows and sum
     every sweep over the grid ranks (the backtest then lives on the
-    mesh's device), or None for one card.
+    mesh's device), or None for one card. engine: "xla" (the f64 path) or
+    "pallas" (the f32 engine; see the module docstring); assigning it
+    drops the built operands.
     """
 
     def __init__(self, data: ReturnsData, adapter, copula: str, copula_fit,
                  model_fits, integration_inputs, marginals=None,
                  densities=None, num_points=100, box=(-5.0, 5.0),
                  device="cuda", reference_quirks=False, refine_root=False,
-                 mesh=None):
+                 mesh=None, engine="xla"):
         _check_options(data.dim, copula)
         self.device = _mesh_device(device, mesh)
         self.mesh = mesh
@@ -581,7 +602,7 @@ class VaRBacktest:
         ])
         self.weights = torch.as_tensor(data.weights, dtype=torch.float64,
                                        device=self.device)
-        self._ops = None
+        self.engine = engine
         self.prep_seconds = 0.0
         # JAX's minimal plugin contract: no cached path, so every sweep
         # is `adapter.integrals` and the bisection runs on the host
@@ -593,6 +614,39 @@ class VaRBacktest:
                 "on one device (its integrals have no sharded form)")
 
     # -- bounds-invariant state ------------------------------------------
+
+    @property
+    def engine(self) -> str:
+        return self._engine
+
+    @engine.setter
+    def engine(self, value: str) -> None:
+        """Select "xla" or "pallas"; the operands built for the previous
+        engine are dropped (the next query builds the new engine's)."""
+        if value not in ENGINES:
+            raise ValueError(f"engine={value!r}: VaRBacktest serves "
+                             f"{ENGINES} (the day- and grid-sharded engines "
+                             "are a mesh: `mesh=`)")
+        self._engine = value
+        self._ops = None
+        self._trap_ops = None
+
+    def _pallas(self) -> bool:
+        """True for the f32 engine, once it is known to serve this
+        backtest: dim 2 or 3, the MSM or GARCH integrand, one device (JAX
+        `_cached_integral_fn`'s scope, whose message it raises)."""
+        if self._engine != "pallas":
+            return False
+        if (self.plugin or self.data.dim not in (2, 3)
+                or not isinstance(self.integration_inputs,
+                                  (MsmIntegrationInputs,
+                                   GarchIntegrationInputs))):
+            raise ValueError(_PALLAS_SCOPE)
+        if self.mesh is not None:
+            raise ValueError("engine='pallas' serves one device; a mesh "
+                             "serves the f64 engine (the f32 day-sharded "
+                             "engine 'sharded_pallas' is not ported)")
+        return True
 
     def sweep_operands(self):
         """The sweeps' bounds-invariant operands, built once: day tensors
@@ -612,6 +666,8 @@ class VaRBacktest:
             inputs, spec = self.integration_inputs, self.copula_spec
             kw = ({} if self._grid is None else
                   {"rows": self._grid.rows(inputs.x.shape[0])})
+            if self._pallas():
+                kw["dtype"] = F32
             if self.data.dim >= 3:
                 cols = self._block(self.adapter.day_columns(inputs, spec))
                 build = (self.adapter.contract3_operands
@@ -677,8 +733,10 @@ class VaRBacktest:
 
     def compute_integral(self, bounds) -> np.ndarray:
         """(T,) integrals over per-day [lower, upper] slabs (T, 2): one
-        sweep, through the kernel on a CUDA device at dim 2 and 3; for a
-        plugin adapter its `integrals` (plain PyTorch, as JAX's XLA)."""
+        sweep, through the kernel on a CUDA device at dim 2 and 3 (in
+        float32 on the f32 engine, as JAX's K3 / K4); for a plugin adapter
+        its `integrals` (plain PyTorch, as JAX's XLA)."""
+        self._pallas()
         if self.plugin:
             out = self.adapter.integrals(
                 self._tensor(bounds).reshape(-1, 2), self.integration_inputs,
@@ -686,8 +744,10 @@ class VaRBacktest:
             return torch.as_tensor(out).cpu().numpy()
         b = self._block(self._tensor(bounds).reshape(-1, 2))
         ops = self.sweep_operands()
-        out = sweep_for(ops)(ops, b[None].contiguous(),
-                             self.weights.reshape(1, -1), self.box[0])[0]
+        dt = ops.x.dtype
+        out = sweep_for(ops)(ops, b[None].to(dt).contiguous(),
+                             self.weights.reshape(1, -1).to(dt),
+                             self.box[0])[0]
         if self._grid is not None:
             out = self._grid.grid_sum(out)
         if self._day_mesh() is not None:
@@ -719,19 +779,25 @@ class VaRBacktest:
         row l equals `calc_var(obj_vars[l])`. A plugin adapter's levels
         are bisected one by one on the host (`verbose` prints each
         halving's widest gap, as JAX's `_bisection`)."""
+        pallas = self._pallas()
         if self.plugin:
             return self._host_levels(obj_vars, first_guess, second_guess,
                                      tolerance, min_var_value,
                                      max_var_value, verbose)
         obj = self._tensor(np.atleast_1d(obj_vars))
         t0 = time.perf_counter()
-        roots, nan_days = full_solve_levels(
-            self.sweep_operands(), obj, self.weights,
-            self._cfg(first_guess, second_guess, min_var_value,
-                      max_var_value),
-            tolerance, self.reference_quirks, self.box[0], self._day_mesh(),
-            self._grid,
-        )
+        cfg = self._cfg(first_guess, second_guess, min_var_value,
+                        max_var_value)
+        if pallas:
+            roots, nan_days = full_solve_pallas(
+                self.sweep_operands(), obj, self.weights, cfg, tolerance,
+                self.reference_quirks, self.box[0])
+        else:
+            roots, nan_days = full_solve_levels(
+                self.sweep_operands(), obj, self.weights, cfg, tolerance,
+                self.reference_quirks, self.box[0], self._day_mesh(),
+                self._grid,
+            )
         if self.refine_root:
             L = roots.shape[0]
             roots = self._refine(roots, obj, self.weights.expand(L, -1),
@@ -848,6 +914,7 @@ class VaRBacktest:
         weights_batch = np.atleast_2d(np.asarray(weights_batch, float))
         if weights_batch.shape[1] != self.data.dim:
             raise ValueError(f"weights_batch must be (L, {self.data.dim})")
+        pallas = self._pallas()
         if self.plugin:
             raise ValueError(
                 "calc_var_portfolios needs a cached integral (the adapter's "
@@ -858,13 +925,18 @@ class VaRBacktest:
         obj = np.broadcast_to(np.atleast_1d(np.asarray(obj_var, float)), (L,))
         t0 = time.perf_counter()
         obj, w_rows = self._tensor(obj), self._tensor(weights_batch)
-        roots, nan_days = full_solve_portfolios(
-            self.sweep_operands(), obj, w_rows.contiguous(),
-            self._cfg(first_guess, second_guess, min_var_value,
-                      max_var_value),
-            tolerance, self.reference_quirks, self.box[0], self._day_mesh(),
-            self._grid,
-        )
+        cfg = self._cfg(first_guess, second_guess, min_var_value,
+                        max_var_value)
+        if pallas:
+            roots, nan_days = full_solve_pallas(
+                self.sweep_operands(), obj, w_rows.contiguous(), cfg,
+                tolerance, self.reference_quirks, self.box[0])
+        else:
+            roots, nan_days = full_solve_portfolios(
+                self.sweep_operands(), obj, w_rows.contiguous(), cfg,
+                tolerance, self.reference_quirks, self.box[0],
+                self._day_mesh(), self._grid,
+            )
         if self.refine_root:
             roots = self._refine(roots, obj, w_rows,
                                  self._plateau_h(weights_batch))
@@ -882,10 +954,30 @@ class VaRBacktest:
               else np.asarray(weights)[..., 0])
         return float(self.integration_inputs.dx.max()) * np.abs(w0)
 
+    def _trap_operands(self):
+        """The operands the trap re-solve reads: the engine's own on the
+        f64 engine; on the f32 engine the float64 ones it was cast from,
+        built once and without a kernel table (the day tensors at dim 2,
+        as JAX's `_refine_fused`; the transform columns at dim 3, as its
+        `_refine_dim3_pallas`)."""
+        if not self._pallas():
+            return self.sweep_operands()
+        if self._trap_ops is None:
+            inputs, spec = self.integration_inputs, self.copula_spec
+            if self.data.dim == 2:
+                self._trap_ops = self.adapter.sweep_operands(
+                    self.adapter.day_tensors(inputs, spec), inputs,
+                    table=False)
+            else:
+                self._trap_ops = self.adapter.column_operands(
+                    self.adapter.day_columns(inputs, spec), inputs, spec)
+        return self._trap_ops
+
     def _refine(self, roots, obj, weights, h):
         """The trap re-solve of the staircase roots (L, T) for obj (L,),
-        weights (L, dim) and half-widths h (L,); its wall seconds (device
-        synchronized) go to `refine_seconds`."""
+        weights (L, dim) and half-widths h (L,), in float64 on either
+        engine; its wall seconds (device synchronized) go to
+        `refine_seconds`."""
         if not isinstance(self.integration_inputs,
                           (MsmIntegrationInputs, GarchIntegrationInputs)):
             raise ValueError(
@@ -894,8 +986,8 @@ class VaRBacktest:
                 "GarchIntegrationInputs); a plugin adapter with inputs "
                 f"{type(self.integration_inputs).__name__} cannot refine")
         t0 = time.perf_counter()
-        out = refine_roots(self.sweep_operands(), roots, obj, weights,
-                           self._tensor(h), self.box[0], self._grid)
+        out = refine_roots(self._trap_operands(), roots.to(F64), obj,
+                           weights, self._tensor(h), self.box[0], self._grid)
         synchronize(self.device)
         self.refine_seconds = time.perf_counter() - t0
         return out
@@ -925,6 +1017,7 @@ def create_var_backtest(
     refine_root: bool = False,
     device="cuda",
     mesh=None,
+    engine: str = "xla",
     **adapter_kwargs,
 ) -> VaRBacktest:
     """Fit and build a solve-ready backtest on `device` (the card unless
@@ -934,7 +1027,8 @@ def create_var_backtest(
 
     model_fits_override / copula_fit_override inject fitted records and
     skip that fit (resume from saved artifacts, or reuse one family's fits
-    across copulas). `refine_root` goes to `VaRBacktest`. `prep_seconds`
+    across copulas). `refine_root` and `engine` ("xla" or "pallas") go to
+    `VaRBacktest`. `prep_seconds`
     covers the whole preparation, as in the JAX package; `prep_stages`
     holds each step's wall seconds (the device synchronized at each end),
     with the fit's own stages. With a `mesh` every rank fits on its own
@@ -985,7 +1079,7 @@ def create_var_backtest(
     bt = VaRBacktest(data, adapter, copula_type, cfit, fits, inputs,
                      marginals=marginals, densities=densities,
                      num_points=num_points, box=box, device=dev,
-                     refine_root=refine_root, mesh=mesh)
+                     refine_root=refine_root, mesh=mesh, engine=engine)
     bt.prep_seconds = time.perf_counter() - t0
     bt.prep_stages = stages
     return bt

@@ -7,13 +7,16 @@ and the optimizers' hyperparameters) with the reference's defaults;
 `run_backtest` is the reference's `main.py` pipeline: fit, build, solve.
 
 Here the device picks the path (the card's kernels or the plain twins on
-the CPU), so the JAX config's engines mean one path: "xla" one device,
-"sharded" and "sharded_pallas" the day-sharded serving of `parallel/`
-over a mesh of `n_mesh_devices` ranks (both the port's f64 path: the
-port follows the f64 `xla` engine and has no f32 fused kernel), and
-"grid_sharded" the grid-sharded serving of `parallel/` over a (1, D)
-('days', 'grid') mesh. "pallas" and a non-default `pallas_day_block`
-(which the port does not carry) are refused. `BacktestConfig.from_dict` takes a dict
+the CPU), and the JAX config's engines mean: "xla" the f64 path on one
+device; "pallas" the f32 engine on one device (`VaRBacktest(engine=
+"pallas")`: the f32 kernels, roots within the plateau bound of the f64
+engine's); "sharded" and "sharded_pallas" the day-sharded serving of
+`parallel/` over a mesh of `n_mesh_devices` ranks, both on the port's
+f64 path (the f32 day-sharded engine is not ported: "sharded_pallas"
+serves the f64 engine's series); and "grid_sharded" the grid-sharded
+serving of `parallel/` over a (1, D) ('days', 'grid') mesh. A
+non-default `pallas_day_block` (the TPU grid's day block, which the port
+does not carry) is refused. `BacktestConfig.from_dict` takes a dict
 written by the JAX `to_dict`.
 """
 
@@ -25,12 +28,13 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-# the JAX engines the port serves: one device, day-sharded over a mesh, or
-# grid-sharded over a (1, D) ('days', 'grid') mesh
-ENGINES = ("xla", "sharded", "sharded_pallas", "grid_sharded")
+# the JAX engines the port serves: one device (f64 or f32), day-sharded
+# over a mesh, or grid-sharded over a (1, D) ('days', 'grid') mesh
+ENGINES = ("xla", "pallas", "sharded", "sharded_pallas", "grid_sharded")
 SHARDED_ENGINES = ("sharded", "sharded_pallas")
-# the JAX-only key (the f32 Pallas kernel's day block) and the one value
-# under which a JAX config means what a config of the port means
+# the JAX-only key (the TPU grid's day block of the f32 Pallas kernel) and
+# the one value under which a JAX config means what a config of the port
+# means
 _PALLAS_DAY_BLOCK = 32
 
 
@@ -117,9 +121,10 @@ class BacktestConfig:
     copula_type: str = "student"  # 'gaussian' | 'student' | 'plackett'
     n_insample: int = 1135
     num_points: int = 100
-    # 'xla': one device; 'sharded' / 'sharded_pallas': the day-sharded
-    # path over a mesh of n_mesh_devices ranks (None: the whole world);
-    # 'grid_sharded': the outer grid axis split over them
+    # 'xla': one device, f64; 'pallas': one device, the f32 engine;
+    # 'sharded' / 'sharded_pallas': the day-sharded f64 path over a mesh of
+    # n_mesh_devices ranks (None: the whole world); 'grid_sharded': the
+    # outer grid axis split over them
     engine: str = "xla"
     n_mesh_devices: Optional[int] = None
     weights: Optional[Sequence[float]] = None  # default equal weights
@@ -134,8 +139,7 @@ class BacktestConfig:
         if self.engine not in ENGINES:
             raise ValueError(
                 f"engine={self.engine!r}: the port serves {ENGINES} (the "
-                "device picks the path, and the port follows the f64 xla "
-                "engine: the JAX f32 'pallas' kernels have no counterpart)")
+                "device picks the path)")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -149,9 +153,10 @@ class BacktestConfig:
         value = d.pop("pallas_day_block", _PALLAS_DAY_BLOCK)
         if value != _PALLAS_DAY_BLOCK:
             raise ValueError(
-                f"pallas_day_block={value!r} sizes the JAX package's f32 "
-                "Pallas kernel; the port follows the f64 xla engine and the "
-                "device picks the path")
+                f"pallas_day_block={value!r} sizes the TPU grid of the JAX "
+                "package's f32 Pallas kernel, which the port does not carry "
+                "(its f32 engine runs one block per day, and its f64 xla "
+                "engine has no day block)")
         for name, sub in (
             ("msm", MsmConfig),
             ("garch", GarchConfig),
@@ -218,8 +223,8 @@ def run_backtest(data, cfg: BacktestConfig, device="cuda", mesh=None):
     serves over `mesh`, or when none is given over `make_mesh(
     n_mesh_devices, device)` (the initialized world), at "grid_sharded" a
     (1, D) ('days', 'grid') mesh of its D ranks (JAX `config.py:203-209`,
-    `_get_mesh`); a given `mesh` is used at any engine. Returns
-    (VaRBacktest, var)."""
+    `_get_mesh`); a given `mesh` is used at any engine but "pallas", the
+    f32 engine on one device. Returns (VaRBacktest, var)."""
     from copula_var_tpu_torch.backtest import create_var_backtest
     from copula_var_tpu_torch.parallel.mesh import make_mesh
 
@@ -236,6 +241,7 @@ def run_backtest(data, cfg: BacktestConfig, device="cuda", mesh=None):
         copula_fit_kwargs=copula_fit_kwargs(cfg),
         device=device,
         mesh=mesh,
+        engine="pallas" if cfg.engine == "pallas" else "xla",
         **adapter_kwargs(cfg),
     )
     common = dict(

@@ -1,5 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the three-asset (dim-3) VaR
-// serving path, float64. Together they replace
+// serving path, templates over the working type Real (real.cuh): double
+// for the f64 `xla` engine, float for the f32 engine (`engine="pallas"`,
+// the JAX package's f32 `_kernel3`); each C launcher has an f64 form and
+// an `_f32` form with the same arguments. Together they replace
 // copula_var_tpu/ops/pallas_quadrature3.py::_kernel3 (K4), the dim-3
 // masked quadrature: (L, T) slab integrals for L bound rows.
 //
@@ -124,6 +127,19 @@
 //   * GARCH: nan_to_num(C * ((p0 p1) p2)) before the mask: NaN -> 0,
 //     +inf -> DBL_MAX, -inf -> -DBL_MAX, as torch.nan_to_num.
 //
+// In float: the columns, G, the weight rows, x, the bounds and weights
+// and the cells are float; the copula constants (sigma_inv, nu, the
+// normalizer, logdet) arrive as doubles and are formed and rounded to
+// float as the plain twin's torch operations round them; every cell is
+// formed with the Rn<float> intrinsics and the accurate expf / log1pf.
+// Every prefix, row sum and partial is a double, rounded to float where it
+// is stored (U's prefix rows in the sweep, the rebuild's captured prefixes,
+// the sum kernel's output), so the f32 routes give each other's bits as
+// the f64 routes do. U in float is half the bytes (2.02 GB at T = 500,
+// n = 100); a slab's stride is rounded up to four floats (16 bytes, the
+// bulk copy's unit), and one padded slab fits a block's shared memory up
+// to n = 240, so the table sweep takes the short rows, n <= 192.
+//
 // Launchers: plain C, no allocation, no synchronisation, launched on the
 // caller's stream; each returns cudaGetLastError() (or
 // cudaErrorInvalidValue for shapes the kernels do not take).
@@ -134,6 +150,7 @@
 #include <math_constants.h>
 
 #include "interval.cuh"
+#include "real.cuh"
 
 namespace {
 
@@ -156,24 +173,28 @@ constexpr int kWalkRows = CVT_WALK_ROWS;
 constexpr size_t kMaxSharedBytes = CVT_MAX_SHARED_BYTES;  // opt-in per block
 constexpr size_t kBarrierBytes = 16;        // two mbarriers
 
+template <typename Real>
 __host__ __device__ size_t weights_shared_bytes(int n, int q) {
-  return static_cast<size_t>(q) * n * sizeof(double);
+  return static_cast<size_t>(q) * n * sizeof(Real);
 }
 
-// one or two slab buffers (stride doubles each), x (n,), a flag per row
+// one or two slab buffers (stride Reals each), x (n,), a flag per row
+template <typename Real>
 __host__ __device__ size_t sweep_shared_bytes(int n, int stride, int bufs) {
   return kBarrierBytes +
-         (static_cast<size_t>(bufs) * stride + n) * sizeof(double) + n;
+         (static_cast<size_t>(bufs) * stride + n) * sizeof(Real) + n;
 }
 
+template <typename Real>
 __host__ __device__ int sweep_buffers(int n, int stride) {
-  return sweep_shared_bytes(n, stride, 2) <= kMaxSharedBytes ? 2 : 1;
+  return sweep_shared_bytes<Real>(n, stride, 2) <= kMaxSharedBytes ? 2 : 1;
 }
 
-__device__ __forceinline__ double nan_to_num(double v) {
-  if (v != v) return 0.0;
-  if (v == CUDART_INF) return DBL_MAX;
-  if (v == -CUDART_INF) return -DBL_MAX;
+template <typename Real>
+__device__ __forceinline__ Real nan_to_num(Real v) {
+  if (v != v) return Real(0);
+  if (v == Real(CUDART_INF)) return Rn<Real>::max();
+  if (v == -Real(CUDART_INF)) return -Rn<Real>::max();
   return v;
 }
 
@@ -181,35 +202,39 @@ __device__ __forceinline__ double nan_to_num(double v) {
 // times the marginal pdfs (GARCH, nan_to_num), from the transform columns;
 // its per-slab constants are formed once (`Slab`). Both the table build and
 // the rebuild sweep take their cells from `cell`, so the two hold the same
-// bits.
+// bits. The constants come in as doubles: each is formed in double and
+// rounded to Real once, as torch rounds a float64 scalar against a float32
+// tensor (the identity for double).
+template <typename Real>
 struct Slab {
-  const double* z1;
-  const double* z2;
-  const double* lu1;
-  const double* lu2;
+  const Real* z1;
+  const Real* z2;
+  const Real* lu1;
+  const Real* lu2;
   const unsigned char* f1;
   const unsigned char* f2;
-  const double* p;  // the day's (3, n) pdf columns; null: MSM
-  double z0, lu0, p0, zz0, q00;
-  double s01x2, s02x2, s11, s12x2, s22, coef;
+  const Real* p;  // the day's (3, n) pdf columns; null: MSM
+  Real z0, lu0, p0, zz0, q00;
+  Real s01x2, s02x2, s11, s12x2, s22, coef;
   bool f0;
   int n, student;
-  double nu, log_norm, logdet;
+  Real nu, log_norm, logdet;
 };
 
-__device__ __forceinline__ Slab make_slab(
-    const double* __restrict__ z, const unsigned char* __restrict__ fin,
-    const double* __restrict__ lu, const double* __restrict__ p,
+template <typename Real>
+__device__ __forceinline__ Slab<Real> make_slab(
+    const Real* __restrict__ z, const unsigned char* __restrict__ fin,
+    const Real* __restrict__ lu, const Real* __restrict__ p,
     const double* __restrict__ sigma_inv, int student, double nu,
     double log_norm, double logdet, int t, int i0, int n) {
-  Slab s;
+  Slab<Real> s;
   const size_t day = static_cast<size_t>(t) * 3 * n;
-  s.s01x2 = 2.0 * sigma_inv[1];
-  s.s02x2 = 2.0 * sigma_inv[2];
-  s.s11 = sigma_inv[4];
-  s.s12x2 = 2.0 * sigma_inv[5];
-  s.s22 = sigma_inv[8];
-  s.coef = (nu + 3.0) / 2.0;
+  s.s01x2 = static_cast<Real>(2.0 * sigma_inv[1]);
+  s.s02x2 = static_cast<Real>(2.0 * sigma_inv[2]);
+  s.s11 = static_cast<Real>(sigma_inv[4]);
+  s.s12x2 = static_cast<Real>(2.0 * sigma_inv[5]);
+  s.s22 = static_cast<Real>(sigma_inv[8]);
+  s.coef = static_cast<Real>((nu + 3.0) / 2.0);
   s.z0 = z[day + i0];
   s.z1 = z + day + n;
   s.z2 = z + day + 2 * n;
@@ -220,31 +245,32 @@ __device__ __forceinline__ Slab make_slab(
   s.f1 = fin + day + n;
   s.f2 = fin + day + 2 * n;
   s.p = p != nullptr ? p + day : nullptr;
-  s.p0 = p != nullptr ? p[day + i0] : 0.0;
-  s.zz0 = __dmul_rn(s.z0, s.z0);
-  s.q00 = __dmul_rn(sigma_inv[0], s.zz0);
+  s.p0 = p != nullptr ? p[day + i0] : Real(0);
+  s.zz0 = Rn<Real>::mul(s.z0, s.z0);
+  s.q00 = Rn<Real>::mul(static_cast<Real>(sigma_inv[0]), s.zz0);
   s.n = n;
   s.student = student;
-  s.nu = nu;
-  s.log_norm = log_norm;
-  s.logdet = logdet;
+  s.nu = static_cast<Real>(nu);
+  s.log_norm = static_cast<Real>(log_norm);
+  s.logdet = static_cast<Real>(logdet);
   return s;
 }
 
 // A[b, i2] = sum_c G[t, i0, b, c] W2[c, i2]: one entry, in c order
-__device__ __forceinline__ double fold_entry(const double* __restrict__ gt,
-                                             const double* __restrict__ w2,
-                                             int q, int n, int b, int j) {
-  double s = 0.0;
+template <typename Real>
+__device__ __forceinline__ Real fold_entry(const Real* __restrict__ gt,
+                                           const Real* __restrict__ w2,
+                                           int q, int n, int b, int j) {
+  Real s = 0.0;
   for (int c = 0; c < q; ++c) s += gt[b * q + c] * w2[c * n + j];
   return s;
 }
 
 // the columns [0, cols) of A into shared memory (q, n)
-__device__ __forceinline__ void fold_w2(const double* __restrict__ gt,
-                                        const double* __restrict__ w2,
-                                        double* a, int q, int n,
-                                        int cols) {
+template <typename Real>
+__device__ __forceinline__ void fold_w2(const Real* __restrict__ gt,
+                                        const Real* __restrict__ w2,
+                                        Real* a, int q, int n, int cols) {
   for (int idx = threadIdx.x; idx < q * cols; idx += blockDim.x) {
     const int b = idx / cols;
     const int j = idx - b * cols;
@@ -253,69 +279,71 @@ __device__ __forceinline__ void fold_w2(const double* __restrict__ gt,
 }
 
 // U[t, i0, i1, i2] = V * sum_b W1[b, i1] A[b, i2]
-__device__ __forceinline__ double cell(const Slab& s,
-                                       const double* __restrict__ w1,
-                                       const double* a, int q, int i1,
-                                       int i2) {
+template <typename Real>
+__device__ __forceinline__ Real cell(const Slab<Real>& s,
+                                     const Real* __restrict__ w1,
+                                     const Real* a, int q, int i1, int i2) {
+  using R = Rn<Real>;
   const int n = s.n;
-  const double za = s.z1[i1];
-  const double zb = s.z2[i2];
+  const Real za = s.z1[i1];
+  const Real zb = s.z2[i2];
   // z^T Sigma^-1 z in the plain twin's order
-  double quad = __dadd_rn(s.q00, __dmul_rn(s.s01x2, __dmul_rn(s.z0, za)));
-  quad = __dadd_rn(quad, __dmul_rn(s.s02x2, __dmul_rn(s.z0, zb)));
-  quad = __dadd_rn(quad, __dmul_rn(s.s11, __dmul_rn(za, za)));
-  quad = __dadd_rn(quad, __dmul_rn(s.s12x2, __dmul_rn(za, zb)));
-  quad = __dadd_rn(quad, __dmul_rn(s.s22, __dmul_rn(zb, zb)));
-  double v;
+  Real quad = R::add(s.q00, R::mul(s.s01x2, R::mul(s.z0, za)));
+  quad = R::add(quad, R::mul(s.s02x2, R::mul(s.z0, zb)));
+  quad = R::add(quad, R::mul(s.s11, R::mul(za, za)));
+  quad = R::add(quad, R::mul(s.s12x2, R::mul(za, zb)));
+  quad = R::add(quad, R::mul(s.s22, R::mul(zb, zb)));
+  Real v;
   if (s.student) {
-    const double log_mvt = __dsub_rn(
-        s.log_norm, __dmul_rn(s.coef, log1p(__ddiv_rn(quad, s.nu))));
-    const double lu_sum = __dadd_rn(__dadd_rn(s.lu0, s.lu1[i1]), s.lu2[i2]);
-    v = exp(__dsub_rn(log_mvt, lu_sum));
-    if (!(s.f0 && s.f1[i1] != 0 && s.f2[i2] != 0)) v = CUDART_NAN;
+    const Real log_mvt =
+        R::sub(s.log_norm, R::mul(s.coef, R::log1p(R::div(quad, s.nu))));
+    const Real lu_sum = R::add(R::add(s.lu0, s.lu1[i1]), s.lu2[i2]);
+    v = R::exp(R::sub(log_mvt, lu_sum));
+    if (!(s.f0 && s.f1[i1] != 0 && s.f2[i2] != 0)) v = R::nan();
   } else {
-    const double sum_z2 = __dadd_rn(__dadd_rn(s.zz0, __dmul_rn(za, za)),
-                                    __dmul_rn(zb, zb));
-    v = exp(__dmul_rn(-0.5, __dsub_rn(__dadd_rn(s.logdet, quad), sum_z2)));
+    const Real sum_z2 = R::add(R::add(s.zz0, R::mul(za, za)), R::mul(zb, zb));
+    v = R::exp(R::mul(Real(-0.5), R::sub(R::add(s.logdet, quad), sum_z2)));
   }
   if (s.p != nullptr) {
-    v = nan_to_num(__dmul_rn(
-        v, __dmul_rn(__dmul_rn(s.p0, s.p[n + i1]), s.p[2 * n + i2])));
+    v = nan_to_num(
+        R::mul(v, R::mul(R::mul(s.p0, s.p[n + i1]), s.p[2 * n + i2])));
   }
-  double h = 0.0;
+  Real h = 0.0;
   for (int b = 0; b < q; ++b) h += w1[b * n + i1] * a[b * n + i2];
   // rounded here: a caller that adds the cell to a sum (the rebuild's
   // prefix walk) must not get it contracted into an FMA
-  return __dmul_rn(v, h);
+  return R::mul(v, h);
 }
 
+template <typename Real>
 __global__ void __launch_bounds__(kWeightsThreads)
-contract3_weights_kernel(const double* __restrict__ z,           // (T, 3, n)
+contract3_weights_kernel(const Real* __restrict__ z,             // (T, 3, n)
                          const unsigned char* __restrict__ fin,  // (T, 3, n)
-                         const double* __restrict__ lu,          // (T, 3, n)
-                         const double* __restrict__ p,  // (T, 3, n); null: MSM
-                         const double* __restrict__ w1,          // (q, n)
-                         const double* __restrict__ w2,          // (q, n)
-                         const double* __restrict__ g,       // (T, n, q, q)
+                         const Real* __restrict__ lu,            // (T, 3, n)
+                         const Real* __restrict__ p,  // (T, 3, n); null: MSM
+                         const Real* __restrict__ w1,            // (q, n)
+                         const Real* __restrict__ w2,            // (q, n)
+                         const Real* __restrict__ g,         // (T, n, q, q)
                          const double* __restrict__ sigma_inv,   // (3, 3)
                          int student, double nu, double log_norm,
                          double logdet,
-                         double* __restrict__ u,  // (T, rows, stride)
+                         Real* __restrict__ u,  // (T, rows, stride)
                          int T, int n, int row0, int rows, int q, int pitch,
                          int stride) {
-  extern __shared__ double a[];  // (q, n)
+  extern __shared__ __align__(16) unsigned char weights_shared[];
+  Real* a = reinterpret_cast<Real*>(weights_shared);  // (q, n)
   const int t = blockIdx.x / rows;
   const int i0 = row0 + (blockIdx.x - t * rows);  // grid point of the slab
   fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n, n);
   __syncthreads();
-  const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
-                            logdet, t, i0, n);
-  double* slab = u + static_cast<size_t>(blockIdx.x) * stride;
+  const Slab<Real> sl = make_slab(z, fin, lu, p, sigma_inv, student, nu,
+                                  log_norm, logdet, t, i0, n);
+  Real* slab = u + static_cast<size_t>(blockIdx.x) * stride;
   for (int idx = threadIdx.x; idx < stride; idx += blockDim.x) {
     const int i1 = idx / pitch;
     const int i2 = idx - i1 * pitch;
     // pad cells: defined, never summed
-    slab[idx] = (i1 >= n || i2 >= n) ? 0.0 : cell(sl, w1, a, q, i1, i2);
+    slab[idx] = (i1 >= n || i2 >= n) ? Real(0) : cell(sl, w1, a, q, i1, i2);
   }
 }
 
@@ -359,24 +387,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+template <typename Real>
 __global__ void __launch_bounds__(kSweepThreads)
-contract3_sweep_kernel(const double* __restrict__ u,  // (T, rows, stride)
-                       const double* __restrict__ x,        // (n,)
-                       const double* __restrict__ bounds,   // (L, T, 2)
-                       const double* __restrict__ weights,  // (L, 3)
-                       double box_min,
+contract3_sweep_kernel(const Real* __restrict__ u,  // (T, rows, stride)
+                       const Real* __restrict__ x,        // (n,)
+                       const Real* __restrict__ bounds,   // (L, T, 2)
+                       const Real* __restrict__ weights,  // (L, 3)
+                       Real box_min,
                        double* __restrict__ partial,  // (L, T, rows, spans)
                        int T, int n, int row0, int rows, int L, int pitch,
                        int stride, int bufs) {
+  using R = Rn<Real>;
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // (2,)
-  double* buf = reinterpret_cast<double*>(smem + kBarrierBytes);
-  double* xs = buf + static_cast<size_t>(bufs) * stride;         // (n,)
+  Real* buf = reinterpret_cast<Real*>(smem + kBarrierBytes);
+  Real* xs = buf + static_cast<size_t>(bufs) * stride;             // (n,)
   unsigned char* flag = reinterpret_cast<unsigned char*>(xs + n);  // (n,)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int slabs = T * rows;
-  const uint32_t bytes = static_cast<uint32_t>(stride) * sizeof(double);
+  const uint32_t bytes = static_cast<uint32_t>(stride) * sizeof(Real);
 
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   if (threadIdx.x == 0) {
@@ -394,36 +424,36 @@ contract3_sweep_kernel(const double* __restrict__ u,  // (T, rows, stride)
 
   for (int k = 0, s = blockIdx.x; s < slabs; ++k, s += gridDim.x) {
     const int b = k % bufs;
-    double* slab = buf + static_cast<size_t>(b) * stride;
+    Real* slab = buf + static_cast<size_t>(b) * stride;
     mbar_wait(&bar[b], (k / bufs) & 1);
     const int t = s / rows;
     const int i0 = s - t * rows;  // the range's slab, grid point row0 + i0
-    const double* cells = u + static_cast<size_t>(s) * stride;  // in HBM
+    const Real* cells = u + static_cast<size_t>(s) * stride;  // in HBM
     for (int i1 = threadIdx.x; i1 < n; i1 += blockDim.x)
       flag[i1] = interval::scan_row_once(
           slab + static_cast<size_t>(i1) * pitch, n);
     __syncthreads();
-    const double x0 = xs[row0 + i0];
+    const Real x0 = xs[row0 + i0];
     const int spans = (n + kSpan - 1) / kSpan;  // tasks per bound row
     for (int task = warp; task < L * spans; task += kSweepWarps) {
       const int l = task / spans;
       const int k = task - l * spans;
       const size_t o = static_cast<size_t>(l) * T + t;
-      const double b_lo = bounds[2 * o];
-      const double b_up = bounds[2 * o + 1];
-      const double w_in = weights[3 * l];
-      const double p0w = __dmul_rn(x0, weights[3 * l + 1]);
-      const double w_o2 = weights[3 * l + 2];
+      const Real b_lo = bounds[2 * o];
+      const Real b_up = bounds[2 * o + 1];
+      const Real w_in = weights[3 * l];
+      const Real p0w = R::mul(x0, weights[3 * l + 1]);
+      const Real w_o2 = weights[3 * l + 2];
       double acc = 0.0;
 #pragma unroll
       for (int c = 0; c < kSpan / 32; ++c) {
         const int i1 = k * kSpan + c * 32 + lane;
         if (i1 < n) {
-          const double prev = __dadd_rn(p0w, __dmul_rn(xs[i1], w_o2));
-          const double dup = __ddiv_rn(__dsub_rn(b_up, prev), w_in);
-          const double d = __ddiv_rn(__dsub_rn(b_lo, prev), w_in);
+          const Real prev = R::add(p0w, R::mul(xs[i1], w_o2));
+          const Real dup = R::div(R::sub(b_up, prev), w_in);
+          const Real d = R::div(R::sub(b_lo, prev), w_in);
           // NaN-propagating max, as torch.maximum
-          const double dlo = (d > box_min || d != d) ? d : box_min;
+          const Real dlo = (d > box_min || d != d) ? d : box_min;
           const size_t r = static_cast<size_t>(i1) * pitch;
           acc += interval::row_sum<interval::kShortTop>(
               slab + r, cells + r, flag[i1] != 0, xs, n, dlo, dup);
@@ -442,53 +472,63 @@ contract3_sweep_kernel(const double* __restrict__ u,  // (T, rows, stride)
   }
 }
 
-// out[r] = sum_k partial[r, k] over the row's m partials, in index order
+// out[r] = sum_k partial[r, k] over the row's m partials, in index order,
+// rounded to Real once
+template <typename Real>
 __global__ void contract3_sum_kernel(const double* __restrict__ partial,
-                                     double* __restrict__ out, int m,
+                                     Real* __restrict__ out, int m,
                                      int rows) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   const double* pr = partial + static_cast<size_t>(r) * m;
   double s = 0.0;
   for (int i = 0; i < m; ++i) s += pr[i];
-  out[r] = s;
+  out[r] = static_cast<Real>(s);
 }
 
-// rebuild: x (n,), the (q, n) fold, and per (bound row, tile row) the packed
-// interval, the row's masked sum and, walking full rows (no flag table),
-// its cell-by-cell sum
+// bytes rounded up to a multiple of 8 (a double array after Real ones)
+__host__ __device__ constexpr size_t align8(size_t bytes) {
+  return (bytes + 7) / 8 * 8;
+}
+
+// rebuild: x (n,), the (q, n) fold, and per (bound row, tile row) the
+// row's masked sum, walking full rows (no flag table) its cell-by-cell sum,
+// and the packed interval
+template <typename Real>
 __host__ __device__ size_t rebuild_shared_bytes(int n, int q, int rows_l,
                                                 bool full) {
   const size_t lookups = static_cast<size_t>(rows_l) * kSpan;
-  return (static_cast<size_t>(n) + static_cast<size_t>(q) * n +
-          lookups * (full ? 2 : 1)) * sizeof(double) +
-         lookups * sizeof(int);
+  return align8((static_cast<size_t>(n) + static_cast<size_t>(q) * n) *
+                sizeof(Real)) +
+         lookups * (full ? 2 : 1) * sizeof(double) + lookups * sizeof(int);
 }
 
 // The row flags: flags[t, local, i1] = 1 when a cell of the whole row
 // (t, row0 + local, i1) lies outside [-kMaxCell, kMaxCell] or is NaN, the
 // test of interval::scan_row_once on the same cells (`cell`). One block
 // per (t, local) slab; warps take rows, lanes columns.
+template <typename Real>
 __global__ void __launch_bounds__(kFlagsThreads)
-contract3_flags_kernel(const double* __restrict__ z,           // (T, 3, n)
+contract3_flags_kernel(const Real* __restrict__ z,             // (T, 3, n)
                        const unsigned char* __restrict__ fin,  // (T, 3, n)
-                       const double* __restrict__ lu,          // (T, 3, n)
-                       const double* __restrict__ p,  // (T, 3, n); null: MSM
-                       const double* __restrict__ w1,          // (q, n)
-                       const double* __restrict__ w2,          // (q, n)
-                       const double* __restrict__ g,       // (T, n, q, q)
+                       const Real* __restrict__ lu,            // (T, 3, n)
+                       const Real* __restrict__ p,  // (T, 3, n); null: MSM
+                       const Real* __restrict__ w1,            // (q, n)
+                       const Real* __restrict__ w2,            // (q, n)
+                       const Real* __restrict__ g,         // (T, n, q, q)
                        const double* __restrict__ sigma_inv,   // (3, 3)
                        int student, double nu, double log_norm,
                        double logdet,
                        unsigned char* __restrict__ flags,  // (T, rows, n)
                        int T, int n, int row0, int rows, int q) {
-  extern __shared__ double a[];  // (q, n)
+  extern __shared__ __align__(16) unsigned char flags_shared[];
+  Real* a = reinterpret_cast<Real*>(flags_shared);  // (q, n)
   const int t = blockIdx.x / rows;
   const int i0 = row0 + (blockIdx.x - t * rows);
   fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n, n);
   __syncthreads();
-  const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
-                            logdet, t, i0, n);
+  const Slab<Real> sl = make_slab(z, fin, lu, p, sigma_inv, student, nu,
+                                  log_norm, logdet, t, i0, n);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   unsigned char* out = flags + static_cast<size_t>(blockIdx.x) * n;
@@ -503,11 +543,14 @@ contract3_flags_kernel(const double* __restrict__ z,           // (T, 3, n)
 
 // The intervals of row r (packed spans, (rows_l, kSpan)) that the walk
 // passes at j, its running prefix `run`: S[lo - 1] kept, then S[hi - 1] -
-// S[lo - 1] (S[hi - 1] when lo = 0) stored in sums. Returns the next j that
-// ends an interval, len when none does. Out of line: the walk's hot loop
-// calls it once or twice per interval, and keeps its registers.
+// S[lo - 1] (S[hi - 1] when lo = 0) stored in sums, each prefix as the
+// table stores it (interval::stored: rounded to Real). Returns the next j
+// that ends an interval, len when none does. Out of line: the walk's hot
+// loop calls it once or twice per interval, and keeps its registers.
+template <typename Real>
 __device__ __noinline__ int capture(double* sums, const int* spans, int r,
                                     int rows_l, int j, double run, int len) {
+  const double s = interval::stored<Real>(run);
   int next = len;
   for (int l = 0; l < rows_l; ++l) {
     const int k = l * kSpan + r;
@@ -515,8 +558,8 @@ __device__ __noinline__ int capture(double* sums, const int* spans, int r,
     if (sp == 0) continue;
     const int lo = sp & 0xffff;
     const int hi = sp >> 16;
-    if (j == lo - 1) sums[k] = run;
-    if (j == hi - 1) sums[k] = lo > 0 ? run - sums[k] : run;
+    if (j == lo - 1) sums[k] = s;
+    if (j == hi - 1) sums[k] = lo > 0 ? s - sums[k] : s;
     if (lo - 1 > j) next = min(next, lo - 1);
     if (hi - 1 > j) next = min(next, hi - 1);
   }
@@ -555,35 +598,39 @@ __device__ __noinline__ void add_in_flagged(double* to, const int* spans,
 // interval::row_sum's over the full row's prefix, bit for bit, and the
 // partial of each (l, t, i0, tile) adds lanes r and r + 32 and then
 // warp_sum, as contract3_sweep_kernel adds a span.
-template <bool kFull>
+template <typename Real, bool kFull>
 __global__ void __launch_bounds__(kSpan, kRebuildMinBlocks)
-contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
+contract3_rebuild_kernel(const Real* __restrict__ z,             // (T, 3, n)
                          const unsigned char* __restrict__ fin,  // (T, 3, n)
-                         const double* __restrict__ lu,          // (T, 3, n)
-                         const double* __restrict__ p,  // (T, 3, n); null: MSM
-                         const double* __restrict__ w1,          // (q, n)
-                         const double* __restrict__ w2,          // (q, n)
-                         const double* __restrict__ g,       // (T, n, q, q)
+                         const Real* __restrict__ lu,            // (T, 3, n)
+                         const Real* __restrict__ p,  // (T, 3, n); null: MSM
+                         const Real* __restrict__ w1,            // (q, n)
+                         const Real* __restrict__ w2,            // (q, n)
+                         const Real* __restrict__ g,         // (T, n, q, q)
                          const double* __restrict__ sigma_inv,   // (3, 3)
                          int student, double nu, double log_norm,
                          double logdet,
                          // (T, rows, n) row flags; null: full rows
                          const unsigned char* __restrict__ flags,
-                         const double* __restrict__ x,        // (n,)
-                         const double* __restrict__ bounds,   // (L, T, 2)
-                         const double* __restrict__ weights,  // (L, 3)
-                         double box_min,
+                         const Real* __restrict__ x,        // (n,)
+                         const Real* __restrict__ bounds,   // (L, T, 2)
+                         const Real* __restrict__ weights,  // (L, 3)
+                         Real box_min,
                          double* __restrict__ partial,  // (L, T, rows, tiles)
                          int T, int n, int row0, int rows, int q,
                          int rows_l) {
-  // not `smem`: contract3_sweep_kernel declares that name with another type
-  extern __shared__ double rebuild_shared[];
+  using R = Rn<Real>;
+  // not `smem`: contract3_sweep_kernel declares that name
+  extern __shared__ __align__(16) unsigned char rebuild_shared[];
   __shared__ int warp_reach[kSpan / 32];
   const int tiles = (n + kSpan - 1) / kSpan;
   const size_t lookups = static_cast<size_t>(rows_l) * kSpan;
-  double* xs = rebuild_shared;                          // (n,)
-  double* a = xs + n;                                   // (q, n)
-  double* sums = a + static_cast<size_t>(q) * n;        // (rows_l, kSpan)
+  Real* xs = reinterpret_cast<Real*>(rebuild_shared);   // (n,)
+  Real* a = xs + n;                                     // (q, n)
+  double* sums = reinterpret_cast<double*>(             // (rows_l, kSpan)
+      rebuild_shared +
+      align8((static_cast<size_t>(n) + static_cast<size_t>(q) * n) *
+             sizeof(Real)));
   double* cell_sums = sums + lookups;            // kFull: (rows_l, kSpan)
   int* spans = reinterpret_cast<int*>(sums + lookups * (kFull ? 2 : 1));
   const int tile = blockIdx.x % tiles;
@@ -604,19 +651,18 @@ contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
   // the row's lookups read
   int reach = 0;
   if (r < nr) {
-    const double x0 = xs[i0];
+    const Real x0 = xs[i0];
     for (int l = 0; l < rows_l; ++l) {
       const size_t o = static_cast<size_t>(l) * T + t;
-      const double b_lo = bounds[2 * o];
-      const double b_up = bounds[2 * o + 1];
-      const double w_in = weights[3 * l];
-      const double p0w = __dmul_rn(x0, weights[3 * l + 1]);
-      const double prev =
-          __dadd_rn(p0w, __dmul_rn(xs[i1], weights[3 * l + 2]));
-      const double dup = __ddiv_rn(__dsub_rn(b_up, prev), w_in);
-      const double d = __ddiv_rn(__dsub_rn(b_lo, prev), w_in);
+      const Real b_lo = bounds[2 * o];
+      const Real b_up = bounds[2 * o + 1];
+      const Real w_in = weights[3 * l];
+      const Real p0w = R::mul(x0, weights[3 * l + 1]);
+      const Real prev = R::add(p0w, R::mul(xs[i1], weights[3 * l + 2]));
+      const Real dup = R::div(R::sub(b_up, prev), w_in);
+      const Real d = R::div(R::sub(b_lo, prev), w_in);
       // NaN-propagating max, as torch.maximum
-      const double dlo = (d > box_min || d != d) ? d : box_min;
+      const Real dlo = (d > box_min || d != d) ? d : box_min;
       int lo = 0, hi = 0;
       if (!(dlo != dlo || dup != dup))
         interval::counts_le<interval::kMaxTop>(xs, n, dlo, dup, &lo, &hi);
@@ -647,16 +693,16 @@ contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
 
   // 2. the walk of row r: cells [0, len) in index order
   if (reach > 0) {
-    const Slab sl = make_slab(z, fin, lu, p, sigma_inv, student, nu, log_norm,
-                              logdet, t, i0, n);
+    const Slab<Real> sl = make_slab(z, fin, lu, p, sigma_inv, student, nu,
+                                    log_norm, logdet, t, i0, n);
     const bool flagged =
         !kFull && flags[(static_cast<size_t>(t) * rows + local) * n + i1] != 0;
     const int len = kFull ? n : reach;
     double run = 0.0;  // the row's inclusive prefix sum
     bool ok = true;    // kFull: no cell outside [-kMaxCell, kMaxCell] yet
-    int next = capture(sums, spans, r, rows_l, -1, run, len);
+    int next = capture<Real>(sums, spans, r, rows_l, -1, run, len);
     for (int j = 0; j < len; ++j) {
-      const double c = cell(sl, w1, a, q, i1, j);
+      const Real c = cell(sl, w1, a, q, i1, j);
       if (flagged) {
         add_in_flagged(sums, spans, r, rows_l, j, c);
         continue;
@@ -665,8 +711,8 @@ contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
         ok &= fabs(c) <= interval::kMaxCell;
         if (j < reach) add_in(cell_sums, spans, r, rows_l, j, c);
       }
-      run += c;
-      if (j == next) next = capture(sums, spans, r, rows_l, j, run, len);
+      run += static_cast<double>(c);
+      if (j == next) next = capture<Real>(sums, spans, r, rows_l, j, run, len);
     }
     if (kFull && !ok) {
       for (int l = 0; l < rows_l; ++l)
@@ -692,60 +738,63 @@ contract3_rebuild_kernel(const double* __restrict__ z,           // (T, 3, n)
   }
 }
 
+// a slab's stride: n * pitch rounded up to 16 bytes (the bulk copy's unit)
+template <typename Real>
 bool valid_layout(int n, int pitch, int stride) {
+  constexpr long long unit = 16 / sizeof(Real);
   const long long np = static_cast<long long>(n) * pitch;
-  return pitch == interval::row_pitch(n) && stride == np + np % 2;
+  return pitch == interval::row_pitch(n) &&
+         stride == (np + unit - 1) / unit * unit;
 }
 
-}  // namespace
-
-extern "C" int cvt_contract3_weights(
-    const double* z, const unsigned char* fin, const double* lu,
-    const double* p, const double* w1, const double* w2, const double* g,
-    const double* sigma_inv, int student, double nu, double log_norm,
-    double logdet, double* u, int T, int n, int row0, int rows, int q,
-    int pitch, int stride, void* stream) {
-  if (n <= 0 || q <= 0 || T < 0 || !valid_layout(n, pitch, stride) ||
+template <typename Real>
+int contract3_weights(const Real* z, const unsigned char* fin, const Real* lu,
+                      const Real* p, const Real* w1, const Real* w2,
+                      const Real* g, const double* sigma_inv, int student,
+                      double nu, double log_norm, double logdet, Real* u,
+                      int T, int n, int row0, int rows, int q, int pitch,
+                      int stride, void* stream) {
+  if (n <= 0 || q <= 0 || T < 0 || !valid_layout<Real>(n, pitch, stride) ||
       row0 < 0 || rows <= 0 || row0 + rows > n ||
       static_cast<long long>(T) * rows > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = weights_shared_bytes(n, q);
+  const size_t bytes = weights_shared_bytes<Real>(n, q);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      contract3_weights_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      contract3_weights_kernel<Real>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0) return 0;
-  contract3_weights_kernel<<<T * rows, kWeightsThreads, bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
+  contract3_weights_kernel<Real><<<T * rows, kWeightsThreads, bytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
       z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet, u,
       T, n, row0, rows, q, pitch, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 // u: the slabs [row0, row0 + rows) of every day; partial: (L, T, rows,
-// ceil(n / kSpan)) scratch, summed in order into out
-extern "C" int cvt_masked_contract3(const double* u, const double* x,
-                                    const double* bounds,
-                                    const double* weights, double box_min,
-                                    double* partial, double* out, int T,
-                                    int n, int row0, int rows, int L,
-                                    int pitch, int stride, void* stream) {
-  if (n <= 0 || n > interval::kMaxRow || T < 0 || L < 0 ||
-      !valid_layout(n, pitch, stride) ||
+// ceil(n / kSpan)) scratch, summed in order into out. The table sweep
+// searches the short rows (interval::kShortTop), so it takes n <= 192.
+template <typename Real>
+int masked_contract3(const Real* u, const Real* x, const Real* bounds,
+                     const Real* weights, double box_min, double* partial,
+                     Real* out, int T, int n, int row0, int rows, int L,
+                     int pitch, int stride, void* stream) {
+  if (n <= 0 || n > interval::kShortRow || T < 0 || L < 0 ||
+      !valid_layout<Real>(n, pitch, stride) ||
       row0 < 0 || rows <= 0 || row0 + rows > n ||
       static_cast<long long>(T) * rows > 0x7fffffffLL ||
       static_cast<long long>(L) * T > 0x7fffffffLL ||
       static_cast<long long>(L) * ((n + kSpan - 1) / kSpan) > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bufs = sweep_buffers(n, stride);
-  const size_t bytes = sweep_shared_bytes(n, stride, bufs);
+  const int bufs = sweep_buffers<Real>(n, stride);
+  const size_t bytes = sweep_shared_bytes<Real>(n, stride, bufs);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      contract3_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      contract3_sweep_kernel<Real>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0 || L == 0) return 0;
   int device = 0, sms = 0, per_sm = 0;
@@ -754,7 +803,7 @@ extern "C" int cvt_masked_contract3(const double* u, const double* x,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, contract3_sweep_kernel, kSweepThreads, bytes);
+        &per_sm, contract3_sweep_kernel<Real>, kSweepThreads, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long slabs = static_cast<long long>(T) * rows;
   const int grid = static_cast<int>(
@@ -762,39 +811,41 @@ extern "C" int cvt_masked_contract3(const double* u, const double* x,
           ? slabs
           : static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  contract3_sweep_kernel<<<grid, kSweepThreads, bytes, s>>>(
-      u, x, bounds, weights, box_min, partial, T, n, row0, rows, L, pitch,
-      stride, bufs);
+  contract3_sweep_kernel<Real><<<grid, kSweepThreads, bytes, s>>>(
+      u, x, bounds, weights, static_cast<Real>(box_min), partial, T, n, row0,
+      rows, L, pitch, stride, bufs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int sums = L * T;  // one per (bound row, day)
   const int m = rows * ((n + kSpan - 1) / kSpan);  // partials per sum
-  contract3_sum_kernel<<<(sums + kSumThreads - 1) / kSumThreads, kSumThreads,
-                         0, s>>>(partial, out, m, sums);
+  contract3_sum_kernel<Real><<<(sums + kSumThreads - 1) / kSumThreads,
+                               kSumThreads, 0, s>>>(partial, out, m, sums);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The row flags of the outer slabs [row0, row0 + rows) of every day:
 // flags (T, rows, n) bytes
-extern "C" int cvt_contract3_row_flags(
-    const double* z, const unsigned char* fin, const double* lu,
-    const double* p, const double* w1, const double* w2, const double* g,
-    const double* sigma_inv, int student, double nu, double log_norm,
-    double logdet, unsigned char* flags, int T, int n, int row0, int rows,
-    int q, void* stream) {
+template <typename Real>
+int contract3_row_flags(const Real* z, const unsigned char* fin,
+                        const Real* lu, const Real* p, const Real* w1,
+                        const Real* w2, const Real* g,
+                        const double* sigma_inv, int student, double nu,
+                        double log_norm, double logdet, unsigned char* flags,
+                        int T, int n, int row0, int rows, int q,
+                        void* stream) {
   if (n <= 0 || q <= 0 || T < 0 || row0 < 0 || rows <= 0 ||
       row0 + rows > n || static_cast<long long>(T) * rows > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = weights_shared_bytes(n, q);
+  const size_t bytes = weights_shared_bytes<Real>(n, q);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      contract3_flags_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      contract3_flags_kernel<Real>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0) return 0;
-  contract3_flags_kernel<<<T * rows, kFlagsThreads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
+  contract3_flags_kernel<Real><<<T * rows, kFlagsThreads, bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
       z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet,
       flags, T, n, row0, rows, q);
   return static_cast<int>(cudaGetLastError());
@@ -805,17 +856,17 @@ extern "C" int cvt_contract3_row_flags(
 // the row flags of those slabs, or null to walk full rows and flag them
 // by the scan; partial: (L, T, rows, ceil(n / kSpan)) scratch, summed in
 // order into out. Launches take up to kWalkRows bound rows each.
-extern "C" int cvt_masked_contract3_rebuild(
-    const double* z, const unsigned char* fin, const double* lu,
-    const double* p, const double* w1, const double* w2, const double* g,
-    const double* sigma_inv, int student, double nu, double log_norm,
-    double logdet, const unsigned char* flags, const double* x,
-    const double* bounds, const double* weights, double box_min,
-    double* partial, double* out, int T, int n, int row0, int rows, int q,
-    int L, void* stream) {
+template <typename Real>
+int masked_contract3_rebuild(
+    const Real* z, const unsigned char* fin, const Real* lu, const Real* p,
+    const Real* w1, const Real* w2, const Real* g, const double* sigma_inv,
+    int student, double nu, double log_norm, double logdet,
+    const unsigned char* flags, const Real* x, const Real* bounds,
+    const Real* weights, double box_min, double* partial, Real* out, int T,
+    int n, int row0, int rows, int q, int L, void* stream) {
   const bool full = flags == nullptr;
   // the limit does not depend on the flags or L: the most a launch takes
-  const size_t bytes = rebuild_shared_bytes(n, q, kWalkRows, true);
+  const size_t bytes = rebuild_shared_bytes<Real>(n, q, kWalkRows, true);
   if (n <= 0 || n > interval::kMaxRow || q <= 0 || T < 0 || L < 0 ||
       row0 < 0 || rows <= 0 || row0 + rows > n || bytes > kMaxSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -825,8 +876,8 @@ extern "C" int cvt_masked_contract3_rebuild(
       static_cast<long long>(L) * T > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = full ? contract3_rebuild_kernel<true>
-                           : contract3_rebuild_kernel<false>;
+  const auto kernel = full ? contract3_rebuild_kernel<Real, true>
+                           : contract3_rebuild_kernel<Real, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -839,15 +890,67 @@ extern "C" int cvt_masked_contract3_rebuild(
   for (int l0 = 0; l0 < L; l0 += kWalkRows) {
     const int rows_l = min(kWalkRows, L - l0);
     kernel<<<T * rows * tiles, kSpan,
-             rebuild_shared_bytes(n, q, rows_l, full), s>>>(
+             rebuild_shared_bytes<Real>(n, q, rows_l, full), s>>>(
         z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet,
         flags, x, bounds + 2 * static_cast<size_t>(l0) * T, weights + 3 * l0,
-        box_min, partial + l0 * per_row, T, n, row0, rows, q, rows_l);
+        static_cast<Real>(box_min), partial + l0 * per_row, T, n, row0, rows,
+        q, rows_l);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int sums = L * T;  // one per (bound row, day)
-  contract3_sum_kernel<<<(sums + kSumThreads - 1) / kSumThreads, kSumThreads,
-                         0, s>>>(partial, out, rows * tiles, sums);
+  contract3_sum_kernel<Real><<<(sums + kSumThreads - 1) / kSumThreads,
+                               kSumThreads, 0, s>>>(partial, out,
+                                                    rows * tiles, sums);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// The f64 launchers and their f32 twins (same arguments, float tensors;
+// sigma_inv and the partials stay double).
+#define CVT_DIM3_LAUNCHERS(SUFFIX, Real)                                      \
+  extern "C" int cvt_contract3_weights##SUFFIX(                               \
+      const Real* z, const unsigned char* fin, const Real* lu,                \
+      const Real* p, const Real* w1, const Real* w2, const Real* g,           \
+      const double* sigma_inv, int student, double nu, double log_norm,       \
+      double logdet, Real* u, int T, int n, int row0, int rows, int q,        \
+      int pitch, int stride, void* stream) {                                  \
+    return contract3_weights<Real>(z, fin, lu, p, w1, w2, g, sigma_inv,       \
+                                   student, nu, log_norm, logdet, u, T, n,    \
+                                   row0, rows, q, pitch, stride, stream);     \
+  }                                                                           \
+  extern "C" int cvt_masked_contract3##SUFFIX(                                \
+      const Real* u, const Real* x, const Real* bounds, const Real* weights,  \
+      double box_min, double* partial, Real* out, int T, int n, int row0,     \
+      int rows, int L, int pitch, int stride, void* stream) {                 \
+    return masked_contract3<Real>(u, x, bounds, weights, box_min, partial,    \
+                                  out, T, n, row0, rows, L, pitch, stride,    \
+                                  stream);                                    \
+  }                                                                           \
+  extern "C" int cvt_contract3_row_flags##SUFFIX(                             \
+      const Real* z, const unsigned char* fin, const Real* lu,                \
+      const Real* p, const Real* w1, const Real* w2, const Real* g,           \
+      const double* sigma_inv, int student, double nu, double log_norm,       \
+      double logdet, unsigned char* flags, int T, int n, int row0, int rows,  \
+      int q, void* stream) {                                                  \
+    return contract3_row_flags<Real>(z, fin, lu, p, w1, w2, g, sigma_inv,     \
+                                     student, nu, log_norm, logdet, flags, T, \
+                                     n, row0, rows, q, stream);               \
+  }                                                                           \
+  extern "C" int cvt_masked_contract3_rebuild##SUFFIX(                        \
+      const Real* z, const unsigned char* fin, const Real* lu,                \
+      const Real* p, const Real* w1, const Real* w2, const Real* g,           \
+      const double* sigma_inv, int student, double nu, double log_norm,       \
+      double logdet, const unsigned char* flags, const Real* x,               \
+      const Real* bounds, const Real* weights, double box_min,                \
+      double* partial, Real* out, int T, int n, int row0, int rows, int q,    \
+      int L, void* stream) {                                                  \
+    return masked_contract3_rebuild<Real>(                                    \
+        z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet,   \
+        flags, x, bounds, weights, box_min, partial, out, T, n, row0, rows,   \
+        q, L, stream);                                                        \
+  }
+
+CVT_DIM3_LAUNCHERS(, double)
+CVT_DIM3_LAUNCHERS(_f32, float)

@@ -31,10 +31,21 @@
 // shared memory put 16 consecutive rows on distinct bank pairs); lookups
 // are per-thread, and `warp_sum` is warp-synchronous. None uses a block
 // barrier.
+//
+// Cells, grid and bounds are of the kernels' working type Real (real.cuh:
+// double or float). Every running sum is a double for both: a prefix is
+// accumulated in a double register and rounded to Real once, where it is
+// stored, and a row's masked sum is the difference of two stored prefixes
+// taken in double. In float a prefix accumulated in float would lose
+// about sqrt(n) ulps of the row's total; rounded once it loses half of
+// one, and the difference adds no rounding of its own. For double every
+// conversion is the identity: the f64 kernels' sums are what they were.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "real.cuh"
 
 // The kernels' limits have one home, copula_var_tpu_torch/ops/_build.py,
 // which passes them to nvcc: the interval rule's two longest rows in
@@ -76,10 +87,9 @@ __host__ __device__ __forceinline__ int row_pitch(int n) { return n | 1; }
 // 2 kTop - 1 entries, shared memory): both counts by binary lifting,
 // interleaved, in a fixed number of branch-free steps; a NaN bound
 // counts 0.
-template <int kTop>
-__device__ __forceinline__ void counts_le(const double* xs, int n,
-                                          double dlo, double dup, int* lo,
-                                          int* hi) {
+template <int kTop, typename Real>
+__device__ __forceinline__ void counts_le(const Real* xs, int n, Real dlo,
+                                          Real dup, int* lo, int* hi) {
   int a = 0, b = 0;
 #pragma unroll
   for (int step = kTop; step > 0; step >>= 1) {
@@ -90,21 +100,21 @@ __device__ __forceinline__ void counts_le(const double* xs, int n,
   *hi = b;
 }
 
-// Masked sum of one row: from its prefix sums `row` when it is not
-// flagged, else from its cells `cells`, one by one (searches of
+// Masked sum of one row, in double: from its prefix sums `row` when it is
+// not flagged, else from its cells `cells`, one by one (searches of
 // counts_le<kTop>).
-template <int kTop>
-__device__ __forceinline__ double row_sum(const double* row,
-                                          const double* cells, bool flagged,
-                                          const double* xs, int n,
-                                          double dlo, double dup) {
+template <int kTop, typename Real>
+__device__ __forceinline__ double row_sum(const Real* row, const Real* cells,
+                                          bool flagged, const Real* xs,
+                                          int n, Real dlo, Real dup) {
   if (dlo != dlo || dup != dup) return 0.0;
   int lo, hi;
   counts_le<kTop>(xs, n, dlo, dup, &lo, &hi);
   if (hi <= lo) return 0.0;
-  if (!flagged) return lo > 0 ? row[hi - 1] - row[lo - 1] : row[hi - 1];
+  const double top = static_cast<double>(row[hi - 1]);
+  if (!flagged) return lo > 0 ? top - static_cast<double>(row[lo - 1]) : top;
   double s = 0.0;
-  for (int j = lo; j < hi; ++j) s += cells[j];
+  for (int j = lo; j < hi; ++j) s += static_cast<double>(cells[j]);
   return s;
 }
 
@@ -112,8 +122,9 @@ __device__ __forceinline__ double row_sum(const double* row,
 // index order, unless the row holds a cell outside [-kMaxCell, kMaxCell]
 // (NaN included): then the row is left as it was, to be summed cell by
 // cell, and the thread returns true. The first pass only checks the
-// cells; the second sums them.
-__device__ __forceinline__ bool scan_row(double* row, int n) {
+// cells; the second sums them (in double, each prefix rounded to Real).
+template <typename Real>
+__device__ __forceinline__ bool scan_row(Real* row, int n) {
   bool ok = true;
 #pragma unroll 4
   for (int j = 0; j < n; ++j) ok &= fabs(row[j]) <= kMaxCell;
@@ -121,8 +132,8 @@ __device__ __forceinline__ bool scan_row(double* row, int n) {
   double s = 0.0;
 #pragma unroll 4
   for (int j = 0; j < n; ++j) {
-    s += row[j];
-    row[j] = s;
+    s += static_cast<double>(row[j]);
+    row[j] = static_cast<Real>(s);
   }
   return false;
 }
@@ -131,17 +142,25 @@ __device__ __forceinline__ bool scan_row(double* row, int n) {
 // place, in index order; returns true when the row holds a cell outside
 // [-kMaxCell, kMaxCell] (NaN included). A flagged row's sums are of no
 // use then, so its cells must be kept elsewhere (K4: the table).
-__device__ __forceinline__ bool scan_row_once(double* row, int n) {
+template <typename Real>
+__device__ __forceinline__ bool scan_row_once(Real* row, int n) {
   bool ok = true;
   double s = 0.0;
 #pragma unroll 4
   for (int j = 0; j < n; ++j) {
-    const double c = row[j];
+    const Real c = row[j];
     ok &= fabs(c) <= kMaxCell;
-    s += c;
-    row[j] = s;
+    s += static_cast<double>(c);
+    row[j] = static_cast<Real>(s);
   }
   return !ok;
+}
+
+// A running double sum as its stored prefix reads back: rounded to Real
+// (the identity for double).
+template <typename Real>
+__device__ __forceinline__ double stored(double s) {
+  return static_cast<double>(static_cast<Real>(s));
 }
 
 // Sum of v over the warp; every lane returns the same bits (each xor step

@@ -1,5 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the two-asset (dim-2) VaR serving
-// path, float64.
+// path, templates over the working type Real (real.cuh): double for the
+// f64 `xla` engine, float for the f32 engine (`engine="pallas"`, the
+// JAX package's f32 Pallas kernels). Each C launcher below has an f64
+// form and an `_f32` form with the same arguments.
 //
 //   sweep_table    builds, once per backtest, the bounds-invariant prefix
 //                  table P (T, rows, pitch) and one flag byte per (t, i)
@@ -78,6 +81,15 @@
 //     every day's CDF is exactly 0) needs a grid-wide reduction and is
 //     omitted, as in K1; the plain twin keeps it.
 //
+// In float (the f32 engine) the cells, grid, bounds, weights and the
+// bisection state are float, formed with the Rn<float> intrinsics, as the
+// JAX f32 engine forms them in f32 (its mask `(b - x_i w_out) / w_in` in
+// that order); every prefix, row sum and warp sum is a double, rounded to
+// float where it is stored (interval.cuh): a slab total in float, as
+// JAX's. K1 in float runs the caller's fixed count of halvings (the JAX
+// engine's `_full_iters`), so the f32 solve reads no bracket on the host.
+// Its day takes half the shared memory: n <= 192, the short rows.
+//
 // Launchers: plain C, no allocation, no synchronisation, launched on the
 // caller's stream; each returns cudaGetLastError() (or
 // cudaErrorInvalidValue for shapes the kernels do not take).
@@ -99,59 +111,66 @@ constexpr size_t kMaxSharedBytes = CVT_MAX_SHARED_BYTES;  // opt-in per block
 
 // sweep_table: rows of U per block, kTableRows or as many as the block's
 // shared memory holds at the row pitch of n
+template <typename Real>
 __host__ __device__ int table_block_rows(int n) {
   const size_t row = static_cast<size_t>(interval::row_pitch(n)) *
-                     sizeof(double);
+                     sizeof(Real);
   const size_t fit = kMaxSharedBytes / row;
   return fit < static_cast<size_t>(kTableRows) ? static_cast<int>(fit)
                                                : kTableRows;
 }
 
+template <typename Real>
 __host__ __device__ size_t table_shared_bytes(int n) {
-  return static_cast<size_t>(table_block_rows(n)) * interval::row_pitch(n) *
-         sizeof(double);
+  return static_cast<size_t>(table_block_rows<Real>(n)) *
+         interval::row_pitch(n) * sizeof(Real);
 }
 
 // bisect_levels: U (n, n | 1) prefix rows, x (n,), one flag byte per row
+template <typename Real>
 __host__ __device__ size_t bisect_shared_bytes(int n) {
-  return (static_cast<size_t>(n) * (n | 1) + n) * sizeof(double) + n;
+  return (static_cast<size_t>(n) * (n | 1) + n) * sizeof(Real) + n;
 }
 
 // U[r, j] = V[r, j] * sum_k wfc[r, k] * W1[k, j] for `rows` rows (v and wfc
 // point at the first), written `pitch` apart into u.
-__device__ void form_rows(const double* __restrict__ v,
-                          const double* __restrict__ wfc,
-                          const double* __restrict__ w1, double* u, int rows,
+template <typename Real>
+__device__ void form_rows(const Real* __restrict__ v,
+                          const Real* __restrict__ wfc,
+                          const Real* __restrict__ w1, Real* u, int rows,
                           int n, int q, int pitch) {
   const int cells = rows * n;
   for (int idx = threadIdx.x; idx < cells; idx += blockDim.x) {
     const int i = idx / n;
     const int j = idx - i * n;
-    double g = 0.0;
+    Real g = 0.0;
     for (int k = 0; k < q; ++k) g += wfc[i * q + k] * w1[k * n + j];
     u[i * pitch + j] = v[idx] * g;
   }
 }
 
 // U and the grid of this block's day into shared memory.
-__device__ void load_day(const double* __restrict__ v,
-                         const double* __restrict__ wfc,
-                         const double* __restrict__ w1,
-                         const double* __restrict__ x, double* u, double* xs,
+template <typename Real>
+__device__ void load_day(const Real* __restrict__ v,
+                         const Real* __restrict__ wfc,
+                         const Real* __restrict__ w1,
+                         const Real* __restrict__ x, Real* u, Real* xs,
                          int n, int q, int pitch) {
   form_rows(v, wfc, w1, u, n, n, q, pitch);
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   __syncthreads();
 }
 
+template <typename Real>
 __global__ void __launch_bounds__(kTableThreads)
-sweep_table_kernel(const double* __restrict__ v,    // (T, rows, n)
-                   const double* __restrict__ wfc,  // (T, rows, q)
-                   const double* __restrict__ w1,   // (q, n)
-                   double* __restrict__ p,          // (T, rows, pitch)
+sweep_table_kernel(const Real* __restrict__ v,    // (T, rows, n)
+                   const Real* __restrict__ wfc,  // (T, rows, q)
+                   const Real* __restrict__ w1,   // (q, n)
+                   Real* __restrict__ p,          // (T, rows, pitch)
                    unsigned char* __restrict__ flag,  // (T, rows)
                    int n, int rows, int q, int pitch, int block_rows) {
-  extern __shared__ double u[];  // (block_rows, pitch)
+  extern __shared__ __align__(16) unsigned char table_shared[];
+  Real* u = reinterpret_cast<Real*>(table_shared);  // (block_rows, pitch)
   const int r0 = blockIdx.y * block_rows;
   const int nr = min(block_rows, rows - r0);
   const size_t first = static_cast<size_t>(blockIdx.x) * rows + r0;  // (t, r0)
@@ -161,24 +180,25 @@ sweep_table_kernel(const double* __restrict__ v,    // (T, rows, n)
     flag[first + threadIdx.x] =
         interval::scan_row(u + static_cast<size_t>(threadIdx.x) * pitch, n);
   __syncthreads();
-  double* out = p + first * pitch;
+  Real* out = p + first * pitch;
   const int cells = nr * pitch;
   for (int idx = threadIdx.x; idx < cells; idx += blockDim.x)
-    out[idx] = idx % pitch < n ? u[idx] : 0.0;  // pad cells: defined, unread
+    out[idx] = idx % pitch < n ? u[idx] : Real(0);  // pad cells: defined, unread
 }
 
 // kChunks groups of 32 rows at most (interval.cuh: rows of up to
 // kShortRow or kMaxRow cells), searches from kTop
-template <int kChunks, int kTop>
+template <typename Real, int kChunks, int kTop>
 __global__ void __launch_bounds__(kSweepThreads)
-prefix_sweep_kernel(const double* __restrict__ p,  // (T, rows, pitch)
+prefix_sweep_kernel(const Real* __restrict__ p,  // (T, rows, pitch)
                     const unsigned char* __restrict__ flag,  // (T, rows)
-                    const double* __restrict__ x,        // (n,)
-                    const double* __restrict__ bounds,   // (L, T, 2)
-                    const double* __restrict__ weights,  // (L, 2)
-                    double box_min, double* __restrict__ out,  // (L, T)
+                    const Real* __restrict__ x,        // (n,)
+                    const Real* __restrict__ bounds,   // (L, T, 2)
+                    const Real* __restrict__ weights,  // (L, 2)
+                    Real box_min, Real* __restrict__ out,  // (L, T)
                     int T, int n, int row0, int rows, int L, int pitch) {
-  __shared__ double xs[kChunks * 32];
+  using R = Rn<Real>;
+  __shared__ Real xs[kChunks * 32];
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
   __syncthreads();
   const int task = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
@@ -187,48 +207,50 @@ prefix_sweep_kernel(const double* __restrict__ p,  // (T, rows, pitch)
   const int t = task / L;
   const int l = task - t * L;
   const size_t o = static_cast<size_t>(l) * T + t;
-  const double b_lo = bounds[2 * o], b_up = bounds[2 * o + 1];
-  const double w_in = weights[2 * l], w_out = weights[2 * l + 1];
-  const double* day = p + static_cast<size_t>(t) * rows * pitch;
+  const Real b_lo = bounds[2 * o], b_up = bounds[2 * o + 1];
+  const Real w_in = weights[2 * l], w_out = weights[2 * l + 1];
+  const Real* day = p + static_cast<size_t>(t) * rows * pitch;
   const unsigned char* fl = flag + static_cast<size_t>(t) * rows;
   double acc = 0.0;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int i = c * 32 + lane;  // the range's row i, grid point row0 + i
     if (c * 32 < rows && i < rows) {
-      const double pv = __dmul_rn(xs[row0 + i], w_out);
-      const double dup = __ddiv_rn(__dsub_rn(b_up, pv), w_in);
-      const double d = __ddiv_rn(__dsub_rn(b_lo, pv), w_in);
+      const Real pv = R::mul(xs[row0 + i], w_out);
+      const Real dup = R::div(R::sub(b_up, pv), w_in);
+      const Real d = R::div(R::sub(b_lo, pv), w_in);
       // NaN-propagating max, as jnp.maximum / torch.maximum
-      const double dlo = (d > box_min || d != d) ? d : box_min;
-      const double* row = day + static_cast<size_t>(i) * pitch;
+      const Real dlo = (d > box_min || d != d) ? d : box_min;
+      const Real* row = day + static_cast<size_t>(i) * pitch;
       acc += interval::row_sum<kTop>(row, row, fl[i] != 0, xs, n, dlo, dup);
     }
   }
   acc = interval::warp_sum(acc);
-  if (lane == 0) out[o] = acc;
+  if (lane == 0) out[o] = static_cast<Real>(acc);
 }
 
+template <typename Real>
 __global__ void __launch_bounds__(kBisectThreads)
-bisect_levels_kernel(const double* __restrict__ v,
-                     const double* __restrict__ wfc,
-                     const double* __restrict__ w1,
-                     const double* __restrict__ x,
-                     const double* __restrict__ lower,      // (L, T)
-                     const double* __restrict__ upper,      // (L, T)
-                     const double* __restrict__ prev_res,   // (L, T)
-                     const double* __restrict__ prev_up,    // (L, T)
+bisect_levels_kernel(const Real* __restrict__ v,
+                     const Real* __restrict__ wfc,
+                     const Real* __restrict__ w1,
+                     const Real* __restrict__ x,
+                     const Real* __restrict__ lower,      // (L, T)
+                     const Real* __restrict__ upper,      // (L, T)
+                     const Real* __restrict__ prev_res,   // (L, T)
+                     const Real* __restrict__ prev_up,    // (L, T)
                      const unsigned char* __restrict__ ustack,  // (L, T)
-                     const double* __restrict__ obj,        // (L,)
-                     const double* __restrict__ weights,    // (L, 2)
-                     double box_min, int n_iters,
-                     double* __restrict__ roots,            // (L, T)
+                     const Real* __restrict__ obj,        // (L,)
+                     const Real* __restrict__ weights,    // (L, 2)
+                     Real box_min, int n_iters,
+                     Real* __restrict__ roots,            // (L, T)
                      int T, int n, int q, int L) {
-  extern __shared__ double smem[];
+  using R = Rn<Real>;
+  extern __shared__ __align__(16) unsigned char bisect_shared[];
   const int t = blockIdx.x;
   const int pitch = n | 1;
-  double* u = smem;                                 // (n, pitch)
-  double* xs = u + static_cast<size_t>(n) * pitch;  // (n,)
+  Real* u = reinterpret_cast<Real*>(bisect_shared);  // (n, pitch)
+  Real* xs = u + static_cast<size_t>(n) * pitch;     // (n,)
   unsigned char* flag = reinterpret_cast<unsigned char*>(xs + n);  // (n,)
   load_day(v + static_cast<size_t>(t) * n * n,
            wfc + static_cast<size_t>(t) * n * q, w1, x, u, xs, n, q, pitch);
@@ -241,39 +263,39 @@ bisect_levels_kernel(const double* __restrict__ v,
     const size_t o = static_cast<size_t>(l) * T + t;
     // every lane carries the same scalar state; the slab total it
     // receives has the same bits, so the copies never diverge
-    double lo = lower[o], up = upper[o], pr = prev_res[o], pu = prev_up[o];
+    Real lo = lower[o], up = upper[o], pr = prev_res[o], pu = prev_up[o];
     bool us = ustack[o] != 0;
-    const double target = obj[l];
-    const double w_in = weights[2 * l], w_out = weights[2 * l + 1];
+    const Real target = obj[l];
+    const Real w_in = weights[2 * l], w_out = weights[2 * l + 1];
     for (int it = 0; it < n_iters; ++it) {
-      const double mid = (lo + up) / 2.0;
-      const double b_lo = us ? lo : mid;
-      const double b_up = us ? mid : up;
+      const Real mid = (lo + up) / Real(2);
+      const Real b_lo = us ? lo : mid;
+      const Real b_up = us ? mid : up;
       double acc = 0.0;
       // i = lane, lane + 32, ...: unrolled, so the lookups overlap
 #pragma unroll
       for (int c = 0; c < interval::kShortChunks; ++c) {
         const int i = c * 32 + lane;
         if (c * 32 < n && i < n) {
-          const double p = __dmul_rn(xs[i], w_out);
-          const double dup = __ddiv_rn(__dsub_rn(b_up, p), w_in);
-          const double d = __ddiv_rn(__dsub_rn(b_lo, p), w_in);
+          const Real p = R::mul(xs[i], w_out);
+          const Real dup = R::div(R::sub(b_up, p), w_in);
+          const Real d = R::div(R::sub(b_lo, p), w_in);
           // NaN-propagating max, as jnp.maximum / torch.maximum
-          const double dlo = (d > box_min || d != d) ? d : box_min;
-          const double* row = u + static_cast<size_t>(i) * pitch;
+          const Real dlo = (d > box_min || d != d) ? d : box_min;
+          const Real* row = u + static_cast<size_t>(i) * pitch;
           acc += interval::row_sum<interval::kShortTop>(
               row, row, flag[i] != 0, xs, n, dlo, dup);
         }
       }
-      const double sl = interval::warp_sum(acc);
-      const double res = (b_lo == pu) ? pr + sl : pr - sl;
+      const Real sl = static_cast<Real>(interval::warp_sum(acc));
+      const Real res = (b_lo == pu) ? pr + sl : pr - sl;
       const bool below = res < target;
       if (below) lo = mid; else up = mid;
       pr = res;
       pu = mid;
       us = below;
     }
-    if (lane == 0) roots[o] = (lo + up) / 2.0;
+    if (lane == 0) roots[o] = (lo + up) / Real(2);
   }
 }
 
@@ -286,40 +308,34 @@ cudaError_t prepare(Kernel kernel, size_t bytes, int T, int n, int q, int L) {
                               static_cast<int>(bytes));
 }
 
-}  // namespace
-
-extern "C" const char* cvt_error_string(int status) {
-  return cudaGetErrorString(static_cast<cudaError_t>(status));
-}
-
 // v, wfc, p and flag hold `rows` outer grid rows of every day
-extern "C" int cvt_sweep_table(const double* v, const double* wfc,
-                               const double* w1, double* p,
-                               unsigned char* flag, int T, int n, int rows,
-                               int q, int pitch, void* stream) {
+template <typename Real>
+int sweep_table(const Real* v, const Real* wfc, const Real* w1, Real* p,
+                unsigned char* flag, int T, int n, int rows, int q, int pitch,
+                void* stream) {
   if (n > interval::kMaxRow || pitch != interval::row_pitch(n) ||
       rows <= 0 || rows > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int block_rows = table_block_rows(n);
-  const size_t bytes = table_shared_bytes(n);
-  cudaError_t e = prepare(sweep_table_kernel, bytes, T, n, q, 1);
+  const int block_rows = table_block_rows<Real>(n);
+  const size_t bytes = table_shared_bytes<Real>(n);
+  cudaError_t e = prepare(sweep_table_kernel<Real>, bytes, T, n, q, 1);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0) return 0;
   const dim3 grid(T, (rows + block_rows - 1) / block_rows);
-  sweep_table_kernel<<<grid, kTableThreads, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
+  sweep_table_kernel<Real><<<grid, kTableThreads, bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
       v, wfc, w1, p, flag, n, rows, q, pitch, block_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // p and flag hold the outer grid rows [row0, row0 + rows) of every day;
 // out gets their partial sums
-extern "C" int cvt_masked_sweep(const double* p, const unsigned char* flag,
-                                const double* x, const double* bounds,
-                                const double* weights, double box_min,
-                                double* out, int T, int n, int row0, int rows,
-                                int L, int pitch, void* stream) {
+template <typename Real>
+int masked_sweep(const Real* p, const unsigned char* flag, const Real* x,
+                 const Real* bounds, const Real* weights, double box_min,
+                 Real* out, int T, int n, int row0, int rows, int L,
+                 int pitch, void* stream) {
   if (n <= 0 || n > interval::kMaxRow || T < 0 || L < 0 ||
       row0 < 0 || rows <= 0 || row0 + rows > n ||
       pitch != interval::row_pitch(n) ||
@@ -329,39 +345,74 @@ extern "C" int cvt_masked_sweep(const double* p, const unsigned char* flag,
   if (T == 0 || L == 0) return 0;
   const int grid = (L * T + kSweepWarps - 1) / kSweepWarps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Real bm = static_cast<Real>(box_min);
   // rows of up to 192 cells: the short form (six unrolled chunks, eight
   // search steps); longer rows: the long form (same sums and counts)
   if (n <= interval::kShortRow) {
-    prefix_sweep_kernel<interval::kShortChunks, interval::kShortTop>
-        <<<grid, kSweepThreads, 0, s>>>(p, flag, x, bounds, weights, box_min,
-                                        out, T, n, row0, rows, L, pitch);
+    prefix_sweep_kernel<Real, interval::kShortChunks, interval::kShortTop>
+        <<<grid, kSweepThreads, 0, s>>>(p, flag, x, bounds, weights, bm, out,
+                                        T, n, row0, rows, L, pitch);
   } else {
-    prefix_sweep_kernel<interval::kMaxChunks, interval::kMaxTop>
-        <<<grid, kSweepThreads, 0, s>>>(p, flag, x, bounds, weights, box_min,
-                                        out, T, n, row0, rows, L, pitch);
+    prefix_sweep_kernel<Real, interval::kMaxChunks, interval::kMaxTop>
+        <<<grid, kSweepThreads, 0, s>>>(p, flag, x, bounds, weights, bm, out,
+                                        T, n, row0, rows, L, pitch);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int cvt_bisect_levels(const double* v, const double* wfc,
-                                 const double* w1, const double* x,
-                                 const double* lower, const double* upper,
-                                 const double* prev_res,
-                                 const double* prev_up,
-                                 const unsigned char* ustack,
-                                 const double* obj, const double* weights,
-                                 double box_min, int n_iters, double* roots,
-                                 int T, int n, int q, int L, void* stream) {
+template <typename Real>
+int bisect_levels(const Real* v, const Real* wfc, const Real* w1,
+                  const Real* x, const Real* lower, const Real* upper,
+                  const Real* prev_res, const Real* prev_up,
+                  const unsigned char* ustack, const Real* obj,
+                  const Real* weights, double box_min, int n_iters,
+                  Real* roots, int T, int n, int q, int L, void* stream) {
   if (n > interval::kShortRow || n_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = bisect_shared_bytes(n);
-  cudaError_t e = prepare(bisect_levels_kernel, bytes, T, n, q, L);
+  const size_t bytes = bisect_shared_bytes<Real>(n);
+  cudaError_t e = prepare(bisect_levels_kernel<Real>, bytes, T, n, q, L);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0 || L == 0) return 0;
-  bisect_levels_kernel<<<T, kBisectThreads, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  bisect_levels_kernel<Real><<<T, kBisectThreads, bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
       v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj, weights,
-      box_min, n_iters, roots, T, n, q, L);
+      static_cast<Real>(box_min), n_iters, roots, T, n, q, L);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+extern "C" const char* cvt_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+// The f64 launchers and their f32 twins (same arguments, float tensors).
+#define CVT_DIM2_LAUNCHERS(SUFFIX, Real)                                      \
+  extern "C" int cvt_sweep_table##SUFFIX(                                     \
+      const Real* v, const Real* wfc, const Real* w1, Real* p,                \
+      unsigned char* flag, int T, int n, int rows, int q, int pitch,          \
+      void* stream) {                                                         \
+    return sweep_table<Real>(v, wfc, w1, p, flag, T, n, rows, q, pitch,       \
+                             stream);                                         \
+  }                                                                           \
+  extern "C" int cvt_masked_sweep##SUFFIX(                                    \
+      const Real* p, const unsigned char* flag, const Real* x,                \
+      const Real* bounds, const Real* weights, double box_min, Real* out,     \
+      int T, int n, int row0, int rows, int L, int pitch, void* stream) {     \
+    return masked_sweep<Real>(p, flag, x, bounds, weights, box_min, out, T,   \
+                              n, row0, rows, L, pitch, stream);               \
+  }                                                                           \
+  extern "C" int cvt_bisect_levels##SUFFIX(                                   \
+      const Real* v, const Real* wfc, const Real* w1, const Real* x,          \
+      const Real* lower, const Real* upper, const Real* prev_res,             \
+      const Real* prev_up, const unsigned char* ustack, const Real* obj,      \
+      const Real* weights, double box_min, int n_iters, Real* roots, int T,   \
+      int n, int q, int L, void* stream) {                                    \
+    return bisect_levels<Real>(v, wfc, w1, x, lower, upper, prev_res,         \
+                               prev_up, ustack, obj, weights, box_min,        \
+                               n_iters, roots, T, n, q, L, stream);           \
+  }
+
+CVT_DIM2_LAUNCHERS(, double)
+CVT_DIM2_LAUNCHERS(_f32, float)

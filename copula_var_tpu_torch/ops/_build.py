@@ -44,10 +44,11 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# source -> {C function: argtypes}
-SOURCES = {
+# source -> {C function: argtypes}. Each kernel's launcher has an f64 form
+# and an f32 form (the same name + "_f32", the same arguments: tensors of
+# the working type, scalars as doubles).
+_KERNELS = {
     "quadrature.cu": {
-        "cvt_error_string": [_I],
         # v, wfc, w1, P, flags, T, n, rows, q, pitch, stream
         "cvt_sweep_table": [_P] * 5 + [_I] * 5 + [_P],
         # P, flags, x, bounds, weights, box_min, out, T, n, row0, rows, L,
@@ -75,6 +76,12 @@ SOURCES = {
         "cvt_masked_contract3_rebuild": [_P] * 8 + [_I] + [_D] * 3
         + [_P] * 4 + [_D] + [_P] * 2 + [_I] * 6 + [_P],
     },
+}
+SOURCES = {
+    source: {**({"cvt_error_string": [_I]} if source == "quadrature.cu"
+                else {}),
+             **fns, **{f"{name}_f32": sig for name, sig in fns.items()}}
+    for source, fns in _KERNELS.items()
 }
 
 _lib = None
@@ -163,6 +170,20 @@ def load() -> types.SimpleNamespace:
         fns["cvt_error_string"].restype = ctypes.c_char_p
         _lib = types.SimpleNamespace(**fns)
     return _lib
+
+
+def function(name: str, dtype):
+    """The launcher `name` for tensors of `dtype`: the f64 form for
+    torch.float64, its `_f32` form for torch.float32; any other type
+    raises."""
+    import torch
+
+    if dtype == torch.float64:
+        return getattr(load(), name)
+    if dtype == torch.float32:
+        return getattr(load(), f"{name}_f32")
+    raise ValueError(f"{name}: the kernels take float64 or float32 "
+                     f"tensors, not {dtype}")
 
 
 def check(status: int, what: str) -> None:

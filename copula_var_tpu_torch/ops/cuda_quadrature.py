@@ -33,6 +33,17 @@ The limits are `ops/_build.py`'s, which it compiles into the kernels, and
 the routes are computed from them here, so a route can be chosen, and
 tested, without the library; the launchers refuse what passes them.
 
+The f32 engine (`engine="pallas"`, the JAX package's f32 Pallas kernels):
+`sweep_operands(..., dtype=torch.float32)` casts the f64 day tensors,
+grid and weight rows to float32 (wfc = W0^T FC formed in float32 from
+them, as JAX's `_solve_impl` forms it) and builds an f32 P (20.2 MB at
+the flagship size) with the float instantiation of the same kernel;
+`masked_sweep` on f32 operands launches the f32 sweep. Its plain twins
+are the same cached sweeps run on the float32 tensors. K1's day in
+float takes half the shared memory: `bisect_max_grid_points(torch.
+float32)` = 192, the short rows. Each wrapper counts its f64 launches in
+`.launches` and its f32 launches in `.launches_f32`.
+
 Grid sharding (`parallel/`): operands built with `rows=(i0, i1)` hold
 outer grid rows [i0, i1) of every day (V, wfc, P and flags cut to them;
 the inner axis stays the whole grid), and both the kernel and the plain
@@ -56,6 +67,7 @@ from copula_var_tpu_torch.ops.quadrature import (
     state_weight_matrices,
 )
 
+F64, F32 = torch.float64, torch.float32
 MAX_CELL = 1.0  # interval.cuh kMaxCell: a row with a larger cell is flagged
 SWEEP_MAX_GRID_POINTS = 32 * _build.MAX_CHUNKS  # the rule's longest row
 BISECT_MAX_ROW = 32 * _build.SHORT_CHUNKS  # the rows K1 is compiled for
@@ -72,7 +84,9 @@ class SweepOperands(NamedTuple):
     built once here (as `_solve_impl` hoists wfc out of the TPU kernel).
     The sweep kernel reads P (T, r, row_pitch(n)) and flags (T, r) bool,
     the prefix table built from those on a CUDA device; both None on the
-    CPU. rows: (i0, i1), the outer grid rows held, or None for all."""
+    CPU. rows: (i0, i1), the outer grid rows held, or None for all. The
+    floating tensors are all float64 (the f64 engine) or all float32 (the
+    f32 engine)."""
 
     V: torch.Tensor
     x: torch.Tensor
@@ -93,43 +107,66 @@ class SweepOperands(NamedTuple):
     def row0(self) -> int:
         return 0 if self.rows is None else self.rows[0]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.V.dtype
+
+
+def itemsize(dtype) -> int:
+    """Bytes of one entry of a kernel's working type (float64: 8,
+    float32: 4); any other type raises."""
+    if dtype not in (F64, F32):
+        raise ValueError(f"the kernels take float64 or float32, not {dtype}")
+    return 8 if dtype == F64 else 4
+
+
+def count_launch(wrapper, dtype) -> None:
+    """One more launch on `wrapper`'s counter of `dtype`: `.launches`
+    (float64) or `.launches_f32` (float32)."""
+    if dtype == F32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
 
 
 def row_pitch(n: int) -> int:
-    """Float64 entries per row of a table: n rounded up to odd (one zero
-    pad cell when n is even), so one thread per row scans shared memory
-    without bank conflicts."""
+    """Entries per row of a table: n rounded up to odd (one zero pad cell
+    when n is even), so one thread per row scans shared memory without
+    bank conflicts."""
     return n | 1
 
 
-def bisect_shared_bytes(n: int) -> int:
+def bisect_shared_bytes(n: int, dtype=F64) -> int:
     """K1's shared memory for a day of n points: the (n, row_pitch(n))
-    prefix rows and x as float64, a flag byte per row."""
-    return (n * row_pitch(n) + n) * 8 + n
+    prefix rows and x of `dtype`, a flag byte per row."""
+    return (n * row_pitch(n) + n) * itemsize(dtype) + n
 
 
-def bisect_max_grid_points() -> int:
-    """The largest n whose day K1 holds in one block's shared memory (169),
-    no longer than the short rows it is compiled for."""
+def bisect_max_grid_points(dtype=F64) -> int:
+    """The largest n whose day K1 holds in one block's shared memory (169
+    in float64, 192 in float32), no longer than the short rows it is
+    compiled for."""
     n = 1
     while (n + 1 <= BISECT_MAX_ROW
-           and bisect_shared_bytes(n + 1) <= MAX_SHARED_BYTES):
+           and bisect_shared_bytes(n + 1, dtype) <= MAX_SHARED_BYTES):
         n += 1
     return n
 
 
-def prefix_table_bytes(T: int, n: int, rows: Optional[int] = None) -> int:
-    """Bytes of P and its flags, (T, rows, row_pitch(n)) float64 and
+def prefix_table_bytes(T: int, n: int, rows: Optional[int] = None,
+                       dtype=F64) -> int:
+    """Bytes of P and its flags, (T, rows, row_pitch(n)) of `dtype` and
     (T, rows) bool (rows: the outer rows held, n by default)."""
     r = n if rows is None else rows
-    return T * r * (row_pitch(n) * 8 + 1)
+    return T * r * (row_pitch(n) * itemsize(dtype) + 1)
 
 
 def require_prefix_table_fits(T: int, n: int, free_bytes: int,
-                              rows: Optional[int] = None) -> None:
+                              rows: Optional[int] = None,
+                              dtype=F64) -> None:
     """Raise unless P of `rows` outer rows (n by default) fits in
     `free_bytes` of device memory."""
-    need = prefix_table_bytes(T, n, rows)
+    need = prefix_table_bytes(T, n, rows, dtype)
     if need > free_bytes:
         raise RuntimeError(
             f"the dim-2 prefix table P of T={T} days at num_points={n} "
@@ -153,13 +190,30 @@ def require_ascending(x):
                          "ascending grid x")
 
 
+def require_full_f32_matmul(dev) -> None:
+    """Raise if float32 products on `dev` would run in TF32: the f32
+    engine forms wfc (and its plain twins their sandwiches) in full
+    float32, as JAX's f32 engine does."""
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the f32 engine needs full-float32 products: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False (TF32 keeps "
+            "about three decimal digits)")
+
+
 def sweep_operands(V, x, dx, densities=None, forecast_combos=None,
-                   rows=None):
-    """SweepOperands for the MSM family (densities and forecast_combos
-    given) or the GARCH family (both None); with `rows` (i0, i1) those of
-    outer grid rows [i0, i1) (V the whole (T, n, n) day tensors, which
-    are cut here, or already those rows). On a CUDA device the prefix
-    table is built here, once."""
+                   rows=None, dtype=F64, table=True):
+    """SweepOperands of `dtype` for the MSM family (densities and
+    forecast_combos given) or the GARCH family (both None), from the
+    float64 inputs; with `rows` (i0, i1) those of outer grid rows
+    [i0, i1) (V the whole (T, n, n) day tensors, which are cut here, or
+    already those rows). float32 (the f32 engine): V, x, dx, the
+    densities, the combos and the weight rows cast to float32, and
+    wfc = W0^T nan_to_num(FC) formed in float32, as JAX's f32 engine
+    forms it. On a CUDA device the prefix table is built here, once,
+    unless `table` is False (the f32 engine's refine pass reads the
+    float64 V alone)."""
+    itemsize(dtype)
     T = V.shape[0]
     if rows is not None:
         rows = row_range(rows, x.shape[0])
@@ -175,10 +229,17 @@ def sweep_operands(V, x, dx, densities=None, forecast_combos=None,
         fc = forecast_combos.reshape(T, q, q)
     if rows is not None:
         w0 = w0[:, rows[0]:rows[1]]
+    if dtype == F32:
+        require_full_f32_matmul(V.device)
+        V, x, dx = V.to(F32).contiguous(), x.to(F32), dx.to(F32)
+        w0, w1, fc = w0.to(F32), w1.to(F32), torch.nan_to_num(fc.to(F32))
+        if densities is not None:
+            densities = densities.to(F32)
+            forecast_combos = forecast_combos.to(F32)
     wfc = torch.einsum("si,tsk->tik", w0, fc).contiguous()
     ops = SweepOperands(V, x, dx, densities, forecast_combos, wfc,
                         w1.contiguous(), rows=rows)
-    if V.device.type == "cuda":
+    if V.device.type == "cuda" and table:
         require_ascending(x)
         P, flags = sweep_table(ops)
         ops = ops._replace(P=P, flags=flags)
@@ -187,15 +248,17 @@ def sweep_operands(V, x, dx, densities=None, forecast_combos=None,
 
 def sweep_table_reference(ops: SweepOperands):
     """Plain twin of the prefix table, on any device: (P (T, r,
-    row_pitch(n)), flags (T, r) bool) for the operands' r rows. A row of U = V .* (wfc W1) holding
-    a cell outside [-MAX_CELL, MAX_CELL] (NaN included) is flagged and
-    kept as its cells; every other row is its inclusive prefix sum. Pad
-    cells are 0."""
+    row_pitch(n)), flags (T, r) bool) for the operands' r rows. A row of
+    U = V .* (wfc W1) holding a cell outside [-MAX_CELL, MAX_CELL] (NaN
+    included) is flagged and kept as its cells; every other row is its
+    inclusive prefix sum, accumulated in float64 and stored in the
+    operands' type, as the kernel stores it. Pad cells are 0."""
     U = ops.V * (ops.wfc @ ops.w1)
     n = U.shape[-1]
     flags = ~(U.abs() <= MAX_CELL).all(dim=-1)
     P = U.new_zeros(U.shape[:2] + (row_pitch(n),))
-    P[..., :n] = torch.where(flags[..., None], U, torch.cumsum(U, dim=-1))
+    prefix = torch.cumsum(U.to(F64), dim=-1).to(U.dtype)
+    P[..., :n] = torch.where(flags[..., None], U, prefix)
     return P, flags
 
 
@@ -210,23 +273,24 @@ def sweep_table(ops: SweepOperands):
         raise ValueError(f"sweep_table: unsupported device {dev} (the "
                          "table is built on a CUDA device only)")
     T, n, q = check_day_operands(ops)
-    r = ops.V.shape[1]
-    require_prefix_table_fits(T, n, free_device_bytes(dev), r)
-    P = torch.empty((T, r, row_pitch(n)), dtype=torch.float64, device=dev)
+    r, dt = ops.V.shape[1], ops.dtype
+    require_prefix_table_fits(T, n, free_device_bytes(dev), r, dt)
+    P = torch.empty((T, r, row_pitch(n)), dtype=dt, device=dev)
     flags = torch.empty((T, r), dtype=torch.bool, device=dev)
-    lib = _build.load()
+    fn = _build.function("cvt_sweep_table", dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.cvt_sweep_table(
+        status = fn(
             ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
             P.data_ptr(), flags.data_ptr(), T, n, r, q, row_pitch(n), stream,
         )
     _build.check(status, "sweep_table")
-    sweep_table.launches += 1
+    count_launch(sweep_table, dt)
     return P, flags
 
 
-sweep_table.launches = 0  # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), float64 and float32
+sweep_table.launches = sweep_table.launches_f32 = 0
 
 
 def masked_sweep_reference(ops: SweepOperands, bounds, weights,
@@ -250,7 +314,7 @@ def masked_sweep_reference(ops: SweepOperands, bounds, weights,
     return torch.stack(out)
 
 
-def _check_operand(name, t, shape, device, dtype=torch.float64):
+def _check_operand(name, t, shape, device, dtype=F64):
     if t.device != device or t.dtype != dtype:
         raise ValueError(
             f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}"
@@ -267,15 +331,16 @@ def check_day_operands(ops: SweepOperands):
     (T, n, q)."""
     T, r, n = ops.V.shape
     q = ops.w1.shape[0]
-    dev = ops.V.device
+    dev, dt = ops.V.device, ops.dtype
+    itemsize(dt)
     i0, i1 = (0, n) if ops.rows is None else ops.rows
     if i1 - i0 != r or not 0 <= i0 < i1 <= n:
         raise ValueError(f"V holds {r} outer rows, the operands name rows "
                          f"{ops.rows} of {n}")
-    _check_operand("V", ops.V, (T, r, n), dev)
-    _check_operand("wfc", ops.wfc, (T, r, q), dev)
-    _check_operand("w1", ops.w1, (q, n), dev)
-    _check_operand("x", ops.x, (n,), dev)
+    _check_operand("V", ops.V, (T, r, n), dev, dt)
+    _check_operand("wfc", ops.wfc, (T, r, q), dev, dt)
+    _check_operand("w1", ops.w1, (q, n), dev, dt)
+    _check_operand("x", ops.x, (n,), dev, dt)
     if n > SWEEP_MAX_GRID_POINTS:
         raise ValueError(
             f"num_points={n}: the dim-2 table and sweep take n <= "
@@ -288,9 +353,10 @@ def check_day_operands(ops: SweepOperands):
 def masked_sweep(ops: SweepOperands, bounds, weights, box_min=-5.0):
     """(L, T) slab integrals for bounds (L, T, 2) and per-row portfolio
     weights (L, 2) ([inner, outer]), the share of the operands' outer
-    rows. CPU tensors run the plain twin; CUDA tensors launch the kernel
-    on the prefix table (one warp per bound row and day, a
-    prefix-interval sum per grid row); any other device raises."""
+    rows, all of the operands' type (float64, or float32 for the f32
+    engine). CPU tensors run the plain twin; CUDA tensors launch the
+    kernel of that type on the prefix table (one warp per bound row and
+    day, a prefix-interval sum per grid row); any other device raises."""
     dev = ops.V.device
     if dev.type == "cpu":
         return masked_sweep_reference(ops, bounds, weights, box_min)
@@ -300,24 +366,27 @@ def masked_sweep(ops: SweepOperands, bounds, weights, box_min=-5.0):
         raise ValueError("masked_sweep: the operands carry no prefix table "
                          "P (build them with sweep_operands)")
     T, r, n = ops.V.shape
-    _check_operand("P", ops.P, (T, r, row_pitch(n)), dev)
+    dt = ops.dtype
+    itemsize(dt)
+    _check_operand("P", ops.P, (T, r, row_pitch(n)), dev, dt)
     _check_operand("flags", ops.flags, (T, r), dev, torch.bool)
-    _check_operand("x", ops.x, (n,), dev)
+    _check_operand("x", ops.x, (n,), dev, dt)
     L = bounds.shape[0]
-    _check_operand("bounds", bounds, (L, T, 2), dev)
-    _check_operand("weights", weights, (L, 2), dev)
-    out = torch.empty((L, T), dtype=torch.float64, device=dev)
-    lib = _build.load()
+    _check_operand("bounds", bounds, (L, T, 2), dev, dt)
+    _check_operand("weights", weights, (L, 2), dev, dt)
+    out = torch.empty((L, T), dtype=dt, device=dev)
+    fn = _build.function("cvt_masked_sweep", dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.cvt_masked_sweep(
+        status = fn(
             ops.P.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
             bounds.data_ptr(), weights.data_ptr(), float(box_min),
             out.data_ptr(), T, n, ops.row0, r, L, row_pitch(n), stream,
         )
     _build.check(status, "masked_sweep")
-    masked_sweep.launches += 1
+    count_launch(masked_sweep, dt)
     return out
 
 
-masked_sweep.launches = 0  # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), float64 and float32
+masked_sweep.launches = masked_sweep.launches_f32 = 0

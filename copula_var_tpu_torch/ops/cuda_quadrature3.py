@@ -49,6 +49,19 @@ table of outer slabs i0 in [i0, i1) only, U (T, i1 - i0, slab_stride(n)),
 stay whole. The sweep and its plain twin then return those slabs' share
 of each sweep (`parallel.mesh.GridMesh.grid_sum` adds the shares).
 
+The f32 engine (`engine="pallas"`): `contract3_operands(...,
+dtype=torch.float32)` holds the f64 prep cast to float32 (the transform
+and pdf columns, the weight rows, G formed in float64 and cast, x, dx),
+as JAX's `build_{msm,garch}_dim3_cache` casts it; sigma_inv stays float64
+and the kernels round each constant they form from it once to float32,
+as the plain twin's torch operations do. The same kernels in float32 (U
+of float32: 2.02 GB at T = 500, n = 100; a slab's stride rounded to four
+floats, 16 bytes; the table sweep up to the short rows, n <= 192) and the
+same routes, sized by the float32 bytes (`contract3_route(..., dtype)`).
+Its plain twins are the f64 twins run on the float32 tensors. Each
+wrapper counts its f64 launches in `.launches` and its f32 launches in
+`.launches_f32`.
+
 The operands are the float64 counterparts of `build_msm_dim3_cache` /
 `build_garch_dim3_cache`, without the TPU layout: no packed f32
 constants or bounds, no one-hot reads, no f32 booleans, no unit pdf
@@ -65,12 +78,18 @@ import torch
 
 from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops.cuda_quadrature import (
+    BISECT_MAX_ROW,
+    F32,
+    F64,
     MAX_CELL,
     MAX_SHARED_BYTES,
     SWEEP_MAX_GRID_POINTS,
     _check_operand,
+    count_launch,
     free_device_bytes,
+    itemsize,
     require_ascending,
+    require_full_f32_matmul,
     row_pitch,
 )
 from copula_var_tpu_torch.ops.quadrature import (
@@ -94,11 +113,12 @@ class Contract3Operands(NamedTuple):
     (T, 3, n)); p_cols (T, 3, n) for the GARCH family, else None; x, dx
     (n,); densities (3, q, n) and forecast_combos (T, q^3) for the MSM
     family, else None.
-    Build kernel's inputs: z, lu (T, 3, n) float64 and fin (T, 3, n) bool
-    (for the Gaussian copula fin is all true and lu unused); w1, w2 (q, n)
+    Build kernel's inputs: z, lu (T, 3, n) and fin (T, 3, n) bool (for
+    the Gaussian copula fin is all true and lu unused); w1, w2 (q, n)
     the weight rows of grid dims 1 and 2; G (T, n, q, q); sigma_inv
-    (3, 3); the Student normalizer log_norm (incl. -logdet / 2), logdet
-    and nu as floats.
+    (3, 3) float64; the Student normalizer log_norm (incl. -logdet / 2),
+    logdet and nu as floats. Every other floating tensor is float64 (the
+    f64 engine) or float32 (the f32 engine).
     Sweep kernel's input: U (T, r, slab_stride(n)), the table built from
     those on a CUDA device for the r outer slabs held; None on the CPU.
     Rebuild kernel's input: flags (T, r, n) bool, the row flags of the r
@@ -142,6 +162,10 @@ class Contract3Operands(NamedTuple):
         n = self.x.shape[0]
         return n if self.rows is None else self.rows[1] - self.rows[0]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.z.dtype
+
 
 def _require_kernel_copula(kind: str) -> None:
     if kind not in ("gaussian", "student"):
@@ -151,17 +175,20 @@ def _require_kernel_copula(kind: str) -> None:
         )
 
 
-def slab_stride(n: int) -> int:
-    """Float64 entries per (t, i0) slab of U: n rows of `row_pitch(n)`,
-    rounded up to even, so each slab is a multiple of 16 bytes."""
-    m = n * row_pitch(n)
-    return m + m % 2
+def slab_stride(n: int, dtype=F64) -> int:
+    """Entries of `dtype` per (t, i0) slab of U: n rows of
+    `row_pitch(n)`, rounded up to a multiple of 16 bytes (2 float64 or 4
+    float32 entries), the bulk copy's unit."""
+    m, unit = n * row_pitch(n), 16 // itemsize(dtype)
+    return -(-m // unit) * unit
 
 
-def table_bytes(T: int, n: int, rows: Optional[int] = None) -> int:
-    """Bytes of the padded U table, (T, rows, slab_stride(n)) float64
+def table_bytes(T: int, n: int, rows: Optional[int] = None,
+                dtype=F64) -> int:
+    """Bytes of the padded U table, (T, rows, slab_stride(n)) of `dtype`
     (rows: the outer slabs held, n by default)."""
-    return T * (n if rows is None else rows) * slab_stride(n) * 8
+    return (T * (n if rows is None else rows) * slab_stride(n, dtype)
+            * itemsize(dtype))
 
 
 def flag_table_bytes(T: int, n: int, rows: Optional[int] = None) -> int:
@@ -171,10 +198,10 @@ def flag_table_bytes(T: int, n: int, rows: Optional[int] = None) -> int:
 
 
 def require_table_fits(T: int, n: int, free_bytes: int,
-                       rows: Optional[int] = None) -> None:
+                       rows: Optional[int] = None, dtype=F64) -> None:
     """Raise unless the U table of `rows` outer slabs (n by default)
     fits in `free_bytes` of device memory."""
-    need = table_bytes(T, n, rows)
+    need = table_bytes(T, n, rows, dtype)
     if need > free_bytes:
         held = "" if rows is None or rows == n else f" ({rows} outer slabs)"
         raise RuntimeError(
@@ -186,46 +213,48 @@ def require_table_fits(T: int, n: int, free_bytes: int,
         )
 
 
-def _sweep_shared_bytes(n: int) -> int:
+def _sweep_shared_bytes(n: int, dtype=F64) -> int:
     """The table sweep's shared memory at one slab buffer: two mbarriers,
     the slab, x and a flag byte per row (the layout of csrc
     `sweep_shared_bytes`)."""
-    return 16 + (slab_stride(n) + n) * 8 + n
+    return 16 + (slab_stride(n, dtype) + n) * itemsize(dtype) + n
 
 
-def table_max_grid_points(q: int) -> int:
-    """The largest n of the table route at q states (169 at q = 5): one
-    padded n x n slab, x and the row flags in one block's shared memory,
-    rows no longer than the interval rule's, and the build kernel's
-    (q, n) fold."""
+def table_max_grid_points(q: int, dtype=F64) -> int:
+    """The largest n of the table route at q states (169 at q = 5 in
+    float64, 192 in float32): one padded n x n slab, x and the row flags
+    in one block's shared memory, rows no longer than the short rows the
+    sweep searches, and the build kernel's (q, n) fold."""
+    isz = itemsize(dtype)
     n = 1
     while True:
         m = n + 1
-        if (m > SWEEP_MAX_GRID_POINTS
-                or _sweep_shared_bytes(m) > MAX_SHARED_BYTES
-                or q * m * 8 > MAX_SHARED_BYTES):
+        if (m > BISECT_MAX_ROW
+                or _sweep_shared_bytes(m, dtype) > MAX_SHARED_BYTES
+                or q * m * isz > MAX_SHARED_BYTES):
             return n
         n = m
 
 
-def rebuild_tile_rows(n: int, q: int) -> int:
+def rebuild_tile_rows(n: int, q: int, dtype=F64) -> int:
     """i1 rows per block of the rebuild kernel at (n, q): 64 (a lookup
     span of the table sweep, so both routes give the same bits) when x,
-    the (q, n) fold and the lookup state of `_build.WALK_ROWS` bound rows
-    (csrc `rebuild_shared_bytes`, walking full rows) fit in one block's
-    shared memory; 0 when they do not or n passes the interval rule's
-    rows."""
+    the (q, n) fold of `dtype` and the float64 lookup state of
+    `_build.WALK_ROWS` bound rows (csrc `rebuild_shared_bytes`, walking
+    full rows) fit in one block's shared memory; 0 when they do not or n
+    passes the interval rule's rows."""
     if not 0 < n <= SWEEP_MAX_GRID_POINTS or q <= 0:
         return 0
     lookups = _build.WALK_ROWS * 64
-    fits = (n + q * n + 2 * lookups) * 8 + 4 * lookups <= MAX_SHARED_BYTES
+    cols = -(-(n + q * n) * itemsize(dtype) // 8) * 8
+    fits = cols + 2 * lookups * 8 + 4 * lookups <= MAX_SHARED_BYTES
     return 64 if fits else 0
 
 
-def _rebuild_rows(n: int, q: int) -> int:
-    """`rebuild_tile_rows(n, q)`; a grid the rebuild does not take raises,
-    naming the limit."""
-    rows = rebuild_tile_rows(n, q)
+def _rebuild_rows(n: int, q: int, dtype=F64) -> int:
+    """`rebuild_tile_rows(n, q, dtype)`; a grid the rebuild does not take
+    raises, naming the limit."""
+    rows = rebuild_tile_rows(n, q, dtype)
     if rows == 0:
         raise ValueError(
             f"num_points={n}: the dim-3 kernels take n <= "
@@ -236,16 +265,17 @@ def _rebuild_rows(n: int, q: int) -> int:
 
 
 def contract3_route(T: int, n: int, q: int, rows: Optional[int],
-                    free_bytes: int) -> str:
+                    free_bytes: int, dtype=F64) -> str:
     """"table", "rebuild" or "rebuild_full": how a CUDA device sweeps a
     dim-3 backtest of T days at num_points n, q states, `rows` outer slabs
-    held (n when None), with `free_bytes` of device memory. The table when
-    its sweep takes n and U fits; else the rebuild kernel with its row
-    flags when they fit; else the rebuild kernel walking full rows; a grid
-    none takes raises."""
-    _rebuild_rows(n, q)
-    if (n <= table_max_grid_points(q)
-            and table_bytes(T, n, rows) <= free_bytes):
+    held (n when None), with `free_bytes` of device memory, in `dtype`
+    (float64, or float32 for the f32 engine). The table when its sweep
+    takes n and U fits; else the rebuild kernel with its row flags when
+    they fit; else the rebuild kernel walking full rows; a grid none takes
+    raises."""
+    _rebuild_rows(n, q, dtype)
+    if (n <= table_max_grid_points(q, dtype)
+            and table_bytes(T, n, rows, dtype) <= free_bytes):
         return "table"
     if flag_table_bytes(T, n, rows) <= free_bytes:
         return "rebuild"
@@ -253,7 +283,8 @@ def contract3_route(T: int, n: int, q: int, rows: Optional[int],
 
 
 def table_cells(U: torch.Tensor, n: int) -> torch.Tensor:
-    """(T, r, n, n) view of the padded table (T, r, slab_stride(n))."""
+    """(T, r, n, n) view of the padded table (T, r, slab_stride(n,
+    U.dtype))."""
     p = row_pitch(n)
     return U[..., : n * p].reshape(U.shape[0], U.shape[1], n, p)[..., :n]
 
@@ -266,13 +297,18 @@ def table_pads(U: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
-                       forecast_combos=None, p_cols=None, rows=None):
-    """Contract3Operands for the MSM family (densities and
-    forecast_combos given) or the GARCH family (p_cols given); with
-    `rows` (i0, i1) those of outer slabs [i0, i1) (the columns whole). On
-    a CUDA device the table U is built here, once, where `contract3_route`
-    takes the table, and the row flags where it takes the rebuild; else
-    both stay None (on the CPU, and on the full-row route)."""
+                       forecast_combos=None, p_cols=None, rows=None,
+                       dtype=F64):
+    """Contract3Operands of `dtype` for the MSM family (densities and
+    forecast_combos given) or the GARCH family (p_cols given), from the
+    float64 columns and inputs; with `rows` (i0, i1) those of outer slabs
+    [i0, i1) (the columns whole). float32 (the f32 engine): the columns,
+    weight rows, G (formed in float64), x, dx, densities and combos cast
+    to float32, as JAX's f32 dim-3 caches. On a CUDA device the table U
+    is built here, once, where `contract3_route` takes the table, and the
+    row flags where it takes the rebuild; else both stay None (on the
+    CPU, and on the full-row route)."""
+    itemsize(dtype)
     _require_kernel_copula(spec.kind)
     if spec.kind == "student":
         nu, corr = spec.params
@@ -298,6 +334,13 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
         q = w0.shape[0]
         G = torch.einsum("ai,tabc->tibc", w0,
                          forecast_combos.reshape(T, q, q, q))
+    if dtype == F32:
+        require_full_f32_matmul(z.device)
+        f32 = lambda t: None if t is None else t.to(F32)  # noqa: E731
+        cols = tuple(c if c.dtype == torch.bool else f32(c) for c in cols)
+        z, lu, w1, w2, G, p_cols, x, dx, densities, forecast_combos = (
+            f32(t) for t in (z, lu, w1, w2, G, p_cols, x, dx, densities,
+                             forecast_combos))
     ops = Contract3Operands(
         spec, tuple(cols), None if p_cols is None else p_cols.contiguous(),
         x, dx, densities, forecast_combos,
@@ -309,7 +352,7 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
     if z.device.type == "cuda":
         require_ascending(x)
         route = contract3_route(T, n, ops.w1.shape[0], ops.n_rows,
-                                free_device_bytes(z.device))
+                                free_device_bytes(z.device), dtype)
         if route == "table":
             ops = ops._replace(U=contract3_weights(ops))
         elif route == "rebuild":
@@ -341,7 +384,7 @@ def contract3_weights_reference(ops: Contract3Operands, days=slice(None)):
     transform-cached sweeps build their density."""
     n = ops.x.shape[0]
     out = torch.empty((ops.G[days].shape[0], ops.n_rows, n, n),
-                      dtype=torch.float64, device=ops.x.device)
+                      dtype=ops.dtype, device=ops.x.device)
     for s, U in _table_chunks(ops, days):
         out[s] = U
     return out
@@ -372,14 +415,14 @@ def contract3_row_flags(ops: Contract3Operands):
     if dev.type != "cuda":
         raise ValueError(f"contract3_row_flags: unsupported device {dev}")
     T, n, q = _check_columns(ops)
-    _rebuild_rows(n, q)
+    _rebuild_rows(n, q, ops.dtype)
     r = ops.n_rows
     flags = torch.empty((T, r, n), dtype=torch.bool, device=dev)
     p = None if ops.p_cols is None else ops.p_cols.data_ptr()
-    lib = _build.load()
+    fn = _build.function("cvt_contract3_row_flags", ops.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.cvt_contract3_row_flags(
+        status = fn(
             ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
             ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
             ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
@@ -387,11 +430,12 @@ def contract3_row_flags(ops: Contract3Operands):
             ops.row0, r, q, stream,
         )
     _build.check(status, "contract3_row_flags")
-    contract3_row_flags.launches += 1
+    count_launch(contract3_row_flags, ops.dtype)
     return flags
 
 
-contract3_row_flags.launches = 0  # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), float64 and float32
+contract3_row_flags.launches = contract3_row_flags.launches_f32 = 0
 
 
 def contract3_weights(ops: Contract3Operands):
@@ -406,26 +450,27 @@ def contract3_weights(ops: Contract3Operands):
         raise ValueError(f"contract3_weights: unsupported device {dev} "
                          "(the table is built on a CUDA device only)")
     T, n, q = check_contract3_operands(ops)
-    r = ops.n_rows
-    require_table_fits(T, n, free_device_bytes(dev), r)
-    U = torch.empty((T, r, slab_stride(n)), dtype=torch.float64, device=dev)
+    r, dt = ops.n_rows, ops.dtype
+    require_table_fits(T, n, free_device_bytes(dev), r, dt)
+    U = torch.empty((T, r, slab_stride(n, dt)), dtype=dt, device=dev)
     p = None if ops.p_cols is None else ops.p_cols.data_ptr()
-    lib = _build.load()
+    fn = _build.function("cvt_contract3_weights", dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.cvt_contract3_weights(
+        status = fn(
             ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
             ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
             ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
             ops.nu, ops.log_norm, ops.logdet, U.data_ptr(), T, n, ops.row0,
-            r, q, row_pitch(n), slab_stride(n), stream,
+            r, q, row_pitch(n), slab_stride(n, dt), stream,
         )
     _build.check(status, "contract3_weights")
-    contract3_weights.launches += 1
+    count_launch(contract3_weights, dt)
     return U
 
 
-contract3_weights.launches = 0  # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), float64 and float32
+contract3_weights.launches = contract3_weights.launches_f32 = 0
 
 
 def masked_contract3_reference(ops: Contract3Operands, bounds, weights,
@@ -443,16 +488,17 @@ def _check_columns(ops: Contract3Operands):
     _require_kernel_copula(ops.spec.kind)
     T, _, n = ops.z.shape
     q = ops.w1.shape[0]
-    dev = ops.z.device
+    dev, dt = ops.z.device, ops.dtype
+    itemsize(dt)
     for name in ("z", "lu"):
-        _check_operand(name, getattr(ops, name), (T, 3, n), dev)
+        _check_operand(name, getattr(ops, name), (T, 3, n), dev, dt)
     _check_operand("fin", ops.fin, (T, 3, n), dev, torch.bool)
     if ops.p_cols is not None:
-        _check_operand("p_cols", ops.p_cols, (T, 3, n), dev)
-    _check_operand("x", ops.x, (n,), dev)
-    _check_operand("w1", ops.w1, (q, n), dev)
-    _check_operand("w2", ops.w2, (q, n), dev)
-    _check_operand("G", ops.G, (T, n, q, q), dev)
+        _check_operand("p_cols", ops.p_cols, (T, 3, n), dev, dt)
+    _check_operand("x", ops.x, (n,), dev, dt)
+    _check_operand("w1", ops.w1, (q, n), dev, dt)
+    _check_operand("w2", ops.w2, (q, n), dev, dt)
+    _check_operand("G", ops.G, (T, n, q, q), dev, dt)
     _check_operand("sigma_inv", ops.sigma_inv, (3, 3), dev)
     return T, n, q
 
@@ -460,12 +506,12 @@ def _check_columns(ops: Contract3Operands):
 def check_contract3_operands(ops: Contract3Operands):
     """Validate the build kernel's operands; returns (T, n, q)."""
     T, n, q = _check_columns(ops)
-    n_max = table_max_grid_points(q)
+    n_max = table_max_grid_points(q, ops.dtype)
     if n > n_max:
         raise ValueError(
-            f"num_points={n} needs an {n}x{n} float64 slab in one block's "
-            f"shared memory; the dim-3 table and its sweep take n <= "
-            f"{n_max} at q={q} (wider grids sweep by the rebuild kernel, "
+            f"num_points={n} needs an {n}x{n} {ops.dtype} slab in one "
+            f"block's shared memory; the dim-3 table and its sweep take n "
+            f"<= {n_max} at q={q} (wider grids sweep by the rebuild kernel, "
             "`masked_contract3_rebuild`)"
         )
     return T, n, q
@@ -487,31 +533,33 @@ def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
         raise ValueError("masked_contract3: the operands carry no table U "
                          "(build them with contract3_operands)")
     T, n, r = ops.days, ops.x.shape[0], ops.n_rows
-    _check_operand("U", ops.U, (T, r, slab_stride(n)), dev)
-    _check_operand("x", ops.x, (n,), dev)
+    dt = ops.dtype
+    itemsize(dt)
+    _check_operand("U", ops.U, (T, r, slab_stride(n, dt)), dev, dt)
+    _check_operand("x", ops.x, (n,), dev, dt)
     L = bounds.shape[0]
-    _check_operand("bounds", bounds, (L, T, 2), dev)
-    _check_operand("weights", weights, (L, 3), dev)
-    lib = _build.load()
+    _check_operand("bounds", bounds, (L, T, 2), dev, dt)
+    _check_operand("weights", weights, (L, 3), dev, dt)
+    fn = _build.function("cvt_masked_contract3", dt)
     # the kernel's partials per (row, day): one per i0 held and span of 64
-    # i1, summed in order
-    partial = torch.empty((L, T, r * -(-n // 64)), dtype=torch.float64,
-                          device=dev)
-    out = torch.empty((L, T), dtype=torch.float64, device=dev)
+    # i1, float64, summed in order
+    partial = torch.empty((L, T, r * -(-n // 64)), dtype=F64, device=dev)
+    out = torch.empty((L, T), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.cvt_masked_contract3(
+        status = fn(
             ops.U.data_ptr(), ops.x.data_ptr(), bounds.data_ptr(),
             weights.data_ptr(), float(box_min), partial.data_ptr(),
             out.data_ptr(), T, n, ops.row0, r, L, row_pitch(n),
-            slab_stride(n), stream,
+            slab_stride(n, dt), stream,
         )
     _build.check(status, "masked_contract3")
-    masked_contract3.launches += 1
+    count_launch(masked_contract3, dt)
     return out
 
 
-masked_contract3.launches = 0  # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), float64 and float32
+masked_contract3.launches = masked_contract3.launches_f32 = 0
 
 
 def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
@@ -531,23 +579,25 @@ def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
     if dev.type != "cuda":
         raise ValueError(f"masked_contract3_rebuild: unsupported device {dev}")
     T, n, q = _check_columns(ops)
-    tile_rows = _rebuild_rows(n, q)
+    dt = ops.dtype
+    tile_rows = _rebuild_rows(n, q, dt)
     r = ops.n_rows
     L = bounds.shape[0]
-    _check_operand("bounds", bounds, (L, T, 2), dev)
-    _check_operand("weights", weights, (L, 3), dev)
+    _check_operand("bounds", bounds, (L, T, 2), dev, dt)
+    _check_operand("weights", weights, (L, 3), dev, dt)
     if ops.flags is not None:
         _check_operand("flags", ops.flags, (T, r, n), dev, torch.bool)
     p = None if ops.p_cols is None else ops.p_cols.data_ptr()
     flags = None if ops.flags is None else ops.flags.data_ptr()
-    lib = _build.load()
-    # one partial per (row, day, i0 held, tile of i1), summed in order
-    partial = torch.empty((L, T, r * -(-n // tile_rows)), dtype=torch.float64,
+    fn = _build.function("cvt_masked_contract3_rebuild", dt)
+    # one float64 partial per (row, day, i0 held, tile of i1), summed in
+    # order
+    partial = torch.empty((L, T, r * -(-n // tile_rows)), dtype=F64,
                           device=dev)
-    out = torch.empty((L, T), dtype=torch.float64, device=dev)
+    out = torch.empty((L, T), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.cvt_masked_contract3_rebuild(
+        status = fn(
             ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
             ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
             ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
@@ -557,8 +607,9 @@ def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
             stream,
         )
     _build.check(status, "masked_contract3_rebuild")
-    masked_contract3_rebuild.launches += 1
+    count_launch(masked_contract3_rebuild, dt)
     return out
 
 
-masked_contract3_rebuild.launches = 0  # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), float64 and float32
+masked_contract3_rebuild.launches = masked_contract3_rebuild.launches_f32 = 0

@@ -38,6 +38,22 @@ transform-cached sweep `tcached_sweep`: the JAX package serves dim >= 4
 only through XLA, with no Pallas kernel, so nothing on that path launches
 K1-K4.
 
+The f32 engine (`engine="pallas"`): `full_solve_pallas` ports JAX's f32
+solves on float32 operands. At dim 2 it is `pallas_solver.py::
+_full_solve` (`full_solve_pallas_levels`): the stage sweeps (K2 in
+float32), the bracket in float32, then K1 in float32 for exactly
+`ops/solvers.full_iters` halvings per row (23 at the defaults), taken
+from the config, so no bracket is read on the host; no all-zeros break;
+a day whose float32 tensor holds a non-finite entry gets a NaN root.
+Grids wider than K1's float32 day (192) halve by the same fixed count of
+f32 K2 sweeps (`bisect_fixed`). At dim 3 it is the `xla` engine's
+program over the f32 K4 sweep (`backtest.py:376`): the stage sweeps and
+the bracket in float32, then the while-loop bisection (all-zeros break,
+host-counted halvings as above) on float64 state, each halving's bounds
+rounded to float32 for the f32 sweep. Its `*_reference` form runs the
+same flow through the f32 plain twins. The f32 engine never launches an
+f64 kernel, and the f64 solves refuse f32 operands.
+
 `full_solve_levels` / `full_solve_portfolios` port
 `_device_full_solve_levels_jit` / `_device_full_solve_portfolios_jit`:
 stage-1 sweep over [-100, first_guess], stage-2 bracket, bisection, for
@@ -83,10 +99,13 @@ import torch
 
 from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops.cuda_quadrature import (
+    F32,
+    F64,
     SweepOperands,
     _check_operand,
     bisect_max_grid_points,
     check_day_operands,
+    count_launch,
     masked_sweep,
     masked_sweep_reference,
 )
@@ -96,7 +115,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature3 import (
     masked_contract3_rebuild,
     masked_contract3_reference,
 )
-from copula_var_tpu_torch.ops.solvers import bracket_state_batched
+from copula_var_tpu_torch.ops.solvers import bracket_state_batched, full_iters
 from copula_var_tpu_torch.ops.tcached import ColumnOperands, tcached_sweep
 
 
@@ -188,26 +207,41 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
     iteration count (over every rank's days with a `reducer`); any other
     device raises."""
     dev = ops.V.device
+    _require_dtype(ops, F64, "bisect_levels")
     if dev.type == "cpu":
         return bisect_levels_reference(ops, lower, upper, prev_res, prev_up,
                                        ustack, obj, weights, tolerance,
                                        box_min, reducer=reducer)
     if dev.type != "cuda":
         raise ValueError(f"bisect_levels: unsupported device {dev}")
+    n_iters = _halving_count(lower, upper, tolerance, reducer)
+    return _launch_k1(ops, (lower, upper, prev_res, prev_up, ustack), obj,
+                      weights, box_min, n_iters)
+
+
+# kernel launches (CUDA path only), float64 and float32
+bisect_levels.launches = bisect_levels.launches_f32 = 0
+
+
+def _launch_k1(ops, state, obj, weights, box_min, n_iters):
+    """K1 of the operands' type on their CUDA device: `n_iters` halvings
+    of the (L, T) state (lower, upper, prev_res, prev_up, ustack), counted
+    on `bisect_levels`."""
+    dev, dt = ops.V.device, ops.dtype
     T, n, q = check_bisect_operands(ops)
+    lower, upper, prev_res, prev_up, ustack = state
     L = lower.shape[0]
     for name, t in (("lower", lower), ("upper", upper),
                     ("prev_res", prev_res), ("prev_up", prev_up)):
-        _check_operand(name, t, (L, T), dev)
+        _check_operand(name, t, (L, T), dev, dt)
     _check_operand("ustack", ustack, (L, T), dev, torch.bool)
-    _check_operand("obj", obj, (L,), dev)
-    _check_operand("weights", weights, (L, 2), dev)
-    n_iters = _halving_count(lower, upper, tolerance, reducer)
-    roots = torch.empty((L, T), dtype=torch.float64, device=dev)
-    lib = _build.load()
+    _check_operand("obj", obj, (L,), dev, dt)
+    _check_operand("weights", weights, (L, 2), dev, dt)
+    roots = torch.empty((L, T), dtype=dt, device=dev)
+    fn = _build.function("cvt_bisect_levels", dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.cvt_bisect_levels(
+        status = fn(
             ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
             ops.x.data_ptr(), lower.data_ptr(), upper.data_ptr(),
             prev_res.data_ptr(), prev_up.data_ptr(), ustack.data_ptr(),
@@ -215,19 +249,27 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
             roots.data_ptr(), T, n, q, L, stream,
         )
     _build.check(status, "bisect_levels")
-    bisect_levels.launches += 1
+    count_launch(bisect_levels, dt)
     return roots
 
 
-bisect_levels.launches = 0  # kernel launches (CUDA path only)
+def _require_dtype(ops, dtype, what):
+    """Raise unless the operands hold `dtype`: the f64 engine's solves
+    take float64 operands, the f32 engine's float32 ones."""
+    if ops.x.dtype != dtype:
+        engine = "f32 engine (full_solve_pallas)" if dtype == F32 else \
+            "f64 engine (full_solve_levels / full_solve_portfolios)"
+        raise ValueError(f"{what}: the {engine} takes {dtype} operands, not "
+                         f"{ops.x.dtype}")
 
 
-def dim2_bisect_route(n: int) -> str:
-    """How a CUDA device bisects a dim-2 grid of n points: "k1" (the
-    bisection kernel) when a day fits its block's shared memory, else
-    "sweeps" (a halving per K2 launch); the sweep's own limit (1024)
-    raises where its operands are built."""
-    return "k1" if n <= bisect_max_grid_points() else "sweeps"
+def dim2_bisect_route(n: int, dtype=F64) -> str:
+    """How a CUDA device bisects a dim-2 grid of n points of `dtype`: "k1"
+    (the bisection kernel) when a day fits its block's shared memory (n
+    <= 169 in float64, 192 in float32), else "sweeps" (a halving per K2
+    launch); the sweep's own limit (1024) raises where its operands are
+    built."""
+    return "k1" if n <= bisect_max_grid_points(dtype) else "sweeps"
 
 
 def bisect_by_k2_sweeps(ops: SweepOperands, lower, upper, prev_res,
@@ -252,12 +294,13 @@ def check_bisect_operands(ops: SweepOperands):
             f"bisect_levels: K1 bisects whole days; operands of outer rows "
             f"{ops.rows} are bisected by their summed sweeps (the solves' "
             "`grid`)")
-    n_max = bisect_max_grid_points()
+    n_max = bisect_max_grid_points(ops.dtype)
     if n > n_max:
         raise ValueError(
             f"num_points={n}: the dim-2 bisection kernel takes n <= {n_max}, "
-            f"holding a day's {n}x{n} float64 in one block's shared memory "
-            "(wider grids bisect by K2 sweeps, `bisect_by_k2_sweeps`)"
+            f"holding a day's {n}x{n} {ops.dtype} in one block's shared "
+            "memory (wider grids bisect by K2 sweeps, `bisect_by_k2_sweeps`"
+            " and `bisect_fixed`)"
         )
     return T, n, q
 
@@ -393,6 +436,132 @@ def bisect_for(ops):
     return _routes(ops, plain=False)[1]
 
 
+def fixed_halvings(ops, lower, upper, prev_res, prev_up, ustack, obj,
+                   weights, n_iters, sweep, box_min=-5.0):
+    """The f32 engine's dim-2 bisection as plain PyTorch over `sweep`:
+    exactly `n_iters` halvings of the (L, T) state, with no all-zeros break
+    and no host read (`pallas_solver.py::_solve_kernel`'s loop: K1's plain
+    twin in float32, with `masked_sweep_reference`)."""
+    lo, up, pr, pu, us = lower, upper, prev_res, prev_up, ustack
+    for _ in range(n_iters):
+        mid = (lo + up) / 2.0
+        b_lo = torch.where(us, lo, mid)
+        b_up = torch.where(us, mid, up)
+        slab = sweep(ops, torch.stack((b_lo, b_up), dim=-1), weights, box_min)
+        pr = torch.where(b_lo == pu, pr + slab, pr - slab)
+        us = pr < obj[:, None]
+        lo, up, pu = torch.where(us, mid, lo), torch.where(us, up, mid), mid
+    return (lo + up) / 2.0
+
+
+def bisect_fixed(ops: SweepOperands, lower, upper, prev_res, prev_up,
+                 ustack, obj, weights, n_iters, box_min=-5.0):
+    """(L, T) roots of the f32 engine's dim-2 bisection: `n_iters`
+    halvings of the float32 state (lower, upper, prev_res, prev_up (L, T),
+    ustack (L, T) bool; obj (L,), weights (L, 2)). CPU tensors run
+    `fixed_halvings` over the plain sweep; CUDA tensors launch K1 in
+    float32 where a day fits its shared memory (n <= 192), else run
+    `fixed_halvings` over the f32 K2 sweep (the same slab bits); any
+    other device raises."""
+    dev = ops.V.device
+    _require_dtype(ops, F32, "bisect_fixed")
+    state = (lower, upper, prev_res, prev_up, ustack)
+    if dev.type == "cpu":
+        return fixed_halvings(ops, *state, obj, weights, n_iters,
+                              masked_sweep_reference, box_min)
+    if dev.type != "cuda":
+        raise ValueError(f"bisect_fixed: unsupported device {dev}")
+    if dim2_bisect_route(ops.x.shape[0], F32) == "sweeps":
+        return fixed_halvings(ops, *state, obj, weights, n_iters,
+                              masked_sweep, box_min)
+    return _launch_k1(ops, tuple(t.contiguous() for t in state), obj,
+                      weights, box_min, n_iters)
+
+
+def _day_nan(ops: SweepOperands):
+    """(T,) days whose float32 tensor holds a non-finite entry (JAX
+    `_full_solve`'s NaN days)."""
+    return ~torch.isfinite(ops.V).flatten(1).all(dim=1)
+
+
+def _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
+                  plain):
+    """JAX's f32 engine on float32 operands (see the module docstring):
+    dim 2 `_full_solve` (fixed-count K1), dim 3 the `xla` program over
+    the f32 K4 sweep. weights (dim,) or (L, dim), as `_full_solve`.
+    Returns (roots (L, T): float32 at dim 2, float64 at dim 3, nan_days
+    (L, T))."""
+    _require_dtype(ops, F32, "full_solve_pallas")
+    kernel, twin = _sweeps(ops)
+    sweep = twin if plain else kernel
+    (lower, upper, prev_res, prev_up, ustack, nan_days), w = _stages(
+        ops, obj.to(F32), weights.to(F32), cfg, quirks, box_min, sweep, F32)
+    if isinstance(ops, Contract3Operands):
+        def sweep64(ops, bounds, weights, box_min=-5.0):
+            return sweep(ops, bounds.to(F32).contiguous(), w,
+                         box_min).to(F64)
+
+        state = tuple(t.to(F64).contiguous()
+                      for t in (lower, upper, prev_res, prev_up))
+        roots = _bisect_by_sweeps(
+            ops, state + (ustack.contiguous(),), obj.to(F64), w.to(F64),
+            tolerance, box_min, sweep64, sweep64, "full_solve_pallas", None)
+        return roots, nan_days
+    n_iters = full_iters(tolerance, cfg[3], cfg[4])
+    state = (lower, upper, prev_res, prev_up, ustack)
+    if plain:
+        roots = fixed_halvings(ops, *state, obj.to(F32), w, n_iters, twin,
+                               box_min)
+    else:
+        roots = bisect_fixed(ops, *state, obj.to(F32), w, n_iters, box_min)
+    return roots, nan_days | _day_nan(ops)[None]
+
+
+def full_solve_pallas(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
+                      box_min=-5.0):
+    """The f32 engine (`engine="pallas"`) on float32 `sweep_operands` /
+    `contract3_operands`: L rows of levels `obj` (L,) with one portfolio
+    `weights` (dim,) or one per row (L, dim) -> (roots (L, T), nan_days
+    (L, T)), through the f32 kernels on a CUDA device and the f32 plain
+    twins on the CPU. cfg = (first_guess, sg0, sg1, min_var, max_var)."""
+    return _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
+                         False)
+
+
+def full_solve_pallas_reference(ops, obj, weights, cfg, tolerance=1e-6,
+                                quirks=False, box_min=-5.0):
+    """`full_solve_pallas` through the f32 plain twins, on any device."""
+    return _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
+                         True)
+
+
+def _stages(ops, obj, weights, cfg, quirks, box_min, sweep, dt):
+    """The stage-1 sweep over [-100, first_guess] (bounds of type `dt`)
+    and the stage-2 bracket of L rows: levels `obj` (L,), `weights` (dim,)
+    for one portfolio shared by every row (one stage-1 sweep serves them
+    all) or (L, dim) for one per row. Returns (the bracket state (lower,
+    upper, prev_res, prev_up, ustack, nan_days), the (L, dim) weight
+    rows)."""
+    T, L = ops.days, obj.shape[0]
+    dev = ops.x.device
+    stage1 = torch.stack(
+        [torch.full((T,), -100.0, dtype=dt, device=dev),
+         torch.full((T,), float(cfg[0]), dtype=dt, device=dev)], dim=-1,
+    )
+    dim = weights.shape[-1]
+    if weights.dim() == 1:
+        weights = weights.reshape(1, dim)
+        F1 = sweep(ops, stage1[None], weights, box_min).expand(L, T)
+        weights = weights.expand(L, dim).contiguous()
+    else:
+        F1 = sweep(ops, stage1.expand(L, T, 2).contiguous(), weights, box_min)
+    state = bracket_state_batched(
+        F1, obj, lambda b: sweep(ops, b.contiguous(), weights, box_min), cfg,
+        quirks,
+    )
+    return state, weights
+
+
 def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
                 reducer=None, grid=None):
     """Stage-1 sweep + stage-2 bracket + bisection for L rows. weights is
@@ -403,26 +572,11 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
     bisection's global decisions are reduced. With a `grid` they hold one
     rank's outer grid rows, and every sweep is summed over the grid
     ranks. Returns (roots (L, T), nan_days (L, T))."""
+    _require_dtype(ops, F64, "full_solve_levels")
     sweep, bisect = (_routes(ops, plain) if grid is None
                      else _grid_routes(ops, plain, grid))
-    T, L = ops.days, obj.shape[0]
-    dev = ops.x.device
-    stage1 = torch.stack(
-        [torch.full((T,), -100.0, dtype=torch.float64, device=dev),
-         torch.full((T,), float(cfg[0]), dtype=torch.float64, device=dev)],
-        dim=-1,
-    )
-    dim = weights.shape[-1]
-    if weights.dim() == 1:
-        weights = weights.reshape(1, dim)
-        F1 = sweep(ops, stage1[None], weights, box_min).expand(L, T)
-        weights = weights.expand(L, dim).contiguous()
-    else:
-        F1 = sweep(ops, stage1.expand(L, T, 2).contiguous(), weights, box_min)
-    lower, upper, prev_res, prev_up, ustack, nan_days = bracket_state_batched(
-        F1, obj, lambda b: sweep(ops, b.contiguous(), weights, box_min), cfg,
-        quirks,
-    )
+    (lower, upper, prev_res, prev_up, ustack, nan_days), weights = _stages(
+        ops, obj, weights, cfg, quirks, box_min, sweep, F64)
     roots = bisect(ops, lower.contiguous(), upper.contiguous(),
                    prev_res.contiguous(), prev_up.contiguous(),
                    ustack.contiguous(), obj, weights, tolerance, box_min,

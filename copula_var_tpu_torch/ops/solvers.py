@@ -1,10 +1,15 @@
 """Stage-2 bracketing of the VaR solve, the trapezoid re-solve of
 `refine_root` and the batched golden-section scan of the IFM fits
 (counterpart of `copula_var_tpu/ops/solvers.py`: `bracket_state_batched`,
-`trap_bisect`, `golden_section_min`)."""
+`trap_bisect`, `golden_section_min`), and the f32 engine's halving count
+and accuracy contract (the port's copies of `copula_var_tpu/ops/
+pallas_solver.py::_full_iters` and `root_plateau_bound`)."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 _GR = 0.6180339887498949  # (sqrt(5) - 1) / 2
@@ -85,3 +90,25 @@ def trap_bisect(sweep_batched, roots, obj2, h2, iters: int = 12):
         below = F < obj2
         lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
     return torch.where(bad, roots, (lo + hi) / 2.0)
+
+
+def full_iters(tolerance, min_var_value, max_var_value) -> int:
+    """Halvings per level of the f32 engine's fused dim-2 solve
+    (`pallas_solver.py::_full_iters`): ceil(log2(span / tolerance)) for
+    the widest bracket the solve can hold, span = max_var - min_var (23
+    at the defaults), so no bracket is read on the host."""
+    span = max(float(max_var_value) - float(min_var_value), float(tolerance))
+    return max(1, int(math.ceil(math.log2(span / float(tolerance)))))
+
+
+def root_plateau_bound(dx, weights, n_cells=1) -> float:
+    """The f32 engine's accuracy contract (`pallas_solver.py::
+    root_plateau_bound`): the masked-grid CDF is a step function of the
+    VaR bound, whose inner cut moves one grid cell when the bound moves
+    cell width x |weights[0]|, so an f32 root may sit on another edge of
+    the same or an adjacent plateau than the f64 root. Worst case:
+    n_cells x max(dx) x |weights[0]|; `np.median(dx)` in place of dx gives
+    the typical (sensitivity) bound."""
+    dx, weights = (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                   for v in (dx, weights))
+    return float(n_cells * np.max(dx) * abs(float(weights[0])))

@@ -12,11 +12,14 @@ dataset (a GARCH and an MSM series) simulated on the device. There is no
 --tickers: downloading needs the network.
 
 --device picks where everything runs: "cuda" (the default, the kernels)
-or "cpu" (the plain twins). --engine "sharded", "sharded_pallas" or
-"grid_sharded" serve over a mesh of one process per card, under torchrun:
+or "cpu" (the plain twins). --engine "pallas" serves the f32 engine on one
+device (roots within one grid cell x |w0| of the f64 "xla" default's);
+"sharded", "sharded_pallas" or "grid_sharded" serve over a mesh of one
+process per card, under torchrun:
 
     python examples/run_backtest_torch.py --quick --device cpu
     python examples/run_backtest_torch.py --csv data/flagship.csv --plot var.png
+    python examples/run_backtest_torch.py --csv data/flagship.csv --engine pallas
     torchrun --nproc-per-node 4 examples/run_backtest_torch.py --engine sharded
 
 --save writes the VaR series and the portfolio returns to an .npz.
@@ -32,7 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-ENGINES = ("xla", "sharded", "sharded_pallas", "grid_sharded")
+ENGINES = ("xla", "pallas", "sharded", "sharded_pallas", "grid_sharded")
+SHARDED = ("sharded", "sharded_pallas", "grid_sharded")
 
 
 def parse_args(argv=None):
@@ -52,8 +56,9 @@ def parse_args(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="tiny problem + cheap optimizers (smoke run)")
     ap.add_argument("--engine", default="xla", choices=ENGINES,
-                    help="xla: one device; sharded / sharded_pallas: the "
-                         "days split over the ranks of a torchrun world; "
+                    help="xla: one device, f64; pallas: one device, the "
+                         "f32 engine; sharded / sharded_pallas: the days "
+                         "split over the ranks of a torchrun world; "
                          "grid_sharded: the outer grid rows split over "
                          "them")
     return ap.parse_args(argv)
@@ -98,7 +103,7 @@ def main(argv=None):
     from copula_var_tpu_torch.config import run_backtest
     from copula_var_tpu_torch.parallel import distributed
 
-    if args.engine != "xla":
+    if args.engine in SHARDED:
         distributed.initialize(device=args.device)  # env:// under torchrun
     lead = distributed.process_info()["process_index"] == 0
     data = load_data(args)
@@ -131,7 +136,7 @@ def main(argv=None):
                 title="VaR and Portfolio Returns Over Time")
             fig.savefig(args.plot, dpi=120)
             print("plot saved to", args.plot)
-    if args.engine != "xla":
+    if args.engine in SHARDED:
         distributed.shutdown()
     return results
 

@@ -74,15 +74,53 @@ def test_from_dict_takes_a_jax_dict():
 
 
 @pytest.mark.parametrize("key, value", [
-    ("engine", "pallas"), ("pallas_day_block", 8),
+    ("pallas_day_block", 8),
 ])
 def test_from_dict_refuses_jax_engine_settings(key, value):
-    """The JAX settings the port does not serve: its f32 Pallas kernels
-    (the port follows the f64 xla engine)."""
+    """The JAX setting the port does not serve: the TPU grid's day block of
+    its f32 Pallas kernel (the port's f32 engine runs one block per day;
+    its f64 xla engine has none)."""
     d = jcfg.BacktestConfig().to_dict()
     d[key] = value
     with pytest.raises(ValueError, match="f64 xla engine"):
         tcfg.BacktestConfig.from_dict(d)
+
+
+def test_from_dict_accepts_the_pallas_engine():
+    """A JAX `BacktestConfig(engine="pallas")` dict round-trips: the port
+    serves the f32 engine."""
+    j = jcfg.BacktestConfig(engine="pallas")
+    got = tcfg.BacktestConfig.from_dict(j.to_dict())
+    assert got.engine == "pallas"
+    assert got.to_dict() == _without_jax_keys(j.to_dict())
+    assert tcfg.BacktestConfig.from_dict(got.to_dict()) == got
+
+
+def test_run_backtest_serves_the_f32_engine():
+    """`run_backtest` with engine="pallas" on the CPU serves the f32
+    engine (its plain twins), against JAX's `run_backtest` on its f32
+    engine (interpret mode): every day within the plateau bound."""
+    from copula_var_tpu.ops.pallas_solver import root_plateau_bound
+
+    returns, tickers = _cut()
+    cfgs = [mod.BacktestConfig(estimation_type="garch", copula_type="gaussian",
+                               n_insample=CUT_N, engine="pallas",
+                               num_points=40)
+            for mod in (tcfg, jcfg)]
+    for c in cfgs:
+        c.garch.p_max = c.garch.q_max = 1
+    bt, var = tcfg.run_backtest(
+        from_returns(returns, tickers=tickers, n_insample=CUT_N), cfgs[0],
+        device="cpu")
+    jbt, jvar = jcfg.run_backtest(
+        jax_from_returns(returns, tickers=tickers, n_insample=CUT_N),
+        cfgs[1])
+    assert bt.engine == "pallas" and bt.sweep_operands().dtype == \
+        torch.float32
+    assert var.shape == (CUT_T,) and np.all(np.isfinite(var))
+    bound = root_plateau_bound(np.asarray(jbt.integration_inputs.dx),
+                               bt.data.weights)
+    np.testing.assert_allclose(var, np.asarray(jvar), rtol=0, atol=bound)
 
 
 @pytest.mark.parametrize("engine, n", [

@@ -15,7 +15,13 @@ equal to their plain twin; and the wide dim-2 and dim-3 solves through K2
 sweeps and the rebuild. K2 and K4 are also held on ranges of
 outer grid rows (grid sharding): each range against its plain twin, the
 ranges' partials summed against the whole launch, and the range of all
-rows bit-equal to the whole launch. This file
+rows bit-equal to the whole launch. The float32 instantiations (the f32
+engine, `engine="pallas"`) are held to their f32 plain twins: the table
+P and the sweep, K1 for a fixed count (bit-equal to the same count of f32
+K2 sweeps), the dim-3 table, its sweep, the flags and the rebuild
+(bit-equal to the f32 table sweep), the fused f32 solves at dim 2 and 3,
+the f32 limits, and each wrapper counting f32 launches apart from f64
+ones; the f64 wrappers refuse float32 operands. This file
 imports neither JAX nor the JAX package, so it runs where JAX is not
 installed (the repository's conftest imports JAX, hence `--noconftest`):
 
@@ -61,11 +67,12 @@ def dev():
 
 
 def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True,
-         rows=None):
+         rows=None, dtype=torch.float64):
     """Random day operands on the card; n not a multiple of 32; `edit(V)`
     may poke cells of the day tensors first. With `table` False they are
     built on the CPU and moved, so they carry no prefix table; with
-    `rows` (i0, i1) they hold those outer grid rows."""
+    `rows` (i0, i1) they hold those outer grid rows; `dtype` float32:
+    the f32 engine's operands of the same float64 inputs."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -83,10 +90,11 @@ def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True,
     if edit is not None:
         edit(V)
     if family == "garch":
-        return cq.sweep_operands(t(V), t(x), t(dx), rows=rows)
+        return cq.sweep_operands(t(V), t(x), t(dx), rows=rows, dtype=dtype)
     dens = rng.uniform(0.0, 0.5, (2, q, n))
     fc = rng.dirichlet(np.ones(q * q), size=T)
-    return cq.sweep_operands(t(V), t(x), t(dx), t(dens), t(fc), rows=rows)
+    return cq.sweep_operands(t(V), t(x), t(dx), t(dens), t(fc), rows=rows,
+                             dtype=dtype)
 
 
 def _rows(dev, T, L, seed=1):
@@ -380,10 +388,12 @@ def test_compute_integral_through_the_kernel(dev):
 CORR3 = np.array([[1.0, 0.45, 0.25], [0.45, 1.0, 0.35], [0.25, 0.35, 1.0]])
 
 
-def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None, rows=None):
+def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None, rows=None,
+          dtype=torch.float64):
     """Random dim-3 operands on the card; `edit(cols, p)` may poke cells
     of the transform or pdf columns before the operands are built; with
-    `rows` (i0, i1) those of outer slabs [i0, i1)."""
+    `rows` (i0, i1) those of outer slabs [i0, i1); `dtype` float32: the
+    f32 engine's operands."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -401,11 +411,11 @@ def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None, rows=None):
         edit(cols, p)
     if family == "garch":
         return cq3.contract3_operands(tuple(cols), x, dx, spec, p_cols=p,
-                                      rows=rows)
+                                      rows=rows, dtype=dtype)
     dens = t(rng.uniform(0.0, 0.5, (3, q, n)))
     fc = t(rng.dirichlet(np.ones(q**3), size=T))
     return cq3.contract3_operands(tuple(cols), x, dx, spec, densities=dens,
-                                  forecast_combos=fc, rows=rows)
+                                  forecast_combos=fc, rows=rows, dtype=dtype)
 
 
 def _rows3(dev, T, L, seed=1):
@@ -1003,3 +1013,207 @@ def test_wide_dim3_solve_through_the_rebuild(dev):
 def test_rebuild_rejects_past_the_interval_rule(dev):
     with pytest.raises(ValueError, match="1024"):
         _ops3(dev, "garch", "gaussian", T=1, n=1025)
+
+
+# -- the f32 engine's kernels (float32 instantiations) ------------------------
+
+F32 = torch.float32
+# the f32 kernels form the same float32 cells as their twins (up to
+# CUDA's expf / log1pf against torch's) and sum them in float64, rounded
+# once; the twins sum them in float32 (torch's products, n or n^2 terms):
+# they agree to a few float32 ulps of the scale
+RTOL_F32 = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _full_f32_products():
+    """The f32 engine's float32 products run in full float32, never TF32
+    (the f32 operands refuse to be built with TF32 on)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def _f32_counts():
+    return {w.__name__: (w.launches, w.launches_f32) for w in (
+        cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
+        cq3.contract3_weights, cq3.masked_contract3,
+        cq3.masked_contract3_rebuild, cq3.contract3_row_flags)}
+
+
+def _launched(before, after):
+    """{wrapper: (f64 launches, f32 launches)} between two counts."""
+    return {k: (after[k][0] - before[k][0], after[k][1] - before[k][1])
+            for k in after if after[k] != before[k]}
+
+
+def _close32(got, want):
+    assert got.dtype == want.dtype == F32
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    scale = float(want[fin].abs().max())
+    assert float((got[fin] - want[fin]).abs().max()) <= RTOL_F32 * scale
+
+
+def _f32_rows(dev, T, L, dim, seed=1):
+    b, w = (_rows if dim == 2 else _rows3)(dev, T, L, seed)
+    return b.to(F32), w.to(F32)
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_f32_table_and_sweep_match_plain(dev, family):
+    before = _f32_counts()
+    ops = _ops(dev, family, dtype=F32)
+    assert ops.P.dtype == F32 and ops.wfc.dtype == F32
+    want_p, flags = cq.sweep_table_reference(ops)
+    assert torch.equal(ops.flags, flags)
+    _close32(ops.P, want_p)
+    bounds, weights = _f32_rows(dev, ops.days, 6, 2)
+    got = cq.masked_sweep(ops, bounds, weights)
+    _close32(got, cq.masked_sweep_reference(ops, bounds, weights))
+    assert torch.equal(got, cq.masked_sweep(ops, bounds, weights))
+    assert _launched(before, _f32_counts()) == {
+        "sweep_table": (0, 1), "masked_sweep": (0, 2)}
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_f32_k1_fixed_count_matches_k2_halvings_and_plain(dev, family):
+    """K1 in float32 runs the given count: bit-equal to the same count of
+    f32 K2 sweeps (the same prefix rows and lane sums), within the plateau
+    bound of the plain twin (a slab's rounding may flip a tie)."""
+    ops = _ops(dev, family, dtype=F32)
+    T, L = ops.days, 4
+    _, weights = _f32_rows(dev, T, L, 2)
+    obj = torch.tensor([0.01, 0.05, 0.1, 0.2], dtype=F32, device=dev)
+    stage1 = torch.tensor([-100.0, CFG[0]], dtype=F32,
+                          device=dev).expand(L, T, 2).contiguous()
+    F1 = cq.masked_sweep(ops, stage1, weights)
+    state = [t.contiguous() for t in bracket_state_batched(
+        F1, obj, lambda b: cq.masked_sweep(ops, b.contiguous(), weights),
+        CFG, False)[:5]]
+    before = _f32_counts()
+    got = cs.bisect_fixed(ops, *state, obj, weights, 23)
+    assert _launched(before, _f32_counts()) == {"bisect_levels": (0, 1)}
+    by_k2 = cs.fixed_halvings(ops, *state, obj, weights, 23, cq.masked_sweep)
+    assert torch.equal(got, by_k2)
+    plain = cs.fixed_halvings(ops, *state, obj, weights, 23,
+                              cq.masked_sweep_reference)
+    bound = float(ops.dx.max()) * float(weights[:, 0].abs().max())
+    assert float((got - plain).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("n", [48, 192, 193])
+def test_f32_fused_solve_on_the_card(dev, n):
+    """`full_solve_pallas` at dim 2: two f32 stage sweeps, then one K1 f32
+    launch up to n = 192, or 23 f32 K2 sweeps past it; no f64 launch;
+    within the plateau bound of its plain twin."""
+    ops = _ops(dev, "msm", T=9, n=n, dtype=F32)
+    obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
+    w = torch.tensor([0.6, 0.4], dtype=torch.float64, device=dev)
+    before = _f32_counts()
+    got, nan = cs.full_solve_pallas(ops, obj, w, CFG)
+    launched = _launched(before, _f32_counts())
+    if n <= 192:
+        assert launched == {"masked_sweep": (0, 2), "bisect_levels": (0, 1)}
+    else:
+        assert launched == {"masked_sweep": (0, 2 + 23)}
+    want, want_nan = cs.full_solve_pallas_reference(ops, obj, w, CFG)
+    assert torch.equal(nan, want_nan) and got.dtype == F32
+    assert float((got - want).abs().max()) <= float(ops.dx.max()) * 0.6
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+@pytest.mark.parametrize("kind", ["student", "gaussian"])
+def test_f32_contract3_table_and_sweep_match_plain(dev, family, kind):
+    before = _f32_counts()
+    ops = _ops3(dev, family, kind, dtype=F32)
+    assert ops.U.dtype == F32 and ops.sigma_inv.dtype == torch.float64
+    n = ops.x.shape[0]
+    assert ops.U.shape[-1] == cq3.slab_stride(n, F32)
+    assert ops.U.shape[-1] % 4 == 0  # 16-byte slabs for the bulk copy
+    _close32(cq3.table_cells(ops.U, n), cq3.contract3_weights_reference(ops))
+    assert not bool(cq3.table_pads(ops.U, n).any())
+    bounds, weights = _f32_rows(dev, ops.days, 5, 3)
+    got = cq3.masked_contract3(ops, bounds, weights)
+    _close32(got, cq3.masked_contract3_reference(ops, bounds, weights))
+    assert torch.equal(got, cq3.masked_contract3(ops, bounds, weights))
+    assert _launched(before, _f32_counts()) == {
+        "contract3_weights": (0, 1), "masked_contract3": (0, 2)}
+
+
+@pytest.mark.parametrize("walk", ["truncated", "full"])
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_f32_rebuild_equals_the_f32_table_sweep(dev, family, walk):
+    """The f32 rebuild rounds each captured prefix to float32 as the table
+    stores it, so both routes give the same bits in float32 too; the f32
+    flags equal their plain twin."""
+    ops = _ops3(dev, family, "student", n=48, dtype=F32)
+    bounds, weights = _f32_rows(dev, ops.days, 5, 3)
+    table = cq3.masked_contract3(ops, bounds, weights)
+    flags = cq3.contract3_row_flags(ops)
+    assert flags.dtype == torch.bool
+    assert torch.equal(flags, cq3.contract3_row_flags_reference(ops))
+    rebuilt = cq3.masked_contract3_rebuild(_walk(ops, walk), bounds, weights)
+    assert _same(rebuilt, table)
+
+
+def test_f32_dim3_solve_on_the_card(dev):
+    """`full_solve_pallas` at dim 3 (f32 K4 sweeps, float64 state) on the
+    table and on the rebuild: the same roots, no f64 launch, within the
+    plateau bound of the plain twin."""
+    ops = _ops3(dev, "msm", "student", dtype=F32)
+    obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
+    w = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64, device=dev)
+    before = _f32_counts()
+    got, nan = cs.full_solve_pallas(ops, obj, w, CFG)
+    launched = _launched(before, _f32_counts())
+    assert set(launched) == {"masked_contract3"}
+    assert launched["masked_contract3"][0] == 0
+    assert got.dtype == torch.float64
+    rebuilt, _ = cs.full_solve_pallas(_walk(ops, "truncated"), obj, w, CFG)
+    assert _same(rebuilt, got)
+    want, want_nan = cs.full_solve_pallas_reference(ops, obj, w, CFG)
+    assert torch.equal(nan, want_nan)
+    assert float((got - want).abs().max()) <= float(ops.dx.max()) * 0.5
+
+
+def test_f32_limits_mirror_the_launchers(dev):
+    """The f32 launchers take the f32 limits and refuse one past them:
+    K1 at bisect_max_grid_points(float32) (192), the f32 table sweep at
+    table_max_grid_points(q, float32), and a slab stride that is not
+    16-byte rounded for float32."""
+    lib = _build.load()
+    invalid = 1  # cudaErrorInvalidValue
+
+    def k1(n):
+        return lib.cvt_bisect_levels_f32(*[None] * 11, -5.0, 1, None, 0, n,
+                                         5, 1, None)
+
+    def table(n, stride=None):
+        return lib.cvt_masked_contract3_f32(
+            *[None] * 4, -5.0, None, None, 0, n, 0, n, 1, cq.row_pitch(n),
+            cq3.slab_stride(n, F32) if stride is None else stride, None)
+
+    n1 = cq.bisect_max_grid_points(F32)
+    assert n1 == 192 and (k1(n1), k1(n1 + 1)) == (0, invalid)
+    for q in (1, 5):
+        n3 = cq3.table_max_grid_points(q, F32)
+        assert n3 == 192 and (table(n3), table(n3 + 1)) == (0, invalid)
+    # n = 45: n * pitch = 2025 cells, 2026 for float64, 2028 for float32
+    assert (cq3.slab_stride(45), cq3.slab_stride(45, F32)) == (2026, 2028)
+    assert table(45) == 0 and table(45, 2026) == invalid
+
+
+def test_wrappers_refuse_the_other_engine_s_operands(dev):
+    """The f64 solves refuse f32 operands and the f32 solve f64 ones; a
+    sweep of f32 operands refuses float64 bounds."""
+    ops32 = _ops(dev, "garch", T=5, dtype=F32)
+    ops64 = _ops(dev, "garch", T=5)
+    obj = torch.tensor([0.05], dtype=torch.float64, device=dev)
+    w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="f64 engine"):
+        cs.full_solve_levels(ops32, obj, w, CFG)
+    with pytest.raises(ValueError, match="f32 engine"):
+        cs.full_solve_pallas(ops64, obj, w, CFG)
+    bounds, weights = _rows(dev, 5, 1)
+    with pytest.raises(ValueError, match="bounds"):
+        cq.masked_sweep(ops32, bounds, weights)
