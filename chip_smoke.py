@@ -49,7 +49,12 @@ Phases, each fatal on failure:
      4's bounds and the VaR to `data/dim3_var.npz` at atol 1e-9, each
      step's wall time printed. Before each counted path every kernel
      launch counter is zeroed and after it read; each kernel of that path
-     must have launched and the other paths' kernels must not;
+     must have launched and the other paths' kernels must not. Phase 5's
+     `run_backtest` fit (`mr_fit_phase`) and phase 7 (`dim3_fit_phase`)
+     each run in a spawned child process, counted there, from the end of
+     the build on, and are joined where they stand: the fits are
+     launch-bound host work, so they overlap phases 3-6 on other cores
+     (their host-clock stage times then include that sharing);
   8. refine_root and the reference-quirks fits, counted:
      `load_artifacts(..., refine_root=True, device="cuda")` for the
      flagship and the dim-3 MSM and GARCH artifacts, `calc_var_levels`,
@@ -97,10 +102,17 @@ Phases, each fatal on failure:
      [167, 334), [334, 500), and serve every path. Each result is held
      bit-equal to the one-card series and within 1e-9 of its record (0
      days above); each rank must launch K1 and K2 on the dim-2 path and
-     K4 on the dim-3 path (and nothing on dim 4). Prints each rank's day
-     block, launches, peak device memory (U split three ways) and wall
-     seconds; the ranks share one card, so no figure here is a scaling
-     figure;
+     K4 on the dim-3 path (and nothing on dim 4), no f32 kernel on
+     these f64 paths. The same ranks then serve the dim-2 and dim-3
+     paths on the f32 engine (`bt.engine = "pallas"` on the `DayMesh`,
+     JAX's "sharded_pallas"; flagship MSM and GARCH calc_var(0.05), the
+     32 x 4 grid and the refined levels; dim-3 MSM and GARCH
+     calc_var(0.05) and the 8 x 4 grid), counted with the f32 and f64
+     counters, held in phase 16; and a 4-day flagship MSM cut on the f32
+     engine (rank 2's block empty), bit-equal on every rank to rank 0's
+     cut on one card with no mesh. Prints each rank's day block,
+     launches, peak device memory (U split three ways) and wall seconds;
+     the ranks share one card, so no figure here is a scaling figure;
   11. grid sharding (`parallel/`, a ('days', 'grid') `GridMesh`), counted
      per rank, held to phase 10's one-card series: (a) a world of one
      NCCL rank in this process serves the flagship MSM through a (1, 1)
@@ -191,7 +203,15 @@ Phases, each fatal on failure:
      full-row walk; the f32 flags equal to their twin), timed and traced
      beside the f64 figures, with bounds at float32 bytes and the
      float32 rate (67 TFLOP/s), the f32 queries' times and the f32 path's
-     peak device memory (U in float32) beside the f64 path's.
+     peak device memory (U in float32) beside the f64 path's. Past the
+     count, the GARCH grids (held to phase 10's f64 grids) and the
+     refined flagship levels (5e-4 of the f64 refined record) on one
+     card, then phase 10's day-sharded f32 ranks held to these one-card
+     f32 series: every series bit-equal, every f32 kernel of each path
+     launched on each rank and no f64 one, each rank's U float32 its
+     block's share of one card's to the byte (its size and each (day,
+     slab) row's sum of the integers its bytes spell); prints each
+     rank's f32 launches, peak device memory and wall seconds.
 
 Each kernel's bound in the record is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its float64
@@ -205,8 +225,10 @@ bytes an entry and 67 TFLOP/s.
 
 Prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path, the rebuild's and the flag pass's on
-phase 12, the f32 instantiations' ("<name>_f32") on phase 16, and, as
-`grid_launches_per_rank`, on one rank of phase 11 (b)), and as the last
+phase 12, the f32 instantiations' ("<name>_f32") on phase 16 and, as
+`day_sharded_f32_launches_per_rank`, on each rank's f32 paths of phase
+10, and, as `grid_launches_per_rank`, on one rank of phase 11 (b)), and
+as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
 line, when torch sees no CUDA device or the port's sources are missing.
 """
@@ -218,6 +240,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPS = 10
@@ -266,6 +289,10 @@ TABLE_DAYS = 16  # days of U held against the plain twin
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F64_FLOP_PER_S = 34e12  # H100 SXM data sheet, FP64 outside the tensor cores
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
+# f32 refined roots against the f64 refined ones: the trap re-solve lands
+# on the same continuous root from either plateau edge
+# (tests/test_torch_f32_engine.py's bar)
+ATOL_REFINED_F32 = 5e-4
 # the device spans of each wrapper's launch: (counted kernel, others...)
 KERNEL_SPANS = {
     "sweep_table": ("sweep_table_kernel",),
@@ -493,28 +520,55 @@ def _ms(v, fmt=".3f"):
 
 SHARDED_RANKS = 3  # the day-sharded phase's gloo ranks, on the one card
 SHARDED_TIMEOUT_S = 300  # a rank that dies fails the others by then
+# the day-sharded ranks' paths: the f64 engine's, then the f32 engine's
+SHARDED_PATHS = ("dim2", "dim3", "dim4", "dim2_f32", "dim3_f32")
+F32_PATHS = ("dim2_f32", "dim3_f32")
+CUT_DAYS = 4  # the flagship cut on three ranks: days 2 + 2 + 0
 
 
-def _served(root, name, data, mesh, **kw):
-    """load_artifacts(data/<name>, device="cuda", mesh=mesh, **kw)."""
+def _served(root, name, data, mesh, engine="xla", **kw):
+    """load_artifacts(data/<name>, device="cuda", mesh=mesh, **kw), then
+    `bt.engine = engine` (JAX's recipe for the f32 engine)."""
     from copula_var_tpu_torch.utils.artifacts import load_artifacts
 
-    return load_artifacts(os.path.join(root, "data", name), data,
-                          device="cuda", mesh=mesh, **kw)
+    bt = load_artifacts(os.path.join(root, "data", name), data,
+                        device="cuda", mesh=mesh, **kw)
+    if engine != "xla":
+        bt.engine = engine
+    return bt
+
+
+def table_sums(U):
+    """(T, r) int64: each (day, slab) row of the table U summed as the
+    integers its bytes spell (4 or 8 bytes an entry), a fingerprint that
+    any flipped bit moves, read on the card a day at a time (the int64
+    sum of a whole float32 table would take twice its bytes)."""
+    import numpy as np
+    import torch
+
+    ints = U.view(torch.int32 if U.element_size() == 4 else torch.int64)
+    return np.stack([day.sum(dim=-1, dtype=torch.int64).cpu().numpy()
+                     for day in ints]) if len(ints) else \
+        np.zeros(U.shape[:2], np.int64)
 
 
 def serve_day_sharded(root, mesh, w_batch, w_batch3,
                       paths=("dim2", "dim3", "dim4")):
     """The `paths` of the sharded phases through `mesh` (a DayMesh or a
     GridMesh; None: one card, cuda:0), each counted alone: ({name:
-    array}, {path: launches}, {path: peak device bytes above what was
-    allocated when the path began}, {path: wall s}).
+    array}, {path: f64 launches, and path + "/f32": its f32 launches},
+    {path: peak device bytes above what was allocated when the path
+    began}, {path: wall s}).
     dim2: the flagship MSM and GARCH artifacts' calc_var(0.05), the
     ROWS_P x LEVELS grid and the refined levels of
     `flagship_refined_var.npz`; dim2_msm: the flagship MSM calc_var(0.05)
     and grid alone; dim3: the dim-3 artifacts' calc_var(0.05) and the
-    ROWS_P3 x LEVELS grid, one backtest at a time; dim4: the MSM
-    artifact's calc_var(0.05) at n = 32 over T = 500."""
+    ROWS_P3 x LEVELS grid, one backtest at a time, and the bytes of the
+    table U (on the f32 engine its (day, slab) fingerprint too,
+    `table_sums`); dim4: the MSM
+    artifact's calc_var(0.05) at n = 32 over T = 500; dim2_f32,
+    dim3_f32: dim2 and dim3 on the f32 engine (`bt.engine = "pallas"`,
+    on a DayMesh JAX's "sharded_pallas")."""
     import numpy as np
     import torch
 
@@ -531,29 +585,36 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
     rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
     out = {}
 
-    def dim2(families=("msm", "garch"), refined=True):
+    def dim2(families=("msm", "garch"), refined=True, engine="xla"):
+        tag = "dim2" if engine == "xla" else "dim2_f32"
         data = from_csv(os.path.join(root, "data", "flagship.csv"), 1135)
         for est in families:
-            bt = _served(root, f"flagship_artifacts_{est}.npz", data, mesh)
-            out[f"dim2/{est}/var"] = bt.calc_var(0.05)
-            out[f"dim2/{est}/grid"] = bt.calc_var_grid(w_batch, LEVELS)
+            bt = _served(root, f"flagship_artifacts_{est}.npz", data, mesh,
+                         engine)
+            out[f"{tag}/{est}/var"] = bt.calc_var(0.05)
+            out[f"{tag}/{est}/grid"] = bt.calc_var_grid(w_batch, LEVELS)
             if not refined:
                 continue
             bt = _served(root, f"flagship_artifacts_{est}.npz", data, mesh,
-                         refine_root=True)
-            out[f"dim2/{est}/refined"] = bt.calc_var_levels(
+                         engine, refine_root=True)
+            out[f"{tag}/{est}/refined"] = bt.calc_var_levels(
                 tuple(rec_r["levels"]))
 
-    def dim3():
+    def dim3(engine="xla"):
+        tag = "dim3" if engine == "xla" else "dim3_f32"
         data = from_csv(os.path.join(root, "data", "dim3.csv"),
                         int(rec3["n_insample"]), weights=rec3["weights"])
         for est in ("msm", "garch"):
-            bt = _served(root, f"dim3_artifacts_{est}.npz", data, mesh)
-            out[f"dim3/{est}/var"] = bt.calc_var(0.05)
-            out[f"dim3/{est}/grid"] = bt.calc_var_grid(w_batch3, LEVELS)
-            out[f"dim3/{est}/table_bytes"] = np.array(
-                bt.sweep_operands().U.numel() * 8)
-            del bt
+            bt = _served(root, f"dim3_artifacts_{est}.npz", data, mesh,
+                         engine)
+            out[f"{tag}/{est}/var"] = bt.calc_var(0.05)
+            out[f"{tag}/{est}/grid"] = bt.calc_var_grid(w_batch3, LEVELS)
+            U = bt.sweep_operands().U
+            out[f"{tag}/{est}/table_bytes"] = np.array(
+                U.numel() * U.element_size())
+            if engine != "xla":
+                out[f"{tag}/{est}/table_sums"] = table_sums(U)
+            del bt, U
             torch.cuda.empty_cache()
 
     def dim4():
@@ -565,11 +626,13 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
     dev = torch.device("cuda", 0) if mesh is None else mesh.device
     launches, peaks, walls = {}, {}, {}
     fns = {"dim2": dim2, "dim3": dim3, "dim4": dim4,
-           "dim2_msm": lambda: dim2(("msm",), refined=False)}
+           "dim2_msm": lambda: dim2(("msm",), refined=False),
+           "dim2_f32": lambda: dim2(engine="pallas"),
+           "dim3_f32": lambda: dim3("pallas")}
     for name in paths:
         fn = fns[name]
         for c in counters:
-            c.launches = 0
+            c.launches = c.launches_f32 = 0
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -578,22 +641,58 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
         torch.cuda.synchronize(dev)
         walls[name] = time.perf_counter() - t0
         launches[name] = {c.__name__: c.launches for c in counters}
+        launches[f"{name}/f32"] = {c.__name__: c.launches_f32
+                                   for c in counters}
         peaks[name] = torch.cuda.max_memory_allocated(dev) - base
     return out, launches, peaks, walls
 
 
+def flagship_cut_f32(root, out_dir, mesh):
+    """The flagship MSM artifact cut to its first CUT_DAYS days (written
+    to out_dir), served on the f32 engine through the day mesh (on
+    SHARDED_RANKS ranks the last block is empty): {"cut_f32/msm/var":
+    (CUT_DAYS,)}; rank 0 adds the same cut on one card with no mesh,
+    "cut_f32/msm/one_card". Not counted."""
+    import numpy as np
+
+    from copula_var_tpu_torch.data import from_csv, from_returns
+    from copula_var_tpu_torch.utils.artifacts import load_artifacts
+
+    z = np.load(os.path.join(root, "data", "flagship_artifacts_msm.npz"))
+    arrays = {k: z[k] for k in z.files}
+    for k in ("ii_forecasts_by_states", "ii_forecast_combos"):
+        arrays[k] = arrays[k][:CUT_DAYS]
+    path = os.path.join(out_dir, f"cut_msm_rank{mesh.rank}.npz")
+    np.savez(path, **arrays)
+    full = from_csv(os.path.join(root, "data", "flagship.csv"), 1135)
+    data = from_returns(full.returns[:1135 + CUT_DAYS], full.tickers, 1135)
+    out = {}
+    for key, m in (("var", mesh), ("one_card", None)):
+        if m is None and mesh.rank != 0:
+            continue
+        bt = load_artifacts(path, data, device="cuda", mesh=m)
+        bt.engine = "pallas"
+        out[f"cut_f32/msm/{key}"] = bt.calc_var(0.05)
+    return out
+
+
 def day_sharded_rank(root, out_dir, w_batch, w_batch3):
     """One gloo rank of the day-sharded phase (spawned by
-    `parallel.distributed.run_world`): serve every path through the
-    world's mesh and save what this rank got, its day block, launches,
-    peak device memory and wall seconds to out_dir/rank<r>.{npz,json}."""
+    `parallel.distributed.run_world`): serve every path of SHARDED_PATHS
+    through the world's mesh, then the f32 flagship cut
+    (`flagship_cut_f32`), and save what this rank got, its day block,
+    launches, peak device memory and wall seconds to
+    out_dir/rank<r>.{npz,json}."""
     import numpy as np
+    import torch
 
     from copula_var_tpu_torch.parallel import make_mesh
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 engine's
     mesh = make_mesh()
     out, launches, peaks, walls = serve_day_sharded(root, mesh, w_batch,
-                                                    w_batch3)
+                                                    w_batch3, SHARDED_PATHS)
+    out.update(flagship_cut_f32(root, out_dir, mesh))
     np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump({"rank": mesh.rank, "device": str(mesh.device),
@@ -652,22 +751,28 @@ def _held(phase, name, got, one_card, record, atol=0.0):
 
 
 def day_sharded_phase(root, smi, w_batch, w_batch3):
-    """The day-sharded phase. First every path of `serve_day_sharded` on
-    one card, with no mesh: the one-card series. (a) A world of one NCCL
-    rank in this process serves the flagship MSM through a `DayMesh`,
-    bit-equal to the one-card series and within 1e-9 of the record;
-    (b) SHARDED_RANKS gloo ranks on the one card, spawned after this
-    process built the kernels, serve every path, each rank's results
-    bit-equal to the one-card series and within 1e-9 of the records
-    (0 days above). Returns (the phase's report, the one-card series,
-    its peak device bytes per path)."""
+    """The day-sharded phase. First every f64 path of `serve_day_sharded`
+    on one card, with no mesh: the one-card series. (a) A world of one
+    NCCL rank in this process serves the flagship MSM through a
+    `DayMesh`, bit-equal to the one-card series and within 1e-9 of the
+    record; (b) SHARDED_RANKS gloo ranks on the one card, spawned after
+    this process built the kernels, serve every path of SHARDED_PATHS,
+    each rank's f64 results bit-equal to the one-card series and within
+    1e-9 of the records (0 days above), with no f32 launch on an f64
+    path, and the f32 flagship cut of CUT_DAYS days (the last rank's
+    block empty) bit-equal to rank 0's cut on one card. The ranks' f32
+    paths are held in the f32 phase, which serves their one-card series
+    (this process may launch no f32 kernel before it). Returns (the
+    phase's report, the one-card series, its peak device bytes per path,
+    the ranks' f32 results: [{rank, block, results, launches, peak_bytes,
+    wall_s}])."""
     import tempfile
 
     import numpy as np
     import torch
 
     from copula_var_tpu_torch.data import from_csv
-    from copula_var_tpu_torch.parallel import distributed, make_mesh
+    from copula_var_tpu_torch.parallel import DayMesh, distributed, make_mesh
 
     def held(name, got, want_bits, record):
         return _held("day-sharded", name, got, want_bits, record)[1]
@@ -720,10 +825,14 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
                                                         f"rank{r}.npz")))
             ranks.append(info)
     errs = {}
+    cut = ranks[0]["results"]["cut_f32/msm/one_card"]
     for info in ranks:
         r, got = info["rank"], info["results"]
+        if not np.array_equal(got["cut_f32/msm/var"], cut):
+            raise AssertionError(f"rank {r}: the f32 {CUT_DAYS}-day cut is "
+                                 "not bit-equal to one card's")
         for name, want in unsharded.items():
-            if name.endswith("table_bytes"):
+            if name.endswith(("table_bytes", "table_sums")):
                 continue
             e = held(f"rank {r} {name}", got[name], want, records.get(name))
             if e is not None:
@@ -744,7 +853,9 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
                 lc["dim2"]["masked_contract3_rebuild"] or \
                 lc["dim2"]["contract3_row_flags"] or \
                 lc["dim3"]["contract3_row_flags"] or \
-                lc["dim3"]["masked_sweep"] or any(lc["dim4"].values()):
+                lc["dim3"]["masked_sweep"] or any(lc["dim4"].values()) or \
+                any(any(lc[f"{p}/f32"].values())
+                    for p in ("dim2", "dim3", "dim4")):
             raise AssertionError(f"rank {r}: a kernel launched off its path "
                                  f"{lc}")
         print(f"day-sharded (b) rank {r} of {SHARDED_RANKS} "
@@ -753,9 +864,14 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
               f"bytes above each path's start {info['peak_bytes']}; dim-3 table U "
               f"{int(got['dim3/msm/table_bytes'])} bytes; wall s "
               + ", ".join(f"{k} {v:.3f}" for k, v in info["wall_s"].items()))
-    print(f"day-sharded (b): {SHARDED_RANKS} ranks, every result bit-equal "
-          f"to the one-card series and each record within {ATOL_VAR:g} "
-          "(0 days above): "
+    cut_blocks = [DayMesh(None, r, SHARDED_RANKS, "cpu").day_block(CUT_DAYS)
+                  for r in range(SHARDED_RANKS)]
+    print(f"day-sharded (b): the f32 flagship MSM cut of {CUT_DAYS} days "
+          f"(rank blocks {cut_blocks}) bit-equal to one card's on every "
+          "rank")
+    print(f"day-sharded (b): {SHARDED_RANKS} ranks, every f64 result "
+          "bit-equal to the one-card series and each record within "
+          f"{ATOL_VAR:g} (0 days above): "
           + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
           + f"; phase wall {wall:.3f} s, host clock, spawn included ({smi}; "
           "ranks share one card: not a scaling figure)")
@@ -763,7 +879,16 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
         "ranks": [{k: v for k, v in info.items() if k != "results"}
                   for info in ranks],
         "max_err": errs, "wall_s": wall}
-    return report, unsharded, peaks1
+    f32_ranks = [{"rank": info["rank"], "block": info["block_T500"],
+                  "results": {k: v for k, v in info["results"].items()
+                              if k.startswith(F32_PATHS)},
+                  "launches": {k: v for k, v in info["launches"].items()
+                               if k.startswith(F32_PATHS)},
+                  "peak_bytes": {p: info["peak_bytes"][p]
+                                 for p in F32_PATHS},
+                  "wall_s": {p: info["wall_s"][p] for p in F32_PATHS}}
+                 for info in ranks]
+    return report, unsharded, peaks1, f32_ranks
 
 
 GRID_RANKS = 4  # the grid-sharded phase's gloo ranks, on the one card
@@ -1549,7 +1674,7 @@ RTOL_F32 = 1e-5
 
 
 def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
-                     f64_figures, peak3_64):
+                     f64_figures, peak3_64, f32_ranks, one_card):
     """The f32 engine (`engine="pallas"`), counted: the flagship MSM and
     GARCH and the dim-3 MSM and GARCH artifacts served through
     `bt.engine = "pallas"` after `load_artifacts` (calc_var(0.05)), the
@@ -1569,8 +1694,15 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
     rate, and the f32 path's peak device memory (U in float32) beside the
     f64 one (`f64_figures`: {key: {"call_ms", "device_ms"}} of this run's
     f64 kernels and queries at the same keys; `peak3_64` the f64 dim-3
-    path's peak above its start). Returns (report, the f32 kernels'
-    entries of the kernels line)."""
+    path's peak above its start). Then, past the count, the GARCH grids
+    (held to phase 10's f64 one-card grids, `one_card`) and the refined
+    flagship levels (within ATOL_REFINED_F32 of the f64 refined record)
+    on one card, and the day-sharded ranks' f32 paths (`f32_ranks`, from
+    phase 10) held to these one-card f32 series: every series bit-equal,
+    every f32 kernel of each path launched on each rank and no f64 one,
+    each rank's U float32 its block's share of the one-card U float32 to
+    the byte (size and (day, slab) fingerprint). Returns (report, the
+    f32 kernels' entries of the kernels line)."""
     import numpy as np
     import torch
 
@@ -1670,6 +1802,8 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
     base_bytes = torch.cuda.memory_allocated()
     zero()
     bts, host, report = {}, {}, {"series": {}}
+    # the one-card f32 series of the day-sharded ranks' keys
+    f32_series = {}
     for dim, csv, prefix, rec_, w in (
             (2, "flagship.csv", "flagship_artifacts", rec, None),
             (3, "dim3.csv", "dim3_artifacts", rec3, w3)):
@@ -1693,12 +1827,14 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
                 f"{key} calc_var({alpha:g}) vs the f64 record", var,
                 rec_[f"{est}_var"], bt.integration_inputs.dx.cpu().numpy(),
                 bt.data.weights)
+            f32_series[f"dim{dim}_f32/{est}/var"] = var
             bts[key] = bt
     for key, wb, want in (("dim2_msm", w_batch, grid64),
                           ("dim3_msm", w_batch3, grid3_64)):
         t0 = time.perf_counter()
         got = bts[key].calc_var_grid(wb, levels)
         host[f"{key}_grid_s"] = time.perf_counter() - t0
+        f32_series[f"{key[:4]}_f32/msm/grid"] = got
         report["series"][f"{key}_grid"] = held(
             f"{key} {len(wb)}x{len(levels)} grid vs the f64 grid",
             got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]),
@@ -1735,6 +1871,93 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
             raise AssertionError(f"f32 phase: the f32 {name} never launched")
     report.update(host_s=host, peak_bytes=peak3 - base_bytes,
                   peak_bytes_f64_dim3=peak3_64)
+
+    # -- the day-sharded ranks' f32 paths (phase 10) against one card ------
+    # the rest of their one-card series, past the count: the GARCH grids
+    # and the refined flagship levels
+    for dim, wb in ((2, w_batch), (3, w_batch3)):
+        key = f"dim{dim}_garch"
+        got = bts[key].calc_var_grid(wb, levels)
+        f32_series[f"dim{dim}_f32/garch/grid"] = got
+        report["series"][f"{key}_grid"] = held(
+            f"{key} {len(wb)}x{len(levels)} grid vs the f64 grid",
+            got.reshape(-1, got.shape[-1]),
+            one_card[f"dim{dim}/garch/grid"].reshape(-1, got.shape[-1]),
+            bts[key].integration_inputs.dx.cpu().numpy(),
+            np.repeat(wb, len(levels), axis=0))
+    rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
+    data2 = from_csv(os.path.join(root, "data", "flagship.csv"), 1135)
+    for est in ("msm", "garch"):
+        bt = load_artifacts(os.path.join(root, "data",
+                                         f"flagship_artifacts_{est}.npz"),
+                            data2, device="cuda", refine_root=True)
+        bt.engine = "pallas"
+        got = bt.calc_var_levels(tuple(rec_r["levels"]))
+        d = float(np.max(np.abs(got - rec_r[f"{est}_levels"])))
+        if not d <= ATOL_REFINED_F32:
+            raise AssertionError(f"f32 dim2_{est} refined: {d:.3e} off the "
+                                 f"f64 refined record (bound "
+                                 f"{ATOL_REFINED_F32:g})")
+        print(f"f32 dim2_{est} refined levels {tuple(rec_r['levels'])}: max "
+              f"|f32 refined - f64 refined record| {d:.3e} (bound "
+              f"{ATOL_REFINED_F32:g})")
+        report["series"][f"dim2_{est}_refined"] = {"max": d}
+        f32_series[f"dim2_f32/{est}/refined"] = got
+        del bt
+    u_one = {est: bts[f"dim3_{est}"].sweep_operands().U
+             for est in ("msm", "garch")}
+    u_bytes = {est: U.numel() * U.element_size() for est, U in u_one.items()}
+    u_sums = {est: table_sums(U) for est, U in u_one.items()}
+    T_u = u_one["msm"].shape[0]
+    del u_one
+    report["day_sharded_f32"] = {"ranks": []}
+    for info in f32_ranks:
+        r, got, lc = info["rank"], info["results"], info["launches"]
+        b0, b1 = info["block"]
+        for key, want in f32_series.items():
+            if got[key].shape != want.shape or \
+                    not np.array_equal(got[key], want):
+                raise AssertionError(
+                    f"f32 day-sharded rank {r} {key}: not bit-equal to the "
+                    "one-card f32 series (max "
+                    f"{float(np.max(np.abs(got[key] - want))):.3e})")
+        for est in ("msm", "garch"):
+            nb = int(got[f"dim3_f32/{est}/table_bytes"])
+            if nb * T_u != u_bytes[est] * (b1 - b0) or not np.array_equal(
+                    got[f"dim3_f32/{est}/table_sums"], u_sums[est][b0:b1]):
+                raise AssertionError(
+                    f"f32 day-sharded rank {r} dim3 {est}: U float32 of "
+                    f"{nb} bytes is not days [{b0}, {b1}) of one card's "
+                    f"{u_bytes[est]} bytes")
+        d2, d3 = lc["dim2_f32/f32"], lc["dim3_f32/f32"]
+        off = [k for k in ("contract3_weights", "masked_contract3",
+                           "contract3_row_flags", "masked_contract3_rebuild")
+               if d2[k]] + [k for k in ("sweep_table", "masked_sweep",
+                                        "bisect_levels",
+                                        "contract3_row_flags",
+                                        "masked_contract3_rebuild")
+                            if d3[k]]
+        if any(any(lc[p].values()) for p in F32_PATHS) or off or \
+                d2["sweep_table"] != 4 or d2["masked_sweep"] <= 0 or \
+                d2["bisect_levels"] <= 0 or \
+                d3["contract3_weights"] != 2 or d3["masked_contract3"] <= 0:
+            raise AssertionError(f"f32 day-sharded rank {r}: not the f32 "
+                                 f"kernels of its paths {lc}")
+        print(f"f32 day-sharded rank {r} of {SHARDED_RANKS} (gloo, one "
+              f"card): days [{b0}, {b1}) of {T_u}; f32 launches dim 2 {d2}, "
+              f"dim 3 {d3}, f64 launches 0; peak device bytes above each "
+              f"path's start {info['peak_bytes']}; U float32 "
+              f"{int(got['dim3_f32/msm/table_bytes'])} bytes ({b1 - b0}/"
+              f"{T_u} of one card's {u_bytes['msm']}); wall s "
+              + ", ".join(f"{k} {v:.3f}" for k, v in info["wall_s"].items())
+              + f" ({smi}; the ranks share one card: not a scaling figure)")
+        report["day_sharded_f32"]["ranks"].append(
+            {k: v for k, v in info.items() if k != "results"})
+    print(f"f32 day-sharded: {len(f32_ranks)} ranks, each of {len(f32_series)}"
+          " f32 series bit-equal to the one-card f32 series, U float32 of "
+          "each rank its block's share of one card's to the byte")
+    report["day_sharded_f32"].update(series=sorted(f32_series),
+                                     table_bytes_one_card=u_bytes)
 
     # -- each f32 kernel against its f32 twin ------------------------------
     rng = np.random.default_rng(32)
@@ -1993,6 +2216,240 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
     return report, entries
 
 
+# -- fit phases run in child processes beside the main one ------------------
+
+FIT_CHILD_TIMEOUT_S = 900  # a child fit phase still running by then fails
+
+
+def _counters():
+    """Every kernel wrapper's launch counter holder."""
+    from copula_var_tpu_torch.ops import cuda_quadrature as cq
+    from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
+    from copula_var_tpu_torch.ops import cuda_solver as cs
+
+    return (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
+            cq3.contract3_weights, cq3.masked_contract3,
+            cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
+
+
+def fit_gaps(est, bt, meta):
+    """{quantity: (gap, bound)} of the fitted state against meta."""
+    import numpy as np
+
+    gaps = {}
+
+    def rel(a, b):
+        a, b = np.atleast_1d(np.asarray(a, float)), np.asarray(b, float)
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    for i, (f, m) in enumerate(zip(bt.model_fits, meta["model_fits"])):
+        if est == "mean_reverting":
+            for k in ("a", "l", "q"):
+                gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
+                                     FIT_RTOL_UKF)
+            gaps[f"LL[{i}]"] = (rel(f.log_likelihood, m["log_likelihood"]),
+                                FIT_RTOL_UKF_LL)
+        elif est == "garch":
+            if (f.p, f.q) != (m["p"], m["q"]):
+                raise AssertionError(f"garch asset {i}: (p, q) = "
+                                     f"{(f.p, f.q)}, artifact "
+                                     f"{(m['p'], m['q'])}")
+            for k in ("omega", "alpha", "beta"):
+                gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
+                                     FIT_RTOL_PARAMS)
+            gaps[f"nll[{i}]"] = (rel(f.nll, m["nll"]), FIT_RTOL_GARCH_NLL)
+        else:
+            for k in ("m_0", "sigma"):
+                gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
+                                     FIT_RTOL_PARAMS)
+            for k in ("b", "gamma"):
+                gaps[f"{k}[{i}]"] = (abs(getattr(f, k) - m[k]),
+                                     FIT_ATOL_BOUND)
+            gaps[f"LL[{i}]"] = (rel(f.log_likelihood, m["log_likelihood"]),
+                                FIT_RTOL_MSM_LL)
+    c, cm = bt.copula_fit, meta["copula_fit"]
+    gaps["rho"] = (float(np.max(np.abs(c.packed_params[1:] - np.asarray(
+        cm["packed_params"][1:])))), FIT_ATOL_RHO)
+    gaps["nu"] = (abs(c.nu - cm["nu"]), FIT_ATOL_NU)
+    return gaps
+
+
+def mr_fit_phase(root, smi):
+    """Phase 5's fit, counted: `config.run_backtest(data, cfg,
+    device="cuda")` of the mean-reverting family with a Student-t copula
+    at the record's perturb_scale (the rest at its defaults): the UKF EM,
+    the copula fit and the integration inputs on the card, the fits held
+    to the artifact's `meta`, the VaR to `data/flagship_mr_var.npz` at
+    1e-9. Returns {"wall_s", "fit_gaps", "var_max_err", "launches"}."""
+    import numpy as np
+
+    from copula_var_tpu_torch.config import BacktestConfig, run_backtest
+    from copula_var_tpu_torch.data import from_csv
+
+    mr = "mean_reverting"
+    rec_mr = np.load(os.path.join(root, "data", "flagship_mr_var.npz"))
+    meta_mr = json.loads(str(np.load(os.path.join(
+        root, "data", f"flagship_artifacts_{mr}.npz"))["meta"]))
+    want_mr = rec_mr[f"{mr}_var"]
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    cfg_mr = BacktestConfig(estimation_type=mr, copula_type="student",
+                            n_insample=int(rec_mr["n_insample"]),
+                            num_points=int(rec_mr["num_points"]))
+    cfg_mr.mean_reverting.perturb_scale = float(rec_mr["perturb_scale"])
+    cfg_mr.solver.obj_var = float(rec_mr["obj_var"])
+    t0 = time.perf_counter()
+    data_mr = from_csv(os.path.join(root, "data", "flagship.csv"),
+                       n_insample=cfg_mr.n_insample)
+    bt_rb, var_rb = run_backtest(data_mr, cfg_mr, device="cuda")
+    csv_to_var_mr = time.perf_counter() - t0
+    gaps_mr = fit_gaps(mr, bt_rb, meta_mr)
+    diff_mr = np.abs(var_rb - want_mr)
+    times_mr = dict(bt_rb.prep_stages, csv_to_var=csv_to_var_mr)
+    print(f"run_backtest {mr}: max |VaR - record| = {diff_mr.max():.3e} "
+          f"(bound {ATOL_VAR:g}), days above 1e-9: "
+          f"{int(np.sum(diff_mr > 1e-9))}; fit vs artifact "
+          + ", ".join(f"{k} {g:.2e} (bound {b:g})"
+                      for k, (g, b) in gaps_mr.items()))
+    print(f"run_backtest {mr} wall s (host clock, {smi}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times_mr.items()))
+    bad = {k: v for k, v in gaps_mr.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"run_backtest {mr}: fitted state off the "
+                             f"artifact: {bad}")
+    if var_rb.shape != want_mr.shape or not diff_mr.max() <= ATOL_VAR:
+        raise AssertionError(f"run_backtest {mr}: VaR off the record by "
+                             f"{diff_mr.max():.3e}")
+    launches_rb = {c.__name__: c.launches for c in counters}
+    print(f"run_backtest {mr}: launches {launches_rb}")
+    for name in ("sweep_table", "masked_sweep", "bisect_levels"):
+        if launches_rb[name] <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"run_backtest {mr} path")
+    if launches_rb["masked_contract3"] or launches_rb["contract3_weights"]:
+        raise AssertionError(f"a dim-3 kernel launched on the run_backtest "
+                             f"{mr} path")
+    return {"wall_s": times_mr, "fit_gaps": gaps_mr,
+            "var_max_err": float(diff_mr.max()), "launches": launches_rb}
+
+
+def dim3_fit_phase(root, smi):
+    """Phase 7, counted: `create_var_backtest(device="cuda")` for the
+    dim-3 GARCH and MSM (k = 4, basin_iter = BASIN_ITER, seed 0)
+    backtests with a Student-t copula from `data/dim3.csv`, the fits held
+    to the dim-3 artifacts' `meta` (`fit_gaps`), the VaR to
+    `data/dim3_var.npz` at 1e-9, one table U per backtest and K4 alone
+    launched. Returns {"report": {est: ...}, "launches": {...}}."""
+    import numpy as np
+    import torch
+
+    from copula_var_tpu_torch.backtest import create_var_backtest
+    from copula_var_tpu_torch.data import from_csv
+
+    rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
+    w3 = np.asarray(rec3["weights"], np.float64)
+    alpha = float(np.load(os.path.join(root, "data",
+                                       "flagship_var.npz"))["obj_var"])
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    fit3_report = {}
+    for est in ("garch", "msm"):
+        meta3 = json.loads(str(np.load(os.path.join(
+            root, "data", f"dim3_artifacts_{est}.npz"))["meta"]))
+        kw = ({"k": int(rec3["k"]), "basin_iter": BASIN_ITER, "seed": 0}
+              if est == "msm" else {})
+        t0 = time.perf_counter()
+        data3 = from_csv(os.path.join(root, "data", "dim3.csv"),
+                         n_insample=int(rec3["n_insample"]), weights=w3)
+        bt = create_var_backtest(data3, est, "student",
+                                 num_points=int(rec3["num_points"]),
+                                 device="cuda", **kw)
+        t1 = time.perf_counter()
+        bt.sweep_operands()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        var = bt.calc_var(alpha)
+        t3 = time.perf_counter()
+        gaps = fit_gaps(est, bt, meta3)
+        diff = np.abs(var - rec3[f"{est}_var"])
+        times = dict(bt.prep_stages, sweep_operands=t2 - t1,
+                     first_calc_var=t3 - t2, csv_to_first_var=t3 - t0)
+        print(f"dim3 fit path {est}: max |VaR - record| = {diff.max():.3e} "
+              f"(bound {ATOL_VAR:g}), days above 1e-9: "
+              f"{int(np.sum(diff > 1e-9))}; fit vs artifact "
+              + ", ".join(f"{k} {g:.2e} (bound {b:g})"
+                          for k, (g, b) in gaps.items()))
+        print(f"dim3 fit path {est} wall s (host clock, {smi}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        bad = {k: v for k, v in gaps.items() if not v[0] <= v[1]}
+        if bad:
+            raise AssertionError(f"dim3 fit path {est}: fitted state off the "
+                                 f"artifact: {bad}")
+        if var.shape != diff.shape or not diff.max() <= ATOL_VAR:
+            raise AssertionError(f"dim3 fit path {est}: VaR off the record "
+                                 f"by {diff.max():.3e}")
+        fit3_report[est] = {"wall_s": times, "fit_gaps": gaps,
+                            "var_max_err": float(diff.max())}
+        del bt
+        torch.cuda.empty_cache()
+    launches_fit3 = {c.__name__: c.launches for c in counters}
+    print(f"dim3 fit path: launches {launches_fit3}")
+    if launches_fit3["contract3_weights"] != len(fit3_report):
+        raise AssertionError("contract3_weights did not build one table per "
+                             "fitted dim-3 backtest")
+    if launches_fit3["masked_contract3"] <= 0:
+        raise AssertionError("masked_contract3 never launched on the fitted "
+                             "dim-3 path")
+    if launches_fit3["masked_sweep"] or launches_fit3["bisect_levels"] or \
+            launches_fit3["sweep_table"]:
+        raise AssertionError("a dim-2 kernel launched on the fitted dim-3 "
+                             "path")
+    return {"report": fit3_report, "launches": launches_fit3}
+
+
+def _fit_child(name, args, path):
+    """A spawned child's body: this module's `name`(*args) on cuda:0, its
+    result written to `path` as JSON."""
+    import torch
+
+    torch.cuda.set_device(0)
+    result = globals()[name](*args)
+    with open(path, "w") as f:
+        json.dump(result, f)
+
+
+def start_fit_child(name, args, out_dir):
+    """Start this module's `name`(*args) in a spawned daemonic process
+    (it cannot outlive this one) after the kernels are built -> (process,
+    result path)."""
+    import multiprocessing
+
+    path = os.path.join(out_dir, f"{name}.json")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_fit_child, args=(name, args, path), daemon=True)
+    proc.start()
+    return proc, path
+
+
+def join_fit_child(proc, path):
+    """The result of a `start_fit_child` process; raises when it failed
+    or did not end within FIT_CHILD_TIMEOUT_S."""
+    proc.join(FIT_CHILD_TIMEOUT_S)
+    name = os.path.basename(path)[:-len(".json")]
+    if proc.is_alive():
+        proc.terminate()
+        proc.join()
+        raise AssertionError(f"{name}: still running after "
+                             f"{FIT_CHILD_TIMEOUT_S} s")
+    if proc.exitcode != 0:
+        raise AssertionError(f"{name}: failed with exit code "
+                             f"{proc.exitcode} (its traceback is above)")
+    with open(path) as f:
+        return json.load(f)
+
+
 def main() -> int:
     import torch
 
@@ -2009,7 +2466,6 @@ def main() -> int:
 
     from copula_var_tpu_torch import stats
     from copula_var_tpu_torch.backtest import VaRBacktest, create_var_backtest
-    from copula_var_tpu_torch.config import BacktestConfig, run_backtest
     from copula_var_tpu_torch.copulas import fit as copula_fit_mod
     from copula_var_tpu_torch.copulas.student_sampler import (
         fixture_densities,
@@ -2055,9 +2511,14 @@ def main() -> int:
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print(f"  {line.strip()}")
 
-    counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
-                cq3.contract3_weights, cq3.masked_contract3,
-                cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
+    # the fit phases 5 (run_backtest) and 7 (dim 3), each in a child
+    # process from now on, each joined where it stands below: the fits are
+    # launch-bound host work, so they overlap phases 3-6 on the free cores
+    fit_dir = tempfile.TemporaryDirectory()
+    children = {name: start_fit_child(name, (root, smi), fit_dir.name)
+                for name in ("mr_fit_phase", "dim3_fit_phase")}
+
+    counters = _counters()
 
     def zero_counts():
         for c in counters:
@@ -2136,45 +2597,6 @@ def main() -> int:
         raise AssertionError("a dim-3 kernel launched on the dim-2 path")
 
     # -- main path from the CSV, fitted on the card, counted -----------------
-    def fit_gaps(est, bt, meta):
-        """{quantity: (gap, bound)} of the fitted state against meta."""
-        gaps = {}
-
-        def rel(a, b):
-            a, b = np.atleast_1d(np.asarray(a, float)), np.asarray(b, float)
-            return float(np.max(np.abs(a - b) / np.abs(b)))
-
-        for i, (f, m) in enumerate(zip(bt.model_fits, meta["model_fits"])):
-            if est == "mean_reverting":
-                for k in ("a", "l", "q"):
-                    gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
-                                         FIT_RTOL_UKF)
-                gaps[f"LL[{i}]"] = (rel(f.log_likelihood, m["log_likelihood"]),
-                                    FIT_RTOL_UKF_LL)
-            elif est == "garch":
-                if (f.p, f.q) != (m["p"], m["q"]):
-                    raise AssertionError(f"garch asset {i}: (p, q) = "
-                                         f"{(f.p, f.q)}, artifact "
-                                         f"{(m['p'], m['q'])}")
-                for k in ("omega", "alpha", "beta"):
-                    gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
-                                         FIT_RTOL_PARAMS)
-                gaps[f"nll[{i}]"] = (rel(f.nll, m["nll"]), FIT_RTOL_GARCH_NLL)
-            else:
-                for k in ("m_0", "sigma"):
-                    gaps[f"{k}[{i}]"] = (rel(getattr(f, k), m[k]),
-                                         FIT_RTOL_PARAMS)
-                for k in ("b", "gamma"):
-                    gaps[f"{k}[{i}]"] = (abs(getattr(f, k) - m[k]),
-                                         FIT_ATOL_BOUND)
-                gaps[f"LL[{i}]"] = (rel(f.log_likelihood, m["log_likelihood"]),
-                                    FIT_RTOL_MSM_LL)
-        c, cm = bt.copula_fit, meta["copula_fit"]
-        gaps["rho"] = (float(np.max(np.abs(c.packed_params[1:] - np.asarray(
-            cm["packed_params"][1:])))), FIT_ATOL_RHO)
-        gaps["nu"] = (abs(c.nu - cm["nu"]), FIT_ATOL_NU)
-        return gaps
-
     def fitted(est):
         """from_csv -> create_var_backtest(cuda) -> calc_var(alpha), held
         against the artifact and the record; returns (backtest, report)."""
@@ -2273,11 +2695,10 @@ def main() -> int:
         raise AssertionError("a dim-3 kernel launched on the fit path")
     del fit_bts
 
-    # -- mean-reverting family: served, then fitted by run_backtest, counted --
+    # -- mean-reverting family: served, counted; then its run_backtest fit
+    # (a child process since the build: `mr_fit_phase`) ---------------------
     mr = "mean_reverting"
     rec_mr = np.load(os.path.join(root, "data", "flagship_mr_var.npz"))
-    meta_mr = json.loads(str(np.load(os.path.join(
-        root, "data", f"flagship_artifacts_{mr}.npz"))["meta"]))
     want_mr = rec_mr[f"{mr}_var"]
     zero_counts()
     bt_mr, var_mr, prep_mr, solve_mr = serve(
@@ -2293,35 +2714,8 @@ def main() -> int:
           f"load+prep {prep_mr:.3f} s, calc_var {solve_mr:.3f} s (host "
           "clock)")
     del bt_mr
-    cfg_mr = BacktestConfig(estimation_type=mr, copula_type="student",
-                            n_insample=int(rec_mr["n_insample"]),
-                            num_points=int(rec_mr["num_points"]))
-    cfg_mr.mean_reverting.perturb_scale = float(rec_mr["perturb_scale"])
-    cfg_mr.solver.obj_var = float(rec_mr["obj_var"])
-    t0 = time.perf_counter()
-    data_mr = from_csv(os.path.join(root, "data", "flagship.csv"),
-                       n_insample=cfg_mr.n_insample)
-    bt_rb, var_rb = run_backtest(data_mr, cfg_mr, device="cuda")
-    csv_to_var_mr = time.perf_counter() - t0
-    gaps_mr = fit_gaps(mr, bt_rb, meta_mr)
-    diff_mr = np.abs(var_rb - want_mr)
-    times_mr = dict(bt_rb.prep_stages, csv_to_var=csv_to_var_mr)
-    print(f"run_backtest {mr}: max |VaR - record| = {diff_mr.max():.3e} "
-          f"(bound {ATOL_VAR:g}), days above 1e-9: "
-          f"{int(np.sum(diff_mr > 1e-9))}; fit vs artifact "
-          + ", ".join(f"{k} {g:.2e} (bound {b:g})"
-                      for k, (g, b) in gaps_mr.items()))
-    print(f"run_backtest {mr} wall s (host clock, {smi}): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in times_mr.items()))
-    bad = {k: v for k, v in gaps_mr.items() if not v[0] <= v[1]}
-    if bad:
-        raise AssertionError(f"run_backtest {mr}: fitted state off the "
-                             f"artifact: {bad}")
-    if var_rb.shape != want_mr.shape or not diff_mr.max() <= ATOL_VAR:
-        raise AssertionError(f"run_backtest {mr}: VaR off the record by "
-                             f"{diff_mr.max():.3e}")
     launches_mr = read_counts()
-    print(f"mean-reverting path: launches {launches_mr}")
+    print(f"mean-reverting path (served): launches {launches_mr}")
     for name in ("sweep_table", "masked_sweep", "bisect_levels"):
         if launches_mr[name] <= 0:
             raise AssertionError(f"{name} never launched on the "
@@ -2329,7 +2723,7 @@ def main() -> int:
     if launches_mr["masked_contract3"] or launches_mr["contract3_weights"]:
         raise AssertionError("a dim-3 kernel launched on the mean-reverting "
                              "path")
-    del bt_rb
+    rb_mr = join_fit_child(*children["mr_fit_phase"])
     t0 = time.perf_counter()
     syn = synthetic_dataset(0, *SYNTHETIC, device="cuda")
     syn_s = time.perf_counter() - t0
@@ -2401,60 +2795,11 @@ def main() -> int:
         raise AssertionError(f"dim3 {est}: VaR off the record by "
                              f"{np.max(diff):.3e}")
 
-    # -- the dim-3 path fitted from the CSV on the card, counted -------------
-    zero_counts()
-    fit3_report = {}
-    for est in ("garch", "msm"):
-        meta3 = json.loads(str(np.load(os.path.join(
-            root, "data", f"dim3_artifacts_{est}.npz"))["meta"]))
-        kw = ({"k": int(rec3["k"]), "basin_iter": BASIN_ITER, "seed": 0}
-              if est == "msm" else {})
-        t0 = time.perf_counter()
-        data3 = from_csv(os.path.join(root, "data", "dim3.csv"),
-                         n_insample=int(rec3["n_insample"]), weights=w3)
-        bt = create_var_backtest(data3, est, "student",
-                                 num_points=int(rec3["num_points"]),
-                                 device="cuda", **kw)
-        t1 = time.perf_counter()
-        bt.sweep_operands()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        var = bt.calc_var(alpha)
-        t3 = time.perf_counter()
-        gaps = fit_gaps(est, bt, meta3)
-        diff = np.abs(var - rec3[f"{est}_var"])
-        times = dict(bt.prep_stages, sweep_operands=t2 - t1,
-                     first_calc_var=t3 - t2, csv_to_first_var=t3 - t0)
-        print(f"dim3 fit path {est}: max |VaR - record| = {diff.max():.3e} "
-              f"(bound {ATOL_VAR:g}), days above 1e-9: "
-              f"{int(np.sum(diff > 1e-9))}; fit vs artifact "
-              + ", ".join(f"{k} {g:.2e} (bound {b:g})"
-                          for k, (g, b) in gaps.items()))
-        print(f"dim3 fit path {est} wall s (host clock, {smi}): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
-        bad = {k: v for k, v in gaps.items() if not v[0] <= v[1]}
-        if bad:
-            raise AssertionError(f"dim3 fit path {est}: fitted state off the "
-                                 f"artifact: {bad}")
-        if var.shape != diff.shape or not diff.max() <= ATOL_VAR:
-            raise AssertionError(f"dim3 fit path {est}: VaR off the record "
-                                 f"by {diff.max():.3e}")
-        fit3_report[est] = {"wall_s": times, "fit_gaps": gaps,
-                            "var_max_err": float(diff.max())}
-        del bt
-        torch.cuda.empty_cache()
-    launches_fit3 = read_counts()
-    print(f"dim3 fit path: launches {launches_fit3}")
-    if launches_fit3["contract3_weights"] != len(fit3_report):
-        raise AssertionError("contract3_weights did not build one table per "
-                             "fitted dim-3 backtest")
-    if launches_fit3["masked_contract3"] <= 0:
-        raise AssertionError("masked_contract3 never launched on the fitted "
-                             "dim-3 path")
-    if launches_fit3["masked_sweep"] or launches_fit3["bisect_levels"] or \
-            launches_fit3["sweep_table"]:
-        raise AssertionError("a dim-2 kernel launched on the fitted dim-3 "
-                             "path")
+    # -- the dim-3 path fitted from the CSV on the card, counted (a child
+    # process since the build: `dim3_fit_phase`) ----------------------------
+    fit3 = join_fit_child(*children["dim3_fit_phase"])
+    fit3_report, launches_fit3 = fit3["report"], fit3["launches"]
+    fit_dir.cleanup()
 
     # -- refine_root and the reference-quirks fits, counted -------------------
     def refined(csv, prefix, rec_r, dim_name, weights=None):
@@ -2830,7 +3175,7 @@ def main() -> int:
     # sharing the card, each rank on its block of days ----------------------
     w_batch3_s = np.random.default_rng(3).dirichlet([2.0, 2.0, 2.0],
                                                     size=ROWS_P3)
-    sharded_report, one_card, one_card_peaks = day_sharded_phase(
+    sharded_report, one_card, one_card_peaks, f32_ranks = day_sharded_phase(
         root, smi, w_batch, w_batch3_s)
 
     # -- grid sharding (parallel/): a (1, 1) grid mesh over one NCCL rank,
@@ -3346,9 +3691,11 @@ def main() -> int:
         "launches_fit_path": launches_fit, "fit_path": fit_report,
         "mean_reverting": {
             "served_var_max_err": err_mr, "host_prep_s": prep_mr,
-            "host_calc_var_s": solve_mr, "run_backtest_wall_s": times_mr,
-            "fit_gaps": gaps_mr, "var_max_err": float(diff_mr.max()),
-            "launches": launches_mr},
+            "host_calc_var_s": solve_mr,
+            "run_backtest_wall_s": rb_mr["wall_s"],
+            "fit_gaps": rb_mr["fit_gaps"], "var_max_err": rb_mr["var_max_err"],
+            "launches": launches_mr,
+            "run_backtest_launches": rb_mr["launches"]},
         "synthetic": {"seconds": syn_s, "tickers": syn.tickers,
                       "sample_variances": syn_var.tolist()},
         "dim3_fit_path": fit3_report, "launches_dim3_fit_path": launches_fit3,
@@ -3449,7 +3796,12 @@ def main() -> int:
         "device_ms": None}
     f32_report, f32_entries = f32_engine_phase(
         root, smi, w_batch, w_batch3, grid, grid3, f64_figures,
-        peak3 - base3)
+        peak3 - base3, f32_ranks, one_card)
+    # each f32 kernel's launches on each day-sharded rank's f32 paths
+    for e in f32_entries:
+        e["day_sharded_f32_launches_per_rank"] = [
+            sum(info["launches"][f"{p}/f32"][e["name"][:-len("_f32")]]
+                for p in F32_PATHS) for info in f32_ranks]
     report["f32_engine"] = f32_report
     report["bounds_ms"] = bounds_ms
     report["refine"] = refine_report

@@ -33,9 +33,10 @@ K4) or their f32 plain twins on the CPU, roots within
 `ops/solvers.root_plateau_bound(dx, weights)` (one grid cell x |w0|) of
 the f64 engine's, not its bits; `refine_root` re-solves them against the
 float64 trapezoid sweep. It serves dim 2 and 3 with the MSM or GARCH
-integrand on one device; dim >= 4, a plugin adapter or a mesh raise.
-Assigning `engine` drops the built operands, so `bt.engine = "pallas"`
-after `load_artifacts` serves the f32 engine.
+integrand, on one device or on a day mesh (below); dim >= 4, a plugin
+adapter or a grid mesh raise. Assigning `engine` drops the built
+operands, so `bt.engine = "pallas"` after `load_artifacts` serves the f32
+engine.
 
 On a CUDA device every sweep and the bisection run the hand-written
 kernels (`masked_sweep` and `bisect_levels` at dim 2, `masked_contract3`
@@ -65,6 +66,18 @@ with a mesh fits on every rank and then takes rank 0's fitted state, so
 the ranks serve one state even where a card's fit does not reproduce
 its bits.
 
+The f32 engine on a day mesh is the JAX engine "sharded_pallas"
+(`backtest.py:1164-1340, 2100-2258`): each rank casts its block of the
+full-T day tensors or columns to float32 (every batched product formed
+over all T, then cut) and runs the f32 kernels on it, K1 for a fixed
+count with no collective at dim 2, K4 under the bisection's reduced
+global decisions at dim 3, so every rank returns the one-card f32
+engine's bits. Its `compute_integral` is, as JAX's, the float64
+day-sharded sweep at dim 2 (f64 K2 on the block's f64 day tensors and
+prefix table, built on the first such call, never by a solve) and the
+f32 K4 sweep at dim 3; `refine_root` re-solves the block's roots against
+the block's float64 trap operands.
+
 Grid sharding (the JAX engine "grid_sharded", `backtest.py:1342-1486`):
 with `mesh=` a `parallel.mesh.GridMesh` of shape (d, g), each rank builds
 the full-T day tensors or columns, then P, U or `ColumnOperands` for its
@@ -92,7 +105,12 @@ from copula_var_tpu_torch.models import fit as model_fit
 from copula_var_tpu_torch.models import garch as garch_mod
 from copula_var_tpu_torch.models import msm as msm_mod
 from copula_var_tpu_torch.models import ukf as ukf_mod
-from copula_var_tpu_torch.ops.cuda_quadrature import F32, F64, sweep_operands
+from copula_var_tpu_torch.ops.cuda_quadrature import (
+    F32,
+    F64,
+    sweep_operands,
+    with_prefix_table,
+)
 from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
 from copula_var_tpu_torch.ops.cuda_solver import (
     full_solve_levels,
@@ -115,7 +133,7 @@ from copula_var_tpu_torch.ops.quadrature import (
 from copula_var_tpu_torch.ops.refine import refine_roots
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf
 from copula_var_tpu_torch.ops.tcached import column_operands
-from copula_var_tpu_torch.parallel.mesh import GridMesh
+from copula_var_tpu_torch.parallel.mesh import DayMesh, GridMesh
 from copula_var_tpu_torch.parallel.multiprocess import gather_days
 from copula_var_tpu_torch.parallel.quadrature import gather_solution
 
@@ -124,9 +142,22 @@ VOL_STATE_ROUND_TOL = 1e-6  # `msm_estimation.py:204-248`
 ENGINES = ("xla", "pallas")
 _PALLAS_SCOPE = ("engine='pallas' requires dim in {2, 3} and an adapter "
                  "with a Pallas/cached-columns path")
+_PALLAS_MESH = ("engine='pallas' serves one device or a DayMesh (the JAX "
+                "engine 'sharded_pallas'); the JAX package has no f32 "
+                "grid-sharded engine, so a GridMesh serves engine='xla' "
+                "(its 'grid_sharded')")
+
 # the integration inputs' fields with a leading day axis, cut to a rank's
-# block with the day tensors or transform columns
+# block with the transform columns
 _DAY_FIELDS = ("forecasts_by_states", "forecast_combos", "forecast_vols")
+
+
+def _sharded_scope(engine: str) -> str:
+    """JAX's refusal of a day-sharded `engine` ("sharded" or
+    "sharded_pallas") it has no program for (`backtest.py:1333-1339`)."""
+    return (f"engine={engine!r} requires dim == 2 (cached day tensors), "
+            "dim >= 3 with a transform-column adapter (engine='sharded'), "
+            "or dim == 3 (engine='sharded_pallas')")
 
 
 def _rows(a, dev):
@@ -279,21 +310,21 @@ class MsmAdapter:
         )
 
     def sweep_operands(self, tensors, inputs: MsmIntegrationInputs,
-                       rows=None, dtype=F64, table=True):
+                       rows=None, dtype=F64, table=True, days=None):
         return sweep_operands(tensors, inputs.x, inputs.dx, inputs.densities,
                               inputs.forecast_combos, rows=rows, dtype=dtype,
-                              table=table)
+                              table=table, days=days)
 
     def day_columns(self, inputs: MsmIntegrationInputs, spec):
         return msm_day_columns(inputs.forecasts_by_states, inputs.x,
                                inputs.unique_vols, spec)
 
     def contract3_operands(self, cols, inputs: MsmIntegrationInputs, spec,
-                           rows=None, dtype=F64):
+                           rows=None, dtype=F64, days=None):
         return contract3_operands(cols, inputs.x, inputs.dx, spec,
                                   densities=inputs.densities,
                                   forecast_combos=inputs.forecast_combos,
-                                  rows=rows, dtype=dtype)
+                                  rows=rows, dtype=dtype, days=days)
 
     def column_operands(self, cols, inputs: MsmIntegrationInputs, spec,
                         rows=None):
@@ -389,18 +420,19 @@ class GarchAdapter:
                                       weights, box_min)
 
     def sweep_operands(self, tensors, inputs: GarchIntegrationInputs,
-                       rows=None, dtype=F64, table=True):
+                       rows=None, dtype=F64, table=True, days=None):
         return sweep_operands(tensors, inputs.x, inputs.dx, rows=rows,
-                              dtype=dtype, table=table)
+                              dtype=dtype, table=table, days=days)
 
     def day_columns(self, inputs: GarchIntegrationInputs, spec):
         return garch_day_columns(inputs.forecast_vols, inputs.x, spec)
 
     def contract3_operands(self, cols, inputs: GarchIntegrationInputs, spec,
-                           rows=None, dtype=F64):
+                           rows=None, dtype=F64, days=None):
         tcols, p_cols = cols
         return contract3_operands(tcols, inputs.x, inputs.dx, spec,
-                                  p_cols=p_cols, rows=rows, dtype=dtype)
+                                  p_cols=p_cols, rows=rows, dtype=dtype,
+                                  days=days)
 
     def column_operands(self, cols, inputs: GarchIntegrationInputs, spec,
                         rows=None):
@@ -491,7 +523,8 @@ def register_adapter(name: str, adapter_cls) -> None:
     serving methods of `MsmAdapter` / `GarchAdapter`: `day_tensors` and
     `sweep_operands` at dim 2; `day_columns` and `contract3_operands` at
     dim 3, `column_operands` at dim >= 4 (the operand constructors take
-    `rows=(i0, i1)` to serve a grid mesh). An adapter with neither
+    `rows=(i0, i1)` to serve a grid mesh; at dim 2 and 3 `days=`, a
+    slice, to serve a day mesh). An adapter with neither
     `day_tensors` nor `day_columns` takes the minimal route."""
     _ADAPTERS[name] = adapter_cls
 
@@ -570,8 +603,8 @@ class VaRBacktest:
     `parallel.mesh.GridMesh` to serve this rank's outer grid rows and sum
     every sweep over the grid ranks (the backtest then lives on the
     mesh's device), or None for one card. engine: "xla" (the f64 path) or
-    "pallas" (the f32 engine; see the module docstring); assigning it
-    drops the built operands.
+    "pallas" (the f32 engine, on one card or a `DayMesh`; see the module
+    docstring); assigning it drops the built operands.
     """
 
     def __init__(self, data: ReturnsData, adapter, copula: str, copula_fit,
@@ -609,9 +642,13 @@ class VaRBacktest:
         self.plugin = not (hasattr(adapter, "day_tensors")
                            or hasattr(adapter, "day_columns"))
         if self.plugin and mesh is not None:
-            raise ValueError(
-                "a plugin adapter without day_tensors / day_columns serves "
-                "on one device (its integrals have no sharded form)")
+            why = ("a plugin adapter without day_tensors / day_columns "
+                   "serves on one device (its integrals have no sharded "
+                   "form)")
+            if isinstance(mesh, DayMesh):
+                why = _sharded_scope("sharded_pallas" if engine == "pallas"
+                                     else "sharded") + "; " + why
+            raise ValueError(why)
 
     # -- bounds-invariant state ------------------------------------------
 
@@ -633,29 +670,29 @@ class VaRBacktest:
 
     def _pallas(self) -> bool:
         """True for the f32 engine, once it is known to serve this
-        backtest: dim 2 or 3, the MSM or GARCH integrand, one device (JAX
-        `_cached_integral_fn`'s scope, whose message it raises)."""
+        backtest: dim 2 or 3, the MSM or GARCH integrand, on one device
+        or a `DayMesh` (the scopes of JAX's "pallas" and "sharded_pallas"
+        engines, whose messages it raises)."""
         if self._engine != "pallas":
             return False
+        if self.mesh is not None and not isinstance(self.mesh, DayMesh):
+            raise ValueError(_PALLAS_MESH)
         if (self.plugin or self.data.dim not in (2, 3)
                 or not isinstance(self.integration_inputs,
                                   (MsmIntegrationInputs,
                                    GarchIntegrationInputs))):
-            raise ValueError(_PALLAS_SCOPE)
-        if self.mesh is not None:
-            raise ValueError("engine='pallas' serves one device; a mesh "
-                             "serves the f64 engine (the f32 day-sharded "
-                             "engine 'sharded_pallas' is not ported)")
+            raise ValueError(_PALLAS_SCOPE if self.mesh is None
+                             else _sharded_scope("sharded_pallas"))
         return True
 
     def sweep_operands(self):
         """The sweeps' bounds-invariant operands, built once: day tensors
         and their hoisted contraction at dim 2, transform columns and
         `Contract3Operands` (with the table U on a CUDA device) at dim 3,
-        transform columns as `ColumnOperands` at dim >= 4. With a mesh,
-        those of this rank's block of days, cut from the full-T day
-        tensors or columns, and with a grid mesh those of its outer grid
-        rows."""
+        transform columns as `ColumnOperands` at dim >= 4; float32 at
+        dim 2 and 3 on the f32 engine. With a mesh, those of this rank's
+        block of days, cut from the operands of the full-T day tensors or
+        columns, and with a grid mesh those of its outer grid rows."""
         if self.plugin:
             raise ValueError(
                 f"adapter {type(self.adapter).__name__} has no cached path "
@@ -666,18 +703,23 @@ class VaRBacktest:
             inputs, spec = self.integration_inputs, self.copula_spec
             kw = ({} if self._grid is None else
                   {"rows": self._grid.rows(inputs.x.shape[0])})
-            if self._pallas():
-                kw["dtype"] = F32
-            if self.data.dim >= 3:
+            pallas = self._pallas()
+            if self.data.dim >= 4:
                 cols = self._block(self.adapter.day_columns(inputs, spec))
-                build = (self.adapter.contract3_operands
-                         if self.data.dim == 3
-                         else self.adapter.column_operands)
-                self._ops = build(cols, self._block_inputs(), spec, **kw)
+                self._ops = self.adapter.column_operands(
+                    cols, self._block_inputs(), spec, **kw)
             else:
-                tensors = self._block(self.adapter.day_tensors(inputs, spec))
-                self._ops = self.adapter.sweep_operands(
-                    tensors, self._block_inputs(), **kw)
+                kw.update(self._days_kw())
+                if pallas:
+                    kw["dtype"] = F32
+                if self.data.dim == 3:
+                    self._ops = self.adapter.contract3_operands(
+                        self.adapter.day_columns(inputs, spec), inputs, spec,
+                        **kw)
+                else:
+                    self._ops = self.adapter.sweep_operands(
+                        self.adapter.day_tensors(inputs, spec), inputs,
+                        **kw)
             synchronize(self.device)
             self.prep_seconds += time.perf_counter() - t0
         return self._ops
@@ -703,6 +745,11 @@ class VaRBacktest:
         if mesh is None:
             return None
         return mesh.days(self.data.out_sample_n)
+
+    def _days_kw(self):
+        """The operand builders' `days=` of this rank's block, or none."""
+        days = self._days()
+        return {} if days is None else {"days": days}
 
     def _block(self, tree):
         days = self._days()
@@ -734,16 +781,20 @@ class VaRBacktest:
     def compute_integral(self, bounds) -> np.ndarray:
         """(T,) integrals over per-day [lower, upper] slabs (T, 2): one
         sweep, through the kernel on a CUDA device at dim 2 and 3 (in
-        float32 on the f32 engine, as JAX's K3 / K4); for a plugin adapter
+        float32 on the f32 engine, as JAX's K3 / K4; on a day mesh, as
+        JAX's "sharded_pallas", in float64 at dim 2); for a plugin adapter
         its `integrals` (plain PyTorch, as JAX's XLA)."""
-        self._pallas()
+        pallas = self._pallas()
         if self.plugin:
             out = self.adapter.integrals(
                 self._tensor(bounds).reshape(-1, 2), self.integration_inputs,
                 self.copula_spec, self.weights, self.box[0])
             return torch.as_tensor(out).cpu().numpy()
         b = self._block(self._tensor(bounds).reshape(-1, 2))
-        ops = self.sweep_operands()
+        if pallas and self.data.dim == 2 and self.mesh is not None:
+            ops = self._f64_operands(table=True)
+        else:
+            ops = self.sweep_operands()
         dt = ops.x.dtype
         out = sweep_for(ops)(ops, b[None].to(dt).contiguous(),
                              self.weights.reshape(1, -1).to(dt),
@@ -791,7 +842,7 @@ class VaRBacktest:
         if pallas:
             roots, nan_days = full_solve_pallas(
                 self.sweep_operands(), obj, self.weights, cfg, tolerance,
-                self.reference_quirks, self.box[0])
+                self.reference_quirks, self.box[0], self._day_mesh())
         else:
             roots, nan_days = full_solve_levels(
                 self.sweep_operands(), obj, self.weights, cfg, tolerance,
@@ -930,7 +981,8 @@ class VaRBacktest:
         if pallas:
             roots, nan_days = full_solve_pallas(
                 self.sweep_operands(), obj, w_rows.contiguous(), cfg,
-                tolerance, self.reference_quirks, self.box[0])
+                tolerance, self.reference_quirks, self.box[0],
+                self._day_mesh())
         else:
             roots, nan_days = full_solve_portfolios(
                 self.sweep_operands(), obj, w_rows.contiguous(), cfg,
@@ -954,12 +1006,15 @@ class VaRBacktest:
               else np.asarray(weights)[..., 0])
         return float(self.integration_inputs.dx.max()) * np.abs(w0)
 
-    def _trap_operands(self):
-        """The operands the trap re-solve reads: the engine's own on the
-        f64 engine; on the f32 engine the float64 ones it was cast from,
-        built once and without a kernel table (the day tensors at dim 2,
-        as JAX's `_refine_fused`; the transform columns at dim 3, as its
-        `_refine_dim3_pallas`)."""
+    def _f64_operands(self, table=False):
+        """The float64 operands the f32 engine reads beside its own (the
+        engine's own on the f64 engine): those it was cast from, of this
+        rank's days on a day mesh, built once and without a kernel table
+        (the day tensors at dim 2, as JAX's `_refine_fused`; the transform
+        columns at dim 3, as its `_refine_dim3_pallas`), which the trap
+        re-solve reads. With `table`, at dim 2 on a CUDA device, their
+        prefix table P too, built once: the f64 K2 sweep of
+        `compute_integral` on a day mesh."""
         if not self._pallas():
             return self.sweep_operands()
         if self._trap_ops is None:
@@ -967,10 +1022,13 @@ class VaRBacktest:
             if self.data.dim == 2:
                 self._trap_ops = self.adapter.sweep_operands(
                     self.adapter.day_tensors(inputs, spec), inputs,
-                    table=False)
+                    table=False, **self._days_kw())
             else:
                 self._trap_ops = self.adapter.column_operands(
-                    self.adapter.day_columns(inputs, spec), inputs, spec)
+                    self._block(self.adapter.day_columns(inputs, spec)),
+                    self._block_inputs(), spec)
+        if table and self.data.dim == 2 and self.device.type == "cuda":
+            self._trap_ops = with_prefix_table(self._trap_ops)
         return self._trap_ops
 
     def _refine(self, roots, obj, weights, h):
@@ -986,7 +1044,7 @@ class VaRBacktest:
                 "GarchIntegrationInputs); a plugin adapter with inputs "
                 f"{type(self.integration_inputs).__name__} cannot refine")
         t0 = time.perf_counter()
-        out = refine_roots(self._trap_operands(), roots.to(F64), obj,
+        out = refine_roots(self._f64_operands(), roots.to(F64), obj,
                            weights, self._tensor(h), self.box[0], self._grid)
         synchronize(self.device)
         self.refine_seconds = time.perf_counter() - t0
@@ -1034,7 +1092,8 @@ def create_var_backtest(
     with the fit's own stages. With a `mesh` every rank fits on its own
     device, then all take rank 0's fitted state (a `broadcast`) and serve
     their blocks of days (a `DayMesh`) or outer grid rows (a
-    `GridMesh`)."""
+    `GridMesh`); engine "pallas" on a `DayMesh` is the JAX engine
+    "sharded_pallas"."""
     if estimation_type not in _ADAPTERS:
         raise ValueError(f"Unsupported estimation type: {estimation_type}")
     if copula_type not in _COPULA_FITTERS:

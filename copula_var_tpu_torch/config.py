@@ -10,14 +10,15 @@ Here the device picks the path (the card's kernels or the plain twins on
 the CPU), and the JAX config's engines mean: "xla" the f64 path on one
 device; "pallas" the f32 engine on one device (`VaRBacktest(engine=
 "pallas")`: the f32 kernels, roots within the plateau bound of the f64
-engine's); "sharded" and "sharded_pallas" the day-sharded serving of
-`parallel/` over a mesh of `n_mesh_devices` ranks, both on the port's
-f64 path (the f32 day-sharded engine is not ported: "sharded_pallas"
-serves the f64 engine's series); and "grid_sharded" the grid-sharded
-serving of `parallel/` over a (1, D) ('days', 'grid') mesh. A
-non-default `pallas_day_block` (the TPU grid's day block, which the port
-does not carry) is refused. `BacktestConfig.from_dict` takes a dict
-written by the JAX `to_dict`.
+engine's); "sharded" the day-sharded serving of `parallel/` over a mesh
+of `n_mesh_devices` ranks on the f64 path, and "sharded_pallas" the f32
+engine on such a mesh (`VaRBacktest(engine="pallas", mesh=<DayMesh>)`);
+and "grid_sharded" the grid-sharded serving of `parallel/` over a (1, D)
+('days', 'grid') mesh. `pallas_day_block` (the day block of the JAX f32
+kernel's TPU grid) is kept for the round trip: the port's f32 kernels
+run one block per day, and JAX's f32 roots do not move with the block
+(tests/test_torch_config.py holds both). `BacktestConfig.from_dict`
+takes a dict written by the JAX `to_dict`.
 """
 
 from __future__ import annotations
@@ -29,13 +30,11 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 # the JAX engines the port serves: one device (f64 or f32), day-sharded
-# over a mesh, or grid-sharded over a (1, D) ('days', 'grid') mesh
+# over a mesh (f64 or f32), or grid-sharded over a (1, D) ('days', 'grid')
+# mesh
 ENGINES = ("xla", "pallas", "sharded", "sharded_pallas", "grid_sharded")
 SHARDED_ENGINES = ("sharded", "sharded_pallas")
-# the JAX-only key (the TPU grid's day block of the f32 Pallas kernel) and
-# the one value under which a JAX config means what a config of the port
-# means
-_PALLAS_DAY_BLOCK = 32
+PALLAS_ENGINES = ("pallas", "sharded_pallas")  # the f32 engine
 
 
 @dataclass
@@ -122,11 +121,14 @@ class BacktestConfig:
     n_insample: int = 1135
     num_points: int = 100
     # 'xla': one device, f64; 'pallas': one device, the f32 engine;
-    # 'sharded' / 'sharded_pallas': the day-sharded f64 path over a mesh of
-    # n_mesh_devices ranks (None: the whole world); 'grid_sharded': the
-    # outer grid axis split over them
+    # 'sharded' / 'sharded_pallas': the day-sharded f64 path / f32 engine
+    # over a mesh of n_mesh_devices ranks (None: the whole world);
+    # 'grid_sharded': the outer grid axis split over them
     engine: str = "xla"
     n_mesh_devices: Optional[int] = None
+    # the JAX f32 kernel's TPU day block: kept for the round trip (the
+    # port's f32 kernels run one block per day)
+    pallas_day_block: int = 32
     weights: Optional[Sequence[float]] = None  # default equal weights
     msm: MsmConfig = field(default_factory=MsmConfig)
     garch: GarchConfig = field(default_factory=GarchConfig)
@@ -140,6 +142,12 @@ class BacktestConfig:
             raise ValueError(
                 f"engine={self.engine!r}: the port serves {ENGINES} (the "
                 "device picks the path)")
+        block = self.pallas_day_block
+        if (isinstance(block, bool) or not isinstance(block, int)
+                or block < 1):
+            raise ValueError(
+                f"pallas_day_block={block!r}: the JAX f32 kernel's day "
+                "block is a positive number of days")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -147,16 +155,8 @@ class BacktestConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "BacktestConfig":
         """The config of a dict from `to_dict`, of this package or of the
-        JAX package (whose `pallas_day_block` must hold its default, and
-        whose `engine` must be one the port serves)."""
+        JAX package (whose `engine` must be one the port serves)."""
         d = dict(d)
-        value = d.pop("pallas_day_block", _PALLAS_DAY_BLOCK)
-        if value != _PALLAS_DAY_BLOCK:
-            raise ValueError(
-                f"pallas_day_block={value!r} sizes the TPU grid of the JAX "
-                "package's f32 Pallas kernel, which the port does not carry "
-                "(its f32 engine runs one block per day, and its f64 xla "
-                "engine has no day block)")
         for name, sub in (
             ("msm", MsmConfig),
             ("garch", GarchConfig),
@@ -223,8 +223,9 @@ def run_backtest(data, cfg: BacktestConfig, device="cuda", mesh=None):
     serves over `mesh`, or when none is given over `make_mesh(
     n_mesh_devices, device)` (the initialized world), at "grid_sharded" a
     (1, D) ('days', 'grid') mesh of its D ranks (JAX `config.py:203-209`,
-    `_get_mesh`); a given `mesh` is used at any engine but "pallas", the
-    f32 engine on one device. Returns (VaRBacktest, var)."""
+    `_get_mesh`); a given `mesh` is used at every engine. "pallas" and
+    "sharded_pallas" build the f32 engine (`engine="pallas"`), the
+    latter on the day mesh. Returns (VaRBacktest, var)."""
     from copula_var_tpu_torch.backtest import create_var_backtest
     from copula_var_tpu_torch.parallel.mesh import make_mesh
 
@@ -241,7 +242,7 @@ def run_backtest(data, cfg: BacktestConfig, device="cuda", mesh=None):
         copula_fit_kwargs=copula_fit_kwargs(cfg),
         device=device,
         mesh=mesh,
-        engine="pallas" if cfg.engine == "pallas" else "xla",
+        engine="pallas" if cfg.engine in PALLAS_ENGINES else "xla",
         **adapter_kwargs(cfg),
     )
     common = dict(

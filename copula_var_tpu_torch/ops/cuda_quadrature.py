@@ -50,6 +50,11 @@ the inner axis stays the whole grid), and both the kernel and the plain
 twin return those rows' share of each sweep. The shares of ranks that
 split the rows add up to the sweep (`parallel.mesh.GridMesh.grid_sum`).
 Operands of all rows (rows (0, n) or None) give the one-card bits.
+
+Day sharding (`parallel/`): operands built with `days=` (a slice of the
+T days) hold one rank's block, cut from the whole after every product is
+formed over all T. A rank's block may be empty (T = 0 days); a wrapper
+then returns its empty result and launches nothing.
 """
 
 from __future__ import annotations
@@ -201,8 +206,14 @@ def require_full_f32_matmul(dev) -> None:
             "about three decimal digits)")
 
 
+def cut_days(t, days):
+    """`t`'s days `days` (a slice of its leading axis) as a tensor of its
+    own, so the whole can be freed; `t` itself when `days` is None."""
+    return t if days is None else t[days].clone()
+
+
 def sweep_operands(V, x, dx, densities=None, forecast_combos=None,
-                   rows=None, dtype=F64, table=True):
+                   rows=None, dtype=F64, table=True, days=None):
     """SweepOperands of `dtype` for the MSM family (densities and
     forecast_combos given) or the GARCH family (both None), from the
     float64 inputs; with `rows` (i0, i1) those of outer grid rows
@@ -210,9 +221,12 @@ def sweep_operands(V, x, dx, densities=None, forecast_combos=None,
     already those rows). float32 (the f32 engine): V, x, dx, the
     densities, the combos and the weight rows cast to float32, and
     wfc = W0^T nan_to_num(FC) formed in float32, as JAX's f32 engine
-    forms it. On a CUDA device the prefix table is built here, once,
-    unless `table` is False (the f32 engine's refine pass reads the
-    float64 V alone)."""
+    forms it. With `days` (a slice of the T days: a day mesh's block)
+    the operands of those days, cut after wfc is formed over all T, so
+    a block holds the bits its days have in the whole (a batched product
+    may round by its batch). On a CUDA device the prefix table is built
+    here, once, unless `table` is False (the f32 engine's refine pass
+    reads the float64 V alone)."""
     itemsize(dtype)
     T = V.shape[0]
     if rows is not None:
@@ -237,13 +251,24 @@ def sweep_operands(V, x, dx, densities=None, forecast_combos=None,
             densities = densities.to(F32)
             forecast_combos = forecast_combos.to(F32)
     wfc = torch.einsum("si,tsk->tik", w0, fc).contiguous()
-    ops = SweepOperands(V, x, dx, densities, forecast_combos, wfc,
-                        w1.contiguous(), rows=rows)
+    if forecast_combos is not None:
+        forecast_combos = cut_days(forecast_combos, days)
+    ops = SweepOperands(cut_days(V, days), x, dx, densities, forecast_combos,
+                        cut_days(wfc, days), w1.contiguous(), rows=rows)
     if V.device.type == "cuda" and table:
-        require_ascending(x)
-        P, flags = sweep_table(ops)
-        ops = ops._replace(P=P, flags=flags)
+        ops = with_prefix_table(ops)
     return ops
+
+
+def with_prefix_table(ops: SweepOperands) -> SweepOperands:
+    """The operands with their prefix table (P, flags) on their CUDA
+    device, built once by `sweep_table` (operands that hold it come back
+    as they are)."""
+    if ops.P is not None:
+        return ops
+    require_ascending(ops.x)
+    P, flags = sweep_table(ops)
+    return ops._replace(P=P, flags=flags)
 
 
 def sweep_table_reference(ops: SweepOperands):
@@ -277,6 +302,8 @@ def sweep_table(ops: SweepOperands):
     require_prefix_table_fits(T, n, free_device_bytes(dev), r, dt)
     P = torch.empty((T, r, row_pitch(n)), dtype=dt, device=dev)
     flags = torch.empty((T, r), dtype=torch.bool, device=dev)
+    if T == 0:  # an empty day block: no launch
+        return P, flags
     fn = _build.function("cvt_sweep_table", dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -375,6 +402,8 @@ def masked_sweep(ops: SweepOperands, bounds, weights, box_min=-5.0):
     _check_operand("bounds", bounds, (L, T, 2), dev, dt)
     _check_operand("weights", weights, (L, 2), dev, dt)
     out = torch.empty((L, T), dtype=dt, device=dev)
+    if out.numel() == 0:  # an empty day block: no launch
+        return out
     fn = _build.function("cvt_masked_sweep", dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

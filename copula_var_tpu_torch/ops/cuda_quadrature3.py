@@ -49,6 +49,11 @@ table of outer slabs i0 in [i0, i1) only, U (T, i1 - i0, slab_stride(n)),
 stay whole. The sweep and its plain twin then return those slabs' share
 of each sweep (`parallel.mesh.GridMesh.grid_sum` adds the shares).
 
+Day sharding (`parallel/`): operands built with `days=` (a slice of the
+T days) hold one rank's block, cut after G is formed over all T, and U
+(or the flags) of that block only. On an empty block (T = 0) every
+wrapper returns its empty result and launches nothing.
+
 The f32 engine (`engine="pallas"`): `contract3_operands(...,
 dtype=torch.float32)` holds the f64 prep cast to float32 (the transform
 and pdf columns, the weight rows, G formed in float64 and cast, x, dx),
@@ -86,6 +91,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature import (
     SWEEP_MAX_GRID_POINTS,
     _check_operand,
     count_launch,
+    cut_days,
     free_device_bytes,
     itemsize,
     require_ascending,
@@ -298,13 +304,15 @@ def table_pads(U: torch.Tensor, n: int) -> torch.Tensor:
 
 def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
                        forecast_combos=None, p_cols=None, rows=None,
-                       dtype=F64):
+                       dtype=F64, days=None):
     """Contract3Operands of `dtype` for the MSM family (densities and
     forecast_combos given) or the GARCH family (p_cols given), from the
     float64 columns and inputs; with `rows` (i0, i1) those of outer slabs
     [i0, i1) (the columns whole). float32 (the f32 engine): the columns,
     weight rows, G (formed in float64), x, dx, densities and combos cast
-    to float32, as JAX's f32 dim-3 caches. On a CUDA device the table U
+    to float32, as JAX's f32 dim-3 caches. With `days` (a slice of the T
+    days: a day mesh's block) the operands of those days, cut after G is
+    formed over all T. On a CUDA device the table U of the operands' days
     is built here, once, where `contract3_route` takes the table, and the
     row flags where it takes the rebuild; else both stay None (on the
     CPU, and on the full-row route)."""
@@ -341,6 +349,13 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
         z, lu, w1, w2, G, p_cols, x, dx, densities, forecast_combos = (
             f32(t) for t in (z, lu, w1, w2, G, p_cols, x, dx, densities,
                              forecast_combos))
+    if days is not None:
+        cols = tuple(cut_days(c, days) for c in cols)
+        z, fin, lu, G = (cut_days(t, days) for t in (z, fin, lu, G))
+        p_cols, forecast_combos = (
+            None if t is None else cut_days(t, days)
+            for t in (p_cols, forecast_combos))
+        T = z.shape[0]
     ops = Contract3Operands(
         spec, tuple(cols), None if p_cols is None else p_cols.contiguous(),
         x, dx, densities, forecast_combos,
@@ -418,6 +433,8 @@ def contract3_row_flags(ops: Contract3Operands):
     _rebuild_rows(n, q, ops.dtype)
     r = ops.n_rows
     flags = torch.empty((T, r, n), dtype=torch.bool, device=dev)
+    if T == 0:  # an empty day block: no launch
+        return flags
     p = None if ops.p_cols is None else ops.p_cols.data_ptr()
     fn = _build.function("cvt_contract3_row_flags", ops.dtype)
     with torch.cuda.device(dev):
@@ -453,6 +470,8 @@ def contract3_weights(ops: Contract3Operands):
     r, dt = ops.n_rows, ops.dtype
     require_table_fits(T, n, free_device_bytes(dev), r, dt)
     U = torch.empty((T, r, slab_stride(n, dt)), dtype=dt, device=dev)
+    if T == 0:  # an empty day block: no launch
+        return U
     p = None if ops.p_cols is None else ops.p_cols.data_ptr()
     fn = _build.function("cvt_contract3_weights", dt)
     with torch.cuda.device(dev):
@@ -545,6 +564,8 @@ def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
     # i1, float64, summed in order
     partial = torch.empty((L, T, r * -(-n // 64)), dtype=F64, device=dev)
     out = torch.empty((L, T), dtype=dt, device=dev)
+    if out.numel() == 0:  # an empty day block: no launch
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
@@ -595,6 +616,8 @@ def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
     partial = torch.empty((L, T, r * -(-n // tile_rows)), dtype=F64,
                           device=dev)
     out = torch.empty((L, T), dtype=dt, device=dev)
+    if out.numel() == 0:  # an empty day block: no launch
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(

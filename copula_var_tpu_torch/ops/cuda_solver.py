@@ -50,9 +50,20 @@ f32 K2 sweeps (`bisect_fixed`). At dim 3 it is the `xla` engine's
 program over the f32 K4 sweep (`backtest.py:376`): the stage sweeps and
 the bracket in float32, then the while-loop bisection (all-zeros break,
 host-counted halvings as above) on float64 state, each halving's bounds
-rounded to float32 for the f32 sweep. Its `*_reference` form runs the
-same flow through the f32 plain twins. The f32 engine never launches an
-f64 kernel, and the f64 solves refuse f32 operands.
+rounded to float32 for the f32 sweep (`bisect_contract3_f32`). Its
+`*_reference` form runs the same flow through the f32 plain twins. The
+f32 engine never launches an f64 kernel, and the f64 solves refuse f32
+operands.
+
+The f32 engine day-sharded (JAX's engine "sharded_pallas"):
+`full_solve_pallas(..., reducer=)` on a rank's block of float32 operands.
+At dim 2 every day is independent and the count of halvings is fixed, so
+the solve runs no collective, as JAX's `_sharded_full_program` shard_maps
+`_full_solve` with none; an empty block runs every stage on 0 days and
+launches nothing. At dim 3 the reducer takes the bisection's three
+global decisions (below), as JAX's `_dim3_pallas_full_program` does.
+The JAX package's dim-2 `*_pallas_levels_sharded` functions are served
+by this one function and carry no name of their own in the port.
 
 `full_solve_levels` / `full_solve_portfolios` port
 `_device_full_solve_levels_jit` / `_device_full_solve_portfolios_jit`:
@@ -238,6 +249,8 @@ def _launch_k1(ops, state, obj, weights, box_min, n_iters):
     _check_operand("obj", obj, (L,), dev, dt)
     _check_operand("weights", weights, (L, 2), dev, dt)
     roots = torch.empty((L, T), dtype=dt, device=dev)
+    if roots.numel() == 0:  # an empty day block: no launch
+        return roots
     fn = _build.function("cvt_bisect_levels", dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -484,28 +497,49 @@ def _day_nan(ops: SweepOperands):
     return ~torch.isfinite(ops.V).flatten(1).all(dim=1)
 
 
+def bisect_contract3_f32(ops: Contract3Operands, lower, upper, prev_res,
+                         prev_up, ustack, obj, weights, tolerance,
+                         box_min=-5.0, reducer=None, sweep=None):
+    """(L, T) float64 roots of the f32 engine's dim-3 bisection: the `xla`
+    while-loop (`_bisect_by_sweeps`) on float64 state (lower, upper,
+    prev_res, prev_up (L, T) of any floating type, ustack (L, T) bool;
+    obj (L,), weights (L, 3)), each halving's bounds rounded to float32
+    for the float32 sweep (the operands' kernel sweep, or `sweep`) and
+    its result widened to float64; with a `reducer` the halving count,
+    the all-zeros freeze and the loop's exit are taken over every rank's
+    days (JAX's `_spmd_bisection_levels` over the f32 K4 sweep)."""
+    _require_dtype(ops, F32, "bisect_contract3_f32")
+    sweep = _sweeps(ops)[0] if sweep is None else sweep
+    w = weights.to(F32).contiguous()
+
+    def sweep64(ops, bounds, weights, box_min=-5.0):
+        return sweep(ops, bounds.to(F32).contiguous(), w, box_min).to(F64)
+
+    state = tuple(t.to(F64).contiguous()
+                  for t in (lower, upper, prev_res, prev_up))
+    return _bisect_by_sweeps(
+        ops, state + (ustack.contiguous(),), obj.to(F64), w.to(F64),
+        tolerance, box_min, sweep64, sweep64, "bisect_contract3_f32",
+        reducer)
+
+
 def _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                  plain):
+                  plain, reducer=None):
     """JAX's f32 engine on float32 operands (see the module docstring):
     dim 2 `_full_solve` (fixed-count K1), dim 3 the `xla` program over
-    the f32 K4 sweep. weights (dim,) or (L, dim), as `_full_solve`.
-    Returns (roots (L, T): float32 at dim 2, float64 at dim 3, nan_days
-    (L, T))."""
+    the f32 K4 sweep. weights (dim,) or (L, dim), as `_full_solve`. With
+    a `reducer` the operands hold one rank's day block: dim 2 needs no
+    collective, dim 3 reduces the bisection's global decisions. Returns
+    (roots (L, T): float32 at dim 2, float64 at dim 3, nan_days (L, T))."""
     _require_dtype(ops, F32, "full_solve_pallas")
     kernel, twin = _sweeps(ops)
     sweep = twin if plain else kernel
     (lower, upper, prev_res, prev_up, ustack, nan_days), w = _stages(
         ops, obj.to(F32), weights.to(F32), cfg, quirks, box_min, sweep, F32)
     if isinstance(ops, Contract3Operands):
-        def sweep64(ops, bounds, weights, box_min=-5.0):
-            return sweep(ops, bounds.to(F32).contiguous(), w,
-                         box_min).to(F64)
-
-        state = tuple(t.to(F64).contiguous()
-                      for t in (lower, upper, prev_res, prev_up))
-        roots = _bisect_by_sweeps(
-            ops, state + (ustack.contiguous(),), obj.to(F64), w.to(F64),
-            tolerance, box_min, sweep64, sweep64, "full_solve_pallas", None)
+        roots = bisect_contract3_f32(ops, lower, upper, prev_res, prev_up,
+                                     ustack, obj, w, tolerance, box_min,
+                                     reducer, sweep)
         return roots, nan_days
     n_iters = full_iters(tolerance, cfg[3], cfg[4])
     state = (lower, upper, prev_res, prev_up, ustack)
@@ -518,21 +552,23 @@ def _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
 
 
 def full_solve_pallas(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
-                      box_min=-5.0):
+                      box_min=-5.0, reducer=None):
     """The f32 engine (`engine="pallas"`) on float32 `sweep_operands` /
     `contract3_operands`: L rows of levels `obj` (L,) with one portfolio
     `weights` (dim,) or one per row (L, dim) -> (roots (L, T), nan_days
     (L, T)), through the f32 kernels on a CUDA device and the f32 plain
-    twins on the CPU. cfg = (first_guess, sg0, sg1, min_var, max_var)."""
+    twins on the CPU. cfg = (first_guess, sg0, sg1, min_var, max_var).
+    With a `reducer` (a `DayMesh`) `ops` holds this rank's day block and
+    T is its length (JAX's engine "sharded_pallas")."""
     return _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                         False)
+                         False, reducer)
 
 
 def full_solve_pallas_reference(ops, obj, weights, cfg, tolerance=1e-6,
-                                quirks=False, box_min=-5.0):
+                                quirks=False, box_min=-5.0, reducer=None):
     """`full_solve_pallas` through the f32 plain twins, on any device."""
     return _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                         True)
+                         True, reducer)
 
 
 def _stages(ops, obj, weights, cfg, quirks, box_min, sweep, dt):

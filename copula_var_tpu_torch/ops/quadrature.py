@@ -362,7 +362,7 @@ def msm_integrals_cached(bounds, C, forecast_combos, x, dx, densities,
     x0, w0 = _outer(x, w0, rows)
     M = halfspace_mask(x, bounds[:, 0], bounds[:, 1], weights, box_min, x0)
     V = torch.where(M, C, torch.zeros((), dtype=C.dtype, device=C.device))
-    per_combo = (w0 @ V @ w1.T).reshape(C.shape[0], -1)  # (T, q*q)
+    per_combo = (w0 @ V @ w1.T).flatten(1)  # (T, q*q)
     return torch.sum(per_combo * forecast_combos, dim=-1)
 
 
@@ -563,7 +563,7 @@ def tcached_integrals(bounds, weights, cols, x, dx, spec: CopulaSpec,
             else:
                 A = halfspace_frac(x, tw, b[s, 0], b[s, 1], w, box_min, x0)
                 V = C * A if p_cols is not None else _inside(C, A)
-            per_combo = _contract_states(V, w_cols).reshape(V.shape[0], -1)
+            per_combo = _contract_states(V, w_cols).flatten(1)
             out[row, s] = (per_combo[:, 0] if forecast_combos is None else
                            torch.sum(per_combo * forecast_combos[s], dim=-1))
     return out
@@ -620,7 +620,7 @@ def msm_integrals_trap(bounds, C, forecast_combos, x, densities, weights,
     for s in _chunks(C.shape[0], x.shape[0], 2, x.device, day_batch):
         A = halfspace_frac(x, tw, bounds[s, 0], bounds[s, 1], weights,
                            box_min, x0)
-        per_combo = (w0 @ _inside(C[s], A) @ w1.T).reshape(A.shape[0], -1)
+        per_combo = (w0 @ _inside(C[s], A) @ w1.T).flatten(1)
         out.append(torch.sum(per_combo * forecast_combos[s], dim=-1))
     return torch.cat(out)
 

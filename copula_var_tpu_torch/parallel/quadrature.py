@@ -34,6 +34,23 @@ their own budget (`ops/quadrature._device_day_batch`).
 tensors: the port has no GSPMD, so it refines the roots of the tensors
 it is given, on their device (a rank's block when called per rank).
 
+The f32 engine day-sharded at dim 3 (JAX's engine "sharded_pallas", its
+:1310-1437 and :1687-1763): `place_dim3_cache` builds this rank's block
+of float32 `Contract3Operands` (K4's table U of the block alone on a
+CUDA device) from the full transform columns, and returns them with the
+shared part (the portfolio weights and T) where JAX returns its placed
+(day leaves, shared leaves); `sharded_dim3_pallas_integrals`,
+`sharded_dim3_pallas_bisection_solve_levels` and
+`sharded_dim3_pallas_full_solve_levels` take that pair. They run the f32
+K4 sweep (its plain twin on the CPU) under the bisection's reduced
+global decisions (`ops/cuda_solver.py::bisect_contract3_f32`); JAX's
+`interpret` is taken and not used, as the device picks the kernel or
+its twin. JAX's dim-2 f32 functions (`ops/pallas_solver.py::
+*_pallas_levels_sharded`) carry no name here: `ops/cuda_solver.py::
+full_solve_pallas(..., reducer=mesh)` on a rank's block serves them,
+and `VaRBacktest(engine="pallas", mesh=<DayMesh>)` serves the whole
+engine.
+
 `VaRBacktest(mesh=...)` serves the same solves from operands it builds
 once per backtest, at every dim, for either mesh.
 """
@@ -44,14 +61,18 @@ import numpy as np
 import torch
 
 from copula_var_tpu_torch.ops.cuda_quadrature import (
+    F32,
+    F64,
     SweepOperands,
     masked_sweep,
     sweep_operands,
 )
 from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
 from copula_var_tpu_torch.ops.cuda_solver import (
+    bisect_contract3_f32,
     bisect_for,
     full_solve_levels,
+    full_solve_pallas,
     full_solve_portfolios,
     sweep_for,
 )
@@ -122,9 +143,11 @@ def _block_operands(mesh, day_tensors, fcombos, densities, x, dx):
 
 def _block_sweep(mesh, ops, T, bounds, weights, box_min=-5.0):
     """(T,) sweep of one bound set on every rank, this rank's block
-    through the operands' sweep (`masked_sweep` at dim 2)."""
-    b = _f64(mesh, bounds)[mesh.days(T)].contiguous()
-    w = _f64(mesh, weights).reshape(1, -1)
+    through the operands' sweep (`masked_sweep` at dim 2), in the
+    operands' type."""
+    dt = ops.x.dtype
+    b = _f64(mesh, bounds)[mesh.days(T)].to(dt).contiguous()
+    w = _f64(mesh, weights).reshape(1, -1).to(dt)
     return gather_days(sweep_for(ops)(ops, b[None], w, box_min)[0], mesh, T)
 
 
@@ -174,8 +197,8 @@ def sharded_bisection_solve_levels(mesh: DayMesh, day_tensors, fcombos,
 def _block_bisection(mesh, ops, T, weights, lower, upper, prev_result,
                      prev_upper, upper_stack, obj_vars, tolerance, box_min):
     """(L, T) roots on every rank: this rank's block of the (L, T) state
-    bisected by the operands' bisection, its global decisions reduced
-    over the mesh."""
+    bisected by the operands' bisection (on float32 dim-3 operands the
+    f32 engine's), its global decisions reduced over the mesh."""
     days = mesh.days(T)
 
     def block(a, dtype=torch.float64):  # (L, T) or (T,) -> (L, block)
@@ -187,8 +210,9 @@ def _block_bisection(mesh, ops, T, weights, lower, upper, prev_result,
     us = block(upper_stack, torch.bool)
     obj = _f64(mesh, obj_vars).reshape(-1)
     w = _f64(mesh, weights).reshape(1, -1).expand(obj.shape[0], -1)
-    roots = bisect_for(ops)(ops, lo, up, pr, pu, us, obj, w.contiguous(),
-                            float(tolerance), box_min, reducer=mesh)
+    bisect = bisect_contract3_f32 if ops.x.dtype == F32 else bisect_for(ops)
+    roots = bisect(ops, lo, up, pr, pu, us, obj, w.contiguous(),
+                   float(tolerance), box_min, reducer=mesh)
     return gather_days(roots, mesh, T)
 
 
@@ -294,24 +318,29 @@ def trap_refine_gspmd_jit(tensors, fcombos, densities, x, weights, roots,
 
 
 def _tcached_block_operands(mesh, cols, fcombos, densities, x, dx, spec,
-                            family, table=True):
+                            family, table=True, dtype=F64):
     """(operands of this rank's block of days, T) from the full transform
     columns: the MSM family (`cols` the transform leaves, fcombos,
     densities) or the GARCH family (`cols` = (transform leaves, p_cols)).
-    `Contract3Operands` at dim 3 (the K4 route on a CUDA device) when
-    `table`, else (and at dim >= 4) `ColumnOperands`."""
+    `Contract3Operands` of `dtype` at dim 3 (the K4 route on a CUDA
+    device; G formed over all T, then cut) when `table`, else (and at
+    dim >= 4) `ColumnOperands`."""
     msm = family == "msm"
     leaves, p_cols = (cols, None) if msm else cols
     leaves = tuple(_t(mesh, c) for c in leaves)
     T, dim = leaves[0].shape[0], leaves[0].shape[-2]
     days = mesh.days(T)
-    block = tuple(c[days].contiguous() for c in leaves)
     kw = (dict(densities=_f64(mesh, densities),
-               forecast_combos=_f64(mesh, fcombos)[days].contiguous())
-          if msm else dict(p_cols=_f64(mesh, p_cols)[days].contiguous()))
-    build = contract3_operands if dim == 3 and table else column_operands
-    return build(block, _f64(mesh, x),
-                 None if dx is None else _f64(mesh, dx), spec, **kw), T
+               forecast_combos=_f64(mesh, fcombos))
+          if msm else dict(p_cols=_f64(mesh, p_cols)))
+    x, dx = _f64(mesh, x), None if dx is None else _f64(mesh, dx)
+    if dim == 3 and table:
+        return contract3_operands(leaves, x, dx, spec, dtype=dtype,
+                                  days=days, **kw), T
+    block = tuple(c[days].contiguous() for c in leaves)
+    kw = {k: v if k == "densities" else v[days].contiguous()
+          for k, v in kw.items()}
+    return column_operands(block, x, dx, spec, **kw), T
 
 
 def _check_T(T, given):
@@ -385,6 +414,86 @@ def sharded_tcached_trap_refine(mesh: DayMesh, cols, fcombos, densities, x,
     out = refine_roots(ops, r, obj, rows.contiguous(), h.contiguous(),
                        box_min)
     return gather_days(out, mesh, T_cols).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the f32 engine day-sharded at dim 3 (JAX's sharded_pallas: :1310-1437,
+# :1687-1763)
+# ---------------------------------------------------------------------------
+
+
+def place_dim3_cache(mesh: DayMesh, cols, fcombos, densities, x, dx, weights,
+                     spec: CopulaSpec, family):
+    """The f32 engine's dim-3 operands of this rank's block of days (JAX's
+    `place_dim3_cache` of a `build_{msm,garch}_dim3_cache`), from the full
+    float64 transform columns as the `sharded_tcached_*` functions take
+    them: float32 `Contract3Operands` of the block (K4's table U of the
+    block alone on a CUDA device) and the shared part, (the portfolio
+    weights (3,), T). Returns (ops, shared), JAX's (day_leaves_s,
+    shared_leaves)."""
+    ops, T = _tcached_block_operands(mesh, cols, fcombos, densities, x, dx,
+                                     spec, family, dtype=F32)
+    return ops, (_f64(mesh, weights).reshape(-1), T)
+
+
+def _dim3_placed(ops, shared, family, kind):
+    """(weights, T) of a `place_dim3_cache` pair, after checking that its
+    operands are the f32 engine's of `family` and copula `kind`."""
+    if ops.x.dtype != F32 or ops.spec.kind != kind or \
+            (family == "msm") != (ops.densities is not None):
+        raise ValueError(
+            f"family={family!r}, kind={kind!r}: the operands are "
+            f"{ops.x.dtype} of the {ops.spec.kind!r} copula and the "
+            f"{'msm' if ops.densities is not None else 'garch'} family "
+            "(place them with place_dim3_cache)")
+    weights, T = shared
+    return weights, int(T)
+
+
+def sharded_dim3_pallas_integrals(mesh: DayMesh, bounds, ops, shared,
+                                  family, kind, interpret=False,
+                                  box_min=-5.0):
+    """(T,) float32 dim-3 integrals over the slabs bounds (T, 2) with the
+    placed weights, day-sharded: this rank's block through the f32 K4
+    sweep (its plain twin on the CPU), gathered on every rank."""
+    weights, T = _dim3_placed(ops, shared, family, kind)
+    if _t(mesh, bounds).shape[0] != T:
+        raise ValueError(f"bounds of {_t(mesh, bounds).shape[0]} days, the "
+                         f"operands were placed for T={T}")
+    return _block_sweep(mesh, ops, T, bounds, weights, box_min)
+
+
+def sharded_dim3_pallas_bisection_solve_levels(
+        mesh: DayMesh, ops, shared, lower, upper, prev_result, prev_upper,
+        upper_stack, obj_vars, tolerance, family, kind, interpret=False,
+        box_min=-5.0):
+    """(L, T) float64 roots of the f32 engine's dim-3 bisection, day-
+    sharded: state (L, T) each (float64), obj_vars (L,); this rank's
+    block bisected on float64 state over the f32 K4 sweep, the halving
+    count, the all-zeros freeze and the loop's exit taken over every
+    rank's days; gathered on every rank."""
+    weights, T = _dim3_placed(ops, shared, family, kind)
+    return _block_bisection(mesh, ops, T, weights, lower, upper,
+                            prev_result, prev_upper, upper_stack, obj_vars,
+                            tolerance, box_min)
+
+
+def sharded_dim3_pallas_full_solve_levels(
+        mesh: DayMesh, ops, shared, obj_vars, first_guess, second_guess,
+        tolerance, min_var_value, max_var_value, family, kind,
+        interpret=False, box_min=-5.0, reference_quirks=False, T=None,
+        weights_batch=None):
+    """The whole f32 dim-3 solve (stage sweeps and bracket in float32,
+    then the bisection), day-sharded -> host (roots (L, T), nan_days
+    (L, T)) on every rank. weights_batch (L, 3): row l masks with its own
+    weights (portfolio mode), else every row with the placed weights."""
+    weights, T_ops = _dim3_placed(ops, shared, family, kind)
+    _check_T(T_ops, T)
+    w = weights if weights_batch is None else _f64(mesh, weights_batch)
+    return _full(mesh, full_solve_pallas, ops, T_ops, w, obj_vars,
+                 _cfg(first_guess, second_guess, min_var_value,
+                      max_var_value),
+                 tolerance, box_min, reference_quirks, False, 0.0)
 
 
 # ---------------------------------------------------------------------------

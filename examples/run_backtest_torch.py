@@ -14,13 +14,16 @@ dataset (a GARCH and an MSM series) simulated on the device. There is no
 --device picks where everything runs: "cuda" (the default, the kernels)
 or "cpu" (the plain twins). --engine "pallas" serves the f32 engine on one
 device (roots within one grid cell x |w0| of the f64 "xla" default's);
-"sharded", "sharded_pallas" or "grid_sharded" serve over a mesh of one
-process per card, under torchrun:
+"sharded" (f64) and "sharded_pallas" (the f32 engine) split the days, and
+"grid_sharded" the outer grid rows, over a mesh of one process per card,
+under torchrun:
 
     python examples/run_backtest_torch.py --quick --device cpu
     python examples/run_backtest_torch.py --csv data/flagship.csv --plot var.png
     python examples/run_backtest_torch.py --csv data/flagship.csv --engine pallas
     torchrun --nproc-per-node 4 examples/run_backtest_torch.py --engine sharded
+    torchrun --nproc-per-node 4 examples/run_backtest_torch.py \
+        --engine sharded_pallas
 
 --save writes the VaR series and the portfolio returns to an .npz.
 """
@@ -57,10 +60,10 @@ def parse_args(argv=None):
                     help="tiny problem + cheap optimizers (smoke run)")
     ap.add_argument("--engine", default="xla", choices=ENGINES,
                     help="xla: one device, f64; pallas: one device, the "
-                         "f32 engine; sharded / sharded_pallas: the days "
-                         "split over the ranks of a torchrun world; "
-                         "grid_sharded: the outer grid rows split over "
-                         "them")
+                         "f32 engine; sharded: the days split over the "
+                         "ranks of a torchrun world, f64; sharded_pallas: "
+                         "the same with the f32 engine; grid_sharded: the "
+                         "outer grid rows split over them")
     return ap.parse_args(argv)
 
 

@@ -45,6 +45,7 @@ from copula_var_tpu_torch.ops.quadrature import (
     transform_u_columns,
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched
+from copula_var_tpu_torch.parallel.mesh import DayMesh
 from copula_var_tpu_torch.utils.artifacts import load_artifacts
 
 pytestmark = pytest.mark.cuda
@@ -67,12 +68,13 @@ def dev():
 
 
 def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True,
-         rows=None, dtype=torch.float64):
+         rows=None, dtype=torch.float64, days=None):
     """Random day operands on the card; n not a multiple of 32; `edit(V)`
     may poke cells of the day tensors first. With `table` False they are
     built on the CPU and moved, so they carry no prefix table; with
     `rows` (i0, i1) they hold those outer grid rows; `dtype` float32:
-    the f32 engine's operands of the same float64 inputs."""
+    the f32 engine's operands of the same float64 inputs; with `days` (a
+    slice) those of a block of the T days."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -90,11 +92,12 @@ def _ops(dev, family, T=37, n=48, q=5, seed=0, edit=None, table=True,
     if edit is not None:
         edit(V)
     if family == "garch":
-        return cq.sweep_operands(t(V), t(x), t(dx), rows=rows, dtype=dtype)
+        return cq.sweep_operands(t(V), t(x), t(dx), rows=rows, dtype=dtype,
+                                 days=days)
     dens = rng.uniform(0.0, 0.5, (2, q, n))
     fc = rng.dirichlet(np.ones(q * q), size=T)
     return cq.sweep_operands(t(V), t(x), t(dx), t(dens), t(fc), rows=rows,
-                             dtype=dtype)
+                             dtype=dtype, days=days)
 
 
 def _rows(dev, T, L, seed=1):
@@ -389,11 +392,12 @@ CORR3 = np.array([[1.0, 0.45, 0.25], [0.45, 1.0, 0.35], [0.25, 0.35, 1.0]])
 
 
 def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None, rows=None,
-          dtype=torch.float64):
+          dtype=torch.float64, days=None):
     """Random dim-3 operands on the card; `edit(cols, p)` may poke cells
     of the transform or pdf columns before the operands are built; with
     `rows` (i0, i1) those of outer slabs [i0, i1); `dtype` float32: the
-    f32 engine's operands."""
+    f32 engine's operands; with `days` (a slice) those of a block of the
+    T days."""
     rng = np.random.default_rng(seed)
 
     def t(a):
@@ -411,11 +415,12 @@ def _ops3(dev, family, kind, T=6, n=40, q=3, seed=0, edit=None, rows=None,
         edit(cols, p)
     if family == "garch":
         return cq3.contract3_operands(tuple(cols), x, dx, spec, p_cols=p,
-                                      rows=rows, dtype=dtype)
+                                      rows=rows, dtype=dtype, days=days)
     dens = t(rng.uniform(0.0, 0.5, (3, q, n)))
     fc = t(rng.dirichlet(np.ones(q**3), size=T))
     return cq3.contract3_operands(tuple(cols), x, dx, spec, densities=dens,
-                                  forecast_combos=fc, rows=rows, dtype=dtype)
+                                  forecast_combos=fc, rows=rows, dtype=dtype,
+                                  days=days)
 
 
 def _rows3(dev, T, L, seed=1):
@@ -1217,3 +1222,61 @@ def test_wrappers_refuse_the_other_engine_s_operands(dev):
     bounds, weights = _rows(dev, 5, 1)
     with pytest.raises(ValueError, match="bounds"):
         cq.masked_sweep(ops32, bounds, weights)
+
+
+# -- day blocks (the f32 engine day-sharded) ---------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_day_block_operands_hold_the_whole_tables_days(dev, family, dtype):
+    """Operands built on a block of days (`days=`, a day-sharded rank's)
+    hold the whole operands' wfc and P at dim 2, G and U at dim 3, of
+    those days bit for bit (every product formed over all days, then
+    cut), and their sweeps give the whole sweeps' days."""
+    days = slice(3, 7)
+    whole, block = (_ops(dev, family, T=9, dtype=dtype, days=d)
+                    for d in (None, days))
+    for name in ("V", "wfc", "P", "flags"):
+        assert torch.equal(getattr(block, name), getattr(whole, name)[days])
+    bounds, weights = _rows(dev, 9, 3)
+    bounds, weights = bounds.to(dtype), weights.to(dtype)
+    got = cq.masked_sweep(block, bounds[:, days].contiguous(), weights)
+    assert _same(got, cq.masked_sweep(whole, bounds, weights)[:, days])
+    days3 = slice(2, 5)
+    whole3, block3 = (_ops3(dev, family, "student", dtype=dtype, days=d)
+                      for d in (None, days3))
+    for name in ("z", "fin", "lu", "G", "U"):
+        assert torch.equal(getattr(block3, name),
+                           getattr(whole3, name)[days3])
+    bounds, weights = _rows3(dev, 6, 3)
+    bounds, weights = bounds.to(dtype), weights.to(dtype)
+    got = cq3.masked_contract3(block3, bounds[:, days3].contiguous(),
+                               weights)
+    assert _same(got, cq3.masked_contract3(whole3, bounds, weights)[:, days3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["f64", "f32"])
+def test_an_empty_day_block_launches_nothing(dev, dtype):
+    """A rank whose block holds no day (T = 4 over 3 ranks: days [4, 4)):
+    the operands of 0 days (P and U of 0 days, the flags), every sweep,
+    the stage sweeps, the bracket, K1 and the dim-3 bisection return
+    empty results and launch no kernel (no grid of size 0)."""
+    empty = slice(4, 4)
+    reducer = DayMesh(None, 0, 1, dev)  # a world of one: no collective
+    before = _f32_counts()
+    ops = _ops(dev, "msm", T=4, dtype=dtype, days=empty)
+    ops3 = _ops3(dev, "garch", "student", T=4, dtype=dtype, days=empty)
+    assert ops.P.shape[0] == ops.days == 0 and ops3.U.shape[0] == 0
+    assert cq3.contract3_row_flags(ops3).shape == (0, 40, 40)
+    b2, w2 = _rows(dev, 0, 3)
+    b3, w3 = _rows3(dev, 0, 3)
+    assert cq.masked_sweep(ops, b2.to(dtype), w2.to(dtype)).shape == (3, 0)
+    for sweep in (cq3.masked_contract3, cq3.masked_contract3_rebuild):
+        assert sweep(ops3, b3.to(dtype), w3.to(dtype)).shape == (3, 0)
+    obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
+    solve = cs.full_solve_pallas if dtype == F32 else cs.full_solve_levels
+    for o, w in ((ops, w2[0]), (ops3, w3[0])):
+        roots, nan = solve(o, obj, w, CFG, reducer=reducer)
+        assert roots.shape == nan.shape == (2, 0)
+    assert _f32_counts() == before

@@ -404,11 +404,13 @@ def _plugin_backtest():
                            engine="pallas")
 
 
-class _OneRankMesh:
-    """A stand-in day mesh: the f32 engine refuses any mesh before it
-    asks anything of it."""
+def _grid_mesh_of_one():
+    """A (1, 1) grid mesh of one process: the f32 engine serves one
+    device or a day mesh, and JAX has no f32 grid-sharded engine."""
+    from copula_var_tpu_torch.parallel.mesh import make_mesh
 
-    device = torch.device("cpu")
+    return make_mesh(device="cpu", axis_names=("days", "grid"),
+                     shape=(1, 1))
 
 
 @pytest.mark.parametrize("case", ["dim4", "plugin", "mesh"])
@@ -421,8 +423,8 @@ def test_pallas_refuses_what_jax_does_not_serve(case):
         match = r"requires dim in \{2, 3\}"
     else:
         _, bt = _pair(2, "garch")
-        bt.mesh = _OneRankMesh()
-        match = "one device"
+        bt.mesh = _grid_mesh_of_one()
+        match = "no f32 grid-sharded engine"
     with pytest.raises(ValueError, match=match):
         bt.calc_var(0.05)
     T = bt.data.out_sample_n
