@@ -631,8 +631,7 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
            "dim3_f32": lambda: dim3("pallas")}
     for name in paths:
         fn = fns[name]
-        for c in counters:
-            c.launches = c.launches_f32 = 0
+        _zero_launches(f32=True)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -640,8 +639,8 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
         fn()
         torch.cuda.synchronize(dev)
         walls[name] = time.perf_counter() - t0
-        launches[name] = {c.__name__: c.launches for c in counters}
-        launches[f"{name}/f32"] = {c.__name__: c.launches_f32
+        launches[name] = {c.__name__: _launches(c) for c in counters}
+        launches[f"{name}/f32"] = {c.__name__: _launches(c, f32=True)
                                    for c in counters}
         peaks[name] = torch.cuda.max_memory_allocated(dev) - base
     return out, launches, peaks, walls
@@ -1303,8 +1302,7 @@ def wide_grid_phase(root, smi):
             for n in (int(v) for v in rec[f"dim{dim}_widths"]):
                 tag = f"dim{dim}_{est}_n{n}"
                 inputs = cls(*[rec[f"{tag}_ii_{f}"] for f in cls._fields])
-                for c in counters:
-                    c.launches = 0
+                _zero_launches()
                 saved = [(m, a, getattr(m, a)) for m, a in plain]
                 for m, a, _ in saved:
                     setattr(m, a, refuse)
@@ -1319,7 +1317,7 @@ def wide_grid_phase(root, smi):
                     for m, a, fn in saved:
                         setattr(m, a, fn)
                 wall = time.perf_counter() - t0
-                lc = {c.__name__: c.launches for c in counters}
+                lc = {c.__name__: _launches(c) for c in counters}
                 for k, v in lc.items():
                     total[k] = total.get(k, 0) + v
                 route = (cs.dim2_bisect_route(n) if dim == 2 else
@@ -1427,14 +1425,13 @@ def wide_grid_phase(root, smi):
         inputs = base.integration_inputs._replace(
             **{f: torch.as_tensor(rec[f"{tag}_ii_{f}"], device=dev)
                for f in grid})
-        for c in counters:
-            c.launches = 0
+        _zero_launches()
         bt = bt_mod.VaRBacktest(data, base.adapter, base.copula,
                                 base.copula_fit, base.model_fits, inputs,
                                 num_points=WIDE_N_TIMED, device="cuda")
         ops = bt.sweep_operands()
         if (ops.U is not None or ops.flags is None or ops.days != WIDE_DAYS_T
-                or cq3.contract3_row_flags.launches != 1):
+                or _launches(cq3.contract3_row_flags) != 1):
             raise AssertionError(f"the full-T {est} n={WIDE_N_TIMED} "
                                  "operands did not take the rebuild route "
                                  "with one flag table")
@@ -1505,7 +1502,7 @@ def wide_grid_phase(root, smi):
         bt, ops = full_T(est)
         T, q = ops.days, ops.w1.shape[0]
         rep_e = full_report[est] = {"flag_launches":
-                                    cq3.contract3_row_flags.launches}
+                                    _launches(cq3.contract3_row_flags)}
         w1 = bt.weights.reshape(1, 3)
         if est == "msm":
             # the flag pass, once per backtest: against its plain twin, timed
@@ -1565,13 +1562,13 @@ def wide_grid_phase(root, smi):
         for route, flags_ in (("truncated", ops.flags), ("full_row", None),
                               ("truncated_again", ops.flags)):
             bt._ops = ops._replace(flags=flags_)
-            before = cq3.masked_contract3_rebuild.launches
+            before = _launches(cq3.masked_contract3_rebuild)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             var = bt.calc_var(alpha)
             torch.cuda.synchronize()
             queries[route] = (var, time.perf_counter() - t0,
-                              cq3.masked_contract3_rebuild.launches - before)
+                              _launches(cq3.masked_contract3_rebuild) - before)
         bt._ops = ops
         var_t = queries["truncated"][0]
         if not (np.array_equal(var_t, queries["full_row"][0]) and
@@ -1612,8 +1609,7 @@ def wide_grid_phase(root, smi):
     days, n = int(rec["plugin_days"]), int(rec["plugin_points"])
     data, base = bases[(2, "garch")]
     cut = from_returns(data.returns[:1135 + days], data.tickers, 1135)
-    for c in counters:
-        c.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     pb = bt_mod.create_var_backtest(
         cut, MinimalGarch.name, "student", num_points=n,
@@ -1622,7 +1618,7 @@ def wide_grid_phase(root, smi):
     var = pb.calc_var(alpha)
     levels = pb.calc_var_levels(tuple(rec["plugin_levels"]))
     plugin_s = time.perf_counter() - t0
-    lc = {c.__name__: c.launches for c in counters}
+    lc = {c.__name__: _launches(c) for c in counters}
     e_var = float(np.max(np.abs(var - rec["plugin_garch_var"])))
     e_lv = float(np.max(np.abs(levels - rec["plugin_garch_levels"])))
     if not (pb.plugin and e_var <= ATOL_VAR and e_lv <= ATOL_VAR):
@@ -1727,16 +1723,16 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
                 cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
-    earlier = {c.__name__: c.launches_f32 for c in counters}
+    earlier = {c.__name__: _launches(c, f32=True) for c in counters}
     if any(earlier.values()):
         raise AssertionError(f"an f64 phase launched an f32 kernel: {earlier}")
 
     def zero():
-        for c in counters:
-            c.launches = c.launches_f32 = 0
+        _zero_launches(f32=True)
 
     def read():
-        return {c.__name__: (c.launches, c.launches_f32) for c in counters}
+        return {c.__name__: (_launches(c), _launches(c, f32=True))
+                for c in counters}
 
     def held(tag, got, want, dx, weights):
         """max |f32 - f64|, 0.9 quantile and their bounds, over rows with
@@ -2221,8 +2217,34 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
 FIT_CHILD_TIMEOUT_S = 900  # a child fit phase still running by then fails
 
 
+_LAUNCH_ZERO = {}  # (wrapper, f32) -> its launch count when last zeroed
+
+
+def _launch_count(wrapper, f32):
+    """`wrapper`'s f64 (or f32) kernel launches in this process."""
+    import torch
+    from copula_var_tpu_torch.ops import cuda_quadrature as cq
+
+    return cq.launch_count(wrapper, torch.float32 if f32 else torch.float64)
+
+
+def _zero_launches(f32=False):
+    """Start every kernel wrapper's f64 launch count (with `f32` its f32
+    count too) again from 0."""
+    for c in _counters():
+        for g in (False, True) if f32 else (False,):
+            _LAUNCH_ZERO[c.__name__, g] = _launch_count(c, g)
+
+
+def _launches(wrapper, f32=False):
+    """`wrapper`'s f64 (or f32) kernel launches since its count was last
+    zeroed."""
+    return (_launch_count(wrapper, f32)
+            - _LAUNCH_ZERO.get((wrapper.__name__, f32), 0))
+
+
 def _counters():
-    """Every kernel wrapper's launch counter holder."""
+    """Every kernel wrapper (each counts its launches)."""
     from copula_var_tpu_torch.ops import cuda_quadrature as cq
     from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
     from copula_var_tpu_torch.ops import cuda_solver as cs
@@ -2292,8 +2314,7 @@ def mr_fit_phase(root, smi):
         root, "data", f"flagship_artifacts_{mr}.npz"))["meta"]))
     want_mr = rec_mr[f"{mr}_var"]
     counters = _counters()
-    for c in counters:
-        c.launches = 0
+    _zero_launches()
     cfg_mr = BacktestConfig(estimation_type=mr, copula_type="student",
                             n_insample=int(rec_mr["n_insample"]),
                             num_points=int(rec_mr["num_points"]))
@@ -2321,7 +2342,7 @@ def mr_fit_phase(root, smi):
     if var_rb.shape != want_mr.shape or not diff_mr.max() <= ATOL_VAR:
         raise AssertionError(f"run_backtest {mr}: VaR off the record by "
                              f"{diff_mr.max():.3e}")
-    launches_rb = {c.__name__: c.launches for c in counters}
+    launches_rb = {c.__name__: _launches(c) for c in counters}
     print(f"run_backtest {mr}: launches {launches_rb}")
     for name in ("sweep_table", "masked_sweep", "bisect_levels"):
         if launches_rb[name] <= 0:
@@ -2352,8 +2373,7 @@ def dim3_fit_phase(root, smi):
     alpha = float(np.load(os.path.join(root, "data",
                                        "flagship_var.npz"))["obj_var"])
     counters = _counters()
-    for c in counters:
-        c.launches = 0
+    _zero_launches()
     fit3_report = {}
     for est in ("garch", "msm"):
         meta3 = json.loads(str(np.load(os.path.join(
@@ -2394,7 +2414,7 @@ def dim3_fit_phase(root, smi):
                             "var_max_err": float(diff.max())}
         del bt
         torch.cuda.empty_cache()
-    launches_fit3 = {c.__name__: c.launches for c in counters}
+    launches_fit3 = {c.__name__: _launches(c) for c in counters}
     print(f"dim3 fit path: launches {launches_fit3}")
     if launches_fit3["contract3_weights"] != len(fit3_report):
         raise AssertionError("contract3_weights did not build one table per "
@@ -2521,11 +2541,10 @@ def main() -> int:
     counters = _counters()
 
     def zero_counts():
-        for c in counters:
-            c.launches = 0
+        _zero_launches()
 
     def read_counts():
-        return {c.__name__: c.launches for c in counters}
+        return {c.__name__: _launches(c) for c in counters}
 
     def serve(csv, artifact, rec, weights=None):
         """from_csv -> load_artifacts(cuda) -> calc_var(alpha), held

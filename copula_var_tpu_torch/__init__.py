@@ -25,7 +25,8 @@ or their product grid.
   parallel/      day- and grid-sharded serving over several GPUs, one
                  process per rank (torch.distributed): DayMesh, GridMesh,
                  the all_reduce gather and the exact grid_sum
-  utils/         artifact save and load, StageTimer and trace_to
+  utils/         artifact save and load, StageTimer, trace_to, the
+                 port's spans (span) and counters (count, counters)
   native.py      ctypes bindings of native/libgrid_builder.so (numpy only)
   plots.py       diagnostic figures (matplotlib, imported at first use)
 

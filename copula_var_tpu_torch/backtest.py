@@ -136,6 +136,7 @@ from copula_var_tpu_torch.ops.tcached import column_operands
 from copula_var_tpu_torch.parallel.mesh import DayMesh, GridMesh
 from copula_var_tpu_torch.parallel.multiprocess import gather_days
 from copula_var_tpu_torch.parallel.quadrature import gather_solution
+from copula_var_tpu_torch.utils.profiling import count, span
 
 VOL_STATE_ROUND_TOL = 1e-6  # `msm_estimation.py:204-248`
 # "xla": the f64 path (the default); "pallas": the f32 engine
@@ -700,29 +701,39 @@ class VaRBacktest:
                 "`integrals`")
         if self._ops is None:
             t0 = time.perf_counter()
-            inputs, spec = self.integration_inputs, self.copula_spec
-            kw = ({} if self._grid is None else
-                  {"rows": self._grid.rows(inputs.x.shape[0])})
-            pallas = self._pallas()
-            if self.data.dim >= 4:
-                cols = self._block(self.adapter.day_columns(inputs, spec))
-                self._ops = self.adapter.column_operands(
-                    cols, self._block_inputs(), spec, **kw)
-            else:
-                kw.update(self._days_kw())
-                if pallas:
-                    kw["dtype"] = F32
-                if self.data.dim == 3:
-                    self._ops = self.adapter.contract3_operands(
-                        self.adapter.day_columns(inputs, spec), inputs, spec,
-                        **kw)
-                else:
-                    self._ops = self.adapter.sweep_operands(
-                        self.adapter.day_tensors(inputs, spec), inputs,
-                        **kw)
-            synchronize(self.device)
+            with span("prep"):
+                self._ops = self._build_operands()
+                with span("sync.prep"):
+                    synchronize(self.device)
             self.prep_seconds += time.perf_counter() - t0
         return self._ops
+
+    def _build_operands(self):
+        """`sweep_operands`'s build: the adapter's day tensors or columns
+        (span `prep.day_tensors`), then its operands (`prep.operands`)."""
+        inputs, spec = self.integration_inputs, self.copula_spec
+        kw = ({} if self._grid is None else
+              {"rows": self._grid.rows(inputs.x.shape[0])})
+        pallas = self._pallas()
+        if self.data.dim >= 4:
+            with span("prep.day_tensors"):
+                cols = self._block(self.adapter.day_columns(inputs, spec))
+            with span("prep.operands"):
+                return self.adapter.column_operands(
+                    cols, self._block_inputs(), spec, **kw)
+        kw.update(self._days_kw())
+        if pallas:
+            kw["dtype"] = F32
+        if self.data.dim == 3:
+            with span("prep.day_tensors"):
+                cols = self.adapter.day_columns(inputs, spec)
+            with span("prep.operands"):
+                return self.adapter.contract3_operands(cols, inputs, spec,
+                                                       **kw)
+        with span("prep.day_tensors"):
+            tensors = self.adapter.day_tensors(inputs, spec)
+        with span("prep.operands"):
+            return self.adapter.sweep_operands(tensors, inputs, **kw)
 
     def _day_mesh(self):
         """The mesh that shards this backtest's days: a `DayMesh`, or a
@@ -774,6 +785,15 @@ class VaRBacktest:
                                               self.data.out_sample_n)
         return torch.where(nan_days, torch.full_like(roots, np.nan), roots)
 
+    def _series(self, roots, nan_days, means):
+        """The (L, T) series in host memory: `_gather`'s, read back (one
+        host read), plus the portfolio `means`."""
+        with span("solve.gather"):
+            out = self._gather(roots, nan_days)
+            with span("sync.gather"):
+                out = out.cpu().numpy()
+            return out + means
+
     def _tensor(self, a):
         return torch.tensor(np.asarray(a, dtype=np.float64),
                             dtype=torch.float64, device=self.device)
@@ -789,7 +809,8 @@ class VaRBacktest:
             out = self.adapter.integrals(
                 self._tensor(bounds).reshape(-1, 2), self.integration_inputs,
                 self.copula_spec, self.weights, self.box[0])
-            return torch.as_tensor(out).cpu().numpy()
+            with span("sync.integral"):
+                return torch.as_tensor(out).cpu().numpy()
         b = self._block(self._tensor(bounds).reshape(-1, 2))
         if pallas and self.data.dim == 2 and self.mesh is not None:
             ops = self._f64_operands(table=True)
@@ -803,7 +824,8 @@ class VaRBacktest:
             out = self._grid.grid_sum(out)
         if self._day_mesh() is not None:
             out = gather_days(out, self._day_mesh(), self.data.out_sample_n)
-        return out.cpu().numpy()
+        with span("sync.integral"):
+            return out.cpu().numpy()
 
     @staticmethod
     def adjust_integral(new_result, prev_results, bounds, prev_upper):
@@ -835,25 +857,26 @@ class VaRBacktest:
             return self._host_levels(obj_vars, first_guess, second_guess,
                                      tolerance, min_var_value,
                                      max_var_value, verbose)
-        obj = self._tensor(np.atleast_1d(obj_vars))
-        t0 = time.perf_counter()
-        cfg = self._cfg(first_guess, second_guess, min_var_value,
-                        max_var_value)
-        if pallas:
-            roots, nan_days = full_solve_pallas(
-                self.sweep_operands(), obj, self.weights, cfg, tolerance,
-                self.reference_quirks, self.box[0], self._day_mesh())
-        else:
-            roots, nan_days = full_solve_levels(
-                self.sweep_operands(), obj, self.weights, cfg, tolerance,
-                self.reference_quirks, self.box[0], self._day_mesh(),
-                self._grid,
-            )
-        if self.refine_root:
-            L = roots.shape[0]
-            roots = self._refine(roots, obj, self.weights.expand(L, -1),
-                                 np.full(L, self._plateau_h()))
-        out = self._gather(roots, nan_days).cpu().numpy() + self.data.ptf_mean
+        with span("solve"):
+            obj = self._tensor(np.atleast_1d(obj_vars))
+            t0 = time.perf_counter()
+            cfg = self._cfg(first_guess, second_guess, min_var_value,
+                            max_var_value)
+            if pallas:
+                roots, nan_days = full_solve_pallas(
+                    self.sweep_operands(), obj, self.weights, cfg, tolerance,
+                    self.reference_quirks, self.box[0], self._day_mesh())
+            else:
+                roots, nan_days = full_solve_levels(
+                    self.sweep_operands(), obj, self.weights, cfg, tolerance,
+                    self.reference_quirks, self.box[0], self._day_mesh(),
+                    self._grid,
+                )
+            if self.refine_root:
+                L = roots.shape[0]
+                roots = self._refine(roots, obj, self.weights.expand(L, -1),
+                                     np.full(L, self._plateau_h()))
+            out = self._series(roots, nan_days, self.data.ptf_mean)
         self.solve_seconds = time.perf_counter() - t0
         return out
 
@@ -885,16 +908,21 @@ class VaRBacktest:
         T = self.data.out_sample_n
         obj_vars = np.atleast_1d(np.asarray(obj_vars, dtype=np.float64))
         t0 = time.perf_counter()
-        bounds = np.column_stack((np.full(T, -100.0), np.full(T, first_guess)))
-        results = self.compute_integral(bounds)
-        final = []
-        for ov in obj_vars:
-            bis, res, upper_stack, prev_upper, nan_days = self._bracket(
-                ov, results, first_guess, second_guess, min_var_value,
-                max_var_value)
-            roots = self._bisection(ov, bis, res, upper_stack, prev_upper,
-                                    tolerance, verbose)
-            final.append(np.where(nan_days, np.nan, roots))
+        with span("solve"):
+            bounds = np.column_stack((np.full(T, -100.0),
+                                      np.full(T, first_guess)))
+            with span("solve.stage1"):
+                results = self.compute_integral(bounds)
+            final = []
+            for ov in obj_vars:
+                with span("solve.bracket"):
+                    bis, res, upper_stack, prev_upper, nan_days = \
+                        self._bracket(ov, results, first_guess, second_guess,
+                                      min_var_value, max_var_value)
+                with span("solve.bisect"):
+                    roots = self._bisection(ov, bis, res, upper_stack,
+                                            prev_upper, tolerance, verbose)
+                final.append(np.where(nan_days, np.nan, roots))
         self.solve_seconds = time.perf_counter() - t0
         return np.stack(final) + self.data.ptf_mean
 
@@ -943,6 +971,7 @@ class VaRBacktest:
                               np.column_stack((mid, upper)))
             result = self.adjust_integral(self.compute_integral(bounds),
                                           prev_result, bounds, prev_upper)
+            count("solve.halvings")
             if np.all(result == 0):
                 break
             upper_stack = result < obj_var
@@ -975,26 +1004,26 @@ class VaRBacktest:
         L = weights_batch.shape[0]
         obj = np.broadcast_to(np.atleast_1d(np.asarray(obj_var, float)), (L,))
         t0 = time.perf_counter()
-        obj, w_rows = self._tensor(obj), self._tensor(weights_batch)
-        cfg = self._cfg(first_guess, second_guess, min_var_value,
-                        max_var_value)
-        if pallas:
-            roots, nan_days = full_solve_pallas(
-                self.sweep_operands(), obj, w_rows.contiguous(), cfg,
-                tolerance, self.reference_quirks, self.box[0],
-                self._day_mesh())
-        else:
-            roots, nan_days = full_solve_portfolios(
-                self.sweep_operands(), obj, w_rows.contiguous(), cfg,
-                tolerance, self.reference_quirks, self.box[0],
-                self._day_mesh(), self._grid,
-            )
-        if self.refine_root:
-            roots = self._refine(roots, obj, w_rows,
-                                 self._plateau_h(weights_batch))
-        ptf_means = np.asarray(self.data.in_sample_mean) @ weights_batch.T
-        out = self._gather(roots, nan_days).cpu().numpy() + \
-            ptf_means[:, None]
+        with span("solve"):
+            obj, w_rows = self._tensor(obj), self._tensor(weights_batch)
+            cfg = self._cfg(first_guess, second_guess, min_var_value,
+                            max_var_value)
+            if pallas:
+                roots, nan_days = full_solve_pallas(
+                    self.sweep_operands(), obj, w_rows.contiguous(), cfg,
+                    tolerance, self.reference_quirks, self.box[0],
+                    self._day_mesh())
+            else:
+                roots, nan_days = full_solve_portfolios(
+                    self.sweep_operands(), obj, w_rows.contiguous(), cfg,
+                    tolerance, self.reference_quirks, self.box[0],
+                    self._day_mesh(), self._grid,
+                )
+            if self.refine_root:
+                roots = self._refine(roots, obj, w_rows,
+                                     self._plateau_h(weights_batch))
+            ptf_means = np.asarray(self.data.in_sample_mean) @ weights_batch.T
+            out = self._series(roots, nan_days, ptf_means[:, None])
         self.solve_seconds = time.perf_counter() - t0
         return out
 
@@ -1044,9 +1073,12 @@ class VaRBacktest:
                 "GarchIntegrationInputs); a plugin adapter with inputs "
                 f"{type(self.integration_inputs).__name__} cannot refine")
         t0 = time.perf_counter()
-        out = refine_roots(self._f64_operands(), roots.to(F64), obj,
-                           weights, self._tensor(h), self.box[0], self._grid)
-        synchronize(self.device)
+        with span("solve.refine"):
+            out = refine_roots(self._f64_operands(), roots.to(F64), obj,
+                               weights, self._tensor(h), self.box[0],
+                               self._grid)
+            with span("sync.refine"):
+                synchronize(self.device)
         self.refine_seconds = time.perf_counter() - t0
         return out
 

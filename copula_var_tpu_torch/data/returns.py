@@ -20,6 +20,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from copula_var_tpu_torch.utils.profiling import span
+
 __all__ = ["ReturnsData", "from_csv", "from_prices", "from_returns",
            "synthetic_dataset"]
 
@@ -149,6 +151,12 @@ def from_csv(path, n_insample, weights=None, date_column=None) -> ReturnsData:
     index; rows with any missing price are dropped, as
     `copula_var_tpu.data.from_csv` does. Unlike there, the dates of
     dropped rows are dropped too, so dates stay aligned with returns."""
+    with span("ingest"):
+        return _from_csv(path, n_insample, weights, date_column)
+
+
+def _from_csv(path, n_insample, weights, date_column) -> ReturnsData:
+    """`from_csv` inside its span."""
     with open(path, newline="") as fh:
         rows = list(csv.reader(fh))
     header, body = rows[0], [r for r in rows[1:] if r]

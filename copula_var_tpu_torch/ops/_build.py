@@ -6,8 +6,9 @@ with a plain C interface, and loaded with `ctypes` (no PyTorch headers,
 so a build takes seconds). A library lands in
 `build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
 its source, every header under `csrc/` and the flags, so an edited source
-or header rebuilds and an unchanged one is reused. Nothing here runs at
-import time.
+or header rebuilds and an unchanged one is reused (counted as
+`build.compiled` and `build.loaded` in `utils.profiling.counters()`).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import time
 import types
 from pathlib import Path
+
+from copula_var_tpu_torch.utils.profiling import count
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -125,6 +128,7 @@ def build(force: bool = False) -> list:
     global build_seconds, build_log
     outs = [library_path(s) for s in SOURCES]
     todo = [(s, o) for s, o in zip(SOURCES, outs) if force or not o.is_file()]
+    count("build.loaded", len(outs) - len(todo))
     if not todo:
         return outs
     nvcc = _nvcc()
@@ -149,6 +153,7 @@ def build(force: bool = False) -> list:
         os.replace(tmp, out)  # atomic: a concurrent build never sees a half file
     build_seconds = time.perf_counter() - t0
     build_log = "".join(logs)
+    count("build.compiled", len(todo) - len(failed))
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs

@@ -41,8 +41,10 @@ the flagship size) with the float instantiation of the same kernel;
 `masked_sweep` on f32 operands launches the f32 sweep. Its plain twins
 are the same cached sweeps run on the float32 tensors. K1's day in
 float takes half the shared memory: `bisect_max_grid_points(torch.
-float32)` = 192, the short rows. Each wrapper counts its f64 launches in
-`.launches` and its f32 launches in `.launches_f32`.
+float32)` = 192, the short rows. Each wrapper counts its launches in
+`utils.profiling.counters()`, as `launch.<wrapper>` (float64) and
+`launch.<wrapper>.f32` (float32), and its host side, from the operand
+checks to the launch's status, is the span `launch.<wrapper>`.
 
 Grid sharding (`parallel/`): operands built with `rows=(i0, i1)` hold
 outer grid rows [i0, i1) of every day (V, wfc, P and flags cut to them;
@@ -71,6 +73,7 @@ from copula_var_tpu_torch.ops.quadrature import (
     row_range,
     state_weight_matrices,
 )
+from copula_var_tpu_torch.utils.profiling import count, counters, span
 
 F64, F32 = torch.float64, torch.float32
 MAX_CELL = 1.0  # interval.cuh kMaxCell: a row with a larger cell is flagged
@@ -126,12 +129,19 @@ def itemsize(dtype) -> int:
 
 
 def count_launch(wrapper, dtype) -> None:
-    """One more launch on `wrapper`'s counter of `dtype`: `.launches`
-    (float64) or `.launches_f32` (float32)."""
-    if dtype == F32:
-        wrapper.launches_f32 += 1
-    else:
-        wrapper.launches += 1
+    """One more launch on `wrapper`'s counter of `dtype`:
+    `launch.<wrapper>` (float64) or `launch.<wrapper>.f32` (float32)."""
+    count(_launch_counter(wrapper, dtype))
+
+
+def launch_count(wrapper, dtype=F64) -> int:
+    """`wrapper`'s launches of `dtype` so far (its `count_launch`
+    counter)."""
+    return counters().get(_launch_counter(wrapper, dtype), 0)
+
+
+def _launch_counter(wrapper, dtype) -> str:
+    return f"launch.{wrapper.__name__}" + (".f32" if dtype == F32 else "")
 
 
 def row_pitch(n: int) -> int:
@@ -190,7 +200,9 @@ def free_device_bytes(dev: torch.device) -> int:
 
 def require_ascending(x):
     """Raise unless the grid x is strictly ascending (one host read)."""
-    if not bool((x[1:] > x[:-1]).all()):
+    with span("sync.ascending"):
+        ascending = bool((x[1:] > x[:-1]).all())
+    if not ascending:
         raise ValueError("the kernels' interval rule needs a strictly "
                          "ascending grid x")
 
@@ -297,27 +309,26 @@ def sweep_table(ops: SweepOperands):
     if dev.type != "cuda":
         raise ValueError(f"sweep_table: unsupported device {dev} (the "
                          "table is built on a CUDA device only)")
-    T, n, q = check_day_operands(ops)
-    r, dt = ops.V.shape[1], ops.dtype
-    require_prefix_table_fits(T, n, free_device_bytes(dev), r, dt)
-    P = torch.empty((T, r, row_pitch(n)), dtype=dt, device=dev)
-    flags = torch.empty((T, r), dtype=torch.bool, device=dev)
-    if T == 0:  # an empty day block: no launch
-        return P, flags
-    fn = _build.function("cvt_sweep_table", dt)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
-            P.data_ptr(), flags.data_ptr(), T, n, r, q, row_pitch(n), stream,
-        )
-    _build.check(status, "sweep_table")
+    with span("launch.sweep_table"):
+        T, n, q = check_day_operands(ops)
+        r, dt = ops.V.shape[1], ops.dtype
+        require_prefix_table_fits(T, n, free_device_bytes(dev), r, dt)
+        P = torch.empty((T, r, row_pitch(n)), dtype=dt, device=dev)
+        flags = torch.empty((T, r), dtype=torch.bool, device=dev)
+        count("prep.table_bytes", P.nbytes + flags.nbytes)
+        if T == 0:  # an empty day block: no launch
+            return P, flags
+        fn = _build.function("cvt_sweep_table", dt)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
+                P.data_ptr(), flags.data_ptr(), T, n, r, q, row_pitch(n),
+                stream,
+            )
+        _build.check(status, "sweep_table")
     count_launch(sweep_table, dt)
     return P, flags
-
-
-# kernel launches (CUDA path only), float64 and float32
-sweep_table.launches = sweep_table.launches_f32 = 0
 
 
 def masked_sweep_reference(ops: SweepOperands, bounds, weights,
@@ -389,33 +400,30 @@ def masked_sweep(ops: SweepOperands, bounds, weights, box_min=-5.0):
         return masked_sweep_reference(ops, bounds, weights, box_min)
     if dev.type != "cuda":
         raise ValueError(f"masked_sweep: unsupported device {dev}")
-    if ops.P is None or ops.flags is None:
-        raise ValueError("masked_sweep: the operands carry no prefix table "
-                         "P (build them with sweep_operands)")
-    T, r, n = ops.V.shape
-    dt = ops.dtype
-    itemsize(dt)
-    _check_operand("P", ops.P, (T, r, row_pitch(n)), dev, dt)
-    _check_operand("flags", ops.flags, (T, r), dev, torch.bool)
-    _check_operand("x", ops.x, (n,), dev, dt)
-    L = bounds.shape[0]
-    _check_operand("bounds", bounds, (L, T, 2), dev, dt)
-    _check_operand("weights", weights, (L, 2), dev, dt)
-    out = torch.empty((L, T), dtype=dt, device=dev)
-    if out.numel() == 0:  # an empty day block: no launch
-        return out
-    fn = _build.function("cvt_masked_sweep", dt)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ops.P.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
-            bounds.data_ptr(), weights.data_ptr(), float(box_min),
-            out.data_ptr(), T, n, ops.row0, r, L, row_pitch(n), stream,
-        )
-    _build.check(status, "masked_sweep")
+    with span("launch.masked_sweep"):
+        if ops.P is None or ops.flags is None:
+            raise ValueError("masked_sweep: the operands carry no prefix "
+                             "table P (build them with sweep_operands)")
+        T, r, n = ops.V.shape
+        dt = ops.dtype
+        itemsize(dt)
+        _check_operand("P", ops.P, (T, r, row_pitch(n)), dev, dt)
+        _check_operand("flags", ops.flags, (T, r), dev, torch.bool)
+        _check_operand("x", ops.x, (n,), dev, dt)
+        L = bounds.shape[0]
+        _check_operand("bounds", bounds, (L, T, 2), dev, dt)
+        _check_operand("weights", weights, (L, 2), dev, dt)
+        out = torch.empty((L, T), dtype=dt, device=dev)
+        if out.numel() == 0:  # an empty day block: no launch
+            return out
+        fn = _build.function("cvt_masked_sweep", dt)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.P.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
+                bounds.data_ptr(), weights.data_ptr(), float(box_min),
+                out.data_ptr(), T, n, ops.row0, r, L, row_pitch(n), stream,
+            )
+        _build.check(status, "masked_sweep")
     count_launch(masked_sweep, dt)
     return out
-
-
-# kernel launches (CUDA path only), float64 and float32
-masked_sweep.launches = masked_sweep.launches_f32 = 0

@@ -64,8 +64,8 @@ of float32: 2.02 GB at T = 500, n = 100; a slab's stride rounded to four
 floats, 16 bytes; the table sweep up to the short rows, n <= 192) and the
 same routes, sized by the float32 bytes (`contract3_route(..., dtype)`).
 Its plain twins are the f64 twins run on the float32 tensors. Each
-wrapper counts its f64 launches in `.launches` and its f32 launches in
-`.launches_f32`.
+wrapper counts its launches as `cuda_quadrature.py`'s do, and its host
+side is the span `launch.<wrapper>`.
 
 The operands are the float64 counterparts of `build_msm_dim3_cache` /
 `build_garch_dim3_cache`, without the TPU layout: no packed f32
@@ -110,6 +110,7 @@ from copula_var_tpu_torch.ops.quadrature import (
     student_log_norm,
 )
 from copula_var_tpu_torch.ops.tcached import tcached_sweep
+from copula_var_tpu_torch.utils.profiling import count, span
 
 
 class Contract3Operands(NamedTuple):
@@ -332,6 +333,8 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
     if dim != 3:
         raise ValueError(f"Contract3Operands: expected 3 assets, got {dim}")
     sigma_inv, logdet = _chol_inv_logdet(corr)
+    with span("sync.logdet"):
+        logdet = float(logdet)
     log_norm = (float(student_log_norm(nu, logdet, 3))
                 if spec.kind == "student" else 0.0)
     if densities is None:
@@ -361,7 +364,7 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
         x, dx, densities, forecast_combos,
         z.contiguous(), fin.contiguous(), lu.contiguous(), w1.contiguous(),
         w2.contiguous(), G.contiguous(), sigma_inv.contiguous(), log_norm,
-        float(logdet), nu,
+        logdet, nu,
         rows=None if rows is None else row_range(rows, n),
     )
     if z.device.type == "cuda":
@@ -429,30 +432,27 @@ def contract3_row_flags(ops: Contract3Operands):
         return contract3_row_flags_reference(ops)
     if dev.type != "cuda":
         raise ValueError(f"contract3_row_flags: unsupported device {dev}")
-    T, n, q = _check_columns(ops)
-    _rebuild_rows(n, q, ops.dtype)
-    r = ops.n_rows
-    flags = torch.empty((T, r, n), dtype=torch.bool, device=dev)
-    if T == 0:  # an empty day block: no launch
-        return flags
-    p = None if ops.p_cols is None else ops.p_cols.data_ptr()
-    fn = _build.function("cvt_contract3_row_flags", ops.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
-            ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
-            ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
-            ops.nu, ops.log_norm, ops.logdet, flags.data_ptr(), T, n,
-            ops.row0, r, q, stream,
-        )
-    _build.check(status, "contract3_row_flags")
+    with span("launch.contract3_row_flags"):
+        T, n, q = _check_columns(ops)
+        _rebuild_rows(n, q, ops.dtype)
+        r = ops.n_rows
+        flags = torch.empty((T, r, n), dtype=torch.bool, device=dev)
+        if T == 0:  # an empty day block: no launch
+            return flags
+        p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+        fn = _build.function("cvt_contract3_row_flags", ops.dtype)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
+                ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
+                ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
+                ops.nu, ops.log_norm, ops.logdet, flags.data_ptr(), T, n,
+                ops.row0, r, q, stream,
+            )
+        _build.check(status, "contract3_row_flags")
     count_launch(contract3_row_flags, ops.dtype)
     return flags
-
-
-# kernel launches (CUDA path only), float64 and float32
-contract3_row_flags.launches = contract3_row_flags.launches_f32 = 0
 
 
 def contract3_weights(ops: Contract3Operands):
@@ -466,30 +466,28 @@ def contract3_weights(ops: Contract3Operands):
     if dev.type != "cuda":
         raise ValueError(f"contract3_weights: unsupported device {dev} "
                          "(the table is built on a CUDA device only)")
-    T, n, q = check_contract3_operands(ops)
-    r, dt = ops.n_rows, ops.dtype
-    require_table_fits(T, n, free_device_bytes(dev), r, dt)
-    U = torch.empty((T, r, slab_stride(n, dt)), dtype=dt, device=dev)
-    if T == 0:  # an empty day block: no launch
-        return U
-    p = None if ops.p_cols is None else ops.p_cols.data_ptr()
-    fn = _build.function("cvt_contract3_weights", dt)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
-            ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
-            ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
-            ops.nu, ops.log_norm, ops.logdet, U.data_ptr(), T, n, ops.row0,
-            r, q, row_pitch(n), slab_stride(n, dt), stream,
-        )
-    _build.check(status, "contract3_weights")
+    with span("launch.contract3_weights"):
+        T, n, q = check_contract3_operands(ops)
+        r, dt = ops.n_rows, ops.dtype
+        require_table_fits(T, n, free_device_bytes(dev), r, dt)
+        U = torch.empty((T, r, slab_stride(n, dt)), dtype=dt, device=dev)
+        count("prep.table_bytes", U.nbytes)
+        if T == 0:  # an empty day block: no launch
+            return U
+        p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+        fn = _build.function("cvt_contract3_weights", dt)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
+                ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
+                ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
+                ops.nu, ops.log_norm, ops.logdet, U.data_ptr(), T, n,
+                ops.row0, r, q, row_pitch(n), slab_stride(n, dt), stream,
+            )
+        _build.check(status, "contract3_weights")
     count_launch(contract3_weights, dt)
     return U
-
-
-# kernel launches (CUDA path only), float64 and float32
-contract3_weights.launches = contract3_weights.launches_f32 = 0
 
 
 def masked_contract3_reference(ops: Contract3Operands, bounds, weights,
@@ -548,39 +546,37 @@ def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
         return masked_contract3_reference(ops, bounds, weights, box_min)
     if dev.type != "cuda":
         raise ValueError(f"masked_contract3: unsupported device {dev}")
-    if ops.U is None:
-        raise ValueError("masked_contract3: the operands carry no table U "
-                         "(build them with contract3_operands)")
-    T, n, r = ops.days, ops.x.shape[0], ops.n_rows
-    dt = ops.dtype
-    itemsize(dt)
-    _check_operand("U", ops.U, (T, r, slab_stride(n, dt)), dev, dt)
-    _check_operand("x", ops.x, (n,), dev, dt)
-    L = bounds.shape[0]
-    _check_operand("bounds", bounds, (L, T, 2), dev, dt)
-    _check_operand("weights", weights, (L, 3), dev, dt)
-    fn = _build.function("cvt_masked_contract3", dt)
-    # the kernel's partials per (row, day): one per i0 held and span of 64
-    # i1, float64, summed in order
-    partial = torch.empty((L, T, r * -(-n // 64)), dtype=F64, device=dev)
-    out = torch.empty((L, T), dtype=dt, device=dev)
-    if out.numel() == 0:  # an empty day block: no launch
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ops.U.data_ptr(), ops.x.data_ptr(), bounds.data_ptr(),
-            weights.data_ptr(), float(box_min), partial.data_ptr(),
-            out.data_ptr(), T, n, ops.row0, r, L, row_pitch(n),
-            slab_stride(n, dt), stream,
-        )
-    _build.check(status, "masked_contract3")
+    with span("launch.masked_contract3"):
+        if ops.U is None:
+            raise ValueError("masked_contract3: the operands carry no "
+                             "table U (build them with contract3_operands)")
+        T, n, r = ops.days, ops.x.shape[0], ops.n_rows
+        dt = ops.dtype
+        itemsize(dt)
+        _check_operand("U", ops.U, (T, r, slab_stride(n, dt)), dev, dt)
+        _check_operand("x", ops.x, (n,), dev, dt)
+        L = bounds.shape[0]
+        _check_operand("bounds", bounds, (L, T, 2), dev, dt)
+        _check_operand("weights", weights, (L, 3), dev, dt)
+        fn = _build.function("cvt_masked_contract3", dt)
+        # the kernel's partials per (row, day): one per i0 held and span of
+        # 64 i1, float64, summed in order
+        partial = torch.empty((L, T, r * -(-n // 64)), dtype=F64,
+                              device=dev)
+        out = torch.empty((L, T), dtype=dt, device=dev)
+        if out.numel() == 0:  # an empty day block: no launch
+            return out
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.U.data_ptr(), ops.x.data_ptr(), bounds.data_ptr(),
+                weights.data_ptr(), float(box_min), partial.data_ptr(),
+                out.data_ptr(), T, n, ops.row0, r, L, row_pitch(n),
+                slab_stride(n, dt), stream,
+            )
+        _build.check(status, "masked_contract3")
     count_launch(masked_contract3, dt)
     return out
-
-
-# kernel launches (CUDA path only), float64 and float32
-masked_contract3.launches = masked_contract3.launches_f32 = 0
 
 
 def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
@@ -599,40 +595,37 @@ def masked_contract3_rebuild(ops: Contract3Operands, bounds, weights,
         return masked_contract3_reference(ops, bounds, weights, box_min)
     if dev.type != "cuda":
         raise ValueError(f"masked_contract3_rebuild: unsupported device {dev}")
-    T, n, q = _check_columns(ops)
-    dt = ops.dtype
-    tile_rows = _rebuild_rows(n, q, dt)
-    r = ops.n_rows
-    L = bounds.shape[0]
-    _check_operand("bounds", bounds, (L, T, 2), dev, dt)
-    _check_operand("weights", weights, (L, 3), dev, dt)
-    if ops.flags is not None:
-        _check_operand("flags", ops.flags, (T, r, n), dev, torch.bool)
-    p = None if ops.p_cols is None else ops.p_cols.data_ptr()
-    flags = None if ops.flags is None else ops.flags.data_ptr()
-    fn = _build.function("cvt_masked_contract3_rebuild", dt)
-    # one float64 partial per (row, day, i0 held, tile of i1), summed in
-    # order
-    partial = torch.empty((L, T, r * -(-n // tile_rows)), dtype=F64,
-                          device=dev)
-    out = torch.empty((L, T), dtype=dt, device=dev)
-    if out.numel() == 0:  # an empty day block: no launch
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
-            ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
-            ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
-            ops.nu, ops.log_norm, ops.logdet, flags, ops.x.data_ptr(),
-            bounds.data_ptr(), weights.data_ptr(), float(box_min),
-            partial.data_ptr(), out.data_ptr(), T, n, ops.row0, r, q, L,
-            stream,
-        )
-    _build.check(status, "masked_contract3_rebuild")
+    with span("launch.masked_contract3_rebuild"):
+        T, n, q = _check_columns(ops)
+        dt = ops.dtype
+        tile_rows = _rebuild_rows(n, q, dt)
+        r = ops.n_rows
+        L = bounds.shape[0]
+        _check_operand("bounds", bounds, (L, T, 2), dev, dt)
+        _check_operand("weights", weights, (L, 3), dev, dt)
+        if ops.flags is not None:
+            _check_operand("flags", ops.flags, (T, r, n), dev, torch.bool)
+        p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+        flags = None if ops.flags is None else ops.flags.data_ptr()
+        fn = _build.function("cvt_masked_contract3_rebuild", dt)
+        # one float64 partial per (row, day, i0 held, tile of i1), summed
+        # in order
+        partial = torch.empty((L, T, r * -(-n // tile_rows)), dtype=F64,
+                              device=dev)
+        out = torch.empty((L, T), dtype=dt, device=dev)
+        if out.numel() == 0:  # an empty day block: no launch
+            return out
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
+                ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
+                ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
+                ops.nu, ops.log_norm, ops.logdet, flags, ops.x.data_ptr(),
+                bounds.data_ptr(), weights.data_ptr(), float(box_min),
+                partial.data_ptr(), out.data_ptr(), T, n, ops.row0, r, q, L,
+                stream,
+            )
+        _build.check(status, "masked_contract3_rebuild")
     count_launch(masked_contract3_rebuild, dt)
     return out
-
-
-# kernel launches (CUDA path only), float64 and float32
-masked_contract3_rebuild.launches = masked_contract3_rebuild.launches_f32 = 0

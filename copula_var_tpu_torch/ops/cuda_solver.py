@@ -128,6 +128,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature3 import (
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched, full_iters
 from copula_var_tpu_torch.ops.tcached import ColumnOperands, tcached_sweep
+from copula_var_tpu_torch.utils.profiling import count, span
 
 
 def halvings(width: float, tolerance: float) -> int:
@@ -145,10 +146,13 @@ def _halving_count(lower, upper, tolerance, reducer):
     host (one read): over every rank's days with a `reducer`, where an
     empty day block counts 0."""
     width = upper - lower
-    if reducer is None:
-        return halvings(float(width.max()), tolerance)
-    local = width.max() if width.numel() else width.new_zeros(())
-    return halvings(float(reducer.max(local)), tolerance)
+    with span("sync.halving_count"):
+        if reducer is None:
+            widest = float(width.max())
+        else:
+            local = width.max() if width.numel() else width.new_zeros(())
+            widest = float(reducer.max(local))
+    return halvings(widest, tolerance)
 
 
 def _running(state, tolerance, reducer=None):
@@ -203,9 +207,14 @@ def bisect_levels_reference(ops, lower, upper, prev_res, prev_up, ustack,
     loop's condition and the break are taken over every rank's days.
     Returns (L, T) roots."""
     state = _state(lower, upper, prev_res, prev_up, ustack)
-    while bool(_running(state, tolerance, reducer)):
+    while True:
+        with span("sync.bisect_exit"):
+            running = bool(_running(state, tolerance, reducer))
+        if not running:
+            break
         state = _halving(ops, state, obj, weights, tolerance, sweep, box_min,
                          reducer)
+        count("solve.halvings")
     return (state[0] + state[1]) / 2.0
 
 
@@ -230,39 +239,37 @@ def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
                       weights, box_min, n_iters)
 
 
-# kernel launches (CUDA path only), float64 and float32
-bisect_levels.launches = bisect_levels.launches_f32 = 0
-
-
 def _launch_k1(ops, state, obj, weights, box_min, n_iters):
     """K1 of the operands' type on their CUDA device: `n_iters` halvings
     of the (L, T) state (lower, upper, prev_res, prev_up, ustack), counted
     on `bisect_levels`."""
     dev, dt = ops.V.device, ops.dtype
-    T, n, q = check_bisect_operands(ops)
-    lower, upper, prev_res, prev_up, ustack = state
-    L = lower.shape[0]
-    for name, t in (("lower", lower), ("upper", upper),
-                    ("prev_res", prev_res), ("prev_up", prev_up)):
-        _check_operand(name, t, (L, T), dev, dt)
-    _check_operand("ustack", ustack, (L, T), dev, torch.bool)
-    _check_operand("obj", obj, (L,), dev, dt)
-    _check_operand("weights", weights, (L, 2), dev, dt)
-    roots = torch.empty((L, T), dtype=dt, device=dev)
-    if roots.numel() == 0:  # an empty day block: no launch
-        return roots
-    fn = _build.function("cvt_bisect_levels", dt)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(
-            ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
-            ops.x.data_ptr(), lower.data_ptr(), upper.data_ptr(),
-            prev_res.data_ptr(), prev_up.data_ptr(), ustack.data_ptr(),
-            obj.data_ptr(), weights.data_ptr(), float(box_min), n_iters,
-            roots.data_ptr(), T, n, q, L, stream,
-        )
-    _build.check(status, "bisect_levels")
+    with span("launch.bisect_levels"):
+        T, n, q = check_bisect_operands(ops)
+        lower, upper, prev_res, prev_up, ustack = state
+        L = lower.shape[0]
+        for name, t in (("lower", lower), ("upper", upper),
+                        ("prev_res", prev_res), ("prev_up", prev_up)):
+            _check_operand(name, t, (L, T), dev, dt)
+        _check_operand("ustack", ustack, (L, T), dev, torch.bool)
+        _check_operand("obj", obj, (L,), dev, dt)
+        _check_operand("weights", weights, (L, 2), dev, dt)
+        roots = torch.empty((L, T), dtype=dt, device=dev)
+        if roots.numel() == 0:  # an empty day block: no launch
+            return roots
+        fn = _build.function("cvt_bisect_levels", dt)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
+                ops.x.data_ptr(), lower.data_ptr(), upper.data_ptr(),
+                prev_res.data_ptr(), prev_up.data_ptr(), ustack.data_ptr(),
+                obj.data_ptr(), weights.data_ptr(), float(box_min), n_iters,
+                roots.data_ptr(), T, n, q, L, stream,
+            )
+        _build.check(status, "bisect_levels")
     count_launch(bisect_levels, dt)
+    count("solve.halvings", n_iters)
     return roots
 
 
@@ -329,6 +336,7 @@ def bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack, obj,
     for _ in range(n_iters):
         state = _halving(ops, state, obj, weights, tolerance, sweep, box_min,
                          reducer)
+    count("solve.halvings", n_iters)
     return (state[0] + state[1]) / 2.0
 
 
@@ -464,6 +472,7 @@ def fixed_halvings(ops, lower, upper, prev_res, prev_up, ustack, obj,
         pr = torch.where(b_lo == pu, pr + slab, pr - slab)
         us = pr < obj[:, None]
         lo, up, pu = torch.where(us, mid, lo), torch.where(us, up, mid), mid
+    count("solve.halvings", n_iters)
     return (lo + up) / 2.0
 
 
@@ -536,18 +545,20 @@ def _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
     sweep = twin if plain else kernel
     (lower, upper, prev_res, prev_up, ustack, nan_days), w = _stages(
         ops, obj.to(F32), weights.to(F32), cfg, quirks, box_min, sweep, F32)
-    if isinstance(ops, Contract3Operands):
-        roots = bisect_contract3_f32(ops, lower, upper, prev_res, prev_up,
-                                     ustack, obj, w, tolerance, box_min,
-                                     reducer, sweep)
-        return roots, nan_days
-    n_iters = full_iters(tolerance, cfg[3], cfg[4])
-    state = (lower, upper, prev_res, prev_up, ustack)
-    if plain:
-        roots = fixed_halvings(ops, *state, obj.to(F32), w, n_iters, twin,
-                               box_min)
-    else:
-        roots = bisect_fixed(ops, *state, obj.to(F32), w, n_iters, box_min)
+    with span("solve.bisect"):
+        if isinstance(ops, Contract3Operands):
+            roots = bisect_contract3_f32(ops, lower, upper, prev_res,
+                                         prev_up, ustack, obj, w, tolerance,
+                                         box_min, reducer, sweep)
+            return roots, nan_days
+        n_iters = full_iters(tolerance, cfg[3], cfg[4])
+        state = (lower, upper, prev_res, prev_up, ustack)
+        if plain:
+            roots = fixed_halvings(ops, *state, obj.to(F32), w, n_iters,
+                                   twin, box_min)
+        else:
+            roots = bisect_fixed(ops, *state, obj.to(F32), w, n_iters,
+                                 box_min)
     return roots, nan_days | _day_nan(ops)[None]
 
 
@@ -580,21 +591,24 @@ def _stages(ops, obj, weights, cfg, quirks, box_min, sweep, dt):
     rows)."""
     T, L = ops.days, obj.shape[0]
     dev = ops.x.device
-    stage1 = torch.stack(
-        [torch.full((T,), -100.0, dtype=dt, device=dev),
-         torch.full((T,), float(cfg[0]), dtype=dt, device=dev)], dim=-1,
-    )
-    dim = weights.shape[-1]
-    if weights.dim() == 1:
-        weights = weights.reshape(1, dim)
-        F1 = sweep(ops, stage1[None], weights, box_min).expand(L, T)
-        weights = weights.expand(L, dim).contiguous()
-    else:
-        F1 = sweep(ops, stage1.expand(L, T, 2).contiguous(), weights, box_min)
-    state = bracket_state_batched(
-        F1, obj, lambda b: sweep(ops, b.contiguous(), weights, box_min), cfg,
-        quirks,
-    )
+    with span("solve.stage1"):
+        stage1 = torch.stack(
+            [torch.full((T,), -100.0, dtype=dt, device=dev),
+             torch.full((T,), float(cfg[0]), dtype=dt, device=dev)], dim=-1,
+        )
+        dim = weights.shape[-1]
+        if weights.dim() == 1:
+            weights = weights.reshape(1, dim)
+            F1 = sweep(ops, stage1[None], weights, box_min).expand(L, T)
+            weights = weights.expand(L, dim).contiguous()
+        else:
+            F1 = sweep(ops, stage1.expand(L, T, 2).contiguous(), weights,
+                       box_min)
+    with span("solve.bracket"):
+        state = bracket_state_batched(
+            F1, obj, lambda b: sweep(ops, b.contiguous(), weights, box_min),
+            cfg, quirks,
+        )
     return state, weights
 
 
@@ -613,10 +627,11 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
                      else _grid_routes(ops, plain, grid))
     (lower, upper, prev_res, prev_up, ustack, nan_days), weights = _stages(
         ops, obj, weights, cfg, quirks, box_min, sweep, F64)
-    roots = bisect(ops, lower.contiguous(), upper.contiguous(),
-                   prev_res.contiguous(), prev_up.contiguous(),
-                   ustack.contiguous(), obj, weights, tolerance, box_min,
-                   reducer=reducer)
+    with span("solve.bisect"):
+        roots = bisect(ops, lower.contiguous(), upper.contiguous(),
+                       prev_res.contiguous(), prev_up.contiguous(),
+                       ustack.contiguous(), obj, weights, tolerance, box_min,
+                       reducer=reducer)
     return roots, nan_days
 
 

@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from copula_var_tpu_torch.utils.profiling import span
+
 _LOG_SQRT_2PI = 0.9189385332046727417803297364056176  # log(sqrt(2*pi))
 
 
@@ -121,7 +123,9 @@ def betainc(a, b, x, max_iters: int = 600):
         d = 1.0 / d
         delta = c * d
         h = h * delta
-        if not bool(((delta - 1.0).abs() > converged).any()):
+        with span("sync.betainc"):
+            running = bool(((delta - 1.0).abs() > converged).any())
+        if not running:
             break
 
     lbeta_small_a = torch.lgamma(b) - torch.lgamma(a + b)
@@ -225,6 +229,12 @@ def t_ppf(p, nu, *, iters: int = 64):
     The bracket stops growing once every lane's is wide enough (the JAX
     version runs all 8 doublings; a lane that is wide enough never changes
     again, so the result is the same)."""
+    with span("t_ppf"):
+        return _t_ppf(p, nu, iters)
+
+
+def _t_ppf(p, nu, iters):
+    """`t_ppf` inside its span."""
     dtype = p.dtype
     nu = _like(nu, p)
     finfo = torch.finfo(dtype)
@@ -247,7 +257,9 @@ def t_ppf(p, nu, *, iters: int = 64):
     hi = x0 + 1.0
     for _ in range(8):
         ok = _log_t_sf(hi, nu) <= log_q
-        if bool(ok.all()):
+        with span("sync.t_ppf"):
+            wide = bool(ok.all())
+        if wide:
             break
         hi = torch.where(ok, hi, 2.0 * hi + 1.0)
     lo = torch.zeros_like(x0)
@@ -261,7 +273,9 @@ def t_ppf(p, nu, *, iters: int = 64):
     x = x0
     step_mag = torch.full_like(x0, math.inf)
     for _ in range(iters):
-        if not bool(((step_mag > tol_x(x)) & newton_lane).any()):
+        with span("sync.t_ppf"):
+            running = bool(((step_mag > tol_x(x)) & newton_lane).any())
+        if not running:
             break
         g = _log_t_sf(x, nu) - log_q
         log_sf = log_q + g

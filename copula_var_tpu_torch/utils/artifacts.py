@@ -17,6 +17,7 @@ import torch
 from copula_var_tpu_torch import backtest as bt_mod
 from copula_var_tpu_torch.copulas import fit as copula_fit_mod
 from copula_var_tpu_torch.models import fit as model_fit_mod
+from copula_var_tpu_torch.utils.profiling import span
 
 _FORMAT_VERSION = 1
 
@@ -65,6 +66,14 @@ def load_artifacts(path: str, data, device="cuda", adapter=None,
     `refine_root`. With a `mesh` every rank loads the whole file and
     serves its block of days (`parallel.mesh.DayMesh`) or its outer grid
     rows (`parallel.mesh.GridMesh`)."""
+    with span("load"):
+        return _load_artifacts(path, data, device, adapter,
+                               reference_quirks, refine_root, mesh)
+
+
+def _load_artifacts(path, data, device, adapter, reference_quirks,
+                    refine_root, mesh):
+    """`load_artifacts` inside its span."""
     z = np.load(path, allow_pickle=False)
     meta = json.loads(str(z["meta"]))
     if meta["version"] != _FORMAT_VERSION:

@@ -113,9 +113,9 @@ def _rows(dev, T, L, seed=1):
 def test_masked_sweep_matches_plain(dev, family):
     ops = _ops(dev, family)
     bounds, weights = _rows(dev, ops.V.shape[0], 6)
-    before = cq.masked_sweep.launches
+    before = cq.launch_count(cq.masked_sweep)
     got = cq.masked_sweep(ops, bounds, weights)
-    assert cq.masked_sweep.launches == before + 1
+    assert cq.launch_count(cq.masked_sweep) == before + 1
     want = cq.masked_sweep_reference(ops, bounds, weights)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
@@ -151,9 +151,9 @@ def test_bisect_levels_matches_plain(dev, family):
     state = [s.contiguous() for s in bracket_state_batched(
         F1, obj, lambda b: cq.masked_sweep(ops, b.contiguous(), weights),
         CFG, False)[:5]]
-    before = cs.bisect_levels.launches
+    before = cq.launch_count(cs.bisect_levels)
     got = cs.bisect_levels(ops, *state, obj, weights, 1e-6)
-    assert cs.bisect_levels.launches == before + 1
+    assert cq.launch_count(cs.bisect_levels) == before + 1
     want = cs.bisect_levels_reference(ops, *state, obj, weights, 1e-6)
     assert float((got - want).abs().max()) <= ATOL_ROOT
 
@@ -232,10 +232,11 @@ def test_flagship_through_kernels(dev, est):
     data = from_csv(os.path.join(DATA, "flagship.csv"), n_insample=1135)
     bt = load_artifacts(os.path.join(DATA, f"flagship_artifacts_{est}.npz"),
                         data, device="cuda")
-    before = (cq.masked_sweep.launches, cs.bisect_levels.launches)
+    before = (cq.launch_count(cq.masked_sweep),
+              cq.launch_count(cs.bisect_levels))
     var = bt.calc_var(float(rec["obj_var"]))
-    assert cq.masked_sweep.launches > before[0]
-    assert cs.bisect_levels.launches > before[1]
+    assert cq.launch_count(cq.masked_sweep) > before[0]
+    assert cq.launch_count(cs.bisect_levels) > before[1]
     np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
                                atol=ATOL_ROOT)
 
@@ -266,9 +267,9 @@ def test_sweep_table_matches_plain(dev, family):
     twin (odd n: rows unpadded; even n: one zero pad cell per row); a
     rebuild gives the same bits."""
     for n in (37, 48):
-        before = cq.sweep_table.launches
+        before = cq.launch_count(cq.sweep_table)
         ops = _ops(dev, family, T=9, n=n)
-        assert cq.sweep_table.launches == before + 1
+        assert cq.launch_count(cq.sweep_table) == before + 1
         assert ops.P.shape == (9, n, cq.row_pitch(n))
         want, flags = cq.sweep_table_reference(ops)
         assert torch.equal(ops.flags, flags) and not bool(flags.any())
@@ -377,9 +378,9 @@ def test_compute_integral_through_the_kernel(dev):
     ops = bt.sweep_operands()
     lo = np.random.default_rng(6).uniform(-8.0, -1.0, ops.days)
     b = np.stack([lo, lo + 2.0], -1)
-    before = cq.masked_sweep.launches
+    before = cq.launch_count(cq.masked_sweep)
     got = bt.compute_integral(b)
-    assert cq.masked_sweep.launches == before + 1
+    assert cq.launch_count(cq.masked_sweep) == before + 1
     want = cq.masked_sweep_reference(
         ops, torch.tensor(b, device=dev)[None], bt.weights[None])[0]
     np.testing.assert_allclose(got, want.cpu().numpy(), rtol=0,
@@ -436,9 +437,9 @@ def _rows3(dev, T, L, seed=1):
 def test_masked_contract3_matches_plain(dev, family, kind):
     ops = _ops3(dev, family, kind)
     bounds, weights = _rows3(dev, ops.days, 5)
-    before = cq3.masked_contract3.launches
+    before = cq.launch_count(cq3.masked_contract3)
     got = cq3.masked_contract3(ops, bounds, weights)
-    assert cq3.masked_contract3.launches == before + 1
+    assert cq.launch_count(cq3.masked_contract3) == before + 1
     want = cq3.masked_contract3_reference(ops, bounds, weights)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
@@ -513,10 +514,10 @@ def test_contract3_weights_matches_plain(dev, family, kind):
     """The table U, built once with the operands, against its plain
     twin, its pads zero (odd n: one pad cell per slab; even n: one per
     row)."""
-    before = cq3.contract3_weights.launches
+    before = cq.launch_count(cq3.contract3_weights)
     for n in (41, 40):
         ops = _ops3(dev, family, kind, n=n)
-        assert cq3.contract3_weights.launches == before + 1
+        assert cq.launch_count(cq3.contract3_weights) == before + 1
         before += 1
         assert ops.U.shape == (ops.days, n, cq3.slab_stride(n))
         got = cq3.table_cells(ops.U, n)
@@ -623,11 +624,11 @@ def test_dim3_through_kernels(dev, est):
                     weights=rec["weights"])
     bt = load_artifacts(os.path.join(DATA, f"dim3_artifacts_{est}.npz"),
                         data, device="cuda")
-    before = (cq.masked_sweep.launches, cs.bisect_levels.launches,
-              cq3.contract3_weights.launches, cq3.masked_contract3.launches)
+    wrappers = (cq.masked_sweep, cs.bisect_levels, cq3.contract3_weights,
+                cq3.masked_contract3)
+    before = tuple(cq.launch_count(w) for w in wrappers)
     var = bt.calc_var(float(rec["obj_var"]))
-    after = (cq.masked_sweep.launches, cs.bisect_levels.launches,
-             cq3.contract3_weights.launches, cq3.masked_contract3.launches)
+    after = tuple(cq.launch_count(w) for w in wrappers)
     assert after[:2] == before[:2]
     assert after[2] == before[2] + 1 and after[3] > before[3]
     np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
@@ -818,10 +819,11 @@ def test_wide_dim2_bisects_by_k2_sweeps(dev):
     ops = _ops(dev, "garch", T=4, n=193)
     obj = torch.tensor([0.05, 0.01], dtype=torch.float64, device=dev)
     w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
-    before = (cs.bisect_levels.launches, cq.masked_sweep.launches)
+    before = (cq.launch_count(cs.bisect_levels),
+              cq.launch_count(cq.masked_sweep))
     got, _ = cs.full_solve_levels(ops, obj, w, CFG)
-    assert cs.bisect_levels.launches == before[0]
-    assert cq.masked_sweep.launches > before[1] + 10
+    assert cq.launch_count(cs.bisect_levels) == before[0]
+    assert cq.launch_count(cq.masked_sweep) > before[1] + 10
     want, _ = cs.full_solve_levels_reference(ops, obj, w, CFG)
     assert float((got - want).abs().max()) <= ATOL_ROOT
 
@@ -863,9 +865,9 @@ def test_rebuild_matches_plain(dev, n, rows, family, walk):
         assert ops.U is None and ops.flags is not None
     ops = _walk(ops, walk)
     bounds, weights = _rows3(dev, ops.days, 3)
-    before = cq3.masked_contract3_rebuild.launches
+    before = cq.launch_count(cq3.masked_contract3_rebuild)
     got = cq3.masked_contract3_rebuild(ops, bounds, weights)
-    assert cq3.masked_contract3_rebuild.launches == before + 1
+    assert cq.launch_count(cq3.masked_contract3_rebuild) == before + 1
     want = cq3.masked_contract3_reference(ops, bounds, weights)
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin)
@@ -907,14 +909,14 @@ def test_row_flags_match_plain(dev, family, n, rows):
     """The flag kernel against its plain twin (torch.equal), on all outer
     slabs and on a range; one launch per operands built on the rebuild
     route; a repeat the same bytes."""
-    before = cq3.contract3_row_flags.launches
+    before = cq.launch_count(cq3.contract3_row_flags)
     ops = _ops3(dev, family, "student", T=4, n=n, rows=rows, edit=_poke)
     if ops.flags is None:  # the table route: no flags built
-        assert cq3.contract3_row_flags.launches == before
+        assert cq.launch_count(cq3.contract3_row_flags) == before
         flags = cq3.contract3_row_flags(ops)
     else:
         flags = ops.flags
-    assert cq3.contract3_row_flags.launches == before + 1
+    assert cq.launch_count(cq3.contract3_row_flags) == before + 1
     assert flags.shape == (4, ops.n_rows, n) and flags.dtype == torch.bool
     want = cq3.contract3_row_flags_reference(ops)
     assert torch.equal(flags, want) and bool(want.any())
@@ -1000,17 +1002,17 @@ def test_rebuild_nan_and_inf_cells(dev, walk):
 def test_wide_dim3_solve_through_the_rebuild(dev):
     """n = 180: no table is built, the flags once, every sweep and halving
     launches the rebuild kernel, and the roots are the plain solve's."""
-    before_flags = cq3.contract3_row_flags.launches
+    before_flags = cq.launch_count(cq3.contract3_row_flags)
     ops = _ops3(dev, "garch", "student", T=3, n=180)
     assert ops.U is None and ops.flags is not None
-    assert cq3.contract3_row_flags.launches == before_flags + 1
+    assert cq.launch_count(cq3.contract3_row_flags) == before_flags + 1
     obj = torch.tensor([0.05], dtype=torch.float64, device=dev)
     w = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64, device=dev)
-    before = (cq3.masked_contract3.launches,
-              cq3.masked_contract3_rebuild.launches)
+    before = (cq.launch_count(cq3.masked_contract3),
+              cq.launch_count(cq3.masked_contract3_rebuild))
     got, _ = cs.full_solve_levels(ops, obj, w, CFG)
-    assert cq3.masked_contract3.launches == before[0]
-    assert cq3.masked_contract3_rebuild.launches > before[1] + 10
+    assert cq.launch_count(cq3.masked_contract3) == before[0]
+    assert cq.launch_count(cq3.masked_contract3_rebuild) > before[1] + 10
     want, _ = cs.full_solve_levels_reference(ops, obj, w, CFG)
     assert float((got - want).abs().max()) <= ATOL_ROOT
 
@@ -1039,7 +1041,8 @@ def _full_f32_products():
 
 
 def _f32_counts():
-    return {w.__name__: (w.launches, w.launches_f32) for w in (
+    return {w.__name__: (cq.launch_count(w),
+                         cq.launch_count(w, torch.float32)) for w in (
         cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
         cq3.contract3_weights, cq3.masked_contract3,
         cq3.masked_contract3_rebuild, cq3.contract3_row_flags)}

@@ -25,6 +25,7 @@ from copula_var_tpu.utils.artifacts import load_artifacts as jax_load
 from copula_var_tpu_torch.backtest import VaRBacktest
 from copula_var_tpu_torch.data import from_returns
 from copula_var_tpu_torch.device import resolve_device
+from copula_var_tpu_torch.ops import cuda_quadrature as cq
 from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
 from copula_var_tpu_torch.ops import cuda_solver as cs
 from copula_var_tpu_torch.ops import quadrature as tq
@@ -417,13 +418,13 @@ def test_cpu_tensors_take_the_plain_twin(case, tmp_path):
     ops, _, _, _ = _family(case, "msm", "student")
     b = _t(_bounds(np.random.default_rng(8), T, L=2))
     w = _t([W3, [0.2, 0.5, 0.3]])
-    before = cq3.masked_contract3.launches
+    before = cq.launch_count(cq3.masked_contract3)
     got = cq3.masked_contract3(ops, b, w)
     np.testing.assert_array_equal(
         got.numpy(), cq3.masked_contract3_reference(ops, b, w).numpy())
     path, _, tdata = _truncated(tmp_path, "garch", 2)
     load_artifacts(path, tdata, device="cpu").calc_var(0.05)
-    assert cq3.masked_contract3.launches == before
+    assert cq.launch_count(cq3.masked_contract3) == before
 
 
 def test_day_batch_matches_jax_budget():

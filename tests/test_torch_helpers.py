@@ -108,7 +108,9 @@ print("ok")
 
 def test_stage_timer_reports_as_jax(monkeypatch):
     clock = iter(np.arange(0.0, 100.0, 0.25))
-    monkeypatch.setattr(time, "time", lambda: float(next(clock)))
+    # the JAX timer reads time.time, the port's time.perf_counter
+    for fn in ("time", "perf_counter"):
+        monkeypatch.setattr(time, fn, lambda: float(next(clock)))
     reports = []
     for mod in (tprof, jprof):
         timer = mod.StageTimer()

@@ -1,0 +1,224 @@
+"""The port's spans and counters (`copula_var_tpu_torch/utils/profiling.py`):
+the off path creates nothing, the gate is the profiler's own flag, a span
+is a cpu_op event (the device's timeline gets no copy of it), the solve's
+and the prep's spans nest as PERF.md lists them on the CPU route, and the
+counters count halvings, launches, table bytes and builds (the last three
+on the card only)."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from copula_var_tpu_torch.data import from_csv, from_returns
+from copula_var_tpu_torch.ops import _build
+from copula_var_tpu_torch.ops import cuda_quadrature as cq
+from copula_var_tpu_torch.ops import cuda_solver as cs
+from copula_var_tpu_torch.utils import profiling
+from copula_var_tpu_torch.utils.artifacts import load_artifacts
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
+CSV = os.path.join(DATA, "flagship.csv")
+N_IN = 1135
+DAYS = 4
+
+
+@pytest.fixture(scope="module")
+def book(tmp_path_factory):
+    """The flagship MSM artifact cut to its first DAYS days, and the
+    matching returns."""
+    z = np.load(os.path.join(DATA, "flagship_artifacts_msm.npz"))
+    arrays = {k: z[k] for k in z.files}
+    for k in ("ii_forecasts_by_states", "ii_forecast_combos"):
+        arrays[k] = arrays[k][:DAYS]
+    path = str(tmp_path_factory.mktemp("book") / "msm.npz")
+    np.savez(path, **arrays)
+    full = from_csv(CSV, n_insample=N_IN)
+    return path, from_returns(full.returns[:N_IN + DAYS], full.tickers, N_IN)
+
+
+def _spans(prof):
+    """[(name, name of the nearest enclosing cvt. span or None)] of every
+    cvt. span the profiler recorded, in order."""
+    out = []
+    for e in prof.events():
+        if not e.name.startswith(profiling.PREFIX):
+            continue
+        up = e.cpu_parent
+        while up is not None and not up.name.startswith(profiling.PREFIX):
+            up = up.cpu_parent
+        out.append((e.name, None if up is None else up.name))
+    return out
+
+
+def test_span_without_a_profiler_is_the_shared_noop(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a recorder was created for {name}")
+
+    monkeypatch.setattr(profiling, "_Recorder", refuse)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    first = profiling.span("solve")
+    assert first is profiling.span("prep.day_tensors") is profiling._OFF
+    with first:
+        with profiling.span("sync.gather"):
+            pass
+
+
+def test_span_gate_is_the_profilers_enabled_flag():
+    """The gate reads torch.autograd.profiler._is_profiler_enabled, which
+    any torch profiler sets while it records."""
+    assert isinstance(torch.autograd.profiler._is_profiler_enabled, bool)
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert torch.autograd.profiler._is_profiler_enabled
+        assert profiling.span("solve") is not profiling._OFF
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert profiling.span("solve") is profiling._OFF
+
+
+def test_span_is_a_cpu_op_and_not_a_user_annotation(tmp_path):
+    """A user annotation (record_function) is copied onto the device's
+    timeline over the kernels it launches; the port's spans are cpu_op
+    events, so the device's timeline gets no copy of them."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("solve"):
+            torch.ones(4).sum()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("name") == "cvt.solve"]
+    assert len(events) == 1
+    assert events[0]["cat"] == "cpu_op"
+    assert _spans(prof) == [("cvt.solve", None)]
+
+
+def test_portfolio_solve_and_prep_spans_nest(book):
+    path, data = book
+    bt = load_artifacts(path, data, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bt.sweep_operands()
+        var = bt.calc_var_portfolios([[0.5, 0.5]], obj_var=0.05)
+    assert var.shape == (1, DAYS)
+    spans = _spans(prof)
+    parent = dict(spans)
+    for child in ("cvt.prep.day_tensors", "cvt.prep.operands",
+                  "cvt.sync.prep"):
+        assert parent[child] == "cvt.prep"
+    assert parent["cvt.t_ppf"] == "cvt.prep.day_tensors"
+    assert parent["cvt.prep"] is None and parent["cvt.solve"] is None
+    for child in ("cvt.solve.stage1", "cvt.solve.bracket",
+                  "cvt.solve.bisect", "cvt.solve.gather"):
+        assert parent[child] == "cvt.solve"
+    assert parent["cvt.sync.gather"] == "cvt.solve.gather"
+    # the CPU route's while-loop reads its exit once a halving, and once
+    # more to leave
+    exits = [p for name, p in spans if name == "cvt.sync.bisect_exit"]
+    assert exits and set(exits) == {"cvt.solve.bisect"}
+    order = [name for name, p in spans if p == "cvt.solve"]
+    assert order == ["cvt.solve.stage1", "cvt.solve.bracket",
+                     "cvt.solve.bisect", "cvt.solve.gather"]
+
+
+def test_ingest_and_load_spans(book):
+    path, data = book
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        from_csv(CSV, n_insample=N_IN)
+        load_artifacts(path, data, device="cpu")
+    assert _spans(prof) == [("cvt.ingest", None), ("cvt.load", None)]
+
+
+def test_halvings_count_the_while_loops_iterations(book):
+    path, data = book
+    bt = load_artifacts(path, data, device="cpu")
+    bt.sweep_operands()
+    profiling.reset_counters()
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bt.calc_var_portfolios([[0.3, 0.7], [0.6, 0.4]], obj_var=0.05)
+    exits = sum(name == "cvt.sync.bisect_exit" for name, _ in _spans(prof))
+    halvings = profiling.counters()["solve.halvings"]
+    assert halvings == exits - 1 > 0
+    # a CPU solve launches nothing
+    assert not any(k.startswith("launch.") for k in profiling.counters())
+    bt.calc_var_portfolios([[0.3, 0.7]], obj_var=0.05)
+    assert profiling.counters()["solve.halvings"] > halvings
+    profiling.reset_counters()
+    assert profiling.counters() == {}
+
+
+def test_counters_are_a_copy_and_launch_count_reads_them():
+    profiling.reset_counters()
+    profiling.count("solve.halvings", 5)
+    snap = profiling.counters()
+    snap["solve.halvings"] = 0
+    assert profiling.counters() == {"solve.halvings": 5}
+    cq.count_launch(cq.masked_sweep, torch.float64)
+    cq.count_launch(cq.masked_sweep, torch.float32)
+    cq.count_launch(cq.masked_sweep, torch.float32)
+    assert profiling.counters()["launch.masked_sweep"] == 1
+    assert cq.launch_count(cq.masked_sweep) == 1
+    assert cq.launch_count(cq.masked_sweep, torch.float32) == 2
+    assert cq.launch_count(cs.bisect_levels) == 0
+    profiling.reset_counters()
+
+
+def test_stage_timer_stages_are_spans():
+    timer = profiling.StageTimer()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timer.stage("fit"):
+            with timer.stage("fit.copula"):
+                pass
+    assert _spans(prof) == [("cvt.fit", None), ("cvt.fit.copula", "cvt.fit")]
+    assert timer.counts == {"fit": 1, "fit.copula": 1}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_card_counters_and_spans_of_a_query(dev, book):
+    """On the card: the P build counts its launch and its bytes, a query
+    counts K2 and K1 launches and K1's halvings, reads the device twice
+    (the halving count and the gather), and no cvt. span appears on the
+    device's timeline."""
+    path, data = book
+    bt = load_artifacts(path, data, device="cuda")
+    profiling.reset_counters()
+    ops = bt.sweep_operands()
+    got = profiling.counters()
+    assert got["launch.sweep_table"] == 1
+    assert got["prep.table_bytes"] == ops.P.nbytes + ops.flags.nbytes
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bt.calc_var_portfolios([[0.5, 0.5]], obj_var=0.05)
+        torch.cuda.synchronize()
+    got = profiling.counters()
+    assert got["launch.masked_sweep"] == 2 and got["launch.bisect_levels"] == 1
+    assert got["solve.halvings"] > 0
+    spans = _spans(prof)
+    assert [n for n, _ in spans if n.startswith("cvt.sync.")] == [
+        "cvt.sync.halving_count", "cvt.sync.gather"]
+    assert dict(spans)["cvt.launch.bisect_levels"] == "cvt.solve.bisect"
+    cuda = torch.autograd.DeviceType.CUDA
+    assert not [e.name for e in prof.events() if e.device_type == cuda
+                and e.name.startswith(profiling.PREFIX)]
+
+
+@pytest.mark.cuda
+def test_card_build_counters(dev):
+    """`build.loaded` counts libraries found built, `build.compiled` the
+    nvcc builds."""
+    _build.load()
+    profiling.reset_counters()
+    _build.build()
+    assert profiling.counters() == {"build.loaded": len(_build.SOURCES)}
+    profiling.reset_counters()

@@ -203,9 +203,9 @@ def test_masked_sweep_dispatches_cpu_to_plain_twin(rng):
     T = C.shape[0]
     b = _t(np.stack([_bounds(rng, T) for _ in range(3)]))
     w = _t([[0.5, 0.5], [0.3, 0.7], [0.9, 0.1]])
-    before = cq.masked_sweep.launches
+    before = cq.launch_count(cq.masked_sweep)
     got = cq.masked_sweep(ops, b, w)
-    assert cq.masked_sweep.launches == before  # no kernel on the CPU
+    assert cq.launch_count(cq.masked_sweep) == before  # no kernel on the CPU
     assert got.shape == (3, T)
     for l in range(3):
         row = tq.msm_integrals_cached(b[l], ops.V, ops.forecast_combos,

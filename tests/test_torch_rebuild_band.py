@@ -260,10 +260,10 @@ def test_row_flags_on_the_cpu_are_the_twin():
     operands carry no flags (the CPU sweep is the plain twin)."""
     ops, _ = _case("msm", n=24, edit=_poke)
     assert ops.flags is None and ops.U is None
-    before = cq3.contract3_row_flags.launches
+    before = cq.launch_count(cq3.contract3_row_flags)
     assert torch.equal(cq3.contract3_row_flags(ops),
                        cq3.contract3_row_flags_reference(ops))
-    assert cq3.contract3_row_flags.launches == before
+    assert cq.launch_count(cq3.contract3_row_flags) == before
 
 
 @pytest.mark.parametrize("T_, n, rows, free, route", [

@@ -171,9 +171,9 @@ def test_fixed_count_bisection_equals_while_loop(case, family):
     F1 = cq.masked_sweep(ops, stage1.expand(3, T, 2), wrows)
     state = tsolvers.bracket_state_batched(
         F1, obj, lambda b: cq.masked_sweep(ops, b, wrows), CFG, False)[:5]
-    before = cs.bisect_levels.launches
+    before = cq.launch_count(cs.bisect_levels)
     plain = cs.bisect_levels(ops, *state, obj, wrows, TOL)
-    assert cs.bisect_levels.launches == before
+    assert cq.launch_count(cs.bisect_levels) == before
     n_iters = cs.halvings(float((state[1] - state[0]).max()), TOL)
     emulated = _kernel_emulation(ops, *state, obj, wrows, n_iters)
     np.testing.assert_array_equal(emulated.numpy(), plain.numpy())

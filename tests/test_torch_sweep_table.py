@@ -208,7 +208,7 @@ def test_cpu_operands_carry_no_table(case):
     build itself runs on a CUDA device only."""
     ops, _ = _ops(case, "msm")
     assert ops.P is None and ops.flags is None
-    before = cq.sweep_table.launches
+    before = cq.launch_count(cq.sweep_table)
     with pytest.raises(ValueError, match="CUDA device only"):
         cq.sweep_table(ops)
-    assert cq.sweep_table.launches == before
+    assert cq.launch_count(cq.sweep_table) == before
