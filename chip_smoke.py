@@ -303,6 +303,7 @@ KERNEL_SPANS = {
     "contract3_row_flags": ("contract3_flags_kernel",),
     "masked_contract3_rebuild": ("contract3_rebuild_kernel",
                                  "contract3_sum_kernel"),
+    "solve_stages": ("solve_stages_kernel",),
 }
 
 
@@ -346,6 +347,17 @@ def sweep_bound(T, n, q, L, rows=None, isz=8):
     cells = min(T * r * n, 2 * L * T * r)
     return bound(isz * (cells + n + 2 * L * T + 2 * L + L * T) + T * r,
                  L * T * r * lookups(n), isz)
+
+
+def stages_bound(T, n, L, isz=8):
+    """solve_stages: the two slab sweeps of every row and day (the
+    stage-1 slab and the stage-2 bracket's) read at most the T n^2 cells
+    of P, or two per row lookup; the T n row flags, x, obj and the (L, 2)
+    weights in; the four (L, T) states, two (L, T) flags and the widest
+    word out; one row lookup per slab, row, day and outer row."""
+    cells = min(T * n * n, 4 * L * T * n)
+    return bound(isz * (cells + n + 3 * L + 4 * L * T + 1) + T * n
+                 + 2 * L * T, 2 * L * T * n * lookups(n), isz)
 
 
 def bisect_bound(T, n, q, L, n_iters, isz=8):
@@ -579,7 +591,8 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
 
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
-                cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
+                cq3.contract3_row_flags, cq3.masked_contract3_rebuild,
+                cs.solve_stages)
     rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
     rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
     rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
@@ -841,6 +854,9 @@ def day_sharded_phase(root, smi, w_batch, w_batch3):
             if lc["dim2"][k] <= 0:
                 raise AssertionError(f"rank {r}: {k} never launched on the "
                                      "dim-2 path")
+        if lc["dim2"]["solve_stages"]:
+            raise AssertionError(f"rank {r}: a day mesh took the one-card "
+                                 "fused route")
         if lc["dim2"]["sweep_table"] != 4:
             raise AssertionError(f"rank {r}: sweep_table did not build one "
                                  "table per dim-2 backtest")
@@ -1018,9 +1034,10 @@ def grid_sharded_phase(root, smi, w_batch, w_batch3, one_card,
         for shape in GRID_SHAPES:
             tag = f"{shape[0]}x{shape[1]}"
             lc = info[tag]["launches"]
-            if any(c["bisect_levels"] for c in lc.values()):
-                raise AssertionError(f"grid-sharded rank {r} {tag}: K1 "
-                                     f"launched {lc}")
+            if any(c["bisect_levels"] or c["solve_stages"]
+                   for c in lc.values()):
+                raise AssertionError(f"grid-sharded rank {r} {tag}: K1 or "
+                                     f"the fused stages launched {lc}")
             dim2 = lc.get("dim2", lc.get("dim2_msm"))
             if dim2["masked_sweep"] <= 0 or dim2["sweep_table"] != (
                     4 if "dim2" in lc else 1):
@@ -1226,7 +1243,8 @@ def wide_grid_phase(root, smi):
     alpha = float(rec["obj_var"])
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
-                cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
+                cq3.contract3_row_flags, cq3.masked_contract3_rebuild,
+                cs.solve_stages)
 
     def refuse(*_a, **_k):
         raise AssertionError("a plain sweep ran on the card")
@@ -1333,6 +1351,7 @@ def wide_grid_phase(root, smi):
                     raise AssertionError(f"wide {tag}: {above} days off the "
                                          f"record, max {diff.max():.3e}")
                 if dim == 2 and (route != "sweeps" or lc["bisect_levels"] or
+                                 lc["solve_stages"] or
                                  lc["masked_sweep"] <= 0 or
                                  lc["sweep_table"] != 1):
                     raise AssertionError(f"wide {tag}: not bisected by K2 "
@@ -2251,7 +2270,8 @@ def _counters():
 
     return (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
             cq3.contract3_weights, cq3.masked_contract3,
-            cq3.contract3_row_flags, cq3.masked_contract3_rebuild)
+            cq3.contract3_row_flags, cq3.masked_contract3_rebuild,
+            cs.solve_stages)
 
 
 def fit_gaps(est, bt, meta):
@@ -2344,7 +2364,7 @@ def mr_fit_phase(root, smi):
                              f"{diff_mr.max():.3e}")
     launches_rb = {c.__name__: _launches(c) for c in counters}
     print(f"run_backtest {mr}: launches {launches_rb}")
-    for name in ("sweep_table", "masked_sweep", "bisect_levels"):
+    for name in ("sweep_table", "solve_stages", "bisect_levels"):
         if launches_rb[name] <= 0:
             raise AssertionError(f"{name} never launched on the "
                                  f"run_backtest {mr} path")
@@ -2423,7 +2443,7 @@ def dim3_fit_phase(root, smi):
         raise AssertionError("masked_contract3 never launched on the fitted "
                              "dim-3 path")
     if launches_fit3["masked_sweep"] or launches_fit3["bisect_levels"] or \
-            launches_fit3["sweep_table"]:
+            launches_fit3["sweep_table"] or launches_fit3["solve_stages"]:
         raise AssertionError("a dim-2 kernel launched on the fitted dim-3 "
                              "path")
     return {"report": fit3_report, "launches": launches_fit3}
@@ -2604,7 +2624,7 @@ def main() -> int:
     launches = read_counts()
     print(f"main path: {time.perf_counter() - t_main:.3f} s, serving batch "
           f"{ROWS_P}x{len(LEVELS)} {grid_s:.3f} s, launches {launches}")
-    for name in ("masked_sweep", "bisect_levels"):
+    for name in ("solve_stages", "bisect_levels"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     if launches["sweep_table"] != len(bts):
@@ -2704,7 +2724,7 @@ def main() -> int:
         fit_bts[est], fit_report[est] = fitted(est)
     launches_fit = read_counts()
     print(f"fit path: launches {launches_fit}")
-    for name in ("masked_sweep", "bisect_levels"):
+    for name in ("solve_stages", "bisect_levels"):
         if launches_fit[name] <= 0:
             raise AssertionError(f"{name} never launched on the fit path")
     if launches_fit["sweep_table"] != len(fit_bts):
@@ -2735,7 +2755,7 @@ def main() -> int:
     del bt_mr
     launches_mr = read_counts()
     print(f"mean-reverting path (served): launches {launches_mr}")
-    for name in ("sweep_table", "masked_sweep", "bisect_levels"):
+    for name in ("sweep_table", "solve_stages", "bisect_levels"):
         if launches_mr[name] <= 0:
             raise AssertionError(f"{name} never launched on the "
                                  "mean-reverting path")
@@ -2794,7 +2814,7 @@ def main() -> int:
         raise AssertionError("masked_contract3 never launched on the dim-3 "
                              "main path")
     if launches3["masked_sweep"] or launches3["bisect_levels"] or \
-            launches3["sweep_table"]:
+            launches3["sweep_table"] or launches3["solve_stages"]:
         raise AssertionError("a dim-2 kernel launched on the dim-3 path")
     if launches3["masked_contract3_rebuild"] or \
             launches3["contract3_row_flags"]:
@@ -2879,7 +2899,7 @@ def main() -> int:
     if launches_r2["sweep_table"] != len(bts_r):
         raise AssertionError("sweep_table did not build one table per "
                              "refined dim-2 backtest")
-    for name in ("masked_sweep", "bisect_levels"):
+    for name in ("solve_stages", "bisect_levels"):
         if launches_r2[name] <= 0:
             raise AssertionError(f"{name} never launched on the refined "
                                  "dim-2 path")
@@ -2899,7 +2919,7 @@ def main() -> int:
         raise AssertionError("masked_contract3 never launched on the refined "
                              "dim-3 path")
     if launches_r3["masked_sweep"] or launches_r3["bisect_levels"] or \
-            launches_r3["sweep_table"]:
+            launches_r3["sweep_table"] or launches_r3["solve_stages"]:
         raise AssertionError("a dim-2 kernel launched on the refined dim-3 "
                              "path")
     refine_report["launches"] = {"dim2": launches_r2, "dim3": launches_r3}
@@ -2966,7 +2986,7 @@ def main() -> int:
     if var_q.shape != diff_q.shape or not diff_q.max() <= ATOL_VAR:
         raise AssertionError(f"quirk pipeline: VaR off the record by "
                              f"{diff_q.max():.3e}")
-    for name in ("sweep_table", "masked_sweep", "bisect_levels"):
+    for name in ("sweep_table", "solve_stages", "bisect_levels"):
         if launches_q[name] <= 0:
             raise AssertionError(f"{name} never launched on the quirk path")
     if launches_q["masked_contract3"] or launches_q["contract3_weights"]:
@@ -3563,10 +3583,70 @@ def main() -> int:
     err_root = max(err_root, e128)
     print(f"parity bisect_levels L={L128}: max abs {e128:.3e} (bound "
           f"{ATOL_ROOT:g})")
+    # the fused stages on the flagship's operands at the query's L = 1 and
+    # the grid's L = 128: bit-equal to the composed route (the K2 stage
+    # sweeps, bracket_state_batched and the widest bracket), K1 counting
+    # on the device bit-equal to K1 counting on the host, and the states
+    # within the sweep's bound of the plain twin
+    def same_bits(a, b):
+        nan = torch.isnan(a) if a.is_floating_point() else torch.zeros_like(a)
+        return torch.equal(nan, torch.isnan(b) if b.is_floating_point()
+                           else nan) and torch.equal(a[~nan], b[~nan])
+
+    stage_rows = {1: (obj[2:3], bts["msm"].weights.reshape(1, 2)
+                      .contiguous()), L128: (ar, wr)}
+    err_stages = 0.0
+    for L_, (a_, w_) in stage_rows.items():
+        F1_ = cq.masked_sweep(ops_m, st1.expand(L_, T, 2).contiguous(), w_,
+                              -5.0)
+        want_ = bracket_state_batched(
+            F1_, a_, lambda b, w_=w_: cq.masked_sweep(ops_m, b.contiguous(),
+                                                      w_, -5.0), cfg, False)
+        want_ = [s.contiguous() for s in want_[:6]] + [
+            cs._widest(want_[0], want_[1])]
+        got_ = cs.solve_stages(ops_m, a_, w_, cfg)
+        for name_, g_, v_ in zip(("lower", "upper", "prev_res", "prev_up",
+                                  "ustack", "nan_days", "widest"),
+                                 got_, want_):
+            if not same_bits(g_, v_):
+                raise AssertionError(f"solve_stages L={L_}: {name_} not "
+                                     "bit-equal to the composed route")
+        r_host = cs.bisect_levels(ops_m, *want_[:5], a_, w_, 1e-6)
+        r_dev = cs.bisect_levels(ops_m, *got_[:5], a_, w_, 1e-6,
+                                 widest=got_[6])
+        if not same_bits(r_dev, r_host):
+            raise AssertionError(f"bisect_levels L={L_}: the device count's "
+                                 "roots differ from the host count's")
+        plain_ = cs.solve_stages_reference(ops_m, a_, w_, cfg)
+        for name_, g_, v_ in zip(("ustack", "nan_days"), got_[4:6],
+                                 plain_[4:6]):
+            if not torch.equal(g_, v_):
+                raise AssertionError(f"solve_stages L={L_}: {name_} off the "
+                                     "plain twin")
+        fin = torch.isfinite(plain_[2])
+        scale_ = float(plain_[2][fin].abs().max())
+        e_ = max(float((g_ - v_)[torch.isfinite(v_)].abs().max())
+                 for g_, v_ in zip(got_[:4], plain_[:4]))
+        if not e_ <= RTOL_SWEEP * scale_:
+            raise AssertionError(f"solve_stages L={L_}: |kernel - plain| "
+                                 f"{e_:.3e} > {RTOL_SWEEP:g} x {scale_:.3e}")
+        err_stages = max(err_stages, e_)
+        print(f"parity solve_stages L={L_}: bit-equal to the composed "
+              f"route, widest {float(got_[6]):.17g} "
+              f"({cs.halvings(float(got_[6]), 1e-6)} halvings), K1's roots "
+              f"from the device count bit-equal; max abs {e_:.3e} off the "
+              f"plain twin (bound rel {RTOL_SWEEP:g})")
     timing[f"bisect_L{L128}"] = cuda_ms(torch, {
         "kernel": lambda: cs.bisect_levels(ops_m, *st128, ar, wr, 1e-6),
         "plain": lambda: cs.bisect_levels_reference(ops_m, *st128, ar, wr,
                                                     1e-6)}, reps=3, warmup=1)
+    for L_, (a_, w_) in stage_rows.items():
+        timing[f"stages_L{L_}"] = cuda_ms(torch, {
+            "kernel": lambda a_=a_, w_=w_: cs.solve_stages(ops_m, a_, w_,
+                                                           cfg),
+            "plain": lambda a_=a_, w_=w_: cs.solve_stages_reference(
+                ops_m, a_, w_, cfg)}, **({} if L_ == 1
+                                         else {"reps": 3, "warmup": 1}))
     w_main = bts["msm"].weights
     timing["full_L1"] = cuda_ms(torch, {
         "kernel": lambda: cs.full_solve_levels(ops_m, obj[2:3], w_main, cfg),
@@ -3642,6 +3722,10 @@ def main() -> int:
         "sweep_table": device_profile(torch, lambda: cq.sweep_table(ops_m)),
         "sweep_L1": device_profile(torch, lambda: cq.masked_sweep(
             ops_m, st1[None].contiguous(), wrows[:1].contiguous(), -5.0)),
+        f"sweep_L{L128}": device_profile(torch, lambda: cq.masked_sweep(
+            ops_m, st1.expand(L128, T, 2).contiguous(), wr, -5.0)),
+        "stages_L1": device_profile(torch, lambda: cs.solve_stages(
+            ops_m, *stage_rows[1], cfg)),
         "bisect_L1": device_profile(torch, lambda: cs.bisect_levels(
             ops_b, *s1, obj[:1], wrows[:1], 1e-6)),
         f"bisect_L{L128}": device_profile(torch, lambda: cs.bisect_levels(
@@ -3733,6 +3817,8 @@ def main() -> int:
         f"sweep_L{L128}": sweep_bound(T, n, q, L128),
         "bisect_L1": bisect_bound(T, n, q, 1, iters[1]),
         f"bisect_L{L128}": bisect_bound(T, n, q, L128, iters[L128]),
+        "stages_L1": stages_bound(T, n, 1),
+        f"stages_L{L128}": stages_bound(T, n, L128),
         "contract3_weights": weights_bound(
             T3, n3, q3, ops3_m.spec.kind == "student",
             ops3_m.p_cols is not None),
@@ -3742,12 +3828,14 @@ def main() -> int:
         f"contract3_rows{r3_25}_L1": contract3_bound(T3, n3, 1, rows=r3_25),
     }
     # the profile holding each shape's kernel at that L (the serving
-    # batches' sweeps run at L = 128 and 32)
+    # batches' fused stages run at L = 128, the dim-3 sweeps at 32)
     prof_key = {"sweep_table": ("sweep_table", "sweep_table"),
                 "sweep_L1": ("sweep_L1", "masked_sweep"),
-                f"sweep_L{L128}": ("grid_32x4", "masked_sweep"),
+                f"sweep_L{L128}": (f"sweep_L{L128}", "masked_sweep"),
                 "bisect_L1": ("bisect_L1", "bisect_levels"),
                 f"bisect_L{L128}": (f"bisect_L{L128}", "bisect_levels"),
+                "stages_L1": ("stages_L1", "solve_stages"),
+                f"stages_L{L128}": ("grid_32x4", "solve_stages"),
                 "contract3_weights": ("contract3_weights",
                                       "contract3_weights"),
                 "contract3_L1": ("contract3_L1", "masked_contract3"),
@@ -3865,6 +3953,16 @@ def main() -> int:
         entry("bisect_levels", "quadrature.cu",
               "copula_var_tpu/ops/pallas_solver.py:93",
               launches["bisect_levels"], err_root, "bisect_L1"),
+        # the stage sweeps (K2's slabs) and bracket_state_batched's
+        # selects; its figures at the query's L = 1, and at the grid's
+        # L = 128 beside them
+        dict(entry("solve_stages", "quadrature.cu",
+                   f"{k23}:101; copula_var_tpu/ops/solvers.py:124",
+                   launches["solve_stages"], err_stages, "stages_L1"),
+             ms_L128=timing[f"stages_L{L128}"]["kernel"][0],
+             plain_ms_L128=timing[f"stages_L{L128}"]["plain"][0],
+             bound_ms_L128=bounds_ms[f"stages_L{L128}"][0],
+             bound_by_L128=bounds_ms[f"stages_L{L128}"][1]),
         entry("contract3_weights", "contract3.cu", k4,
               launches3["contract3_weights"], err_u, "contract3_weights"),
         entry("masked_contract3", "contract3.cu", k4,

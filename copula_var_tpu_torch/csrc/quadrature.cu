@@ -2,7 +2,8 @@
 // path, templates over the working type Real (real.cuh): double for the
 // f64 `xla` engine, float for the f32 engine (`engine="pallas"`, the
 // JAX package's f32 Pallas kernels). Each C launcher below has an f64
-// form and an `_f32` form with the same arguments.
+// form and an `_f32` form with the same arguments, but the two of the f64
+// solve_stages route (`cvt_solve_stages`, `cvt_bisect_levels_widest`).
 //
 //   sweep_table    builds, once per backtest, the bounds-invariant prefix
 //                  table P (T, rows, pitch) and one flag byte per (t, i)
@@ -17,6 +18,12 @@
 //   bisect_levels  replaces copula_var_tpu/ops/pallas_solver.py
 //                  ::_solve_kernel (K1): the fixed-count bisection for L
 //                  rows (confidence levels or portfolios) of one day.
+//   solve_stages   (f64 only) the two stage sweeps and the stage-2 bracket
+//                  of the f64 solve on one card (what the JAX package's
+//                  `xla` engine computes as XLA ops before its while-loop,
+//                  and the port otherwise as two K2 launches and ~30 eager
+//                  ops), with the widest bracket folded on the device, so
+//                  K1 reads its halving count there (solve_stages_kernel).
 //
 // Both sweep and bisection sum U[i, j] = V[i, j] * sum_k wfc[i, k] * W1[k, j]
 // (the W1 product the TPU kernel computes in its body) over a mask that is,
@@ -64,6 +71,22 @@
 // halving loop. Bound by the lookups' latency and the divisions, not by HBM
 // (42 MB per launch at the flagship). It does not read P yet.
 //
+// solve_stages: K2's task layout (one warp per (l, t), four a block, day-
+// major) and K2's slab_sum, so each of its two slabs has K2's bits: the
+// stage-1 slab [-100, first_guess], then the stage-2 slab between the
+// bounds it picks, then the bracket's selects in registers, in
+// ops/solvers.py::bracket_state_batched's order. Lane 0 stores the state
+// (lower, upper, prev_res, prev_up, ustack, the NaN-day flag) and folds
+// max(upper - lower, 0) into one word by atomicMax on its bits (a non-
+// negative double's bits order as the integers do), after a cached read
+// that skips the atomic when the word already holds as much. Twice K2's
+// lookups per task; at L = 1 it is bound by its launch, at L = 128 by the
+// lookups' latency, like K2. K1's f64 launcher `cvt_bisect_levels_widest`
+// then derives its count in every block from that word and the tolerance,
+// halving as the host's `halvings` does, so the count, and every root, is
+// the host-counted route's, bit for bit, with no host read between the
+// operands' upload and the roots' copy.
+//
 // Semantics kept from the f64 `xla` engine (copula_var_tpu/backtest.py):
 //   * mask x_j > max((b_lo - x_i w_out) / w_in, box_min) and
 //     x_j <= (b_up - x_i w_out) / w_in; the two dynamic bounds are formed
@@ -76,7 +99,8 @@
 //   * incremental bookkeeping res = prev +/- slab with the exact test
 //     b_lo == prev_up;
 //   * the iteration count is the host's count of halvings of the widest
-//     bracket, i.e. the global count the while-loop engine runs. The
+//     bracket (or the same count taken on the device, after
+//     solve_stages), i.e. the global count the while-loop engine runs. The
 //     while-loop's per-level all-zeros early break (which only fires when
 //     every day's CDF is exactly 0) needs a grid-wide reduction and is
 //     omitted, as in K1; the plain twin keeps it.
@@ -186,31 +210,18 @@ sweep_table_kernel(const Real* __restrict__ v,    // (T, rows, n)
     out[idx] = idx % pitch < n ? u[idx] : Real(0);  // pad cells: defined, unread
 }
 
+// The masked sum of one task's slab (b_lo, b_up] under weights (w_in,
+// w_out) over `rows` outer grid rows of one day of P, starting at grid
+// point row0: each lane sums its rows (i = lane, lane + 32, ...), the warp
+// sums the lanes in a fixed order, and every lane returns the same bits.
 // kChunks groups of 32 rows at most (interval.cuh: rows of up to
-// kShortRow or kMaxRow cells), searches from kTop
+// kShortRow or kMaxRow cells), searches from kTop.
 template <typename Real, int kChunks, int kTop>
-__global__ void __launch_bounds__(kSweepThreads)
-prefix_sweep_kernel(const Real* __restrict__ p,  // (T, rows, pitch)
-                    const unsigned char* __restrict__ flag,  // (T, rows)
-                    const Real* __restrict__ x,        // (n,)
-                    const Real* __restrict__ bounds,   // (L, T, 2)
-                    const Real* __restrict__ weights,  // (L, 2)
-                    Real box_min, Real* __restrict__ out,  // (L, T)
-                    int T, int n, int row0, int rows, int L, int pitch) {
+__device__ __forceinline__ double slab_sum(
+    const Real* __restrict__ day, const unsigned char* __restrict__ fl,
+    const Real* xs, int n, int row0, int rows, int pitch, int lane,
+    Real b_lo, Real b_up, Real w_in, Real w_out, Real box_min) {
   using R = Rn<Real>;
-  __shared__ Real xs[kChunks * 32];
-  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
-  __syncthreads();
-  const int task = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
-  if (task >= L * T) return;  // whole warps: warp_sum's lanes all present
-  const int lane = threadIdx.x & 31;
-  const int t = task / L;
-  const int l = task - t * L;
-  const size_t o = static_cast<size_t>(l) * T + t;
-  const Real b_lo = bounds[2 * o], b_up = bounds[2 * o + 1];
-  const Real w_in = weights[2 * l], w_out = weights[2 * l + 1];
-  const Real* day = p + static_cast<size_t>(t) * rows * pitch;
-  const unsigned char* fl = flag + static_cast<size_t>(t) * rows;
   double acc = 0.0;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
@@ -225,8 +236,143 @@ prefix_sweep_kernel(const Real* __restrict__ p,  // (T, rows, pitch)
       acc += interval::row_sum<kTop>(row, row, fl[i] != 0, xs, n, dlo, dup);
     }
   }
-  acc = interval::warp_sum(acc);
+  return interval::warp_sum(acc);
+}
+
+template <typename Real, int kChunks, int kTop>
+__global__ void __launch_bounds__(kSweepThreads)
+prefix_sweep_kernel(const Real* __restrict__ p,  // (T, rows, pitch)
+                    const unsigned char* __restrict__ flag,  // (T, rows)
+                    const Real* __restrict__ x,        // (n,)
+                    const Real* __restrict__ bounds,   // (L, T, 2)
+                    const Real* __restrict__ weights,  // (L, 2)
+                    Real box_min, Real* __restrict__ out,  // (L, T)
+                    int T, int n, int row0, int rows, int L, int pitch) {
+  __shared__ Real xs[kChunks * 32];
+  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
+  __syncthreads();
+  const int task = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
+  if (task >= L * T) return;  // whole warps: warp_sum's lanes all present
+  const int lane = threadIdx.x & 31;
+  const int t = task / L;
+  const int l = task - t * L;
+  const size_t o = static_cast<size_t>(l) * T + t;
+  const double acc = slab_sum<Real, kChunks, kTop>(
+      p + static_cast<size_t>(t) * rows * pitch,
+      flag + static_cast<size_t>(t) * rows, xs, n, row0, rows, pitch, lane,
+      bounds[2 * o], bounds[2 * o + 1], weights[2 * l], weights[2 * l + 1],
+      box_min);
   if (lane == 0) out[o] = static_cast<Real>(acc);
+}
+
+// The stage-2 bracket's constants: cfg = (first_guess, sg0, sg1, min_var,
+// max_var) and the reference's add-group anchor (quirks).
+struct StageConfig {
+  double fg, sg0, sg1, min_v, max_v;
+  bool quirks;
+};
+
+// A width as the bits atomicMax orders: a non-negative double's bits
+// order as unsigned integers do; a negative width (or -0) counts as 0 and
+// a NaN as all ones, so a NaN wins the maximum as torch's max propagates
+// it, and the count it gives is the host's for a NaN: 0.
+__device__ __forceinline__ unsigned long long width_bits(double w) {
+  if (w != w) return ~0ull;
+  return w > 0.0 ? static_cast<unsigned long long>(__double_as_longlong(w))
+                 : 0ull;
+}
+
+// solve_stages (f64): per task (row l, day t), one warp, tasks day-major
+// as in prefix_sweep_kernel, the stage-1 sweep over [-100, first_guess],
+// the bracket's stage-2 bounds from it, their sweep, and the bracket
+// state, with the selects of ops/solvers.py::bracket_state_batched in its
+// order; the widest bracket folded into *widest (zeroed by the launcher).
+__global__ void __launch_bounds__(kSweepThreads)
+solve_stages_kernel(const double* __restrict__ p,  // (T, n, pitch)
+                    const unsigned char* __restrict__ flag,  // (T, n)
+                    const double* __restrict__ x,        // (n,)
+                    const double* __restrict__ obj,      // (L,)
+                    const double* __restrict__ weights,  // (L, 2)
+                    StageConfig cfg, double box_min,
+                    double* __restrict__ lower,      // (L, T)
+                    double* __restrict__ upper,      // (L, T)
+                    double* __restrict__ prev_res,   // (L, T)
+                    double* __restrict__ prev_up,    // (L, T)
+                    unsigned char* __restrict__ ustack,   // (L, T)
+                    unsigned char* __restrict__ nan_day,  // (L, T)
+                    unsigned long long* widest,  // atomics: no restrict
+                    int T, int n, int L, int pitch) {
+  constexpr int kChunks = interval::kShortChunks;
+  constexpr int kTop = interval::kShortTop;
+  __shared__ double xs[kChunks * 32];
+  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
+  __syncthreads();
+  const int task = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
+  if (task >= L * T) return;  // whole warps: warp_sum's lanes all present
+  const int lane = threadIdx.x & 31;
+  const int t = task / L;
+  const int l = task - t * L;
+  const size_t o = static_cast<size_t>(l) * T + t;
+  const double* day = p + static_cast<size_t>(t) * n * pitch;
+  const unsigned char* fl = flag + static_cast<size_t>(t) * n;
+  const double target = obj[l];
+  const double w_in = weights[2 * l], w_out = weights[2 * l + 1];
+  const double fg = cfg.fg, sg0 = cfg.sg0, sg1 = cfg.sg1;
+  // a slab's bits depend on (bounds, weights row, t) alone: F1 is the
+  // stage-1 sweep's (L, T) entry whether one row or every row computes it
+  const double F1 = slab_sum<double, kChunks, kTop>(
+      day, fl, xs, n, 0, n, pitch, lane, -100.0, fg, w_in, w_out, box_min);
+  const double new_lower = F1 >= target ? sg0 : fg;
+  const double new_upper = F1 < target ? sg1 : fg;
+  const double I2 = slab_sum<double, kChunks, kTop>(
+      day, fl, xs, n, 0, n, pitch, lane, new_lower, new_upper, w_in, w_out,
+      box_min);
+  const double res = new_lower == fg ? __dadd_rn(F1, I2) : __dsub_rn(F1, I2);
+  const double pu = new_lower == sg0 ? sg0 : (cfg.quirks ? fg : sg1);
+  double lo = cfg.min_v, hi = cfg.max_v;
+  if (res > target) {
+    lo = cfg.min_v;
+    hi = sg0;
+  }
+  if (res < target && new_upper == fg) {
+    lo = sg0;
+    hi = fg;
+  }
+  if (res < target && new_upper == sg1) {
+    lo = sg1;
+    hi = cfg.max_v;
+  }
+  if (res > target && new_upper == sg1) {
+    lo = fg;
+    hi = sg1;
+  }
+  if (lane == 0) {
+    lower[o] = lo;
+    upper[o] = hi;
+    prev_res[o] = res;
+    prev_up[o] = pu;
+    ustack[o] = !(hi == sg0 || hi == sg1);
+    nan_day[o] = res != res;
+    // most tasks share one of a few widths: read before the atomic
+    const unsigned long long bits = width_bits(__dsub_rn(hi, lo));
+    if (bits > __ldcg(widest)) atomicMax(widest, bits);
+  }
+}
+
+// The while-loop's halving count from the widest bracket's bits, as the
+// host's `halvings` counts it: halve while the width exceeds `tolerance`
+// (every halving exact). A NaN width counts 0; the cap only stops an
+// infinite width or a negative tolerance, where the host never stops
+// (2200 halvings take the largest double below any tolerance >= 0).
+__device__ __forceinline__ int device_halvings(unsigned long long bits,
+                                               double tolerance) {
+  double w = __longlong_as_double(static_cast<long long>(bits));
+  int k = 0;
+  while (w > tolerance && k < 2200) {
+    w *= 0.5;
+    ++k;
+  }
+  return k;
 }
 
 template <typename Real>
@@ -243,10 +389,15 @@ bisect_levels_kernel(const Real* __restrict__ v,
                      const Real* __restrict__ obj,        // (L,)
                      const Real* __restrict__ weights,    // (L, 2)
                      Real box_min, int n_iters,
+                     const unsigned long long* __restrict__ widest,
+                     double tolerance,
                      Real* __restrict__ roots,            // (L, T)
                      int T, int n, int q, int L) {
   using R = Rn<Real>;
   extern __shared__ __align__(16) unsigned char bisect_shared[];
+  // the count on the device (f64 solve_stages route): from the widest
+  // bracket solve_stages folded, instead of the host's n_iters
+  if (widest != nullptr) n_iters = device_halvings(*widest, tolerance);
   const int t = blockIdx.x;
   const int pitch = n | 1;
   Real* u = reinterpret_cast<Real*>(bisect_shared);  // (n, pitch)
@@ -360,12 +511,15 @@ int masked_sweep(const Real* p, const unsigned char* flag, const Real* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// n_iters halvings, or (widest not null, f64) the count device_halvings
+// takes from the widest bracket's bits and `tolerance`
 template <typename Real>
 int bisect_levels(const Real* v, const Real* wfc, const Real* w1,
                   const Real* x, const Real* lower, const Real* upper,
                   const Real* prev_res, const Real* prev_up,
                   const unsigned char* ustack, const Real* obj,
                   const Real* weights, double box_min, int n_iters,
+                  const unsigned long long* widest, double tolerance,
                   Real* roots, int T, int n, int q, int L, void* stream) {
   if (n > interval::kShortRow || n_iters < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -377,7 +531,33 @@ int bisect_levels(const Real* v, const Real* wfc, const Real* w1,
   bisect_levels_kernel<Real><<<T, kBisectThreads, bytes,
                                static_cast<cudaStream_t>(stream)>>>(
       v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj, weights,
-      static_cast<Real>(box_min), n_iters, roots, T, n, q, L);
+      static_cast<Real>(box_min), n_iters, widest, tolerance, roots, T, n, q,
+      L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// solve_stages: the state (L, T) of every row and day and *widest, zeroed
+// here on the stream before the kernel folds into it; whole days of a
+// grid K1 takes (n <= kShortRow)
+int solve_stages(const double* p, const unsigned char* flag, const double* x,
+                 const double* obj, const double* weights, StageConfig cfg,
+                 double box_min, double* lower, double* upper,
+                 double* prev_res, double* prev_up, unsigned char* ustack,
+                 unsigned char* nan_day, unsigned long long* widest, int T,
+                 int n, int L, int pitch, void* stream) {
+  if (n <= 0 || n > interval::kShortRow || T < 0 || L < 0 ||
+      pitch != interval::row_pitch(n) ||
+      static_cast<long long>(L) * T > INT_MAX - kSweepWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (T == 0 || L == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(widest, 0, sizeof(*widest), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = (L * T + kSweepWarps - 1) / kSweepWarps;
+  solve_stages_kernel<<<grid, kSweepThreads, 0, s>>>(
+      p, flag, x, obj, weights, cfg, box_min, lower, upper, prev_res,
+      prev_up, ustack, nan_day, widest, T, n, L, pitch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -411,8 +591,37 @@ extern "C" const char* cvt_error_string(int status) {
       int n, int q, int L, void* stream) {                                    \
     return bisect_levels<Real>(v, wfc, w1, x, lower, upper, prev_res,         \
                                prev_up, ustack, obj, weights, box_min,        \
-                               n_iters, roots, T, n, q, L, stream);           \
+                               n_iters, nullptr, 0.0, roots, T, n, q, L,      \
+                               stream);                                       \
   }
 
 CVT_DIM2_LAUNCHERS(, double)
 CVT_DIM2_LAUNCHERS(_f32, float)
+
+// The f64 solve_stages route (no f32 form): the fused stages, and K1
+// counting its halvings from the widest bracket on the device.
+extern "C" int cvt_solve_stages(
+    const double* p, const unsigned char* flag, const double* x,
+    const double* obj, const double* weights, double first_guess, double sg0,
+    double sg1, double min_var, double max_var, int quirks, double box_min,
+    double* lower, double* upper, double* prev_res, double* prev_up,
+    unsigned char* ustack, unsigned char* nan_day, unsigned long long* widest,
+    int T, int n, int L, int pitch, void* stream) {
+  const StageConfig cfg{first_guess, sg0, sg1, min_var, max_var, quirks != 0};
+  return solve_stages(p, flag, x, obj, weights, cfg, box_min, lower, upper,
+                      prev_res, prev_up, ustack, nan_day, widest, T, n, L,
+                      pitch, stream);
+}
+
+extern "C" int cvt_bisect_levels_widest(
+    const double* v, const double* wfc, const double* w1, const double* x,
+    const double* lower, const double* upper, const double* prev_res,
+    const double* prev_up, const unsigned char* ustack, const double* obj,
+    const double* weights, double box_min,
+    const unsigned long long* widest, double tolerance, double* roots,
+    int T, int n, int q, int L, void* stream) {
+  if (widest == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return bisect_levels<double>(v, wfc, w1, x, lower, upper, prev_res,
+                               prev_up, ustack, obj, weights, box_min, 0,
+                               widest, tolerance, roots, T, n, q, L, stream);
+}

@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # source -> {C function: argtypes}. Each kernel's launcher has an f64 form
 # and an f32 form (the same name + "_f32", the same arguments: tensors of
-# the working type, scalars as doubles).
+# the working type, scalars as doubles), but those of `_F64_ONLY`.
 _KERNELS = {
     "quadrature.cu": {
         # v, wfc, w1, P, flags, T, n, rows, q, pitch, stream
@@ -80,10 +80,25 @@ _KERNELS = {
         + [_P] * 4 + [_D] + [_P] * 2 + [_I] * 6 + [_P],
     },
 }
+# launchers with an f64 form alone
+_F64_ONLY = {
+    "quadrature.cu": {
+        # P, flags, x, obj, weights, first_guess, sg0, sg1, min_var,
+        # max_var, quirks, box_min, lower, upper, prev_res, prev_up,
+        # ustack, nan_days, widest, T, n, L, pitch, stream
+        "cvt_solve_stages": [_P] * 5 + [_D] * 5 + [_I, _D] + [_P] * 7
+        + [_I] * 4 + [_P],
+        # v, wfc, w1, x, lower, upper, prev_res, prev_up, ustack, obj,
+        # weights, box_min, widest, tolerance, roots, T, n, q, L, stream
+        "cvt_bisect_levels_widest": [_P] * 11 + [_D, _P, _D, _P] + [_I] * 4
+        + [_P],
+    },
+}
 SOURCES = {
     source: {**({"cvt_error_string": [_I]} if source == "quadrature.cu"
                 else {}),
-             **fns, **{f"{name}_f32": sig for name, sig in fns.items()}}
+             **fns, **{f"{name}_f32": sig for name, sig in fns.items()},
+             **_F64_ONLY.get(source, {})}
     for source, fns in _KERNELS.items()
 }
 

@@ -61,6 +61,7 @@ then returns its empty result and launches nothing.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -157,10 +158,12 @@ def bisect_shared_bytes(n: int, dtype=F64) -> int:
     return (n * row_pitch(n) + n) * itemsize(dtype) + n
 
 
+@functools.lru_cache(maxsize=None)
 def bisect_max_grid_points(dtype=F64) -> int:
     """The largest n whose day K1 holds in one block's shared memory (169
     in float64, 192 in float32), no longer than the short rows it is
-    compiled for."""
+    compiled for. Searched once per type: every dim-2 solve on a CUDA
+    device reads it, and the search takes ~40 µs of host time."""
     n = 1
     while (n + 1 <= BISECT_MAX_ROW
            and bisect_shared_bytes(n + 1, dtype) <= MAX_SHARED_BYTES):

@@ -16,6 +16,17 @@ gets that count from the host: one `.item()` of the widest bracket after
 the bracketing stages, halved until it is within tolerance. The all-zeros
 break is the one difference (see the kernel source).
 
+The fused route (`fused_stages`: float64 dim-2 operands on a CUDA
+device, n <= 169, one card, no mesh) reads no bracket on the host: one
+launch of `solve_stages` (csrc/quadrature.cu::solve_stages_kernel) runs
+both stage sweeps and the stage-2 bracket of every (row, day) and folds
+the widest bracket into a device word, and K1 takes its halving count
+from that word (`bisect_levels(..., widest=)`). The stage sweeps are K2's
+slabs and the selects `bracket_state_batched`'s, so the roots are the
+composed route's bit for bit; `solve.halvings` is not counted there,
+since counting it would read the host. Every other route keeps the K2
+stage sweeps, `bracket_state_batched` and the host-counted bisection.
+
 `bisect_contract3` is the three-asset bisection. The JAX package has no
 fused dim-3 bisection: its while-loop calls the sweep every halving. On a
 CUDA device the port runs the host-counted number of halvings, each one
@@ -119,6 +130,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature import (
     count_launch,
     masked_sweep,
     masked_sweep_reference,
+    row_pitch,
 )
 from copula_var_tpu_torch.ops.cuda_quadrature3 import (
     Contract3Operands,
@@ -220,29 +232,40 @@ def bisect_levels_reference(ops, lower, upper, prev_res, prev_up, ustack,
 
 def bisect_levels(ops: SweepOperands, lower, upper, prev_res, prev_up,
                   ustack, obj, weights, tolerance, box_min=-5.0,
-                  reducer=None):
+                  reducer=None, widest=None):
     """(L, T) bisection roots. State lower/upper/prev_res/prev_up (L, T)
     float64, ustack (L, T) bool, obj (L,), weights (L, 2). CPU tensors
     run the plain twin; CUDA tensors launch the kernel for the global
-    iteration count (over every rank's days with a `reducer`); any other
+    iteration count (over every rank's days with a `reducer`), read on
+    the host, or, given `widest` (`solve_stages`'s (1,) widest bracket,
+    on one card), taken by the kernel from it on the device; any other
     device raises."""
     dev = ops.V.device
     _require_dtype(ops, F64, "bisect_levels")
+    if widest is not None and reducer is not None:
+        raise ValueError("bisect_levels: a device-side count (`widest`) is "
+                         "one card's; a day mesh's count is a global MAX")
     if dev.type == "cpu":
         return bisect_levels_reference(ops, lower, upper, prev_res, prev_up,
                                        ustack, obj, weights, tolerance,
                                        box_min, reducer=reducer)
     if dev.type != "cuda":
         raise ValueError(f"bisect_levels: unsupported device {dev}")
+    state = (lower, upper, prev_res, prev_up, ustack)
+    if widest is not None:
+        return _launch_k1(ops, state, obj, weights, box_min,
+                          widest=(widest, tolerance))
     n_iters = _halving_count(lower, upper, tolerance, reducer)
-    return _launch_k1(ops, (lower, upper, prev_res, prev_up, ustack), obj,
-                      weights, box_min, n_iters)
+    return _launch_k1(ops, state, obj, weights, box_min, n_iters)
 
 
-def _launch_k1(ops, state, obj, weights, box_min, n_iters):
-    """K1 of the operands' type on their CUDA device: `n_iters` halvings
-    of the (L, T) state (lower, upper, prev_res, prev_up, ustack), counted
-    on `bisect_levels`."""
+def _launch_k1(ops, state, obj, weights, box_min, n_iters=None,
+               widest=None):
+    """K1 of the operands' type on their CUDA device, counted on
+    `bisect_levels`: `n_iters` halvings of the (L, T) state (lower, upper,
+    prev_res, prev_up, ustack), or, with `widest` = (the (1,) float64
+    widest bracket, tolerance), the count the kernel takes from them (f64
+    only; not counted in `solve.halvings`, which would need a host read)."""
     dev, dt = ops.V.device, ops.dtype
     with span("launch.bisect_levels"):
         T, n, q = check_bisect_operands(ops)
@@ -254,23 +277,112 @@ def _launch_k1(ops, state, obj, weights, box_min, n_iters):
         _check_operand("ustack", ustack, (L, T), dev, torch.bool)
         _check_operand("obj", obj, (L,), dev, dt)
         _check_operand("weights", weights, (L, 2), dev, dt)
+        if widest is not None:
+            _check_operand("widest", widest[0], (1,), dev, F64)
         roots = torch.empty((L, T), dtype=dt, device=dev)
         if roots.numel() == 0:  # an empty day block: no launch
             return roots
-        fn = _build.function("cvt_bisect_levels", dt)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            head = (ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
+                    ops.x.data_ptr(), lower.data_ptr(), upper.data_ptr(),
+                    prev_res.data_ptr(), prev_up.data_ptr(),
+                    ustack.data_ptr(), obj.data_ptr(), weights.data_ptr(),
+                    float(box_min))
+            tail = (roots.data_ptr(), T, n, q, L, stream)
+            if widest is None:
+                status = _build.function("cvt_bisect_levels", dt)(
+                    *head, n_iters, *tail)
+            else:
+                status = _build.function("cvt_bisect_levels_widest", dt)(
+                    *head, widest[0].data_ptr(), float(widest[1]), *tail)
+        _build.check(status, "bisect_levels")
+    count_launch(bisect_levels, dt)
+    if widest is None:
+        count("solve.halvings", n_iters)
+    return roots
+
+
+def fused_stages(device, dtype, dim, n, reducer=None, grid=None) -> bool:
+    """Whether a solve takes the fused route: its stage sweeps and
+    bracket as one `solve_stages` launch, then K1 counting its halvings
+    on the device. Float64 operands of two assets on a CUDA device whose
+    grid K1 bisects (n <= 169), on one card: no day mesh (`reducer`,
+    whose count is a global MAX) and no grid mesh (`grid`, summed
+    sweeps). Every other solve (the f32 engine, meshes, n > 169, dim >= 3,
+    the CPU) keeps the stage sweeps, `bracket_state_batched` and the
+    host-counted bisection."""
+    return (torch.device(device).type == "cuda" and dtype == F64
+            and dim == 2 and dim2_bisect_route(n) == "k1"
+            and reducer is None and grid is None)
+
+
+def _widest(lower, upper):
+    """(1,) float64: the widest bracket, max(upper - lower) and at least
+    0 (NaN if a width is NaN), as `solve_stages` folds it."""
+    if lower.numel() == 0:
+        return lower.new_zeros((1,))
+    return (upper - lower).max().clamp_min(0.0).reshape(1)
+
+
+def solve_stages_reference(ops: SweepOperands, obj, weights, cfg,
+                           quirks=False, box_min=-5.0):
+    """Plain twin of `solve_stages`, on any device: the plain stage-1
+    sweep, `bracket_state_batched` over the plain sweep and the widest
+    bracket; weights (L, 2). Returns (lower, upper, prev_res, prev_up,
+    ustack, nan_days, widest)."""
+    state, _ = _stages(ops, obj, weights, cfg, quirks, box_min,
+                       masked_sweep_reference, F64)
+    return tuple(state) + (_widest(state[0], state[1]),)
+
+
+def solve_stages(ops: SweepOperands, obj, weights, cfg, quirks=False,
+                 box_min=-5.0):
+    """The stage-1 sweep over [-100, first_guess], the stage-2 bracket
+    and the widest bracket of L rows (levels `obj` (L,), weights (L, 2))
+    of float64 day operands -> (lower, upper, prev_res, prev_up (L, T),
+    ustack, nan_days (L, T) bool, widest (1,) float64). CPU tensors run
+    the plain twin; CUDA tensors launch the kernel (K2's slabs and
+    `bracket_state_batched`'s selects, the same bits) on whole days of a
+    grid K1 bisects; any other device raises. cfg = (first_guess, sg0,
+    sg1, min_var, max_var)."""
+    dev = ops.V.device
+    _require_dtype(ops, F64, "solve_stages")
+    if dev.type == "cpu":
+        return solve_stages_reference(ops, obj, weights, cfg, quirks,
+                                      box_min)
+    if dev.type != "cuda":
+        raise ValueError(f"solve_stages: unsupported device {dev}")
+    with span("launch.solve_stages"):
+        T, n, _ = check_bisect_operands(ops)
+        if ops.P is None or ops.flags is None:
+            raise ValueError("solve_stages: the operands carry no prefix "
+                             "table P (build them with sweep_operands)")
+        _check_operand("P", ops.P, (T, n, row_pitch(n)), dev, F64)
+        _check_operand("flags", ops.flags, (T, n), dev, torch.bool)
+        L = obj.shape[0]
+        _check_operand("obj", obj, (L,), dev, F64)
+        _check_operand("weights", weights, (L, 2), dev, F64)
+        # one allocation for the four float64 states and the widest word,
+        # one for the two flags
+        f = torch.empty(4 * L * T + 1, dtype=F64, device=dev)
+        b = torch.empty((2, L, T), dtype=torch.bool, device=dev)
+        out = tuple(f[:-1].view(4, L, T)) + tuple(b) + (f[-1:],)
+        if L * T == 0:  # an empty day block: no launch
+            f[-1:] = 0.0
+            return out
+        fn = _build.function("cvt_solve_stages", F64)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = fn(
-                ops.V.data_ptr(), ops.wfc.data_ptr(), ops.w1.data_ptr(),
-                ops.x.data_ptr(), lower.data_ptr(), upper.data_ptr(),
-                prev_res.data_ptr(), prev_up.data_ptr(), ustack.data_ptr(),
-                obj.data_ptr(), weights.data_ptr(), float(box_min), n_iters,
-                roots.data_ptr(), T, n, q, L, stream,
+                ops.P.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
+                obj.data_ptr(), weights.data_ptr(),
+                *(float(c) for c in cfg), int(bool(quirks)), float(box_min),
+                *(t.data_ptr() for t in out), T, n, L, row_pitch(n), stream,
             )
-        _build.check(status, "bisect_levels")
-    count_launch(bisect_levels, dt)
-    count("solve.halvings", n_iters)
-    return roots
+        _build.check(status, "solve_stages")
+    count_launch(solve_stages, F64)
+    return out
 
 
 def _require_dtype(ops, dtype, what):
@@ -625,13 +737,23 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
     _require_dtype(ops, F64, "full_solve_levels")
     sweep, bisect = (_routes(ops, plain) if grid is None
                      else _grid_routes(ops, plain, grid))
-    (lower, upper, prev_res, prev_up, ustack, nan_days), weights = _stages(
-        ops, obj, weights, cfg, quirks, box_min, sweep, F64)
+    kw = {}
+    if not plain and fused_stages(ops.x.device, ops.x.dtype,
+                                  weights.shape[-1], ops.x.shape[0],
+                                  reducer, grid):
+        L = obj.shape[0]
+        if weights.dim() == 1:
+            weights = weights.reshape(1, -1).expand(L, -1)
+        weights = weights.contiguous()
+        with span("solve.bracket"):
+            *state, nan_days, kw["widest"] = solve_stages(
+                ops, obj, weights, cfg, quirks, box_min)
+    else:
+        (*state, nan_days), weights = _stages(
+            ops, obj, weights, cfg, quirks, box_min, sweep, F64)
     with span("solve.bisect"):
-        roots = bisect(ops, lower.contiguous(), upper.contiguous(),
-                       prev_res.contiguous(), prev_up.contiguous(),
-                       ustack.contiguous(), obj, weights, tolerance, box_min,
-                       reducer=reducer)
+        roots = bisect(ops, *(t.contiguous() for t in state), obj, weights,
+                       tolerance, box_min, reducer=reducer, **kw)
     return roots, nan_days
 
 

@@ -233,10 +233,14 @@ def test_flagship_through_kernels(dev, est):
     bt = load_artifacts(os.path.join(DATA, f"flagship_artifacts_{est}.npz"),
                         data, device="cuda")
     before = (cq.launch_count(cq.masked_sweep),
-              cq.launch_count(cs.bisect_levels))
+              cq.launch_count(cs.bisect_levels),
+              cq.launch_count(cs.solve_stages))
     var = bt.calc_var(float(rec["obj_var"]))
-    assert cq.launch_count(cq.masked_sweep) > before[0]
-    assert cq.launch_count(cs.bisect_levels) > before[1]
+    # one card, float64, n = 100: the fused route (solve_stages, then K1
+    # counting on the device), no K2 stage sweep
+    assert cq.launch_count(cq.masked_sweep) == before[0]
+    assert cq.launch_count(cs.bisect_levels) == before[1] + 1
+    assert cq.launch_count(cs.solve_stages) == before[2] + 1
     np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
                                atol=ATOL_ROOT)
 
@@ -254,6 +258,185 @@ def test_kernels_reject_what_they_do_not_take(dev):
         cq.masked_sweep(ops, strided, weights)
     with pytest.raises(ValueError, match="float64"):
         cq.masked_sweep(ops, bounds.float(), weights)
+
+
+# -- the fused stages (solve_stages) and K1's count on the device -------------
+
+def _launches_now():
+    return {w.__name__: cq.launch_count(w) for w in (
+        cq.masked_sweep, cs.bisect_levels, cs.solve_stages)}
+
+
+def _composed(ops, obj, weights, cfg, quirks, tol=1e-6):
+    """The route the fused one replaces, called directly: the K2 stage-1
+    sweep (once for shared weights (2,), per row for (L, 2)),
+    `bracket_state_batched` over K2, then K1 for the host-counted
+    halvings. Returns (the bracket state, the (L, 2) weight rows,
+    roots)."""
+    T, L = ops.days, obj.shape[0]
+    stage1 = torch.tensor([-100.0, cfg[0]], dtype=torch.float64,
+                          device=obj.device)
+    if weights.dim() == 1:
+        rows = weights.reshape(1, 2).expand(L, 2).contiguous()
+        F1 = cq.masked_sweep(ops, stage1.expand(1, T, 2).contiguous(),
+                             weights.reshape(1, 2)).expand(L, T)
+    else:
+        rows = weights
+        F1 = cq.masked_sweep(ops, stage1.expand(L, T, 2).contiguous(), rows)
+    state = bracket_state_batched(
+        F1, obj, lambda b: cq.masked_sweep(ops, b.contiguous(), rows), cfg,
+        quirks)
+    roots = cs.bisect_levels(ops, *(t.contiguous() for t in state[:5]), obj,
+                             rows, tol)
+    return state, rows, roots
+
+
+def _fused_equals_composed(ops, obj, weights, cfg, quirks=False):
+    """solve_stages' outputs bit-equal to the composed route's state and
+    widest bracket; the solve (full_solve_levels for shared weights,
+    full_solve_portfolios per row) takes the fused route, launching
+    solve_stages and K1 once each and no K2, and its roots and NaN days
+    are the composed route's bits. Returns (roots, nan_days, widest)."""
+    state, rows, want = _composed(ops, obj, weights, cfg, quirks)
+    got = cs.solve_stages(ops, obj, rows, cfg, quirks)
+    for name, g, w in zip(("lower", "upper", "prev_res", "prev_up",
+                           "ustack", "nan_days"), got, state):
+        assert _same(g, w), name
+    widest = got[6]
+    assert torch.equal(widest, (state[1] - state[0]).max().reshape(1))
+    before = _launches_now()
+    solve = cs.full_solve_levels if weights.dim() == 1 else \
+        cs.full_solve_portfolios
+    roots, nan = solve(ops, obj, weights, cfg, quirks=quirks)
+    after = _launches_now()
+    assert {k: after[k] - before[k] for k in after} == {
+        "masked_sweep": 0, "bisect_levels": 1, "solve_stages": 1}
+    assert _same(roots, want)
+    assert torch.equal(nan, state[5])
+    return roots, nan, float(widest)
+
+
+@pytest.mark.parametrize("quirks", [False, True], ids=["plain", "quirks"])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+@pytest.mark.parametrize("L", [1, 4, 128])
+@pytest.mark.parametrize("n", [53, 100, 169])
+def test_solve_stages_route_equals_the_composed_route(dev, n, L, shared,
+                                                      quirks):
+    """The fused route against K2 stage sweeps + bracket_state_batched +
+    the host-counted K1, bit for bit, for one row, a few and the grid
+    cell's 128, with one portfolio shared by every row or one per row, and
+    the reference's anchor on and off, on a grid not a multiple of 32, the
+    flagship's n = 100 and K1's widest, 169; and against the plain twins
+    within ATOL_ROOT (brackets inside the grid, so the twin's all-zeros
+    break stays off)."""
+    ops = _ops(dev, "msm", T=23, n=n)
+    rng = np.random.default_rng(L)
+    obj = torch.tensor(rng.choice([0.01, 0.025, 0.05, 0.1, 0.2], L),
+                       device=dev)
+    w = rng.uniform(0.1, 0.9, (L, 1))
+    w = np.concatenate([w, 1.0 - w], axis=1)
+    weights = torch.tensor(w[0] if shared else w, device=dev)
+    roots, nan, _ = _fused_equals_composed(ops, obj, weights, CFG_IN_GRID,
+                                           quirks)
+    rows = weights.expand(L, 2) if shared else weights
+    want, want_nan = cs.full_solve_portfolios_reference(
+        ops, obj, rows.contiguous(), CFG_IN_GRID, quirks=quirks)
+    assert torch.equal(nan, want_nan)
+    assert float((roots - want).abs().max()) <= ATOL_ROOT
+
+
+def test_solve_stages_route_with_a_nan_day(dev):
+    """A NaN cell inside the stage slabs of two days: those days' results
+    are NaN and flagged, as on the composed route, bit for bit."""
+    def edit(V):
+        V[:2, 4, 9] = np.nan
+
+    ops = _ops(dev, "msm", T=9, n=48, edit=edit)
+    obj = torch.tensor([0.01, 0.05, 0.1], dtype=torch.float64, device=dev)
+    weights = torch.tensor([[0.5, 0.5], [0.3, 0.7], [0.6, 0.4]],
+                           dtype=torch.float64, device=dev)
+    roots, nan, _ = _fused_equals_composed(ops, obj, weights, CFG)
+    assert bool(nan[:, :2].all()) and not bool(nan[:, 2:].any())
+
+
+@pytest.mark.parametrize("cls", ["min_sg0", "sg0_fg", "fg_sg1", "sg1_max",
+                                 "nan"])
+def test_device_count_takes_each_width_class(dev, cls):
+    """Levels placed so that every (row, day) bracket, and so the widest,
+    falls in one width class of CFG: (min_var, sg0) 4.0, (sg0, fg) 0.5,
+    (fg, sg1) 1.0, (sg1, max_var) 2.0, and (min_var, max_var) 7.5 for a
+    NaN day. The device count takes the host's count for each, five
+    distinct counts, and the roots are the composed route's bits."""
+    def edit(V):
+        V[1:] = V[0]  # every day the same: one bracket class for all
+        if cls == "nan":
+            V[3, 4, 9] = np.nan
+
+    ops = _ops(dev, "garch", T=6, n=53, edit=edit)
+    w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
+    F = {b: float(cq.masked_sweep(ops, torch.tensor(
+        [[[-100.0, b]] * 6], dtype=torch.float64, device=dev),
+        w.reshape(1, 2))[0, 0]) for b in (-3.5, -3.0, -2.0)}
+    assert 0.0 < F[-3.5] < F[-3.0] < F[-2.0]
+    level = {"min_sg0": F[-3.5] / 2, "sg0_fg": (F[-3.5] + F[-3.0]) / 2,
+             "fg_sg1": (F[-3.0] + F[-2.0]) / 2, "sg1_max": 2 * F[-2.0],
+             "nan": F[-3.5] / 2}[cls]
+    width = {"min_sg0": 4.0, "sg0_fg": 0.5, "fg_sg1": 1.0, "sg1_max": 2.0,
+             "nan": 7.5}[cls]
+    obj = torch.full((3,), level, dtype=torch.float64, device=dev)
+    _, nan, widest = _fused_equals_composed(ops, obj, w, CFG)
+    assert widest == width
+    assert bool(nan.any()) == (cls == "nan")
+    assert sorted(cs.halvings(v, 1e-6) for v in (4.0, 0.5, 1.0, 2.0, 7.5)) \
+        == [19, 20, 21, 22, 23]
+
+
+def test_solve_stages_route_on_an_empty_block_launches_nothing(dev):
+    """Operands of 0 days on one card (no mesh): the fused route returns
+    empty roots and NaN days and launches nothing."""
+    ops = _ops(dev, "msm", T=4, days=slice(4, 4))
+    obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
+    w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
+    before = _launches_now()
+    roots, nan = cs.full_solve_levels(ops, obj, w, CFG)
+    out = cs.solve_stages(ops, obj, w.expand(2, 2).contiguous(), CFG)
+    assert roots.shape == nan.shape == (2, 0)
+    assert [t.shape for t in out[:6]] == [(2, 0)] * 6
+    assert torch.equal(out[6], torch.zeros(1, dtype=torch.float64,
+                                           device=dev))
+    assert _launches_now() == before
+
+
+def test_solve_stages_refuses_what_it_does_not_take(dev):
+    """The wrapper refuses a grid K1 does not hold, operands without P,
+    f32 operands and a device count with a day mesh; the launchers refuse
+    rows past the short form and K1 without its widest word."""
+    obj = torch.tensor([0.05], dtype=torch.float64, device=dev)
+    w = torch.tensor([[0.5, 0.5]], dtype=torch.float64, device=dev)
+    big = _ops(dev, "garch", T=2, n=cq.bisect_max_grid_points() + 1)
+    with pytest.raises(ValueError, match="shared"):
+        cs.solve_stages(big, obj, w, CFG)
+    ops = _ops(dev, "garch", T=2)
+    with pytest.raises(ValueError, match="prefix table"):
+        cs.solve_stages(ops._replace(P=None), obj, w, CFG)
+    with pytest.raises(ValueError, match="f64 engine"):
+        cs.solve_stages(_ops(dev, "garch", T=2, dtype=F32), obj, w, CFG)
+    state = cs.solve_stages(ops, obj, w, CFG)
+    with pytest.raises(ValueError, match="global MAX"):
+        cs.bisect_levels(ops, *state[:5], obj, w, 1e-6,
+                         reducer=DayMesh(None, 0, 1, dev), widest=state[6])
+    lib = _build.load()
+    invalid = 1  # cudaErrorInvalidValue
+
+    def stages(n):
+        return lib.cvt_solve_stages(*[None] * 5, -3.0, -3.5, -2.0, -7.5,
+                                    0.0, 0, -5.0, *[None] * 7, 0, n, 1,
+                                    cq.row_pitch(n), None)
+
+    assert (stages(192), stages(193)) == (0, invalid)
+    assert lib.cvt_bisect_levels_widest(*[None] * 11, -5.0, None, 1e-6,
+                                        None, 0, 48, 5, 1, None) == invalid
+    assert not hasattr(lib, "cvt_solve_stages_f32")
 
 
 # -- the dim-2 sweep (K2/K3): prefix table and interval rule -------------------

@@ -185,10 +185,11 @@ def dev():
 
 @pytest.mark.cuda
 def test_card_counters_and_spans_of_a_query(dev, book):
-    """On the card: the P build counts its launch and its bytes, a query
-    counts K2 and K1 launches and K1's halvings, reads the device twice
-    (the halving count and the gather), and no cvt. span appears on the
-    device's timeline."""
+    """On the card: the P build counts its launch and its bytes; a query
+    (float64, one card, n <= 169) takes the fused route, one solve_stages
+    launch and one K1 launch that counts its halvings on the device, so
+    no K2 launch and no `solve.halvings`, and reads the device once (the
+    gather); no cvt. span appears on the device's timeline."""
     path, data = book
     bt = load_artifacts(path, data, device="cuda")
     profiling.reset_counters()
@@ -202,11 +203,14 @@ def test_card_counters_and_spans_of_a_query(dev, book):
         bt.calc_var_portfolios([[0.5, 0.5]], obj_var=0.05)
         torch.cuda.synchronize()
     got = profiling.counters()
-    assert got["launch.masked_sweep"] == 2 and got["launch.bisect_levels"] == 1
-    assert got["solve.halvings"] > 0
+    assert got["launch.solve_stages"] == 1
+    assert got.get("launch.masked_sweep", 0) == 0
+    assert got["launch.bisect_levels"] == 1
+    assert "solve.halvings" not in got
     spans = _spans(prof)
     assert [n for n, _ in spans if n.startswith("cvt.sync.")] == [
-        "cvt.sync.halving_count", "cvt.sync.gather"]
+        "cvt.sync.gather"]
+    assert dict(spans)["cvt.launch.solve_stages"] == "cvt.solve.bracket"
     assert dict(spans)["cvt.launch.bisect_levels"] == "cvt.solve.bisect"
     cuda = torch.autograd.DeviceType.CUDA
     assert not [e.name for e in prof.events() if e.device_type == cuda
