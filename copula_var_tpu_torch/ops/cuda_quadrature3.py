@@ -332,19 +332,21 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
     T, dim, n = z.shape
     if dim != 3:
         raise ValueError(f"Contract3Operands: expected 3 assets, got {dim}")
-    sigma_inv, logdet = _chol_inv_logdet(corr)
-    with span("sync.logdet"):
-        logdet = float(logdet)
+    with span("prep.factor"):
+        sigma_inv, logdet = _chol_inv_logdet(corr)
+        with span("sync.logdet"):
+            logdet = float(logdet)
     log_norm = (float(student_log_norm(nu, logdet, 3))
                 if spec.kind == "student" else 0.0)
-    if densities is None:
-        w1 = w2 = dx[None, :]
-        G = dx[None, :, None, None].expand(T, n, 1, 1)
-    else:
-        w0, w1, w2 = state_weight_matrices(densities, dx)
-        q = w0.shape[0]
-        G = torch.einsum("ai,tabc->tibc", w0,
-                         forecast_combos.reshape(T, q, q, q))
+    with span("prep.state_weights"):
+        if densities is None:
+            w1 = w2 = dx[None, :]
+            G = dx[None, :, None, None].expand(T, n, 1, 1)
+        else:
+            w0, w1, w2 = state_weight_matrices(densities, dx)
+            q = w0.shape[0]
+            G = torch.einsum("ai,tabc->tibc", w0,
+                             forecast_combos.reshape(T, q, q, q))
     if dtype == F32:
         require_full_f32_matmul(z.device)
         f32 = lambda t: None if t is None else t.to(F32)  # noqa: E731

@@ -1,9 +1,9 @@
 """The port's spans and counters (`copula_var_tpu_torch/utils/profiling.py`):
 the off path creates nothing, the gate is the profiler's own flag, a span
 is a cpu_op event (the device's timeline gets no copy of it), the solve's
-and the prep's spans nest as PERF.md lists them on the CPU route, and the
-counters count halvings, launches, table bytes and builds (the last three
-on the card only)."""
+and the prep's spans nest as PERF.md lists them on the CPU route at dim 2
+and 3, and the counters count halvings, launches, table bytes and builds
+(the last three on the card only)."""
 
 import json
 import os
@@ -26,18 +26,30 @@ N_IN = 1135
 DAYS = 4
 
 
-@pytest.fixture(scope="module")
-def book(tmp_path_factory):
-    """The flagship MSM artifact cut to its first DAYS days, and the
-    matching returns."""
-    z = np.load(os.path.join(DATA, "flagship_artifacts_msm.npz"))
+def _cut_book(tmp_path_factory, artifacts, csv):
+    """The MSM artifact `artifacts` cut to its first DAYS days, and the
+    matching returns of `csv`."""
+    z = np.load(os.path.join(DATA, artifacts))
     arrays = {k: z[k] for k in z.files}
     for k in ("ii_forecasts_by_states", "ii_forecast_combos"):
         arrays[k] = arrays[k][:DAYS]
     path = str(tmp_path_factory.mktemp("book") / "msm.npz")
     np.savez(path, **arrays)
-    full = from_csv(CSV, n_insample=N_IN)
+    full = from_csv(csv, n_insample=N_IN)
     return path, from_returns(full.returns[:N_IN + DAYS], full.tickers, N_IN)
+
+
+@pytest.fixture(scope="module")
+def book(tmp_path_factory):
+    """The flagship book cut to its first DAYS days."""
+    return _cut_book(tmp_path_factory, "flagship_artifacts_msm.npz", CSV)
+
+
+@pytest.fixture(scope="module")
+def book3(tmp_path_factory):
+    """The three-asset book cut to its first DAYS days."""
+    return _cut_book(tmp_path_factory, "dim3_artifacts_msm.npz",
+                     os.path.join(DATA, "dim3.csv"))
 
 
 def _spans(prof):
@@ -117,6 +129,27 @@ def test_portfolio_solve_and_prep_spans_nest(book):
     # more to leave
     exits = [p for name, p in spans if name == "cvt.sync.bisect_exit"]
     assert exits and set(exits) == {"cvt.solve.bisect"}
+    order = [name for name, p in spans if p == "cvt.solve"]
+    assert order == ["cvt.solve.stage1", "cvt.solve.bracket",
+                     "cvt.solve.bisect", "cvt.solve.gather"]
+
+
+def test_dim3_prep_and_solve_spans_nest(book3):
+    """At dim 3 the operands' correlation factor (with its host read) and
+    state weights are spans of their own inside `cvt.prep.operands`, and
+    the solve's spans nest as at dim 2."""
+    path, data = book3
+    bt = load_artifacts(path, data, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bt.sweep_operands()
+        var = bt.calc_var_portfolios([[0.5, 0.3, 0.2]], obj_var=0.05)
+    assert var.shape == (1, DAYS)
+    spans = _spans(prof)
+    parent = dict(spans)
+    for child in ("cvt.prep.factor", "cvt.prep.state_weights"):
+        assert parent[child] == "cvt.prep.operands"
+    assert parent["cvt.sync.logdet"] == "cvt.prep.factor"
+    assert parent["cvt.prep.operands"] == "cvt.prep"
     order = [name for name, p in spans if p == "cvt.solve"]
     assert order == ["cvt.solve.stage1", "cvt.solve.bracket",
                      "cvt.solve.bisect", "cvt.solve.gather"]
@@ -212,6 +245,39 @@ def test_card_counters_and_spans_of_a_query(dev, book):
         "cvt.sync.gather"]
     assert dict(spans)["cvt.launch.solve_stages"] == "cvt.solve.bracket"
     assert dict(spans)["cvt.launch.bisect_levels"] == "cvt.solve.bisect"
+    cuda = torch.autograd.DeviceType.CUDA
+    assert not [e.name for e in prof.events() if e.device_type == cuda
+                and e.name.startswith(profiling.PREFIX)]
+
+
+@pytest.mark.cuda
+def test_card_counters_and_spans_of_a_dim3_query(dev, book3):
+    """On the card at dim 3: the table U is built once and counted; a
+    query takes the table route, one K4 launch for each stage sweep and
+    each host-counted halving and none of the rebuild, and reads the
+    device twice (the halving count and the gather)."""
+    path, data = book3
+    bt = load_artifacts(path, data, device="cuda")
+    profiling.reset_counters()
+    ops = bt.sweep_operands()
+    got = profiling.counters()
+    assert got["launch.contract3_weights"] == 1
+    assert got["prep.table_bytes"] == ops.U.nbytes
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bt.calc_var_portfolios([[0.5, 0.3, 0.2]], obj_var=0.05)
+        torch.cuda.synchronize()
+    got = profiling.counters()
+    assert got["solve.halvings"] > 0
+    assert got["launch.masked_contract3"] == got["solve.halvings"] + 2
+    assert got.get("launch.masked_contract3_rebuild", 0) == 0
+    spans = _spans(prof)
+    assert [n for n, _ in spans if n.startswith("cvt.sync.")] == [
+        "cvt.sync.halving_count", "cvt.sync.gather"]
+    launched = {p for n, p in spans if n == "cvt.launch.masked_contract3"}
+    assert launched == {"cvt.solve.stage1", "cvt.solve.bracket",
+                        "cvt.solve.bisect"}
     cuda = torch.autograd.DeviceType.CUDA
     assert not [e.name for e in prof.events() if e.device_type == cuda
                 and e.name.startswith(profiling.PREFIX)]
