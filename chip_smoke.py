@@ -298,8 +298,8 @@ KERNEL_SPANS = {
     "sweep_table": ("sweep_table_kernel",),
     "masked_sweep": ("prefix_sweep_kernel",),
     "bisect_levels": ("bisect_levels_kernel",),
-    "contract3_weights": ("contract3_weights_kernel",),
-    "masked_contract3": ("contract3_sweep_kernel", "contract3_sum_kernel"),
+    "contract3_weights": ("contract3_weights_kernel", "contract3_scan_kernel"),
+    "masked_contract3": ("contract3_sweep_kernel",),
     "contract3_row_flags": ("contract3_flags_kernel",),
     "masked_contract3_rebuild": ("contract3_rebuild_kernel",
                                  "contract3_sum_kernel"),
@@ -370,14 +370,15 @@ def bisect_bound(T, n, q, L, n_iters, isz=8):
                  isz)
 
 
-def contract3_bound(T, n, L, rows=None, isz=8):
+def contract3_bound(T, n, L, hits, rows=None, isz=8):
     """masked_contract3 (K4 sweep) on `rows` outer slabs (n by default):
-    the T rows n^2 cells of U (not the layout's pad cells, which are never
-    summed) and (L, T, 2) bounds in, (L, T) out; every row scanned once,
-    n lookups per (row, day, i0), rows partials summed per (row, day)."""
+    two stored prefixes of U per row lookup whose interval holds a grid
+    point (`hits`, `table_hits`), x and the (L, T, 2) bounds in, (L, T)
+    out; n lookups per (row, day, i0), rows partials summed per (row,
+    day)."""
     r = n if rows is None else rows
-    return bound(isz * (T * r * n * n + n + 2 * L * T + 3 * L + L * T),
-                 T * r * n * n + L * T * r * n * lookups(n) + L * T * r, isz)
+    return bound(isz * (2 * hits + n + 2 * L * T + 3 * L + L * T),
+                 L * T * r * n * lookups(n) + L * T * r, isz)
 
 
 def weights_bound(T, n, q, student, garch, isz=8):
@@ -1173,6 +1174,33 @@ def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
         used_rows += int((reach > 0).sum())
         used_slabs += int((slab > 0).sum())
     return cells, cols, used_rows, used_slabs
+
+
+def table_hits(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
+    """Row lookups of one table sweep whose interval (dlo, dup] holds a
+    grid point, over the bound rows, the days and the outer slabs `rows`
+    ((i0, i1), all by default), an exact count on the host with the
+    kernel's arithmetic (as `walk_cells`)."""
+    import torch
+
+    x = x.detach().cpu()
+    b = bounds.detach().cpu()
+    w = weights.detach().cpu()
+    x0 = x if rows is None else x[rows[0]:rows[1]]
+    lo_box = torch.tensor(box_min, dtype=x.dtype)
+    hits = 0
+    for t0 in range(0, b.shape[1], day_chunk):
+        for l in range(b.shape[0]):
+            prev = x0[:, None] * w[l, 1] + x[None, :] * w[l, 2]
+            bt = b[l, t0:t0 + day_chunk]
+            dup = (bt[:, 1, None, None] - prev) / w[l, 0]
+            dlo = torch.maximum((bt[:, 0, None, None] - prev) / w[l, 0],
+                                lo_box)
+            hi = torch.searchsorted(x, dup.contiguous(), right=True)
+            lo = torch.searchsorted(x, dlo.contiguous(), right=True)
+            hits += int(((hi > lo) & ~torch.isnan(dup)
+                         & ~torch.isnan(dlo)).sum())
+    return hits
 
 
 def rebuild_bound(T, n, q, L, student, garch, rows=None, walk=None,
@@ -2044,10 +2072,13 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
           f"{kb:.3e})")
     days = slice(0, TABLE_DAYS)
     n3 = ops3_m.x.shape[0]
+    want3, flags3 = cq3.contract3_table_reference(ops3_m, days)
+    if not torch.equal(ops3_m.flags[days], flags3):
+        raise AssertionError("f32 contract3_weights: row flags off the plain "
+                             "twin")
     errs["contract3_weights"] = close(
         f"contract3_weights dim3 MSM, {TABLE_DAYS} days",
-        cq3.table_cells(ops3_m.U[days], n3),
-        cq3.contract3_weights_reference(ops3_m, days))
+        cq3.table_cells(ops3_m.U[days], n3), want3)
     stage3 = np.stack([np.full(T3, -100.0), np.full(T3, -3.0)], -1)
     lo3 = rng.uniform(-6.0, -0.5, (3, T3))
     b3 = t32(np.concatenate(
@@ -2171,7 +2202,8 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
         "bisect_L1": bisect_bound(T, n, q, 1, n_iters, 4),
         f"bisect_L{L128}": bisect_bound(T, n, q, L128, n_iters, 4),
         "contract3_weights": weights_bound(T3, n3, q3, True, False, 4),
-        "contract3_L1": contract3_bound(T3, n3, 1, isz=4),
+        "contract3_L1": contract3_bound(
+            T3, n3, 1, table_hits(ops3_m.x, b3[:1], w3r[:1]), isz=4),
         "rebuild_n300_L1": rebuild_bound(ops300.days, WIDE_N_TIMED,
                                          ops300.w1.shape[0], 1, True, False,
                                          walk=(cells, fold), isz=4),
@@ -3407,7 +3439,10 @@ def main() -> int:
                                                            gauss))):
             n3 = ops3.x.shape[0]
             u_k = cq3.table_cells(ops3.U[days], n3)
-            u_p = cq3.contract3_weights_reference(ops3, days)
+            u_p, f_p = cq3.contract3_table_reference(ops3, days)
+            if not torch.equal(ops3.flags[days], f_p):
+                raise AssertionError(f"contract3_weights {est} {copula}: "
+                                     "row flags off the plain twin")
             close = torch.isclose(u_k, u_p, rtol=RTOL_TABLE, atol=1e-300,
                                   equal_nan=True)
             fin = torch.isfinite(u_p)
@@ -3419,7 +3454,7 @@ def main() -> int:
             if not bool((cq3.table_pads(ops3.U, n3) == 0).all()):
                 raise AssertionError("contract3_weights: pad cells not 0")
             err_u = max(err_u, e_u)
-            del u_k, u_p, close, fin
+            del u_k, u_p, f_p, close, fin
             k = cq3.masked_contract3(ops3, bounds3, w3rows, -5.0)
             p = cq3.masked_contract3_reference(ops3, bounds3, w3rows, -5.0)
             scale = float(p.abs().max())
@@ -3457,8 +3492,11 @@ def main() -> int:
             if not torch.equal(ops_r.U, ops3.U[:, rows[0]:rows[1]]):
                 raise AssertionError(f"contract3_weights {est} rows {rows}: "
                                      "not the whole table's slabs")
+            if not torch.equal(ops_r.flags, ops3.flags[:, rows[0]:rows[1]]):
+                raise AssertionError(f"contract3_weights {est} rows {rows}: "
+                                     "not the whole table's flags")
             u_k = cq3.table_cells(ops_r.U[days], n3)
-            u_p = cq3.contract3_weights_reference(ops_r, days)
+            u_p = cq3.contract3_table_reference(ops_r, days)[0]
             fin = torch.isfinite(u_p)
             if not bool(torch.isclose(u_k, u_p, rtol=RTOL_TABLE, atol=1e-300,
                                       equal_nan=True).all()):
@@ -3506,10 +3544,13 @@ def main() -> int:
               f"summed vs the whole launch {e_sum:.3e} rel "
               f"{e_sum / scale:.3e} (bound rel {RTOL_PARTS:g}); rows (0, "
               f"{n3}) bit-equal; repeats bit-equal")
-    u_first = bts3["msm"].sweep_operands().U
-    if not torch.equal(u_first, cq3.contract3_weights(
-            bts3["msm"].sweep_operands())):
-        raise AssertionError("contract3_weights: a rebuild changed U")
+    first = bts3["msm"].sweep_operands()
+    u_again, flags_again = cq3.contract3_weights(first)
+    if not (torch.equal(first.U, u_again)
+            and torch.equal(first.flags, flags_again)):
+        raise AssertionError("contract3_weights: a rebuild changed U or its "
+                             "flags")
+    del first, u_again, flags_again
     rng3 = np.random.default_rng(3)
     w_batch3 = rng3.dirichlet([2.0, 2.0, 2.0], size=ROWS_P3)
     t0 = time.perf_counter()
@@ -3822,10 +3863,15 @@ def main() -> int:
         "contract3_weights": weights_bound(
             T3, n3, q3, ops3_m.spec.kind == "student",
             ops3_m.p_cols is not None),
-        "contract3_L1": contract3_bound(T3, n3, 1),
-        f"contract3_L{L3}": contract3_bound(T3, n3, L3),
+        "contract3_L1": contract3_bound(
+            T3, n3, 1, table_hits(ops3_m.x, st3[None], tens(w3[None]))),
+        f"contract3_L{L3}": contract3_bound(
+            T3, n3, L3, table_hits(ops3_m.x, st3.expand(L3, T3, 2),
+                                   tens(w_rows3[:L3]))),
         f"sweep_rows{r25}_L1": sweep_bound(T, n, q, 1, rows=r25),
-        f"contract3_rows{r3_25}_L1": contract3_bound(T3, n3, 1, rows=r3_25),
+        f"contract3_rows{r3_25}_L1": contract3_bound(
+            T3, n3, 1, table_hits(ops3_m.x, b3_1, w3_1, rows=(0, r3_25)),
+            rows=r3_25),
     }
     # the profile holding each shape's kernel at that L (the serving
     # batches' fused stages run at L = 128, the dim-3 sweeps at 32)

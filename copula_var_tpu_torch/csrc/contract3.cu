@@ -7,26 +7,33 @@
 // masked quadrature: (L, T) slab integrals for L bound rows.
 //
 //   contract3_weights  builds, once per backtest, the bounds-invariant
-//                      table U (T, n, n, n) in device memory (rows padded
-//                      to an odd pitch, see below);
+//                      table U (T, n, n, n) in device memory in the form
+//                      the sweep reads (rows padded to an odd pitch, see
+//                      below): the cells (contract3_weights_kernel), then
+//                      each row as its inclusive prefix sum over i2, or
+//                      as its cells where it is flagged, with a byte per
+//                      (t, i0, i1) row that says which
+//                      (contract3_scan_kernel);
 //   masked_contract3   every sweep of the dim-3 solve (stage 1, stage 2,
-//                      each bisection halving): streams U through shared
-//                      memory (contract3_sweep_kernel), then sums the
-//                      per-slab partials in a fixed order
-//                      (contract3_sum_kernel).
+//                      each bisection halving): each row lookup reads the
+//                      two prefixes at its interval's ends, and each day's
+//                      partials are summed in a fixed order in the same
+//                      launch (contract3_sweep_kernel).
 //   contract3_row_flags
 //                      builds, once per backtest that sweeps without U, a
 //                      byte per (t, i0, i1) row: 1 where a cell of the
 //                      whole row is outside [-kMaxCell, kMaxCell] or NaN
-//                      (contract3_flags_kernel);
+//                      (contract3_flags_kernel); the table's build writes
+//                      the same bytes;
 //   masked_contract3_rebuild
 //                      the same sweep with no table: every launch forms
 //                      from the transform columns the cells its lookups
 //                      read, each row's prefix [0, max_l hi)
-//                      (contract3_rebuild_kernel), then the same sum
-//                      kernel. It serves the grids the table cannot: n
-//                      past the sweep's one-slab shared memory (169 at
-//                      q = 5), or a U larger than the card's free memory.
+//                      (contract3_rebuild_kernel), then sums the partials
+//                      (contract3_sum_kernel). It serves the grids the
+//                      table cannot: n past the build's one-slab shared
+//                      memory (169 at q = 5), or a U larger than the
+//                      card's free memory.
 //
 // What they compute, per row l and day t:
 //
@@ -42,34 +49,45 @@
 // the bounds nor on the portfolio weights.
 //
 // What bounds them on the H100, and the design:
-//   * contract3_weights writes T*n^3 f64 (4.0 GB at T = 500, n = 100):
-//     ~1.2 ms of HBM writes, against ~5e8 cells of f64 arithmetic with
-//     one log1p and one exp each. One block per (t, i0) slab, the cell
-//     arithmetic of the former fused kernel (same __dmul_rn / __dadd_rn
-//     order), written to global memory instead of shared memory. Rows
-//     (i1) have an odd pitch p = n | 1 (one zero pad cell when n is even)
-//     and each (t, i0) slab a stride of n*p rounded up to even, so every
-//     slab starts on 16 bytes and is a legal bulk-copy source, and the
-//     sweep's one-thread-per-row scan hits 16 distinct bank pairs.
-//   * contract3_sweep_kernel reads U once per sweep: 4.0 GB, 1.2 ms at
-//     3.35 TB/s, so it is bound by HBM. Persistent blocks, one per SM,
-//     walk the T*n slabs; the next slab arrives by a 1-D TMA bulk copy
-//     (cp.async.bulk + mbarrier) while the current one is summed (two
-//     buffers where they fit in 227 KB, n <= 119; one above). Each (i0,
-//     i1) row of the slab is turned in place into its inclusive prefix sum
-//     over i2 by one thread, in index order and in one pass (a warp-shuffle
-//     scan spent most of the sweep's time on f64 shuffles), so its masked
-//     sum is the interval rule of interval.cuh: two binary searches on x
-//     and one subtraction; a flagged row's cells are read back from the
-//     table. The row lookups of a slab are tasks (l, k): bound row l and
-//     the k-th span of kSpan = 64 consecutive i1, two per lane. Warps take
-//     tasks round-robin, with no block barrier per row; each task writes
-//     its warp's sum to partial[l, t, i0, k]. The span is fixed: a
-//     partial's bits depend on (l, t, i0, k) alone, not on L, so a row
-//     gets the same result alone or in a batch (at L = 1 two warps share a
-//     slab's lookups, at L = 32 each of 16 warps takes four tasks). The
-//     barriers are two per slab (prefix done, slab done).
-//   * the sum kernel adds the partials of each (l, t) in index order.
+//   * contract3_weights_kernel writes T*n^3 cells (4.0 GB in f64 at T =
+//     500, n = 100): ~1.2 ms of HBM writes, against ~5e8 cells of f64
+//     arithmetic with one log1p and one exp each. One block per (t, i0)
+//     slab, the cell arithmetic of the former fused kernel (same __dmul_rn
+//     / __dadd_rn order), written to global memory. Rows (i1) have an odd
+//     pitch p = n | 1 (one zero pad cell when n is even) and each (t, i0)
+//     slab a stride of n*p rounded up to 16 bytes, so every slab starts on
+//     16 bytes.
+//   * contract3_scan_kernel turns the table into its stored form in place,
+//     one block per slab: the slab into shared memory (its odd pitch puts
+//     the rows that one thread each scans on distinct bank pairs), each
+//     row into its inclusive prefix sum in index order by interval::
+//     scan_row (in double, each prefix rounded to Real where it is
+//     stored), a flagged row left as its cells, and the slab and its row
+//     flags back out, the flagged rows counted. One more read and write of
+//     the table, once per backtest; no second buffer. The slab in one block's shared memory
+//     is what limits the table route's n (169 in f64, the short rows'
+//     192 in f32).
+//   * contract3_sweep_kernel reads no slab and scans no row: a row lookup
+//     is interval::row_sum on the stored row: the row's dynamic bounds
+//     (two divisions), two binary searches on x in shared memory and,
+//     where the interval holds a grid point, the two prefixes at its ends
+//     (a flagged row: its cells [lo, hi)). One block per day t holds
+//     every slab of the day, its row flags (in shared memory) and every
+//     bound row. Its warps take tasks (i0, k), the k-th span of kSpan
+//     = 64 consecutive i1, two rows per lane, and run the bound rows of a
+//     task in turn, so the lookups of one row follow each other and hit
+//     the same ~0.8 KB row in L1. Each (l, task) writes its warp's sum to
+//     the partial (l, t, i0, k) in shared memory: a partial's bits depend
+//     on (l, t, i0, k) alone, not on L or on which warp takes it, so a row
+//     gets the same result alone or in a batch. After a block barrier the
+//     block adds each day's partials in index order, rounded to Real once
+//     (the order of the rebuild's sum kernel, in the same launch). What
+//     bounds it on the H100 at T = 500, n = 100: not bytes (two 32-byte
+//     sectors per non-empty lookup, ~55 MB a sweep at L = 1) but the
+//     instructions of all L*T*n^2 lookups, whatever their intervals hold:
+//     0.12-0.18 ms a sweep at L = 1, 2-3 ms at L = 32, where a probe that
+//     multiplied instead of dividing took 20-40 % less. Two tasks or four
+//     side by side in a warp ran slower (more registers, fewer warps).
 //   * Outer slabs: the sum over i0 is linear, so the build and the sweep
 //     take a range of slabs, i0 in [row0, row0 + rows) of the n outer grid
 //     points (grid sharding: each rank builds and sweeps the table of its
@@ -133,19 +151,18 @@
 // float as the plain twin's torch operations round them; every cell is
 // formed with the Rn<float> intrinsics and the accurate expf / log1pf.
 // Every prefix, row sum and partial is a double, rounded to float where it
-// is stored (U's prefix rows in the sweep, the rebuild's captured prefixes,
-// the sum kernel's output), so the f32 routes give each other's bits as
-// the f64 routes do. U in float is half the bytes (2.02 GB at T = 500,
-// n = 100); a slab's stride is rounded up to four floats (16 bytes, the
-// bulk copy's unit), and one padded slab fits a block's shared memory up
-// to n = 240, so the table sweep takes the short rows, n <= 192.
+// is stored (U's prefix rows, the rebuild's captured prefixes, each day's
+// sum), so the f32 routes give each other's bits as the f64 routes do. U
+// in float is half the bytes (2.02 GB at T = 500, n = 100); a slab's
+// stride is rounded up to four floats (16 bytes), and one padded slab fits
+// a block's shared memory up to n = 240, so the table takes the short
+// rows, n <= 192.
 //
 // Launchers: plain C, no allocation, no synchronisation, launched on the
 // caller's stream; each returns cudaGetLastError() (or
 // cudaErrorInvalidValue for shapes the kernels do not take).
 
 #include <cfloat>
-#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -155,8 +172,10 @@
 namespace {
 
 constexpr int kWeightsThreads = 256;
-constexpr int kSweepThreads = 512;
+constexpr int kScanThreads = 256;  // one per row, n <= kShortRow
+constexpr int kSweepThreads = 256;
 constexpr int kSweepWarps = kSweepThreads / 32;
+constexpr int kSumRows = 16;  // the sweep's bound rows per turn
 constexpr int kSpan = 64;  // consecutive i1 of one lookup task, 2 per lane
 constexpr int kSumThreads = 128;
 constexpr int kFlagsThreads = 256;
@@ -171,23 +190,25 @@ constexpr int kRebuildMinBlocks = 12;
 #endif
 constexpr int kWalkRows = CVT_WALK_ROWS;
 constexpr size_t kMaxSharedBytes = CVT_MAX_SHARED_BYTES;  // opt-in per block
-constexpr size_t kBarrierBytes = 16;        // two mbarriers
+static_assert(kScanThreads >= interval::kShortRow, "a thread per row");
 
 template <typename Real>
 __host__ __device__ size_t weights_shared_bytes(int n, int q) {
   return static_cast<size_t>(q) * n * sizeof(Real);
 }
 
-// one or two slab buffers (stride Reals each), x (n,), a flag per row
+// the scan: one padded slab (stride Reals)
 template <typename Real>
-__host__ __device__ size_t sweep_shared_bytes(int n, int stride, int bufs) {
-  return kBarrierBytes +
-         (static_cast<size_t>(bufs) * stride + n) * sizeof(Real) + n;
+__host__ __device__ size_t scan_shared_bytes(int stride) {
+  return static_cast<size_t>(stride) * sizeof(Real);
 }
 
-template <typename Real>
-__host__ __device__ int sweep_buffers(int n, int stride) {
-  return sweep_shared_bytes<Real>(n, stride, 2) <= kMaxSharedBytes ? 2 : 1;
+// the sweep: a turn's partials (min(L, kSumRows), rows * spans) and the
+// day's row flags (rows, n)
+__host__ __device__ inline size_t sweep_shared_bytes(int n, int rows, int L) {
+  const size_t m = static_cast<size_t>(rows) * ((n + kSpan - 1) / kSpan);
+  return m * (L < kSumRows ? L : kSumRows) * sizeof(double) +
+         static_cast<size_t>(rows) * n;
 }
 
 template <typename Real>
@@ -347,133 +368,128 @@ contract3_weights_kernel(const Real* __restrict__ z,             // (T, 3, n)
   }
 }
 
-// -- TMA 1-D bulk copies, completed on an mbarrier ---------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// One thread: expect `bytes` on `bar`, then copy them global -> shared.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
+// The stored form, in place, one block per (t, local) slab: the slab into
+// shared memory, each row i1 < n by thread i1 through interval::scan_row
+// (its inclusive prefix sum in index order, or its cells where it holds a
+// cell outside [-kMaxCell, kMaxCell] or NaN), the row's flag out, the
+// slab's flagged rows added to *flagged (an integer atomic: the same count
+// in any order), and the slab back. Pads are copied as they are (0).
+template <typename Real>
+__global__ void __launch_bounds__(kScanThreads)
+contract3_scan_kernel(Real* __restrict__ u,  // (T, rows, stride)
+                      unsigned char* __restrict__ flags,  // (T, rows, n)
+                      int* __restrict__ flagged,          // (1,)
+                      int n, int pitch, int stride) {
+  extern __shared__ __align__(16) unsigned char scan_shared[];
+  Real* slab = reinterpret_cast<Real*>(scan_shared);
+  Real* cells = u + static_cast<size_t>(blockIdx.x) * stride;
+  for (int j = threadIdx.x; j < stride; j += blockDim.x) slab[j] = cells[j];
+  __syncthreads();
+  const int i1 = threadIdx.x;
+  bool f = false;
+  if (i1 < n) {
+    f = interval::scan_row(slab + static_cast<size_t>(i1) * pitch, n);
+    flags[static_cast<size_t>(blockIdx.x) * n + i1] = f;
   }
+  const int slab_flagged = __syncthreads_count(f);
+  if (threadIdx.x == 0 && slab_flagged > 0) atomicAdd(flagged, slab_flagged);
+  for (int j = threadIdx.x; j < stride; j += blockDim.x) cells[j] = slab[j];
 }
 
+// The table sweep: one block per day t. The block first takes x and the
+// day's row flags into shared memory. Warps take the
+// day's tasks (i0, k) (slab i0, the k-th span of kSpan rows i1 = k kSpan +
+// c 32 + lane, c = 0 then 1) and run the bound rows l of a task in turn:
+// each lane's rows by interval::row_sum on the stored rows (a flagged row:
+// its cells), the lanes' sums by warp_sum into the partial (l, t, i0, k)
+// in shared memory. Bound rows go in turns of kSumRows; after each turn
+// thread l adds the day's partials of row l in index order and rounds the
+// sum to Real once into out[l, t].
 template <typename Real>
 __global__ void __launch_bounds__(kSweepThreads)
 contract3_sweep_kernel(const Real* __restrict__ u,  // (T, rows, stride)
+                       const unsigned char* __restrict__ flags,  // (T, rows, n)
                        const Real* __restrict__ x,        // (n,)
                        const Real* __restrict__ bounds,   // (L, T, 2)
                        const Real* __restrict__ weights,  // (L, 3)
                        Real box_min,
-                       double* __restrict__ partial,  // (L, T, rows, spans)
+                       Real* __restrict__ out,  // (L, T)
                        int T, int n, int row0, int rows, int L, int pitch,
-                       int stride, int bufs) {
+                       int stride) {
   using R = Rn<Real>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // (2,)
-  Real* buf = reinterpret_cast<Real*>(smem + kBarrierBytes);
-  Real* xs = buf + static_cast<size_t>(bufs) * stride;             // (n,)
-  unsigned char* flag = reinterpret_cast<unsigned char*>(xs + n);  // (n,)
+  __shared__ Real xs[interval::kShortRow];
+  extern __shared__ __align__(16) unsigned char sweep_shared[];
+  const int t = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int slabs = T * rows;
-  const uint32_t bytes = static_cast<uint32_t>(stride) * sizeof(Real);
-
+  const int spans = (n + kSpan - 1) / kSpan;  // tasks per slab
+  const int m = rows * spans;                 // partials per (l, t)
+  const size_t cells = static_cast<size_t>(rows) * n;  // the day's rows
+  double* part = reinterpret_cast<double*>(sweep_shared);  // (kSumRows, m)
+  unsigned char* fl = reinterpret_cast<unsigned char*>(
+      part + static_cast<size_t>(min(L, kSumRows)) * m);  // (rows, n)
   for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
-  if (threadIdx.x == 0) {
-    mbar_init(&bar[0]);
-    mbar_init(&bar[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int k = 0; k < bufs; ++k) {
-      const int s = blockIdx.x + k * gridDim.x;
-      if (s < slabs)
-        bulk_load(buf + static_cast<size_t>(k) * stride,
-                  u + static_cast<size_t>(s) * stride, bytes, &bar[k]);
-    }
-  }
+  for (size_t j = threadIdx.x; j < cells; j += blockDim.x)
+    fl[j] = flags[t * cells + j];
   __syncthreads();
 
-  for (int k = 0, s = blockIdx.x; s < slabs; ++k, s += gridDim.x) {
-    const int b = k % bufs;
-    Real* slab = buf + static_cast<size_t>(b) * stride;
-    mbar_wait(&bar[b], (k / bufs) & 1);
-    const int t = s / rows;
-    const int i0 = s - t * rows;  // the range's slab, grid point row0 + i0
-    const Real* cells = u + static_cast<size_t>(s) * stride;  // in HBM
-    for (int i1 = threadIdx.x; i1 < n; i1 += blockDim.x)
-      flag[i1] = interval::scan_row_once(
-          slab + static_cast<size_t>(i1) * pitch, n);
-    __syncthreads();
-    const Real x0 = xs[row0 + i0];
-    const int spans = (n + kSpan - 1) / kSpan;  // tasks per bound row
-    for (int task = warp; task < L * spans; task += kSweepWarps) {
-      const int l = task / spans;
-      const int k = task - l * spans;
-      const size_t o = static_cast<size_t>(l) * T + t;
-      const Real b_lo = bounds[2 * o];
-      const Real b_up = bounds[2 * o + 1];
-      const Real w_in = weights[3 * l];
-      const Real p0w = R::mul(x0, weights[3 * l + 1]);
-      const Real w_o2 = weights[3 * l + 2];
-      double acc = 0.0;
+  for (int l0 = 0; l0 < L; l0 += kSumRows) {
+    const int nl = min(kSumRows, L - l0);
+    for (int task = warp; task < m; task += kSweepWarps) {
+      const int i0 = task / spans;  // the range's slab, grid point row0 + i0
+      const int k = task - i0 * spans;
+      const Real* slab = u + (static_cast<size_t>(t) * rows + i0) * stride;
+      const Real x0 = xs[row0 + i0];
+      const Real* row[kSpan / 32];
+      Real xi[kSpan / 32];
+      bool flagged[kSpan / 32];
 #pragma unroll
       for (int c = 0; c < kSpan / 32; ++c) {
         const int i1 = k * kSpan + c * 32 + lane;
-        if (i1 < n) {
-          const Real prev = R::add(p0w, R::mul(xs[i1], w_o2));
-          const Real dup = R::div(R::sub(b_up, prev), w_in);
-          const Real d = R::div(R::sub(b_lo, prev), w_in);
-          // NaN-propagating max, as torch.maximum
-          const Real dlo = (d > box_min || d != d) ? d : box_min;
-          const size_t r = static_cast<size_t>(i1) * pitch;
-          acc += interval::row_sum<interval::kShortTop>(
-              slab + r, cells + r, flag[i1] != 0, xs, n, dlo, dup);
-        }
+        const bool in = i1 < n;
+        row[c] = in ? slab + static_cast<size_t>(i1) * pitch : nullptr;
+        xi[c] = in ? xs[i1] : Real(0);
+        flagged[c] = in && fl[i0 * n + i1] != 0;
       }
-      acc = interval::warp_sum(acc);
-      if (lane == 0) partial[(o * rows + i0) * spans + k] = acc;
+      for (int dl = 0; dl < nl; ++dl) {
+        const int l = l0 + dl;
+        const size_t o = static_cast<size_t>(l) * T + t;
+        const Real b_lo = bounds[2 * o];
+        const Real b_up = bounds[2 * o + 1];
+        const Real w_in = weights[3 * l];
+        const Real p0w = R::mul(x0, weights[3 * l + 1]);
+        const Real w_o2 = weights[3 * l + 2];
+        double acc = 0.0;
+#pragma unroll
+        for (int c = 0; c < kSpan / 32; ++c) {
+          if (row[c] != nullptr) {
+            const Real prev = R::add(p0w, R::mul(xi[c], w_o2));
+            const Real dup = R::div(R::sub(b_up, prev), w_in);
+            const Real d = R::div(R::sub(b_lo, prev), w_in);
+            // NaN-propagating max, as torch.maximum
+            const Real dlo = (d > box_min || d != d) ? d : box_min;
+            acc += interval::row_sum<interval::kShortTop>(
+                row[c], row[c], flagged[c], xs, n, dlo, dup);
+          }
+        }
+        acc = interval::warp_sum(acc);
+        if (lane == 0) part[static_cast<size_t>(dl) * m + task] = acc;
+      }
     }
-    // the prefix writes (generic proxy) before the next bulk copy (async
-    // proxy) into this buffer; every warp done with the slab and its flags
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const int next = s + bufs * gridDim.x;
-    if (threadIdx.x == 0 && next < slabs)
-      bulk_load(slab, u + static_cast<size_t>(next) * stride, bytes, &bar[b]);
+    __syncthreads();  // every partial of the turn in shared memory
+    for (int dl = threadIdx.x; dl < nl; dl += blockDim.x) {
+      const double* pr = part + static_cast<size_t>(dl) * m;
+      double sum = 0.0;
+#pragma unroll 8
+      for (int i = 0; i < m; ++i) sum += pr[i];
+      out[static_cast<size_t>(l0 + dl) * T + t] = static_cast<Real>(sum);
+    }
+    __syncthreads();  // the turn's partials read before the next overwrites
   }
 }
 
 // out[r] = sum_k partial[r, k] over the row's m partials, in index order,
-// rounded to Real once
+// rounded to Real once (the rebuild's partials)
 template <typename Real>
 __global__ void contract3_sum_kernel(const double* __restrict__ partial,
                                      Real* __restrict__ out, int m,
@@ -505,7 +521,7 @@ __host__ __device__ size_t rebuild_shared_bytes(int n, int q, int rows_l,
 
 // The row flags: flags[t, local, i1] = 1 when a cell of the whole row
 // (t, row0 + local, i1) lies outside [-kMaxCell, kMaxCell] or is NaN, the
-// test of interval::scan_row_once on the same cells (`cell`). One block
+// test of interval::scan_row on the same cells (`cell`). One block
 // per (t, local) slab; warps take rows, lanes columns.
 template <typename Real>
 __global__ void __launch_bounds__(kFlagsThreads)
@@ -620,7 +636,6 @@ contract3_rebuild_kernel(const Real* __restrict__ z,             // (T, 3, n)
                          int T, int n, int row0, int rows, int q,
                          int rows_l) {
   using R = Rn<Real>;
-  // not `smem`: contract3_sweep_kernel declares that name
   extern __shared__ __align__(16) unsigned char rebuild_shared[];
   __shared__ int warp_reach[kSpan / 32];
   const int tiles = (n + kSpan - 1) / kSpan;
@@ -738,88 +753,86 @@ contract3_rebuild_kernel(const Real* __restrict__ z,             // (T, 3, n)
   }
 }
 
-// a slab's stride: n * pitch rounded up to 16 bytes (the bulk copy's unit)
+// The table's layout: the odd row pitch, and a slab's stride n * pitch
+// rounded up to 16 bytes; and one padded slab in a block's shared memory
+// (the scan), with rows no longer than the short rows the sweep searches.
 template <typename Real>
 bool valid_layout(int n, int pitch, int stride) {
   constexpr long long unit = 16 / sizeof(Real);
   const long long np = static_cast<long long>(n) * pitch;
-  return pitch == interval::row_pitch(n) &&
-         stride == (np + unit - 1) / unit * unit;
+  return n > 0 && n <= interval::kShortRow &&
+         pitch == interval::row_pitch(n) &&
+         stride == (np + unit - 1) / unit * unit &&
+         scan_shared_bytes<Real>(stride) <= kMaxSharedBytes;
 }
 
+// u: the table (T, rows, stride) of the slabs [row0, row0 + rows) of every
+// day, in its stored form; flags (T, rows, n) its row flags; *flagged (set
+// to 0 by the caller) gains the number of flagged rows.
 template <typename Real>
 int contract3_weights(const Real* z, const unsigned char* fin, const Real* lu,
                       const Real* p, const Real* w1, const Real* w2,
                       const Real* g, const double* sigma_inv, int student,
                       double nu, double log_norm, double logdet, Real* u,
-                      int T, int n, int row0, int rows, int q, int pitch,
-                      int stride, void* stream) {
-  if (n <= 0 || q <= 0 || T < 0 || !valid_layout<Real>(n, pitch, stride) ||
+                      unsigned char* flags, int* flagged, int T, int n,
+                      int row0, int rows, int q, int pitch, int stride,
+                      void* stream) {
+  if (q <= 0 || T < 0 || !valid_layout<Real>(n, pitch, stride) ||
       row0 < 0 || rows <= 0 || row0 + rows > n ||
       static_cast<long long>(T) * rows > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = weights_shared_bytes<Real>(n, q);
+  const size_t scan = scan_shared_bytes<Real>(stride);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       contract3_weights_kernel<Real>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(contract3_scan_kernel<Real>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(scan));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0) return 0;
-  contract3_weights_kernel<Real><<<T * rows, kWeightsThreads, bytes,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  contract3_weights_kernel<Real><<<T * rows, kWeightsThreads, bytes, s>>>(
       z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet, u,
       T, n, row0, rows, q, pitch, stride);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  contract3_scan_kernel<Real><<<T * rows, kScanThreads, scan, s>>>(
+      u, flags, flagged, n, pitch, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// u: the slabs [row0, row0 + rows) of every day; partial: (L, T, rows,
-// ceil(n / kSpan)) scratch, summed in order into out. The table sweep
-// searches the short rows (interval::kShortTop), so it takes n <= 192.
+// u, flags: the table and row flags of the slabs [row0, row0 + rows) of
+// every day (contract3_weights), out (L, T). The sweep searches the short
+// rows (interval::kShortTop), so it takes n <= 192, and a table that the
+// build makes.
 template <typename Real>
-int masked_contract3(const Real* u, const Real* x, const Real* bounds,
-                     const Real* weights, double box_min, double* partial,
-                     Real* out, int T, int n, int row0, int rows, int L,
-                     int pitch, int stride, void* stream) {
-  if (n <= 0 || n > interval::kShortRow || T < 0 || L < 0 ||
-      !valid_layout<Real>(n, pitch, stride) ||
+int masked_contract3(const Real* u, const unsigned char* flags,
+                     const Real* x, const Real* bounds, const Real* weights,
+                     double box_min, Real* out, int T, int n, int row0,
+                     int rows, int L, int pitch, int stride, void* stream) {
+  if (T < 0 || L < 0 || !valid_layout<Real>(n, pitch, stride) ||
       row0 < 0 || rows <= 0 || row0 + rows > n ||
       static_cast<long long>(T) * rows > 0x7fffffffLL ||
       static_cast<long long>(L) * T > 0x7fffffffLL ||
-      static_cast<long long>(L) * ((n + kSpan - 1) / kSpan) > 0x7fffffffLL) {
+      static_cast<long long>(rows) * ((n + kSpan - 1) / kSpan) >
+          0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bufs = sweep_buffers<Real>(n, stride);
-  const size_t bytes = sweep_shared_bytes<Real>(n, stride, bufs);
+  const size_t bytes = sweep_shared_bytes(n, rows, L);
   if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       contract3_sweep_kernel<Real>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (T == 0 || L == 0) return 0;
-  int device = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, contract3_sweep_kernel<Real>, kSweepThreads, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long slabs = static_cast<long long>(T) * rows;
-  const int grid = static_cast<int>(
-      slabs < static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1)
-          ? slabs
-          : static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  contract3_sweep_kernel<Real><<<grid, kSweepThreads, bytes, s>>>(
-      u, x, bounds, weights, static_cast<Real>(box_min), partial, T, n, row0,
-      rows, L, pitch, stride, bufs);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int sums = L * T;  // one per (bound row, day)
-  const int m = rows * ((n + kSpan - 1) / kSpan);  // partials per sum
-  contract3_sum_kernel<Real><<<(sums + kSumThreads - 1) / kSumThreads,
-                               kSumThreads, 0, s>>>(partial, out, m, sums);
+  contract3_sweep_kernel<Real><<<T, kSweepThreads, bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      u, flags, x, bounds, weights, static_cast<Real>(box_min), out, T, n,
+      row0, rows, L, pitch, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -914,18 +927,21 @@ int masked_contract3_rebuild(
       const Real* z, const unsigned char* fin, const Real* lu,                \
       const Real* p, const Real* w1, const Real* w2, const Real* g,           \
       const double* sigma_inv, int student, double nu, double log_norm,       \
-      double logdet, Real* u, int T, int n, int row0, int rows, int q,        \
-      int pitch, int stride, void* stream) {                                  \
+      double logdet, Real* u, unsigned char* flags, int* flagged, int T,      \
+      int n, int row0, int rows, int q, int pitch, int stride,                \
+      void* stream) {                                                         \
     return contract3_weights<Real>(z, fin, lu, p, w1, w2, g, sigma_inv,       \
-                                   student, nu, log_norm, logdet, u, T, n,    \
-                                   row0, rows, q, pitch, stride, stream);     \
+                                   student, nu, log_norm, logdet, u, flags,   \
+                                   flagged, T, n, row0, rows, q, pitch,       \
+                                   stride, stream);                           \
   }                                                                           \
   extern "C" int cvt_masked_contract3##SUFFIX(                                \
-      const Real* u, const Real* x, const Real* bounds, const Real* weights,  \
-      double box_min, double* partial, Real* out, int T, int n, int row0,     \
-      int rows, int L, int pitch, int stride, void* stream) {                 \
-    return masked_contract3<Real>(u, x, bounds, weights, box_min, partial,    \
-                                  out, T, n, row0, rows, L, pitch, stride,    \
+      const Real* u, const unsigned char* flags, const Real* x,               \
+      const Real* bounds, const Real* weights, double box_min, Real* out,     \
+      int T, int n, int row0, int rows, int L, int pitch, int stride,         \
+      void* stream) {                                                         \
+    return masked_contract3<Real>(u, flags, x, bounds, weights, box_min, out, \
+                                  T, n, row0, rows, L, pitch, stride,         \
                                   stream);                                    \
   }                                                                           \
   extern "C" int cvt_contract3_row_flags##SUFFIX(                             \

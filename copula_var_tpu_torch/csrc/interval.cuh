@@ -121,8 +121,9 @@ __device__ __forceinline__ double row_sum(const Real* row, const Real* cells,
 // One thread turns row[0, n) into its inclusive prefix sum in place, in
 // index order, unless the row holds a cell outside [-kMaxCell, kMaxCell]
 // (NaN included): then the row is left as it was, to be summed cell by
-// cell, and the thread returns true. The first pass only checks the
-// cells; the second sums them (in double, each prefix rounded to Real).
+// cell, and the thread returns true (the stored form of K2's P and K4's
+// U). The first pass only checks the cells; the second sums them (in
+// double, each prefix rounded to Real).
 template <typename Real>
 __device__ __forceinline__ bool scan_row(Real* row, int n) {
   bool ok = true;
@@ -136,24 +137,6 @@ __device__ __forceinline__ bool scan_row(Real* row, int n) {
     row[j] = static_cast<Real>(s);
   }
   return false;
-}
-
-// One pass of one thread: row[0, n) becomes its inclusive prefix sum in
-// place, in index order; returns true when the row holds a cell outside
-// [-kMaxCell, kMaxCell] (NaN included). A flagged row's sums are of no
-// use then, so its cells must be kept elsewhere (K4: the table).
-template <typename Real>
-__device__ __forceinline__ bool scan_row_once(Real* row, int n) {
-  bool ok = true;
-  double s = 0.0;
-#pragma unroll 4
-  for (int j = 0; j < n; ++j) {
-    const Real c = row[j];
-    ok &= fabs(c) <= kMaxCell;
-    s += static_cast<double>(c);
-    row[j] = static_cast<Real>(s);
-  }
-  return !ok;
 }
 
 // A running double sum as its stored prefix reads back: rounded to Real

@@ -63,12 +63,13 @@ _KERNELS = {
     },
     "contract3.cu": {
         # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
-        # logdet, U, T, n, row0, rows, q, pitch, stride, stream
-        "cvt_contract3_weights": [_P] * 8 + [_I] + [_D] * 3 + [_P]
+        # logdet, U, flags, flagged, T, n, row0, rows, q, pitch, stride,
+        # stream
+        "cvt_contract3_weights": [_P] * 8 + [_I] + [_D] * 3 + [_P] * 3
         + [_I] * 7 + [_P],
-        # U, x, bounds, weights, box_min, partial, out, T, n, row0, rows, L,
+        # U, flags, x, bounds, weights, box_min, out, T, n, row0, rows, L,
         # pitch, stride, stream
-        "cvt_masked_contract3": [_P] * 4 + [_D] + [_P] * 2 + [_I] * 7 + [_P],
+        "cvt_masked_contract3": [_P] * 5 + [_D, _P] + [_I] * 7 + [_P],
         # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
         # logdet, flags, T, n, row0, rows, q, stream
         "cvt_contract3_row_flags": [_P] * 8 + [_I] + [_D] * 3 + [_P]

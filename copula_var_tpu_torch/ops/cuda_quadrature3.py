@@ -3,40 +3,45 @@
 
 `contract3_weights` builds, once per backtest, the bounds-invariant table
 U[t, i0, i1, i2] = V_t[i0, i1, i2] * sum_{b,c} W1[b, i1] G[t, i0, b, c]
-W2[c, i2] (the density folded with its state weights); `masked_contract3`
-evaluates L rows of (T,) slab integrals of a three-asset backtest as
-masked sums of U; `masked_contract3_rebuild` evaluates the same sums with
-no table, forming on each launch, from the transform columns, the cells
-its lookups read (each row's prefix up to the longest interval's end).
-`contract3_row_flags` builds, once per backtest swept that way, a byte per
-(day, i0, i1) row that says whether a cell of the whole row lies outside
-[-MAX_CELL, MAX_CELL] or is NaN (the interval rule then sums the row cell
-by cell). Tensors on a CUDA device launch the hand-written kernels of
-csrc/contract3.cu (`contract3_weights_kernel`; `contract3_sweep_kernel`
-and `contract3_sum_kernel`; `contract3_flags_kernel`;
-`contract3_rebuild_kernel` and the same sum kernel), which replace the
+W2[c, i2] (the density folded with its state weights) in its stored form:
+each (day, i0, i1) row as its inclusive prefix sum over i2, or as its
+cells where the row is flagged, with the row flags. A row is flagged where
+a cell of it lies outside [-MAX_CELL, MAX_CELL] or is NaN (the interval
+rule then sums it cell by cell). `masked_contract3` evaluates L rows of
+(T,) slab integrals of a three-asset backtest as masked sums of U: each
+row lookup reads the two prefixes at its interval's ends.
+`masked_contract3_rebuild` evaluates the same sums with no table, forming
+on each launch, from the transform columns, the cells its lookups read
+(each row's prefix up to the longest interval's end).
+`contract3_row_flags` builds the row flags alone, once per backtest swept
+that way. Tensors on a CUDA device launch the hand-written kernels of
+csrc/contract3.cu (`contract3_weights_kernel` and `contract3_scan_kernel`;
+`contract3_sweep_kernel`; `contract3_flags_kernel`;
+`contract3_rebuild_kernel` and `contract3_sum_kernel`), which replace the
 Pallas kernel `_kernel3` (K4); tensors on the CPU run the plain twins
-`contract3_weights_reference`, `contract3_row_flags_reference` and
-`masked_contract3_reference`, i.e. the transform-cached sweeps of
-`ops/quadrature.py`, row by row. There is no other route.
+`contract3_weights_reference`, `contract3_table_reference`,
+`contract3_row_flags_reference` and `masked_contract3_reference`, i.e. the
+transform-cached sweeps of `ops/quadrature.py`, row by row. There is no
+other route.
 
 The route is `contract3_route(T, n, q, rows, free_bytes)`, one of three:
 "table" when n <= `table_max_grid_points(q)` (one slab in a block's
-shared memory: 169 at q = 5) and U fits in the card's free memory;
+shared memory for the build's scan: 169 at q = 5) and U fits in the
+card's free memory;
 "rebuild" when the flag table (T rows n bytes, 45 MB at T = 500, n =
 300) fits; else "rebuild_full", the same rebuild kernel without flags,
 which walks every row with an interval whole and flags it by the scan.
 All take n <= 1024 (the interval rule's rows). `contract3_operands`
-builds U on the table route and the flags on the rebuild route. The
-routes give the same bits wherever they serve (the rebuild's 64-row
-tiles are the table sweep's lookup spans, and every row takes the
+builds U and its flags on the table route and the flags on the rebuild
+route. The routes give the same bits wherever they serve (the rebuild's
+64-row tiles are the table sweep's lookup spans, and every row takes the
 table's branch), so memory is a matter of speed, not of the answer.
 
 U holds T*n^3 float64 (4.0 GB at T = 500, n = 100, 4.04 GB with its
-pads) on the card. Its rows have an odd pitch (`row_pitch`) and its
-(t, i0) slabs an even stride (`slab_stride`), so every slab starts on 16
-bytes, as the sweep's bulk copies need, and one thread per row scans the
-slab without bank conflicts; `table_cells` views the cells.
+pads) on the card, and its flags T*n^2 bytes (5 MB). Its rows have an odd
+pitch (`row_pitch`) and its (t, i0) slabs a stride rounded to 16 bytes
+(`slab_stride`), so one thread per row scans a slab in shared memory
+without bank conflicts; `table_cells` views the stored rows.
 
 The routes and the rebuild's tile are computed here, from the limits
 `ops/_build.py` compiles into the kernels (a block's shared memory, the
@@ -127,10 +132,11 @@ class Contract3Operands(NamedTuple):
     logdet and nu as floats. Every other floating tensor is float64 (the
     f64 engine) or float32 (the f32 engine).
     Sweep kernel's input: U (T, r, slab_stride(n)), the table built from
-    those on a CUDA device for the r outer slabs held; None on the CPU.
-    Rebuild kernel's input: flags (T, r, n) bool, the row flags of the r
-    outer slabs held (the "rebuild" route); None on the other routes and
-    on the CPU, where the rebuild walks full rows.
+    those on a CUDA device for the r outer slabs held, in its stored form
+    (prefix rows, flagged rows as cells); None on the CPU.
+    flags (T, r, n) bool, the row flags of the r outer slabs held (the
+    "table" and "rebuild" routes); None on the full-row route and on the
+    CPU, where the rebuild walks full rows.
     rows: (i0, i1), the outer grid rows (slabs i0) held, or None for
     all."""
 
@@ -185,7 +191,7 @@ def _require_kernel_copula(kind: str) -> None:
 def slab_stride(n: int, dtype=F64) -> int:
     """Entries of `dtype` per (t, i0) slab of U: n rows of
     `row_pitch(n)`, rounded up to a multiple of 16 bytes (2 float64 or 4
-    float32 entries), the bulk copy's unit."""
+    float32 entries)."""
     m, unit = n * row_pitch(n), 16 // itemsize(dtype)
     return -(-m // unit) * unit
 
@@ -220,24 +226,23 @@ def require_table_fits(T: int, n: int, free_bytes: int,
         )
 
 
-def _sweep_shared_bytes(n: int, dtype=F64) -> int:
-    """The table sweep's shared memory at one slab buffer: two mbarriers,
-    the slab, x and a flag byte per row (the layout of csrc
-    `sweep_shared_bytes`)."""
-    return 16 + (slab_stride(n, dtype) + n) * itemsize(dtype) + n
+def _scan_shared_bytes(n: int, dtype=F64) -> int:
+    """The build's scan's shared memory: one padded slab (csrc
+    `scan_shared_bytes`)."""
+    return slab_stride(n, dtype) * itemsize(dtype)
 
 
 def table_max_grid_points(q: int, dtype=F64) -> int:
     """The largest n of the table route at q states (169 at q = 5 in
-    float64, 192 in float32): one padded n x n slab, x and the row flags
-    in one block's shared memory, rows no longer than the short rows the
+    float64, 192 in float32): one padded n x n slab in one block's shared
+    memory (the build's scan), rows no longer than the short rows the
     sweep searches, and the build kernel's (q, n) fold."""
     isz = itemsize(dtype)
     n = 1
     while True:
         m = n + 1
         if (m > BISECT_MAX_ROW
-                or _sweep_shared_bytes(m, dtype) > MAX_SHARED_BYTES
+                or _scan_shared_bytes(m, dtype) > MAX_SHARED_BYTES
                 or q * m * isz > MAX_SHARED_BYTES):
             return n
         n = m
@@ -291,7 +296,7 @@ def contract3_route(T: int, n: int, q: int, rows: Optional[int],
 
 def table_cells(U: torch.Tensor, n: int) -> torch.Tensor:
     """(T, r, n, n) view of the padded table (T, r, slab_stride(n,
-    U.dtype))."""
+    U.dtype)): its stored rows."""
     p = row_pitch(n)
     return U[..., : n * p].reshape(U.shape[0], U.shape[1], n, p)[..., :n]
 
@@ -314,9 +319,9 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
     to float32, as JAX's f32 dim-3 caches. With `days` (a slice of the T
     days: a day mesh's block) the operands of those days, cut after G is
     formed over all T. On a CUDA device the table U of the operands' days
-    is built here, once, where `contract3_route` takes the table, and the
-    row flags where it takes the rebuild; else both stay None (on the
-    CPU, and on the full-row route)."""
+    and its row flags are built here, once, where `contract3_route` takes
+    the table, and the row flags alone where it takes the rebuild; else
+    both stay None (on the CPU, and on the full-row route)."""
     itemsize(dtype)
     _require_kernel_copula(spec.kind)
     if spec.kind == "student":
@@ -374,7 +379,8 @@ def contract3_operands(cols, x, dx, spec: CopulaSpec, densities=None,
         route = contract3_route(T, n, ops.w1.shape[0], ops.n_rows,
                                 free_device_bytes(z.device), dtype)
         if route == "table":
-            ops = ops._replace(U=contract3_weights(ops))
+            U, flags = contract3_weights(ops)
+            ops = ops._replace(U=U, flags=flags)
         elif route == "rebuild":
             ops = ops._replace(flags=contract3_row_flags(ops))
     return ops
@@ -408,6 +414,20 @@ def contract3_weights_reference(ops: Contract3Operands, days=slice(None)):
     for s, U in _table_chunks(ops, days):
         out[s] = U
     return out
+
+
+def contract3_table_reference(ops: Contract3Operands, days=slice(None)):
+    """Plain PyTorch twin of the table's stored form, on any device:
+    (S (D, r, n, n), flags (D, r, n) bool) for the days `days` selects and
+    the operands' outer slabs, unpadded. A row of U holding a cell outside
+    [-MAX_CELL, MAX_CELL] (NaN included) is flagged and kept as its cells;
+    every other row is its inclusive prefix sum over i2, accumulated in
+    float64 in index order and rounded to the operands' type once, as the
+    build's scan stores it."""
+    U = contract3_weights_reference(ops, days)
+    flags = ~(U.abs() <= MAX_CELL).all(dim=-1)
+    prefix = torch.cumsum(U.to(F64), dim=-1).to(U.dtype)
+    return torch.where(flags[..., None], U, prefix), flags
 
 
 def contract3_row_flags_reference(ops: Contract3Operands,
@@ -459,9 +479,13 @@ def contract3_row_flags(ops: Contract3Operands):
 
 def contract3_weights(ops: Contract3Operands):
     """The padded table U (T, r, slab_stride(n)) of the operands' r outer
-    slabs on their CUDA device: the build kernel (one block per (day, i0)
-    slab), launched after checking that the card's free memory holds the
-    table. Other devices raise: the CPU route sums
+    slabs in its stored form, and its row flags (T, r, n) bool, on their
+    CUDA device: the build kernel (one block per (day, i0) slab), then the
+    scan (each slab's rows into their prefix sums in place, a flagged row
+    kept as its cells), launched after checking that the card's free
+    memory holds the table. The flagged rows are counted
+    (`prep.flagged_rows`, one host read), and U's and the flags' bytes
+    (`prep.table_bytes`). Other devices raise: the CPU route sums
     `contract3_weights_reference`'s cells through the plain sweep and
     needs no table."""
     dev = ops.z.device
@@ -473,10 +497,15 @@ def contract3_weights(ops: Contract3Operands):
         r, dt = ops.n_rows, ops.dtype
         require_table_fits(T, n, free_device_bytes(dev), r, dt)
         U = torch.empty((T, r, slab_stride(n, dt)), dtype=dt, device=dev)
-        count("prep.table_bytes", U.nbytes)
+        flags = torch.empty((T, r, n), dtype=torch.bool, device=dev)
+        count("prep.table_bytes", U.nbytes + flags.nbytes)
         if T == 0:  # an empty day block: no launch
-            return U
+            count("prep.flagged_rows", 0)
+            return U, flags
         p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+        # the kernel's count of flagged rows (a sum over the flags would
+        # cast all of them to int64 first)
+        flagged = torch.zeros(1, dtype=torch.int32, device=dev)
         fn = _build.function("cvt_contract3_weights", dt)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -484,12 +513,15 @@ def contract3_weights(ops: Contract3Operands):
                 ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
                 ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
                 ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
-                ops.nu, ops.log_norm, ops.logdet, U.data_ptr(), T, n,
-                ops.row0, r, q, row_pitch(n), slab_stride(n, dt), stream,
+                ops.nu, ops.log_norm, ops.logdet, U.data_ptr(),
+                flags.data_ptr(), flagged.data_ptr(), T, n, ops.row0, r, q,
+                row_pitch(n), slab_stride(n, dt), stream,
             )
         _build.check(status, "contract3_weights")
+        with span("sync.flagged_rows"):
+            count("prep.flagged_rows", int(flagged))
     count_launch(contract3_weights, dt)
-    return U
+    return U, flags
 
 
 def masked_contract3_reference(ops: Contract3Operands, bounds, weights,
@@ -529,9 +561,9 @@ def check_contract3_operands(ops: Contract3Operands):
     if n > n_max:
         raise ValueError(
             f"num_points={n} needs an {n}x{n} {ops.dtype} slab in one "
-            f"block's shared memory; the dim-3 table and its sweep take n "
-            f"<= {n_max} at q={q} (wider grids sweep by the rebuild kernel, "
-            "`masked_contract3_rebuild`)"
+            f"block's shared memory; the dim-3 table's build and its sweep "
+            f"take n <= {n_max} at q={q} (wider grids sweep by the rebuild "
+            "kernel, `masked_contract3_rebuild`)"
         )
     return T, n, q
 
@@ -539,40 +571,38 @@ def check_contract3_operands(ops: Contract3Operands):
 def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
     """(L, T) slab integrals for bounds (L, T, 2) and per-row portfolio
     weights (L, 3) ([inner, outer0, outer1]), the share of the operands'
-    outer slabs. CPU tensors run the plain twin; CUDA tensors launch the sweep kernel on the table U (persistent
-    blocks stream its slabs through shared memory; each bound row is a
-    prefix-interval sum per grid row), then a fixed-order sum over the
-    outer index; any other device raises."""
+    outer slabs. CPU tensors run the plain twin; CUDA tensors launch the
+    sweep kernel on the table U and its flags (one block per day: each row
+    lookup reads the two prefixes at its interval's ends, or a flagged
+    row's cells, then the day's fixed-order sum over the outer index, in
+    the same launch); any other device raises."""
     dev = ops.z.device
     if dev.type == "cpu":
         return masked_contract3_reference(ops, bounds, weights, box_min)
     if dev.type != "cuda":
         raise ValueError(f"masked_contract3: unsupported device {dev}")
     with span("launch.masked_contract3"):
-        if ops.U is None:
+        if ops.U is None or ops.flags is None:
             raise ValueError("masked_contract3: the operands carry no "
                              "table U (build them with contract3_operands)")
         T, n, r = ops.days, ops.x.shape[0], ops.n_rows
         dt = ops.dtype
         itemsize(dt)
         _check_operand("U", ops.U, (T, r, slab_stride(n, dt)), dev, dt)
+        _check_operand("flags", ops.flags, (T, r, n), dev, torch.bool)
         _check_operand("x", ops.x, (n,), dev, dt)
         L = bounds.shape[0]
         _check_operand("bounds", bounds, (L, T, 2), dev, dt)
         _check_operand("weights", weights, (L, 3), dev, dt)
         fn = _build.function("cvt_masked_contract3", dt)
-        # the kernel's partials per (row, day): one per i0 held and span of
-        # 64 i1, float64, summed in order
-        partial = torch.empty((L, T, r * -(-n // 64)), dtype=F64,
-                              device=dev)
         out = torch.empty((L, T), dtype=dt, device=dev)
         if out.numel() == 0:  # an empty day block: no launch
             return out
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = fn(
-                ops.U.data_ptr(), ops.x.data_ptr(), bounds.data_ptr(),
-                weights.data_ptr(), float(box_min), partial.data_ptr(),
+                ops.U.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
+                bounds.data_ptr(), weights.data_ptr(), float(box_min),
                 out.data_ptr(), T, n, ops.row0, r, L, row_pitch(n),
                 slab_stride(n, dt), stream,
             )

@@ -46,6 +46,7 @@ from copula_var_tpu_torch.ops.quadrature import (
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched
 from copula_var_tpu_torch.parallel.mesh import DayMesh
+from copula_var_tpu_torch.utils import profiling
 from copula_var_tpu_torch.utils.artifacts import load_artifacts
 
 pytestmark = pytest.mark.cuda
@@ -694,30 +695,34 @@ def test_masked_contract3_rejects_what_it_does_not_take(dev):
 @pytest.mark.parametrize("family", ["msm", "garch"])
 @pytest.mark.parametrize("kind", ["student", "gaussian"])
 def test_contract3_weights_matches_plain(dev, family, kind):
-    """The table U, built once with the operands, against its plain
-    twin, its pads zero (odd n: one pad cell per slab; even n: one per
-    row)."""
+    """The table U in its stored form (prefix rows), built once with the
+    operands, against its plain twin, with its row flags; its pads zero
+    (odd n: one pad cell per slab; even n: one per row); a second build
+    the same bits."""
     before = cq.launch_count(cq3.contract3_weights)
     for n in (41, 40):
         ops = _ops3(dev, family, kind, n=n)
         assert cq.launch_count(cq3.contract3_weights) == before + 1
         before += 1
         assert ops.U.shape == (ops.days, n, cq3.slab_stride(n))
+        assert ops.flags.shape == (ops.days, n, n)
         got = cq3.table_cells(ops.U, n)
-        want = cq3.contract3_weights_reference(ops)
+        want, flags = cq3.contract3_table_reference(ops)
+        assert torch.equal(ops.flags, flags)
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert bool(torch.isclose(got, want, rtol=RTOL_SWEEP, atol=1e-300,
                                   equal_nan=True).all())
         assert bool((cq3.table_pads(ops.U, n) == 0).all())
-        assert torch.equal(ops.U, cq3.contract3_weights(ops))
+        U, flags = cq3.contract3_weights(ops)
+        assert torch.equal(ops.U, U) and torch.equal(ops.flags, flags)
         before += 1
 
 
 @pytest.mark.parametrize("q", [1, 5])
 @pytest.mark.parametrize("L", [1, 3, 33])
 def test_masked_contract3_rows_and_widths(dev, q, L):
-    """Odd n (one sweep buffer past n = 120 is exercised at the limit
-    below), q = 1 and 5, more rows than warps; repeats are bit-equal."""
+    """Odd n, q = 1 and 5, more rows than warps; repeats are
+    bit-equal."""
     ops = _ops3(dev, "garch" if q == 1 else "msm", "student", T=5, n=41,
                 q=q)
     bounds, weights = _rows3(dev, ops.days, L)
@@ -895,8 +900,10 @@ def test_masked_contract3_on_row_ranges(dev, family):
     for i0, i1 in ((0, 7), (7, 20), (20, n)):
         ops = _ops3(dev, family, "student", n=n, rows=(i0, i1))
         assert torch.equal(ops.U, whole.U[:, i0:i1])
+        assert torch.equal(ops.flags, whole.flags[:, i0:i1])
         torch.testing.assert_close(
-            cq3.table_cells(ops.U, n), cq3.contract3_weights_reference(ops),
+            cq3.table_cells(ops.U, n),
+            cq3.contract3_table_reference(ops)[0],
             rtol=1e-12, atol=1e-300, equal_nan=True)
         got = cq3.masked_contract3(ops, bounds, weights)
         want = cq3.masked_contract3_reference(ops, bounds, weights)
@@ -955,8 +962,8 @@ def test_limits_mirror_the_launchers(dev):
                                     cq.row_pitch(n), None)
 
     def table(n):
-        return lib.cvt_masked_contract3(*[None] * 4, -5.0, None, None, 0, n,
-                                        0, n, 1, cq.row_pitch(n),
+        return lib.cvt_masked_contract3(*[None] * 5, -5.0, None, 0, n, 0, n,
+                                        1, cq.row_pitch(n),
                                         cq3.slab_stride(n), None)
 
     def rebuild(n, q):
@@ -1019,8 +1026,8 @@ def _rebuilt(ops):
 
 def _walk(ops, walk):
     """The operands on one of the rebuild's walks: "full" rows without
-    flags, or "truncated" with the flag table (built here where the
-    operands took the table route)."""
+    flags, or "truncated" with the flag table (the table route's, built
+    with U; built here for operands that carry none)."""
     if walk == "full":
         return _rebuilt(ops)
     flags = ops.flags if ops.flags is not None else \
@@ -1063,6 +1070,25 @@ def test_rebuild_matches_plain(dev, n, rows, family, walk):
                                                         weights))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("L", [1, 32])
+def test_table_sweep_equals_the_rebuild_on_the_same_operands(dev, L, dtype):
+    """The table sweep (two stored prefixes per row lookup) and the rebuild
+    (each row's prefix formed from the columns) on the same table-route
+    operands, at the book's n = 100, q = 5: the same bits, with the build's
+    flags (the truncated walk) and without them (full rows)."""
+    ops = _ops3(dev, "msm", "student", T=5, n=100, q=5, dtype=dtype)
+    assert ops.U is not None and ops.flags is not None
+    bounds, weights = _rows3(dev, ops.days, L, seed=L)
+    bounds, weights = bounds.to(dtype), weights.to(dtype)
+    table = cq3.masked_contract3(ops, bounds, weights)
+    assert table.dtype == dtype and bool((table != 0).any())
+    for flags in (ops.flags, None):
+        assert torch.equal(table, cq3.masked_contract3_rebuild(
+            ops._replace(flags=flags), bounds, weights))
+
+
 @pytest.mark.parametrize("walk", ["truncated", "full"])
 @pytest.mark.parametrize("family", ["msm", "garch"])
 @pytest.mark.parametrize("kind", ["student", "gaussian"])
@@ -1091,12 +1117,17 @@ def _poke(cols, p):
 def test_row_flags_match_plain(dev, family, n, rows):
     """The flag kernel against its plain twin (torch.equal), on all outer
     slabs and on a range; one launch per operands built on the rebuild
-    route; a repeat the same bytes."""
+    route; on the table route the build's flags, counted by the build,
+    and the flag kernel's equal to them; a repeat the same bytes."""
     before = cq.launch_count(cq3.contract3_row_flags)
+    rows_before = profiling.counters().get("prep.flagged_rows", 0)
     ops = _ops3(dev, family, "student", T=4, n=n, rows=rows, edit=_poke)
-    if ops.flags is None:  # the table route: no flags built
+    if ops.U is not None:  # the table route: flags built with U
         assert cq.launch_count(cq3.contract3_row_flags) == before
+        assert (profiling.counters()["prep.flagged_rows"] - rows_before
+                == int(ops.flags.sum()) > 0)
         flags = cq3.contract3_row_flags(ops)
+        assert torch.equal(flags, ops.flags)
     else:
         flags = ops.flags
     assert cq.launch_count(cq3.contract3_row_flags) == before + 1
@@ -1131,17 +1162,19 @@ def test_rebuild_on_a_day_block(dev, family):
 
 @pytest.mark.parametrize("est", ["msm", "garch"])
 def test_rebuild_routes_on_the_dim3_artifacts(dev, est):
-    """The dim-3 artifacts at n = 100 (the table route): the table sweep,
-    the truncated walk with the flag table and the full-row walk give the
-    same bits, at the stage bounds and at bands near the record's VaR, L =
-    1 and 4; repeats too."""
+    """The dim-3 artifacts at n = 100 (the table route, its flags built
+    with U and equal to the flag kernel's): the table sweep, the truncated
+    walk with the flag table and the full-row walk give the same bits, at
+    the stage bounds and at bands near the record's VaR, L = 1 and 4;
+    repeats too."""
     rec = np.load(os.path.join(DATA, "dim3_var.npz"))
     data = from_csv(os.path.join(DATA, "dim3.csv"), n_insample=1135,
                     weights=rec["weights"])
     bt = load_artifacts(os.path.join(DATA, f"dim3_artifacts_{est}.npz"),
                         data, device="cuda")
     ops = bt.sweep_operands()
-    assert ops.U is not None and ops.flags is None
+    assert ops.U is not None and ops.flags is not None
+    assert torch.equal(ops.flags, cq3.contract3_row_flags(ops))
     T = ops.days
     rng = np.random.default_rng(12)
     lo = rng.uniform(-1.9, -1.1, (3, T))
@@ -1320,8 +1353,10 @@ def test_f32_contract3_table_and_sweep_match_plain(dev, family, kind):
     assert ops.U.dtype == F32 and ops.sigma_inv.dtype == torch.float64
     n = ops.x.shape[0]
     assert ops.U.shape[-1] == cq3.slab_stride(n, F32)
-    assert ops.U.shape[-1] % 4 == 0  # 16-byte slabs for the bulk copy
-    _close32(cq3.table_cells(ops.U, n), cq3.contract3_weights_reference(ops))
+    assert ops.U.shape[-1] % 4 == 0  # 16-byte slabs
+    want, flags = cq3.contract3_table_reference(ops)
+    _close32(cq3.table_cells(ops.U, n), want)
+    assert torch.equal(ops.flags, flags)
     assert not bool(cq3.table_pads(ops.U, n).any())
     bounds, weights = _f32_rows(dev, ops.days, 5, 3)
     got = cq3.masked_contract3(ops, bounds, weights)
@@ -1381,7 +1416,7 @@ def test_f32_limits_mirror_the_launchers(dev):
 
     def table(n, stride=None):
         return lib.cvt_masked_contract3_f32(
-            *[None] * 4, -5.0, None, None, 0, n, 0, n, 1, cq.row_pitch(n),
+            *[None] * 5, -5.0, None, 0, n, 0, n, 1, cq.row_pitch(n),
             cq3.slab_stride(n, F32) if stride is None else stride, None)
 
     n1 = cq.bisect_max_grid_points(F32)
@@ -1432,7 +1467,7 @@ def test_day_block_operands_hold_the_whole_tables_days(dev, family, dtype):
     days3 = slice(2, 5)
     whole3, block3 = (_ops3(dev, family, "student", dtype=dtype, days=d)
                       for d in (None, days3))
-    for name in ("z", "fin", "lu", "G", "U"):
+    for name in ("z", "fin", "lu", "G", "U", "flags"):
         assert torch.equal(getattr(block3, name),
                            getattr(whole3, name)[days3])
     bounds, weights = _rows3(dev, 6, 3)

@@ -252,17 +252,28 @@ def test_card_counters_and_spans_of_a_query(dev, book):
 
 @pytest.mark.cuda
 def test_card_counters_and_spans_of_a_dim3_query(dev, book3):
-    """On the card at dim 3: the table U is built once and counted; a
-    query takes the table route, one K4 launch for each stage sweep and
-    each host-counted halving and none of the rebuild, and reads the
-    device twice (the halving count and the gather)."""
+    """On the card at dim 3: the table U is built once with its row flags
+    and counted (U's and the flags' bytes; the flagged rows, none on the
+    book, read once inside the prep); a query takes the table route, one
+    K4 launch for each stage sweep and each host-counted halving and none
+    of the rebuild, and reads the device twice (the halving count and the
+    gather)."""
     path, data = book3
     bt = load_artifacts(path, data, device="cuda")
     profiling.reset_counters()
-    ops = bt.sweep_operands()
+    with profile(activities=[ProfilerActivity.CPU]) as prep:
+        ops = bt.sweep_operands()
     got = profiling.counters()
     assert got["launch.contract3_weights"] == 1
-    assert got["prep.table_bytes"] == ops.U.nbytes
+    assert got["prep.table_bytes"] == ops.U.nbytes + ops.flags.nbytes
+    assert got["prep.flagged_rows"] == int(ops.flags.sum()) == 0
+    spans = _spans(prep)
+    parent = dict(spans)
+    assert [n for n, _ in spans if n == "cvt.sync.flagged_rows"] == [
+        "cvt.sync.flagged_rows"]
+    assert parent["cvt.sync.flagged_rows"] == "cvt.launch.contract3_weights"
+    assert parent["cvt.launch.contract3_weights"] == "cvt.prep.operands"
+    assert parent["cvt.prep.operands"] == "cvt.prep"
     profiling.reset_counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
