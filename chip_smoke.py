@@ -1366,7 +1366,8 @@ def wide_grid_phase(root, smi):
                 lc = {c.__name__: _launches(c) for c in counters}
                 for k, v in lc.items():
                     total[k] = total.get(k, 0) + v
-                route = (cs.dim2_bisect_route(n) if dim == 2 else
+                route = (cs.route("cuda", torch.float64, 2, n).bisect
+                         if dim == 2 else
                          "table" if ops.U is not None else
                          "rebuild" if ops.flags is not None else
                          "rebuild_full")
@@ -1378,7 +1379,7 @@ def wide_grid_phase(root, smi):
                 if above:
                     raise AssertionError(f"wide {tag}: {above} days off the "
                                          f"record, max {diff.max():.3e}")
-                if dim == 2 and (route != "sweeps" or lc["bisect_levels"] or
+                if dim == 2 and (route != "halvings" or lc["bisect_levels"] or
                                  lc["solve_stages"] or
                                  lc["masked_sweep"] <= 0 or
                                  lc["sweep_table"] != 1):
@@ -2054,7 +2055,8 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
             False)[:5]]
 
     st = k1_state(ops_m, wrows, obj)
-    rk = cs.bisect_fixed(ops_m, *st, obj, wrows, n_iters)
+    _, bisect32 = cs._routes(ops_m, False)
+    rk = bisect32(ops_m, *st, obj, wrows, 1e-6, n_iters=n_iters)
     if not torch.equal(rk, cs.fixed_halvings(ops_m, *st, obj, wrows, n_iters,
                                              cq.masked_sweep)):
         raise AssertionError("f32 bisect_levels: K1 off the same count of "
@@ -2133,11 +2135,12 @@ def f32_engine_phase(root, smi, w_batch, w_batch3, grid64, grid3_64,
             lambda: cq.masked_sweep_reference(
                 ops_m, st1.expand(L128, T, 2).contiguous(), wr)),
         "bisect_L1": (
-            lambda: cs.bisect_fixed(ops_m, *s1, obj[:1], wrows[:1], n_iters),
+            lambda: bisect32(ops_m, *s1, obj[:1], wrows[:1], 1e-6,
+                             n_iters=n_iters),
             lambda: cs.fixed_halvings(ops_m, *s1, obj[:1], wrows[:1],
                                       n_iters, cq.masked_sweep_reference)),
         f"bisect_L{L128}": (
-            lambda: cs.bisect_fixed(ops_m, *st128, ar, wr, n_iters),
+            lambda: bisect32(ops_m, *st128, ar, wr, 1e-6, n_iters=n_iters),
             lambda: cs.fixed_halvings(ops_m, *st128, ar, wr, n_iters,
                                       cq.masked_sweep_reference)),
         "contract3_weights": (lambda: cq3.contract3_weights(ops3_m),
@@ -2857,7 +2860,7 @@ def main() -> int:
         if np.max(diff) <= ATOL_VAR:
             continue
         # which bracket decision flipped: the plain solve on the same card
-        r_plain, _ = cs.full_solve_levels_reference(
+        r_plain, _ = cs.full_solve_reference(
             bt.sweep_operands(), bt._tensor([alpha]), bt.weights, cfg)
         plain = r_plain[0].cpu().numpy() + bt.data.ptf_mean
         for d in np.flatnonzero(diff > ATOL_VAR):
@@ -3407,7 +3410,7 @@ def main() -> int:
     ops_r25 = cq.sweep_operands(ops_m.V, ops_m.x, ops_m.dx, ops_m.densities,
                                 ops_m.forecast_combos,
                                 rows=(0, ops_m.x.shape[0] // GRID_RANKS))
-    r_plain, nd_plain = cs.full_solve_portfolios_reference(
+    r_plain, nd_plain = cs.full_solve_reference(
         ops_m, tens(a_rows), tens(w_rows), cfg)
     ptf_means = np.asarray(bts["msm"].data.in_sample_mean) @ w_rows.T
     plain = np.where(nd_plain.cpu().numpy(), np.nan,
@@ -3563,7 +3566,7 @@ def main() -> int:
     w_rows3 = np.repeat(w_batch3, len(LEVELS), axis=0)
     a_rows3 = np.tile(levels, ROWS_P3)
     t0 = time.perf_counter()
-    r_plain3, nd_plain3 = cs.full_solve_portfolios_reference(
+    r_plain3, nd_plain3 = cs.full_solve_reference(
         ops3_m, tens(a_rows3), tens(w_rows3), cfg)
     grid3_plain_s = time.perf_counter() - t0
     ptf_means3 = np.asarray(bts3["msm"].data.in_sample_mean) @ w_rows3.T
@@ -3690,13 +3693,12 @@ def main() -> int:
                                          else {"reps": 3, "warmup": 1}))
     w_main = bts["msm"].weights
     timing["full_L1"] = cuda_ms(torch, {
-        "kernel": lambda: cs.full_solve_levels(ops_m, obj[2:3], w_main, cfg),
-        "plain": lambda: cs.full_solve_levels_reference(ops_m, obj[2:3],
-                                                        w_main, cfg)})
+        "kernel": lambda: cs.full_solve(ops_m, obj[2:3], w_main, cfg),
+        "plain": lambda: cs.full_solve_reference(ops_m, obj[2:3], w_main,
+                                                 cfg)})
     timing[f"full_rows{ROWS_P * len(LEVELS)}"] = cuda_ms(torch, {
-        "kernel": lambda: cs.full_solve_portfolios(ops_m, ar, wr, cfg),
-        "plain": lambda: cs.full_solve_portfolios_reference(ops_m, ar, wr,
-                                                            cfg)},
+        "kernel": lambda: cs.full_solve(ops_m, ar, wr, cfg),
+        "plain": lambda: cs.full_solve_reference(ops_m, ar, wr, cfg)},
         reps=3, warmup=1)
     # dim 3: K4 per sweep, the whole calc_var, and the column prep
     for est, bt in bts3.items():  # t_ppf etc. on 3 n T values: plain PyTorch
@@ -3729,16 +3731,15 @@ def main() -> int:
         reps=REPS_DIM3_PLAIN, warmup=1)
     w3_main = bts3["msm"].weights
     timing["dim3_full_L1"] = cuda_ms(torch, {
-        "kernel": lambda: cs.full_solve_levels(ops3_m, obj[2:3], w3_main,
-                                               cfg),
-        "plain": lambda: cs.full_solve_levels_reference(
+        "kernel": lambda: cs.full_solve(ops3_m, obj[2:3], w3_main, cfg),
+        "plain": lambda: cs.full_solve_reference(
             ops3_m, obj[2:3], w3_main, cfg)}, reps=REPS_DIM3_PLAIN, warmup=1)
     # the refine_root trap pass per call (plain PyTorch), beside the
     # unrefined solve of the same rows above (full_L1, full_rows128,
     # dim3_full_L1)
-    roots1, _ = cs.full_solve_levels(ops_m, obj[2:3], w_main, cfg)
-    roots128, _ = cs.full_solve_portfolios(ops_m, ar, wr, cfg)
-    roots3, _ = cs.full_solve_levels(ops3_m, obj[2:3], w3_main, cfg)
+    roots1, _ = cs.full_solve(ops_m, obj[2:3], w_main, cfg)
+    roots128, _ = cs.full_solve(ops_m, ar, wr, cfg)
+    roots3, _ = cs.full_solve(ops3_m, obj[2:3], w3_main, cfg)
     h1 = tens([bts["msm"]._plateau_h()])
     h128 = tens(bts["msm"]._plateau_h(w_rows))
     h3 = tens([bts3["msm"]._plateau_h()])
@@ -3791,12 +3792,11 @@ def main() -> int:
         "dim3_grid_8x4": device_profile(
             torch, lambda: bts3["msm"].calc_var_grid(w_batch3, levels),
             reps=2),
-        "full_L1": device_profile(torch, lambda: cs.full_solve_levels(
+        "full_L1": device_profile(torch, lambda: cs.full_solve(
             ops_m, obj[2:3], w_main, cfg)),
         f"full_rows{L128}": device_profile(
-            torch, lambda: cs.full_solve_portfolios(ops_m, ar, wr, cfg),
-            reps=3),
-        "dim3_full_L1": device_profile(torch, lambda: cs.full_solve_levels(
+            torch, lambda: cs.full_solve(ops_m, ar, wr, cfg), reps=3),
+        "dim3_full_L1": device_profile(torch, lambda: cs.full_solve(
             ops3_m, obj[2:3], w3_main, cfg), reps=3),
         **{k: device_profile(torch, fn, reps=10 if k == "trap_L1" else 2)
            for k, fn in trap_calls.items()},

@@ -14,7 +14,9 @@ bounds-invariant sweep operands once (two assets: the (T, n, n) day
 tensors; three assets: the per-day transform columns and
 `Contract3Operands`, with the table U on a CUDA device; four or more: the
 transform columns as `ColumnOperands`, no table), and answers VaR
-queries with the three-stage solve (`ops/cuda_solver.py`):
+queries with the three-stage solve (`ops/cuda_solver.py::full_solve`),
+whose route (stages, sweep and bisection) follows from those operands
+and the mesh in `ops/cuda_solver.py::route`; this module chooses none:
 
   calc_var             one confidence level           -> (T,)
   calc_var_levels      L levels, one portfolio        -> (L, T)
@@ -27,9 +29,9 @@ the same operands), h = max(dx) |w0| per portfolio row.
 
 Engines (`engine`, JAX's `VaRBacktest.engine`): "xla", the default, is
 the f64 path below; "pallas" is the f32 engine of JAX's "Production
-serving" recipe (`ops/cuda_solver.py::full_solve_pallas`): the f64 prep
-cast to float32, the f32 kernels (K1 for a fixed count of halvings, K2,
-K4) or their f32 plain twins on the CPU, roots within
+serving" recipe: the f64 prep cast to float32 (`sweep_operands`), which
+`full_solve` serves through the f32 kernels (K1 for a fixed count of
+halvings, K2, K4) or their f32 plain twins on the CPU, roots within
 `ops/solvers.root_plateau_bound(dx, weights)` (one grid cell x |w0|) of
 the f64 engine's, not its bits; `refine_root` re-solves them against the
 float64 trapezoid sweep. It serves dim 2 and 3 with the MSM or GARCH
@@ -39,14 +41,14 @@ operands, so `bt.engine = "pallas"` after `load_artifacts` serves the f32
 engine.
 
 On a CUDA device every sweep and the bisection run the hand-written
-kernels (`masked_sweep` and `bisect_levels` at dim 2, `masked_contract3`
-at dim 3); on the CPU they run the plain twins, the f64 oracle that
-matches the JAX `xla` engine. At dim >= 4 the JAX package has no Pallas
-kernel, and every device runs the plain transform-cached sweep
-(`ops/tcached.py`), as its `xla` engine does; the grid is capped at
-2^26 cells per day (num_points <= 90 at dim 4). Fitting is plain
-PyTorch on the same device. Results come back as numpy float64, with the
-portfolio mean added, as the JAX package returns them.
+kernels (`solve_stages` and `bisect_levels`, or `masked_sweep`, at dim
+2, `masked_contract3` at dim 3); on the CPU they run the plain twins,
+the f64 oracle that matches the JAX `xla` engine. At dim >= 4 the JAX
+package has no Pallas kernel, and every device runs the plain
+transform-cached sweep (`ops/tcached.py`), as its `xla` engine does; the
+grid is capped at 2^26 cells per day (num_points <= 90 at dim 4).
+Fitting is plain PyTorch on the same device. Results come back as numpy
+float64, with the portfolio mean added, as the JAX package returns them.
 
 Weights pairing, kept from the reference: `weights[0]` pairs the inner
 grid axis and `weights[1:]` the outer axes in order; only unequal
@@ -112,12 +114,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature import (
     with_prefix_table,
 )
 from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
-from copula_var_tpu_torch.ops.cuda_solver import (
-    full_solve_levels,
-    full_solve_pallas,
-    full_solve_portfolios,
-    sweep_for,
-)
+from copula_var_tpu_torch.ops.cuda_solver import _routes, full_solve
 from copula_var_tpu_torch.ops.grids import garch_grid, msm_grid
 from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
@@ -804,7 +801,7 @@ class VaRBacktest:
         float32 on the f32 engine, as JAX's K3 / K4; on a day mesh, as
         JAX's "sharded_pallas", in float64 at dim 2); for a plugin adapter
         its `integrals` (plain PyTorch, as JAX's XLA)."""
-        pallas = self._pallas()
+        self._pallas()  # the f32 engine's scope errors
         if self.plugin:
             out = self.adapter.integrals(
                 self._tensor(bounds).reshape(-1, 2), self.integration_inputs,
@@ -812,14 +809,13 @@ class VaRBacktest:
             with span("sync.integral"):
                 return torch.as_tensor(out).cpu().numpy()
         b = self._block(self._tensor(bounds).reshape(-1, 2))
-        if pallas and self.data.dim == 2 and self.mesh is not None:
-            ops = self._f64_operands(table=True)
-        else:
-            ops = self.sweep_operands()
+        ops = (self._f64_operands(table=True)
+               if self.data.dim == 2 and self.mesh is not None
+               else self.sweep_operands())
         dt = ops.x.dtype
-        out = sweep_for(ops)(ops, b[None].to(dt).contiguous(),
-                             self.weights.reshape(1, -1).to(dt),
-                             self.box[0])[0]
+        sweep, _ = _routes(ops, False)
+        out = sweep(ops, b[None].to(dt).contiguous(),
+                    self.weights.reshape(1, -1).to(dt), self.box[0])[0]
         if self._grid is not None:
             out = self._grid.grid_sum(out)
         if self._day_mesh() is not None:
@@ -852,7 +848,7 @@ class VaRBacktest:
         row l equals `calc_var(obj_vars[l])`. A plugin adapter's levels
         are bisected one by one on the host (`verbose` prints each
         halving's widest gap, as JAX's `_bisection`)."""
-        pallas = self._pallas()
+        self._pallas()  # the f32 engine's scope errors
         if self.plugin:
             return self._host_levels(obj_vars, first_guess, second_guess,
                                      tolerance, min_var_value,
@@ -862,16 +858,10 @@ class VaRBacktest:
             t0 = time.perf_counter()
             cfg = self._cfg(first_guess, second_guess, min_var_value,
                             max_var_value)
-            if pallas:
-                roots, nan_days = full_solve_pallas(
-                    self.sweep_operands(), obj, self.weights, cfg, tolerance,
-                    self.reference_quirks, self.box[0], self._day_mesh())
-            else:
-                roots, nan_days = full_solve_levels(
-                    self.sweep_operands(), obj, self.weights, cfg, tolerance,
-                    self.reference_quirks, self.box[0], self._day_mesh(),
-                    self._grid,
-                )
+            roots, nan_days = full_solve(
+                self.sweep_operands(), obj, self.weights, cfg, tolerance,
+                self.reference_quirks, self.box[0], self._day_mesh(),
+                self._grid)
             if self.refine_root:
                 L = roots.shape[0]
                 roots = self._refine(roots, obj, self.weights.expand(L, -1),
@@ -994,7 +984,7 @@ class VaRBacktest:
         weights_batch = np.atleast_2d(np.asarray(weights_batch, float))
         if weights_batch.shape[1] != self.data.dim:
             raise ValueError(f"weights_batch must be (L, {self.data.dim})")
-        pallas = self._pallas()
+        self._pallas()  # the f32 engine's scope errors
         if self.plugin:
             raise ValueError(
                 "calc_var_portfolios needs a cached integral (the adapter's "
@@ -1008,17 +998,10 @@ class VaRBacktest:
             obj, w_rows = self._tensor(obj), self._tensor(weights_batch)
             cfg = self._cfg(first_guess, second_guess, min_var_value,
                             max_var_value)
-            if pallas:
-                roots, nan_days = full_solve_pallas(
-                    self.sweep_operands(), obj, w_rows.contiguous(), cfg,
-                    tolerance, self.reference_quirks, self.box[0],
-                    self._day_mesh())
-            else:
-                roots, nan_days = full_solve_portfolios(
-                    self.sweep_operands(), obj, w_rows.contiguous(), cfg,
-                    tolerance, self.reference_quirks, self.box[0],
-                    self._day_mesh(), self._grid,
-                )
+            roots, nan_days = full_solve(
+                self.sweep_operands(), obj, w_rows.contiguous(), cfg,
+                tolerance, self.reference_quirks, self.box[0],
+                self._day_mesh(), self._grid)
             if self.refine_root:
                 roots = self._refine(roots, obj, w_rows,
                                      self._plateau_h(weights_batch))

@@ -1,121 +1,120 @@
-"""The bisection kernel's wrapper and the full three-stage solve
+"""The solve's route, its bisections and the full three-stage solve
 (counterpart of `copula_var_tpu/ops/pallas_solver.py` and of the `xla`
 engine's device programs in `copula_var_tpu/backtest.py`).
 
-`bisect_levels` runs the incremental-CDF bisection for L rows (confidence
-levels or portfolios) of a two-asset backtest. Tensors on a CUDA device
-launch the hand-written kernel `bisect_levels_kernel` (csrc/quadrature.cu;
-one warp per bound row, every halving a prefix-interval sum per grid
-row), which replaces the Pallas kernel `_solve_kernel` (K1); tensors on
-the CPU run the plain twin `bisect_levels_reference`, the `xla` engine's
-while-loop with its per-level all-zeros break (`backtest.py:445-480`).
+`full_solve` runs the stage-1 sweep over [-100, first_guess], the stage-2
+bracket and the bisection of L rows (levels of one shared portfolio, or
+one portfolio per row) of two-asset (`SweepOperands`), three-asset
+(`Contract3Operands`) or dim >= 4 (`ColumnOperands`) operands: float64
+ones on the f64 engine (the `xla` engine's `_device_full_solve_levels_jit`
+/ `_device_full_solve_portfolios_jit`), float32 ones on the f32 engine
+(`engine="pallas"`). `full_solve_reference` runs the same flow through
+the plain twins on any device, so the two can be compared on the card.
 
-The while-loop halves every (row, day) bracket until the widest is within
-tolerance, so all rows run one data-dependent global count. The kernel
-gets that count from the host: one `.item()` of the widest bracket after
-the bracketing stages, halved until it is within tolerance. The all-zeros
-break is the one difference (see the kernel source).
+How a solve runs is decided in one place, `route`: a pure function of
+what the code observes (the operands' device, type, asset count and
+width n, whether they hold the dim-3 table U, `plain`, and whether a day
+mesh or a grid mesh is given). Its rows, on a CUDA device:
 
-The fused route (`fused_stages`: float64 dim-2 operands on a CUDA
-device, n <= 169, one card, no mesh) reads no bracket on the host: one
-launch of `solve_stages` (csrc/quadrature.cu::solve_stages_kernel) runs
-both stage sweeps and the stage-2 bracket of every (row, day) and folds
-the widest bracket into a device word, and K1 takes its halving count
-from that word (`bisect_levels(..., widest=)`). The stage sweeps are K2's
-slabs and the selects `bracket_state_batched`'s, so the roots are the
-composed route's bit for bit; `solve.halvings` is not counted there,
-since counting it would read the host. Every other route keeps the K2
-stage sweeps, `bracket_state_batched` and the host-counted bisection.
+  operands             mesh          stages    bisection (count)
+  f64, dim 2, n <= 169 none          fused     K1 (device)
+  f64, dim 2, n <= 169 day           composed  K1 (host, a global MAX)
+  f64, dim 2, n > 169  none or day   composed  halvings of K2 (host)
+  f64, dim 3           none or day   composed  halvings of K4: the table
+                                               U, else the rebuild (host)
+  f64, dim >= 4        none or day   composed  halvings of `tcached_sweep`
+                                               (host)
+  f64, any dim         grid          composed  halvings of the summed
+                                               sweep (host)
+  f32, dim 2, n <= 192 none or day   composed  K1 f32 (fixed)
+  f32, dim 2, n > 192  none or day   composed  fixed halvings of K2 f32
+                                               (fixed)
+  f32, dim 3           none or day   composed  halvings of K4 f32 on
+                                               float64 state (host)
 
-`bisect_contract3` is the three-asset bisection. The JAX package has no
-fused dim-3 bisection: its while-loop calls the sweep every halving. On a
-CUDA device the port runs the host-counted number of halvings, each one
-`masked_contract3` launch (or `masked_contract3_rebuild` for operands
-built without the table U) plus the bookkeeping as device ops; the
-all-zeros freeze and the while-loop's own exit are `torch.where` gates on
-the device, so no halving reads the host and the roots equal the
-while-loop's.
+On the CPU, or with `plain`, every solve is composed over the plain twin
+and bisects by the while-loop, but for the f32 engine's dim 2, which
+runs fixed halvings. Without `plain` no route of dim 2 or 3 on a CUDA
+device runs a plain sweep; dim >= 4 has no kernel (the JAX package
+serves it only through XLA), so its sweep is plain on every device and
+K1-K4 never launch.
 
-Routes by width (`dim2_bisect_route`, `cuda_quadrature3.contract3_route`):
-at dim 2 K1 bisects a grid whose day it holds in shared memory (n <= 169);
-a wider grid (up to 1024) bisects by K2 sweeps (`_bisect_by_sweeps`, the
-grid path's loop, whose prefix rows and lane sums are K1's). At dim 3 the
-table route sweeps U, the rebuild route rebuilds the slabs per launch. On
-a CUDA device no route of dim 2 or 3 runs a plain sweep.
+Stages. "fused": one `solve_stages` launch (csrc/quadrature.cu::
+solve_stages_kernel) runs both stage sweeps and the stage-2 bracket of
+every (row, day) and folds the widest bracket into a device word; its
+sweeps are K2's slabs and its selects `bracket_state_batched`'s, so the
+roots are the composed route's bit for bit. "composed": the stage-1
+sweep and `ops/solvers.py::bracket_state_batched` over the route's
+sweep.
 
-`bisect_tcached` is the same loop for four or more assets
-(`ColumnOperands`, `ops/tcached.py`), whose every sweep is the plain
-transform-cached sweep `tcached_sweep`: the JAX package serves dim >= 4
-only through XLA, with no Pallas kernel, so nothing on that path launches
-K1-K4.
+Bisections (`_bisect`) and their counts:
+- K1 (`bisect_levels`, csrc/quadrature.cu::bisect_levels_kernel, which
+  replaces the Pallas `_solve_kernel`): one warp per bound row, every
+  halving a prefix-interval sum per grid row, a day in shared memory
+  (`bisect_max_grid_points`). It runs the while-loop's global count of
+  halvings, read on the host (one `.item()` of the widest bracket) or,
+  on the fused route, taken by the kernel from `solve_stages`'s word
+  (`bisect_levels(..., widest=)`; `solve.halvings` is not counted there,
+  since counting it would read the host). K1 has no all-zeros break
+  (see the kernel source).
+- halvings (`bisect_fixed_count`): the host-counted number of halvings,
+  one sweep each, the all-zeros freeze and the while-loop's own exit
+  gated on the device, so no halving reads the host and the roots equal
+  the while-loop's. The JAX package's while-loop calls its sweep every
+  halving too: it has no fused dim-3 bisection.
+- the while-loop (`bisect_levels_reference`): the `xla` engine's loop
+  with its per-level all-zeros break (`backtest.py:445-480`), its exit
+  read on the host every halving.
+- fixed halvings (`fixed_halvings`): K1 f32's loop in plain PyTorch.
+A "fixed" count is `ops/solvers.full_iters` of the config (23 at the
+defaults), no bracket read on the host.
 
-The f32 engine (`engine="pallas"`): `full_solve_pallas` ports JAX's f32
-solves on float32 operands. At dim 2 it is `pallas_solver.py::
-_full_solve` (`full_solve_pallas_levels`): the stage sweeps (K2 in
-float32), the bracket in float32, then K1 in float32 for exactly
-`ops/solvers.full_iters` halvings per row (23 at the defaults), taken
-from the config, so no bracket is read on the host; no all-zeros break;
-a day whose float32 tensor holds a non-finite entry gets a NaN root.
-Grids wider than K1's float32 day (192) halve by the same fixed count of
-f32 K2 sweeps (`bisect_fixed`). At dim 3 it is the `xla` engine's
-program over the f32 K4 sweep (`backtest.py:376`): the stage sweeps and
-the bracket in float32, then the while-loop bisection (all-zeros break,
-host-counted halvings as above) on float64 state, each halving's bounds
-rounded to float32 for the f32 sweep (`bisect_contract3_f32`). Its
-`*_reference` form runs the same flow through the f32 plain twins. The
-f32 engine never launches an f64 kernel, and the f64 solves refuse f32
-operands.
+The f32 engine (JAX's f32 Pallas engine) never launches an f64 kernel.
+Its dim 2 is `pallas_solver.py::_full_solve`: stage sweeps and bracket
+in float32, then the fixed count of halvings in float32 with no
+all-zeros break; a day whose float32 tensor holds a non-finite entry
+gets a NaN root. Its dim 3 is the `xla` engine's program over the f32 K4
+sweep (`backtest.py:376`): stage sweeps and bracket in float32, then the
+halvings on float64 state, each halving's bounds rounded to float32 for
+the f32 sweep and its result widened to float64.
 
-The f32 engine day-sharded (JAX's engine "sharded_pallas"):
-`full_solve_pallas(..., reducer=)` on a rank's block of float32 operands.
-At dim 2 every day is independent and the count of halvings is fixed, so
-the solve runs no collective, as JAX's `_sharded_full_program` shard_maps
-`_full_solve` with none; an empty block runs every stage on 0 days and
-launches nothing. At dim 3 the reducer takes the bisection's three
-global decisions (below), as JAX's `_dim3_pallas_full_program` does.
-The JAX package's dim-2 `*_pallas_levels_sharded` functions are served
-by this one function and carry no name of their own in the port.
-
-`full_solve_levels` / `full_solve_portfolios` port
-`_device_full_solve_levels_jit` / `_device_full_solve_portfolios_jit`:
-stage-1 sweep over [-100, first_guess], stage-2 bracket, bisection, for
-two-asset (`SweepOperands`), three-asset (`Contract3Operands`) or
-dim >= 4 (`ColumnOperands`) operands. Their `*_reference` forms run the
-same flow through the plain twins on any device, so the two can be
-compared on the card.
-
-Day sharding (`parallel/`): every solve and bisection takes an optional
-`reducer`, a `parallel.mesh.DayMesh` whose rank holds one block of the
-days; `None` (one card) leaves the path as it was. The stages and the
-bracket are per day; the bisection is not, and three of its decisions
-are taken over all days (the counterparts of `_spmd_bisection_levels`,
-`parallel/quadrature.py:1229-1288`, and of the shard_map wrappers of K1,
-`pallas_solver.py:661,823`): the host-counted halving count from the
-global MAX of the widest bracket, so K1 and `bisect_fixed_count` run the
-while-loop's global count on every rank; each halving's all-zeros
+Day sharding (`parallel/`): `reducer`, a `parallel.mesh.DayMesh` whose
+rank holds one block of the days; None (one card) leaves the path as it
+was. The stages and the bracket are per day; the bisection is not, and
+three of its decisions are taken over all days (the counterparts of
+`_spmd_bisection_levels`, `parallel/quadrature.py:1229-1288`, and of the
+shard_map wrappers of K1, `pallas_solver.py:661,823`): the host count
+from the global MAX of the widest bracket; each halving's all-zeros
 freeze from the global ALL of `result == 0` (JAX's `gall`), a device
 tensor, so no halving reads the host; and the loop's condition from the
 global ANY (JAX's `gany`). K1 has no freeze, so a sharded K1 equals the
-unsharded one once the count is global.
+unsharded one once the count is global. The f32 engine's fixed count
+needs no collective, as JAX's `_sharded_full_program` shard_maps
+`_full_solve` with none; an empty block runs every stage on 0 days and
+launches nothing. The JAX package's dim-2 `*_pallas_levels_sharded`
+functions are `full_solve(..., reducer=)` on a rank's block and carry no
+name of their own in the port.
 
-Grid sharding (`parallel/`): the solves also take `grid`, a
-`parallel.mesh.GridMesh` whose rank holds a range of the outer grid rows
-(operands built with `rows=`). Every sweep is then the rank's share
-(K2, K4 or the plain sweep on its rows) summed over the grid ranks by
+Grid sharding (`parallel/`): `grid`, a `parallel.mesh.GridMesh` whose
+rank holds a range of the outer grid rows (operands built with `rows=`).
+Every sweep is the rank's share summed over the grid ranks by
 `grid.grid_sum`, exact and in rank order, so every grid rank holds the
-same (L, T) bits and takes the same bracket, halving count, freezes and
-loop exits with no further collective. K1 runs every halving of a day
-inside one launch and would need every rank's share in each, so the
-grid path bisects as dim 3 does (`_bisect_by_sweeps`: on a CUDA device
-`bisect_fixed_count` over the summed K2 or K4 sweep, on the CPU the
-while-loop), as the JAX grid engine's while-loop calls its sweep every
-halving. `reducer` then names the day mesh of a mesh whose day axis
-shards the days too, else None.
+same (L, T) bits and takes the same bracket, count, freezes and exits
+with no further collective. K1 would need every rank's share in each of
+its halvings, so the grid route halves by summed sweeps, as the JAX grid
+engine's while-loop calls its sweep every halving. `reducer` then names
+the day mesh of a mesh whose day axis shards the days too, else None.
+
+`_routes(ops, plain)` binds the operands' route on one card (its sweep
+and its bisection) and `_full_solve` runs it: the benchmark's fault
+harness (`varbench/harness/faults.py`) replaces both by these names and
+call shapes.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -139,7 +138,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature3 import (
     masked_contract3_reference,
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched, full_iters
-from copula_var_tpu_torch.ops.tcached import ColumnOperands, tcached_sweep
+from copula_var_tpu_torch.ops.tcached import tcached_sweep
 from copula_var_tpu_torch.utils.profiling import count, span
 
 
@@ -303,20 +302,6 @@ def _launch_k1(ops, state, obj, weights, box_min, n_iters=None,
     return roots
 
 
-def fused_stages(device, dtype, dim, n, reducer=None, grid=None) -> bool:
-    """Whether a solve takes the fused route: its stage sweeps and
-    bracket as one `solve_stages` launch, then K1 counting its halvings
-    on the device. Float64 operands of two assets on a CUDA device whose
-    grid K1 bisects (n <= 169), on one card: no day mesh (`reducer`,
-    whose count is a global MAX) and no grid mesh (`grid`, summed
-    sweeps). Every other solve (the f32 engine, meshes, n > 169, dim >= 3,
-    the CPU) keeps the stage sweeps, `bracket_state_batched` and the
-    host-counted bisection."""
-    return (torch.device(device).type == "cuda" and dtype == F64
-            and dim == 2 and dim2_bisect_route(n) == "k1"
-            and reducer is None and grid is None)
-
-
 def _widest(lower, upper):
     """(1,) float64: the widest bracket, max(upper - lower) and at least
     0 (NaN if a width is NaN), as `solve_stages` folds it."""
@@ -386,35 +371,11 @@ def solve_stages(ops: SweepOperands, obj, weights, cfg, quirks=False,
 
 
 def _require_dtype(ops, dtype, what):
-    """Raise unless the operands hold `dtype`: the f64 engine's solves
-    take float64 operands, the f32 engine's float32 ones."""
+    """Raise unless the operands hold `dtype`: the f64 engine's wrappers
+    take float64 operands."""
     if ops.x.dtype != dtype:
-        engine = "f32 engine (full_solve_pallas)" if dtype == F32 else \
-            "f64 engine (full_solve_levels / full_solve_portfolios)"
-        raise ValueError(f"{what}: the {engine} takes {dtype} operands, not "
-                         f"{ops.x.dtype}")
-
-
-def dim2_bisect_route(n: int, dtype=F64) -> str:
-    """How a CUDA device bisects a dim-2 grid of n points of `dtype`: "k1"
-    (the bisection kernel) when a day fits its block's shared memory (n
-    <= 169 in float64, 192 in float32), else "sweeps" (a halving per K2
-    launch); the sweep's own limit (1024) raises where its operands are
-    built."""
-    return "k1" if n <= bisect_max_grid_points(dtype) else "sweeps"
-
-
-def bisect_by_k2_sweeps(ops: SweepOperands, lower, upper, prev_res,
-                        prev_up, ustack, obj, weights, tolerance,
-                        box_min=-5.0, reducer=None):
-    """(L, T) dim-2 bisection roots for grids wider than K1's day: on a
-    CUDA device `bisect_fixed_count` over `masked_sweep` (K2) for the
-    host-counted number of halvings, on the CPU the plain while-loop;
-    state and weights as `bisect_levels`."""
-    return _bisect_by_sweeps(
-        ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
-        tolerance, box_min, masked_sweep_reference, masked_sweep,
-        "bisect_by_k2_sweeps", reducer)
+        raise ValueError(f"{what}: the f64 engine takes {dtype} operands, "
+                         f"not {ops.x.dtype}")
 
 
 def check_bisect_operands(ops: SweepOperands):
@@ -431,8 +392,7 @@ def check_bisect_operands(ops: SweepOperands):
         raise ValueError(
             f"num_points={n}: the dim-2 bisection kernel takes n <= {n_max}, "
             f"holding a day's {n}x{n} {ops.dtype} in one block's shared "
-            "memory (wider grids bisect by K2 sweeps, `bisect_by_k2_sweeps`"
-            " and `bisect_fixed`)"
+            "memory (wider grids bisect by K2 sweeps: `route`)"
         )
     return T, n, q
 
@@ -450,123 +410,6 @@ def bisect_fixed_count(ops, lower, upper, prev_res, prev_up, ustack, obj,
                          reducer)
     count("solve.halvings", n_iters)
     return (state[0] + state[1]) / 2.0
-
-
-def _bisect_by_sweeps(ops, state, obj, weights, tolerance, box_min,
-                      plain_sweep, sweep, name, reducer):
-    """The bisection whose every halving is one `sweep` call: on the CPU
-    the plain while-loop over `plain_sweep`; on a CUDA device
-    `bisect_fixed_count` over `sweep` for the host-counted number of
-    halvings; any other device raises."""
-    dev = ops.x.device
-    if dev.type == "cpu":
-        return bisect_levels_reference(ops, *state, obj, weights, tolerance,
-                                       box_min, sweep=plain_sweep,
-                                       reducer=reducer)
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    n_iters = _halving_count(state[0], state[1], tolerance, reducer)
-    return bisect_fixed_count(ops, *state, obj, weights, tolerance, n_iters,
-                              sweep, box_min, reducer)
-
-
-def bisect_contract3(ops: Contract3Operands, lower, upper, prev_res, prev_up,
-                     ustack, obj, weights, tolerance, box_min=-5.0,
-                     reducer=None):
-    """(L, T) three-asset bisection roots; state as `bisect_levels`,
-    weights (L, 3). CPU tensors run the plain while-loop; CUDA tensors run
-    `bisect_fixed_count` with the operands' K4 sweep (`masked_contract3`
-    on the table U, `masked_contract3_rebuild` without it) for the
-    host-counted number of halvings; any other device raises."""
-    return _bisect_by_sweeps(
-        ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
-        tolerance, box_min, masked_contract3_reference, _sweeps(ops)[0],
-        "bisect_contract3", reducer)
-
-
-def bisect_tcached(ops: ColumnOperands, lower, upper, prev_res, prev_up,
-                   ustack, obj, weights, tolerance, box_min=-5.0,
-                   reducer=None):
-    """(L, T) bisection roots of a dim >= 4 backtest; state as
-    `bisect_levels`, weights (L, dim). CPU tensors run the plain
-    while-loop; CUDA tensors run `bisect_fixed_count` with `tcached_sweep`
-    for the host-counted number of halvings (the freeze and the exit gated
-    on the device); any other device raises."""
-    return _bisect_by_sweeps(
-        ops, (lower, upper, prev_res, prev_up, ustack), obj, weights,
-        tolerance, box_min, tcached_sweep, tcached_sweep, "bisect_tcached",
-        reducer)
-
-
-def _sweeps(ops):
-    """(dispatching sweep, plain sweep) for the operands' asset count; at
-    dim 3 the table sweep, or the rebuild for operands without U. Dim >= 4
-    has no kernel: its sweep is plain on every device."""
-    if isinstance(ops, ColumnOperands):
-        return tcached_sweep, tcached_sweep
-    if isinstance(ops, Contract3Operands):
-        kernel = (masked_contract3_rebuild if ops.U is None
-                  else masked_contract3)
-        return kernel, masked_contract3_reference
-    return masked_sweep, masked_sweep_reference
-
-
-def _grid_summed(sweep, grid):
-    """`sweep` whose (L, T) share of the operands' outer rows is summed
-    over the grid ranks (`grid.grid_sum`: exact, in rank order)."""
-    def summed(ops, bounds, weights, box_min=-5.0):
-        return grid.grid_sum(sweep(ops, bounds, weights, box_min))
-    return summed
-
-
-def _grid_routes(ops, plain, grid):
-    """(sweep, bisect) of operands that hold a range of outer grid rows:
-    each sweep summed over the grid ranks, and the bisection a loop of
-    such sweeps (`_bisect_by_sweeps`; with `plain` the while-loop)."""
-    kernel, twin = _sweeps(ops)
-    plain_sweep = _grid_summed(twin, grid)
-    sweep = plain_sweep if plain else _grid_summed(kernel, grid)
-
-    def bisect(ops, lower, upper, prev_res, prev_up, ustack, obj, weights,
-               tolerance, box_min=-5.0, reducer=None):
-        state = (lower, upper, prev_res, prev_up, ustack)
-        if plain:
-            return bisect_levels_reference(ops, *state, obj, weights,
-                                           tolerance, box_min,
-                                           sweep=plain_sweep,
-                                           reducer=reducer)
-        return _bisect_by_sweeps(ops, state, obj, weights, tolerance,
-                                 box_min, plain_sweep, sweep,
-                                 "grid-sharded bisection", reducer)
-    return sweep, bisect
-
-
-def _routes(ops, plain):
-    """(sweep, bisect) for the operands' asset count and width: the
-    dispatching wrappers, or their plain twins. Dim >= 4 has no kernel:
-    its sweep is plain on every device."""
-    kernel, twin = _sweeps(ops)
-    if plain:
-        return twin, functools.partial(bisect_levels_reference, sweep=twin)
-    if isinstance(ops, ColumnOperands):
-        return kernel, bisect_tcached
-    if isinstance(ops, Contract3Operands):
-        return kernel, bisect_contract3
-    if dim2_bisect_route(ops.x.shape[0]) == "sweeps":
-        return kernel, bisect_by_k2_sweeps
-    return kernel, bisect_levels
-
-
-def sweep_for(ops):
-    """The dispatching sweep wrapper for the operands' asset count."""
-    return _routes(ops, plain=False)[0]
-
-
-def bisect_for(ops):
-    """The bisection for the operands' asset count and width (K1, K2
-    sweeps, K4 sweeps or the plain dim >= 4 loop), with the signature of
-    `bisect_levels`."""
-    return _routes(ops, plain=False)[1]
 
 
 def fixed_halvings(ops, lower, upper, prev_res, prev_up, ustack, obj,
@@ -588,110 +431,127 @@ def fixed_halvings(ops, lower, upper, prev_res, prev_up, ustack, obj,
     return (lo + up) / 2.0
 
 
-def bisect_fixed(ops: SweepOperands, lower, upper, prev_res, prev_up,
-                 ustack, obj, weights, n_iters, box_min=-5.0):
-    """(L, T) roots of the f32 engine's dim-2 bisection: `n_iters`
-    halvings of the float32 state (lower, upper, prev_res, prev_up (L, T),
-    ustack (L, T) bool; obj (L,), weights (L, 2)). CPU tensors run
-    `fixed_halvings` over the plain sweep; CUDA tensors launch K1 in
-    float32 where a day fits its shared memory (n <= 192), else run
-    `fixed_halvings` over the f32 K2 sweep (the same slab bits); any
-    other device raises."""
-    dev = ops.V.device
-    _require_dtype(ops, F32, "bisect_fixed")
-    state = (lower, upper, prev_res, prev_up, ustack)
-    if dev.type == "cpu":
-        return fixed_halvings(ops, *state, obj, weights, n_iters,
-                              masked_sweep_reference, box_min)
-    if dev.type != "cuda":
-        raise ValueError(f"bisect_fixed: unsupported device {dev}")
-    if dim2_bisect_route(ops.x.shape[0], F32) == "sweeps":
-        return fixed_halvings(ops, *state, obj, weights, n_iters,
-                              masked_sweep, box_min)
-    return _launch_k1(ops, tuple(t.contiguous() for t in state), obj,
-                      weights, box_min, n_iters)
-
-
 def _day_nan(ops: SweepOperands):
     """(T,) days whose float32 tensor holds a non-finite entry (JAX
     `_full_solve`'s NaN days)."""
     return ~torch.isfinite(ops.V).flatten(1).all(dim=1)
 
 
-def bisect_contract3_f32(ops: Contract3Operands, lower, upper, prev_res,
-                         prev_up, ustack, obj, weights, tolerance,
-                         box_min=-5.0, reducer=None, sweep=None):
-    """(L, T) float64 roots of the f32 engine's dim-3 bisection: the `xla`
-    while-loop (`_bisect_by_sweeps`) on float64 state (lower, upper,
-    prev_res, prev_up (L, T) of any floating type, ustack (L, T) bool;
-    obj (L,), weights (L, 3)), each halving's bounds rounded to float32
-    for the float32 sweep (the operands' kernel sweep, or `sweep`) and
-    its result widened to float64; with a `reducer` the halving count,
-    the all-zeros freeze and the loop's exit are taken over every rank's
-    days (JAX's `_spmd_bisection_levels` over the f32 K4 sweep)."""
-    _require_dtype(ops, F32, "bisect_contract3_f32")
-    sweep = _sweeps(ops)[0] if sweep is None else sweep
-    w = weights.to(F32).contiguous()
+class Route(NamedTuple):
+    """A solve's route (`route`). stages: "fused" (one `solve_stages`
+    launch) or "composed" (the stage-1 sweep and `bracket_state_batched`
+    over `sweep`). sweep: the wrapper every stage sweep and halving calls
+    on this rank's operands. bisect: "k1", "halvings", "while" or
+    "fixed_halvings" (`_bisect`). count: where its number of halvings
+    comes from: "device", "host", "fixed" or "loop" (the loop's own
+    exit)."""
 
-    def sweep64(ops, bounds, weights, box_min=-5.0):
-        return sweep(ops, bounds.to(F32).contiguous(), w, box_min).to(F64)
-
-    state = tuple(t.to(F64).contiguous()
-                  for t in (lower, upper, prev_res, prev_up))
-    return _bisect_by_sweeps(
-        ops, state + (ustack.contiguous(),), obj.to(F64), w.to(F64),
-        tolerance, box_min, sweep64, sweep64, "bisect_contract3_f32",
-        reducer)
+    stages: str
+    sweep: Callable
+    bisect: str
+    count: str
 
 
-def _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                  plain, reducer=None):
-    """JAX's f32 engine on float32 operands (see the module docstring):
-    dim 2 `_full_solve` (fixed-count K1), dim 3 the `xla` program over
-    the f32 K4 sweep. weights (dim,) or (L, dim), as `_full_solve`. With
-    a `reducer` the operands hold one rank's day block: dim 2 needs no
-    collective, dim 3 reduces the bisection's global decisions. Returns
-    (roots (L, T): float32 at dim 2, float64 at dim 3, nan_days (L, T))."""
-    _require_dtype(ops, F32, "full_solve_pallas")
-    kernel, twin = _sweeps(ops)
-    sweep = twin if plain else kernel
-    (lower, upper, prev_res, prev_up, ustack, nan_days), w = _stages(
-        ops, obj.to(F32), weights.to(F32), cfg, quirks, box_min, sweep, F32)
-    with span("solve.bisect"):
-        if isinstance(ops, Contract3Operands):
-            roots = bisect_contract3_f32(ops, lower, upper, prev_res,
-                                         prev_up, ustack, obj, w, tolerance,
-                                         box_min, reducer, sweep)
-            return roots, nan_days
-        n_iters = full_iters(tolerance, cfg[3], cfg[4])
-        state = (lower, upper, prev_res, prev_up, ustack)
-        if plain:
-            roots = fixed_halvings(ops, *state, obj.to(F32), w, n_iters,
-                                   twin, box_min)
-        else:
-            roots = bisect_fixed(ops, *state, obj.to(F32), w, n_iters,
-                                 box_min)
-    return roots, nan_days | _day_nan(ops)[None]
+def route(device, dtype, dim, n, table=False, plain=False, reducer=None,
+          grid=None) -> Route:
+    """How a solve runs (the module docstring's table): operands of
+    `dim` assets and `dtype` on `device` over a grid of n points, holding
+    the dim-3 table U or not (`table`), through the plain twins or not
+    (`plain`), with a day mesh (`reducer`) and a grid mesh (`grid`) given
+    or None. Raises for a device other than the CPU or CUDA and for the
+    f32 engine on a grid mesh."""
+    kind = torch.device(device).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"solve: unsupported device {device}")
+    f32 = dtype == F32
+    if f32 and grid is not None:
+        raise ValueError("the f32 engine serves one device or a day mesh; "
+                         "the JAX package has no f32 grid-sharded engine")
+    if kind == "cpu" or plain:
+        sweep = {2: masked_sweep_reference,
+                 3: masked_contract3_reference}.get(dim, tcached_sweep)
+        if f32 and dim == 2:
+            return Route("composed", sweep, "fixed_halvings", "fixed")
+        return Route("composed", sweep, "while", "loop")
+    if dim == 2:
+        k1 = grid is None and n <= bisect_max_grid_points(dtype)
+        if f32:
+            return Route("composed", masked_sweep,
+                         "k1" if k1 else "fixed_halvings", "fixed")
+        if k1 and reducer is None:
+            return Route("fused", masked_sweep, "k1", "device")
+        return Route("composed", masked_sweep, "k1" if k1 else "halvings",
+                     "host")
+    if dim == 3:
+        sweep = masked_contract3 if table else masked_contract3_rebuild
+    else:
+        sweep = tcached_sweep
+    return Route("composed", sweep, "halvings", "host")
 
 
-def full_solve_pallas(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
-                      box_min=-5.0, reducer=None):
-    """The f32 engine (`engine="pallas"`) on float32 `sweep_operands` /
-    `contract3_operands`: L rows of levels `obj` (L,) with one portfolio
-    `weights` (dim,) or one per row (L, dim) -> (roots (L, T), nan_days
-    (L, T)), through the f32 kernels on a CUDA device and the f32 plain
-    twins on the CPU. cfg = (first_guess, sg0, sg1, min_var, max_var).
-    With a `reducer` (a `DayMesh`) `ops` holds this rank's day block and
-    T is its length (JAX's engine "sharded_pallas")."""
-    return _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                         False, reducer)
+def _route(ops, plain=False, reducer=None, grid=None) -> Route:
+    """`route` of the operands, as the code observes them."""
+    if isinstance(ops, SweepOperands):
+        dim, table = 2, False
+    elif isinstance(ops, Contract3Operands):
+        dim, table = 3, ops.U is not None
+    else:
+        dim, table = ops.cols[0].shape[-2], False
+    return route(ops.x.device, ops.x.dtype, dim, ops.x.shape[0], table,
+                 plain, reducer, grid)
 
 
-def full_solve_pallas_reference(ops, obj, weights, cfg, tolerance=1e-6,
-                                quirks=False, box_min=-5.0, reducer=None):
-    """`full_solve_pallas` through the f32 plain twins, on any device."""
-    return _pallas_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                         True, reducer)
+def _routes(ops, plain, reducer=None, grid=None):
+    """(sweep, bisect) of the operands' route: the sweep summed over a
+    grid mesh's ranks, and the route's bisection with the signature of
+    `bisect_levels`, the meshes bound in, taking a fixed count as
+    `n_iters=` and `solve_stages`'s widest bracket as `widest=`."""
+    r = _route(ops, plain, reducer, grid)
+    sweep = r.sweep if grid is None else _grid_summed(r.sweep, grid)
+    return sweep, functools.partial(_bisect, r, sweep, reducer)
+
+
+def _grid_summed(sweep, grid):
+    """`sweep` whose (L, T) share of the operands' outer rows is summed
+    over the grid ranks (`grid.grid_sum`: exact, in rank order)."""
+    def summed(ops, bounds, weights, box_min=-5.0):
+        return grid.grid_sum(sweep(ops, bounds, weights, box_min))
+    return summed
+
+
+def _bisect(r, sweep, reducer, ops, lower, upper, prev_res, prev_up, ustack,
+            obj, weights, tolerance, box_min=-5.0, widest=None,
+            n_iters=None):
+    """Route `r`'s bisection of the (L, T) state (lower, upper, prev_res,
+    prev_up, ustack) of levels obj (L,) and weight rows (L, dim) over
+    `sweep` -> (L, T) roots, its global decisions taken over every rank's
+    days with a `reducer`."""
+    state = (lower, upper, prev_res, prev_up, ustack)
+    if r.count == "fixed":  # in the operands' type, as JAX's f32 K1
+        obj = obj.to(ops.x.dtype)
+        if r.bisect == "k1":
+            return _launch_k1(ops, state, obj, weights, box_min, n_iters)
+        return fixed_halvings(ops, *state, obj, weights, n_iters, sweep,
+                              box_min)
+    if r.bisect == "k1":
+        return bisect_levels(ops, *state, obj, weights, tolerance, box_min,
+                             reducer=reducer, widest=widest)
+    if ops.x.dtype == F32:  # float64 state, each halving an f32 sweep
+        f32_sweep, weights = sweep, weights.to(F32).contiguous()
+
+        def sweep(ops, bounds, weights, box_min=-5.0):
+            return f32_sweep(ops, bounds.to(F32).contiguous(), weights,
+                             box_min).to(F64)
+
+        state = tuple(t.to(F64).contiguous() for t in state[:4]) + (
+            ustack.contiguous(),)
+        obj = obj.to(F64)
+    if r.bisect == "while":
+        return bisect_levels_reference(ops, *state, obj, weights, tolerance,
+                                       box_min, sweep, reducer)
+    n_iters = _halving_count(state[0], state[1], tolerance, reducer)
+    return bisect_fixed_count(ops, *state, obj, weights, tolerance, n_iters,
+                              sweep, box_min, reducer)
 
 
 def _stages(ops, obj, weights, cfg, quirks, box_min, sweep, dt):
@@ -726,21 +586,20 @@ def _stages(ops, obj, weights, cfg, quirks, box_min, sweep, dt):
 
 def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
                 reducer=None, grid=None):
-    """Stage-1 sweep + stage-2 bracket + bisection for L rows. weights is
-    (dim,) for one portfolio shared by every row (one stage-1 sweep
-    serves them all) or (L, dim) for one portfolio per row. `plain`
-    picks the plain twins over the dispatching wrappers. With a
-    `reducer` the operands hold one rank's day block, and only the
-    bisection's global decisions are reduced. With a `grid` they hold one
+    """Stage-1 sweep + stage-2 bracket + bisection of L rows on the
+    operands' route. weights is (dim,) for one portfolio shared by every
+    row (one stage-1 sweep serves them all) or (L, dim) for one portfolio
+    per row. `plain` picks the plain twins over the dispatching wrappers.
+    With a `reducer` the operands hold one rank's day block, and only the
+    bisection's global decisions are reduced; with a `grid` they hold one
     rank's outer grid rows, and every sweep is summed over the grid
     ranks. Returns (roots (L, T), nan_days (L, T))."""
-    _require_dtype(ops, F64, "full_solve_levels")
-    sweep, bisect = (_routes(ops, plain) if grid is None
-                     else _grid_routes(ops, plain, grid))
-    kw = {}
-    if not plain and fused_stages(ops.x.device, ops.x.dtype,
-                                  weights.shape[-1], ops.x.shape[0],
-                                  reducer, grid):
+    r = _route(ops, plain, reducer, grid)
+    # on one card in the call shape the fault harness replaces
+    sweep, bisect = (_routes(ops, plain) if reducer is None and grid is None
+                     else _routes(ops, plain, reducer, grid))
+    dt, kw = ops.x.dtype, {}
+    if r.stages == "fused":
         L = obj.shape[0]
         if weights.dim() == 1:
             weights = weights.reshape(1, -1).expand(L, -1)
@@ -750,45 +609,34 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
                 ops, obj, weights, cfg, quirks, box_min)
     else:
         (*state, nan_days), weights = _stages(
-            ops, obj, weights, cfg, quirks, box_min, sweep, F64)
+            ops, obj.to(dt), weights.to(dt), cfg, quirks, box_min, sweep, dt)
+    if r.count == "fixed":  # JAX's f32 dim-2 `_full_solve`
+        kw["n_iters"] = full_iters(tolerance, cfg[3], cfg[4])
+        nan_days = nan_days | _day_nan(ops)[None]
     with span("solve.bisect"):
         roots = bisect(ops, *(t.contiguous() for t in state), obj, weights,
-                       tolerance, box_min, reducer=reducer, **kw)
+                       tolerance, box_min, **kw)
     return roots, nan_days
 
 
-def full_solve_levels(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
-                      box_min=-5.0, reducer=None, grid=None):
-    """All L confidence levels `obj` (L,) of one portfolio `weights` (dim,)
-    -> (roots (L, T), nan_days (L, T)), through the kernels on a CUDA
-    device and the plain twins on the CPU. cfg = (first_guess, sg0, sg1,
-    min_var, max_var). With a `reducer` (a `DayMesh`) `ops` holds this
-    rank's day block and T is its length; with a `grid` (a `GridMesh`)
-    this rank's outer grid rows."""
+def full_solve(ops, obj, weights, cfg, tolerance=1e-6, quirks=False,
+               box_min=-5.0, reducer=None, grid=None):
+    """L rows of levels `obj` (L,) with one portfolio `weights` (dim,)
+    shared by every row, or one per row (L, dim) -> (roots (L, T),
+    nan_days (L, T)), on the operands' route: float64 operands on the f64
+    engine, float32 ones on the f32 engine (roots float32 at dim 2,
+    float64 at dim 3); the kernels on a CUDA device, the plain twins on
+    the CPU. cfg = (first_guess, sg0, sg1, min_var, max_var). With a
+    `reducer` (a `DayMesh`) `ops` holds this rank's day block and T is its
+    length; with a `grid` (a `GridMesh`, the f64 engine) this rank's outer
+    grid rows."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
                        False, reducer, grid)
 
 
-def full_solve_levels_reference(ops, obj, weights, cfg, tolerance=1e-6,
-                                quirks=False, box_min=-5.0, reducer=None,
-                                grid=None):
-    """`full_solve_levels` through the plain twins, on any device."""
-    return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       True, reducer, grid)
-
-
-def full_solve_portfolios(ops, obj, weights, cfg, tolerance=1e-6,
-                          quirks=False, box_min=-5.0, reducer=None,
-                          grid=None):
-    """L portfolio rows, row l with its own weights[l] (L, dim) and level
-    obj[l] -> (roots (L, T), nan_days (L, T))."""
-    return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
-                       False, reducer, grid)
-
-
-def full_solve_portfolios_reference(ops, obj, weights, cfg, tolerance=1e-6,
-                                    quirks=False, box_min=-5.0,
-                                    reducer=None, grid=None):
-    """`full_solve_portfolios` through the plain twins, on any device."""
+def full_solve_reference(ops, obj, weights, cfg, tolerance=1e-6,
+                         quirks=False, box_min=-5.0, reducer=None,
+                         grid=None):
+    """`full_solve` through the plain twins, on any device."""
     return _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min,
                        True, reducer, grid)

@@ -3,8 +3,8 @@ that `copula_var_tpu/backtest.py` runs after its staircase bisection:
 `_trap_refine_levels_jit`, `_trap_refine_portfolios_jit` and the in-program
 refine of `_device_full_solve_{levels,portfolios}_jit`).
 
-`full_solve_levels` / `full_solve_portfolios` return the staircase roots
-through the kernels; `refine_roots` then re-solves each (row, day) in a
+`ops/cuda_solver.py::full_solve` returns the staircase roots through the
+kernels; `refine_roots` then re-solves each (row, day) in a
 +-h window with 12 halvings of the trapezoid sweep (`ops/solvers.py::
 trap_bisect`). The trap sweep reads the operands the backtest already
 holds and builds nothing per query: the day tensors V of `SweepOperands`

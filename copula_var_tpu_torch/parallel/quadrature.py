@@ -7,11 +7,13 @@ JAX process holds the full host copy, builds the bounds-invariant
 operands for the full T (the transform's `t_ppf` rounds by its batch, so
 a block built alone could move by an ulp), keeps this rank's block of
 days (`DayMesh.day_block`), runs the port's own single-card code on it
-(on a CUDA device the kernels: K2 for the sweeps, K1 for the bisection;
-on the CPU their plain twins), and gathers the result over the mesh, so
-every rank returns the full day axis. The bisection's global decisions
-(halving count, all-zeros freeze, loop condition) are reduced over the
-mesh (`ops/cuda_solver.py`); nothing else crosses ranks.
+and gathers the result over the mesh, so every rank returns the full day
+axis. The sweep and the bisection of a rank's block (on a CUDA device
+the kernels: K2 for the sweeps, K1 for the bisection; on the CPU their
+plain twins) are its operands' route with the day mesh given
+(`ops/cuda_solver.py::route`), which reduces the bisection's global
+decisions (halving count, all-zeros freeze, loop condition) over the
+mesh; nothing else crosses ranks.
 
 Grid sharding (its :625-1106, `grid_sharded_*` with the JAX names): on
 a `GridMesh` each rank holds n / g outer grid rows (grid axis 0, paired
@@ -43,11 +45,11 @@ shared part (the portfolio weights and T) where JAX returns its placed
 `sharded_dim3_pallas_bisection_solve_levels` and
 `sharded_dim3_pallas_full_solve_levels` take that pair. They run the f32
 K4 sweep (its plain twin on the CPU) under the bisection's reduced
-global decisions (`ops/cuda_solver.py::bisect_contract3_f32`); JAX's
+global decisions, on float64 state (the f32 engine's dim-3 route); JAX's
 `interpret` is taken and not used, as the device picks the kernel or
 its twin. JAX's dim-2 f32 functions (`ops/pallas_solver.py::
 *_pallas_levels_sharded`) carry no name here: `ops/cuda_solver.py::
-full_solve_pallas(..., reducer=mesh)` on a rank's block serves them,
+full_solve(..., reducer=mesh)` on a rank's float32 block serves them,
 and `VaRBacktest(engine="pallas", mesh=<DayMesh>)` serves the whole
 engine.
 
@@ -68,14 +70,7 @@ from copula_var_tpu_torch.ops.cuda_quadrature import (
     sweep_operands,
 )
 from copula_var_tpu_torch.ops.cuda_quadrature3 import contract3_operands
-from copula_var_tpu_torch.ops.cuda_solver import (
-    bisect_contract3_f32,
-    bisect_for,
-    full_solve_levels,
-    full_solve_pallas,
-    full_solve_portfolios,
-    sweep_for,
-)
+from copula_var_tpu_torch.ops.cuda_solver import _routes, full_solve
 from copula_var_tpu_torch.ops.quadrature import (
     CopulaSpec,
     _inside,
@@ -148,7 +143,8 @@ def _block_sweep(mesh, ops, T, bounds, weights, box_min=-5.0):
     dt = ops.x.dtype
     b = _f64(mesh, bounds)[mesh.days(T)].to(dt).contiguous()
     w = _f64(mesh, weights).reshape(1, -1).to(dt)
-    return gather_days(sweep_for(ops)(ops, b[None], w, box_min)[0], mesh, T)
+    sweep, _ = _routes(ops, False, mesh)
+    return gather_days(sweep(ops, b[None], w, box_min)[0], mesh, T)
 
 
 def sharded_msm_step(mesh: DayMesh, bounds, fbs, fcombos, x, dx, densities,
@@ -197,8 +193,8 @@ def sharded_bisection_solve_levels(mesh: DayMesh, day_tensors, fcombos,
 def _block_bisection(mesh, ops, T, weights, lower, upper, prev_result,
                      prev_upper, upper_stack, obj_vars, tolerance, box_min):
     """(L, T) roots on every rank: this rank's block of the (L, T) state
-    bisected by the operands' bisection (on float32 dim-3 operands the
-    f32 engine's), its global decisions reduced over the mesh."""
+    bisected by the operands' route, its global decisions reduced over
+    the mesh."""
     days = mesh.days(T)
 
     def block(a, dtype=torch.float64):  # (L, T) or (T,) -> (L, block)
@@ -210,9 +206,9 @@ def _block_bisection(mesh, ops, T, weights, lower, upper, prev_result,
     us = block(upper_stack, torch.bool)
     obj = _f64(mesh, obj_vars).reshape(-1)
     w = _f64(mesh, weights).reshape(1, -1).expand(obj.shape[0], -1)
-    bisect = bisect_contract3_f32 if ops.x.dtype == F32 else bisect_for(ops)
+    _, bisect = _routes(ops, False, mesh)
     roots = bisect(ops, lo, up, pr, pu, us, obj, w.contiguous(),
-                   float(tolerance), box_min, reducer=mesh)
+                   float(tolerance), box_min)
     return gather_days(roots, mesh, T)
 
 
@@ -230,12 +226,12 @@ def sharded_bisection_solve(mesh: DayMesh, day_tensors, fcombos, densities,
     )[0]
 
 
-def _full(mesh, solve, ops, T, weights, obj_vars, cfg, tolerance, box_min,
-          quirks, refine, h_rows):
+def _full(mesh, ops, T, weights, obj_vars, cfg, tolerance, box_min, quirks,
+          refine, h_rows):
     obj = _f64(mesh, obj_vars).reshape(-1)
     weights = _f64(mesh, weights)
-    roots, nan_days = solve(ops, obj, weights, cfg, float(tolerance),
-                            bool(quirks), box_min, reducer=mesh)
+    roots, nan_days = full_solve(ops, obj, weights, cfg, float(tolerance),
+                                 bool(quirks), box_min, reducer=mesh)
     if refine:
         rows = weights.reshape(-1, weights.shape[-1]).expand(
             obj.shape[0], -1)
@@ -263,7 +259,7 @@ def sharded_full_solve_levels(mesh: DayMesh, day_tensors, fcombos,
     portfolio, day-sharded -> host (roots (L, T), nan_days (L, T)) on
     every rank."""
     ops, T = _block_operands(mesh, day_tensors, fcombos, densities, x, dx)
-    return _full(mesh, full_solve_levels, ops, T, weights, obj_vars,
+    return _full(mesh, ops, T, weights, obj_vars,
                  _cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
                  tolerance, box_min, reference_quirks, refine,
@@ -279,8 +275,7 @@ def sharded_full_solve_portfolios(mesh: DayMesh, day_tensors, fcombos,
     """`sharded_full_solve_levels` for L portfolio rows (weights_batch
     (L, 2), obj_vars (L,), refine_h scalar or (L,))."""
     ops, T = _block_operands(mesh, day_tensors, fcombos, densities, x, dx)
-    return _full(mesh, full_solve_portfolios, ops, T, weights_batch,
-                 obj_vars,
+    return _full(mesh, ops, T, weights_batch, obj_vars,
                  _cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
                  tolerance, box_min, reference_quirks, refine,
@@ -381,13 +376,13 @@ def sharded_tcached_full_solve_levels(
         refine_h=0.0):
     """The whole dim >= 3 solve, day-sharded -> host (roots (L, T),
     nan_days (L, T)) on every rank; with `portfolios` weights is an
-    (L, dim) batch, one row per level; with `refine` the trap re-solve
-    in +-refine_h."""
+    (L, dim) batch, one row per level (taken for JAX's signature: the
+    solve reads the weights' shape); with `refine` the trap re-solve in
+    +-refine_h."""
     ops, T_cols = _tcached_block_operands(mesh, cols, fcombos, densities,
                                           x, dx, spec, family)
     _check_T(T_cols, T)
-    solve = full_solve_portfolios if portfolios else full_solve_levels
-    return _full(mesh, solve, ops, T_cols, weights, obj_vars,
+    return _full(mesh, ops, T_cols, weights, obj_vars,
                  _cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
                  tolerance, box_min, reference_quirks, refine,
@@ -490,7 +485,7 @@ def sharded_dim3_pallas_full_solve_levels(
     weights, T_ops = _dim3_placed(ops, shared, family, kind)
     _check_T(T_ops, T)
     w = weights if weights_batch is None else _f64(mesh, weights_batch)
-    return _full(mesh, full_solve_pallas, ops, T_ops, w, obj_vars,
+    return _full(mesh, ops, T_ops, w, obj_vars,
                  _cfg(first_guess, second_guess, min_var_value,
                       max_var_value),
                  tolerance, box_min, reference_quirks, False, 0.0)

@@ -294,8 +294,8 @@ def _composed(ops, obj, weights, cfg, quirks, tol=1e-6):
 
 def _fused_equals_composed(ops, obj, weights, cfg, quirks=False):
     """solve_stages' outputs bit-equal to the composed route's state and
-    widest bracket; the solve (full_solve_levels for shared weights,
-    full_solve_portfolios per row) takes the fused route, launching
+    widest bracket; the solve (`full_solve`, with shared weights or one
+    portfolio per row) takes the fused route, launching
     solve_stages and K1 once each and no K2, and its roots and NaN days
     are the composed route's bits. Returns (roots, nan_days, widest)."""
     state, rows, want = _composed(ops, obj, weights, cfg, quirks)
@@ -306,9 +306,7 @@ def _fused_equals_composed(ops, obj, weights, cfg, quirks=False):
     widest = got[6]
     assert torch.equal(widest, (state[1] - state[0]).max().reshape(1))
     before = _launches_now()
-    solve = cs.full_solve_levels if weights.dim() == 1 else \
-        cs.full_solve_portfolios
-    roots, nan = solve(ops, obj, weights, cfg, quirks=quirks)
+    roots, nan = cs.full_solve(ops, obj, weights, cfg, quirks=quirks)
     after = _launches_now()
     assert {k: after[k] - before[k] for k in after} == {
         "masked_sweep": 0, "bisect_levels": 1, "solve_stages": 1}
@@ -340,7 +338,7 @@ def test_solve_stages_route_equals_the_composed_route(dev, n, L, shared,
     roots, nan, _ = _fused_equals_composed(ops, obj, weights, CFG_IN_GRID,
                                            quirks)
     rows = weights.expand(L, 2) if shared else weights
-    want, want_nan = cs.full_solve_portfolios_reference(
+    want, want_nan = cs.full_solve_reference(
         ops, obj, rows.contiguous(), CFG_IN_GRID, quirks=quirks)
     assert torch.equal(nan, want_nan)
     assert float((roots - want).abs().max()) <= ATOL_ROOT
@@ -399,7 +397,7 @@ def test_solve_stages_route_on_an_empty_block_launches_nothing(dev):
     obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
     w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
     before = _launches_now()
-    roots, nan = cs.full_solve_levels(ops, obj, w, CFG)
+    roots, nan = cs.full_solve(ops, obj, w, CFG)
     out = cs.solve_stages(ops, obj, w.expand(2, 2).contiguous(), CFG)
     assert roots.shape == nan.shape == (2, 0)
     assert [t.shape for t in out[:6]] == [(2, 0)] * 6
@@ -1011,10 +1009,10 @@ def test_wide_dim2_bisects_by_k2_sweeps(dev):
     w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
     before = (cq.launch_count(cs.bisect_levels),
               cq.launch_count(cq.masked_sweep))
-    got, _ = cs.full_solve_levels(ops, obj, w, CFG)
+    got, _ = cs.full_solve(ops, obj, w, CFG)
     assert cq.launch_count(cs.bisect_levels) == before[0]
     assert cq.launch_count(cq.masked_sweep) > before[1] + 10
-    want, _ = cs.full_solve_levels_reference(ops, obj, w, CFG)
+    want, _ = cs.full_solve_reference(ops, obj, w, CFG)
     assert float((got - want).abs().max()) <= ATOL_ROOT
 
 
@@ -1226,10 +1224,10 @@ def test_wide_dim3_solve_through_the_rebuild(dev):
     w = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64, device=dev)
     before = (cq.launch_count(cq3.masked_contract3),
               cq.launch_count(cq3.masked_contract3_rebuild))
-    got, _ = cs.full_solve_levels(ops, obj, w, CFG)
+    got, _ = cs.full_solve(ops, obj, w, CFG)
     assert cq.launch_count(cq3.masked_contract3) == before[0]
     assert cq.launch_count(cq3.masked_contract3_rebuild) > before[1] + 10
-    want, _ = cs.full_solve_levels_reference(ops, obj, w, CFG)
+    want, _ = cs.full_solve_reference(ops, obj, w, CFG)
     assert float((got - want).abs().max()) <= ATOL_ROOT
 
 
@@ -1315,7 +1313,8 @@ def test_f32_k1_fixed_count_matches_k2_halvings_and_plain(dev, family):
         F1, obj, lambda b: cq.masked_sweep(ops, b.contiguous(), weights),
         CFG, False)[:5]]
     before = _f32_counts()
-    got = cs.bisect_fixed(ops, *state, obj, weights, 23)
+    _, bisect = cs._routes(ops, False)
+    got = bisect(ops, *state, obj, weights, 1e-6, n_iters=23)
     assert _launched(before, _f32_counts()) == {"bisect_levels": (0, 1)}
     by_k2 = cs.fixed_halvings(ops, *state, obj, weights, 23, cq.masked_sweep)
     assert torch.equal(got, by_k2)
@@ -1327,20 +1326,20 @@ def test_f32_k1_fixed_count_matches_k2_halvings_and_plain(dev, family):
 
 @pytest.mark.parametrize("n", [48, 192, 193])
 def test_f32_fused_solve_on_the_card(dev, n):
-    """`full_solve_pallas` at dim 2: two f32 stage sweeps, then one K1 f32
-    launch up to n = 192, or 23 f32 K2 sweeps past it; no f64 launch;
-    within the plateau bound of its plain twin."""
+    """`full_solve` of f32 operands at dim 2: two f32 stage sweeps, then
+    one K1 f32 launch up to n = 192, or 23 f32 K2 sweeps past it; no f64
+    launch; within the plateau bound of its plain twin."""
     ops = _ops(dev, "msm", T=9, n=n, dtype=F32)
     obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
     w = torch.tensor([0.6, 0.4], dtype=torch.float64, device=dev)
     before = _f32_counts()
-    got, nan = cs.full_solve_pallas(ops, obj, w, CFG)
+    got, nan = cs.full_solve(ops, obj, w, CFG)
     launched = _launched(before, _f32_counts())
     if n <= 192:
         assert launched == {"masked_sweep": (0, 2), "bisect_levels": (0, 1)}
     else:
         assert launched == {"masked_sweep": (0, 2 + 23)}
-    want, want_nan = cs.full_solve_pallas_reference(ops, obj, w, CFG)
+    want, want_nan = cs.full_solve_reference(ops, obj, w, CFG)
     assert torch.equal(nan, want_nan) and got.dtype == F32
     assert float((got - want).abs().max()) <= float(ops.dx.max()) * 0.6
 
@@ -1383,21 +1382,21 @@ def test_f32_rebuild_equals_the_f32_table_sweep(dev, family, walk):
 
 
 def test_f32_dim3_solve_on_the_card(dev):
-    """`full_solve_pallas` at dim 3 (f32 K4 sweeps, float64 state) on the
-    table and on the rebuild: the same roots, no f64 launch, within the
-    plateau bound of the plain twin."""
+    """`full_solve` of f32 operands at dim 3 (f32 K4 sweeps, float64
+    state) on the table and on the rebuild: the same roots, no f64
+    launch, within the plateau bound of the plain twin."""
     ops = _ops3(dev, "msm", "student", dtype=F32)
     obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
     w = torch.tensor([0.5, 0.3, 0.2], dtype=torch.float64, device=dev)
     before = _f32_counts()
-    got, nan = cs.full_solve_pallas(ops, obj, w, CFG)
+    got, nan = cs.full_solve(ops, obj, w, CFG)
     launched = _launched(before, _f32_counts())
     assert set(launched) == {"masked_contract3"}
     assert launched["masked_contract3"][0] == 0
     assert got.dtype == torch.float64
-    rebuilt, _ = cs.full_solve_pallas(_walk(ops, "truncated"), obj, w, CFG)
+    rebuilt, _ = cs.full_solve(_walk(ops, "truncated"), obj, w, CFG)
     assert _same(rebuilt, got)
-    want, want_nan = cs.full_solve_pallas_reference(ops, obj, w, CFG)
+    want, want_nan = cs.full_solve_reference(ops, obj, w, CFG)
     assert torch.equal(nan, want_nan)
     assert float((got - want).abs().max()) <= float(ops.dx.max()) * 0.5
 
@@ -1430,16 +1429,18 @@ def test_f32_limits_mirror_the_launchers(dev):
 
 
 def test_wrappers_refuse_the_other_engine_s_operands(dev):
-    """The f64 solves refuse f32 operands and the f32 solve f64 ones; a
-    sweep of f32 operands refuses float64 bounds."""
+    """The f64 engine's own wrappers (K1 with its host or device count,
+    the fused stages) refuse f32 operands, which `full_solve` serves on
+    the f32 engine's route; a sweep of f32 operands refuses float64
+    bounds."""
     ops32 = _ops(dev, "garch", T=5, dtype=F32)
-    ops64 = _ops(dev, "garch", T=5)
     obj = torch.tensor([0.05], dtype=torch.float64, device=dev)
-    w = torch.tensor([0.5, 0.5], dtype=torch.float64, device=dev)
+    w = torch.tensor([[0.5, 0.5]], dtype=torch.float64, device=dev)
+    b = torch.zeros((1, 5), dtype=F32, device=dev)
     with pytest.raises(ValueError, match="f64 engine"):
-        cs.full_solve_levels(ops32, obj, w, CFG)
-    with pytest.raises(ValueError, match="f32 engine"):
-        cs.full_solve_pallas(ops64, obj, w, CFG)
+        cs.bisect_levels(ops32, b, b, b, b, b > 0, obj, w, 1e-6)
+    with pytest.raises(ValueError, match="f64 engine"):
+        cs.solve_stages(ops32, obj, w, CFG)
     bounds, weights = _rows(dev, 5, 1)
     with pytest.raises(ValueError, match="bounds"):
         cq.masked_sweep(ops32, bounds, weights)
@@ -1496,8 +1497,7 @@ def test_an_empty_day_block_launches_nothing(dev, dtype):
     for sweep in (cq3.masked_contract3, cq3.masked_contract3_rebuild):
         assert sweep(ops3, b3.to(dtype), w3.to(dtype)).shape == (3, 0)
     obj = torch.tensor([0.01, 0.05], dtype=torch.float64, device=dev)
-    solve = cs.full_solve_pallas if dtype == F32 else cs.full_solve_levels
     for o, w in ((ops, w2[0]), (ops3, w3[0])):
-        roots, nan = solve(o, obj, w, CFG, reducer=reducer)
+        roots, nan = cs.full_solve(o, obj, w, CFG, reducer=reducer)
         assert roots.shape == nan.shape == (2, 0)
     assert _f32_counts() == before

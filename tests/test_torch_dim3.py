@@ -243,8 +243,7 @@ def test_full_solve_levels_dim3_matches_jax(case, family, quirks):
     want, want_nan = jbt._device_full_solve_levels_jit(
         kid, _aux(kid, aux, jspec, W3), jnp.asarray(obj), jnp.asarray(CFG),
         TOL, T, quirks)
-    got, got_nan = cs.full_solve_levels(ops, _t(obj), _t(W3), CFG, TOL,
-                                        quirks)
+    got, got_nan = cs.full_solve(ops, _t(obj), _t(W3), CFG, TOL, quirks)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL_ROOT)
     np.testing.assert_array_equal(got_nan.numpy(), np.asarray(want_nan))
@@ -259,8 +258,7 @@ def test_full_solve_portfolios_dim3_matches_jax(case, family, quirks):
     want, want_nan = jbt._device_full_solve_portfolios_jit(
         kid, _aux(kid, aux, jspec, W3), jnp.asarray(obj), jnp.asarray(wb),
         jnp.asarray(CFG), TOL, T, quirks)
-    got, got_nan = cs.full_solve_portfolios(ops, _t(obj), _t(wb), CFG, TOL,
-                                            quirks)
+    got, got_nan = cs.full_solve(ops, _t(obj), _t(wb), CFG, TOL, quirks)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL_ROOT)
     np.testing.assert_array_equal(got_nan.numpy(), np.asarray(want_nan))
@@ -284,7 +282,8 @@ def test_fixed_count_bisection_equals_while_loop_dim3(case, family):
     # row 2: a bracket far below the grid, where every slab is exactly 0
     state[0][2], state[1][2] = -60.0, -50.0
     state[2][2], state[3][2] = 0.0, -60.0
-    plain = cs.bisect_contract3(ops, *state, obj, wrows, TOL)
+    _, bisect = cs._routes(ops, False)
+    plain = bisect(ops, *state, obj, wrows, TOL)
     n_iters = cs.halvings(float((state[1] - state[0]).max()), TOL)
     for extra in (0, 3):
         fixed = cs.bisect_fixed_count(
@@ -410,8 +409,7 @@ def test_dim3_rejections(case, tmp_path):
     with pytest.raises(ValueError, match="unsupported device"):
         cq3.masked_contract3(meta, b, w)
     with pytest.raises(ValueError, match="unsupported device"):
-        cs.bisect_contract3(meta, b[..., 0], b[..., 1], b[..., 0], b[..., 1],
-                            b[..., 0] > 0, w[:, 0], w, TOL)
+        cs.full_solve(meta, w[:, 0], w, CFG, TOL)
 
 
 def test_cpu_tensors_take_the_plain_twin(case, tmp_path):

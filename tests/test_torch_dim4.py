@@ -233,8 +233,7 @@ def test_full_solve_dim4_matches_jax(family, quirks):
     want, want_nan = jbt._device_full_solve_levels_jit(
         kid, _aux(aux, jspec, w), jnp.asarray(obj), jnp.asarray(CFG), TOL,
         T, quirks)
-    got, got_nan = cs.full_solve_levels(ops, _t(obj), _t(w), CFG, TOL,
-                                        quirks)
+    got, got_nan = cs.full_solve(ops, _t(obj), _t(w), CFG, TOL, quirks)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL_ROOT)
     np.testing.assert_array_equal(got_nan.numpy(), np.asarray(want_nan))
@@ -243,8 +242,7 @@ def test_full_solve_dim4_matches_jax(family, quirks):
     want, want_nan = jbt._device_full_solve_portfolios_jit(
         kid, _aux(aux, jspec, w), jnp.asarray(obj), jnp.asarray(wb),
         jnp.asarray(CFG), TOL, T, quirks)
-    got, got_nan = cs.full_solve_portfolios(ops, _t(obj), _t(wb), CFG, TOL,
-                                            quirks)
+    got, got_nan = cs.full_solve(ops, _t(obj), _t(wb), CFG, TOL, quirks)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL_ROOT)
     np.testing.assert_array_equal(got_nan.numpy(), np.asarray(want_nan))
@@ -267,7 +265,8 @@ def test_fixed_count_bisection_equals_while_loop_dim4(family):
         F1, obj, lambda b: tc.tcached_sweep(ops, b, wrows), CFG, False)[:5]]
     state[0][2], state[1][2] = -60.0, -50.0
     state[2][2], state[3][2] = 0.0, -60.0
-    plain = cs.bisect_tcached(ops, *state, obj, wrows, TOL)
+    _, bisect = cs._routes(ops, False)
+    plain = bisect(ops, *state, obj, wrows, TOL)
     n_iters = cs.halvings(float((state[1] - state[0]).max()), TOL)
     for extra in (0, 3):
         fixed = cs.bisect_fixed_count(ops, *state, obj, wrows, TOL,
@@ -277,10 +276,8 @@ def test_fixed_count_bisection_equals_while_loop_dim4(family):
     meta = tc.ColumnOperands(*[
         t.to("meta") if torch.is_tensor(t) else t for t in ops
     ])._replace(cols=tuple(c.to("meta") for c in ops.cols))
-    b = torch.zeros((3, T), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        cs.bisect_tcached(meta, b, b, b, b, b > 0, obj.to("meta"),
-                          wrows.to("meta"), TOL)
+        cs.full_solve(meta, obj.to("meta"), wrows.to("meta"), CFG, TOL)
 
 
 def test_msm_unequal_states_pad_as_jax():

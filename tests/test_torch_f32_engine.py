@@ -241,7 +241,7 @@ def test_dim2_sweep_twin_matches_jax_k3():
 
 
 def test_dim2_fused_solve_twin_matches_jax_full_solve():
-    """`full_solve_pallas` (plain twins) against JAX's
+    """`full_solve` of float32 operands (plain twins) against JAX's
     `full_solve_pallas_levels` (interpret mode) on the same operands, a
     level ladder with one portfolio, and one portfolio per row."""
     ops, raw = _dim2_ops()
@@ -252,7 +252,7 @@ def test_dim2_fused_solve_twin_matches_jax_full_solve():
     want, want_nan = jps.full_solve_pallas_levels(
         raw["V"], w0, w1, raw["fc"], raw["x"], w, levels, interpret=True,
         day_block=8)
-    got, nan = cs.full_solve_pallas(
+    got, nan = cs.full_solve(
         ops, torch.tensor(levels), torch.tensor(w), CFG)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(nan.numpy(),
@@ -262,9 +262,9 @@ def test_dim2_fused_solve_twin_matches_jax_full_solve():
     want_p, _ = jps.full_solve_pallas_levels(
         raw["V"], w0, w1, raw["fc"], raw["x"], wb, np.full(3, 0.05),
         interpret=True, day_block=8)
-    got_p, _ = cs.full_solve_pallas(ops, torch.full((3,), 0.05,
-                                                    dtype=torch.float64),
-                                    torch.tensor(wb), CFG)
+    got_p, _ = cs.full_solve(ops, torch.full((3,), 0.05,
+                                             dtype=torch.float64),
+                             torch.tensor(wb), CFG)
     _hold_to_plateau(got_p.numpy(), want_p, raw["dx"], wb)
 
 
@@ -286,8 +286,8 @@ def test_dim2_solve_runs_full_iters_halvings(monkeypatch):
     monkeypatch.setattr(cs, "masked_sweep_reference", counted)
     for tol, iters in ((1e-6, 23), (7.5 / 1000.0, 10)):
         calls.clear()
-        cs.full_solve_pallas(ops, torch.tensor([0.05, 0.01]),
-                             torch.tensor([0.5, 0.5]), CFG, tolerance=tol)
+        cs.full_solve(ops, torch.tensor([0.05, 0.01]),
+                      torch.tensor([0.5, 0.5]), CFG, tolerance=tol)
         assert iters == jps._full_iters(1, tol, CFG[3], CFG[4])[0]
         assert len(calls) == 2 + iters
     # brackets wholly below the grid: every slab is 0, and the while-loop
@@ -295,9 +295,10 @@ def test_dim2_solve_runs_full_iters_halvings(monkeypatch):
     calls.clear()
     lo, hi = _state(1, ops.days, -100.0, -99.0)
     us = torch.ones((1, ops.days), dtype=torch.bool)
-    cs.bisect_fixed(ops, lo, hi, torch.zeros_like(lo), hi.clone(), us,
-                    torch.tensor([0.05], dtype=torch.float32),
-                    torch.tensor([[0.5, 0.5]], dtype=torch.float32), 7)
+    _, bisect = cs._routes(ops, False)
+    bisect(ops, lo, hi, torch.zeros_like(lo), hi.clone(), us,
+           torch.tensor([0.05], dtype=torch.float32),
+           torch.tensor([[0.5, 0.5]], dtype=torch.float32), 1e-6, n_iters=7)
     assert len(calls) == 7
 
 
@@ -305,8 +306,8 @@ def test_dim2_nan_day_is_nan_and_leaves_the_other_days():
     ops, _ = _dim2_ops()
     bad, _ = _dim2_ops(nan_day=4)
     obj, w = torch.tensor([0.05, 0.01]), torch.tensor([0.6, 0.4])
-    want, want_nan = cs.full_solve_pallas(ops, obj, w, CFG)
-    got, nan = cs.full_solve_pallas(bad, obj, w, CFG)
+    want, want_nan = cs.full_solve(ops, obj, w, CFG)
+    got, nan = cs.full_solve(bad, obj, w, CFG)
     assert not want_nan.any()
     assert nan[:, 4].all() and not nan[:, np.r_[0:4, 5:10]].any()
     keep = np.r_[0:4, 5:10]
@@ -332,7 +333,8 @@ def test_dim3_sweep_twin_matches_jax_k4():
         interpret=True))
     ops = tb.sweep_operands()
     assert ops.dtype == torch.float32 and ops.sigma_inv.dtype == torch.float64
-    got = cs.sweep_for(ops)(
+    sweep, _ = cs._routes(ops, False)
+    got = sweep(
         ops, torch.tensor(bounds[None], dtype=torch.float32),
         torch.tensor(WEIGHTS[3][None], dtype=torch.float32))[0]
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL_INTEGRAL)
@@ -496,8 +498,8 @@ def test_f32_limits():
     f32 = torch.float32
     assert (cq.bisect_max_grid_points(), cq.bisect_max_grid_points(f32)) \
         == (169, 192)
-    assert (cs.dim2_bisect_route(192, f32), cs.dim2_bisect_route(193, f32)) \
-        == ("k1", "sweeps")
+    assert (cs.route("cuda", f32, 2, 192).bisect,
+            cs.route("cuda", f32, 2, 193).bisect) == ("k1", "fixed_halvings")
     assert cq.prefix_table_bytes(500, 100, dtype=f32) * 2 - 500 * 100 == \
         cq.prefix_table_bytes(500, 100)
     assert cq3.table_bytes(500, 100, dtype=f32) == 2_020_000_000

@@ -411,7 +411,7 @@ def test_plain_partials_of_a_split_add_up_to_the_sweep(case):
     """The plain twins' shares of uneven row ranges, summed, against the
     whole sweep at rtol 1e-15 (trap sweeps too); rows (0, n) give the
     whole sweep's bits."""
-    from copula_var_tpu_torch.ops.cuda_solver import sweep_for
+    from copula_var_tpu_torch.ops.cuda_solver import _routes
     from copula_var_tpu_torch.ops.refine import trap_sweep
 
     bt = gw.port_backtest(case)
@@ -434,7 +434,7 @@ def test_plain_partials_of_a_split_add_up_to_the_sweep(case):
             return make(cols, inputs, spec, rows=rows)
     b = _bounds(T, 3)
     w = torch.as_tensor(np.stack([wk.weights(dim)] * 3))
-    for sweep in (sweep_for(full), trap_sweep):
+    for sweep in (_routes(full, False)[0], trap_sweep):
         want = sweep(full, b, w)
         parts = [sweep(build(r), b, w) for r in splits]
         got = parts[0] + parts[1] + parts[2]

@@ -1,10 +1,10 @@
-"""The fused dim-2 route of the float64 solve on the CPU
-(`ops/cuda_solver.py`): which solves take it (`fused_stages`, a pure
-function of the device, type, asset count, grid width and meshes), the
-plumbing of `_full_solve` through it (forced onto the CPU) against the
-composed route, the widest bracket it folds, the device count's refusal
-of a day mesh, and the launchers it registers. The kernel itself runs on
-the card only (`tests/test_torch_cuda_kernels.py`)."""
+"""The solve's route (`ops/cuda_solver.py::route`, a pure function of the
+device, type, asset count, grid width, table and meshes) and the fused
+dim-2 route of the float64 solve on the CPU: the plumbing of
+`_full_solve` through it (forced onto the CPU) against the composed
+route, the widest bracket it folds, the device count's refusal of a day
+mesh, and the launchers it registers. The kernel itself runs on the card
+only (`tests/test_torch_cuda_kernels.py`)."""
 
 import numpy as np
 import pytest
@@ -20,23 +20,102 @@ CFG = (-3.0, -3.5, -2.0, -5.0, 0.0)
 MESH = object()  # any mesh: the route looks only at whether there is one
 
 
-@pytest.mark.parametrize("device, dtype, dim, n, reducer, grid, fused", [
-    ("cuda", F64, 2, 100, None, None, True),
-    ("cuda:0", F64, 2, 169, None, None, True),
-    (torch.device("cuda", 1), F64, 2, 2, None, None, True),
-    ("cuda", F64, 2, 170, None, None, False),  # K2 sweeps bisect it
-    ("cuda", F64, 2, 1024, None, None, False),
-    ("cuda", F32, 2, 100, None, None, False),  # the f32 engine
-    ("cpu", F64, 2, 100, None, None, False),
-    ("cuda", F64, 3, 100, None, None, False),
-    ("cuda", F64, 4, 32, None, None, False),
-    ("cuda", F64, 2, 100, MESH, None, False),  # a day mesh: a global MAX
-    ("cuda", F64, 2, 100, None, MESH, False),  # a grid mesh: summed sweeps
-    ("cuda", F64, 2, 100, MESH, MESH, False),
-], ids=["flagship", "k1_edge", "tiny", "past_k1", "widest", "f32", "cpu",
-        "dim3", "dim4", "day_mesh", "grid_mesh", "both_meshes"])
-def test_fused_route_choice(device, dtype, dim, n, reducer, grid, fused):
-    assert cs.fused_stages(device, dtype, dim, n, reducer, grid) is fused
+@pytest.mark.parametrize(
+    "device, dtype, dim, n, table, plain, reducer, grid, want", [
+        ("cuda", F64, 2, 100, False, False, None, None,
+         ("fused", "masked_sweep", "k1", "device")),
+        ("cuda:0", F64, 2, 169, False, False, None, None,
+         ("fused", "masked_sweep", "k1", "device")),
+        (torch.device("cuda", 1), F64, 2, 2, False, False, None, None,
+         ("fused", "masked_sweep", "k1", "device")),
+        # past K1's day: K2 sweeps bisect it
+        ("cuda", F64, 2, 170, False, False, None, None,
+         ("composed", "masked_sweep", "halvings", "host")),
+        ("cuda", F64, 2, 1024, False, False, None, None,
+         ("composed", "masked_sweep", "halvings", "host")),
+        # the f32 engine: K1 in float32 for a fixed count
+        ("cuda", F32, 2, 100, False, False, None, None,
+         ("composed", "masked_sweep", "k1", "fixed")),
+        ("cpu", F64, 2, 100, False, False, None, None,
+         ("composed", "masked_sweep_reference", "while", "loop")),
+        ("cuda", F64, 3, 100, True, False, None, None,
+         ("composed", "masked_contract3", "halvings", "host")),
+        ("cuda", F64, 4, 32, False, False, None, None,
+         ("composed", "tcached_sweep", "halvings", "host")),
+        # a day mesh: K1 for a global MAX, read on the host
+        ("cuda", F64, 2, 100, False, False, MESH, None,
+         ("composed", "masked_sweep", "k1", "host")),
+        # a grid mesh: summed sweeps
+        ("cuda", F64, 2, 100, False, False, None, MESH,
+         ("composed", "masked_sweep", "halvings", "host")),
+        ("cuda", F64, 2, 100, False, False, MESH, MESH,
+         ("composed", "masked_sweep", "halvings", "host")),
+        ("cuda", F64, 2, 400, False, False, MESH, None,
+         ("composed", "masked_sweep", "halvings", "host")),
+        ("cuda", F64, 3, 100, False, False, None, None,
+         ("composed", "masked_contract3_rebuild", "halvings", "host")),
+        ("cuda", F64, 3, 100, True, False, MESH, None,
+         ("composed", "masked_contract3", "halvings", "host")),
+        ("cuda", F64, 3, 100, True, False, None, MESH,
+         ("composed", "masked_contract3", "halvings", "host")),
+        ("cuda", F64, 4, 32, False, False, MESH, MESH,
+         ("composed", "tcached_sweep", "halvings", "host")),
+        ("cuda", F32, 2, 192, False, False, None, None,
+         ("composed", "masked_sweep", "k1", "fixed")),
+        ("cuda", F32, 2, 193, False, False, None, None,
+         ("composed", "masked_sweep", "fixed_halvings", "fixed")),
+        ("cuda", F32, 2, 100, False, False, MESH, None,
+         ("composed", "masked_sweep", "k1", "fixed")),
+        ("cuda", F32, 3, 100, True, False, None, None,
+         ("composed", "masked_contract3", "halvings", "host")),
+        ("cuda", F32, 3, 193, False, False, MESH, None,
+         ("composed", "masked_contract3_rebuild", "halvings", "host")),
+        ("cuda", F64, 2, 100, False, True, None, None,
+         ("composed", "masked_sweep_reference", "while", "loop")),
+        ("cuda", F64, 3, 100, True, True, MESH, None,
+         ("composed", "masked_contract3_reference", "while", "loop")),
+        ("cuda", F64, 4, 32, False, True, None, MESH,
+         ("composed", "tcached_sweep", "while", "loop")),
+        ("cuda", F32, 2, 100, False, True, None, None,
+         ("composed", "masked_sweep_reference", "fixed_halvings", "fixed")),
+        ("cuda", F32, 3, 100, True, True, None, None,
+         ("composed", "masked_contract3_reference", "while", "loop")),
+        ("cpu", F64, 3, 100, False, False, MESH, None,
+         ("composed", "masked_contract3_reference", "while", "loop")),
+        ("cpu", F64, 2, 100, False, False, None, MESH,
+         ("composed", "masked_sweep_reference", "while", "loop")),
+        ("cpu", F32, 2, 300, False, False, MESH, None,
+         ("composed", "masked_sweep_reference", "fixed_halvings", "fixed")),
+        ("cpu", F32, 3, 100, False, False, None, None,
+         ("composed", "masked_contract3_reference", "while", "loop")),
+    ], ids=["flagship", "k1_edge", "tiny", "past_k1", "widest", "f32", "cpu",
+            "dim3", "dim4", "day_mesh", "grid_mesh", "both_meshes",
+            "day_mesh_past_k1", "dim3_rebuild", "dim3_day_mesh",
+            "dim3_grid_mesh", "dim4_both_meshes", "f32_k1_edge",
+            "f32_past_k1", "f32_day_mesh", "f32_dim3", "f32_dim3_rebuild",
+            "plain", "plain_dim3", "plain_dim4", "plain_f32",
+            "plain_f32_dim3", "cpu_dim3", "cpu_grid_mesh", "cpu_f32",
+            "cpu_f32_dim3"])
+def test_fused_route_choice(device, dtype, dim, n, table, plain, reducer,
+                            grid, want):
+    """Every row of the route table: the stages (fused only for float64
+    dim-2 operands on a CUDA device whose grid K1 bisects, on one card),
+    the sweep, the bisection and its count."""
+    stages, sweep, bisect, count = want
+    assert cs.route(device, dtype, dim, n, table, plain, reducer, grid) == \
+        cs.Route(stages, getattr(cs, sweep), bisect, count)
+
+
+@pytest.mark.parametrize("device, dtype, grid, match", [
+    ("meta", F64, None, "unsupported device"),
+    ("cuda", F32, MESH, "f32 engine"),
+    ("cpu", F32, MESH, "f32 engine"),
+])
+def test_route_refusals(device, dtype, grid, match):
+    """A device other than the CPU or CUDA, and the f32 engine on a grid
+    mesh (the JAX package has none), raise."""
+    with pytest.raises(ValueError, match=match):
+        cs.route(device, dtype, 2, 100, grid=grid)
 
 
 def _ops(T=5, n=24, q=3, seed=0, edit=None):
@@ -72,7 +151,7 @@ def test_fused_plumbing_of_full_solve(monkeypatch):
 
     ops = _ops(edit=edit)
     obj, weights = _rows(3, shared=True)
-    want = cs.full_solve_levels(ops, obj, weights, CFG, quirks=True)
+    want = cs.full_solve(ops, obj, weights, CFG, quirks=True)
     state, _ = cs._stages(ops, obj, weights, CFG, True, -5.0,
                           cq.masked_sweep_reference, F64)
     seen = {"stages": [], "widest": []}
@@ -86,10 +165,11 @@ def test_fused_plumbing_of_full_solve(monkeypatch):
         seen["widest"].append(widest)
         return bisect(*args, widest=widest, **kwargs)
 
-    monkeypatch.setattr(cs, "fused_stages", lambda *a, **k: True)
+    fused = cs.Route("fused", cq.masked_sweep_reference, "k1", "device")
+    monkeypatch.setattr(cs, "route", lambda *a, **k: fused)
     monkeypatch.setattr(cs, "solve_stages", counted)
     monkeypatch.setattr(cs, "bisect_levels", bisect_seen)
-    roots, nan = cs.full_solve_levels(ops, obj, weights, CFG, quirks=True)
+    roots, nan = cs.full_solve(ops, obj, weights, CFG, quirks=True)
     assert seen["stages"] == [(3, 2)]
     assert len(seen["widest"]) == 1
     assert torch.equal(seen["widest"][0],

@@ -99,8 +99,7 @@ def test_full_solve_levels_matches_jax(case, family, quirks):
     obj = np.array([0.01, 0.025, 0.05])
     want, want_nan = jbt._device_full_solve_levels_jit(
         kid, aux, jnp.asarray(obj), jnp.asarray(CFG), TOL, T, quirks)
-    got, got_nan = cs.full_solve_levels(ops, _t(obj), _t(weights), CFG, TOL,
-                                        quirks)
+    got, got_nan = cs.full_solve(ops, _t(obj), _t(weights), CFG, TOL, quirks)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL_ROOT)
     np.testing.assert_array_equal(got_nan.numpy(), np.asarray(want_nan))
@@ -114,7 +113,7 @@ def test_full_solve_portfolios_matches_jax(case, family):
     want, want_nan = jbt._device_full_solve_portfolios_jit(
         kid, aux, jnp.asarray(obj), jnp.asarray(wb), jnp.asarray(CFG), TOL,
         T, False)
-    got, got_nan = cs.full_solve_portfolios(ops, _t(obj), _t(wb), CFG, TOL)
+    got, got_nan = cs.full_solve(ops, _t(obj), _t(wb), CFG, TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=ATOL_ROOT)
     np.testing.assert_array_equal(got_nan.numpy(), np.asarray(want_nan))
@@ -137,7 +136,7 @@ def test_full_solve_within_plateau_of_pallas_interpret(case, family):
         want, _ = jps.garch_full_solve_pallas_levels(
             case["V"], case["x"], case["dx"], weights, obj, interpret=True,
             day_block=8)
-    got, _ = cs.full_solve_levels(ops, _t(obj), _t(weights), CFG, TOL)
+    got, _ = cs.full_solve(ops, _t(obj), _t(weights), CFG, TOL)
     bound = jps.root_plateau_bound(case["dx"], weights) + TOL
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=bound)
 

@@ -1,5 +1,5 @@
 """Grids wider than the flagship's on the CPU: the routes the card takes
-by width and memory (`cuda_solver.dim2_bisect_route`,
+by width and memory (`cuda_solver.route`,
 `cuda_quadrature3.contract3_route`, pure functions of the shapes and the
 free bytes) at their edges, the rebuild kernel's tiling modelled in
 PyTorch against the JAX package, and the port's CPU path against the
@@ -42,12 +42,12 @@ def _record():
 # -- the routes, at their edges -----------------------------------------------
 
 @pytest.mark.parametrize("n, route", [(100, "k1"), (169, "k1"),
-                                      (170, "sweeps"), (192, "sweeps"),
-                                      (193, "sweeps"), (1024, "sweeps")])
+                                      (170, "halvings"), (192, "halvings"),
+                                      (193, "halvings"), (1024, "halvings")])
 def test_dim2_route_by_width(n, route):
     """K1 holds a day of n <= 169 in shared memory; wider grids bisect
     by K2 sweeps, whose rows reach 1024 cells (192 before)."""
-    assert cs.dim2_bisect_route(n) == route
+    assert cs.route("cuda", torch.float64, 2, n).bisect == route
 
 
 def test_dim2_limits():
