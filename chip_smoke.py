@@ -172,10 +172,18 @@ Phases, each fatal on failure:
      U the whole tables' rows bit for bit, each range against its plain
      twin, its repeat bit-equal, the four partials summed in rank order
      against the whole launch at rtol 1e-13, and the range of all rows
-     bit-equal to the whole launch;
+     bit-equal to the whole launch; the fused dim-3 solve on the dim-3
+     MSM operands at the query's L = 1 and the serving batch's L = 32:
+     `solve_stages3` bit-equal to the composed stages (K4 sweeps,
+     `bracket_state_batched`, the widest bracket) and within rtol 1e-12 of
+     its plain twin, `bisect3` on that state bit-equal to
+     `bisect_fixed_count` over K4 sweeps and to its launch twin
+     (`bisect3_reference`) over K4 sweeps, its repeat bit-equal and its
+     roots within 1e-9 of the plain twin's;
   14. timings: CUDA events after warm-up, median and min of the reps,
      kernel and plain twin taken in turns (one grid rank's 25-row K2 and
-     K4 launches among them), and the refine_root trap pass per call
+     K4 launches among them, and `solve_stages3` and `bisect3` at L = 1
+     and 32), and the refine_root trap pass per call
      (L = 1 and 128 at dim 2, L = 1 at dim 3) beside the unrefined solve
      of the same rows;
   15. device profile: torch.profiler over calls of each kernel, `calc_var`,
@@ -219,17 +227,20 @@ operations over 34 TFLOP/s (NVIDIA H100 SXM data sheet; FP64 outside the
 tensor cores), counted from this run's shapes by `bound()`; the trap
 pass's by `trap_bound()`, the dim-4 plain sweep's by `tcached_bound()`,
 the rebuild sweep's by `rebuild_bound()` over the cells its bounds need
-(`walk_cells`; the full cube's printed beside it) and the flag pass's by
-`flags_bound()`; the f32 instantiations' by the same functions at 4
+(`walk_cells`; the full cube's printed beside it), the flag pass's by
+`flags_bound()`, and the fused dim-3 kernels' by `stages3_bound()` and
+`bisect3_bound()` over the row lookups their sweeps' bounds hit
+(`table_hits`, each halving's bounds kept from its launch twin); the f32 instantiations' by the same functions at 4
 bytes an entry and 67 TFLOP/s.
 
 Prints the kernels' JSON record on the line before the last (each
-kernel's launches on the main path, the rebuild's and the flag pass's on
-phase 12, the f32 instantiations' ("<name>_f32") on phase 16 and, as
-`day_sharded_f32_launches_per_rank`, on each rank's f32 paths of phase
-10, and, as `grid_launches_per_rank`, on one rank of phase 11 (b)), and
-as the last
-line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
+kernel's launches on the main path: `bisect3`'s as launcher calls, and
+0 for `masked_contract3`, whose launches on each day-sharded rank's
+dim-3 paths are its `day_sharded_launches_per_rank`; the rebuild's and
+the flag pass's on phase 12, the f32 instantiations' ("<name>_f32") on
+phase 16 and, as `day_sharded_f32_launches_per_rank`, on each rank's
+f32 paths of phase 10, and, as `grid_launches_per_rank`, on one rank of
+phase 11 (b)), and as the last line `{"ok": true, "device": {...}}`. Exits non-zero, with no result
 line, when torch sees no CUDA device or the port's sources are missing.
 """
 
@@ -304,6 +315,8 @@ KERNEL_SPANS = {
     "masked_contract3_rebuild": ("contract3_rebuild_kernel",
                                  "contract3_sum_kernel"),
     "solve_stages": ("solve_stages_kernel",),
+    "solve_stages3": ("solve_stages3_kernel",),
+    "bisect3": ("bisect3_kernel",),
 }
 
 
@@ -379,6 +392,30 @@ def contract3_bound(T, n, L, hits, rows=None, isz=8):
     r = n if rows is None else rows
     return bound(isz * (2 * hits + n + 2 * L * T + 3 * L + L * T),
                  L * T * r * n * lookups(n) + L * T * r, isz)
+
+
+def stages3_bound(T, n, L, hits, isz=8):
+    """solve_stages3: the two K4 sweeps of every row and day (the stage-1
+    slab and the stage-2 bracket's), two stored prefixes of U per row
+    lookup whose interval holds a grid point (`hits`, `table_hits` of
+    both sweeps' bounds), x, obj and the (L, 3) weights in; the four (L,
+    T) states, two (L, T) flags and the widest word out; n lookups per
+    (sweep, row, day, i0), n partials summed per (sweep, row, day)."""
+    return bound(isz * (2 * hits + n + 4 * L + 4 * L * T + 1) + 2 * L * T,
+                 2 * (L * T * n * n * lookups(n) + L * T * n), isz)
+
+
+def bisect3_bound(T, n, L, hits, sweeps, isz=8):
+    """bisect3: the K4 sweeps of its `sweeps` halvings, two stored
+    prefixes of U per row lookup whose interval holds a grid point
+    (`hits`, `table_hits` summed over the halvings' bounds; U is 4 GB,
+    so no halving finds another's cells in the cache), x, the (L, T)
+    state, obj, the (L, 3) weights and the widest word in, the (L, T)
+    roots out; n lookups per (halving, row, day, i0), n partials summed
+    per (halving, row, day)."""
+    return bound(isz * (2 * hits + n + 4 * L * T + 4 * L + 1 + L * T)
+                 + L * T,
+                 sweeps * (L * T * n * n * lookups(n) + L * T * n), isz)
 
 
 def weights_bound(T, n, q, student, garch, isz=8):
@@ -593,7 +630,7 @@ def serve_day_sharded(root, mesh, w_batch, w_batch3,
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
                 cq3.contract3_row_flags, cq3.masked_contract3_rebuild,
-                cs.solve_stages)
+                cs.solve_stages, cs.solve_stages3, cs.bisect3)
     rec_r = np.load(os.path.join(root, "data", "flagship_refined_var.npz"))
     rec3 = np.load(os.path.join(root, "data", "dim3_var.npz"))
     rec4 = np.load(os.path.join(root, "data", "dim4_var.npz"))
@@ -1176,18 +1213,20 @@ def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
     return cells, cols, used_rows, used_slabs
 
 
-def table_hits(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
+def table_hits(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25,
+               device="cpu"):
     """Row lookups of one table sweep whose interval (dlo, dup] holds a
     grid point, over the bound rows, the days and the outer slabs `rows`
-    ((i0, i1), all by default), an exact count on the host with the
-    kernel's arithmetic (as `walk_cells`)."""
+    ((i0, i1), all by default), an exact count with the kernel's
+    arithmetic (as `walk_cells`), on the host or on `device` (each
+    operation on its own, so no step is fused: the same count)."""
     import torch
 
-    x = x.detach().cpu()
-    b = bounds.detach().cpu()
-    w = weights.detach().cpu()
+    x = x.detach().to(device)
+    b = bounds.detach().to(device)
+    w = weights.detach().to(device)
     x0 = x if rows is None else x[rows[0]:rows[1]]
-    lo_box = torch.tensor(box_min, dtype=x.dtype)
+    lo_box = torch.tensor(box_min, dtype=x.dtype, device=device)
     hits = 0
     for t0 in range(0, b.shape[1], day_chunk):
         for l in range(b.shape[0]):
@@ -1272,7 +1311,7 @@ def wide_grid_phase(root, smi):
     counters = (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
                 cq3.contract3_weights, cq3.masked_contract3,
                 cq3.contract3_row_flags, cq3.masked_contract3_rebuild,
-                cs.solve_stages)
+                cs.solve_stages, cs.solve_stages3, cs.bisect3)
 
     def refuse(*_a, **_k):
         raise AssertionError("a plain sweep ran on the card")
@@ -2306,7 +2345,7 @@ def _counters():
     return (cq.sweep_table, cq.masked_sweep, cs.bisect_levels,
             cq3.contract3_weights, cq3.masked_contract3,
             cq3.contract3_row_flags, cq3.masked_contract3_rebuild,
-            cs.solve_stages)
+            cs.solve_stages, cs.solve_stages3, cs.bisect3)
 
 
 def fit_gaps(est, bt, meta):
@@ -2474,9 +2513,9 @@ def dim3_fit_phase(root, smi):
     if launches_fit3["contract3_weights"] != len(fit3_report):
         raise AssertionError("contract3_weights did not build one table per "
                              "fitted dim-3 backtest")
-    if launches_fit3["masked_contract3"] <= 0:
-        raise AssertionError("masked_contract3 never launched on the fitted "
-                             "dim-3 path")
+    if launches_fit3["solve_stages3"] <= 0 or launches_fit3["bisect3"] <= 0:
+        raise AssertionError("the fused dim-3 solve never launched on the "
+                             "fitted dim-3 path")
     if launches_fit3["masked_sweep"] or launches_fit3["bisect_levels"] or \
             launches_fit3["sweep_table"] or launches_fit3["solve_stages"]:
         raise AssertionError("a dim-2 kernel launched on the fitted dim-3 "
@@ -2845,9 +2884,9 @@ def main() -> int:
     if launches3["contract3_weights"] != len(bts3):
         raise AssertionError("contract3_weights did not build one table "
                              "per dim-3 backtest")
-    if launches3["masked_contract3"] <= 0:
-        raise AssertionError("masked_contract3 never launched on the dim-3 "
-                             "main path")
+    if launches3["solve_stages3"] <= 0 or launches3["bisect3"] <= 0:
+        raise AssertionError("the fused dim-3 solve never launched on the "
+                             "dim-3 main path")
     if launches3["masked_sweep"] or launches3["bisect_levels"] or \
             launches3["sweep_table"] or launches3["solve_stages"]:
         raise AssertionError("a dim-2 kernel launched on the dim-3 path")
@@ -2950,9 +2989,9 @@ def main() -> int:
     if launches_r3["contract3_weights"] != len(bts_r3):
         raise AssertionError("contract3_weights did not build one table per "
                              "refined dim-3 backtest")
-    if launches_r3["masked_contract3"] <= 0:
-        raise AssertionError("masked_contract3 never launched on the refined "
-                             "dim-3 path")
+    if launches_r3["solve_stages3"] <= 0 or launches_r3["bisect3"] <= 0:
+        raise AssertionError("the fused dim-3 solve never launched on the "
+                             "refined dim-3 path")
     if launches_r3["masked_sweep"] or launches_r3["bisect_levels"] or \
             launches_r3["sweep_table"] or launches_r3["solve_stages"]:
         raise AssertionError("a dim-2 kernel launched on the refined dim-3 "
@@ -3580,6 +3619,104 @@ def main() -> int:
           f"{e_grid3:.3e} (bound {ATOL_ROOT:g}); kernel {grid3_s:.3f} s, "
           f"plain {grid3_plain_s:.3f} s (host clock)")
 
+    def same_bits(a, b):
+        nan = torch.isnan(a) if a.is_floating_point() else torch.zeros_like(a)
+        return torch.equal(nan, torch.isnan(b) if b.is_floating_point()
+                           else nan) and torch.equal(a[~nan], b[~nan])
+
+    # the fused dim-3 solve on the dim-3 MSM operands at the query's L = 1
+    # and the serving batch's L = 32: solve_stages3 bit-equal to the
+    # composed stages (K4 sweeps, bracket_state_batched, the widest
+    # bracket) and its states within the sweep's bound of the plain twin;
+    # bisect3 on that state bit-equal to the composed bisection
+    # (bisect_fixed_count over K4 sweeps, the host's count) and to its
+    # launch twin over K4 sweeps (each halving's bounds kept for the
+    # bound), its roots within ATOL_ROOT of the plain twin's
+    L3 = ROWS_P3 * len(LEVELS)
+    n_it3 = cs.max_halvings(cfg, 1e-6)
+    fused_rows3 = {1: (obj[2:3], bts3["msm"].weights.reshape(1, 3)
+                       .contiguous()),
+                   L3: (tens(a_rows3), tens(w_rows3))}
+    fused_state3, hits3 = {}, {}
+    err_stages3, err_bisect3 = 0.0, 0.0
+    for L_, (a_, w_) in fused_rows3.items():
+        kept_ = []
+
+        def k4_kept(ops_, b_, w__, box_, kept_=kept_):
+            kept_.append(b_.clone())
+            return cq3.masked_contract3(ops_, b_, w__, box_)
+
+        state_, _ = cs._stages(ops3_m, a_, w_, cfg, False, -5.0, k4_kept,
+                               torch.float64)
+        want_ = [s.contiguous() for s in state_] + [
+            cs._widest(state_[0], state_[1])]
+        got_ = cs.solve_stages3(ops3_m, a_, w_, cfg)
+        for name_, g_, v_ in zip(("lower", "upper", "prev_res", "prev_up",
+                                  "ustack", "nan_days", "widest"),
+                                 got_, want_):
+            if not same_bits(g_, v_):
+                raise AssertionError(f"solve_stages3 L={L_}: {name_} not "
+                                     "bit-equal to the composed route")
+        plain_ = cs.solve_stages_reference(ops3_m, a_, w_, cfg)
+        for name_, g_, v_ in zip(("ustack", "nan_days"), got_[4:6],
+                                 plain_[4:6]):
+            if not torch.equal(g_, v_):
+                raise AssertionError(f"solve_stages3 L={L_}: {name_} off the "
+                                     "plain twin")
+        fin = torch.isfinite(plain_[2])
+        scale_ = float(plain_[2][fin].abs().max())
+        e_s = max(float((g_ - v_)[torch.isfinite(v_)].abs().max())
+                  for g_, v_ in zip(got_[:4], plain_[:4]))
+        if not e_s <= RTOL_SWEEP * scale_:
+            raise AssertionError(f"solve_stages3 L={L_}: |kernel - plain| "
+                                 f"{e_s:.3e} > {RTOL_SWEEP:g} x {scale_:.3e}")
+        err_stages3 = max(err_stages3, e_s)
+        st5 = [t.contiguous() for t in got_[:5]]
+        wd = got_[6]
+        k_host = cs.halvings(float(wd), 1e-6)
+        def hits_(kept_=kept_, w_=w_):
+            return sum(table_hits(ops3_m.x, b_, w_, day_chunk=T3, device=dev)
+                       for b_ in kept_)
+
+        stage_hits = hits_()
+        kept_.clear()
+        r_dev = cs.bisect3(ops3_m, *st5, a_, w_, 1e-6, widest=wd,
+                           n_iters=n_it3)
+        r_fixed = cs.bisect_fixed_count(ops3_m, *st5, a_, w_, 1e-6, k_host,
+                                        cq3.masked_contract3)
+        r_twin = cs.bisect3_reference(ops3_m, *st5, a_, w_, 1e-6, widest=wd,
+                                      n_iters=n_it3, sweep=k4_kept)
+        for name_, r_ in (("bisect_fixed_count over K4", r_fixed),
+                          ("its launch twin over K4", r_twin)):
+            if not same_bits(r_dev, r_):
+                raise AssertionError(f"bisect3 L={L_}: roots not bit-equal "
+                                     f"to {name_}")
+        if not torch.equal(r_dev, cs.bisect3(ops3_m, *st5, a_, w_, 1e-6,
+                                             widest=wd, n_iters=n_it3)):
+            raise AssertionError(f"bisect3 L={L_}: a repeated launch changed "
+                                 "the roots")
+        r_plain = cs.bisect3_reference(ops3_m, *st5, a_, w_, 1e-6,
+                                       widest=wd, n_iters=n_it3)
+        fin = torch.isfinite(r_plain)
+        if not torch.equal(fin, torch.isfinite(r_dev)):
+            raise AssertionError(f"bisect3 L={L_}: NaN roots off the plain "
+                                 "twin's")
+        e_b = float((r_dev - r_plain)[fin].abs().max())
+        if not e_b <= ATOL_ROOT:
+            raise AssertionError(f"bisect3 L={L_}: |kernel - plain| "
+                                 f"{e_b:.3e} > {ATOL_ROOT:g}")
+        err_bisect3 = max(err_bisect3, e_b)
+        hits3[L_] = (stage_hits, hits_(), len(kept_))
+        fused_state3[L_] = (st5, wd)
+        del kept_, state_, want_, got_, plain_, r_fixed, r_twin, r_plain
+        print(f"parity solve_stages3 L={L_}: bit-equal to the composed "
+              f"route, widest {float(wd):.17g} ({k_host} halvings, "
+              f"{n_it3 + 1} launches), max abs {e_s:.3e} off the plain twin "
+              f"(bound rel {RTOL_SWEEP:g}); bisect3: bit-equal to "
+              f"bisect_fixed_count and to its launch twin over K4, repeat "
+              f"bit-equal, max abs {e_b:.3e} off the plain twin (bound "
+              f"{ATOL_ROOT:g})")
+
     # -- timings on the card --------------------------------------------------
     timing = {}
     for est, bt in bts.items():  # day-tensor prep is plain PyTorch
@@ -3632,11 +3769,6 @@ def main() -> int:
     # sweeps, bracket_state_batched and the widest bracket), K1 counting
     # on the device bit-equal to K1 counting on the host, and the states
     # within the sweep's bound of the plain twin
-    def same_bits(a, b):
-        nan = torch.isnan(a) if a.is_floating_point() else torch.zeros_like(a)
-        return torch.equal(nan, torch.isnan(b) if b.is_floating_point()
-                           else nan) and torch.equal(a[~nan], b[~nan])
-
     stage_rows = {1: (obj[2:3], bts["msm"].weights.reshape(1, 2)
                       .contiguous()), L128: (ar, wr)}
     err_stages = 0.0
@@ -3729,6 +3861,20 @@ def main() -> int:
         "plain": lambda: cq3.masked_contract3_reference(ops3_r25, b3_1, w3_1,
                                                         -5.0)},
         reps=REPS_DIM3_PLAIN, warmup=1)
+    for L_, (a_, w_) in fused_rows3.items():
+        st5, wd = fused_state3[L_]
+        timing[f"stages3_L{L_}"] = cuda_ms(torch, {
+            "kernel": lambda a_=a_, w_=w_: cs.solve_stages3(ops3_m, a_, w_,
+                                                            cfg),
+            "plain": lambda a_=a_, w_=w_: cs.solve_stages_reference(
+                ops3_m, a_, w_, cfg)}, reps=REPS_DIM3_PLAIN, warmup=1)
+        timing[f"bisect3_L{L_}"] = cuda_ms(torch, {
+            "kernel": lambda a_=a_, w_=w_, st5=st5, wd=wd: cs.bisect3(
+                ops3_m, *st5, a_, w_, 1e-6, widest=wd, n_iters=n_it3),
+            "plain": lambda a_=a_, w_=w_, st5=st5, wd=wd: cs.bisect3_reference(
+                ops3_m, *st5, a_, w_, 1e-6, widest=wd, n_iters=n_it3)},
+            **({"reps": REPS_DIM3_PLAIN, "warmup": 1} if L_ == 1
+               else {"reps": 2, "warmup": 0}))
     w3_main = bts3["msm"].weights
     timing["dim3_full_L1"] = cuda_ms(torch, {
         "kernel": lambda: cs.full_solve(ops3_m, obj[2:3], w3_main, cfg),
@@ -3779,6 +3925,14 @@ def main() -> int:
             torch, lambda: bts["msm"].calc_var_grid(w_batch, levels)),
         "contract3_L1": device_profile(torch, lambda: cq3.masked_contract3(
             ops3_m, st3[None].contiguous(), tens(w3[None]), -5.0)),
+        f"contract3_L{L3}": device_profile(torch, lambda: cq3.masked_contract3(
+            ops3_m, st3.expand(L3, T3, 2).contiguous(), tens(w_rows3[:L3]),
+            -5.0), reps=3),
+        "stages3_L1": device_profile(torch, lambda: cs.solve_stages3(
+            ops3_m, *fused_rows3[1], cfg)),
+        "bisect3_L1": device_profile(torch, lambda: cs.bisect3(
+            ops3_m, *fused_state3[1][0], *fused_rows3[1], 1e-6,
+            widest=fused_state3[1][1], n_iters=n_it3)),
         f"sweep_rows{r25}_L1": device_profile(
             torch, lambda: cq.masked_sweep(ops_r25, b1, w1_, -5.0)),
         f"contract3_rows{r3_25}_L1": device_profile(
@@ -3851,7 +4005,6 @@ def main() -> int:
     T3, n3, q3 = ops3_m.days, ops3_m.x.shape[0], ops3_m.w1.shape[0]
     iters = {L_: cs.halvings(float((st_[1] - st_[0]).max()), 1e-6)
              for L_, st_ in ((1, s1), (L128, st128))}
-    L3 = ROWS_P3 * len(LEVELS)
     bounds_ms = {
         "sweep_table": table_bound(T, n, q),
         "sweep_L1": sweep_bound(T, n, q, 1),
@@ -3868,13 +4021,17 @@ def main() -> int:
         f"contract3_L{L3}": contract3_bound(
             T3, n3, L3, table_hits(ops3_m.x, st3.expand(L3, T3, 2),
                                    tens(w_rows3[:L3]))),
+        **{f"stages3_L{L_}": stages3_bound(T3, n3, L_, h_[0])
+           for L_, h_ in hits3.items()},
+        **{f"bisect3_L{L_}": bisect3_bound(T3, n3, L_, h_[1], h_[2])
+           for L_, h_ in hits3.items()},
         f"sweep_rows{r25}_L1": sweep_bound(T, n, q, 1, rows=r25),
         f"contract3_rows{r3_25}_L1": contract3_bound(
             T3, n3, 1, table_hits(ops3_m.x, b3_1, w3_1, rows=(0, r3_25)),
             rows=r3_25),
     }
     # the profile holding each shape's kernel at that L (the serving
-    # batches' fused stages run at L = 128, the dim-3 sweeps at 32)
+    # batches' fused stages run at L = 128, the dim-3 fused solve at 32)
     prof_key = {"sweep_table": ("sweep_table", "sweep_table"),
                 "sweep_L1": ("sweep_L1", "masked_sweep"),
                 f"sweep_L{L128}": (f"sweep_L{L128}", "masked_sweep"),
@@ -3885,18 +4042,27 @@ def main() -> int:
                 "contract3_weights": ("contract3_weights",
                                       "contract3_weights"),
                 "contract3_L1": ("contract3_L1", "masked_contract3"),
-                f"contract3_L{L3}": ("dim3_grid_8x4", "masked_contract3"),
+                f"contract3_L{L3}": (f"contract3_L{L3}", "masked_contract3"),
+                "stages3_L1": ("stages3_L1", "solve_stages3"),
+                f"stages3_L{L3}": ("dim3_grid_8x4", "solve_stages3"),
+                "bisect3_L1": ("bisect3_L1", "bisect3"),
+                f"bisect3_L{L3}": ("dim3_grid_8x4", "bisect3"),
                 f"sweep_rows{r25}_L1": (f"sweep_rows{r25}_L1",
                                         "masked_sweep"),
                 f"contract3_rows{r3_25}_L1": (f"contract3_rows{r3_25}_L1",
                                               "masked_contract3")}
+    # a call's device time: the mean launch's times its launches per call
+    # (bisect3: n_it3 + 1 launches, the other wrappers one)
     for key, (b_ms, by) in bounds_ms.items():
         prof, kern = prof_key[key]
-        dev_ms = profiles[prof]["kernels"][kern]["device_ms"]
+        k_ = profiles[prof]["kernels"][kern]
+        dev_ms = (None if k_["device_ms"] is None
+                  else k_["device_ms"] * k_["launches"])
         print(f"bound {key}: {b_ms:.4f} ms by {by}; kernel call "
               f"{timing[key]['kernel'][0]:.3f} ms, device "
               + ("not measured (no trace of the kernel)" if dev_ms is None
-                 else f"{dev_ms:.4f} ms, {b_ms / dev_ms:.1%} of the bound"))
+                 else f"{dev_ms:.4f} ms in {k_['launches']:g} launches, "
+                      f"{b_ms / dev_ms:.1%} of the bound"))
     trap_bounds = {
         "trap_L1": trap_bound(T, n, q, 1, 2, False, True, TRAP_HALVINGS),
         f"trap_L{L128}": trap_bound(T, n, q, L128, 2, False, True,
@@ -3965,6 +4131,13 @@ def main() -> int:
     report["grid_parity"] = grid_parity
     report["wide_grid"] = wide_report
     report["halvings"] = iters
+    report["fused_dim3"] = {
+        "launches_per_bisect3_call": n_it3 + 1,
+        "stage_hits": {L_: h_[0] for L_, h_ in hits3.items()},
+        "bisect_hits": {L_: h_[1] for L_, h_ in hits3.items()},
+        "bisect_sweeps": {L_: h_[2] for L_, h_ in hits3.items()},
+        "max_abs_err": {"solve_stages3": err_stages3,
+                        "bisect3": err_bisect3}}
     os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
     with open(os.path.join(root, "chiprun_out", "chip_smoke_report.json"),
               "w") as f:
@@ -4011,8 +4184,29 @@ def main() -> int:
              bound_by_L128=bounds_ms[f"stages_L{L128}"][1]),
         entry("contract3_weights", "contract3.cu", k4,
               launches3["contract3_weights"], err_u, "contract3_weights"),
-        entry("masked_contract3", "contract3.cu", k4,
-              launches3["masked_contract3"], err3, "contract3_L1"),
+        # 0 launches on the main path (the fused dim-3 solve takes it);
+        # the composed routes still launch it: each day-sharded rank's
+        dict(entry("masked_contract3", "contract3.cu", k4,
+                   launches3["masked_contract3"], err3, "contract3_L1"),
+             day_sharded_launches_per_rank=[
+                 info["launches"]["dim3"]["masked_contract3"]
+                 for info in sharded_report["gloo_world"]["ranks"]]),
+        # the fused dim-3 solve: its figures at the query's L = 1, and at
+        # the serving batch's L = 32 beside them; bisect3's launches are
+        # launcher calls, each n_it3 + 1 kernel launches
+        *(dict(entry(name_, "contract3.cu", rep_, launches3[name_], err_,
+                     f"{key_}_L1"),
+               **{f"{f_}_L{L3}": v_ for f_, v_ in (
+                   ("ms", timing[f"{key_}_L{L3}"]["kernel"][0]),
+                   ("plain_ms", timing[f"{key_}_L{L3}"]["plain"][0]),
+                   ("bound_ms", bounds_ms[f"{key_}_L{L3}"][0]),
+                   ("bound_by", bounds_ms[f"{key_}_L{L3}"][1]))})
+          for name_, rep_, err_, key_ in (
+              ("solve_stages3",
+               f"{k4}; copula_var_tpu/ops/solvers.py:124", err_stages3,
+               "stages3"),
+              ("bisect3", f"{k4}; copula_var_tpu/backtest.py:2328",
+               err_bisect3, "bisect3"))),
         # their launches: the wide-grid phase's dim-3 series (the only
         # path that takes the rebuild route); their times: the full-T n =
         # 300 stage-1 sweep (its bound the cells the sweep's bounds need,

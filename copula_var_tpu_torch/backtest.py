@@ -42,7 +42,8 @@ engine.
 
 On a CUDA device every sweep and the bisection run the hand-written
 kernels (`solve_stages` and `bisect_levels`, or `masked_sweep`, at dim
-2, `masked_contract3` at dim 3); on the CPU they run the plain twins,
+2; `solve_stages3` and `bisect3`, or `masked_contract3`, at dim 3); on
+the CPU they run the plain twins,
 the f64 oracle that matches the JAX `xla` engine. At dim >= 4 the JAX
 package has no Pallas kernel, and every device runs the plain
 transform-cached sweep (`ops/tcached.py`), as its `xla` engine does; the

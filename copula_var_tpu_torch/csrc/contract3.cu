@@ -34,6 +34,13 @@
 //                      table cannot: n past the build's one-slab shared
 //                      memory (169 at q = 5), or a U larger than the
 //                      card's free memory.
+//   solve_stages3      (f64, one card) the dim-3 solve's two stage sweeps
+//                      and its stage-2 bracket in one launch, the widest
+//                      bracket folded into a device word
+//                      (solve_stages3_kernel);
+//   bisect3            (f64, one card) the dim-3 bisection from that word:
+//                      one launcher call enqueues every halving and the
+//                      roots, with no host read (bisect3_kernel).
 //
 // What they compute, per row l and day t:
 //
@@ -129,6 +136,39 @@
 //   * contract3_flags_kernel: one block per (t, i0) slab, warps over rows,
 //     lanes over cells (`cell`): the whole cube once, bound by its f64
 //     arithmetic as the table build is, with one byte per row out.
+//   * One sweep body: contract3_sweep_kernel, solve_stages3_kernel and
+//     bisect3_kernel run each turn of bound rows through `sweep_turn` (the
+//     lookups, warp_sum, the fixed-order day sum) after `load_sweep_day`,
+//     so every sweep of the fused solve has the bits K4's launch gives
+//     for the same bounds and weights.
+//   * solve_stages3_kernel: one block per day, thread dl on row l0 + dl of
+//     a turn: the stage-1 bounds into shared memory, a sweep_turn, the
+//     stage-2 bounds each row's F1 picks (interval.cuh's
+//     `stage2_bounds`), a second sweep_turn, then `bracket` (ops/
+//     solvers.py::bracket_state_batched's selects) and `fold_width`, as
+//     solve_stages_kernel does at dim 2. Both sweeps of a day need only
+//     that day's F1, so one block holds the whole stage.
+//   * bisect3_kernel: the composed route halves all (row, day) states
+//     together and takes two decisions over every day after each halving
+//     (ops/cuda_solver.py::_halving): a row whose results are all exactly
+//     0 freezes, and the loop runs on while some row not frozen holds a
+//     bracket wider than the tolerance. A block holds one day, so no block
+//     can take them inside the halving that needs them. Launch k therefore
+//     writes its candidate state beside the state and folds, per row, two
+//     integer words by atomicOr ("some result is not 0", "some candidate
+//     is still wide"): the same words in any order. Launch k + 1, in every
+//     block, first takes halving k's decisions from those words, as
+//     _halving takes them, commits the candidate or keeps the state per
+//     (row, day), and only then halves. The count is the host's (the
+//     widest word through interval::device_halvings); a launch past it
+//     exits at once, and the last writes the roots. Each (row, day) state
+//     is so, after every halving, the composed route's, freeze and exit
+//     included, bit for bit; the decisions are integers and the arithmetic
+//     is the composed route's (__dadd_rn / __dsub_rn / __ddiv_rn, K4's
+//     slab). The state a turn holds across its sweep sits in shared
+//     memory, so both fused kernels keep to 64 registers and four blocks a
+//     SM (kSolveMinBlocks): 500 days in one wave, each halving as fast as
+//     K4's launch (82 us late in a d3 query on an H100 SXM at 700 W).
 // No floating-point atomics anywhere: repeated launches give identical
 // bits. No tensor cores: the work is a masked sum, not a product.
 //
@@ -160,7 +200,9 @@
 //
 // Launchers: plain C, no allocation, no synchronisation, launched on the
 // caller's stream; each returns cudaGetLastError() (or
-// cudaErrorInvalidValue for shapes the kernels do not take).
+// cudaErrorInvalidValue for shapes the kernels do not take). The two of
+// the fused solve have an f64 form alone (`cvt_solve_stages3`,
+// `cvt_bisect3`).
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -176,6 +218,11 @@ constexpr int kScanThreads = 256;  // one per row, n <= kShortRow
 constexpr int kSweepThreads = 256;
 constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kSumRows = 16;  // the sweep's bound rows per turn
+// the fused solve's kernels: blocks of kSweepThreads resident per SM (64
+// registers a thread), so the d3 book's 500 days run in one wave on the
+// H100's 132 SMs; at 98 registers (two blocks a SM) each halving ran
+// ~30 % slower than K4's sweep
+constexpr int kSolveMinBlocks = 4;
 constexpr int kSpan = 64;  // consecutive i1 of one lookup task, 2 per lane
 constexpr int kSumThreads = 128;
 constexpr int kFlagsThreads = 256;
@@ -396,15 +443,99 @@ contract3_scan_kernel(Real* __restrict__ u,  // (T, rows, stride)
   for (int j = threadIdx.x; j < stride; j += blockDim.x) cells[j] = slab[j];
 }
 
+// The table sweep's prologue, one block per day t: x and the day's row
+// flags (rows, n) into shared memory, then a block barrier.
+template <typename Real>
+__device__ __forceinline__ void load_sweep_day(
+    const unsigned char* __restrict__ flags, const Real* __restrict__ x,
+    Real* xs, unsigned char* fl, int t, int n, int rows) {
+  const size_t cells = static_cast<size_t>(rows) * n;  // the day's rows
+  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
+  for (size_t j = threadIdx.x; j < cells; j += blockDim.x)
+    fl[j] = flags[t * cells + j];
+  __syncthreads();
+}
+
+// One turn of the table sweep of day t: nl <= kSumRows bound rows, row dl
+// between bnd[dl * bstride] and bnd[dl * bstride + 1] under the weights
+// w[3 dl], w[3 dl + 1], w[3 dl + 2]. The body of every dim-3 table sweep
+// (contract3_sweep_kernel and the fused solve's two kernels), so every
+// sweep has its bits. Warps take the day's tasks (i0, k) (slab i0 of
+// `day`, the k-th span of kSpan rows i1 = k kSpan + c 32 + lane, c = 0
+// then 1) and run the bound rows of a task in turn: each lane's rows by
+// interval::row_sum on the stored rows (a flagged row: its cells), the
+// lanes' sums by warp_sum into the partial (dl, t, i0, k) in shared memory
+// (part, (nl, rows * spans)). After a block barrier thread dl adds row
+// dl's partials in index order and rounds the sum to Real once into
+// out[dl * ostride]. Every thread of the block calls it; it ends on a
+// block barrier, so `out` is visible to the block and `part` and `bnd`
+// free again.
+template <typename Real>
+__device__ __forceinline__ void sweep_turn(
+    const Real* __restrict__ day,  // (rows, stride): the day's slabs
+    const unsigned char* fl, const Real* xs, const Real* bnd, size_t bstride,
+    const Real* __restrict__ w, Real box_min, double* part, Real* out,
+    size_t ostride, int n, int row0, int rows, int nl, int pitch,
+    int stride) {
+  using R = Rn<Real>;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int spans = (n + kSpan - 1) / kSpan;  // tasks per slab
+  const int m = rows * spans;                 // partials per (l, t)
+  for (int task = warp; task < m; task += kSweepWarps) {
+    const int i0 = task / spans;  // the range's slab, grid point row0 + i0
+    const int k = task - i0 * spans;
+    const Real* slab = day + static_cast<size_t>(i0) * stride;
+    const Real x0 = xs[row0 + i0];
+    const Real* row[kSpan / 32];
+    Real xi[kSpan / 32];
+    bool flagged[kSpan / 32];
+#pragma unroll
+    for (int c = 0; c < kSpan / 32; ++c) {
+      const int i1 = k * kSpan + c * 32 + lane;
+      const bool in = i1 < n;
+      row[c] = in ? slab + static_cast<size_t>(i1) * pitch : nullptr;
+      xi[c] = in ? xs[i1] : Real(0);
+      flagged[c] = in && fl[i0 * n + i1] != 0;
+    }
+    for (int dl = 0; dl < nl; ++dl) {
+      const Real b_lo = bnd[dl * bstride];
+      const Real b_up = bnd[dl * bstride + 1];
+      const Real w_in = w[3 * dl];
+      const Real p0w = R::mul(x0, w[3 * dl + 1]);
+      const Real w_o2 = w[3 * dl + 2];
+      double acc = 0.0;
+#pragma unroll
+      for (int c = 0; c < kSpan / 32; ++c) {
+        if (row[c] != nullptr) {
+          const Real prev = R::add(p0w, R::mul(xi[c], w_o2));
+          const Real dup = R::div(R::sub(b_up, prev), w_in);
+          const Real d = R::div(R::sub(b_lo, prev), w_in);
+          // NaN-propagating max, as torch.maximum
+          const Real dlo = (d > box_min || d != d) ? d : box_min;
+          acc += interval::row_sum<interval::kShortTop>(
+              row[c], row[c], flagged[c], xs, n, dlo, dup);
+        }
+      }
+      acc = interval::warp_sum(acc);
+      if (lane == 0) part[static_cast<size_t>(dl) * m + task] = acc;
+    }
+  }
+  __syncthreads();  // every partial of the turn in shared memory
+  for (int dl = threadIdx.x; dl < nl; dl += blockDim.x) {
+    const double* pr = part + static_cast<size_t>(dl) * m;
+    double sum = 0.0;
+#pragma unroll 8
+    for (int i = 0; i < m; ++i) sum += pr[i];
+    out[dl * ostride] = static_cast<Real>(sum);
+  }
+  __syncthreads();  // the turn's partials read before the next overwrites
+}
+
 // The table sweep: one block per day t. The block first takes x and the
-// day's row flags into shared memory. Warps take the
-// day's tasks (i0, k) (slab i0, the k-th span of kSpan rows i1 = k kSpan +
-// c 32 + lane, c = 0 then 1) and run the bound rows l of a task in turn:
-// each lane's rows by interval::row_sum on the stored rows (a flagged row:
-// its cells), the lanes' sums by warp_sum into the partial (l, t, i0, k)
-// in shared memory. Bound rows go in turns of kSumRows; after each turn
-// thread l adds the day's partials of row l in index order and rounds the
-// sum to Real once into out[l, t].
+// day's row flags into shared memory (load_sweep_day), then runs the bound
+// rows in turns of kSumRows (sweep_turn), each row's bounds from `bounds`
+// and its sum into out[l, t].
 template <typename Real>
 __global__ void __launch_bounds__(kSweepThreads)
 contract3_sweep_kernel(const Real* __restrict__ u,  // (T, rows, stride)
@@ -416,75 +547,301 @@ contract3_sweep_kernel(const Real* __restrict__ u,  // (T, rows, stride)
                        Real* __restrict__ out,  // (L, T)
                        int T, int n, int row0, int rows, int L, int pitch,
                        int stride) {
-  using R = Rn<Real>;
   __shared__ Real xs[interval::kShortRow];
   extern __shared__ __align__(16) unsigned char sweep_shared[];
   const int t = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int spans = (n + kSpan - 1) / kSpan;  // tasks per slab
-  const int m = rows * spans;                 // partials per (l, t)
-  const size_t cells = static_cast<size_t>(rows) * n;  // the day's rows
+  const int m = rows * ((n + kSpan - 1) / kSpan);  // partials per (l, t)
   double* part = reinterpret_cast<double*>(sweep_shared);  // (kSumRows, m)
   unsigned char* fl = reinterpret_cast<unsigned char*>(
       part + static_cast<size_t>(min(L, kSumRows)) * m);  // (rows, n)
-  for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = x[j];
-  for (size_t j = threadIdx.x; j < cells; j += blockDim.x)
-    fl[j] = flags[t * cells + j];
-  __syncthreads();
+  load_sweep_day(flags, x, xs, fl, t, n, rows);
+  const Real* day = u + static_cast<size_t>(t) * rows * stride;
+  for (int l0 = 0; l0 < L; l0 += kSumRows) {
+    const size_t o = static_cast<size_t>(l0) * T + t;
+    sweep_turn(day, fl, xs, bounds + 2 * o, 2 * static_cast<size_t>(T),
+               weights + 3 * l0, box_min, part, out + o,
+               static_cast<size_t>(T), n, row0, rows,
+               min(kSumRows, L - l0), pitch, stride);
+  }
+}
 
+// solve_stages3 (f64, one card, whole days): one block per day t, bound
+// rows l in turns of kSumRows, thread dl on row l0 + dl. Per turn: the
+// stage-1 sweep over [-100, first_guess], the stage-2 bounds each row's
+// result picks, their sweep (both by sweep_turn: K4's bits), then the
+// bracket's selects (interval::bracket, bracket_state_batched's order);
+// the state stored and max(upper - lower, 0) folded into *widest (zeroed
+// by the launcher), as solve_stages_kernel folds it at dim 2.
+__global__ void __launch_bounds__(kSweepThreads, kSolveMinBlocks)
+solve_stages3_kernel(const double* __restrict__ u,  // (T, n, stride)
+                     const unsigned char* __restrict__ flags,  // (T, n, n)
+                     const double* __restrict__ x,        // (n,)
+                     const double* __restrict__ obj,      // (L,)
+                     const double* __restrict__ weights,  // (L, 3)
+                     interval::StageConfig cfg, double box_min,
+                     double* __restrict__ lower,      // (L, T)
+                     double* __restrict__ upper,      // (L, T)
+                     double* __restrict__ prev_res,   // (L, T)
+                     double* __restrict__ prev_up,    // (L, T)
+                     unsigned char* __restrict__ ustack,   // (L, T)
+                     unsigned char* __restrict__ nan_day,  // (L, T)
+                     unsigned long long* widest,  // atomics: no restrict
+                     int T, int n, int L, int pitch, int stride) {
+  __shared__ double xs[interval::kShortRow];
+  __shared__ double bnd[2 * kSumRows];  // the turn's slabs
+  __shared__ double res[kSumRows];      // the turn's sweep results
+  __shared__ double stage1[kSumRows];   // the turn's F1
+  extern __shared__ __align__(16) unsigned char sweep_shared[];
+  const int t = blockIdx.x;
+  const int m = n * ((n + kSpan - 1) / kSpan);
+  double* part = reinterpret_cast<double*>(sweep_shared);
+  unsigned char* fl = reinterpret_cast<unsigned char*>(
+      part + static_cast<size_t>(min(L, kSumRows)) * m);
+  load_sweep_day(flags, x, xs, fl, t, n, n);
+  const double* day = u + static_cast<size_t>(t) * n * stride;
+  const int dl = threadIdx.x;
   for (int l0 = 0; l0 < L; l0 += kSumRows) {
     const int nl = min(kSumRows, L - l0);
-    for (int task = warp; task < m; task += kSweepWarps) {
-      const int i0 = task / spans;  // the range's slab, grid point row0 + i0
-      const int k = task - i0 * spans;
-      const Real* slab = u + (static_cast<size_t>(t) * rows + i0) * stride;
-      const Real x0 = xs[row0 + i0];
-      const Real* row[kSpan / 32];
-      Real xi[kSpan / 32];
-      bool flagged[kSpan / 32];
-#pragma unroll
-      for (int c = 0; c < kSpan / 32; ++c) {
-        const int i1 = k * kSpan + c * 32 + lane;
-        const bool in = i1 < n;
-        row[c] = in ? slab + static_cast<size_t>(i1) * pitch : nullptr;
-        xi[c] = in ? xs[i1] : Real(0);
-        flagged[c] = in && fl[i0 * n + i1] != 0;
-      }
-      for (int dl = 0; dl < nl; ++dl) {
-        const int l = l0 + dl;
-        const size_t o = static_cast<size_t>(l) * T + t;
-        const Real b_lo = bounds[2 * o];
-        const Real b_up = bounds[2 * o + 1];
-        const Real w_in = weights[3 * l];
-        const Real p0w = R::mul(x0, weights[3 * l + 1]);
-        const Real w_o2 = weights[3 * l + 2];
-        double acc = 0.0;
-#pragma unroll
-        for (int c = 0; c < kSpan / 32; ++c) {
-          if (row[c] != nullptr) {
-            const Real prev = R::add(p0w, R::mul(xi[c], w_o2));
-            const Real dup = R::div(R::sub(b_up, prev), w_in);
-            const Real d = R::div(R::sub(b_lo, prev), w_in);
-            // NaN-propagating max, as torch.maximum
-            const Real dlo = (d > box_min || d != d) ? d : box_min;
-            acc += interval::row_sum<interval::kShortTop>(
-                row[c], row[c], flagged[c], xs, n, dlo, dup);
-          }
+    const bool mine = dl < nl;
+    const size_t o = static_cast<size_t>(l0 + dl) * T + t;
+    if (mine) {
+      bnd[2 * dl] = -100.0;
+      bnd[2 * dl + 1] = cfg.fg;
+    }
+    __syncthreads();
+    // a sweep's bits depend on (bounds, weights row, t) alone: F1 is the
+    // stage-1 sweep's (L, T) entry whether one row or every row computes it
+    sweep_turn(day, fl, xs, bnd, 2, weights + 3 * l0, box_min, part, res, 1,
+               n, 0, n, nl, pitch, stride);
+    if (mine) {
+      const interval::Slab2 s2 = interval::stage2_bounds(res[dl],
+                                                         obj[l0 + dl], cfg);
+      stage1[dl] = res[dl];
+      bnd[2 * dl] = s2.lower;
+      bnd[2 * dl + 1] = s2.upper;
+    }
+    __syncthreads();
+    // F1 and the stage-2 bounds stay in shared memory across the sweep
+    sweep_turn(day, fl, xs, bnd, 2, weights + 3 * l0, box_min, part, res, 1,
+               n, 0, n, nl, pitch, stride);
+    if (mine) {
+      const interval::Bracket b =
+          interval::bracket(stage1[dl], res[dl], obj[l0 + dl], bnd[2 * dl],
+                            bnd[2 * dl + 1], cfg);
+      lower[o] = b.lo;
+      upper[o] = b.hi;
+      prev_res[o] = b.res;
+      prev_up[o] = b.prev_up;
+      ustack[o] = b.ustack;
+      nan_day[o] = b.nan;
+      interval::fold_width(widest, b.lo, b.hi);
+    }
+  }
+}
+
+// The device bisection's words (int32, zeroed by the launcher), after
+// halving k of k_max for bound row l: nz[k][l], some result of the row is
+// not exactly 0; wd[k][l], some candidate bracket of the row is wider than
+// the tolerance (both folded by atomicOr: the same words in any order);
+// and before halving k (k <= k_max), brk[k][l], the row frozen, and
+// run[k], the loop's condition (stored by block 0 of launch k).
+struct BisectWords {
+  int* nz;
+  int* wd;
+  int* brk;
+  int* run;
+  int L;
+
+  __host__ __device__ BisectWords(int* w, int k_max, int L)
+      : nz(w),
+        wd(w + static_cast<size_t>(k_max) * L),
+        brk(w + 2 * static_cast<size_t>(k_max) * L),
+        run(w + (3 * static_cast<size_t>(k_max) + 1) * L),
+        L(L) {}
+
+  // the ints of k_max halvings of L rows
+  __host__ __device__ static size_t count(int k_max, int L) {
+    return (3 * static_cast<size_t>(k_max) + 1) * L + k_max + 1;
+  }
+
+  // halving k - 1's decisions for row l (k >= 1): brk, the row frozen
+  // before halving k (frozen before, or its results all exactly 0 while
+  // the loop ran), and kept, whether halving k - 1 left the row's state as
+  // it was (_halving's `frozen`: that, or the loop no longer running)
+  struct Decision {
+    bool brk, kept;
+  };
+  __device__ __forceinline__ Decision decide(int k, int l) const {
+    const size_t j = static_cast<size_t>(k - 1) * L + l;
+    const bool ran = run[k - 1] != 0;
+    const bool brk_before = brk[j] != 0;
+    const bool zero = nz[j] == 0 && ran;
+    return {brk_before || zero, zero || brk_before || !ran};
+  }
+};
+
+// Launch k of the dim-3 device bisection (f64, one card, whole days), k =
+// 0 .. k_max, one block per day t, thread dl on row l0 + dl of each turn of
+// kSumRows rows. The count K = min(device_halvings(*widest), k_max) is the
+// host-counted route's; a launch past it exits at once. Launch k (k >= 1)
+// first takes halving k - 1's decisions, which need every day's results
+// and so could not be taken inside it: each row's freeze (brk) and the
+// loop's condition (`running`: it ran, and some row not frozen holds a
+// candidate bracket wider than the tolerance), and commits each (row, day)
+// state: the candidate of halving k - 1 where the row moved, else the
+// state before it (the inputs after halving 0). Launch K writes the roots
+// (lo + up) / 2. Every other launch, while the loop runs, halves: the
+// slab of each state by sweep_turn, then res = prev_res +- slab, and the
+// candidate state into the second buffer, with the row's words. So the
+// state after halving k is _halving's, bit for bit, freeze and exit
+// included; state and candidate are each (4, L, T) float64 + (L, T) bytes.
+__global__ void __launch_bounds__(kSweepThreads, kSolveMinBlocks)
+bisect3_kernel(const double* __restrict__ u,  // (T, n, stride)
+               const unsigned char* __restrict__ flags,  // (T, n, n)
+               const double* __restrict__ x,             // (n,)
+               const double* __restrict__ lower,         // (L, T)
+               const double* __restrict__ upper,         // (L, T)
+               const double* __restrict__ prev_res,      // (L, T)
+               const double* __restrict__ prev_up,       // (L, T)
+               const unsigned char* __restrict__ ustack,  // (L, T)
+               const double* __restrict__ obj,            // (L,)
+               const double* __restrict__ weights,        // (L, 3)
+               double box_min,
+               const unsigned long long* __restrict__ widest,  // (1,)
+               double tolerance, int k_max, int k,
+               double* state,  // (8, L, T): the state, then the candidate
+               unsigned char* ustate,  // (2, L, T): their ustack
+               int* words,             // BisectWords
+               double* __restrict__ roots,  // (L, T)
+               int T, int n, int L, int pitch, int stride) {
+  const int count =
+      min(interval::device_halvings(*widest, tolerance), k_max);
+  if (k > count) return;
+  __shared__ double xs[interval::kShortRow];
+  __shared__ double bnd[2 * kSumRows];
+  __shared__ double res[kSumRows];
+  // the turn's states (lo, up, prev_res, prev_up; ustack) across its sweep
+  __shared__ double row_state[4 * kSumRows];
+  __shared__ bool row_us[kSumRows];
+  extern __shared__ __align__(16) unsigned char sweep_shared[];
+  const BisectWords bw(words, k_max, L);
+  const int t = blockIdx.x;
+  const size_t plane = static_cast<size_t>(L) * T;
+  double* s_lo = state;  // the state before halving k
+  double* s_up = state + plane;
+  double* s_pr = state + 2 * plane;
+  double* s_pu = state + 3 * plane;
+  double* c_lo = state + 4 * plane;  // halving k's candidate
+  double* c_up = state + 5 * plane;
+  double* c_pr = state + 6 * plane;
+  double* c_pu = state + 7 * plane;
+  unsigned char* s_us = ustate;
+  unsigned char* c_us = ustate + plane;
+
+  bool running = true;  // halving 0 runs whenever K > 0
+  if (k == 0) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) bw.run[0] = 1;
+  } else {
+    int wide = 0;
+    for (int l = threadIdx.x; l < L; l += blockDim.x) {
+      const bool brk_now = bw.decide(k, l).brk;
+      wide |= !brk_now && bw.wd[static_cast<size_t>(k - 1) * L + l] != 0;
+      if (blockIdx.x == 0) bw.brk[static_cast<size_t>(k) * L + l] = brk_now;
+    }
+    // every thread reaches the barrier before the loop's last condition
+    running = __syncthreads_or(wide) != 0 && bw.run[k - 1] != 0;
+    if (blockIdx.x == 0 && threadIdx.x == 0) bw.run[k] = running;
+  }
+  const bool halve = k < count && running;  // the same in every block
+
+  const int m = n * ((n + kSpan - 1) / kSpan);
+  double* part = reinterpret_cast<double*>(sweep_shared);
+  unsigned char* fl = reinterpret_cast<unsigned char*>(
+      part + static_cast<size_t>(min(L, kSumRows)) * m);
+  if (halve) load_sweep_day(flags, x, xs, fl, t, n, n);
+  const double* day = u + static_cast<size_t>(t) * n * stride;
+  const int dl = threadIdx.x;
+  for (int l0 = 0; l0 < L; l0 += kSumRows) {
+    const int nl = min(kSumRows, L - l0);
+    const bool mine = dl < nl;
+    if (mine) {
+      const int l = l0 + dl;
+      const size_t o = static_cast<size_t>(l) * T + t;
+      double lo, up, pr, pu;
+      bool us;
+      if (k == 0) {
+        lo = lower[o];
+        up = upper[o];
+        pr = prev_res[o];
+        pu = prev_up[o];
+        us = ustack[o] != 0;
+      } else {
+        if (!bw.decide(k, l).kept) {
+          lo = c_lo[o];
+          up = c_up[o];
+          pr = c_pr[o];
+          pu = c_pu[o];
+          us = c_us[o] != 0;
+        } else if (k == 1) {
+          lo = lower[o];
+          up = upper[o];
+          pr = prev_res[o];
+          pu = prev_up[o];
+          us = ustack[o] != 0;
+        } else {
+          lo = s_lo[o];
+          up = s_up[o];
+          pr = s_pr[o];
+          pu = s_pu[o];
+          us = s_us[o] != 0;
         }
-        acc = interval::warp_sum(acc);
-        if (lane == 0) part[static_cast<size_t>(dl) * m + task] = acc;
+        s_lo[o] = lo;
+        s_up[o] = up;
+        s_pr[o] = pr;
+        s_pu[o] = pu;
+        s_us[o] = us;
       }
+      const double mid = __ddiv_rn(__dadd_rn(lo, up), 2.0);
+      if (k == count) roots[o] = mid;
+      row_state[4 * dl] = lo;
+      row_state[4 * dl + 1] = up;
+      row_state[4 * dl + 2] = pr;
+      row_state[4 * dl + 3] = pu;
+      row_us[dl] = us;
+      bnd[2 * dl] = us ? lo : mid;
+      bnd[2 * dl + 1] = us ? mid : up;
     }
-    __syncthreads();  // every partial of the turn in shared memory
-    for (int dl = threadIdx.x; dl < nl; dl += blockDim.x) {
-      const double* pr = part + static_cast<size_t>(dl) * m;
-      double sum = 0.0;
-#pragma unroll 8
-      for (int i = 0; i < m; ++i) sum += pr[i];
-      out[static_cast<size_t>(l0 + dl) * T + t] = static_cast<Real>(sum);
+    if (!halve) continue;
+    __syncthreads();
+    sweep_turn(day, fl, xs, bnd, 2, weights + 3 * l0, box_min, part, res, 1,
+               n, 0, n, nl, pitch, stride);
+    if (mine) {
+      // the state back from shared memory: no register holds it across
+      // the sweep, which keeps the kernel to kSolveMinBlocks a SM
+      const int l = l0 + dl;
+      const size_t o = static_cast<size_t>(l) * T + t;
+      const double lo = row_state[4 * dl];
+      const double up = row_state[4 * dl + 1];
+      const double pr = row_state[4 * dl + 2];
+      const double pu = row_state[4 * dl + 3];
+      const double mid = __ddiv_rn(__dadd_rn(lo, up), 2.0);
+      const double b_lo = row_us[dl] ? lo : mid;
+      const double slab = res[dl];
+      const double result = b_lo == pu ? __dadd_rn(pr, slab)
+                                       : __dsub_rn(pr, slab);
+      const bool below = result < obj[l];
+      const double clo = below ? mid : lo;
+      const double cup = below ? up : mid;
+      c_lo[o] = clo;
+      c_up[o] = cup;
+      c_pr[o] = result;
+      c_pu[o] = mid;
+      c_us[o] = below;
+      const size_t j = static_cast<size_t>(k) * L + l;
+      if (!(result == 0.0) && __ldcg(bw.nz + j) == 0) atomicOr(bw.nz + j, 1);
+      if (__dsub_rn(cup, clo) > tolerance && __ldcg(bw.wd + j) == 0)
+        atomicOr(bw.wd + j, 1);
     }
-    __syncthreads();  // the turn's partials read before the next overwrites
   }
 }
 
@@ -836,6 +1193,77 @@ int masked_contract3(const Real* u, const unsigned char* flags,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fused dim-3 solve's operands: whole days of the table (u (T, n,
+// stride), flags (T, n, n)) the sweep takes, L rows.
+bool valid_solve3(int T, int n, int L, int pitch, int stride) {
+  return T >= 0 && L >= 0 && valid_layout<double>(n, pitch, stride) &&
+         static_cast<long long>(T) * n <= 0x7fffffffLL &&
+         static_cast<long long>(L) * T <= 0x7fffffffLL &&
+         sweep_shared_bytes(n, n, L) <= kMaxSharedBytes;
+}
+
+// solve_stages3: the state (L, T) of every row and day and *widest, zeroed
+// here on the stream before the kernel folds into it.
+int solve_stages3(const double* u, const unsigned char* flags,
+                  const double* x, const double* obj, const double* weights,
+                  interval::StageConfig cfg, double box_min, double* lower,
+                  double* upper, double* prev_res, double* prev_up,
+                  unsigned char* ustack, unsigned char* nan_day,
+                  unsigned long long* widest, int T, int n, int L, int pitch,
+                  int stride, void* stream) {
+  if (!valid_solve3(T, n, L, pitch, stride))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sweep_shared_bytes(n, n, L);
+  cudaError_t e = cudaFuncSetAttribute(
+      solve_stages3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (T == 0 || L == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(widest, 0, sizeof(*widest), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  solve_stages3_kernel<<<T, kSweepThreads, bytes, s>>>(
+      u, flags, x, obj, weights, cfg, box_min, lower, upper, prev_res,
+      prev_up, ustack, nan_day, widest, T, n, L, pitch, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bisect3: the words (BisectWords::count(k_max, L) ints) zeroed on the
+// stream, then k_max + 1 launches of bisect3_kernel (halvings 0 ..
+// k_max - 1, each gated on the device by the count and the loop's
+// condition, and the roots), with no host read; state (8, L, T) and
+// ustate (2, L, T) scratch, roots (L, T).
+int bisect3(const double* u, const unsigned char* flags, const double* x,
+            const double* lower, const double* upper, const double* prev_res,
+            const double* prev_up, const unsigned char* ustack,
+            const double* obj, const double* weights, double box_min,
+            const unsigned long long* widest, double tolerance, int k_max,
+            double* state, unsigned char* ustate, int* words, double* roots,
+            int T, int n, int L, int pitch, int stride, void* stream) {
+  if (!valid_solve3(T, n, L, pitch, stride) || k_max < 0 ||
+      k_max > interval::kMaxHalvings || widest == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sweep_shared_bytes(n, n, L);
+  cudaError_t e = cudaFuncSetAttribute(
+      bisect3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (T == 0 || L == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(words, 0, BisectWords::count(k_max, L) * sizeof(int),
+                      s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int k = 0; k <= k_max; ++k) {
+    bisect3_kernel<<<T, kSweepThreads, bytes, s>>>(
+        u, flags, x, lower, upper, prev_res, prev_up, ustack, obj, weights,
+        box_min, widest, tolerance, k_max, k, state, ustate, words, roots, T,
+        n, L, pitch, stride);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
 // The row flags of the outer slabs [row0, row0 + rows) of every day:
 // flags (T, rows, n) bytes
 template <typename Real>
@@ -970,3 +1398,32 @@ int masked_contract3_rebuild(
 
 CVT_DIM3_LAUNCHERS(, double)
 CVT_DIM3_LAUNCHERS(_f32, float)
+
+// The f64 fused dim-3 solve on one card (no f32 form): the stages, and the
+// bisection counting its halvings from the widest bracket on the device.
+extern "C" int cvt_solve_stages3(
+    const double* u, const unsigned char* flags, const double* x,
+    const double* obj, const double* weights, double first_guess, double sg0,
+    double sg1, double min_var, double max_var, int quirks, double box_min,
+    double* lower, double* upper, double* prev_res, double* prev_up,
+    unsigned char* ustack, unsigned char* nan_day, unsigned long long* widest,
+    int T, int n, int L, int pitch, int stride, void* stream) {
+  const interval::StageConfig cfg{first_guess, sg0, sg1,
+                                  min_var, max_var, quirks != 0};
+  return solve_stages3(u, flags, x, obj, weights, cfg, box_min, lower, upper,
+                       prev_res, prev_up, ustack, nan_day, widest, T, n, L,
+                       pitch, stride, stream);
+}
+
+extern "C" int cvt_bisect3(
+    const double* u, const unsigned char* flags, const double* x,
+    const double* lower, const double* upper, const double* prev_res,
+    const double* prev_up, const unsigned char* ustack, const double* obj,
+    const double* weights, double box_min, const unsigned long long* widest,
+    double tolerance, int k_max, double* state, unsigned char* ustate,
+    int* words, double* roots, int T, int n, int L, int pitch, int stride,
+    void* stream) {
+  return bisect3(u, flags, x, lower, upper, prev_res, prev_up, ustack, obj,
+                 weights, box_min, widest, tolerance, k_max, state, ustate,
+                 words, roots, T, n, L, pitch, stride, stream);
+}

@@ -30,7 +30,8 @@
 // Rows are scanned one thread each (rows of odd pitch `row_pitch` in
 // shared memory put 16 consecutive rows on distinct bank pairs); lookups
 // are per-thread, and `warp_sum` is warp-synchronous. None uses a block
-// barrier.
+// barrier. The header ends with the f64 solve's stage-2 bracket and its
+// halving count on the device, which both sources' fused solves share.
 //
 // Cells, grid and bounds are of the kernels' working type Real (real.cuh:
 // double or float). Every running sum is a double for both: a prefix is
@@ -152,6 +153,106 @@ __device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// The f64 solve's stage-2 bracket and its halving count, shared by the
+// fused stages of dim 2 (quadrature.cu::solve_stages_kernel) and dim 3
+// (contract3.cu::solve_stages3_kernel) and by the bisections that take
+// their count on the device (K1's `cvt_bisect_levels_widest`, the dim-3
+// `bisect3_kernel`).
+
+// cfg = (first_guess, sg0, sg1, min_var, max_var) and the reference's
+// add-group anchor (quirks).
+struct StageConfig {
+  double fg, sg0, sg1, min_v, max_v;
+  bool quirks;
+};
+
+// The bracket state of one (row, day), ops/solvers.py::
+// bracket_state_batched's outputs.
+struct Bracket {
+  double lo, hi, res, prev_up;
+  bool ustack, nan;
+};
+
+// The stage-2 slab (new_lower, new_upper] that the stage-1 result F1
+// picks against `target`.
+struct Slab2 {
+  double lower, upper;
+};
+__device__ __forceinline__ Slab2 stage2_bounds(double F1, double target,
+                                               const StageConfig& cfg) {
+  return {F1 >= target ? cfg.sg0 : cfg.fg, F1 < target ? cfg.sg1 : cfg.fg};
+}
+
+// bracket_state_batched's selects, in its order, from F1, the stage-2
+// slab I2 between (new_lower, new_upper) and the row's level.
+__device__ __forceinline__ Bracket bracket(double F1, double I2,
+                                           double target, double new_lower,
+                                           double new_upper,
+                                           const StageConfig& cfg) {
+  Bracket b;
+  b.res = new_lower == cfg.fg ? __dadd_rn(F1, I2) : __dsub_rn(F1, I2);
+  b.prev_up = new_lower == cfg.sg0 ? cfg.sg0 : (cfg.quirks ? cfg.fg : cfg.sg1);
+  b.lo = cfg.min_v;
+  b.hi = cfg.max_v;
+  if (b.res > target) {
+    b.lo = cfg.min_v;
+    b.hi = cfg.sg0;
+  }
+  if (b.res < target && new_upper == cfg.fg) {
+    b.lo = cfg.sg0;
+    b.hi = cfg.fg;
+  }
+  if (b.res < target && new_upper == cfg.sg1) {
+    b.lo = cfg.sg1;
+    b.hi = cfg.max_v;
+  }
+  if (b.res > target && new_upper == cfg.sg1) {
+    b.lo = cfg.fg;
+    b.hi = cfg.sg1;
+  }
+  b.ustack = !(b.hi == cfg.sg0 || b.hi == cfg.sg1);
+  b.nan = b.res != b.res;
+  return b;
+}
+
+// A width as the bits atomicMax orders: a non-negative double's bits
+// order as unsigned integers do; a negative width (or -0) counts as 0 and
+// a NaN as all ones, so a NaN wins the maximum as torch's max propagates
+// it, and the count it gives is the host's for a NaN: 0.
+__device__ __forceinline__ unsigned long long width_bits(double w) {
+  if (w != w) return ~0ull;
+  return w > 0.0 ? static_cast<unsigned long long>(__double_as_longlong(w))
+                 : 0ull;
+}
+
+// max(hi - lo, 0) folded into *widest (a word of width_bits), after a
+// cached read that skips the atomic when the word already holds as much:
+// most (row, day) brackets share one of a few widths.
+__device__ __forceinline__ void fold_width(unsigned long long* widest,
+                                           double lo, double hi) {
+  const unsigned long long bits = width_bits(__dsub_rn(hi, lo));
+  if (bits > __ldcg(widest)) atomicMax(widest, bits);
+}
+
+// The while-loop's halving count from the widest bracket's bits, as the
+// host's `halvings` counts it: halve while the width exceeds `tolerance`
+// (every halving exact). A NaN width counts 0; the cap only stops an
+// infinite width or a negative tolerance, where the host never stops
+// (kMaxHalvings halvings take the largest double below any tolerance
+// >= 0).
+constexpr int kMaxHalvings = 2200;
+
+__device__ __forceinline__ int device_halvings(unsigned long long bits,
+                                               double tolerance) {
+  double w = __longlong_as_double(static_cast<long long>(bits));
+  int k = 0;
+  while (w > tolerance && k < kMaxHalvings) {
+    w *= 0.5;
+    ++k;
+  }
+  return k;
 }
 
 }  // namespace interval

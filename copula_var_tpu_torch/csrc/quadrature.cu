@@ -75,17 +75,18 @@
 // major) and K2's slab_sum, so each of its two slabs has K2's bits: the
 // stage-1 slab [-100, first_guess], then the stage-2 slab between the
 // bounds it picks, then the bracket's selects in registers, in
-// ops/solvers.py::bracket_state_batched's order. Lane 0 stores the state
+// ops/solvers.py::bracket_state_batched's order (interval.cuh's `bracket`,
+// which the dim-3 stages of contract3.cu share). Lane 0 stores the state
 // (lower, upper, prev_res, prev_up, ustack, the NaN-day flag) and folds
 // max(upper - lower, 0) into one word by atomicMax on its bits (a non-
 // negative double's bits order as the integers do), after a cached read
 // that skips the atomic when the word already holds as much. Twice K2's
 // lookups per task; at L = 1 it is bound by its launch, at L = 128 by the
 // lookups' latency, like K2. K1's f64 launcher `cvt_bisect_levels_widest`
-// then derives its count in every block from that word and the tolerance,
-// halving as the host's `halvings` does, so the count, and every root, is
-// the host-counted route's, bit for bit, with no host read between the
-// operands' upload and the roots' copy.
+// then derives its count in every block from that word and the tolerance
+// (interval::device_halvings), halving as the host's `halvings` does, so
+// the count, and every root, is the host-counted route's, bit for bit,
+// with no host read between the operands' upload and the roots' copy.
 //
 // Semantics kept from the f64 `xla` engine (copula_var_tpu/backtest.py):
 //   * mask x_j > max((b_lo - x_i w_out) / w_in, box_min) and
@@ -265,23 +266,6 @@ prefix_sweep_kernel(const Real* __restrict__ p,  // (T, rows, pitch)
   if (lane == 0) out[o] = static_cast<Real>(acc);
 }
 
-// The stage-2 bracket's constants: cfg = (first_guess, sg0, sg1, min_var,
-// max_var) and the reference's add-group anchor (quirks).
-struct StageConfig {
-  double fg, sg0, sg1, min_v, max_v;
-  bool quirks;
-};
-
-// A width as the bits atomicMax orders: a non-negative double's bits
-// order as unsigned integers do; a negative width (or -0) counts as 0 and
-// a NaN as all ones, so a NaN wins the maximum as torch's max propagates
-// it, and the count it gives is the host's for a NaN: 0.
-__device__ __forceinline__ unsigned long long width_bits(double w) {
-  if (w != w) return ~0ull;
-  return w > 0.0 ? static_cast<unsigned long long>(__double_as_longlong(w))
-                 : 0ull;
-}
-
 // solve_stages (f64): per task (row l, day t), one warp, tasks day-major
 // as in prefix_sweep_kernel, the stage-1 sweep over [-100, first_guess],
 // the bracket's stage-2 bounds from it, their sweep, and the bracket
@@ -293,7 +277,7 @@ solve_stages_kernel(const double* __restrict__ p,  // (T, n, pitch)
                     const double* __restrict__ x,        // (n,)
                     const double* __restrict__ obj,      // (L,)
                     const double* __restrict__ weights,  // (L, 2)
-                    StageConfig cfg, double box_min,
+                    interval::StageConfig cfg, double box_min,
                     double* __restrict__ lower,      // (L, T)
                     double* __restrict__ upper,      // (L, T)
                     double* __restrict__ prev_res,   // (L, T)
@@ -317,62 +301,26 @@ solve_stages_kernel(const double* __restrict__ p,  // (T, n, pitch)
   const unsigned char* fl = flag + static_cast<size_t>(t) * n;
   const double target = obj[l];
   const double w_in = weights[2 * l], w_out = weights[2 * l + 1];
-  const double fg = cfg.fg, sg0 = cfg.sg0, sg1 = cfg.sg1;
   // a slab's bits depend on (bounds, weights row, t) alone: F1 is the
   // stage-1 sweep's (L, T) entry whether one row or every row computes it
   const double F1 = slab_sum<double, kChunks, kTop>(
-      day, fl, xs, n, 0, n, pitch, lane, -100.0, fg, w_in, w_out, box_min);
-  const double new_lower = F1 >= target ? sg0 : fg;
-  const double new_upper = F1 < target ? sg1 : fg;
-  const double I2 = slab_sum<double, kChunks, kTop>(
-      day, fl, xs, n, 0, n, pitch, lane, new_lower, new_upper, w_in, w_out,
+      day, fl, xs, n, 0, n, pitch, lane, -100.0, cfg.fg, w_in, w_out,
       box_min);
-  const double res = new_lower == fg ? __dadd_rn(F1, I2) : __dsub_rn(F1, I2);
-  const double pu = new_lower == sg0 ? sg0 : (cfg.quirks ? fg : sg1);
-  double lo = cfg.min_v, hi = cfg.max_v;
-  if (res > target) {
-    lo = cfg.min_v;
-    hi = sg0;
-  }
-  if (res < target && new_upper == fg) {
-    lo = sg0;
-    hi = fg;
-  }
-  if (res < target && new_upper == sg1) {
-    lo = sg1;
-    hi = cfg.max_v;
-  }
-  if (res > target && new_upper == sg1) {
-    lo = fg;
-    hi = sg1;
-  }
+  const interval::Slab2 s2 = interval::stage2_bounds(F1, target, cfg);
+  const double I2 = slab_sum<double, kChunks, kTop>(
+      day, fl, xs, n, 0, n, pitch, lane, s2.lower, s2.upper, w_in, w_out,
+      box_min);
+  const interval::Bracket b =
+      interval::bracket(F1, I2, target, s2.lower, s2.upper, cfg);
   if (lane == 0) {
-    lower[o] = lo;
-    upper[o] = hi;
-    prev_res[o] = res;
-    prev_up[o] = pu;
-    ustack[o] = !(hi == sg0 || hi == sg1);
-    nan_day[o] = res != res;
-    // most tasks share one of a few widths: read before the atomic
-    const unsigned long long bits = width_bits(__dsub_rn(hi, lo));
-    if (bits > __ldcg(widest)) atomicMax(widest, bits);
+    lower[o] = b.lo;
+    upper[o] = b.hi;
+    prev_res[o] = b.res;
+    prev_up[o] = b.prev_up;
+    ustack[o] = b.ustack;
+    nan_day[o] = b.nan;
+    interval::fold_width(widest, b.lo, b.hi);
   }
-}
-
-// The while-loop's halving count from the widest bracket's bits, as the
-// host's `halvings` counts it: halve while the width exceeds `tolerance`
-// (every halving exact). A NaN width counts 0; the cap only stops an
-// infinite width or a negative tolerance, where the host never stops
-// (2200 halvings take the largest double below any tolerance >= 0).
-__device__ __forceinline__ int device_halvings(unsigned long long bits,
-                                               double tolerance) {
-  double w = __longlong_as_double(static_cast<long long>(bits));
-  int k = 0;
-  while (w > tolerance && k < 2200) {
-    w *= 0.5;
-    ++k;
-  }
-  return k;
 }
 
 template <typename Real>
@@ -397,7 +345,8 @@ bisect_levels_kernel(const Real* __restrict__ v,
   extern __shared__ __align__(16) unsigned char bisect_shared[];
   // the count on the device (f64 solve_stages route): from the widest
   // bracket solve_stages folded, instead of the host's n_iters
-  if (widest != nullptr) n_iters = device_halvings(*widest, tolerance);
+  if (widest != nullptr)
+    n_iters = interval::device_halvings(*widest, tolerance);
   const int t = blockIdx.x;
   const int pitch = n | 1;
   Real* u = reinterpret_cast<Real*>(bisect_shared);  // (n, pitch)
@@ -540,7 +489,8 @@ int bisect_levels(const Real* v, const Real* wfc, const Real* w1,
 // here on the stream before the kernel folds into it; whole days of a
 // grid K1 takes (n <= kShortRow)
 int solve_stages(const double* p, const unsigned char* flag, const double* x,
-                 const double* obj, const double* weights, StageConfig cfg,
+                 const double* obj, const double* weights,
+                 interval::StageConfig cfg,
                  double box_min, double* lower, double* upper,
                  double* prev_res, double* prev_up, unsigned char* ustack,
                  unsigned char* nan_day, unsigned long long* widest, int T,
@@ -607,7 +557,8 @@ extern "C" int cvt_solve_stages(
     double* lower, double* upper, double* prev_res, double* prev_up,
     unsigned char* ustack, unsigned char* nan_day, unsigned long long* widest,
     int T, int n, int L, int pitch, void* stream) {
-  const StageConfig cfg{first_guess, sg0, sg1, min_var, max_var, quirks != 0};
+  const interval::StageConfig cfg{first_guess, sg0, sg1,
+                                  min_var, max_var, quirks != 0};
   return solve_stages(p, flag, x, obj, weights, cfg, box_min, lower, upper,
                       prev_res, prev_up, ustack, nan_day, widest, T, n, L,
                       pitch, stream);

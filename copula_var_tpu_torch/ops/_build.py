@@ -94,6 +94,18 @@ _F64_ONLY = {
         "cvt_bisect_levels_widest": [_P] * 11 + [_D, _P, _D, _P] + [_I] * 4
         + [_P],
     },
+    "contract3.cu": {
+        # U, flags, x, obj, weights, first_guess, sg0, sg1, min_var,
+        # max_var, quirks, box_min, lower, upper, prev_res, prev_up,
+        # ustack, nan_days, widest, T, n, L, pitch, stride, stream
+        "cvt_solve_stages3": [_P] * 5 + [_D] * 5 + [_I, _D] + [_P] * 7
+        + [_I] * 5 + [_P],
+        # U, flags, x, lower, upper, prev_res, prev_up, ustack, obj,
+        # weights, box_min, widest, tolerance, k_max, state, ustate, words,
+        # roots, T, n, L, pitch, stride, stream
+        "cvt_bisect3": [_P] * 10 + [_D, _P, _D, _I] + [_P] * 4 + [_I] * 5
+        + [_P],
+    },
 }
 SOURCES = {
     source: {**({"cvt_error_string": [_I]} if source == "quadrature.cu"

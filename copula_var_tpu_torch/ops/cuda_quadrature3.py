@@ -568,6 +568,22 @@ def check_contract3_operands(ops: Contract3Operands):
     return T, n, q
 
 
+def check_table(ops: Contract3Operands, what: str):
+    """Validate the table U, its row flags and x that a table sweep reads
+    (`masked_contract3`, and the fused dim-3 solve's kernels); returns (T,
+    n, r), r the outer slabs held."""
+    if ops.U is None or ops.flags is None:
+        raise ValueError(f"{what}: the operands carry no table U (build "
+                         "them with contract3_operands)")
+    dev, dt = ops.z.device, ops.dtype
+    T, n, r = ops.days, ops.x.shape[0], ops.n_rows
+    itemsize(dt)
+    _check_operand("U", ops.U, (T, r, slab_stride(n, dt)), dev, dt)
+    _check_operand("flags", ops.flags, (T, r, n), dev, torch.bool)
+    _check_operand("x", ops.x, (n,), dev, dt)
+    return T, n, r
+
+
 def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
     """(L, T) slab integrals for bounds (L, T, 2) and per-row portfolio
     weights (L, 3) ([inner, outer0, outer1]), the share of the operands'
@@ -582,15 +598,8 @@ def masked_contract3(ops: Contract3Operands, bounds, weights, box_min=-5.0):
     if dev.type != "cuda":
         raise ValueError(f"masked_contract3: unsupported device {dev}")
     with span("launch.masked_contract3"):
-        if ops.U is None or ops.flags is None:
-            raise ValueError("masked_contract3: the operands carry no "
-                             "table U (build them with contract3_operands)")
-        T, n, r = ops.days, ops.x.shape[0], ops.n_rows
+        T, n, r = check_table(ops, "masked_contract3")
         dt = ops.dtype
-        itemsize(dt)
-        _check_operand("U", ops.U, (T, r, slab_stride(n, dt)), dev, dt)
-        _check_operand("flags", ops.flags, (T, r, n), dev, torch.bool)
-        _check_operand("x", ops.x, (n,), dev, dt)
         L = bounds.shape[0]
         _check_operand("bounds", bounds, (L, T, 2), dev, dt)
         _check_operand("weights", weights, (L, 3), dev, dt)

@@ -20,8 +20,10 @@ mesh or a grid mesh is given). Its rows, on a CUDA device:
   f64, dim 2, n <= 169 none          fused     K1 (device)
   f64, dim 2, n <= 169 day           composed  K1 (host, a global MAX)
   f64, dim 2, n > 169  none or day   composed  halvings of K2 (host)
-  f64, dim 3           none or day   composed  halvings of K4: the table
-                                               U, else the rebuild (host)
+  f64, dim 3, table U  none          fused     K4 on the device (device)
+  f64, dim 3, table U  day           composed  halvings of K4 (host)
+  f64, dim 3, no table none or day   composed  halvings of the rebuild
+                                               (host)
   f64, dim >= 4        none or day   composed  halvings of `tcached_sweep`
                                                (host)
   f64, any dim         grid          composed  halvings of the summed
@@ -39,13 +41,14 @@ device runs a plain sweep; dim >= 4 has no kernel (the JAX package
 serves it only through XLA), so its sweep is plain on every device and
 K1-K4 never launch.
 
-Stages. "fused": one `solve_stages` launch (csrc/quadrature.cu::
-solve_stages_kernel) runs both stage sweeps and the stage-2 bracket of
-every (row, day) and folds the widest bracket into a device word; its
-sweeps are K2's slabs and its selects `bracket_state_batched`'s, so the
-roots are the composed route's bit for bit. "composed": the stage-1
-sweep and `ops/solvers.py::bracket_state_batched` over the route's
-sweep.
+Stages. "fused": one launch runs both stage sweeps and the stage-2
+bracket of every (row, day) and folds the widest bracket into a device
+word: `solve_stages` at dim 2 (csrc/quadrature.cu::solve_stages_kernel,
+K2's slabs), `solve_stages3` at dim 3 (csrc/contract3.cu::
+solve_stages3_kernel, K4's sweep body); the selects are
+`bracket_state_batched`'s, so the roots are the composed route's bit for
+bit. "composed": the stage-1 sweep and `ops/solvers.py::
+bracket_state_batched` over the route's sweep.
 
 Bisections (`_bisect`) and their counts:
 - K1 (`bisect_levels`, csrc/quadrature.cu::bisect_levels_kernel, which
@@ -57,6 +60,16 @@ Bisections (`_bisect`) and their counts:
   (`bisect_levels(..., widest=)`; `solve.halvings` is not counted there,
   since counting it would read the host). K1 has no all-zeros break
   (see the kernel source).
+- K4 on the device (`bisect3`, csrc/contract3.cu::bisect3_kernel): one
+  launcher call enqueues `max_halvings` of the config (23 at the
+  defaults) launches and a last one for the roots, with no host read.
+  Each launch takes its count from `solve_stages3`'s word, as K1 does,
+  and one past it exits at once. The freeze and the loop's exit need
+  every day's results, so launch k takes halving k - 1's decisions from
+  integer words of rows before it halves (a candidate state beside the
+  state): the roots are `bisect_fixed_count`'s bit for bit
+  (`bisect3_reference` is the twin of that structure). `solve.halvings`
+  is not counted there, as on K1's device count.
 - halvings (`bisect_fixed_count`): the host-counted number of halvings,
   one sweep each, the all-zeros freeze and the while-loop's own exit
   gated on the device, so no halving reads the host and the roots equal
@@ -67,7 +80,10 @@ Bisections (`_bisect`) and their counts:
   read on the host every halving.
 - fixed halvings (`fixed_halvings`): K1 f32's loop in plain PyTorch.
 A "fixed" count is `ops/solvers.full_iters` of the config (23 at the
-defaults), no bracket read on the host.
+defaults), no bracket read on the host. The fused rows are f64 on one
+card: a day mesh's count and decisions are collectives over every rank's
+days, a grid mesh sums each sweep over its ranks, and the f32 engine's
+dim 3 bisects on float64 state, so those keep the composed route.
 
 The f32 engine (JAX's f32 Pallas engine) never launches an f64 kernel.
 Its dim 2 is `pallas_solver.py::_full_solve`: stage sweeps and bracket
@@ -114,7 +130,7 @@ call shapes.
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -135,7 +151,9 @@ from copula_var_tpu_torch.ops.cuda_quadrature3 import (
     Contract3Operands,
     masked_contract3,
     masked_contract3_rebuild,
+    check_table,
     masked_contract3_reference,
+    slab_stride,
 )
 from copula_var_tpu_torch.ops.solvers import bracket_state_batched, full_iters
 from copula_var_tpu_torch.ops.tcached import tcached_sweep
@@ -150,6 +168,18 @@ def halvings(width: float, tolerance: float) -> int:
         width *= 0.5
         k += 1
     return k
+
+
+def max_halvings(cfg, tolerance: float) -> int:
+    """The most halvings a solve of cfg = (first_guess, sg0, sg1,
+    min_var, max_var) can run: `halvings` of the widest of the five
+    brackets `bracket_state_batched`'s selects form, (min_var, max_var),
+    (min_var, sg0), (sg0, first_guess), (sg1, max_var) and (first_guess,
+    sg1); 23 at the defaults. The device bisection's launches (`bisect3`),
+    set on the host with no bracket read."""
+    fg, sg0, sg1, lo, hi = (float(c) for c in cfg)
+    return max(halvings(b - a, tolerance) for a, b in (
+        (lo, hi), (lo, sg0), (sg0, fg), (sg1, hi), (fg, sg1)))
 
 
 def _halving_count(lower, upper, tolerance, reducer):
@@ -310,15 +340,29 @@ def _widest(lower, upper):
     return (upper - lower).max().clamp_min(0.0).reshape(1)
 
 
-def solve_stages_reference(ops: SweepOperands, obj, weights, cfg,
-                           quirks=False, box_min=-5.0):
-    """Plain twin of `solve_stages`, on any device: the plain stage-1
+def solve_stages_reference(ops, obj, weights, cfg, quirks=False,
+                           box_min=-5.0):
+    """Plain twin of `solve_stages` (dim-2 operands, weights (L, 2)) and
+    of `solve_stages3` (dim-3, (L, 3)), on any device: the plain stage-1
     sweep, `bracket_state_batched` over the plain sweep and the widest
-    bracket; weights (L, 2). Returns (lower, upper, prev_res, prev_up,
-    ustack, nan_days, widest)."""
-    state, _ = _stages(ops, obj, weights, cfg, quirks, box_min,
-                       masked_sweep_reference, F64)
+    bracket. Returns (lower, upper, prev_res, prev_up, ustack, nan_days,
+    widest)."""
+    sweep = (masked_contract3_reference
+             if isinstance(ops, Contract3Operands) else masked_sweep_reference)
+    state, _ = _stages(ops, obj, weights, cfg, quirks, box_min, sweep, F64)
     return tuple(state) + (_widest(state[0], state[1]),)
+
+
+def _stage_outputs(L, T, dev):
+    """The fused stages' outputs (lower, upper, prev_res, prev_up (L, T)
+    float64, ustack, nan_days (L, T) bool, widest (1,) float64) in one
+    float64 and one bool allocation; widest is 0 when there is no (row,
+    day), as the launchers leave it for the kernels to fold into."""
+    f = torch.empty(4 * L * T + 1, dtype=F64, device=dev)
+    b = torch.empty((2, L, T), dtype=torch.bool, device=dev)
+    if L * T == 0:
+        f[-1:] = 0.0
+    return tuple(f[:-1].view(4, L, T)) + tuple(b) + (f[-1:],)
 
 
 def solve_stages(ops: SweepOperands, obj, weights, cfg, quirks=False,
@@ -348,13 +392,8 @@ def solve_stages(ops: SweepOperands, obj, weights, cfg, quirks=False,
         L = obj.shape[0]
         _check_operand("obj", obj, (L,), dev, F64)
         _check_operand("weights", weights, (L, 2), dev, F64)
-        # one allocation for the four float64 states and the widest word,
-        # one for the two flags
-        f = torch.empty(4 * L * T + 1, dtype=F64, device=dev)
-        b = torch.empty((2, L, T), dtype=torch.bool, device=dev)
-        out = tuple(f[:-1].view(4, L, T)) + tuple(b) + (f[-1:],)
+        out = _stage_outputs(L, T, dev)
         if L * T == 0:  # an empty day block: no launch
-            f[-1:] = 0.0
             return out
         fn = _build.function("cvt_solve_stages", F64)
         with torch.cuda.device(dev):
@@ -368,6 +407,163 @@ def solve_stages(ops: SweepOperands, obj, weights, cfg, quirks=False,
         _build.check(status, "solve_stages")
     count_launch(solve_stages, F64)
     return out
+
+
+def _check_table_solve(ops: Contract3Operands, obj, weights, what):
+    """Validate the fused dim-3 solve's operands: the table U and its row
+    flags of whole days (every outer slab) and L rows of levels `obj` (L,)
+    and weights (L, 3), float64 on one CUDA device; returns (T, n, L)."""
+    if ops.row0 != 0 or ops.n_rows != ops.x.shape[0]:
+        raise ValueError(
+            f"{what}: the fused dim-3 solve takes whole days; operands of "
+            f"outer slabs {ops.rows} are solved by their summed sweeps (the "
+            "solves' `grid`)")
+    T, n, _ = check_table(ops, what)
+    L, dev = obj.shape[0], ops.x.device
+    _check_operand("obj", obj, (L,), dev, F64)
+    _check_operand("weights", weights, (L, 3), dev, F64)
+    return T, n, L
+
+
+def solve_stages3(ops: Contract3Operands, obj, weights, cfg, quirks=False,
+                  box_min=-5.0):
+    """`solve_stages` of float64 dim-3 operands holding the table U: the
+    stage-1 sweep over [-100, first_guess], the stage-2 bracket and the
+    widest bracket of L rows (levels `obj` (L,), weights (L, 3)) ->
+    (lower, upper, prev_res, prev_up (L, T), ustack, nan_days (L, T) bool,
+    widest (1,) float64). CPU tensors run the plain twin; CUDA tensors
+    launch the kernel (one block per day, K4's sweep body for both sweeps,
+    `bracket_state_batched`'s selects: the same bits) on whole days of one
+    card; any other device raises. cfg = (first_guess, sg0, sg1, min_var,
+    max_var)."""
+    dev = ops.x.device
+    _require_dtype(ops, F64, "solve_stages3")
+    if dev.type == "cpu":
+        return solve_stages_reference(ops, obj, weights, cfg, quirks,
+                                      box_min)
+    if dev.type != "cuda":
+        raise ValueError(f"solve_stages3: unsupported device {dev}")
+    with span("launch.solve_stages3"):
+        T, n, L = _check_table_solve(ops, obj, weights, "solve_stages3")
+        out = _stage_outputs(L, T, dev)
+        if L * T == 0:  # an empty day block: no launch
+            return out
+        fn = _build.function("cvt_solve_stages3", F64)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.U.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
+                obj.data_ptr(), weights.data_ptr(),
+                *(float(c) for c in cfg), int(bool(quirks)), float(box_min),
+                *(t.data_ptr() for t in out), T, n, L, row_pitch(n),
+                slab_stride(n), stream,
+            )
+        _build.check(status, "solve_stages3")
+    count_launch(solve_stages3, F64)
+    return out
+
+
+def bisect3_words(n_iters: int, L: int) -> int:
+    """The int32 words of the device bisection of L rows over at most
+    `n_iters` halvings (csrc/contract3.cu `BisectWords::count`): per
+    halving and row, "some result is not 0" and "some candidate bracket
+    is still wide"; per launch and row the freeze, and per launch the
+    loop's condition."""
+    return (3 * n_iters + 1) * L + n_iters + 1
+
+
+def bisect3_reference(ops, lower, upper, prev_res, prev_up, ustack, obj,
+                      weights, tolerance, box_min=-5.0, *, widest, n_iters,
+                      sweep=masked_contract3_reference):
+    """Plain twin of `bisect3`, on any device, launch by launch. K =
+    min(`halvings` of `widest`, n_iters). Launch k (k = 0 .. K) first takes
+    halving k - 1's decisions from its row words, "some result is not 0"
+    and "some candidate bracket is wider than `tolerance`": a row whose
+    results were all exactly 0 while the loop ran freezes, the loop runs
+    on while a row not frozen holds a wide candidate, and each state takes
+    the candidate where its row moved. Launch K returns the roots; every
+    other launch, while the loop runs, halves into a new candidate and its
+    row words. The roots are `bisect_fixed_count`'s for K halvings, bit
+    for bit."""
+    K = min(halvings(float(widest.reshape(())), tolerance), n_iters)
+    state = (lower, upper, prev_res, prev_up, ustack)
+    brk = torch.zeros(lower.shape[0], dtype=torch.bool, device=lower.device)
+    running = True
+    cand = nonzero = wide = None
+    for k in range(K + 1):
+        if k > 0:  # halving k - 1's decisions
+            zero = ~nonzero & running
+            kept = (zero | brk)[:, None] | (not running)
+            state = tuple(torch.where(kept, s, c)
+                          for s, c in zip(state, cand))
+            brk = brk | zero
+            running = running and bool((wide & ~brk).any())
+        if k == K or not running:
+            continue
+        lo, up, pr, pu, us = state
+        mid = (lo + up) / 2.0
+        b_lo = torch.where(us, lo, mid)
+        slab = sweep(ops, torch.stack((b_lo, torch.where(us, mid, up)),
+                                      dim=-1), weights, box_min)
+        result = torch.where(b_lo == pu, pr + slab, pr - slab)
+        below = result < obj[:, None]
+        cand = (torch.where(below, mid, lo), torch.where(below, up, mid),
+                result, mid, below)
+        nonzero = (result != 0.0).any(dim=1)
+        wide = (cand[1] - cand[0] > tolerance).any(dim=1)
+        count("solve.halvings")
+    return (state[0] + state[1]) / 2.0
+
+
+def bisect3(ops: Contract3Operands, lower, upper, prev_res, prev_up, ustack,
+            obj, weights, tolerance, box_min=-5.0, *, widest, n_iters):
+    """(L, T) roots of the dim-3 bisection with its count on the device:
+    the state lower/upper/prev_res/prev_up (L, T) float64, ustack (L, T)
+    bool, obj (L,), weights (L, 3) of float64 operands holding the table
+    U; `widest` (`solve_stages3`'s (1,) widest bracket) gives the count,
+    `n_iters` (`max_halvings` of the config) caps it. CPU tensors run the
+    plain twin; CUDA tensors enqueue n_iters + 1 launches from one
+    launcher call (K4's sweep body in each, the freeze and the loop's
+    exit gated on the device), with no host read, on whole days of one
+    card; any other device raises."""
+    dev = ops.x.device
+    _require_dtype(ops, F64, "bisect3")
+    if dev.type == "cpu":
+        return bisect3_reference(ops, lower, upper, prev_res, prev_up,
+                                 ustack, obj, weights, tolerance, box_min,
+                                 widest=widest, n_iters=n_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"bisect3: unsupported device {dev}")
+    with span("launch.bisect3"):
+        T, n, L = _check_table_solve(ops, obj, weights, "bisect3")
+        for name, t in (("lower", lower), ("upper", upper),
+                        ("prev_res", prev_res), ("prev_up", prev_up)):
+            _check_operand(name, t, (L, T), dev, F64)
+        _check_operand("ustack", ustack, (L, T), dev, torch.bool)
+        _check_operand("widest", widest, (1,), dev, F64)
+        # the state and its candidate (8 planes), then the roots
+        f = torch.empty(9 * L * T, dtype=F64, device=dev)
+        u = torch.empty(2 * L * T, dtype=torch.bool, device=dev)
+        words = torch.empty(bisect3_words(n_iters, L), dtype=torch.int32,
+                            device=dev)
+        roots = f[8 * L * T:].view(L, T)
+        if L * T == 0:  # an empty day block: no launch
+            return roots
+        fn = _build.function("cvt_bisect3", F64)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(
+                ops.U.data_ptr(), ops.flags.data_ptr(), ops.x.data_ptr(),
+                lower.data_ptr(), upper.data_ptr(), prev_res.data_ptr(),
+                prev_up.data_ptr(), ustack.data_ptr(), obj.data_ptr(),
+                weights.data_ptr(), float(box_min), widest.data_ptr(),
+                float(tolerance), int(n_iters), f.data_ptr(), u.data_ptr(),
+                words.data_ptr(), roots.data_ptr(), T, n, L, row_pitch(n),
+                slab_stride(n), stream,
+            )
+        _build.check(status, "bisect3")
+    count_launch(bisect3, F64)
+    return roots
 
 
 def _require_dtype(ops, dtype, what):
@@ -438,15 +634,16 @@ def _day_nan(ops: SweepOperands):
 
 
 class Route(NamedTuple):
-    """A solve's route (`route`). stages: "fused" (one `solve_stages`
-    launch) or "composed" (the stage-1 sweep and `bracket_state_batched`
-    over `sweep`). sweep: the wrapper every stage sweep and halving calls
-    on this rank's operands. bisect: "k1", "halvings", "while" or
-    "fixed_halvings" (`_bisect`). count: where its number of halvings
-    comes from: "device", "host", "fixed" or "loop" (the loop's own
-    exit)."""
+    """A solve's route (`route`). stages: the fused stages' wrapper
+    (one `solve_stages` launch at dim 2, one `solve_stages3` launch at
+    dim 3), or None for the composed stages (the stage-1 sweep and
+    `bracket_state_batched` over `sweep`). sweep: the wrapper every stage
+    sweep and halving calls on this rank's operands. bisect: "k1", "k4"
+    (`bisect3`), "halvings", "while" or "fixed_halvings" (`_bisect`).
+    count: where its number of halvings comes from: "device", "host",
+    "fixed" or "loop" (the loop's own exit)."""
 
-    stages: str
+    stages: Optional[Callable]
     sweep: Callable
     bisect: str
     count: str
@@ -471,22 +668,25 @@ def route(device, dtype, dim, n, table=False, plain=False, reducer=None,
         sweep = {2: masked_sweep_reference,
                  3: masked_contract3_reference}.get(dim, tcached_sweep)
         if f32 and dim == 2:
-            return Route("composed", sweep, "fixed_halvings", "fixed")
-        return Route("composed", sweep, "while", "loop")
+            return Route(None, sweep, "fixed_halvings", "fixed")
+        return Route(None, sweep, "while", "loop")
     if dim == 2:
         k1 = grid is None and n <= bisect_max_grid_points(dtype)
         if f32:
-            return Route("composed", masked_sweep,
+            return Route(None, masked_sweep,
                          "k1" if k1 else "fixed_halvings", "fixed")
         if k1 and reducer is None:
-            return Route("fused", masked_sweep, "k1", "device")
-        return Route("composed", masked_sweep, "k1" if k1 else "halvings",
+            return Route(solve_stages, masked_sweep, "k1", "device")
+        return Route(None, masked_sweep, "k1" if k1 else "halvings",
                      "host")
     if dim == 3:
+        if table and not f32 and reducer is None and grid is None:
+            return Route(solve_stages3, masked_contract3, "k4",
+                         "device")
         sweep = masked_contract3 if table else masked_contract3_rebuild
     else:
         sweep = tcached_sweep
-    return Route("composed", sweep, "halvings", "host")
+    return Route(None, sweep, "halvings", "host")
 
 
 def _route(ops, plain=False, reducer=None, grid=None) -> Route:
@@ -527,6 +727,9 @@ def _bisect(r, sweep, reducer, ops, lower, upper, prev_res, prev_up, ustack,
     `sweep` -> (L, T) roots, its global decisions taken over every rank's
     days with a `reducer`."""
     state = (lower, upper, prev_res, prev_up, ustack)
+    if r.bisect == "k4":
+        return bisect3(ops, *state, obj, weights, tolerance, box_min,
+                       widest=widest, n_iters=n_iters)
     if r.count == "fixed":  # in the operands' type, as JAX's f32 K1
         obj = obj.to(ops.x.dtype)
         if r.bisect == "k1":
@@ -599,13 +802,13 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
     sweep, bisect = (_routes(ops, plain) if reducer is None and grid is None
                      else _routes(ops, plain, reducer, grid))
     dt, kw = ops.x.dtype, {}
-    if r.stages == "fused":
+    if r.stages is not None:  # one fused launch
         L = obj.shape[0]
         if weights.dim() == 1:
             weights = weights.reshape(1, -1).expand(L, -1)
         weights = weights.contiguous()
         with span("solve.bracket"):
-            *state, nan_days, kw["widest"] = solve_stages(
+            *state, nan_days, kw["widest"] = r.stages(
                 ops, obj, weights, cfg, quirks, box_min)
     else:
         (*state, nan_days), weights = _stages(
@@ -613,6 +816,8 @@ def _full_solve(ops, obj, weights, cfg, tolerance, quirks, box_min, plain,
     if r.count == "fixed":  # JAX's f32 dim-2 `_full_solve`
         kw["n_iters"] = full_iters(tolerance, cfg[3], cfg[4])
         nan_days = nan_days | _day_nan(ops)[None]
+    elif r.bisect == "k4":  # the device bisection's launches
+        kw["n_iters"] = max_halvings(cfg, tolerance)
     with span("solve.bisect"):
         roots = bisect(ops, *(t.contiguous() for t in state), obj, weights,
                        tolerance, box_min, **kw)

@@ -21,7 +21,10 @@ P and the sweep, K1 for a fixed count (bit-equal to the same count of f32
 K2 sweeps), the dim-3 table, its sweep, the flags and the rebuild
 (bit-equal to the f32 table sweep), the fused f32 solves at dim 2 and 3,
 the f32 limits, and each wrapper counting f32 launches apart from f64
-ones; the f64 wrappers refuse float32 operands. This file
+ones; the f64 wrappers refuse float32 operands. The fused f64 solves
+(`solve_stages` + K1 at dim 2, `solve_stages3` + `bisect3` at dim 3, the
+latter on the d3 book at L = 1, 4, 16 and 32) are held bit for bit to
+the composed routes, a planted all-zero row freezing on both. This file
 imports neither JAX nor the JAX package, so it runs where JAX is not
 installed (the repository's conftest imports JAX, hence `--noconftest`):
 
@@ -811,14 +814,170 @@ def test_dim3_through_kernels(dev, est):
     bt = load_artifacts(os.path.join(DATA, f"dim3_artifacts_{est}.npz"),
                         data, device="cuda")
     wrappers = (cq.masked_sweep, cs.bisect_levels, cq3.contract3_weights,
-                cq3.masked_contract3)
+                cq3.masked_contract3, cs.solve_stages3, cs.bisect3)
     before = tuple(cq.launch_count(w) for w in wrappers)
     var = bt.calc_var(float(rec["obj_var"]))
     after = tuple(cq.launch_count(w) for w in wrappers)
+    # one card, float64, the table U: the fused dim-3 route (solve_stages3,
+    # then the bisection counting on the device), no K4 sweep of its own
     assert after[:2] == before[:2]
-    assert after[2] == before[2] + 1 and after[3] > before[3]
+    assert after[2] == before[2] + 1 and after[3] == before[3]
+    assert after[4:] == (before[4] + 1, before[5] + 1)
     np.testing.assert_allclose(var, rec[f"{est}_var"], rtol=0,
                                atol=ATOL_ROOT)
+
+
+# -- the fused dim-3 solve (solve_stages3, bisect3) -----------------------------
+
+@pytest.fixture(scope="module")
+def ops_book3(dev):
+    """The three-asset MSM book's operands on the card (T = 500, n = 100,
+    the table U): the benchmark's d3 book."""
+    rec = np.load(os.path.join(DATA, "dim3_var.npz"))
+    data = from_csv(os.path.join(DATA, "dim3.csv"), n_insample=1135,
+                    weights=rec["weights"])
+    bt = load_artifacts(os.path.join(DATA, "dim3_artifacts_msm.npz"), data,
+                        device="cuda")
+    ops = bt.sweep_operands()
+    assert ops.U is not None
+    return ops
+
+
+def _launches3():
+    return {w.__name__: cq.launch_count(w) for w in (
+        cq3.masked_contract3, cs.solve_stages3, cs.bisect3)}
+
+
+def _rows_d3(dev, L, shared, seed):
+    """L levels of the query ladder and Dirichlet(2, 2, 2) weights: one
+    portfolio (3,) shared by every row, or one per row (L, 3)."""
+    rng = np.random.default_rng(seed)
+    obj = torch.tensor(rng.choice([0.01, 0.025, 0.05, 0.1], L), device=dev)
+    w = rng.dirichlet([2.0, 2.0, 2.0], size=L)
+    return obj, torch.tensor(w[0] if shared else w, device=dev)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+@pytest.mark.parametrize("L", [1, 4, 16, 32])
+def test_fused_dim3_route_equals_the_composed_route(dev, ops_book3, L,
+                                                     shared):
+    """The d3 book, one level and portfolio per row or one portfolio for
+    all: the fused route (one solve_stages3 launch and one bisect3
+    launcher call, no masked_contract3) against the composed route of the
+    same operands (forced by a day mesh of one: the K4 stage sweeps,
+    bracket_state_batched and the host-counted gated halvings of K4), bit
+    for bit in roots and NaN days; its stages against the composed
+    bracket state and widest bracket."""
+    ops = ops_book3
+    obj, weights = _rows_d3(dev, L, shared, seed=100 + L)
+    before = _launches3()
+    roots, nan = cs.full_solve(ops, obj, weights, CFG)
+    after = _launches3()
+    assert {k: after[k] - before[k] for k in after} == {
+        "masked_contract3": 0, "solve_stages3": 1, "bisect3": 1}
+    one = DayMesh(None, 0, 1, dev)
+    assert cs._route(ops, reducer=one).stages is None
+    want, want_nan = cs.full_solve(ops, obj, weights, CFG, reducer=one)
+    assert _same(roots, want)
+    assert torch.equal(nan, want_nan)
+    rows = (weights.expand(L, 3) if shared else weights).contiguous()
+    state, _ = cs._stages(ops, obj, rows, CFG, False, -5.0,
+                          cq3.masked_contract3, torch.float64)
+    got = cs.solve_stages3(ops, obj, rows, CFG)
+    for name, g, w in zip(("lower", "upper", "prev_res", "prev_up",
+                           "ustack", "nan_days"), got, state):
+        assert _same(g, w), name
+    assert torch.equal(got[6], (state[1] - state[0]).max().reshape(1))
+
+
+def _planted(state, row):
+    """Row `row` bracketed wholly below the grid, (-9, -7), with a zero
+    running result: its first slab is empty, its results all exactly 0."""
+    lower, upper, prev_res, prev_up, ustack = (s.clone() for s in state)
+    lower[row], upper[row] = -9.0, -7.0
+    prev_res[row], prev_up[row], ustack[row] = 0.0, -7.0, True
+    return [lower, upper, prev_res, prev_up, ustack]
+
+
+def test_fused_dim3_freezes_an_all_zero_row(dev, ops_book3):
+    """A planted all-zero row freezes at its first halving on the device
+    as on the host-counted gated halvings: its roots -8, the midpoint of
+    its bracket, every other root the gated halvings' bits, and a second
+    call with a larger cap the same bits."""
+    ops = ops_book3
+    L = 3
+    obj = torch.tensor([0.05, 0.05, 0.05], dtype=torch.float64, device=dev)
+    rows = torch.tensor([[0.4, 0.35, 0.25]] * L, dtype=torch.float64,
+                        device=dev)
+    *state, nan, _ = cs.solve_stages3(ops, obj, rows, CFG)
+    planted = _planted([s.contiguous() for s in state], 1)
+    widest = cs._widest(planted[0], planted[1])
+    k = cs.halvings(float(widest), 1e-6)
+    got = cs.bisect3(ops, *planted, obj, rows, 1e-6, widest=widest,
+                     n_iters=cs.max_halvings(CFG, 1e-6))
+    want = cs.bisect_fixed_count(ops, *planted, obj, rows, 1e-6, k,
+                                 cq3.masked_contract3)
+    assert _same(got, want)
+    assert bool((got[1] == -8.0).all())
+    assert torch.equal(got, cs.bisect3(ops, *planted, obj, rows, 1e-6,
+                                       widest=widest, n_iters=23))
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_fused_dim3_route_with_nan_days(dev, family):
+    """A non-finite column on two days, on a grid not a multiple of 32:
+    the MSM family's stage results there are NaN and the fused route
+    flags those days; the GARCH family's nan_to_num turns the NaN cells
+    into 0, so no day is flagged. Either way the fused route gives the
+    composed route's bits."""
+    def edit(cols, p):
+        cols[1][:2, 1, 7] = False
+
+    ops = _ops3(dev, family, "student", T=9, n=41, q=3, edit=edit)
+    obj, weights = _rows_d3(dev, 5, False, seed=7)
+    roots, nan = cs.full_solve(ops, obj, weights, CFG)
+    want, want_nan = cs.full_solve(ops, obj, weights, CFG,
+                                   reducer=DayMesh(None, 0, 1, dev))
+    if family == "msm":
+        assert bool(nan[:, :2].all()) and not bool(nan[:, 2:].any())
+    else:
+        assert not bool(nan.any())
+    assert torch.equal(nan, want_nan) and _same(roots, want)
+
+
+def test_fused_dim3_refuses_what_it_does_not_take(dev, ops_book3):
+    """The wrappers refuse operands without U, a range of outer slabs and
+    f32 operands; the launchers
+    refuse a grid past the f64 table's (169) and more halvings than the
+    count's cap; neither has an f32 form."""
+    ops = ops_book3
+    obj = torch.tensor([0.05], dtype=torch.float64, device=dev)
+    w = torch.tensor([[0.4, 0.35, 0.25]], dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="table U"):
+        cs.solve_stages3(ops._replace(U=None), obj, w, CFG)
+    with pytest.raises(ValueError, match="whole days"):
+        cs.solve_stages3(ops._replace(rows=(0, 50)), obj, w, CFG)
+    small = _ops3(dev, "msm", "student", T=2, dtype=F32)
+    with pytest.raises(ValueError, match="f64 engine"):
+        cs.solve_stages3(small, obj, w, CFG)
+    widest = cs.solve_stages3(ops, obj, w, CFG)[6]
+    lib = _build.load()
+    invalid = 1  # cudaErrorInvalidValue
+
+    def stages(n):
+        return lib.cvt_solve_stages3(
+            *[None] * 5, -3.0, -3.5, -2.0, -7.5, 0.0, 0, -5.0, *[None] * 7,
+            0, n, 1, cq.row_pitch(n), cq3.slab_stride(n), None)
+
+    def bisect(k_max):
+        return lib.cvt_bisect3(*[None] * 10, -5.0, widest.data_ptr(), 1e-6,
+                               k_max, *[None] * 4, 0, 48, 1, 49,
+                               cq3.slab_stride(48), None)
+
+    assert (stages(169), stages(170)) == (0, invalid)
+    assert (bisect(2200), bisect(2201)) == (0, invalid)
+    assert not hasattr(lib, "cvt_solve_stages3_f32")
+    assert not hasattr(lib, "cvt_bisect3_f32")
 
 
 def test_day_sharded_ranks_equal_one_card(dev, tmp_path):

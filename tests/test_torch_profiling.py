@@ -254,10 +254,11 @@ def test_card_counters_and_spans_of_a_query(dev, book):
 def test_card_counters_and_spans_of_a_dim3_query(dev, book3):
     """On the card at dim 3: the table U is built once with its row flags
     and counted (U's and the flags' bytes; the flagged rows, none on the
-    book, read once inside the prep); a query takes the table route, one
-    K4 launch for each stage sweep and each host-counted halving and none
-    of the rebuild, and reads the device twice (the halving count and the
-    gather)."""
+    book, read once inside the prep); a query takes the fused table
+    route, one `solve_stages3` launch (both stage sweeps and the bracket)
+    and one `bisect3` launcher call (the halvings counted on the device,
+    so `solve.halvings` is not counted), no K4 sweep of its own and none
+    of the rebuild, and reads the device once (the gather)."""
     path, data = book3
     bt = load_artifacts(path, data, device="cuda")
     profiling.reset_counters()
@@ -280,15 +281,17 @@ def test_card_counters_and_spans_of_a_dim3_query(dev, book3):
         bt.calc_var_portfolios([[0.5, 0.3, 0.2]], obj_var=0.05)
         torch.cuda.synchronize()
     got = profiling.counters()
-    assert got["solve.halvings"] > 0
-    assert got["launch.masked_contract3"] == got["solve.halvings"] + 2
+    assert "solve.halvings" not in got
+    assert got["launch.solve_stages3"] == 1
+    assert got["launch.bisect3"] == 1
+    assert got.get("launch.masked_contract3", 0) == 0
     assert got.get("launch.masked_contract3_rebuild", 0) == 0
     spans = _spans(prof)
     assert [n for n, _ in spans if n.startswith("cvt.sync.")] == [
-        "cvt.sync.halving_count", "cvt.sync.gather"]
-    launched = {p for n, p in spans if n == "cvt.launch.masked_contract3"}
-    assert launched == {"cvt.solve.stage1", "cvt.solve.bracket",
-                        "cvt.solve.bisect"}
+        "cvt.sync.gather"]
+    assert dict(spans)["cvt.launch.solve_stages3"] == "cvt.solve.bracket"
+    assert dict(spans)["cvt.launch.bisect3"] == "cvt.solve.bisect"
+    assert "cvt.solve.stage1" not in dict(spans)
     cuda = torch.autograd.DeviceType.CUDA
     assert not [e.name for e in prof.events() if e.device_type == cuda
                 and e.name.startswith(profiling.PREFIX)]

@@ -23,71 +23,82 @@ MESH = object()  # any mesh: the route looks only at whether there is one
 @pytest.mark.parametrize(
     "device, dtype, dim, n, table, plain, reducer, grid, want", [
         ("cuda", F64, 2, 100, False, False, None, None,
-         ("fused", "masked_sweep", "k1", "device")),
+         ("solve_stages", "masked_sweep", "k1", "device")),
         ("cuda:0", F64, 2, 169, False, False, None, None,
-         ("fused", "masked_sweep", "k1", "device")),
+         ("solve_stages", "masked_sweep", "k1", "device")),
         (torch.device("cuda", 1), F64, 2, 2, False, False, None, None,
-         ("fused", "masked_sweep", "k1", "device")),
+         ("solve_stages", "masked_sweep", "k1", "device")),
         # past K1's day: K2 sweeps bisect it
         ("cuda", F64, 2, 170, False, False, None, None,
-         ("composed", "masked_sweep", "halvings", "host")),
+         (None, "masked_sweep", "halvings", "host")),
         ("cuda", F64, 2, 1024, False, False, None, None,
-         ("composed", "masked_sweep", "halvings", "host")),
+         (None, "masked_sweep", "halvings", "host")),
         # the f32 engine: K1 in float32 for a fixed count
         ("cuda", F32, 2, 100, False, False, None, None,
-         ("composed", "masked_sweep", "k1", "fixed")),
+         (None, "masked_sweep", "k1", "fixed")),
         ("cpu", F64, 2, 100, False, False, None, None,
-         ("composed", "masked_sweep_reference", "while", "loop")),
+         (None, "masked_sweep_reference", "while", "loop")),
+        # the table U on one card: K4 on the device
         ("cuda", F64, 3, 100, True, False, None, None,
-         ("composed", "masked_contract3", "halvings", "host")),
+         ("solve_stages3", "masked_contract3", "k4", "device")),
         ("cuda", F64, 4, 32, False, False, None, None,
-         ("composed", "tcached_sweep", "halvings", "host")),
+         (None, "tcached_sweep", "halvings", "host")),
         # a day mesh: K1 for a global MAX, read on the host
         ("cuda", F64, 2, 100, False, False, MESH, None,
-         ("composed", "masked_sweep", "k1", "host")),
+         (None, "masked_sweep", "k1", "host")),
         # a grid mesh: summed sweeps
         ("cuda", F64, 2, 100, False, False, None, MESH,
-         ("composed", "masked_sweep", "halvings", "host")),
+         (None, "masked_sweep", "halvings", "host")),
         ("cuda", F64, 2, 100, False, False, MESH, MESH,
-         ("composed", "masked_sweep", "halvings", "host")),
+         (None, "masked_sweep", "halvings", "host")),
         ("cuda", F64, 2, 400, False, False, MESH, None,
-         ("composed", "masked_sweep", "halvings", "host")),
+         (None, "masked_sweep", "halvings", "host")),
         ("cuda", F64, 3, 100, False, False, None, None,
-         ("composed", "masked_contract3_rebuild", "halvings", "host")),
+         (None, "masked_contract3_rebuild", "halvings", "host")),
         ("cuda", F64, 3, 100, True, False, MESH, None,
-         ("composed", "masked_contract3", "halvings", "host")),
+         (None, "masked_contract3", "halvings", "host")),
         ("cuda", F64, 3, 100, True, False, None, MESH,
-         ("composed", "masked_contract3", "halvings", "host")),
+         (None, "masked_contract3", "halvings", "host")),
         ("cuda", F64, 4, 32, False, False, MESH, MESH,
-         ("composed", "tcached_sweep", "halvings", "host")),
+         (None, "tcached_sweep", "halvings", "host")),
         ("cuda", F32, 2, 192, False, False, None, None,
-         ("composed", "masked_sweep", "k1", "fixed")),
+         (None, "masked_sweep", "k1", "fixed")),
         ("cuda", F32, 2, 193, False, False, None, None,
-         ("composed", "masked_sweep", "fixed_halvings", "fixed")),
+         (None, "masked_sweep", "fixed_halvings", "fixed")),
         ("cuda", F32, 2, 100, False, False, MESH, None,
-         ("composed", "masked_sweep", "k1", "fixed")),
+         (None, "masked_sweep", "k1", "fixed")),
         ("cuda", F32, 3, 100, True, False, None, None,
-         ("composed", "masked_contract3", "halvings", "host")),
+         (None, "masked_contract3", "halvings", "host")),
         ("cuda", F32, 3, 193, False, False, MESH, None,
-         ("composed", "masked_contract3_rebuild", "halvings", "host")),
+         (None, "masked_contract3_rebuild", "halvings", "host")),
         ("cuda", F64, 2, 100, False, True, None, None,
-         ("composed", "masked_sweep_reference", "while", "loop")),
+         (None, "masked_sweep_reference", "while", "loop")),
         ("cuda", F64, 3, 100, True, True, MESH, None,
-         ("composed", "masked_contract3_reference", "while", "loop")),
+         (None, "masked_contract3_reference", "while", "loop")),
         ("cuda", F64, 4, 32, False, True, None, MESH,
-         ("composed", "tcached_sweep", "while", "loop")),
+         (None, "tcached_sweep", "while", "loop")),
         ("cuda", F32, 2, 100, False, True, None, None,
-         ("composed", "masked_sweep_reference", "fixed_halvings", "fixed")),
+         (None, "masked_sweep_reference", "fixed_halvings", "fixed")),
         ("cuda", F32, 3, 100, True, True, None, None,
-         ("composed", "masked_contract3_reference", "while", "loop")),
+         (None, "masked_contract3_reference", "while", "loop")),
         ("cpu", F64, 3, 100, False, False, MESH, None,
-         ("composed", "masked_contract3_reference", "while", "loop")),
+         (None, "masked_contract3_reference", "while", "loop")),
         ("cpu", F64, 2, 100, False, False, None, MESH,
-         ("composed", "masked_sweep_reference", "while", "loop")),
+         (None, "masked_sweep_reference", "while", "loop")),
         ("cpu", F32, 2, 300, False, False, MESH, None,
-         ("composed", "masked_sweep_reference", "fixed_halvings", "fixed")),
+         (None, "masked_sweep_reference", "fixed_halvings", "fixed")),
         ("cpu", F32, 3, 100, False, False, None, None,
-         ("composed", "masked_contract3_reference", "while", "loop")),
+         (None, "masked_contract3_reference", "while", "loop")),
+        ("cuda:0", F64, 3, 169, True, False, None, None,
+         ("solve_stages3", "masked_contract3", "k4", "device")),
+        ("cuda", F64, 3, 100, True, False, MESH, MESH,
+         (None, "masked_contract3", "halvings", "host")),
+        ("cuda", F32, 3, 100, True, False, MESH, None,
+         (None, "masked_contract3", "halvings", "host")),
+        ("cuda", F64, 3, 300, False, False, None, None,
+         (None, "masked_contract3_rebuild", "halvings", "host")),
+        ("cpu", F64, 3, 100, True, False, None, None,
+         (None, "masked_contract3_reference", "while", "loop")),
     ], ids=["flagship", "k1_edge", "tiny", "past_k1", "widest", "f32", "cpu",
             "dim3", "dim4", "day_mesh", "grid_mesh", "both_meshes",
             "day_mesh_past_k1", "dim3_rebuild", "dim3_day_mesh",
@@ -95,15 +106,20 @@ MESH = object()  # any mesh: the route looks only at whether there is one
             "f32_past_k1", "f32_day_mesh", "f32_dim3", "f32_dim3_rebuild",
             "plain", "plain_dim3", "plain_dim4", "plain_f32",
             "plain_f32_dim3", "cpu_dim3", "cpu_grid_mesh", "cpu_f32",
-            "cpu_f32_dim3"])
+            "cpu_f32_dim3", "dim3_table_edge", "dim3_both_meshes",
+            "f32_dim3_day_mesh", "dim3_wide_rebuild", "cpu_dim3_table"])
 def test_fused_route_choice(device, dtype, dim, n, table, plain, reducer,
                             grid, want):
-    """Every row of the route table: the stages (fused only for float64
-    dim-2 operands on a CUDA device whose grid K1 bisects, on one card),
-    the sweep, the bisection and its count."""
+    """Every row of the route table: the stages (a fused wrapper only for
+    float64 operands on a CUDA device, on one card: `solve_stages` at dim
+    2 on a grid K1 bisects, `solve_stages3` at dim 3 with the table U;
+    else None, the composed stages), the sweep, the bisection and its
+    count. f32 dim 3, either mesh and the rebuild (no U) keep the composed
+    route."""
     stages, sweep, bisect, count = want
     assert cs.route(device, dtype, dim, n, table, plain, reducer, grid) == \
-        cs.Route(stages, getattr(cs, sweep), bisect, count)
+        cs.Route(stages and getattr(cs, stages), getattr(cs, sweep), bisect,
+                 count)
 
 
 @pytest.mark.parametrize("device, dtype, grid, match", [
@@ -165,9 +181,8 @@ def test_fused_plumbing_of_full_solve(monkeypatch):
         seen["widest"].append(widest)
         return bisect(*args, widest=widest, **kwargs)
 
-    fused = cs.Route("fused", cq.masked_sweep_reference, "k1", "device")
+    fused = cs.Route(counted, cq.masked_sweep_reference, "k1", "device")
     monkeypatch.setattr(cs, "route", lambda *a, **k: fused)
-    monkeypatch.setattr(cs, "solve_stages", counted)
     monkeypatch.setattr(cs, "bisect_levels", bisect_seen)
     roots, nan = cs.full_solve(ops, obj, weights, CFG, quirks=True)
     assert seen["stages"] == [(3, 2)]
@@ -209,8 +224,8 @@ def test_device_count_refuses_a_day_mesh():
 
 
 def test_the_fused_route_launchers_are_f64_only():
-    """The fused route's two C launchers are registered with their
-    arguments, in float64 alone."""
+    """The fused routes' C launchers (two at dim 2, two at dim 3) are
+    registered with their arguments, in float64 alone."""
     fns = _build.SOURCES["quadrature.cu"]
     assert len(fns["cvt_solve_stages"]) == 24
     assert len(fns["cvt_bisect_levels_widest"]) == 20
@@ -218,3 +233,9 @@ def test_the_fused_route_launchers_are_f64_only():
     assert "cvt_solve_stages_f32" not in fns
     assert "cvt_bisect_levels_widest_f32" not in fns
     assert "cvt_bisect_levels_f32" in fns
+    fns3 = _build.SOURCES["contract3.cu"]
+    assert len(fns3["cvt_solve_stages3"]) == 25
+    assert len(fns3["cvt_bisect3"]) == 24
+    assert "cvt_solve_stages3_f32" not in fns3
+    assert "cvt_bisect3_f32" not in fns3
+    assert "cvt_masked_contract3_f32" in fns3
