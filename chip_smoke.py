@@ -1284,7 +1284,8 @@ def wide_grid_phase(root, smi):
     1e-9 (0 days above); the route and the K1 / K2 / K4-table /
     K4-rebuild / flag launches printed per series (dim 2 past K1's 169:
     K2 sweeps only; dim 3 past the table's 169: one flag table and the
-    rebuild only), and each dim-2 series' P and K2 sweeps, at its width,
+    rebuild only, `prep.flag_bytes` and `prep.flagged_rows` the flags'
+    bytes and set rows), and each dim-2 series' P and K2 sweeps, at its width,
     against their plain twins (`k2_parity`). Then the rebuild kernel
     against its plain twin (n = 300 and 180, all slabs and a range,
     repeats and the full-row walk bit-equal, the flags equal to their
@@ -1303,6 +1304,7 @@ def wide_grid_phase(root, smi):
     from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
     from copula_var_tpu_torch.ops import cuda_solver as cs
     from copula_var_tpu_torch.ops import tcached
+    from copula_var_tpu_torch.utils import profiling
     from copula_var_tpu_torch.utils.artifacts import load_artifacts
 
     t_phase = time.perf_counter()
@@ -1391,6 +1393,8 @@ def wide_grid_phase(root, smi):
                 saved = [(m, a, getattr(m, a)) for m, a in plain]
                 for m, a, _ in saved:
                     setattr(m, a, refuse)
+                flag_keys = ("prep.flag_bytes", "prep.flagged_rows")
+                before = profiling.counters()
                 t0 = time.perf_counter()
                 try:
                     bt = bt_mod.VaRBacktest(
@@ -1402,6 +1406,9 @@ def wide_grid_phase(root, smi):
                     for m, a, fn in saved:
                         setattr(m, a, fn)
                 wall = time.perf_counter() - t0
+                after = profiling.counters()
+                flag_counts = {k: after.get(k, 0) - before.get(k, 0)
+                               for k in flag_keys}
                 lc = {c.__name__: _launches(c) for c in counters}
                 for k, v in lc.items():
                     total[k] = total.get(k, 0) + v
@@ -1434,7 +1441,14 @@ def wide_grid_phase(root, smi):
                                  lc["masked_contract3_rebuild"] <= 0):
                     raise AssertionError(f"wide {tag}: not swept by the "
                                          f"rebuild kernel: {route} {lc}")
+                if dim == 3 and flag_counts != {
+                        "prep.flag_bytes": ops.flags.nbytes,
+                        "prep.flagged_rows": int(ops.flags.sum())}:
+                    raise AssertionError(f"wide {tag}: the flag counters "
+                                         f"{flag_counts} are not the flags' "
+                                         f"bytes and rows")
                 series[tag] = {"route": route, "launches": lc,
+                               "flag_counters": flag_counts,
                                "max_err": float(diff.max()),
                                "days_above": above, "wall_s": wall}
                 print(f"wide {tag}: route {route}, max |VaR - record| = "

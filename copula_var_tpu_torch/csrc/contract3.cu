@@ -879,7 +879,9 @@ __host__ __device__ size_t rebuild_shared_bytes(int n, int q, int rows_l,
 // The row flags: flags[t, local, i1] = 1 when a cell of the whole row
 // (t, row0 + local, i1) lies outside [-kMaxCell, kMaxCell] or is NaN, the
 // test of interval::scan_row on the same cells (`cell`). One block
-// per (t, local) slab; warps take rows, lanes columns.
+// per (t, local) slab; warps take rows, lanes columns. The flagged rows
+// are added to *flagged, one integer atomic per warp that flagged any
+// (the same count in any order).
 template <typename Real>
 __global__ void __launch_bounds__(kFlagsThreads)
 contract3_flags_kernel(const Real* __restrict__ z,             // (T, 3, n)
@@ -893,6 +895,7 @@ contract3_flags_kernel(const Real* __restrict__ z,             // (T, 3, n)
                        int student, double nu, double log_norm,
                        double logdet,
                        unsigned char* __restrict__ flags,  // (T, rows, n)
+                       int* __restrict__ flagged,          // (1,)
                        int T, int n, int row0, int rows, int q) {
   extern __shared__ __align__(16) unsigned char flags_shared[];
   Real* a = reinterpret_cast<Real*>(flags_shared);  // (q, n)
@@ -905,13 +908,16 @@ contract3_flags_kernel(const Real* __restrict__ z,             // (T, 3, n)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   unsigned char* out = flags + static_cast<size_t>(blockIdx.x) * n;
+  int warp_flagged = 0;
   for (int i1 = warp; i1 < n; i1 += kFlagsThreads / 32) {
     bool ok = true;
     for (int j = lane; j < n; j += 32)
       ok &= fabs(cell(sl, w1, a, q, i1, j)) <= interval::kMaxCell;
-    const bool flagged = __any_sync(0xffffffffu, !ok);
-    if (lane == 0) out[i1] = flagged;
+    const bool row_flagged = __any_sync(0xffffffffu, !ok);
+    if (lane == 0) out[i1] = row_flagged;
+    warp_flagged += row_flagged;
   }
+  if (lane == 0 && warp_flagged > 0) atomicAdd(flagged, warp_flagged);
 }
 
 // The intervals of row r (packed spans, (rows_l, kSpan)) that the walk
@@ -1265,14 +1271,15 @@ int bisect3(const double* u, const unsigned char* flags, const double* x,
 }
 
 // The row flags of the outer slabs [row0, row0 + rows) of every day:
-// flags (T, rows, n) bytes
+// flags (T, rows, n) bytes; *flagged (set to 0 by the caller) gains the
+// number of flagged rows.
 template <typename Real>
 int contract3_row_flags(const Real* z, const unsigned char* fin,
                         const Real* lu, const Real* p, const Real* w1,
                         const Real* w2, const Real* g,
                         const double* sigma_inv, int student, double nu,
                         double log_norm, double logdet, unsigned char* flags,
-                        int T, int n, int row0, int rows, int q,
+                        int* flagged, int T, int n, int row0, int rows, int q,
                         void* stream) {
   if (n <= 0 || q <= 0 || T < 0 || row0 < 0 || rows <= 0 ||
       row0 + rows > n || static_cast<long long>(T) * rows > 0x7fffffffLL) {
@@ -1288,7 +1295,7 @@ int contract3_row_flags(const Real* z, const unsigned char* fin,
   contract3_flags_kernel<Real><<<T * rows, kFlagsThreads, bytes,
                                  static_cast<cudaStream_t>(stream)>>>(
       z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm, logdet,
-      flags, T, n, row0, rows, q);
+      flags, flagged, T, n, row0, rows, q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1376,11 +1383,11 @@ int masked_contract3_rebuild(
       const Real* z, const unsigned char* fin, const Real* lu,                \
       const Real* p, const Real* w1, const Real* w2, const Real* g,           \
       const double* sigma_inv, int student, double nu, double log_norm,       \
-      double logdet, unsigned char* flags, int T, int n, int row0, int rows,  \
-      int q, void* stream) {                                                  \
+      double logdet, unsigned char* flags, int* flagged, int T, int n,        \
+      int row0, int rows, int q, void* stream) {                              \
     return contract3_row_flags<Real>(z, fin, lu, p, w1, w2, g, sigma_inv,     \
-                                     student, nu, log_norm, logdet, flags, T, \
-                                     n, row0, rows, q, stream);               \
+                                     student, nu, log_norm, logdet, flags,    \
+                                     flagged, T, n, row0, rows, q, stream);   \
   }                                                                           \
   extern "C" int cvt_masked_contract3_rebuild##SUFFIX(                        \
       const Real* z, const unsigned char* fin, const Real* lu,                \

@@ -71,8 +71,8 @@ _KERNELS = {
         # pitch, stride, stream
         "cvt_masked_contract3": [_P] * 5 + [_D, _P] + [_I] * 7 + [_P],
         # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
-        # logdet, flags, T, n, row0, rows, q, stream
-        "cvt_contract3_row_flags": [_P] * 8 + [_I] + [_D] * 3 + [_P]
+        # logdet, flags, flagged, T, n, row0, rows, q, stream
+        "cvt_contract3_row_flags": [_P] * 8 + [_I] + [_D] * 3 + [_P] * 2
         + [_I] * 5 + [_P],
         # z, fin, lu, p, w1, w2, g, sigma_inv, student, nu, log_norm,
         # logdet, flags, x, bounds, weights, box_min, partial, out, T, n,

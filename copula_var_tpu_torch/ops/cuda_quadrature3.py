@@ -447,11 +447,16 @@ def contract3_row_flags(ops: Contract3Operands):
     """The row flags (T, r, n) bool of the operands' r outer slabs. CPU
     tensors run the plain twin; CUDA tensors launch the flag kernel (one
     block per (day, i0) slab, the cells of the whole slab formed as the
-    table build forms them, one byte per row out); any other device
-    raises."""
+    table build forms them, one byte per row out, the flagged rows
+    counted); any other device raises. Either way the flags' bytes
+    (`prep.flag_bytes`) and the flagged rows, which the rebuild sums
+    cell by cell (`prep.flagged_rows`, one host read), are counted."""
     dev = ops.z.device
     if dev.type == "cpu":
-        return contract3_row_flags_reference(ops)
+        flags = contract3_row_flags_reference(ops)
+        count("prep.flag_bytes", flags.nbytes)
+        count("prep.flagged_rows", int(flags.sum()))
+        return flags
     if dev.type != "cuda":
         raise ValueError(f"contract3_row_flags: unsupported device {dev}")
     with span("launch.contract3_row_flags"):
@@ -459,9 +464,13 @@ def contract3_row_flags(ops: Contract3Operands):
         _rebuild_rows(n, q, ops.dtype)
         r = ops.n_rows
         flags = torch.empty((T, r, n), dtype=torch.bool, device=dev)
+        count("prep.flag_bytes", flags.nbytes)
         if T == 0:  # an empty day block: no launch
+            count("prep.flagged_rows", 0)
             return flags
         p = None if ops.p_cols is None else ops.p_cols.data_ptr()
+        # the kernel's count of flagged rows, as the table build's
+        flagged = torch.zeros(1, dtype=torch.int32, device=dev)
         fn = _build.function("cvt_contract3_row_flags", ops.dtype)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -469,10 +478,12 @@ def contract3_row_flags(ops: Contract3Operands):
                 ops.z.data_ptr(), ops.fin.data_ptr(), ops.lu.data_ptr(), p,
                 ops.w1.data_ptr(), ops.w2.data_ptr(), ops.G.data_ptr(),
                 ops.sigma_inv.data_ptr(), int(ops.spec.kind == "student"),
-                ops.nu, ops.log_norm, ops.logdet, flags.data_ptr(), T, n,
-                ops.row0, r, q, stream,
+                ops.nu, ops.log_norm, ops.logdet, flags.data_ptr(),
+                flagged.data_ptr(), T, n, ops.row0, r, q, stream,
             )
         _build.check(status, "contract3_row_flags")
+        with span("sync.flagged_rows"):
+            count("prep.flagged_rows", int(flagged))
     count_launch(contract3_row_flags, ops.dtype)
     return flags
 

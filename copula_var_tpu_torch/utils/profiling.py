@@ -13,8 +13,8 @@
     them are listed in PERF.md.
   * `count(name, n)` / `counters()` / `reset_counters()`: one table of
     ints, always on: `launch.<wrapper>` (`.f32`) for each kernel launch,
-    `solve.halvings`, `prep.table_bytes`, `build.compiled` /
-    `build.loaded`.
+    `solve.halvings`, `prep.table_bytes`, `prep.flag_bytes`,
+    `prep.flagged_rows`, `build.compiled` / `build.loaded`.
   * `StageTimer`: named-stage wall timing (the host's `perf_counter`),
     as a dict, with the JAX module's `report()` format; each stage is
     also a span.

@@ -3,7 +3,8 @@ the off path creates nothing, the gate is the profiler's own flag, a span
 is a cpu_op event (the device's timeline gets no copy of it), the solve's
 and the prep's spans nest as PERF.md lists them on the CPU route at dim 2
 and 3, and the counters count halvings, launches, table bytes and builds
-(the last three on the card only)."""
+(the last three on the card only), and the row flags' bytes and flagged
+rows (on the CPU twin and on the card)."""
 
 import json
 import os
@@ -16,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from copula_var_tpu_torch.data import from_csv, from_returns
 from copula_var_tpu_torch.ops import _build
 from copula_var_tpu_torch.ops import cuda_quadrature as cq
+from copula_var_tpu_torch.ops import cuda_quadrature3 as cq3
 from copula_var_tpu_torch.ops import cuda_solver as cs
 from copula_var_tpu_torch.utils import profiling
 from copula_var_tpu_torch.utils.artifacts import load_artifacts
@@ -198,6 +200,34 @@ def test_counters_are_a_copy_and_launch_count_reads_them():
     profiling.reset_counters()
 
 
+def _poked_flags_operands(ops, i0):
+    """`ops` with asset 0's column not finite at grid point i0 on day 0:
+    every cell of the n rows (0, i0, i1) is NaN, so those rows, and no
+    others on the book, are flagged."""
+    z, fin, lu = ops.cols
+    fin = fin.clone()
+    fin[0, 0, i0] = False
+    return ops._replace(cols=(z, fin, lu), fin=fin.contiguous())
+
+
+def test_flag_counters_on_the_cpu_twin(book3):
+    """The plain twin of the row flags counts their bytes (T n^2, one a
+    row) and the rows flagged, with no launch."""
+    path, data = book3
+    ops = load_artifacts(path, data, device="cpu").sweep_operands()
+    n = ops.x.shape[0]
+    profiling.reset_counters()
+    flags = cq3.contract3_row_flags(ops)
+    assert profiling.counters() == {"prep.flag_bytes": DAYS * n * n,
+                                    "prep.flagged_rows": 0}
+    profiling.reset_counters()
+    flags = cq3.contract3_row_flags(_poked_flags_operands(ops, 7))
+    assert int(flags.sum()) == n and bool(flags[0, 7].all())
+    assert profiling.counters() == {"prep.flag_bytes": flags.nbytes,
+                                    "prep.flagged_rows": n}
+    profiling.reset_counters()
+
+
 def test_stage_timer_stages_are_spans():
     timer = profiling.StageTimer()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -295,6 +325,31 @@ def test_card_counters_and_spans_of_a_dim3_query(dev, book3):
     cuda = torch.autograd.DeviceType.CUDA
     assert not [e.name for e in prof.events() if e.device_type == cuda
                 and e.name.startswith(profiling.PREFIX)]
+
+
+@pytest.mark.cuda
+def test_card_flag_counters(dev, book3):
+    """On the card the flag kernel counts the rows it flags (one host
+    read, the span `cvt.sync.flagged_rows` inside the launch's), the same
+    count as its plain twin's, and the flags' bytes."""
+    path, data = book3
+    ops = load_artifacts(path, data, device="cuda").sweep_operands()
+    n = ops.x.shape[0]
+    poked = _poked_flags_operands(ops, 7)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        flags = cq3.contract3_row_flags(poked)
+    got = profiling.counters()
+    assert got["prep.flag_bytes"] == flags.nbytes == DAYS * n * n
+    assert got["prep.flagged_rows"] == int(flags.sum()) == n
+    assert torch.equal(flags.cpu(), cq3.contract3_row_flags_reference(
+        poked).cpu())
+    assert dict(_spans(prof))["cvt.sync.flagged_rows"] == (
+        "cvt.launch.contract3_row_flags")
+    profiling.reset_counters()
+    cq3.contract3_row_flags(ops)
+    assert profiling.counters()["prep.flagged_rows"] == 0
+    profiling.reset_counters()
 
 
 @pytest.mark.cuda
