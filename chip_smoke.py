@@ -156,7 +156,11 @@ Phases, each fatal on failure:
      bounds need (`walk_cells`, counted on the host) and over the full
      cube; and a whole `calc_var(0.05)` on both routes (the full-row one
      by handing the operands over without their flags), the series
-     bit-equal, host-clock seconds and launches printed; and an
+     bit-equal, host-clock seconds and launches printed, and for the MSM
+     query each sweep's formation share (the cells its bounds need over
+     its ms at the flag pass's cells per ms, `formation_share`) beside
+     the cells a walk of one thread per row would spend
+     (`warp_walk_cells`); and an
      adapter holding only the JAX package's minimal contract (GARCH,
      `fit`, `marginals_densities`, `integration_inputs`, `integrals`) on
      a 16-day flagship cut at n = 40 against its JAX record at 1e-9, no
@@ -1173,17 +1177,13 @@ def cell_ops(q, garch):
     return 24 + 2 * q + 3 * garch + 1
 
 
-def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
-    """(cells, fold columns, rows, slabs) of one rebuild sweep, an exact
-    count on the host. Per (t, i0, i1) row of the outer slabs `rows`
-    ((i0, i1), all by default) its reach, the longest hi = #{x_j <= dup}
-    of the bound rows whose interval (dlo, dup] holds a grid point (the
-    kernel's arithmetic: prev = x0 w1 + x1 w2, dup = (b_up - prev) /
-    w_in, dlo = max((b_lo - prev) / w_in, box_min), NaN an empty
-    interval). cells: the reaches summed, the cells the truncated walk
-    needs; fold columns: per (t, i0) slab its longest reach, summed; rows
-    and slabs: those with a reach, each of whose n cells (rows) or n fold
-    columns (slabs) the full-row walk forms."""
+def _reaches(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
+    """Per block of `day_chunk` days, the (days, rows, n) reach of each
+    (t, i0, i1) row of the outer slabs `rows` ((i0, i1), all by default):
+    the longest hi = #{x_j <= dup} of the bound rows whose interval (dlo,
+    dup] holds a grid point, 0 where none does (the kernel's arithmetic:
+    prev = x0 w1 + x1 w2, dup = (b_up - prev) / w_in, dlo = max((b_lo -
+    prev) / w_in, box_min), NaN an empty interval), counted on the host."""
     import torch
 
     x = x.detach().cpu()
@@ -1191,7 +1191,6 @@ def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
     w = weights.detach().cpu()
     x0 = x if rows is None else x[rows[0]:rows[1]]
     lo_box = torch.tensor(box_min, dtype=torch.float64)
-    cells = cols = used_rows = used_slabs = 0
     for t0 in range(0, b.shape[1], day_chunk):
         reach = None
         for l in range(b.shape[0]):
@@ -1205,12 +1204,51 @@ def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
             used = (hi > lo) & ~torch.isnan(dup) & ~torch.isnan(dlo)
             h = torch.where(used, hi, torch.zeros_like(hi))
             reach = h if reach is None else torch.maximum(reach, h)
+        yield reach
+
+
+def walk_cells(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25):
+    """(cells, fold columns, rows, slabs) of one rebuild sweep, an exact
+    count on the host (`_reaches`). cells: the reaches summed, the cells
+    the truncated walk needs; fold columns: per (t, i0) slab its longest
+    reach, summed; rows and slabs: those with a reach, each of whose n
+    cells (rows) or n fold columns (slabs) the full-row walk forms."""
+    cells = cols = used_rows = used_slabs = 0
+    for reach in _reaches(x, bounds, weights, box_min, rows, day_chunk):
         cells += int(reach.sum())
         slab = reach.amax(dim=-1)
         cols += int(slab.sum())
         used_rows += int((reach > 0).sum())
         used_slabs += int((slab > 0).sum())
     return cells, cols, used_rows, used_slabs
+
+
+def warp_walk_cells(x, bounds, weights, box_min=-5.0, rows=None,
+                    day_chunk=25):
+    """The cell slots a walk of one thread per row spends on one rebuild
+    sweep: per warp of 32 consecutive i1 rows of a (t, i0) slab (i1 in
+    [32 k, 32 k + 32), the last warp of a slab short of rows) its longest
+    reach (`_reaches`) times 32 lanes, summed. Over `walk_cells`' cells,
+    the share of lanes such a walk leaves idle."""
+    import torch
+
+    spent = 0
+    for reach in _reaches(x, bounds, weights, box_min, rows, day_chunk):
+        n = reach.shape[-1]
+        pad = torch.nn.functional.pad(reach, (0, -n % 32))
+        spent += 32 * int(pad.unflatten(-1, (-1, 32)).amax(dim=-1).sum())
+    return spent
+
+
+def formation_share(cells, device_ms, flag_cells, flag_ms):
+    """How far a rebuild sweep forms its cells at the flag pass's rate:
+    the cells it needs (`walk_cells`) over its device ms times the flag
+    kernel's cells per ms on the same book (every lane of that kernel
+    forms a cell; T rows n^2 cells in `flag_ms`). 1.0: every lane busy as
+    the flag pass keeps them; None without both times."""
+    if not device_ms or not flag_ms:
+        return None
+    return cells / (device_ms * flag_cells / flag_ms)
 
 
 def table_hits(x, bounds, weights, box_min=-5.0, rows=None, day_chunk=25,
@@ -1685,6 +1723,29 @@ def wide_grid_phase(root, smi):
         print(f"wide full-T {est} query, each rebuild sweep in order (ms, "
               "CUDA events, a synchronized run): "
               + ", ".join(f"{v:.2f}" for v in call_ms) + f" ({smi})")
+        if est == "msm":
+            # per sweep: the cells its bounds need, those a walk of one
+            # thread per row would spend, and the formation share at the
+            # flag pass's rate on this book
+            f_cells = T * WIDE_N_TIMED ** 3
+            f_ms = rep_e["flags"]["kernel_ms"][0]
+            walks = []
+            for (b_, w_), ms_ in zip(calls, call_ms):
+                need = walk_cells(ops.x, b_, w_)[0]
+                walks.append({"ms": ms_, "cells": need,
+                              "warp_walk_cells": warp_walk_cells(ops.x, b_,
+                                                                 w_),
+                              "formation_share": formation_share(
+                                  need, ms_, f_cells, f_ms)})
+            rep_e["query"]["walks"] = walks
+            print(f"wide full-T {est} query, each rebuild sweep's formation "
+                  f"share (needed cells / (ms x the flag pass's "
+                  f"{f_cells / f_ms:.4g} cells/ms)) and a thread-per-row "
+                  "walk's cells over the needed: "
+                  + ", ".join(
+                      f"{v['formation_share']:.3f} (x"
+                      f"{v['warp_walk_cells'] / max(v['cells'], 1):.2f})"
+                      for v in walks) + f" ({smi})")
         print(f"wide full-T calc_var({alpha:g}) dim3 {est.upper()} "
               f"n={WIDE_N_TIMED}, T={T}: truncated "
               f"{queries['truncated'][1]:.3f} s (again "

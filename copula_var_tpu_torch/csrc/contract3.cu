@@ -114,25 +114,47 @@
 //     (a) each row's (lo, hi) per bound row from x, the bounds and the
 //     weights alone; a tile where every interval is empty writes its 0.0
 //     partials and stops; (b) the (q, n) fold of the columns the tile
-//     reads; (c) each thread walks its row in index order to the longest hi
-//     of its bound rows, forming each cell with `cell` and adding it to the
-//     row's running prefix sum, which it keeps at lo - 1 and differences at
-//     hi - 1 as the walk passes them (`capture`, out of line). No row is
-//     stored and no thread waits on a scan: the prefix is the walk. The
-//     row flag does not depend on the bounds, so it comes from the flag
-//     table (contract3_row_flags, built once per backtest): a flagged row
-//     adds its cells to each interval's sum instead, as interval::row_sum
-//     does. Without a table (flags null: the route where not even the flags
-//     fit in the card's memory) every row with an interval is walked whole,
-//     flagged by the scan and summed both ways. Either way every branch is
-//     the table route's, so a row's sum, the lanes r and r + 32 and the
-//     warp_sum of each partial (l, t, i0, tile) are its bits. What bounds
-//     it now: the float64 arithmetic of the cells walked (one exp, one
-//     log1p and one division each), at a lower rate than the flag kernel's
-//     because a warp walks as far as its longest row; small blocks (12
-//     resident per SM) let one tile's tail overlap another's walk. Bound
-//     rows go in turns of kWalkRows per launch; a partial depends on (l, t,
-//     i0, tile) alone, so that changes no bit.
+//     reads; (c) the walk: thread r adds row r's cells in index order to
+//     the row's running prefix sum, which it keeps at lo - 1 and
+//     differences at hi - 1 as it passes them (`capture`, out of line). No
+//     row is stored and no thread waits on a scan: the prefix is the walk.
+//     A walk of one thread per row kept a warp walking as far as its
+//     longest row: late in a bisection, where a band narrower than a grid
+//     step leaves one row in ten or fewer with an interval, a warp formed
+//     one cell a step for 32 lanes (32 times the cells needed on the
+//     n = 300 query's last halvings, 1.1-1.5 times on its stage sweeps).
+//     So the cells are formed where lanes are free: `rank_walks` ranks the
+//     tile's rows by length; below `own`, the length of the kOwnWalk-th
+//     longest, each row forms its own cells (the dense part, at the rate
+//     of the old walk); past it the block forms the remaining cells
+//     column by column, 64 a step into a stage in shared memory, and each
+//     row's thread takes its staged cells in index order. Sharing a cell
+//     costs ~1.4 times forming one alone (the stage, a barrier a step, the
+//     row's columns loaded per cell), so rows walk alone while 48 of 64
+//     walk (40-56 within 1.5 % on the n = 300 query). Measured on an H100
+//     80GB HBM3 at 700 W, a 500-day n = 300 query at level 0.05: the
+//     last 13 halvings 277.0 -> 106.2 ms (47.2 -> 32.5 ms down to 1.56
+//     -> 1.10 ms, where the floor is (a) for 750 000 blocks), their
+//     formation share (the cells needed over the ms at the flag pass's
+//     cells per ms) 0.305 -> 0.441 down to 0.002 -> 0.004; the stage
+//     sweeps and first 9 halvings, 1.1-1.3 times their cells walked
+//     before, 482.9 -> 487.7 ms (share ~0.65): ranking and sharing cost
+//     there what they save; the query 760.1 -> 593.5 ms. The row flag
+//     does not depend on the bounds, so it comes from the flag table
+//     (contract3_row_flags, built once per backtest): a flagged row adds
+//     its cells to each interval's sum instead, as interval::row_sum
+//     does. Without a table (flags null:
+//     the route where not even the flags fit in the card's memory) every
+//     row with an interval is walked whole, flagged by the scan and summed
+//     both ways. Either way every branch is the table route's and every
+//     row adds its cells in index order, so a row's sum, the lanes r and
+//     r + 32 and the warp_sum of each partial (l, t, i0, tile) are its
+//     bits. What bounds it now: the float64 arithmetic of the cells (one
+//     exp, one log1p and one division each) in the dense part, at ~0.8
+//     of the flag kernel's rate a lane (80 registers, 24 warps a SM, to
+//     the flag kernel's 64 and 32). Bound rows go in turns of kWalkRows
+//     per launch; a partial depends on (l, t, i0, tile) alone, so that
+//     changes no bit.
 //   * contract3_flags_kernel: one block per (t, i0) slab, warps over rows,
 //     lanes over cells (`cell`): the whole cube once, bound by its f64
 //     arithmetic as the table build is, with one byte per row out.
@@ -231,6 +253,10 @@ constexpr int kFlagsThreads = 256;
 // the H100 than 8 or 10 with more, or 16, which spill; so did one cell per
 // step of the walk against two or three)
 constexpr int kRebuildMinBlocks = 12;
+// the rebuild's rows form their own cells while at least kOwnWalk of a
+// tile's kSpan rows walk, and share the rest of the tile's cells (a
+// shared cell costs ~1.4 times one formed alone)
+constexpr int kOwnWalk = 48;
 // bound rows per launch (more go in turns; its home is ops/_build.py)
 #ifndef CVT_WALK_ROWS
 #error "build through copula_var_tpu_torch/ops/_build.py: it defines the limits"
@@ -864,16 +890,25 @@ __host__ __device__ constexpr size_t align8(size_t bytes) {
   return (bytes + 7) / 8 * 8;
 }
 
-// rebuild: x (n,), the (q, n) fold, and per (bound row, tile row) the
-// row's masked sum, walking full rows (no flag table) its cell-by-cell sum,
-// and the packed interval
+// the rebuild's walk schedule (`rank_walks`): two stages of kSpan cells,
+// and the tile's row lengths, each rank's length and row, each segment's
+// first pair and the warps' sums (4 kSpan + 4 ints)
+template <typename Real>
+__host__ __device__ constexpr size_t walk_shared_bytes() {
+  return 2 * kSpan * sizeof(Real) + (4 * kSpan + 4) * sizeof(int);
+}
+
+// rebuild: x (n,), the (q, n) fold, per (bound row, tile row) the row's
+// masked sum, walking full rows (no flag table) its cell-by-cell sum, and
+// the packed interval, and the walk's schedule
 template <typename Real>
 __host__ __device__ size_t rebuild_shared_bytes(int n, int q, int rows_l,
                                                 bool full) {
   const size_t lookups = static_cast<size_t>(rows_l) * kSpan;
   return align8((static_cast<size_t>(n) + static_cast<size_t>(q) * n) *
                 sizeof(Real)) +
-         lookups * (full ? 2 : 1) * sizeof(double) + lookups * sizeof(int);
+         lookups * (full ? 2 : 1) * sizeof(double) + lookups * sizeof(int) +
+         walk_shared_bytes<Real>();
 }
 
 // The row flags: flags[t, local, i1] = 1 when a cell of the whole row
@@ -963,20 +998,71 @@ __device__ __noinline__ void add_in_flagged(double* to, const int* spans,
   add_in(to, spans, r, rows_l, j, c);
 }
 
+// The walk's schedule of one tile, in shared memory. The rows ranked by
+// their walk lengths, longest first (ties by row); *own = ls[kOwnWalk - 1]
+// the length of the kOwnWalk-th longest, the columns each row walks alone
+// (at least kOwnWalk rows walk there). The pairs (row, j), own <= j <
+// len, are shared: enumerated column by column and by rank within a
+// column, with ls[m] the length of rank m past `own` (0 where shorter), so
+// that the ranks [0, a_j) walk column own + j. Where exactly k rows walk,
+// own + [ls[k], ls[k - 1]), the pair (rank m, column own + j) is first[k]
+// + (j - ls[k]) k + m, with first[k] = k ls[k] + sum_{m >= k} ls[m]
+// (first[kSpan] = 0, first[0] the pairs shared). Integer sums: the same
+// table in any order. Block-wide; ends on a barrier. Returns thread r's
+// rank.
+__device__ __forceinline__ int rank_walks(int* lens, int* ls, int* order,
+                                          int* first, int* wsum, int len,
+                                          int* own) {
+  const int r = threadIdx.x;
+  lens[r] = len;
+  __syncthreads();
+  int rank = 0;
+  for (int m = 0; m < kSpan; ++m) {
+    const int o = lens[m];
+    rank += (o > len) || (o == len && m < r);
+  }
+  ls[rank] = len;
+  order[rank] = r;
+  if (r == 0) ls[kSpan] = 0;
+  __syncthreads();
+  *own = ls[kOwnWalk - 1];
+  const int v = max(ls[r] - *own, 0);
+  // the suffix sum of the shared lengths from rank r: within the warp,
+  // then the later warps' totals
+  const int lane = r & 31;
+  int s = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_down_sync(0xffffffffu, s, off);
+    if (lane + off < 32) s += u;
+  }
+  if (lane == 0) wsum[r >> 5] = s;
+  __syncthreads();
+  for (int w = (r >> 5) + 1; w < kSpan / 32; ++w) s += wsum[w];
+  ls[r] = v;
+  first[r] = r * v + s;
+  if (r == 0) first[kSpan] = 0;
+  __syncthreads();
+  return rank;
+}
+
 // The sweep without U. One block of kSpan threads per (t, i0) slab and
-// tile of kSpan consecutive i1 rows, thread r on row i1 = r0 + r; `rows_l`
-// bound rows per launch. The block first reads each row's interval per
-// bound row (interval::counts_le on x), then walks each row in index order
-// only as far as its longest interval reaches, forming each cell with
-// `cell` and adding it to the row's running prefix sum (a flagged row:
-// to the sums of the intervals that hold it), and captures the prefix at
-// lo - 1 and hi - 1 as the walk passes them. The flags come from the flag
-// table; without one (`flags` null) every row with an interval is walked
-// whole, flagged by the scan and summed both ways (kFull, one
-// instantiation each). Either way each row's masked sum is
-// interval::row_sum's over the full row's prefix, bit for bit, and the
-// partial of each (l, t, i0, tile) adds lanes r and r + 32 and then
-// warp_sum, as contract3_sweep_kernel adds a span.
+// tile of kSpan consecutive i1 rows; `rows_l` bound rows per launch. The
+// block first reads each row's interval per bound row (interval::counts_le
+// on x), so row r needs its cells [0, len_r), len_r the longest hi of its
+// non-empty intervals. Thread r forms row r's cells below `own`
+// (`rank_walks`: at least kOwnWalk rows walk each such column); the cells
+// past it are shared: the block's threads form them in turn, kSpan a step
+// (thread r the pair step kSpan + r of `rank_walks`' order, into a stage
+// in shared memory). Thread r adds row r's cells in index order, its own
+// and then its staged ones, to the row's running prefix sum (a flagged
+// row: to the sums of the intervals that hold it), capturing the prefix at
+// lo - 1 and hi - 1 as it passes them. The flags come from the flag table;
+// without one (`flags` null) every row with an interval is walked whole,
+// flagged by the scan and summed both ways (kFull, one instantiation
+// each). Either way each row's masked sum is interval::row_sum's over the
+// full row's prefix, bit for bit, and the partial of each (l, t, i0, tile)
+// adds lanes r and r + 32 and then warp_sum, as contract3_sweep_kernel
+// adds a span.
 template <typename Real, bool kFull>
 __global__ void __launch_bounds__(kSpan, kRebuildMinBlocks)
 contract3_rebuild_kernel(const Real* __restrict__ z,             // (T, 3, n)
@@ -1010,7 +1096,14 @@ contract3_rebuild_kernel(const Real* __restrict__ z,             // (T, 3, n)
       align8((static_cast<size_t>(n) + static_cast<size_t>(q) * n) *
              sizeof(Real)));
   double* cell_sums = sums + lookups;            // kFull: (rows_l, kSpan)
-  int* spans = reinterpret_cast<int*>(sums + lookups * (kFull ? 2 : 1));
+  Real* stage = reinterpret_cast<Real*>(         // (2, kSpan)
+      sums + lookups * (kFull ? 2 : 1));
+  int* spans = reinterpret_cast<int*>(stage + 2 * kSpan);  // (rows_l, kSpan)
+  int* lens = spans + lookups;                   // (kSpan,)
+  int* ls = lens + kSpan;                        // (kSpan + 1,)
+  int* order = ls + kSpan + 1;                   // (kSpan,)
+  int* first = order + kSpan;                    // (kSpan + 1,)
+  int* wsum = first + kSpan + 1;                 // (kSpan / 32,)
   const int tile = blockIdx.x % tiles;
   const int s = blockIdx.x / tiles;  // the slab (t, local)
   const int t = s / rows;
@@ -1067,42 +1160,98 @@ contract3_rebuild_kernel(const Real* __restrict__ z,             // (T, 3, n)
     for (int w = 0; w < kSpan / 32; ++w) cols = max(cols, warp_reach[w]);
   }
   fold_w2(g + (static_cast<size_t>(t) * n + i0) * q * q, w2, a, q, n, cols);
-  __syncthreads();
 
-  // 2. the walk of row r: cells [0, len) in index order
-  if (reach > 0) {
-    const Slab<Real> sl = make_slab(z, fin, lu, p, sigma_inv, student, nu,
-                                    log_norm, logdet, t, i0, n);
-    const bool flagged =
-        !kFull && flags[(static_cast<size_t>(t) * rows + local) * n + i1] != 0;
-    const int len = kFull ? n : reach;
-    double run = 0.0;  // the row's inclusive prefix sum
-    bool ok = true;    // kFull: no cell outside [-kMaxCell, kMaxCell] yet
-    int next = capture<Real>(sums, spans, r, rows_l, -1, run, len);
-    for (int j = 0; j < len; ++j) {
-      const Real c = cell(sl, w1, a, q, i1, j);
-      if (flagged) {
-        add_in_flagged(sums, spans, r, rows_l, j, c);
-        continue;
-      }
-      if (kFull) {
-        ok &= fabs(c) <= interval::kMaxCell;
-        if (j < reach) add_in(cell_sums, spans, r, rows_l, j, c);
-      }
-      run += static_cast<double>(c);
-      if (j == next) next = capture<Real>(sums, spans, r, rows_l, j, run, len);
+  // 2. the walks: row r's cells [0, len) in index order, the first `own`
+  // formed by thread r, the rest by the block in turn, all added up by
+  // thread r (rank_walks' barriers order the fold before the first cell)
+  const int len = reach > 0 ? (kFull ? n : reach) : 0;
+  int own;
+  const int rank = rank_walks(lens, ls, order, first, wsum, len, &own);
+  const int total = first[0];  // the pairs shared
+  const Slab<Real> sl = make_slab(z, fin, lu, p, sigma_inv, student, nu,
+                                  log_norm, logdet, t, i0, n);
+  const bool flagged =
+      !kFull && len > 0 &&
+      flags[(static_cast<size_t>(t) * rows + local) * n + i1] != 0;
+  double run = 0.0;  // the row's inclusive prefix sum
+  bool ok = true;    // kFull: no cell outside [-kMaxCell, kMaxCell] yet
+  int next = len;
+  if (len > 0) next = capture<Real>(sums, spans, r, rows_l, -1, run, len);
+  // cell c of row r at column j, in index order: the walk's loop body
+  auto take = [&](int j, Real c) {
+    if (flagged) {
+      add_in_flagged(sums, spans, r, rows_l, j, c);
+      return;
     }
-    if (kFull && !ok) {
-      for (int l = 0; l < rows_l; ++l)
-        sums[l * kSpan + r] = cell_sums[l * kSpan + r];
+    if (kFull) {
+      ok &= fabs(c) <= interval::kMaxCell;
+      if (j < reach) add_in(cell_sums, spans, r, rows_l, j, c);
     }
+    run += static_cast<double>(c);
+    if (j == next) next = capture<Real>(sums, spans, r, rows_l, j, run, len);
+  };
+  const int alone = min(len, own);
+  for (int j = 0; j < alone; ++j) take(j, cell(sl, w1, a, q, i1, j));
+  // the shared pairs thread r forms: pair pf = step kSpan + r, in the
+  // segment of fk rows that ends at pair fend, at column fcol and rank fm;
+  // a step moves it kSpan pairs on, fq columns and fr ranks within a
+  // segment
+  int pf = r, fk = kSpan + 1, fend = 0, fcol = 0, fm = 0, fq = 0, fr = 0;
+  // row r's next shared cell: column own + j, pair pw, in the segment of
+  // wk rows whose columns end at own + wend, its pairs wbase + j wk
+  int j = 0, wk = kSpan + 1, wend = 0, wbase = 0, pw = 0;
+  if (len > own) {
+    wk = kSpan;
+    while (ls[wk - 1] <= j) --wk;
+    wend = ls[wk - 1];
+    wbase = first[wk] - ls[wk] * wk + rank;
+    pw = wbase;
+  }
+  const int shared_len = len - alone;
+  for (int base = 0; base < total; base += kSpan) {
+    Real* st = stage + ((base / kSpan) & 1) * kSpan;
+    if (pf < total) {
+      if (pf >= fend) {
+        do {
+          --fk;
+          fend = first[fk - 1];
+        } while (pf >= fend);
+        const int off = pf - first[fk];
+        fcol = own + ls[fk] + off / fk;
+        fm = off % fk;
+        fq = kSpan / fk;
+        fr = kSpan % fk;
+      }
+      st[r] = cell(sl, w1, a, q, r0 + order[fm], fcol);
+      pf += kSpan;
+      fcol += fq;
+      fm += fr;
+      if (fm >= fk) {
+        fm -= fk;
+        ++fcol;
+      }
+    }
+    __syncthreads();
+    // row r's staged cells, in index order
+    while (j < shared_len && pw < base + kSpan) {
+      take(own + j, st[pw - base]);
+      if (++j == wend && j < shared_len) {
+        while (ls[wk - 1] <= j) --wk;
+        wend = ls[wk - 1];
+        wbase = first[wk] - ls[wk] * wk + rank;
+      }
+      pw = wbase + j * wk;
+    }
+  }
+  if (kFull && !ok) {
+    for (int l = 0; l < rows_l; ++l)
+      sums[l * kSpan + r] = cell_sums[l * kSpan + r];
   }
   __syncthreads();
 
   // 3. the partials: warps take the bound rows, lanes rows r and r + 32
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int l = warp; l < rows_l; l += kSpan / 32) {
+  for (int l = threadIdx.x >> 5; l < rows_l; l += kSpan / 32) {
     double acc = 0.0;
 #pragma unroll
     for (int c = 0; c < kSpan / 32; ++c) {

@@ -251,15 +251,17 @@ def table_max_grid_points(q: int, dtype=F64) -> int:
 def rebuild_tile_rows(n: int, q: int, dtype=F64) -> int:
     """i1 rows per block of the rebuild kernel at (n, q): 64 (a lookup
     span of the table sweep, so both routes give the same bits) when x,
-    the (q, n) fold of `dtype` and the float64 lookup state of
-    `_build.WALK_ROWS` bound rows (csrc `rebuild_shared_bytes`, walking
-    full rows) fit in one block's shared memory; 0 when they do not or n
-    passes the interval rule's rows."""
+    the (q, n) fold of `dtype`, the float64 lookup state of
+    `_build.WALK_ROWS` bound rows and the walk's schedule (two stages of
+    64 cells of `dtype` and 260 ints) fit in one block's shared memory
+    (csrc `rebuild_shared_bytes`, walking full rows); 0 when they do not
+    or n passes the interval rule's rows."""
     if not 0 < n <= SWEEP_MAX_GRID_POINTS or q <= 0:
         return 0
     lookups = _build.WALK_ROWS * 64
     cols = -(-(n + q * n) * itemsize(dtype) // 8) * 8
-    fits = cols + 2 * lookups * 8 + 4 * lookups <= MAX_SHARED_BYTES
+    walk = 2 * 64 * itemsize(dtype) + 4 * (4 * 64 + 4)
+    fits = cols + 2 * lookups * 8 + 4 * lookups + walk <= MAX_SHARED_BYTES
     return 64 if fits else 0
 
 

@@ -10,7 +10,9 @@ and saturated cells, and launched twice for bit-identical results; K2 on
 rows of 193 and 1024 cells; the rebuild at n = 2, 170, 180 and 300, both
 its walks (truncated with the flag table, and full rows without it) bit
 for bit equal to each other and to the table sweep where both serve (the
-dim-3 artifacts at n = 100 too), on row ranges and day blocks; the flags
+dim-3 artifacts at n = 100 too), on row ranges and day blocks, and on
+bands where most warps hold one walking row or reaches spread past 32
+within a warp (f64 and f32); the flags
 equal to their plain twin; and the wide dim-2 and dim-3 solves through K2
 sweeps and the rebuild. K2 and K4 are also held on ranges of
 outer grid rows (grid sharding): each range against its plain twin, the
@@ -1257,6 +1259,118 @@ def test_rebuild_equals_the_table_sweep(dev, family, kind, walk):
     assert torch.equal(
         cq3.masked_contract3_rebuild(_walk(ops, walk), bounds, weights),
         cq3.masked_contract3(ops, bounds, weights))
+
+
+def _band_rows(dev, T, kind, L, dtype=torch.float64, seed=2):
+    """L bound rows of one kind: "sparse" bands far narrower than a grid
+    step in the lower tail, as late halvings have them (most 32-row warps
+    of a tile that hold a row with an interval hold one), or "spread"
+    stage bounds with most of the weight on x1, so each row's reach moves
+    by several columns from the row before (reaches spread past 32 within
+    a warp)."""
+    rng = np.random.default_rng(seed)
+    if kind == "sparse":
+        lo = rng.uniform(-2.5, -1.0, (L, T))
+        b = np.stack([lo, lo + rng.uniform(5e-5, 3e-4, (L, T))], -1)
+        w = rng.dirichlet([2.0, 2.0, 2.0], size=L)
+    else:
+        b = np.stack([np.full((L, T), -100.0),
+                      rng.uniform(-3.0, -1.0, (L, T))], -1)
+        w = np.tile([0.15, 0.15, 0.7], (L, 1))
+    return (torch.tensor(b, device=dev, dtype=dtype),
+            torch.tensor(w, device=dev, dtype=dtype))
+
+
+def _warp_reaches(ops, bounds, weights, box_min=-5.0):
+    """(T, r, warps, 32) reach of each (t, i0, i1) row (the longest hi of
+    its intervals that hold a grid point, 0 where none does), its i1 rows
+    in warps of 32 (the last padded with 0), on the host."""
+    x = ops.x.double().cpu()
+    lo_, hi_ = ops.rows if ops.rows is not None else (0, x.shape[0])
+    n = x.shape[0]
+    reach = torch.zeros((bounds.shape[1], hi_ - lo_, n), dtype=torch.long)
+    for b, w in zip(bounds.double().cpu(), weights.double().cpu()):
+        prev = x[lo_:hi_, None] * w[1] + x[None, :] * w[2]
+        dup = (b[:, 1, None, None] - prev) / w[0]
+        dlo = torch.maximum((b[:, 0, None, None] - prev) / w[0],
+                            torch.tensor(box_min, dtype=torch.float64))
+        hi = torch.searchsorted(x, dup.contiguous(), right=True)
+        lo = torch.searchsorted(x, dlo.contiguous(), right=True)
+        used = (hi > lo) & ~torch.isnan(dup) & ~torch.isnan(dlo)
+        reach = torch.maximum(reach, torch.where(used, hi, 0))
+    return torch.nn.functional.pad(reach, (0, -n % 32)).unflatten(-1, (-1, 32))
+
+
+@pytest.mark.parametrize("walk", ["truncated", "full"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind, L", [("sparse", 1), ("sparse", 3),
+                                     ("spread", 1), ("spread", 4)])
+def test_rebuild_on_sparse_and_spread_bands(dev, kind, L, dtype, walk):
+    """At n = 169 (the table route's widest in f64) the rebuild gives the
+    table sweep's bits on bands where most warps hold one walking row and
+    on reaches spread past 32 within a warp, on either walk and in either
+    type; a repeat and the other walk give the same bits."""
+    ops = _ops3(dev, "msm", "student", T=4, n=169, dtype=dtype)
+    assert ops.U is not None
+    bounds, weights = _band_rows(dev, ops.days, kind, L, dtype)
+    reach = _warp_reaches(ops, bounds, weights)
+    walking = (reach > 0).sum(dim=-1)
+    if kind == "sparse":
+        assert int((walking > 0).sum()) > 100
+        assert float((walking == 1).sum() / (walking > 0).sum()) > 0.5
+    else:
+        spread = reach.amax(dim=-1) - reach.amin(dim=-1)
+        assert int((spread > 32).sum()) > 100
+    table = cq3.masked_contract3(ops, bounds, weights)
+    assert table.dtype == dtype and bool((table != 0).any())
+    got = cq3.masked_contract3_rebuild(_walk(ops, walk), bounds, weights)
+    assert _same(got, table)
+    assert _same(got, cq3.masked_contract3_rebuild(_walk(ops, walk), bounds,
+                                                   weights))
+    other = "full" if walk == "truncated" else "truncated"
+    assert _same(got, cq3.masked_contract3_rebuild(_walk(ops, other), bounds,
+                                                   weights))
+
+
+@pytest.mark.parametrize("kind", ["sparse", "spread"])
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_rebuild_bands_at_n300(dev, family, kind):
+    """At n = 300 (no table: the rebuild route) on sparse and spread bands,
+    L = 3: the truncated walk against its plain twin, bit-equal to its
+    full-row walk and to a repeat."""
+    ops = _ops3(dev, family, "student", T=2, n=300, q=3)
+    assert ops.U is None and ops.flags is not None
+    bounds, weights = _band_rows(dev, ops.days, kind, 3)
+    got = cq3.masked_contract3_rebuild(ops, bounds, weights)
+    want = cq3.masked_contract3_reference(ops, bounds, weights)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and bool((want != 0).any())
+    assert float((got[fin] - want[fin]).abs().max()) <= \
+        1e-13 * float(want[fin].abs().max())
+    assert torch.equal(got, cq3.masked_contract3_rebuild(ops, bounds,
+                                                        weights))
+    assert torch.equal(got, cq3.masked_contract3_rebuild(_rebuilt(ops),
+                                                        bounds, weights))
+
+
+def test_rebuild_limits_with_the_walk_schedule(dev):
+    """The walk's schedule in shared memory leaves the widest (n, q) the
+    rebuild takes where it was: (1024, 22) in float64 and (1024, 45) in
+    float32 taken, (1024, 23) and (1024, 46) refused, by the launchers
+    and by rebuild_tile_rows alike (no day, so nothing runs)."""
+    invalid = 1  # cudaErrorInvalidValue
+
+    def rebuild(n, q, dtype):
+        fn = _build.function("cvt_masked_contract3_rebuild", dtype)
+        return fn(*[None] * 8, 1, 5.0, 0.0, 0.0, None, None, None, None,
+                  -5.0, None, None, 0, n, 0, n, q, 1, None)
+
+    for dtype, q in ((torch.float64, 22), (torch.float32, 45)):
+        assert cq3.rebuild_tile_rows(1024, q, dtype) == 64
+        assert rebuild(1024, q, dtype) == 0
+        assert cq3.rebuild_tile_rows(1024, q + 1, dtype) == 0
+        assert rebuild(1024, q + 1, dtype) == invalid
 
 
 def _poke(cols, p):
