@@ -52,6 +52,7 @@ from typing import NamedTuple
 import torch
 
 from copula_var_tpu_torch.ops.special import norm_cdf, norm_pdf, norm_ppf, t_ppf
+from copula_var_tpu_torch.utils.profiling import span
 
 BOX_MIN = -5.0
 BOX_MAX = 5.0
@@ -289,13 +290,18 @@ def _pdf_product(p_cols, rows=None):
 def msm_u_columns(forecasts_by_states, x, unique_vols):
     """(T, dim, n) per-day marginal CDF columns: the state mixture
     sum_s f[t, d, s] Phi(x / vol[d, s])."""
-    cdf = norm_cdf(x[None, None, :] / unique_vols[:, :, None])  # (dim, q, n)
-    return torch.sum(forecasts_by_states[:, :, :, None] * cdf, dim=2)
+    with span("prep.columns"):
+        # (dim, q, n)
+        cdf = norm_cdf(x[None, None, :] / unique_vols[:, :, None])
+        return torch.sum(forecasts_by_states[:, :, :, None] * cdf, dim=2)
 
 
 def _garch_u_p_columns(forecast_vols, x):
-    fv = forecast_vols[:, :, None]
-    return norm_cdf(x / fv), norm_pdf(x / fv) / fv  # (T, dim, n) each
+    """(T, dim, n) per-day marginal CDF and pdf columns, Phi(x / vol) and
+    phi(x / vol) / vol."""
+    with span("prep.columns"):
+        fv = forecast_vols[:, :, None]
+        return norm_cdf(x / fv), norm_pdf(x / fv) / fv
 
 
 def _require_dim2(dim: int) -> None:
@@ -321,7 +327,8 @@ def garch_day_tensors(forecast_vols, x, spec: CopulaSpec):
     _require_dim2(forecast_vols.shape[1])
     u_cols, p_cols = _garch_u_p_columns(forecast_vols, x)
     C = grid_copula_density(u_cols, spec)
-    return torch.nan_to_num(C * _pdf_product(p_cols))
+    with span("prep.pdf_product"):
+        return torch.nan_to_num(C * _pdf_product(p_cols))
 
 
 # ---------------------------------------------------------------------------

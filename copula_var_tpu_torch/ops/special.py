@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from copula_var_tpu_torch.utils.profiling import span
+from copula_var_tpu_torch.utils.profiling import count, span
 
 _LOG_SQRT_2PI = 0.9189385332046727417803297364056176  # log(sqrt(2*pi))
 
@@ -125,6 +125,7 @@ def betainc(a, b, x, max_iters: int = 600):
         h = h * delta
         with span("sync.betainc"):
             running = bool(((delta - 1.0).abs() > converged).any())
+        count("betainc.passes")
         if not running:
             break
 
@@ -259,6 +260,7 @@ def _t_ppf(p, nu, iters):
         ok = _log_t_sf(hi, nu) <= log_q
         with span("sync.t_ppf"):
             wide = bool(ok.all())
+        count("t_ppf.passes")
         if wide:
             break
         hi = torch.where(ok, hi, 2.0 * hi + 1.0)
@@ -275,6 +277,7 @@ def _t_ppf(p, nu, iters):
     for _ in range(iters):
         with span("sync.t_ppf"):
             running = bool(((step_mag > tol_x(x)) & newton_lane).any())
+        count("t_ppf.passes")
         if not running:
             break
         g = _log_t_sf(x, nu) - log_q

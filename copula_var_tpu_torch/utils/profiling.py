@@ -14,7 +14,10 @@
   * `count(name, n)` / `counters()` / `reset_counters()`: one table of
     ints, always on: `launch.<wrapper>` (`.f32`) for each kernel launch,
     `solve.halvings`, `prep.table_bytes`, `prep.flag_bytes`,
-    `prep.flagged_rows`, `build.compiled` / `build.loaded`.
+    `prep.flagged_rows`, `build.compiled` / `build.loaded`, and
+    `t_ppf.passes` / `betainc.passes`, one for each pass of their loops,
+    each counted beside the host read that ends the pass (the spans
+    `cvt.sync.t_ppf` / `cvt.sync.betainc`), so counting reads nothing.
   * `StageTimer`: named-stage wall timing (the host's `perf_counter`),
     as a dict, with the JAX module's `report()` format; each stage is
     also a span.

@@ -29,13 +29,15 @@ DAYS = 4
 
 
 def _cut_book(tmp_path_factory, artifacts, csv):
-    """The MSM artifact `artifacts` cut to its first DAYS days, and the
-    matching returns of `csv`."""
+    """The MSM or GARCH artifact `artifacts` cut to its first DAYS days,
+    and the matching returns of `csv`."""
     z = np.load(os.path.join(DATA, artifacts))
     arrays = {k: z[k] for k in z.files}
-    for k in ("ii_forecasts_by_states", "ii_forecast_combos"):
-        arrays[k] = arrays[k][:DAYS]
-    path = str(tmp_path_factory.mktemp("book") / "msm.npz")
+    for k in ("ii_forecasts_by_states", "ii_forecast_combos",
+              "ii_forecast_vols"):
+        if k in arrays:
+            arrays[k] = arrays[k][:DAYS]
+    path = str(tmp_path_factory.mktemp("book") / "book.npz")
     np.savez(path, **arrays)
     full = from_csv(csv, n_insample=N_IN)
     return path, from_returns(full.returns[:N_IN + DAYS], full.tickers, N_IN)
@@ -45,6 +47,12 @@ def _cut_book(tmp_path_factory, artifacts, csv):
 def book(tmp_path_factory):
     """The flagship book cut to its first DAYS days."""
     return _cut_book(tmp_path_factory, "flagship_artifacts_msm.npz", CSV)
+
+
+@pytest.fixture(scope="module")
+def garch_book(tmp_path_factory):
+    """The flagship's GARCH book cut to its first DAYS days."""
+    return _cut_book(tmp_path_factory, "flagship_artifacts_garch.npz", CSV)
 
 
 @pytest.fixture(scope="module")
@@ -225,6 +233,92 @@ def test_flag_counters_on_the_cpu_twin(book3):
     assert int(flags.sum()) == n and bool(flags[0, 7].all())
     assert profiling.counters() == {"prep.flag_bytes": flags.nbytes,
                                     "prep.flagged_rows": n}
+    profiling.reset_counters()
+
+
+def _nearest_span(event):
+    """The name of the nearest cvt. span that encloses `event`, or None."""
+    up = event.cpu_parent
+    while up is not None and not up.name.startswith(profiling.PREFIX):
+        up = up.cpu_parent
+    return None if up is None else up.name
+
+
+@pytest.mark.parametrize("family", ["msm", "garch"])
+def test_prep_columns_and_pdf_product_spans(family, book, garch_book):
+    """The marginal columns are a span of their own inside the day
+    tensors, before `t_ppf`; the GARCH book's pdf product and nan_to_num
+    are one more, after the copula density, and enclose that work."""
+    path, data = book if family == "msm" else garch_book
+    bt = load_artifacts(path, data, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bt.sweep_operands()
+    spans = _spans(prof)
+    inside = [name for name, p in spans if p == "cvt.prep.day_tensors"]
+    if family == "msm":
+        assert inside == ["cvt.prep.columns", "cvt.t_ppf"]
+        return
+    assert inside == ["cvt.prep.columns", "cvt.t_ppf",
+                      "cvt.prep.pdf_product"]
+    where = {}
+    for e in prof.events():
+        if e.name in ("aten::erfc", "aten::nan_to_num"):
+            where.setdefault(e.name, set()).add(_nearest_span(e))
+    assert where == {"aten::erfc": {"cvt.prep.columns"},
+                     "aten::nan_to_num": {"cvt.prep.pdf_product"}}
+
+
+@pytest.mark.parametrize("family,passes", [
+    ("msm", {"betainc.passes": 261, "t_ppf.passes": 9}),
+    ("garch", {"betainc.passes": 431, "t_ppf.passes": 10}),
+])
+def test_pass_counters_count_the_sync_spans(family, passes):
+    """`t_ppf.passes` and `betainc.passes` count the passes of their
+    loops, one a `cvt.sync.t_ppf` / `cvt.sync.betainc` read, in the prep
+    of each of the flagship's whole books (nu = 11.22 and 44.37)."""
+    bt = load_artifacts(
+        os.path.join(DATA, f"flagship_artifacts_{family}.npz"),
+        from_csv(CSV, n_insample=N_IN), device="cpu")
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bt.sweep_operands()
+    got = profiling.counters()
+    syncs = [name for name, _ in _spans(prof)]
+    assert got["t_ppf.passes"] == syncs.count("cvt.sync.t_ppf")
+    assert got["betainc.passes"] == syncs.count("cvt.sync.betainc")
+    assert {k: got[k] for k in passes} == passes
+    profiling.reset_counters()
+
+
+def test_pass_counters_add_no_device_read(monkeypatch):
+    """`t_ppf` reads the device once a pass of its loops and of
+    `betainc`'s, with or without the counters: counting reads nothing."""
+    from copula_var_tpu_torch.ops import special
+
+    reads = [0]
+    for name in ("__bool__", "item", "tolist", "__float__", "__int__"):
+        method = getattr(torch.Tensor, name)
+
+        def counted(self, *args, _method=method, **kwargs):
+            reads[0] += 1
+            return _method(self, *args, **kwargs)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    u = torch.linspace(0.0, 1.0, 257, dtype=torch.float64)
+
+    def run():
+        reads[0] = 0
+        profiling.reset_counters()
+        z = special.t_ppf(u, 44.36629112477989)
+        return reads[0], profiling.counters(), z
+
+    counted_reads, got, z = run()
+    monkeypatch.setattr(special, "count", lambda name, n=1: None)
+    plain_reads, none, z_plain = run()
+    assert none == {}
+    assert counted_reads == plain_reads == (got["t_ppf.passes"]
+                                            + got["betainc.passes"])
+    assert got["t_ppf.passes"] > 0 and got["betainc.passes"] > 0
+    assert torch.equal(z, z_plain)
     profiling.reset_counters()
 
 
